@@ -1,0 +1,22 @@
+"""jxl_tpu_torch — the JPEG XL decode engine on PyTorch and CUDA.
+
+A port of the JAX package jxl_tpu, which stays in the repository as the
+reference. The host side (numpy + C++) parses the bitstream and decodes
+the entropy-coded sections; the render runs on torch tensors on the
+caller's device, with the restoration-filter chain as a hand-written
+CUDA kernel for Hopper (ops/epf_gab.py, csrc/epf_gab.cu).
+
+This slice decodes single-frame Modular images (XYB or not, with the
+default gaborish + EPF filters); other streams raise NotSupported.
+"""
+
+import torch
+
+# jxl_tpu pins float32 math; keep TF32 off for matmuls and convolutions
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+from .api.simple import DecodedImage, decode_image  # noqa: E402
+from .errors import NotSupported  # noqa: E402
+
+__all__ = ["DecodedImage", "NotSupported", "decode_image"]

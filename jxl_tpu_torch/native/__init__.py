@@ -1,0 +1,845 @@
+"""Native host decoder: builds (g++, cached) and wraps modular_decode.cc.
+
+The C++ path decodes whole modular sub-bitstreams from raw section bytes
+at production speed; the Python readers in entropy/ and modular/ are the
+oracle it matches. The library is built at first use into the package's
+_build/ directory (listed in .gitignore). A failed build raises: there is
+no silent fallback to the Python readers.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import hashlib
+import os
+import pathlib
+import subprocess
+import threading as _threading
+
+import numpy as np
+
+from ..errors import NativeBuildError
+
+_DIR = pathlib.Path(__file__).parent
+_BUILD_DIR = _DIR.parent / "_build"
+# (source, extra g++ flags). The decode kernels must match numpy's separate
+# mul+add bit-exactly (GCC contracts a*b+c into fma by default at -O3);
+# colors.cc alone gets fast-math, for vectorized powf (libmvec).
+_SOURCES = (
+    (_DIR / "modular_decode.cc", ["-ffp-contract=off"]),
+    (_DIR / "filters.cc", []),
+    (_DIR / "hostops.cc", ["-ffp-contract=off"]),
+    (_DIR / "colors.cc", ["-ffast-math", "-fopenmp-simd"]),
+)
+
+_lib = None
+_lib_lock = _threading.Lock()
+_hist_scratch = _threading.local()
+
+
+def _cpu_id() -> bytes:
+    """The host CPU's model and feature flags (Linux), to key the build."""
+    try:
+        with open("/proc/cpuinfo", "rb") as f:
+            lines = f.read().splitlines()
+    except OSError:
+        return b""
+    return b"".join(
+        ln for ln in lines if ln.startswith((b"model name", b"flags"))
+    )[:4096]
+
+
+def _build() -> pathlib.Path:
+    """Compile the four sources (in parallel) into one shared library,
+    keyed by a hash of sources and flags. Concurrent processes serialize
+    on a lock file; the library is renamed into place only when complete."""
+    # -march=native: the library is only valid on the CPU it was built for
+    key = _cpu_id() + b"".join(s.read_bytes() + " ".join(f).encode() for s, f in _SOURCES)
+    tag = hashlib.sha256(key).hexdigest()[:16]
+    out = _BUILD_DIR / f"_modular_decode_{tag}.so"
+    if out.exists():
+        return out
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(_BUILD_DIR / "native.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if out.exists():
+            return out
+        base = ["g++", "-O3", "-march=native", "-std=c++17", "-fPIC"]
+        objs = [_BUILD_DIR / f"_{s.stem}_{tag}.o" for s, _ in _SOURCES]
+        procs = [
+            subprocess.Popen(
+                base + extra + ["-c", str(s), "-o", str(o)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            )
+            for (s, extra), o in zip(_SOURCES, objs)
+        ]
+        try:
+            for (s, _), p in zip(_SOURCES, procs):
+                log = p.communicate(timeout=600)[0]
+                if p.returncode != 0:
+                    raise NativeBuildError(
+                        f"g++ failed on {s.name}:\n{log.decode(errors='replace')}"
+                    )
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            res = subprocess.run(
+                ["g++", "-shared", *map(str, objs), "-o", str(tmp)],
+                capture_output=True, timeout=120,
+            )
+            if res.returncode != 0:
+                raise NativeBuildError(
+                    f"g++ link failed:\n{res.stderr.decode(errors='replace')}"
+                )
+            os.replace(tmp, out)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            for o in objs:
+                o.unlink(missing_ok=True)
+    return out
+
+
+def get_lib():
+    """The loaded native library; builds it at first use and raises
+    NativeBuildError when the build fails."""
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(_build()))
+            for name in (
+                "jxl_decode_modular", "jxl_read_unsigned_run",
+                "jxl_decode_lf_global_tables", "jxl_decode_histograms",
+                "jxl_decode_tree", "jxl_apply_lehmer",
+            ):
+                getattr(lib, name).restype = ctypes.c_int
+            lib.jxl_rct.restype = None
+            _lib = lib
+    return _lib
+
+
+def available() -> bool:
+    """Always true once get_lib() returned: a failed build raised."""
+    return get_lib() is not None
+
+
+def _ptr(arr, typ):
+    # c_void_p(addr) is ~2x cheaper than data_as(POINTER(typ)) and ctypes
+    # passes either identically to untyped (no-argtypes) foreign calls.
+    # Pin the array on the pointer object (like data_as does) so inline
+    # temporaries stay alive for the duration of the foreign call.
+    p = ctypes.c_void_p(arr.ctypes.data)
+    p._arr = arr
+    return p
+
+
+def _databuf(br):
+    """Zero-copy ctypes view of the reader's backing buffer (bytes pass
+    through; bytearray wraps via from_buffer — copying the whole stream
+    per native call made streaming decodes O(N * sections))."""
+    d = br.data
+    if isinstance(d, bytes):
+        return d
+    return (ctypes.c_char * len(d)).from_buffer(d)
+
+
+def pack_entropy(histograms):
+    """Pack a Histograms bundle into flat arrays for the native decoder.
+
+    Memoized per Histograms object: modular decodes reuse one bundle for
+    hundreds of substreams."""
+    cached = getattr(histograms, "_native_packed", None)
+    if cached is not None:
+        return cached
+    packed = _pack_entropy(histograms)
+    try:
+        histograms._native_packed = packed
+    except AttributeError:  # foreign histogram-like object without the slot
+        pass
+    return packed
+
+
+def _pack_entropy(histograms):
+    from ..entropy.ans import NativeAnsCodes
+    from ..entropy.huffman import NativeHuffmanCodes
+
+    n_clusters = histograms.num_histograms
+    use_prefix = histograms.use_prefix_code
+    if isinstance(histograms.codes, NativeHuffmanCodes):
+        ctx_map = np.array(histograms.context_map, dtype=np.uint8)
+        cfgs = np.zeros((n_clusters, 3), dtype=np.int32)
+        for c in range(n_clusters):
+            u = histograms.uint_configs[c]
+            cfgs[c] = (u.split_exponent, u.msb_in_token, u.lsb_in_token)
+        if histograms.lz77_enabled:
+            lz = histograms.lz77_length_uint
+            lz_cfg = np.array(
+                [lz.split_exponent, lz.msb_in_token, lz.lsb_in_token], np.int32
+            )
+        else:
+            lz_cfg = np.zeros(3, dtype=np.int32)
+        return {
+            "use_prefix": 1,
+            "ans_tables": np.zeros(1, dtype=np.int32),
+            "table_size": 0,
+            "log_bucket": 0,
+            "huff_offsets": histograms.codes.offsets,
+            "huff_bits": histograms.codes.bits,
+            "huff_values": histograms.codes.values,
+            "context_map": ctx_map,
+            "uint_configs": cfgs,
+            "lz77": int(histograms.lz77_enabled),
+            "min_symbol": histograms.lz77_min_symbol,
+            "min_length": histograms.lz77_min_length,
+            "lz_cfg": lz_cfg,
+            "lz_dist_cluster": histograms.lz_dist_cluster,
+        }
+    if isinstance(histograms.codes, NativeAnsCodes):
+        # natively-decoded tables are already in the packed wire layout
+        ctx_map = np.array(histograms.context_map, dtype=np.uint8)
+        cfgs = np.zeros((n_clusters, 3), dtype=np.int32)
+        for c in range(n_clusters):
+            u = histograms.uint_configs[c]
+            cfgs[c] = (u.split_exponent, u.msb_in_token, u.lsb_in_token)
+        if histograms.lz77_enabled:
+            lz = histograms.lz77_length_uint
+            lz_cfg = np.array(
+                [lz.split_exponent, lz.msb_in_token, lz.lsb_in_token], np.int32
+            )
+        else:
+            lz_cfg = np.zeros(3, dtype=np.int32)
+        return {
+            "use_prefix": 0,
+            "ans_tables": histograms.codes.tables,
+            "table_size": histograms.codes.tables.shape[2],
+            "log_bucket": histograms.codes.log_bucket_size,
+            "huff_offsets": np.zeros(1, dtype=np.int32),
+            "huff_bits": np.zeros(1, dtype=np.int32),
+            "huff_values": np.zeros(1, dtype=np.int32),
+            "context_map": ctx_map,
+            "uint_configs": cfgs,
+            "lz77": int(histograms.lz77_enabled),
+            "min_symbol": histograms.lz77_min_symbol,
+            "min_length": histograms.lz77_min_length,
+            "lz_cfg": lz_cfg,
+            "lz_dist_cluster": histograms.lz_dist_cluster,
+        }
+    if use_prefix:
+        offsets = np.zeros(n_clusters, dtype=np.int32)
+        bits_l, values_l = [], []
+        pos = 0
+        for c in range(n_clusters):
+            t = histograms.codes.tables[c]
+            offsets[c] = pos
+            bits_l.extend(t.bits)
+            values_l.extend(t.values)
+            pos += len(t.bits)
+        ans_tables = np.zeros(1, dtype=np.int32)
+        huff = (
+            offsets,
+            np.array(bits_l, dtype=np.int32),
+            np.array(values_l, dtype=np.int32),
+        )
+        table_size, log_bucket = 0, 0
+    else:
+        hs = histograms.codes.histograms
+        table_size = len(hs[0].dist)
+        log_bucket = hs[0].log_bucket_size
+        ans_tables = np.zeros((n_clusters, 5, table_size), dtype=np.int32)
+        for c, h in enumerate(hs):
+            ans_tables[c, 0] = h.dist
+            ans_tables[c, 1] = h.alias_symbol
+            ans_tables[c, 2] = h.alias_offset
+            ans_tables[c, 3] = h.alias_cutoff
+            ans_tables[c, 4] = h.alias_dist
+        huff = (
+            np.zeros(1, dtype=np.int32),
+            np.zeros(1, dtype=np.int32),
+            np.zeros(1, dtype=np.int32),
+        )
+    ctx_map = np.array(histograms.context_map, dtype=np.uint8)
+    cfgs = np.zeros((n_clusters, 3), dtype=np.int32)
+    for c in range(n_clusters):
+        u = histograms.uint_configs[c]
+        cfgs[c] = (u.split_exponent, u.msb_in_token, u.lsb_in_token)
+    if histograms.lz77_enabled:
+        lz = histograms.lz77_length_uint
+        lz_cfg = np.array([lz.split_exponent, lz.msb_in_token, lz.lsb_in_token], dtype=np.int32)
+    else:
+        lz_cfg = np.zeros(3, dtype=np.int32)
+    return {
+        "use_prefix": int(use_prefix),
+        "ans_tables": np.ascontiguousarray(ans_tables),
+        "table_size": table_size,
+        "log_bucket": log_bucket,
+        "huff_offsets": huff[0],
+        "huff_bits": huff[1],
+        "huff_values": huff[2],
+        "context_map": ctx_map,
+        "uint_configs": np.ascontiguousarray(cfgs),
+        "lz77": int(histograms.lz77_enabled),
+        "min_symbol": histograms.lz77_min_symbol,
+        "min_length": histograms.lz77_min_length,
+        "lz_cfg": lz_cfg,
+        "lz_dist_cluster": histograms.lz_dist_cluster,
+    }
+
+
+def decode_histograms_native(br, num_contexts: int, allow_lz77: bool):
+    """Decode a Histograms bundle natively. Returns the filled Histograms
+    object, None when the native library is unavailable or the bundle uses
+    prefix codes (caller falls back to the Python oracle); raises on
+    bitstream errors."""
+    lib = get_lib()
+    from ..errors import InvalidBitstream, InvalidPermutation, NativeDecodeError, OutOfBounds
+    from ..entropy.ans import NativeAnsCodes
+    from ..entropy.hybrid_uint import HybridUint
+    from ..entropy.reader import Histograms
+
+    max_clusters = min(num_contexts + 1, 256)
+    meta = np.zeros(16, dtype=np.int32)
+    lz_cfg = np.zeros(3, dtype=np.int32)
+    # scratch the native decoder fully writes for the region we slice;
+    # reused per thread (results are .copy()'d out below)
+    scr = _hist_scratch.__dict__
+    if scr.get("cap", -1) < num_contexts:
+        scr["cap"] = max(num_contexts, 4096)
+        scr["cmap"] = np.empty(scr["cap"] + 1, dtype=np.uint8)
+        scr["cfgs"] = np.empty((256, 3), dtype=np.int32)
+        scr["tables"] = np.empty((256, 5, 256), dtype=np.int32)
+        scr["singles"] = np.empty(256, dtype=np.int32)
+        scr["huff_off"] = np.empty(256, dtype=np.int32)
+    cmap = scr["cmap"]
+    cfgs = scr["cfgs"]
+    tables = scr["tables"]
+    singles = scr["singles"]
+    huff_off = scr["huff_off"]
+    if "huff_bits" not in scr:
+        scr["huff_bits"] = np.empty(1 << 14, dtype=np.int32)
+        scr["huff_vals"] = np.empty(1 << 14, dtype=np.int32)
+    data = _databuf(br)
+    while True:
+        huff_bits = scr["huff_bits"]
+        huff_vals = scr["huff_vals"]
+        huff_cap = len(huff_bits)
+        bit_pos = ctypes.c_uint64(br.pos)
+        ret = lib.jxl_decode_histograms(
+            data, ctypes.c_uint64(len(data)), ctypes.byref(bit_pos),
+            ctypes.c_int(num_contexts), ctypes.c_int(1 if allow_lz77 else 0),
+            _ptr(meta, ctypes.c_int32), _ptr(lz_cfg, ctypes.c_int32),
+            _ptr(cmap, ctypes.c_uint8), _ptr(cfgs, ctypes.c_int32),
+            _ptr(tables, ctypes.c_int32), _ptr(singles, ctypes.c_int32),
+            _ptr(huff_off, ctypes.c_int32), _ptr(huff_bits, ctypes.c_int32),
+            _ptr(huff_vals, ctypes.c_int32), ctypes.c_int64(huff_cap),
+        )
+        if ret != 9:
+            break
+        grown = max(huff_cap * 2, int(meta[11]))
+        scr["huff_bits"] = np.empty(grown, dtype=np.int32)
+        scr["huff_vals"] = np.empty(grown, dtype=np.int32)
+    if ret == 8:
+        return None  # needs the python oracle
+    if ret == 2:
+        raise OutOfBounds(1)
+    if ret != 0:
+        raise NativeDecodeError(f"native histogram decode failed (code {ret})")
+    br.pos = bit_pos.value
+    return _histograms_from_packed(
+        meta, lz_cfg, cmap, cfgs, tables, singles,
+        huff_off, huff_bits, huff_vals, num_contexts,
+    )
+
+
+def _histograms_from_packed(
+    meta, lz_cfg, cmap, cfgs, tables, singles, huff_off, huff_bits, huff_vals,
+    num_contexts,
+):
+    """Build a Histograms object (with its _native_packed dict attached)
+    from the jxl_decode_histograms output-array convention. The arrays are
+    shared per-thread scratch — everything kept is copied out."""
+    from ..entropy.ans import NativeAnsCodes
+    from ..entropy.hybrid_uint import HybridUint
+    from ..entropy.reader import Histograms
+
+    h = Histograms.__new__(Histograms)
+    h.lz77_enabled = bool(meta[0])
+    h.lz77_min_symbol = int(meta[1])
+    h.lz77_min_length = int(meta[2])
+    h.lz77_length_uint = (
+        HybridUint(int(lz_cfg[0]), int(lz_cfg[1]), int(lz_cfg[2]))
+        if h.lz77_enabled
+        else None
+    )
+    n_ctx = num_contexts + (1 if h.lz77_enabled else 0)
+    h.context_map = cmap[:n_ctx].tolist()
+    h.lz_dist_cluster = h.context_map[-1] if h.lz77_enabled else 0
+    h.use_prefix_code = bool(meta[10])
+    h.log_alpha_size = int(meta[6])
+    num_clusters = int(meta[7])
+    table_size = int(meta[8])
+    h.uint_configs = [
+        HybridUint(int(cfgs[c, 0]), int(cfgs[c, 1]), int(cfgs[c, 2]))
+        for c in range(num_clusters)
+    ]
+    # copies, not views: cmap/cfgs are shared per-thread scratch
+    cfgs_arr = cfgs[:num_clusters].copy()
+    lz_cfg_arr = lz_cfg.copy() if h.lz77_enabled else np.zeros(3, dtype=np.int32)
+    ctx_arr = cmap[:n_ctx].copy()
+    if h.use_prefix_code:
+        from ..entropy.huffman import NativeHuffmanCodes
+
+        n = int(meta[11])
+        h.codes = NativeHuffmanCodes(
+            huff_off[:num_clusters].copy(), huff_bits[:n].copy(),
+            huff_vals[:n].copy(), singles[:num_clusters].copy(),
+        )
+        h._native_packed = {
+            "use_prefix": 1,
+            "ans_tables": np.zeros(1, dtype=np.int32),
+            "table_size": 0,
+            "log_bucket": 0,
+            "huff_offsets": h.codes.offsets,
+            "huff_bits": h.codes.bits,
+            "huff_values": h.codes.values,
+            "context_map": ctx_arr,
+            "uint_configs": cfgs_arr,
+            "lz77": int(h.lz77_enabled),
+            "min_symbol": h.lz77_min_symbol,
+            "min_length": h.lz77_min_length,
+            "lz_cfg": lz_cfg_arr,
+            "lz_dist_cluster": h.lz_dist_cluster,
+        }
+    else:
+        # the native decoder packs clusters contiguously at stride table_size
+        packed = (
+            tables.reshape(-1)[: num_clusters * 5 * table_size]
+            .reshape(num_clusters, 5, table_size)
+            .copy()
+        )
+        h.codes = NativeAnsCodes(
+            packed, singles[:num_clusters].copy(), int(meta[9])
+        )
+        h._native_packed = {
+            "use_prefix": 0,
+            "ans_tables": packed,
+            "table_size": table_size,
+            "log_bucket": int(meta[9]),
+            "huff_offsets": np.zeros(1, dtype=np.int32),
+            "huff_bits": np.zeros(1, dtype=np.int32),
+            "huff_values": np.zeros(1, dtype=np.int32),
+            "context_map": ctx_arr,
+            "uint_configs": cfgs_arr,
+            "lz77": int(h.lz77_enabled),
+            "min_symbol": h.lz77_min_symbol,
+            "min_length": h.lz77_min_length,
+            "lz_cfg": lz_cfg_arr,
+            "lz_dist_cluster": h.lz_dist_cluster,
+        }
+    return h
+
+
+def pack_tree(tree) -> np.ndarray:
+    nodes = np.zeros((len(tree.nodes), 8), dtype=np.int32)
+    for i, n in enumerate(tree.nodes):
+        if n.is_leaf:
+            nodes[i] = (-1, 0, 0, 0, int(n.predictor), n.offset, n.multiplier, n.context)
+        else:
+            nodes[i] = (n.property, n.splitval, n.left, n.right, 0, 0, 1, 0)
+    return nodes
+
+
+def _entropy_args(ent, dist_multiplier: int = 0):
+    """The shared ctypes argument tail for packed entropy tables
+    (memoized on the packed dict for the common dist_multiplier=0)."""
+    if dist_multiplier == 0:
+        cached = ent.get("_eargs0")
+        if cached is None:
+            cached = _entropy_args_build(ent, 0)
+            ent["_eargs0"] = cached
+        return cached
+    return _entropy_args_build(ent, dist_multiplier)
+
+
+def _entropy_args_build(ent, dist_multiplier: int):
+    return (
+        ctypes.c_int(ent["use_prefix"]),
+        _ptr(ent["ans_tables"], ctypes.c_int32), ctypes.c_int(ent["table_size"]),
+        ctypes.c_int(ent["log_bucket"]),
+        _ptr(ent["huff_offsets"], ctypes.c_int32),
+        _ptr(ent["huff_bits"], ctypes.c_int32),
+        _ptr(ent["huff_values"], ctypes.c_int32),
+        _ptr(ent["context_map"], ctypes.c_uint8),
+        ctypes.c_int(len(ent["context_map"])),
+        _ptr(ent["uint_configs"], ctypes.c_int32),
+        ctypes.c_int(ent["lz77"]), ctypes.c_uint32(ent["min_symbol"]),
+        ctypes.c_uint32(ent["min_length"]), _ptr(ent["lz_cfg"], ctypes.c_int32),
+        ctypes.c_int(ent["lz_dist_cluster"]), ctypes.c_uint32(dist_multiplier),
+    )
+
+
+def decode_tree_native(histograms, br, size_limit: int):
+    """MA-tree node loop natively. Returns (nodes_arr (N,8) int32,
+    max_property) or None when unavailable; raises on bitstream errors."""
+    lib = get_lib()
+    from ..errors import InvalidBitstream, InvalidPermutation, NativeDecodeError, OutOfBounds
+
+    ent = pack_entropy(histograms)
+    data = _databuf(br)
+    cap = 1 << 12
+    # (tree nodes scratch below is sliced to the decoded count)
+    while True:
+        nodes = np.empty((cap, 8), dtype=np.int32)
+        count = ctypes.c_int64(0)
+        max_prop = ctypes.c_int32(0)
+        bit_pos = ctypes.c_uint64(br.pos)
+        ret = lib.jxl_decode_tree(
+            data, ctypes.c_uint64(len(data)), ctypes.byref(bit_pos),
+            *_entropy_args(ent),
+            ctypes.c_int64(size_limit), ctypes.c_int64(cap),
+            _ptr(nodes, ctypes.c_int32), ctypes.byref(count),
+            ctypes.byref(max_prop),
+        )
+        if ret != 9:
+            break
+        cap *= 4
+    if ret == 2:
+        raise OutOfBounds(1)
+    if ret != 0:
+        raise NativeDecodeError(f"native tree decode failed (code {ret})")
+    br.pos = bit_pos.value
+    return nodes[: count.value], int(max_prop.value)
+
+
+def read_unsigned_run(histograms, br, ctx: int, count: int,
+                      check_final: bool = False, dist_multiplier: int = 0):
+    """Decode `count` clustered unsigned values at a fixed context natively
+    (e.g. the entropy-coded context map). Returns a uint32 array or None
+    when the native library is unavailable."""
+    lib = get_lib()
+    from ..errors import InvalidBitstream, InvalidPermutation, NativeDecodeError
+
+    ent = pack_entropy(histograms)
+    out = np.zeros(max(count, 1), dtype=np.uint32)
+    data = _databuf(br)
+    bit_pos = ctypes.c_uint64(br.pos)
+    ret = lib.jxl_read_unsigned_run(
+        data, ctypes.c_uint64(len(data)), ctypes.byref(bit_pos),
+        ctypes.c_int(ent["use_prefix"]),
+        _ptr(ent["ans_tables"], ctypes.c_int32), ctypes.c_int(ent["table_size"]),
+        ctypes.c_int(ent["log_bucket"]),
+        _ptr(ent["huff_offsets"], ctypes.c_int32),
+        _ptr(ent["huff_bits"], ctypes.c_int32),
+        _ptr(ent["huff_values"], ctypes.c_int32),
+        _ptr(ent["context_map"], ctypes.c_uint8), ctypes.c_int(len(ent["context_map"])),
+        _ptr(ent["uint_configs"], ctypes.c_int32),
+        ctypes.c_int(ent["lz77"]), ctypes.c_uint32(ent["min_symbol"]),
+        ctypes.c_uint32(ent["min_length"]), _ptr(ent["lz_cfg"], ctypes.c_int32),
+        ctypes.c_int(ent["lz_dist_cluster"]), ctypes.c_uint32(dist_multiplier),
+        ctypes.c_int(ctx), ctypes.c_int(count), _ptr(out, ctypes.c_uint32),
+        ctypes.c_int(1 if check_final else 0),
+    )
+    if ret != 0:
+        raise NativeDecodeError(f"native unsigned-run decode failed (code {ret})")
+    br.pos = bit_pos.value
+    return out
+
+
+def decode_modular_native(
+    buffers, stream_id, header, tree, br, image_width, partial_out=None,
+    residuals=False,
+) -> bool:
+    """Decode all channels of a modular sub-bitstream natively.
+
+    Returns True on success (br.pos advanced, buffers filled); raises on
+    bitstream errors. Falls back (returns False) if unavailable.
+
+    With residuals=True (caller must have checked tree.is_gradient_only),
+    buffers receive the raw signed residuals instead of reconstructed
+    pixels — the device wavefront reconstruction consumes these.
+
+    With `partial_out` (a 1-element list), bitstream errors still raise but
+    partial_out[0] receives the number of channels decoded with a safety
+    margin before the failure, and those channels' data is kept (ref
+    decode/bitstream.rs last_safe_buf partial-decode semantics).
+    """
+    lib = get_lib()
+    from ..errors import InvalidBitstream, InvalidPermutation, NativeDecodeError
+
+    ent = pack_entropy(tree.histograms)
+    tree_arr = getattr(tree, "_native_packed", None)
+    if tree_arr is None:
+        tree_arr = pack_tree(tree)
+        try:
+            tree._native_packed = tree_arr
+        except AttributeError:
+            pass
+    wp = header.wp_header
+    wp_params = getattr(wp, "_native_params", None)
+    if wp_params is None:
+        wp_params = np.array(
+            [wp.p1c, wp.p2c, wp.p3ca, wp.p3cb, wp.p3cc, wp.p3cd, wp.p3ce,
+             wp.w0, wp.w1, wp.w2, wp.w3, 0],
+            dtype=np.int32,
+        )
+        try:
+            wp._native_params = wp_params
+        except AttributeError:
+            pass
+
+    # Channels decode straight into the caller's planes (flag bit 2:
+    # ChannelDesc.offset carries the absolute base address) when every
+    # buffer is a C-contiguous int32 plane; otherwise fall back to the
+    # packed scratch + copy-out layout.
+    direct = all(
+        b.data.dtype == np.int32 and b.data.flags.c_contiguous for b in buffers
+    )
+    chan_info = np.empty((max(len(buffers), 1), 6), dtype=np.int64)
+    if direct:
+        out = np.empty(1, dtype=np.int32)
+        for i, b in enumerate(buffers):
+            h, w = b.data.shape
+            shift = b.shift if b.shift is not None else (-1, -1)
+            chan_info[i] = (w, h, shift[0], shift[1], w, b.data.ctypes.data)
+    else:
+        total = sum(b.data.shape[0] * b.data.shape[1] for b in buffers)
+        # every live channel element is written by the decode loops
+        out = np.empty(max(total, 1), dtype=np.int32)
+        off = 0
+        for i, b in enumerate(buffers):
+            h, w = b.data.shape
+            shift = b.shift if b.shift is not None else (-1, -1)
+            chan_info[i] = (w, h, shift[0], shift[1], w, off)
+            off += h * w
+
+    data = _databuf(br)
+    bit_pos = ctypes.c_uint64(br.pos)
+    num_decoded = ctypes.c_int64(0)
+    # the per-histograms / per-tree ctypes argument tuples are constant
+    # across the hundreds of substreams sharing one bundle — memoize them
+    # (animations spend real time in this marshaling otherwise)
+    margs = ent.get("_modular_args")
+    if margs is None:
+        margs = (
+            ctypes.c_int(ent["use_prefix"]),
+            _ptr(ent["ans_tables"], ctypes.c_int32), ctypes.c_int(ent["table_size"]),
+            ctypes.c_int(ent["log_bucket"]),
+            _ptr(ent["huff_offsets"], ctypes.c_int32),
+            _ptr(ent["huff_bits"], ctypes.c_int32),
+            _ptr(ent["huff_values"], ctypes.c_int32),
+            _ptr(ent["context_map"], ctypes.c_uint8), ctypes.c_int(len(ent["context_map"])),
+            _ptr(ent["uint_configs"], ctypes.c_int32),
+            ctypes.c_int(ent["lz77"]), ctypes.c_uint32(ent["min_symbol"]),
+            ctypes.c_uint32(ent["min_length"]), _ptr(ent["lz_cfg"], ctypes.c_int32),
+            ctypes.c_int(ent["lz_dist_cluster"]),
+        )
+        ent["_modular_args"] = margs
+    ret = lib.jxl_decode_modular(
+        data, ctypes.c_uint64(len(data)), ctypes.byref(bit_pos),
+        *margs,
+        ctypes.c_uint32(image_width if ent["lz77"] else 0),
+        _ptr(tree_arr, ctypes.c_int32), ctypes.c_int(len(tree_arr)),
+        ctypes.c_int(tree.num_properties),
+        _ptr(wp_params, ctypes.c_int32),
+        ctypes.c_int(len(buffers)), _ptr(chan_info, ctypes.c_int64),
+        _ptr(out, ctypes.c_int32), ctypes.c_int(stream_id),
+        ctypes.byref(num_decoded),
+        ctypes.c_int(
+            (1 if residuals else 0)
+            | (2 if os.environ.get("JXL_TPU_NO_GRAD_SPEC") else 0)
+            | (4 if direct else 0)
+        ),
+    )
+    if ret != 0:
+        if partial_out is not None:
+            partial_out[0] = int(num_decoded.value)
+            if not direct:
+                off = 0
+                for i, b in enumerate(buffers):
+                    h, w = b.data.shape
+                    if i < num_decoded.value:
+                        b.data[...] = out[off : off + h * w].reshape(h, w)
+                    off += h * w
+        raise NativeDecodeError(f"native modular decode failed (code {ret})")
+    br.pos = bit_pos.value
+    if not direct:
+        off = 0
+        for b in buffers:
+            h, w = b.data.shape
+            b.data[...] = out[off : off + h * w].reshape(h, w)
+            off += h * w
+    return True
+
+
+def decode_lf_global_tables_native(br, is_vardct: bool, tree_size_limit: int):
+    """LfGlobal table sequence in one native call (ref frame/decode.rs:
+    314-434): LF quant factors, [VarDCT: quantizer params + block context
+    map + CfL params], optional global MA tree incl. leaf histograms.
+
+    Returns a dict of constructed objects (lf_quant tuple, quant params,
+    block ctx map fields, cfl fields, tree) or None when unavailable;
+    raises typed errors on invalid streams."""
+    lib = get_lib()
+    from ..errors import (
+        BaseColorCorrelationOutOfRange,
+        FloatNaNOrInf,
+        InvalidContextMap,
+        LfQuantFactorTooSmall,
+        NativeDecodeError,
+        OutOfBounds,
+        TooManyBlockContexts,
+        TreeTooLarge,
+    )
+
+    scr = _hist_scratch.__dict__
+    if scr.get("cap", -1) < 4096:
+        scr["cap"] = 4096
+        scr["cmap"] = np.empty(scr["cap"] + 1, dtype=np.uint8)
+        scr["cfgs"] = np.empty((256, 3), dtype=np.int32)
+        scr["tables"] = np.empty((256, 5, 256), dtype=np.int32)
+        scr["singles"] = np.empty(256, dtype=np.int32)
+        scr["huff_off"] = np.empty(256, dtype=np.int32)
+    if "huff_bits" not in scr:
+        scr["huff_bits"] = np.empty(1 << 14, dtype=np.int32)
+        scr["huff_vals"] = np.empty(1 << 14, dtype=np.int32)
+    if "lfg_scal" not in scr:
+        scr["lfg_scal"] = np.empty(24, dtype=np.int32)
+        scr["lfg_dbl"] = np.empty(8, dtype=np.float64)
+        scr["lfg_lfthr"] = np.empty(48, dtype=np.int32)
+        scr["lfg_qfthr"] = np.empty(16, dtype=np.int32)
+        scr["lfg_bctx"] = np.empty(2600, dtype=np.uint8)
+        scr["lfg_tree"] = np.empty((1 << 12, 8), dtype=np.int32)
+    meta = np.zeros(16, dtype=np.int32)
+    lz_cfg = np.zeros(3, dtype=np.int32)
+    scal = scr["lfg_scal"]
+    dbl = scr["lfg_dbl"]
+    scal[:] = 0
+    data = _databuf(br)
+    while True:
+        huff_bits = scr["huff_bits"]
+        huff_vals = scr["huff_vals"]
+        tree_nodes = scr["lfg_tree"]
+        bit_pos = ctypes.c_uint64(br.pos)
+        ret = lib.jxl_decode_lf_global_tables(
+            data, ctypes.c_uint64(len(data)), ctypes.byref(bit_pos),
+            ctypes.c_int(1 if is_vardct else 0),
+            ctypes.c_int64(tree_size_limit), ctypes.c_int64(len(tree_nodes)),
+            _ptr(scal, ctypes.c_int32), _ptr(dbl, ctypes.c_double),
+            _ptr(scr["lfg_lfthr"], ctypes.c_int32),
+            _ptr(scr["lfg_qfthr"], ctypes.c_int32),
+            _ptr(scr["lfg_bctx"], ctypes.c_uint8),
+            _ptr(tree_nodes, ctypes.c_int32),
+            _ptr(meta, ctypes.c_int32), _ptr(lz_cfg, ctypes.c_int32),
+            _ptr(scr["cmap"], ctypes.c_uint8), _ptr(scr["cfgs"], ctypes.c_int32),
+            _ptr(scr["tables"], ctypes.c_int32), _ptr(scr["singles"], ctypes.c_int32),
+            _ptr(scr["huff_off"], ctypes.c_int32),
+            _ptr(huff_bits, ctypes.c_int32), _ptr(huff_vals, ctypes.c_int32),
+            ctypes.c_int64(len(huff_bits)),
+        )
+        if ret == 9:
+            grown = max(len(huff_bits) * 2, int(meta[11]))
+            scr["huff_bits"] = np.empty(grown, dtype=np.int32)
+            scr["huff_vals"] = np.empty(grown, dtype=np.int32)
+            continue
+        if ret == 11:
+            scr["lfg_tree"] = np.empty((len(tree_nodes) * 4, 8), dtype=np.int32)
+            continue
+        break
+    if ret == 2:
+        raise OutOfBounds(1)
+    if ret == 20:
+        raise LfQuantFactorTooSmall("LF quant factor too small")
+    if ret == 21:
+        raise InvalidContextMap("invalid block context map")
+    if ret == 22:
+        raise TooManyBlockContexts("too many block contexts")
+    if ret == 23:
+        raise BaseColorCorrelationOutOfRange("base color correlation out of range")
+    if ret == 24:
+        raise FloatNaNOrInf("f16 header field is NaN or Inf")
+    if ret == 25:
+        raise NativeDecodeError("invalid MA tree value")
+    if ret != 0:
+        raise NativeDecodeError(f"native lf-global decode failed (code {ret})")
+
+    out = {
+        "lf_quant": (float(dbl[0]), float(dbl[1]), float(dbl[2])),
+        "tree": None,
+    }
+    if is_vardct:
+        out["quant_params"] = (int(scal[0]), int(scal[1]))
+        if scal[2]:
+            out["bctx_default"] = True
+        else:
+            out["bctx_default"] = False
+            thr = scr["lfg_lfthr"]
+            n0, n1, n2 = int(scal[5]), int(scal[6]), int(scal[7])
+            out["lf_thresholds"] = [
+                thr[:n0].tolist(),
+                thr[n0 : n0 + n1].tolist(),
+                thr[n0 + n1 : n0 + n1 + n2].tolist(),
+            ]
+            out["qf_thresholds"] = scr["lfg_qfthr"][: int(scal[4])].tolist()
+            out["bctx_map"] = scr["lfg_bctx"][: int(scal[8])].tolist()
+            out["num_lf_contexts"] = int(scal[3])
+            out["bctx_num_contexts"] = int(scal[9])
+        out["cfl"] = (
+            int(scal[10]), float(dbl[3]), float(dbl[4]),
+            int(scal[11]), int(scal[12]),
+        )
+    if scal[13]:
+        from ..modular.tree import Tree
+
+        count = int(scal[14])
+        arr = np.ascontiguousarray(scr["lfg_tree"][:count])
+        t = Tree.__new__(Tree)
+        t._arr = arr
+        t._nodes = None
+        t._native_packed = arr
+        t.num_properties = int(scal[15]) + 1
+        t._validate_arr(arr)
+        t.histograms = _histograms_from_packed(
+            meta, lz_cfg, scr["cmap"], scr["cfgs"], scr["tables"],
+            scr["singles"], scr["huff_off"], scr["huff_bits"],
+            scr["huff_vals"], (count + 1) // 2,
+        )
+        out["tree"] = t
+    br.pos = bit_pos.value
+    return out
+
+
+def apply_lehmer(code, n: int):
+    """Order-statistics application of a Lehmer code: returns the int32
+    index array `idx` with out[i] = base[idx[i]] (the i-th smallest
+    still-unused position), or None when the native lib is unavailable.
+    Raises InvalidPermutation on invalid code values."""
+    lib = get_lib()
+    from ..errors import InvalidPermutation
+
+    code_arr = np.asarray(code, dtype=np.uint32)
+    out = np.empty(n, dtype=np.int32)
+    ret = lib.jxl_apply_lehmer(
+        _ptr(code_arr, ctypes.c_uint32),
+        ctypes.c_int64(len(code_arr)),
+        ctypes.c_int64(n),
+        _ptr(out, ctypes.c_int32),
+    )
+    if ret != 0:
+        raise InvalidPermutation("invalid Lehmer code value")
+    return out
+
+
+def rct_native(ins, outs, op: int, perm: int) -> bool:
+    """Fused in-place-safe RCT over three int32 planes (hostops.cc jxl_rct;
+    ref transforms/rct.rs:18-50). ins/outs: 3 (h, w) int32 arrays (views
+    OK; outs may alias ins). Returns False when native is unavailable."""
+    lib = get_lib()
+    h, w = ins[0].shape
+    args = []
+    for a in (*ins, *outs):
+        assert a.dtype == np.int32 and a.strides[1] == 4, (a.dtype, a.strides)
+        args.append(_ptr(a, ctypes.c_int32))
+        args.append(ctypes.c_int64(a.strides[0] // 4))
+    lib.jxl_rct(*args, ctypes.c_int64(w), ctypes.c_int64(h),
+                ctypes.c_int(op), ctypes.c_int(perm))
+    return True

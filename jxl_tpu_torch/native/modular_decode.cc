@@ -1,0 +1,3948 @@
+// Native host decoder for the hot entropy + modular loops.
+//
+// Semantics mirror the Python oracle (jxl_tpu/modular, jxl_tpu/entropy)
+// exactly — the oracle is the correctness reference, this is the
+// production host path (capability parity with the reference's Rust hot
+// loops: jxl/src/entropy_coding/*, frame/modular/decode/*, frame/group.rs).
+//
+// Python decodes headers/tables (cold) and packs them into flat arrays;
+// this library consumes raw section bytes and fills channel planes /
+// coefficient buffers.
+
+#include <time.h>
+
+#include <algorithm>
+#include <cmath>
+#include <cstdint>
+#include <cstring>
+#include <map>
+#include <vector>
+
+namespace {
+
+// ---------------------------------------------------------------- bit reader
+
+struct BitReader {
+  const uint8_t* data;
+  uint64_t size;       // bytes
+  uint64_t pos;        // bit position (may exceed size*8 on overrun)
+
+  uint64_t Peek(int n) const {
+    // little-endian, LSB-first; zero-padded past the end.
+    // Fast path: one unaligned 64-bit load gives >=57 valid bits after the
+    // sub-byte shift, enough for every caller (n <= 32).
+    uint64_t byte0 = pos >> 3;
+    uint64_t v;
+    if (byte0 + 8 <= size) {
+      std::memcpy(&v, data + byte0, 8);
+    } else {
+      v = 0;
+      int need = ((int)(pos & 7) + n + 7) >> 3;
+      for (int i = 0; i < need && i < 8; i++) {
+        uint64_t b = byte0 + i < size ? data[byte0 + i] : 0;
+        v |= b << (8 * i);
+      }
+    }
+    v >>= (pos & 7);
+    return n >= 64 ? v : v & ((1ull << n) - 1);
+  }
+  uint64_t Read(int n) {
+    uint64_t v = Peek(n);
+    pos += n;
+    return v;
+  }
+  bool Overrun() const { return pos > size * 8; }
+};
+
+// ------------------------------------------------------------- entropy state
+
+struct AnsTables {
+  // packed per cluster: 5 arrays of table_size int32
+  const int32_t* data;
+  int table_size;
+  int log_bucket_size;
+  int bucket_mask;
+  const int32_t* Cluster(int c) const { return data + (int64_t)c * 5 * table_size; }
+};
+
+struct HuffTables {
+  const int32_t* offsets;  // per cluster start into bits/values
+  const int32_t* bits;
+  const int32_t* values;
+};
+
+struct UintConfig {
+  int32_t split_exponent, msb, lsb;
+  uint32_t split_token() const { return 1u << split_exponent; }
+};
+
+struct EntropyDecoder {
+  bool use_prefix;
+  AnsTables ans;
+  HuffTables huff;
+  const uint8_t* context_map;
+  int num_contexts;
+  const UintConfig* uint_configs;
+  uint32_t ans_state;
+  // LZ77
+  bool lz77;
+  uint32_t min_symbol, min_length, dist_multiplier;
+  UintConfig lz_len_config;
+  int lz_dist_cluster;
+  // 4 MiB LZ77 ring; thread-local and reused across calls (a fresh
+  // zero-filled vector per decode call dominated small-stream decode
+  // cost). Stale contents are never read: distances clamp to
+  // num_decoded, so only entries written by THIS stream are reachable.
+  uint32_t* window = nullptr;
+  const uint64_t* ans_packed = nullptr;
+  uint32_t num_to_copy = 0, copy_pos = 0, num_decoded = 0;
+  bool error = false;
+
+  static constexpr uint32_t kWindowMask = (1u << 20) - 1;
+
+  void Init(BitReader& br) {
+    ans_state = use_prefix ? 0x130000u : (uint32_t)br.Read(32);
+    if (lz77) {
+      static thread_local std::vector<uint32_t> tl_window;
+      if (tl_window.size() < (1u << 20)) tl_window.resize(1u << 20);
+      window = tl_window.data();
+    }
+    if (!use_prefix && ans_packed == nullptr) PackAnsTables();
+  }
+
+  // Interleave the 5 per-cluster alias arrays into one uint64 per entry
+  // (sym[0:8] off[8:21] cutoff[21:34] dist[34:47] alias_dist[47:60]; all
+  // values < 2^13 since the ANS state slice is 12 bits and log_alpha<=8).
+  // The symbol hot loop then costs ONE cache line per lookup instead of
+  // five loads spread 1 KB apart. Built once per decoder; Init is called
+  // per section in the HF-group loop but the tables don't change.
+  void PackAnsTables() {
+    int n_clusters = 0;
+    for (int i = 0; i < num_contexts; i++)
+      if (context_map[i] + 1 > n_clusters) n_clusters = context_map[i] + 1;
+    if (lz_dist_cluster + 1 > n_clusters) n_clusters = lz_dist_cluster + 1;
+    static thread_local std::vector<uint64_t> tl_packed;
+    const int ts = ans.table_size;
+    const size_t need = (size_t)n_clusters * ts;
+    if (tl_packed.size() < need) tl_packed.resize(need);
+    for (int c = 0; c < n_clusters; c++) {
+      const int32_t* t = ans.Cluster(c);
+      uint64_t* p = tl_packed.data() + (size_t)c * ts;
+      for (int i = 0; i < ts; i++) {
+        p[i] = (uint64_t)(uint32_t)(t[ts + i] & 0xff) |
+               ((uint64_t)(uint32_t)(t[2 * ts + i] & 0x1fff) << 8) |
+               ((uint64_t)(uint32_t)(t[3 * ts + i] & 0x1fff) << 21) |
+               ((uint64_t)(uint32_t)(t[i] & 0x1fff) << 34) |
+               ((uint64_t)(uint32_t)(t[4 * ts + i] & 0x1fff) << 47);
+      }
+    }
+    ans_packed = tl_packed.data();
+  }
+
+  uint32_t ReadToken(BitReader& br, int cluster) {
+    if (use_prefix) {
+      int base = huff.offsets[cluster];
+      uint32_t peek = (uint32_t)br.Peek(8);
+      int idx = base + (int)peek;
+      int nbits = huff.bits[idx];
+      if (nbits > 8) {
+        br.pos += 8;
+        idx = base + (int)peek + huff.values[idx] + (int)br.Peek(nbits - 8);
+        br.pos += huff.bits[idx];
+        return (uint32_t)huff.values[idx];
+      }
+      br.pos += nbits;
+      return (uint32_t)huff.values[idx];
+    }
+    const uint64_t* t = ans_packed + (size_t)cluster * ans.table_size;
+    uint32_t idx = ans_state & 0xfff;
+    uint32_t i = idx >> ans.log_bucket_size;
+    uint32_t pos = idx & ans.bucket_mask;
+    const uint64_t e = t[i];
+    const uint32_t cutoff = (uint32_t)(e >> 21) & 0x1fff;
+    uint32_t sym, off, d;
+    if (pos >= cutoff) {
+      sym = (uint32_t)e & 0xff;
+      off = ((uint32_t)(e >> 8) & 0x1fff) + pos;
+      d = (uint32_t)(e >> 47) & 0x1fff;
+    } else {
+      sym = i;
+      off = pos;
+      d = (uint32_t)(e >> 34) & 0x1fff;
+    }
+    ans_state = (ans_state >> 12) * d + off;
+    if (ans_state < (1u << 16)) {
+      ans_state = (ans_state << 16) | (uint32_t)br.Peek(16);
+      br.pos += 16;
+    }
+    return sym;
+  }
+
+  uint32_t ReadUintCfg(uint32_t token, const UintConfig& cfg, BitReader& br) {
+    if (token < cfg.split_token()) return token;
+    uint32_t bits_in_token = cfg.lsb + cfg.msb;
+    uint32_t nbits = cfg.split_exponent - bits_in_token +
+                     ((token - cfg.split_token()) >> bits_in_token);
+    nbits &= 31;
+    uint32_t low = token & ((1u << cfg.lsb) - 1);
+    uint32_t token_nolow = token >> cfg.lsb;
+    uint32_t bits = (uint32_t)br.Read((int)nbits);
+    uint32_t hi = (token_nolow & ((1u << cfg.msb) - 1)) | (1u << cfg.msb);
+    return (((hi << nbits) | bits) << cfg.lsb) | low;
+  }
+
+  void Push(uint32_t v) {
+    if (lz77) window[num_decoded & kWindowMask] = v;
+    num_decoded++;
+  }
+
+  uint32_t ReadClustered(BitReader& br, int cluster) {
+    if (!lz77) {
+      uint32_t token = ReadToken(br, cluster);
+      return ReadUintCfg(token, uint_configs[cluster], br);
+    }
+    if (num_to_copy > 0) {
+      uint32_t sym = window[copy_pos++ & kWindowMask];
+      num_to_copy--;
+      Push(sym);
+      return sym;
+    }
+    uint32_t token = ReadToken(br, cluster);
+    if (token < min_symbol) {
+      uint32_t sym = ReadUintCfg(token, uint_configs[cluster], br);
+      Push(sym);
+      return sym;
+    }
+    if (num_decoded == 0) {
+      error = true;
+      return 0;
+    }
+    uint64_t ntc =
+        (uint64_t)ReadUintCfg(token - min_symbol, lz_len_config, br) + min_length;
+    if (ntc >= (1ull << 32)) {
+      error = true;
+      return 0;
+    }
+    uint32_t dist_token = ReadToken(br, lz_dist_cluster);
+    uint32_t distance_sym = ReadUintCfg(dist_token, uint_configs[lz_dist_cluster], br);
+    uint32_t distance_sub_1;
+    if (dist_multiplier == 0) {
+      distance_sub_1 = distance_sym;
+    } else if (distance_sym >= 120) {
+      distance_sub_1 = distance_sym - 120;
+    } else {
+      static const int8_t kSpecial[120][2] = {
+          {0,1},{1,0},{1,1},{-1,1},{0,2},{2,0},{1,2},{-1,2},{2,1},{-2,1},
+          {2,2},{-2,2},{0,3},{3,0},{1,3},{-1,3},{3,1},{-3,1},{2,3},{-2,3},
+          {3,2},{-3,2},{0,4},{4,0},{1,4},{-1,4},{4,1},{-4,1},{3,3},{-3,3},
+          {2,4},{-2,4},{4,2},{-4,2},{0,5},{3,4},{-3,4},{4,3},{-4,3},{5,0},
+          {1,5},{-1,5},{5,1},{-5,1},{2,5},{-2,5},{5,2},{-5,2},{4,4},{-4,4},
+          {3,5},{-3,5},{5,3},{-5,3},{0,6},{6,0},{1,6},{-1,6},{6,1},{-6,1},
+          {2,6},{-2,6},{6,2},{-6,2},{4,5},{-4,5},{5,4},{-5,4},{3,6},{-3,6},
+          {6,3},{-6,3},{0,7},{7,0},{1,7},{-1,7},{5,5},{-5,5},{7,1},{-7,1},
+          {4,6},{-4,6},{6,4},{-6,4},{2,7},{-2,7},{7,2},{-7,2},{3,7},{-3,7},
+          {7,3},{-7,3},{5,6},{-5,6},{6,5},{-6,5},{8,0},{4,7},{-4,7},{7,4},
+          {-7,4},{8,1},{8,2},{6,6},{-6,6},{8,3},{5,7},{-5,7},{7,5},{-7,5},
+          {8,4},{6,7},{-6,7},{7,6},{-7,6},{8,5},{7,7},{-7,7},{8,6},{8,7}};
+      int64_t d = (int64_t)dist_multiplier * kSpecial[distance_sym][1] +
+                  kSpecial[distance_sym][0] - 1;
+      distance_sub_1 = d >= 0 ? (uint32_t)d : 0;
+    }
+    uint32_t distance = distance_sub_1 < kWindowMask ? distance_sub_1 + 1
+                                                     : kWindowMask + 1;
+    if (distance > num_decoded) distance = num_decoded;
+    copy_pos = num_decoded - distance;
+    num_to_copy = (uint32_t)ntc;
+    uint32_t sym = window[copy_pos++ & kWindowMask];
+    num_to_copy--;
+    Push(sym);
+    return sym;
+  }
+
+  uint32_t ReadUnsigned(BitReader& br, int context) {
+    return ReadClustered(br, context_map[context]);
+  }
+  int32_t ReadSigned(BitReader& br, int context) {
+    uint32_t u = ReadUnsigned(br, context);
+    return (u & 1) ? -(int32_t)((u + 1) >> 1) : (int32_t)(u >> 1);
+  }
+  bool CheckFinal(const BitReader& br) const {
+    if (error || br.Overrun()) return false;
+    if (!use_prefix && ans_state != 0x130000u) return false;
+    return true;
+  }
+};
+
+// ------------------------------------------------------------ weighted pred
+
+constexpr int kPredExtraBits = 3;
+constexpr int64_t kPredictionRound = ((1 << kPredExtraBits) >> 1) - 1;
+
+// (1<<24)/(i+1) — global, so the per-pixel hot loops skip the local-
+// static init guard a function-local table would re-check every call
+struct DivLut {
+  uint32_t v[64];
+  DivLut() { for (int i = 0; i < 64; i++) v[i] = (1u << 24) / (i + 1); }
+};
+static const DivLut kDivLut;
+
+struct WPState {
+  int xsize;
+  std::vector<uint32_t> pred_errors[4];
+  std::vector<int32_t> error;
+  int32_t w[4];
+  int32_t p1c, p2c, p3c[5];
+  int64_t prediction[4];
+  int64_t pred = 0;
+
+  static const uint32_t* DivLookup() { return kDivLut.v; }
+
+  void Init(const int32_t* params, int xs) {
+    xsize = xs;
+    int n = (xs + 1) * 2;
+    for (auto& pe : pred_errors) pe.assign(n, 0);
+    error.assign(n, 0);
+    p1c = params[0]; p2c = params[1];
+    for (int i = 0; i < 5; i++) p3c[i] = params[2 + i];
+    for (int i = 0; i < 4; i++) w[i] = params[7 + i];
+  }
+
+  // pd: left, top, toptop, topleft, topright
+  void PredictAndProperty(int x, int y, const int32_t* pd, int64_t* out_pred,
+                          int32_t* out_prop) {
+    const uint32_t* div = DivLookup();
+    int cur_row = (y & 1) ? 0 : xsize + 1;
+    int prev_row = (y & 1) ? xsize + 1 : 0;
+    int pos_ne = x + 1 < xsize ? x + 1 : x;
+    int pos_nw = x > 0 ? x - 1 : 0;
+
+    uint32_t ws[4];
+    for (int k = 0; k < 4; k++) {
+      uint32_t e = pred_errors[k][prev_row + x] + pred_errors[k][prev_row + pos_ne] +
+                   pred_errors[k][prev_row + pos_nw];
+      uint32_t sh = 0;
+      uint64_t e1 = (uint64_t)e + 1;
+      int lg = 63 - __builtin_clzll(e1);
+      sh = lg > 5 ? lg - 5 : 0;
+      ws[k] = 4u + (((uint32_t)w[k] * div[e >> sh]) >> sh);
+    }
+
+    int64_t te_w = error[cur_row + x];
+    int64_t te_n = error[prev_row + 1 + x];
+    int64_t te_nw = error[prev_row + 1 + pos_nw];
+    int64_t te_ne = error[prev_row + 1 + pos_ne];
+    int64_t sum_wn = te_n + te_w;
+
+    int64_t p = te_w;
+    auto absl = [](int64_t v) { return v < 0 ? -v : v; };
+    if (absl(te_n) > absl(p)) p = te_n;
+    if (absl(te_nw) > absl(p)) p = te_nw;
+    if (absl(te_ne) > absl(p)) p = te_ne;
+
+    int64_t n8 = (int64_t)pd[1] << kPredExtraBits;
+    int64_t w8 = (int64_t)pd[0] << kPredExtraBits;
+    int64_t ne8 = (int64_t)pd[4] << kPredExtraBits;
+    int64_t nw8 = (int64_t)pd[3] << kPredExtraBits;
+    int64_t nn8 = (int64_t)pd[2] << kPredExtraBits;
+
+    int64_t p0 = w8 + ne8 - n8;
+    int64_t p1 = n8 - (((sum_wn + te_ne) * p1c) >> 5);
+    int64_t p2 = w8 - (((sum_wn + te_nw) * p2c) >> 5);
+    int64_t p3 = n8 - ((te_nw * p3c[0] + te_n * p3c[1] + te_ne * p3c[2] +
+                        (nn8 - n8) * p3c[3] + (nw8 - w8) * p3c[4]) >>
+                       5);
+
+    uint64_t wsum_raw = (uint64_t)ws[0] + ws[1] + ws[2] + ws[3];
+    int log_weight = 63 - __builtin_clzll(wsum_raw);
+    int sh = log_weight - 4;
+    int64_t w0s = ws[0] >> sh, w1s = ws[1] >> sh, w2s = ws[2] >> sh, w3s = ws[3] >> sh;
+    int64_t weight_sum = w0s + w1s + w2s + w3s;
+    int64_t ssum = (weight_sum >> 1) - 1 + w0s * p0 + w1s * p1 + w2s * p2 + w3s * p3;
+    int64_t prd = (ssum * (int64_t)div[weight_sum - 1]) >> 24;
+
+    if (((te_n ^ te_w) | (te_n ^ te_nw)) <= 0) {
+      int64_t mx = w8 > ne8 ? w8 : ne8; if (n8 > mx) mx = n8;
+      int64_t mn = w8 < ne8 ? w8 : ne8; if (n8 < mn) mn = n8;
+      if (prd > mx) prd = mx;
+      if (prd < mn) prd = mn;
+    }
+    prediction[0] = p0; prediction[1] = p1; prediction[2] = p2; prediction[3] = p3;
+    pred = prd;
+    *out_pred = (prd + kPredictionRound) >> kPredExtraBits;
+    *out_prop = (int32_t)p;
+  }
+
+  void UpdateErrors(int32_t val, int x, int y) {
+    int cur_row = (y & 1) ? 0 : xsize + 1;
+    int prev_row = (y & 1) ? xsize + 1 : 0;
+    int64_t v = (int64_t)val << kPredExtraBits;
+    error[cur_row + x + 1] = (int32_t)(pred - v);
+    for (int k = 0; k < 4; k++) {
+      int64_t diff = prediction[k] - v;
+      if (diff < 0) diff = -diff;
+      uint32_t e = (uint32_t)((diff + kPredictionRound) >> kPredExtraBits);
+      pred_errors[k][cur_row + x] = e;
+      pred_errors[k][prev_row + x + 1] += e;
+    }
+  }
+};
+
+// ------------------------------------------------------------------- helpers
+
+inline int64_t ClampedGradient(int64_t l, int64_t t, int64_t tl) {
+  int64_t mn = l < t ? l : t;
+  int64_t mx = l > t ? l : t;
+  int64_t grad = l + t - tl;
+  int64_t g = tl < mn ? mx : grad;
+  return tl > mx ? mn : g;
+}
+
+inline int64_t TruncDiv2(int64_t v) { return v < 0 ? -((-v) >> 1) : v >> 1; }
+
+inline int64_t PredictOne(int pred, const int32_t* pd, int64_t wp_pred) {
+  int64_t left = pd[0], top = pd[1], toptop = pd[2], topleft = pd[3],
+          topright = pd[4], leftleft = pd[5], toprightright = pd[6];
+  switch (pred) {
+    case 0: return 0;
+    case 1: return left;
+    case 2: return top;
+    case 3: return TruncDiv2(top + left);
+    case 4: {
+      int64_t p = left + top - topleft;
+      int64_t dl = p - left; if (dl < 0) dl = -dl;
+      int64_t dt = p - top; if (dt < 0) dt = -dt;
+      return dl < dt ? left : top;
+    }
+    case 5: return ClampedGradient(left, top, topleft);
+    case 6: return wp_pred;
+    case 7: return topright;
+    case 8: return topleft;
+    case 9: return leftleft;
+    case 10: return TruncDiv2(left + topleft);
+    case 11: return TruncDiv2(top + topleft);
+    case 12: return TruncDiv2(top + topright);
+    default:
+      // Rust `/ 16` truncates toward zero
+      return (6 * top - 2 * toptop + 7 * left + leftleft + toprightright +
+              3 * topright + 8) / 16;
+  }
+}
+
+struct TreeNode {
+  int32_t property, splitval, lchild, rchild, predictor, offset, multiplier, ctx;
+};
+
+struct ChannelDesc {
+  int64_t w, h, shift0, shift1, row_stride, offset;  // offset into out buffer
+};
+
+// Copy `tree` with splits on per-channel-constant properties (0 = channel
+// index, 1 = stream id) statically resolved (ref
+// decode/specialized_trees.rs filter_for_channel): the per-pixel walk
+// then skips those levels, and channels whose subtree drops WP or pixel
+// properties skip computing them entirely. Iterative (adversarial trees
+// can be deep chains). Child indices in the source strictly increase, so
+// resolution terminates.
+void PruneTreeForChannel(const TreeNode* tree, int32_t ch, int32_t sid,
+                         std::vector<TreeNode>& out, std::vector<int>& stack) {
+  auto resolve = [&](int idx) {
+    for (;;) {
+      const TreeNode& n = tree[idx];
+      if (n.property == 0)
+        idx = ch > n.splitval ? n.lchild : n.rchild;
+      else if (n.property == 1)
+        idx = sid > n.splitval ? n.lchild : n.rchild;
+      else
+        return idx;
+    }
+  };
+  out.clear();
+  stack.clear();
+  out.push_back(tree[resolve(0)]);
+  if (out[0].property >= 0) stack.push_back(0);
+  while (!stack.empty()) {
+    int my = stack.back();
+    stack.pop_back();
+    int l = resolve(out[my].lchild);
+    int r = resolve(out[my].rchild);
+    out[my].lchild = (int)out.size();
+    out.push_back(tree[l]);
+    if (tree[l].property >= 0) stack.push_back((int)out.size() - 1);
+    out[my].rchild = (int)out.size();
+    out.push_back(tree[r]);
+    if (tree[r].property >= 0) stack.push_back((int)out.size() - 1);
+  }
+}
+
+constexpr int kNumNonrefProps = 16;
+
+}  // namespace
+
+extern "C" {
+
+// Decode `count` clustered unsigned values at a FIXED context (e.g. the
+// entropy-coded context map, ref entropy_coding/context_map.rs:43-76).
+// Returns 0 on success; 1 = entropy error; 2 = overrun.
+int jxl_read_unsigned_run(
+    const uint8_t* data, uint64_t size, uint64_t* bit_pos,
+    int use_prefix, const int32_t* ans_tables, int ans_table_size,
+    int ans_log_bucket, const int32_t* huff_offsets, const int32_t* huff_bits,
+    const int32_t* huff_values, const uint8_t* context_map, int num_contexts,
+    const int32_t* uint_configs, int lz77_enabled, uint32_t min_symbol,
+    uint32_t min_length, const int32_t* lz_config, int lz_dist_cluster,
+    uint32_t dist_multiplier, int ctx, int count, uint32_t* out_vals,
+    int check_final) {
+  BitReader br{data, size, *bit_pos};
+  EntropyDecoder dec;
+  dec.use_prefix = use_prefix != 0;
+  dec.ans = AnsTables{ans_tables, ans_table_size, ans_log_bucket,
+                      (1 << ans_log_bucket) - 1};
+  dec.huff = HuffTables{huff_offsets, huff_bits, huff_values};
+  dec.context_map = context_map;
+  dec.num_contexts = num_contexts;
+  std::vector<UintConfig> cfgs;
+  {
+    int n_clusters = 0;
+    for (int i = 0; i < num_contexts; i++)
+      if (context_map[i] + 1 > n_clusters) n_clusters = context_map[i] + 1;
+    cfgs.resize(n_clusters);
+    for (int i = 0; i < n_clusters; i++)
+      cfgs[i] = UintConfig{uint_configs[3 * i], uint_configs[3 * i + 1],
+                           uint_configs[3 * i + 2]};
+  }
+  dec.uint_configs = cfgs.data();
+  dec.lz77 = lz77_enabled != 0;
+  dec.min_symbol = min_symbol;
+  dec.min_length = min_length;
+  dec.dist_multiplier = dist_multiplier;
+  dec.lz_dist_cluster = lz_dist_cluster;
+  if (lz77_enabled)
+    dec.lz_len_config = UintConfig{lz_config[0], lz_config[1], lz_config[2]};
+  dec.Init(br);
+  for (int i = 0; i < count; i++) out_vals[i] = dec.ReadUnsigned(br, ctx);
+  *bit_pos = br.pos;
+  if (dec.error || br.Overrun()) return br.Overrun() ? 2 : 1;
+  if (check_final && !dec.CheckFinal(br)) return 1;
+  return 0;
+}
+
+// Entropy-coded ICC byte stream (ref icc/stream.rs; python twin
+// icc/decode.py read_icc): per-byte context from the previous two bytes,
+// serial by construction — the python reader spent ~2.5 s on half-MB
+// profiles. Returns 0 ok, 1 decode error, 2 overrun, 3 invalid symbol.
+static inline int icc_byte_ctx(int64_t size, uint32_t b1, uint32_t b2) {
+  if (size <= 128) return 0;
+  int p1;
+  if ((b1 >= 0x41 && b1 <= 0x5A) || (b1 >= 0x61 && b1 <= 0x7A)) p1 = 0;
+  else if ((b1 >= 0x30 && b1 <= 0x39) || b1 == 0x2E || b1 == 0x2C) p1 = 1;
+  else if (b1 <= 1) p1 = 2 + (int)b1;
+  else if (b1 <= 15) p1 = 4;
+  else if (b1 >= 241 && b1 <= 254) p1 = 5;
+  else if (b1 == 255) p1 = 6;
+  else p1 = 7;
+  int p2;
+  if ((b2 >= 0x41 && b2 <= 0x5A) || (b2 >= 0x61 && b2 <= 0x7A)) p2 = 0;
+  else if ((b2 >= 0x30 && b2 <= 0x39) || b2 == 0x2E || b2 == 0x2C) p2 = 1;
+  else if (b2 <= 15) p2 = 2;
+  else if (b2 >= 241) p2 = 3;
+  else p2 = 4;
+  return 1 + p1 + 8 * p2;
+}
+
+int jxl_decode_icc(
+    const uint8_t* data, uint64_t size, uint64_t* bit_pos,
+    int use_prefix, const int32_t* ans_tables, int ans_table_size,
+    int ans_log_bucket, const int32_t* huff_offsets, const int32_t* huff_bits,
+    const int32_t* huff_values, const uint8_t* context_map, int num_contexts,
+    const int32_t* uint_configs, int lz77_enabled, uint32_t min_symbol,
+    uint32_t min_length, const int32_t* lz_config, int lz_dist_cluster,
+    uint32_t dist_multiplier, int64_t length, uint8_t* out) {
+  BitReader br{data, size, *bit_pos};
+  EntropyDecoder dec;
+  dec.use_prefix = use_prefix != 0;
+  dec.ans = AnsTables{ans_tables, ans_table_size, ans_log_bucket,
+                      (1 << ans_log_bucket) - 1};
+  dec.huff = HuffTables{huff_offsets, huff_bits, huff_values};
+  dec.context_map = context_map;
+  dec.num_contexts = num_contexts;
+  std::vector<UintConfig> cfgs;
+  {
+    int n_clusters = 0;
+    for (int i = 0; i < num_contexts; i++)
+      if (context_map[i] + 1 > n_clusters) n_clusters = context_map[i] + 1;
+    cfgs.resize(n_clusters);
+    for (int i = 0; i < n_clusters; i++)
+      cfgs[i] = UintConfig{uint_configs[3 * i], uint_configs[3 * i + 1],
+                           uint_configs[3 * i + 2]};
+  }
+  dec.uint_configs = cfgs.data();
+  dec.lz77 = lz77_enabled != 0;
+  dec.min_symbol = min_symbol;
+  dec.min_length = min_length;
+  dec.dist_multiplier = dist_multiplier;
+  dec.lz_dist_cluster = lz_dist_cluster;
+  if (lz77_enabled)
+    dec.lz_len_config = UintConfig{lz_config[0], lz_config[1], lz_config[2]};
+  dec.Init(br);
+  uint32_t b1 = 0, b2 = 0;
+  for (int64_t i = 0; i < length; i++) {
+    const int ctx = icc_byte_ctx(i, b1, b2);
+    const uint32_t sym = dec.ReadUnsigned(br, ctx);
+    if (sym >= 256) return 3;
+    out[i] = (uint8_t)sym;
+    b2 = b1;
+    b1 = sym;
+  }
+  *bit_pos = br.pos;
+  if (dec.error || br.Overrun()) return br.Overrun() ? 2 : 1;
+  if (!dec.CheckFinal(br)) return 1;
+  return 0;
+}
+
+// Apply a Lehmer code: out_idx[i] = index of the (code[i]+1)-th smallest
+// still-unused element (order-statistics Fenwick tree, ref
+// headers/permutation.rs). Returns 0, or 1 on an invalid code value.
+int jxl_apply_lehmer(const uint32_t* code, int64_t code_len, int64_t n,
+                     int32_t* out_idx) {
+  if (n <= 0) return 1;
+  int64_t padded = 1;
+  while (padded < n) padded <<= 1;
+  std::vector<int32_t> tree(padded);
+  for (int64_t i = 0; i < padded; i++) tree[i] = (int32_t)((i + 1) & -(i + 1));
+  for (int64_t i = 0; i < n; i++) {
+    uint32_t code_i = i < code_len ? code[i] : 0;
+    if ((int64_t)code_i > n - i - 1) return 1;
+    int64_t rank = (int64_t)code_i + 1;
+    int64_t bit = padded;
+    int64_t nxt = 0;
+    while (bit) {
+      int64_t cand = nxt + bit;
+      bit >>= 1;
+      if (cand <= padded && tree[cand - 1] < rank) {
+        nxt = cand;
+        rank -= tree[cand - 1];
+      }
+    }
+    out_idx[i] = (int32_t)nxt;
+    nxt += 1;
+    while (nxt <= padded) {
+      tree[nxt - 1] -= 1;
+      nxt += nxt & -nxt;
+    }
+  }
+  return 0;
+}
+
+// In-place clamped-gradient reconstruction from raw signed residuals
+// (the host fallback for the device wavefront reconstruction; identical
+// math to the gradient-only decode loop below).
+void jxl_gradient_reconstruct(int32_t* p, int64_t h, int64_t w,
+                              int64_t stride) {
+  if (h <= 0 || w <= 0) return;
+  int32_t last = 0;
+  for (int64_t x = 0; x < w; x++) {
+    last += p[x];
+    p[x] = last;
+  }
+  for (int64_t y = 1; y < h; y++) {
+    int32_t* row = p + y * stride;
+    const int32_t* prev = row - stride;
+    int32_t left = prev[0];
+    int32_t topleft = left;
+    for (int64_t x = 0; x < w; x++) {
+      int32_t top = prev[x];
+      int64_t pred = ClampedGradient(left, top, topleft);
+      int32_t val = (int32_t)(pred + row[x]);
+      row[x] = val;
+      left = val;
+      topleft = top;
+    }
+  }
+}
+
+// Returns 0 on success; 1 = entropy error; 2 = overrun.
+// Decodes all channels of one modular sub-bitstream.
+int jxl_decode_modular(
+    const uint8_t* data, uint64_t size, uint64_t* bit_pos,
+    // entropy
+    int use_prefix, const int32_t* ans_tables, int ans_table_size,
+    int ans_log_bucket, const int32_t* huff_offsets, const int32_t* huff_bits,
+    const int32_t* huff_values, const uint8_t* context_map, int num_contexts,
+    const int32_t* uint_configs /* 3 per cluster */, int lz77_enabled,
+    uint32_t min_symbol, uint32_t min_length, const int32_t* lz_config,
+    int lz_dist_cluster, uint32_t dist_multiplier,
+    // tree
+    const int32_t* tree_data, int num_nodes, int num_props,
+    // wp
+    const int32_t* wp_params,
+    // channels
+    int num_channels, const int64_t* chan_info, int32_t* out, int stream_id,
+    // partial decode: number of channels decoded with a safety margin
+    // before the first error (ref decode/bitstream.rs last_safe_buf)
+    int64_t* num_decoded_out,
+    // bit 0: emit raw signed residuals instead of reconstructed values
+    // (honored only for gradient-only trees; the caller checks the tree
+    // shape first — the device wavefront reconstruction consumes these)
+    // bit 2: each ChannelDesc.offset is the channel's absolute base
+    // address in bytes (caller-owned plane written in place, no scratch)
+    int flags) {
+  auto chan_base = [out, flags](const ChannelDesc& cd) -> int32_t* {
+    return (flags & 4) != 0
+               ? reinterpret_cast<int32_t*>(static_cast<intptr_t>(cd.offset))
+               : out + cd.offset;
+  };
+  BitReader br{data, size, *bit_pos};
+  EntropyDecoder dec;
+  dec.use_prefix = use_prefix != 0;
+  dec.ans = AnsTables{ans_tables, ans_table_size, ans_log_bucket,
+                      (1 << ans_log_bucket) - 1};
+  dec.huff = HuffTables{huff_offsets, huff_bits, huff_values};
+  dec.context_map = context_map;
+  dec.num_contexts = num_contexts;
+  std::vector<UintConfig> cfgs;
+  {
+    int n_clusters = 0;
+    for (int i = 0; i < num_contexts; i++)
+      if (context_map[i] + 1 > n_clusters) n_clusters = context_map[i] + 1;
+    cfgs.resize(n_clusters);
+    for (int i = 0; i < n_clusters; i++)
+      cfgs[i] = UintConfig{uint_configs[3 * i], uint_configs[3 * i + 1],
+                           uint_configs[3 * i + 2]};
+  }
+  dec.uint_configs = cfgs.data();
+  dec.lz77 = lz77_enabled != 0;
+  dec.min_symbol = min_symbol;
+  dec.min_length = min_length;
+  dec.dist_multiplier = dist_multiplier;
+  dec.lz_dist_cluster = lz_dist_cluster;
+  if (lz77_enabled) dec.lz_len_config = UintConfig{lz_config[0], lz_config[1], lz_config[2]};
+  dec.Init(br);
+
+  const TreeNode* tree = reinterpret_cast<const TreeNode*>(tree_data);
+  bool single_leaf = num_nodes == 1 || tree[0].property < 0;
+  bool use_wp = false;
+  uint32_t used_props = 0;  // bitmask of properties the tree actually reads
+  bool gradient_only = true;
+  // channel-split tree whose leaves are static simple predictors
+  // (Zero/West/North/Gradient, offset 0, multiplier 1): the residual
+  // stream needs no prediction at all, so raw residuals can be emitted
+  // for the device reconstruction lanes (identity / cumsum / wavefront)
+  bool chan_static = true;
+  for (int i = 0; i < num_nodes; i++) {
+    if (tree[i].property < 0) {
+      if (tree[i].predictor == 6) use_wp = true;
+      if (tree[i].predictor != 5 || tree[i].offset != 0 || tree[i].multiplier != 1)
+        gradient_only = false;
+      int p = tree[i].predictor;
+      if (!(p == 0 || p == 1 || p == 2 || p == 5) || tree[i].offset != 0 ||
+          tree[i].multiplier != 1)
+        chan_static = false;
+    } else {
+      if (tree[i].property < 31) used_props |= 1u << tree[i].property;
+      if (tree[i].property == 15) use_wp = true;
+      if (tree[i].property != 0) { gradient_only = false; chan_static = false; }
+    }
+  }
+
+  const bool need_pos_props = (used_props & (1u << 3)) != 0;
+  const bool need_px_props = (used_props & 0x7ff0u) != 0;   // props 4..14
+  const bool need_hi_props = (used_props & 0x7f00u) != 0;   // props 8..14
+  // prop 9 carries cross-pixel state (old9); only needed for props 8/9
+
+  // Fast-lossless path (ref decode/bitstream.rs:22-137): channel-split
+  // gradient-only tree + RLE prefix codes.
+  bool is_rle = lz77_enabled && dec.use_prefix &&
+                dec.lz_dist_cluster < (int)cfgs.size() &&
+                cfgs[dec.lz_dist_cluster].split_exponent == 0;
+  if (is_rle) {
+    // distance cluster must always decode symbol 1 (single-symbol table)
+    int base = dec.huff.offsets[dec.lz_dist_cluster];
+    if (!(dec.huff.bits[base] == 0 && dec.huff.values[base] == 1)) is_rle = false;
+  }
+  int64_t last_safe = 0;
+  if (num_decoded_out) *num_decoded_out = 0;
+  // margin semantics (ref bitstream.rs:20,68,220): a channel only counts as
+  // safely decoded if >= 32 bits remained when its decode started
+  auto mark_safe = [&](int ci) {
+    if ((int64_t)br.size * 8 - (int64_t)br.pos >= 32) last_safe = ci;
+  };
+  auto fail_partial = [&](int code) {
+    if (num_decoded_out) *num_decoded_out = last_safe;
+    *bit_pos = br.pos;
+    return code;
+  };
+
+  const bool residual_mode = (flags & 1) != 0 && chan_static;
+
+  if (gradient_only && is_rle && !residual_mode) {
+    uint32_t rle_len = 0;
+    int32_t rle_sym = 0;
+    for (int ci = 0; ci < num_channels; ci++) {
+      const ChannelDesc& cd = reinterpret_cast<const ChannelDesc*>(chan_info)[ci];
+      int w = (int)cd.w, h = (int)cd.h;
+      if (w == 0 || h == 0) continue;
+      mark_safe(ci);
+      int32_t* base_ptr = chan_base(cd);
+      int64_t stride = cd.row_stride;
+      // walk tree on property 0 = channel index
+      const TreeNode* node = &tree[0];
+      while (node->property >= 0)
+        node = ci > node->splitval ? &tree[node->lchild] : &tree[node->rchild];
+      int cluster = context_map[node->ctx];
+      int tbl = dec.huff.offsets[cluster];
+      const UintConfig& sym_cfg = cfgs[cluster];
+
+      auto decode_one = [&]() -> int32_t {
+        if (rle_len > 0) {
+          rle_len--;
+        } else {
+          uint32_t peek = (uint32_t)br.Peek(8);
+          int idx = tbl + (int)peek;
+          int nbits = dec.huff.bits[idx];
+          uint32_t sym;
+          if (nbits > 8) {
+            br.pos += 8;
+            idx = tbl + (int)peek + dec.huff.values[idx] + (int)br.Peek(nbits - 8);
+            br.pos += dec.huff.bits[idx];
+            sym = (uint32_t)dec.huff.values[idx];
+          } else {
+            br.pos += nbits;
+            sym = (uint32_t)dec.huff.values[idx];
+          }
+          if (sym >= min_symbol) {
+            uint32_t count = dec.ReadUintCfg(sym - min_symbol, dec.lz_len_config, br);
+            rle_len = count + min_length - 1;
+          } else {
+            uint32_t u = dec.ReadUintCfg(sym, sym_cfg, br);
+            rle_sym = (u & 1) ? -(int32_t)((u + 1) >> 1) : (int32_t)(u >> 1);
+          }
+        }
+        return rle_sym;
+      };
+
+      int32_t last = 0;
+      int32_t* row0 = base_ptr;
+      for (int x = 0; x < w; x++) {
+        last += decode_one();
+        row0[x] = last;
+      }
+      for (int y = 1; y < h; y++) {
+        int32_t* row = base_ptr + (int64_t)y * stride;
+        const int32_t* prev = row - stride;
+        int32_t left = prev[0];
+        int32_t topleft = left;
+        for (int x = 0; x < w; x++) {
+          int32_t top = prev[x];
+          int64_t pred = ClampedGradient(left, top, topleft);
+          int32_t val = (int32_t)(pred + decode_one());
+          row[x] = val;
+          left = val;
+          topleft = top;
+        }
+      }
+      if (br.Overrun()) return fail_partial(2);
+    }
+    *bit_pos = br.pos;
+    if (br.Overrun()) return fail_partial(2);
+    if (num_decoded_out) *num_decoded_out = num_channels;
+    return 0;
+  }
+  // Specialized gradient-only loop, any entropy coder (ref
+  // decode/specialized_trees.rs lattice, the gradient branch): channel-
+  // split trees with pure-gradient leaves skip the generic loop's
+  // per-pixel property vector, neighborhood loads, and tree walk. In
+  // residual_mode prediction is skipped entirely and the raw signed
+  // residuals are emitted — the device wavefront reconstruction
+  // (modular/device_lossless.py) turns them back into pixels.
+  if ((gradient_only || residual_mode) && (flags & 2) == 0) {
+    for (int ci = 0; ci < num_channels; ci++) {
+      const ChannelDesc& cd = reinterpret_cast<const ChannelDesc*>(chan_info)[ci];
+      int w = (int)cd.w, h = (int)cd.h;
+      if (w == 0 || h == 0) continue;
+      mark_safe(ci);
+      int32_t* base_ptr = chan_base(cd);
+      int64_t stride = cd.row_stride;
+      // walk tree on property 0 = channel index, once per channel
+      const TreeNode* node = &tree[0];
+      while (node->property >= 0)
+        node = ci > node->splitval ? &tree[node->lchild] : &tree[node->rchild];
+      int ctx = node->ctx;
+      if (residual_mode) {
+        for (int y = 0; y < h; y++) {
+          int32_t* row = base_ptr + (int64_t)y * stride;
+          for (int x = 0; x < w; x++) row[x] = dec.ReadSigned(br, ctx);
+        }
+      } else {
+        int32_t last = 0;
+        int32_t* row0 = base_ptr;
+        for (int x = 0; x < w; x++) {
+          last += dec.ReadSigned(br, ctx);
+          row0[x] = last;
+        }
+        for (int y = 1; y < h; y++) {
+          int32_t* row = base_ptr + (int64_t)y * stride;
+          const int32_t* prev = row - stride;
+          int32_t left = prev[0];
+          int32_t topleft = left;
+          for (int x = 0; x < w; x++) {
+            int32_t top = prev[x];
+            int64_t pred = ClampedGradient(left, top, topleft);
+            int32_t val = (int32_t)(pred + dec.ReadSigned(br, ctx));
+            row[x] = val;
+            left = val;
+            topleft = top;
+          }
+        }
+      }
+      if (dec.error || br.Overrun()) return fail_partial(br.Overrun() ? 2 : 1);
+    }
+    *bit_pos = br.pos;
+    if (!dec.CheckFinal(br)) return fail_partial(br.Overrun() ? 2 : 1);
+    if (num_decoded_out) *num_decoded_out = num_channels;
+    return 0;
+  }
+
+  int num_ref_props = 0;
+  if (num_props > kNumNonrefProps)
+    num_ref_props = ((num_props - kNumNonrefProps + 3) / 4) * 4;
+
+  // WP-specialized loop (ref decode/specialized_trees.rs lattice, the
+  // WP-on branch): trees that split only on property 15 with all-WEIGHTED
+  // leaves (the shape effort-3+ encoders emit for photographic modular)
+  // skip the generic property vector, the predictor dispatch, and the
+  // unused neighborhood loads entirely.
+  bool wp_only = use_wp && used_props == (1u << 15) && num_ref_props == 0 &&
+                 !single_leaf;
+  if (wp_only)
+    for (int i = 0; i < num_nodes; i++)
+      // leaves may use WEIGHTED or ZERO (effort-3 encoders mix a ZERO
+      // leaf into otherwise WP-only trees); WP state updates either way
+      if (tree[i].property < 0 && tree[i].predictor != 6 &&
+          tree[i].predictor != 0) { wp_only = false; break; }
+  if (wp_only) {
+    // The walk is a BST over one property: flatten it to sorted
+    // thresholds + a rank->leaf table so the per-pixel lookup is a
+    // branchless vectorized compare-count instead of ~6 data-dependent
+    // branches (wp_prop is noise-like, so those branches mispredict).
+    // In-order traversal (rchild = "<= splitval" side first) yields
+    // ascending thresholds on a validated BST.
+    std::vector<int32_t> thr;
+    std::vector<const TreeNode*> rank_leaf;
+    {
+      std::vector<int> st;
+      int idx = 0;
+      for (;;) {
+        while (tree[idx].property >= 0) {
+          st.push_back(idx);
+          idx = tree[idx].rchild;  // lower-value side
+        }
+        rank_leaf.push_back(&tree[idx]);
+        if (st.empty()) break;
+        idx = st.back();
+        st.pop_back();
+        thr.push_back(tree[idx].splitval);
+        idx = tree[idx].lchild;  // higher-value side
+      }
+    }
+    const int nthr = (int)thr.size();
+    const int32_t* tdata = thr.data();
+    const TreeNode* const* leaves = rank_leaf.data();
+    WPState wp;
+    for (int ci = 0; ci < num_channels; ci++) {
+      const ChannelDesc& cd = reinterpret_cast<const ChannelDesc*>(chan_info)[ci];
+      int w = (int)cd.w, h = (int)cd.h;
+      if (w == 0 || h == 0) continue;
+      mark_safe(ci);
+      int32_t* base_ptr = chan_base(cd);
+      int64_t stride = cd.row_stride;
+      wp.Init(wp_params, w);
+      for (int y = 0; y < h; y++) {
+        int32_t* row = base_ptr + (int64_t)y * stride;
+        const int32_t* prev = y > 0 ? row - stride : nullptr;
+        const int32_t* prevprev = y > 1 ? row - 2 * stride : nullptr;
+        for (int x = 0; x < w; x++) {
+          int32_t pd[5];
+          int32_t left = x > 0 ? row[x - 1] : (y > 0 ? prev[0] : 0);
+          if (y > 0) {
+            pd[1] = prev[x];
+            pd[3] = x > 0 ? prev[x - 1] : left;
+            pd[4] = x + 1 < w ? prev[x + 1] : pd[1];
+          } else {
+            pd[1] = pd[3] = pd[4] = left;
+          }
+          pd[0] = left;
+          pd[2] = y > 1 ? prevprev[x] : pd[1];
+          int64_t wp_pred;
+          int32_t wp_prop;
+          wp.PredictAndProperty(x, y, pd, &wp_pred, &wp_prop);
+          int rank = 0;
+          for (int i = 0; i < nthr; i++) rank += (wp_prop > tdata[i]) ? 1 : 0;
+          const TreeNode* node = leaves[rank];
+          int32_t decd = dec.ReadSigned(br, node->ctx);
+          const int64_t base_pred = node->predictor == 6 ? wp_pred : 0;
+          int32_t val =
+              (int32_t)(base_pred + node->offset + (int64_t)node->multiplier * decd);
+          wp.UpdateErrors(val, x, y);
+          row[x] = val;
+        }
+      }
+      if (dec.error || br.Overrun()) return fail_partial(br.Overrun() ? 2 : 1);
+    }
+    *bit_pos = br.pos;
+    if (!dec.CheckFinal(br)) return fail_partial(br.Overrun() ? 2 : 1);
+    if (num_decoded_out) *num_decoded_out = num_channels;
+    return 0;
+  }
+
+  std::vector<int32_t> props(kNumNonrefProps + num_ref_props, 0);
+  props[1] = stream_id;
+
+  std::vector<int32_t> refs;  // per-row: w * num_ref_props
+  std::vector<TreeNode> pruned;
+  std::vector<int> prune_stack;
+
+  WPState wp;
+  for (int ci = 0; ci < num_channels; ci++) {
+    const ChannelDesc& cd = reinterpret_cast<const ChannelDesc*>(chan_info)[ci];
+    int w = (int)cd.w, h = (int)cd.h;
+    if (w == 0 || h == 0) continue;
+    mark_safe(ci);
+    int32_t* base = chan_base(cd);
+    int64_t stride = cd.row_stride;
+    props[0] = ci;
+    // per-channel specialization over the statically pruned subtree
+    PruneTreeForChannel(tree, ci, stream_id, pruned, prune_stack);
+    const TreeNode* ctree = pruned.data();
+    const bool c_single = pruned[0].property < 0;
+    uint32_t c_used = 0;
+    bool c_wp = false;
+    for (const TreeNode& n : pruned) {
+      if (n.property < 0) {
+        if (n.predictor == 6) c_wp = true;
+      } else {
+        if (n.property < 31) c_used |= 1u << n.property;
+        if (n.property == 15) c_wp = true;
+      }
+    }
+    const bool c_pos = (c_used & (1u << 3)) != 0;
+    const bool c_px = (c_used & 0x7ff0u) != 0;
+    const bool c_hi = (c_used & 0x7f00u) != 0;
+    if (c_wp) wp.Init(wp_params, w);
+    if (num_ref_props) refs.assign((size_t)w * num_ref_props, 0);
+
+    for (int y = 0; y < h; y++) {
+      int32_t* row = base + (int64_t)y * stride;
+      const int32_t* prev = y > 0 ? row - stride : nullptr;
+      const int32_t* prevprev = y > 1 ? row - 2 * stride : nullptr;
+
+      if (num_ref_props) {
+        // previous-channel reference properties (ref decode/common.rs)
+        std::memset(refs.data(), 0, refs.size() * sizeof(int32_t));
+        int offset = 0;
+        for (int i = 0; i < ci && offset < num_ref_props; i++) {
+          int j = ci - 1 - i;
+          const ChannelDesc& rd = reinterpret_cast<const ChannelDesc*>(chan_info)[j];
+          if (rd.w != cd.w || rd.h != cd.h || rd.shift0 != cd.shift0 ||
+              rd.shift1 != cd.shift1)
+            continue;
+          const int32_t* rrow = chan_base(rd) + (int64_t)y * rd.row_stride;
+          const int32_t* rprev = y > 0 ? rrow - rd.row_stride : nullptr;
+          for (int x = 0; x < w; x++) {
+            int32_t* r = refs.data() + (size_t)x * num_ref_props + offset;
+            int32_t v = rrow[x];
+            r[0] = v < 0 ? -v : v;
+            r[1] = v;
+            int64_t vleft = x > 0 ? rrow[x - 1] : 0;
+            int64_t vtop = y > 0 ? rprev[x] : vleft;
+            int64_t vtopleft = (x > 0 && y > 0) ? rprev[x - 1] : vleft;
+            int64_t vpred = ClampedGradient(vleft, vtop, vtopleft);
+            int64_t d = (int64_t)v - vpred;
+            r[2] = (int32_t)(d < 0 ? -d : d);
+            r[3] = (int32_t)d;
+          }
+          offset += 4;
+        }
+      }
+
+      props[2] = y;
+      props[9] = 0;
+      // toptop falls back to top (= prev[x]) on row 1, so a pointer
+      // select replaces the per-pixel ternary; the interior x range
+      // (2..w-3, y>0) then loads every neighbor directly — the edge
+      // ternaries cost compares in the hottest loop of squeeze-residual
+      // decode even though they predict perfectly
+      const int32_t* pp = y > 1 ? prevprev : prev;
+      const bool interior_rows = y > 0 && w >= 5;
+      for (int x = 0; x < w; x++) {
+        int32_t pd[7];
+        int32_t left, top, topleft, topright, toprightright, leftleft, toptop;
+        if (interior_rows && x >= 2 && x + 2 < w) {
+          left = row[x - 1];
+          top = prev[x];
+          topleft = prev[x - 1];
+          topright = prev[x + 1];
+          toprightright = prev[x + 2];
+          leftleft = row[x - 2];
+          toptop = pp[x];
+        } else {
+          left = x > 0 ? row[x - 1] : (y > 0 ? prev[0] : 0);
+          if (y > 0) {
+            top = prev[x];
+            topleft = x > 0 ? prev[x - 1] : left;
+            topright = x + 1 < w ? prev[x + 1] : top;
+            toprightright = x + 2 < w ? prev[x + 2] : topright;
+          } else {
+            top = topleft = topright = toprightright = left;
+          }
+          leftleft = x > 1 ? row[x - 2] : left;
+          toptop = y > 1 ? prevprev[x] : top;
+        }
+        pd[0] = left; pd[1] = top; pd[2] = toptop; pd[3] = topleft;
+        pd[4] = topright; pd[5] = leftleft; pd[6] = toprightright;
+
+        int64_t wp_pred = 0;
+        int32_t wp_prop = 0;
+        if (c_wp) wp.PredictAndProperty(x, y, pd, &wp_pred, &wp_prop);
+
+        const TreeNode* leaf;
+        if (c_single) {
+          leaf = &ctree[0];
+        } else {
+          // compute only the properties the pruned subtree actually tests
+          if (c_pos) {
+            props[3] = x;
+          }
+          if (c_px) {
+            props[4] = top < 0 ? -top : top;
+            props[5] = left < 0 ? -left : left;
+            props[6] = top;
+            props[7] = left;
+            if (c_hi) {
+              int32_t old9 = props[9];
+              props[8] = (int32_t)((uint32_t)left - (uint32_t)old9);
+              props[9] = (int32_t)((uint32_t)left + (uint32_t)top - (uint32_t)topleft);
+              props[10] = (int32_t)((uint32_t)left - (uint32_t)topleft);
+              props[11] = (int32_t)((uint32_t)topleft - (uint32_t)top);
+              props[12] = (int32_t)((uint32_t)top - (uint32_t)topright);
+              props[13] = (int32_t)((uint32_t)top - (uint32_t)toptop);
+              props[14] = (int32_t)((uint32_t)left - (uint32_t)leftleft);
+            }
+          }
+          props[15] = wp_prop;
+          if (num_ref_props)
+            std::memcpy(props.data() + kNumNonrefProps,
+                        refs.data() + (size_t)x * num_ref_props,
+                        num_ref_props * sizeof(int32_t));
+          const TreeNode* node = &ctree[0];
+          while (node->property >= 0) {
+            node = props[node->property] > node->splitval ? &ctree[node->lchild]
+                                                          : &ctree[node->rchild];
+          }
+          leaf = node;
+        }
+
+        int64_t guess = PredictOne(leaf->predictor, pd, wp_pred) + leaf->offset;
+        int32_t decd = dec.ReadSigned(br, leaf->ctx);
+        int32_t val = (int32_t)(guess + (int64_t)leaf->multiplier * decd);
+        if (c_wp) wp.UpdateErrors(val, x, y);
+        row[x] = val;
+      }
+    }
+    if (dec.error || br.Overrun()) return fail_partial(br.Overrun() ? 2 : 1);
+  }
+
+  *bit_pos = br.pos;
+  if (!dec.CheckFinal(br)) return fail_partial(br.Overrun() ? 2 : 1);
+  if (num_decoded_out) *num_decoded_out = num_channels;
+  return 0;
+}
+
+// Shared per-item AC coefficient loop (ref frame/group.rs:418-572): for
+// each (block, channel) item, predict the nonzero count from the
+// left/top maps, entropy-decode it, then decode coefficients in coded
+// order with zero-density contexts, accumulating <<shift. Items are rows
+// of 11 ints: [c, sbx, sby, num_blocks, num_coeffs, bctx, context_offset,
+// order_offset, coeffs_offset(absolute), cx, cy]. Returns 0 ok, 3 on
+// invalid nonzeros / end-of-block residual.
+static int DecodeAcItems(EntropyDecoder& dec, BitReader& br, int n_items,
+                         const int32_t* items, const int32_t* orders,
+                         int32_t* coeffs, int shift, int num_bctx,
+                         int32_t* nzeros_maps, const int32_t* nz_dims) {
+  // zero-density context tables (ref block_context_map.rs:21-47)
+  static const int kFreqCtx[64] = {
+      0,  0,  1,  2,  3,  4,  5,  6,  7,  8,  9,  10, 11, 12, 13, 14,
+      15, 15, 16, 16, 17, 17, 18, 18, 19, 19, 20, 20, 21, 21, 22, 22,
+      23, 23, 23, 23, 24, 24, 24, 24, 25, 25, 25, 25, 26, 26, 26, 26,
+      27, 27, 27, 27, 28, 28, 28, 28, 29, 29, 29, 29, 30, 30, 30, 30};
+  static const int kNumNzCtx[64] = {
+      0,   0,   31,  62,  62,  93,  93,  93,  93,  123, 123, 123, 123,
+      152, 152, 152, 152, 152, 152, 152, 152, 180, 180, 180, 180, 180,
+      180, 180, 180, 180, 180, 180, 180, 206, 206, 206, 206, 206, 206,
+      206, 206, 206, 206, 206, 206, 206, 206, 206, 206, 206, 206, 206,
+      206, 206, 206, 206, 206, 206, 206, 206, 206, 206, 206, 206};
+
+  for (int it = 0; it < n_items; it++) {
+    const int32_t* e = items + (int64_t)it * 11;
+    int c = e[0], sbx = e[1], sby = e[2];
+    int num_blocks = e[3], num_coeffs = e[4];
+    int bctx = e[5];
+    int context_offset = e[6];
+    int order_offset = e[7];
+    int coeffs_offset = e[8];
+    int cx = e[9], cy = e[10];
+
+    int log_num_blocks = 0;
+    while ((1 << (log_num_blocks + 1)) <= num_blocks) log_num_blocks++;
+
+    // predicted nonzeros from the per-channel map
+    const int32_t* dims = nz_dims + c * 3;
+    int nzw = dims[0];
+    int32_t* nzmap = nzeros_maps + dims[2];
+    int predicted;
+    if (sbx == 0) {
+      predicted = sby == 0 ? 32 : nzmap[(sby - 1) * nzw];
+    } else if (sby == 0) {
+      predicted = nzmap[sbx - 1];
+    } else {
+      predicted = (nzmap[(sby - 1) * nzw + sbx] + nzmap[sby * nzw + sbx - 1] + 1) / 2;
+    }
+    int nzctx = predicted < 8 ? predicted
+                               : (predicted < 64 ? 4 + predicted / 2 : 36);
+    int nonzero_context = nzctx * num_bctx + bctx + context_offset;
+    uint32_t nonzeros = dec.ReadUnsigned(br, nonzero_context);
+    if (nonzeros + num_blocks > (uint32_t)num_coeffs) return 3;
+    int fill = (int)((nonzeros + num_blocks - 1) / num_blocks);
+    for (int iy = 0; iy < cy; iy++)
+      for (int ix = 0; ix < cx; ix++) nzmap[(sby + iy) * nzw + sbx + ix] = fill;
+
+    // zero-density context base (ref block_context_map.rs:152-155)
+    int histo_base = num_bctx * 37 + 458 * bctx + context_offset;
+    int prev = nonzeros > (uint32_t)(num_coeffs >> 4) ? 0 : 1;
+    const int32_t* order = orders + order_offset;
+    int32_t* cbuf = coeffs + coeffs_offset;
+
+    for (int k = num_blocks; k < num_coeffs && nonzeros > 0; k++) {
+      int nzl = (int)((nonzeros + (1 << log_num_blocks) - 1) >> log_num_blocks);
+      int kn = k >> log_num_blocks;
+      int ctx = histo_base + (kNumNzCtx[nzl & 63] + kFreqCtx[kn & 63]) * 2 + prev;
+      int32_t coeff = dec.ReadSigned(br, ctx) << shift;
+      prev = coeff != 0 ? 1 : 0;
+      nonzeros -= prev;
+      cbuf[order[k]] += coeff;
+    }
+    if (nonzeros != 0) return 3;
+  }
+  return 0;
+}
+
+// VarDCT AC coefficient decode for one (group, pass).
+// Decodes all blocks' coefficients into `coeffs` (3 x GROUP_AREA int32,
+// accumulating <<shift), using the precomputed per-block metadata arrays.
+int jxl_decode_vardct_ac(
+    const uint8_t* data, uint64_t size, uint64_t* bit_pos,
+    // entropy (same packing as above)
+    int use_prefix, const int32_t* ans_tables, int ans_table_size,
+    int ans_log_bucket, const int32_t* huff_offsets, const int32_t* huff_bits,
+    const int32_t* huff_values, const uint8_t* context_map, int num_contexts,
+    const int32_t* uint_configs, int lz77_enabled, uint32_t min_symbol,
+    uint32_t min_length, const int32_t* lz_config, int lz_dist_cluster,
+    uint32_t dist_multiplier,
+    // per-block metadata: n_items rows of 11 ints:
+    //   [c, sbx, sby, num_blocks, num_coeffs, bctx, context_offset,
+    //    order_offset, coeffs_offset(absolute), cx, cy]
+    int n_items, const int32_t* items,
+    const int32_t* orders,  // concatenated coeff orders
+    int32_t* coeffs,        // flat accumulator buffer (absolute offsets)
+    int shift, int num_bctx,
+    int32_t* nzeros_maps, const int32_t* nz_dims /* per channel: w,h,offset */) {
+  BitReader br{data, size, *bit_pos};
+  EntropyDecoder dec;
+  dec.use_prefix = use_prefix != 0;
+  dec.ans = AnsTables{ans_tables, ans_table_size, ans_log_bucket,
+                      (1 << ans_log_bucket) - 1};
+  dec.huff = HuffTables{huff_offsets, huff_bits, huff_values};
+  dec.context_map = context_map;
+  dec.num_contexts = num_contexts;
+  std::vector<UintConfig> cfgs;
+  {
+    int n_clusters = 0;
+    for (int i = 0; i < num_contexts; i++)
+      if (context_map[i] + 1 > n_clusters) n_clusters = context_map[i] + 1;
+    cfgs.resize(n_clusters);
+    for (int i = 0; i < n_clusters; i++)
+      cfgs[i] = UintConfig{uint_configs[3 * i], uint_configs[3 * i + 1],
+                           uint_configs[3 * i + 2]};
+  }
+  dec.uint_configs = cfgs.data();
+  dec.lz77 = lz77_enabled != 0;
+  dec.min_symbol = min_symbol;
+  dec.min_length = min_length;
+  dec.dist_multiplier = dist_multiplier;
+  dec.lz_dist_cluster = lz_dist_cluster;
+  if (lz77_enabled) dec.lz_len_config = UintConfig{lz_config[0], lz_config[1], lz_config[2]};
+  dec.Init(br);
+
+  int ret = DecodeAcItems(dec, br, n_items, items, orders, coeffs, shift,
+                          num_bctx, nzeros_maps, nz_dims);
+  *bit_pos = br.pos;
+  if (ret) return ret;
+  if (!dec.CheckFinal(br)) return br.Overrun() ? 2 : 1;
+  return 0;
+}
+
+int jxl_place_transforms(const int32_t* raw_transforms,
+                         const int32_t* raw_quants, int count, uint8_t* tmap,
+                         int32_t* rqmap, int64_t stride, int w, int h, int ox,
+                         int oy, int is444, const int32_t* cbx,
+                         const int32_t* cby, int num_transform_types);
+
+// Minimal GroupHeader parse for native substream decode (ref
+// headers/modular.rs GroupHeader / python io/headers/modular.py). Fills
+// the 12-int wp-params layout pack order (p1c,p2c,p3ca..p3ce,w0..w3,0)
+// and the transform count; transform params are not parsed — callers
+// bail to Python when num_transforms > 0.
+struct GroupHeaderLite {
+  bool use_global_tree;
+  int32_t wp[12];
+  int num_transforms;
+};
+
+static void ParseGroupHeaderLite(BitReader& br, GroupHeaderLite* gh) {
+  gh->use_global_tree = br.Read(1) != 0;
+  int32_t w[12] = {16, 10, 7, 7, 7, 0, 0, 0xD, 0xC, 0xC, 0xC, 0};
+  if (br.Read(1) == 0) {  // not all_default
+    for (int i = 0; i < 7; i++) w[i] = (int32_t)br.Read(5);
+    for (int i = 7; i < 11; i++) w[i] = (int32_t)br.Read(4);
+  }
+  std::memcpy(gh->wp, w, sizeof w);
+  // U32(Val(0), Val(1), BitsOffset(4, 2), BitsOffset(8, 18))
+  uint32_t sel = (uint32_t)br.Read(2);
+  gh->num_transforms =
+      sel == 0 ? 0
+      : sel == 1 ? 1
+      : sel == 2 ? 2 + (int)br.Read(4)
+                 : 18 + (int)br.Read(8);
+}
+
+// VarDCT LF-group decode: LF coefficients (3-channel modular substream +
+// dequant + CfL at LF + quant-lf context bucketing) and HF metadata
+// (4-channel modular substream: CfL tile maps, transform list, EPF
+// sharpness, then transform placement). Folds the per-group sequence of
+// frame/modular/mod.rs:939-1089 into one call; the modular substreams run
+// through jxl_decode_modular with the global tree.
+//
+// Returns 0 ok; 8 = needs the Python path (local tree, local transforms —
+// caller retries from the ORIGINAL bit position; tmap is only written by
+// the final placement step so a retry sees it untouched); 10 = invalid
+// EPF value; 4..7 = placement errors (same codes as
+// jxl_place_transforms); other codes propagate from the modular decode.
+int jxl_decode_lf_group_vardct(
+    const uint8_t* data, uint64_t size, uint64_t* bit_pos,
+    // entropy of the global tree's histograms (standard packing)
+    int use_prefix, const int32_t* ans_tables, int ans_table_size,
+    int ans_log_bucket, const int32_t* huff_offsets, const int32_t* huff_bits,
+    const int32_t* huff_values, const uint8_t* context_map, int num_contexts,
+    const int32_t* uint_configs, int lz77_enabled, uint32_t min_symbol,
+    uint32_t min_length, const int32_t* lz_config, int lz_dist_cluster,
+    // global tree (packed)
+    const int32_t* tree_data, int num_nodes, int num_props,
+    // stream ids
+    int group, int num_lf_groups,
+    // LF group rect in blocks; bw = full-frame plane stride in blocks
+    int ox, int oy, int w, int h, int bw,
+    const int32_t* hshift3, const int32_t* vshift3, int is444,
+    // dequant factors (already x inv_quant_lf, f64 rounded at use) + CfL
+    const double* lf_factors3, float ytox_lf, float ytob_lf,
+    // quant-lf bucketing thresholds per channel
+    int num_lf_contexts, const int32_t* lf_thr, const int32_t* n_lf_thr,
+    // outputs (full-frame planes)
+    float* lf0, float* lf1, float* lf2, uint8_t* qlfmap,
+    int8_t* ytox_map, int8_t* ytob_map, int64_t tile_stride,
+    uint8_t* tmap, int32_t* rqmap, uint8_t* epf_map,
+    const int32_t* cbx_lut, const int32_t* cby_lut, int invalid_transform) {
+  BitReader br{data, size, *bit_pos};
+  uint32_t extra_precision = (uint32_t)br.Read(2);
+  double mul = 1.0 / (double)(1u << extra_precision);
+
+  GroupHeaderLite gh;
+  ParseGroupHeaderLite(br, &gh);
+  if (!gh.use_global_tree || gh.num_transforms > 0 || br.Overrun()) return 8;
+
+  // ---- LF coefficients: 3-channel modular substream in [Y, X, B] order
+  int cws[3], chs[3];
+  for (int c = 0; c < 3; c++) {
+    cws[c] = w >> hshift3[c];
+    chs[c] = h >> vshift3[c];
+  }
+  static const int kLfOrder[3] = {1, 0, 2};  // stream order Y, X, B
+  int64_t chan_info[3 * 6];
+  int64_t total = 0;
+  int image_width = 0;
+  for (int j = 0; j < 3; j++) {
+    int c = kLfOrder[j];
+    chan_info[j * 6 + 0] = cws[c];
+    chan_info[j * 6 + 1] = chs[c];
+    chan_info[j * 6 + 2] = 0;  // shift
+    chan_info[j * 6 + 3] = 0;
+    chan_info[j * 6 + 4] = cws[c];  // row stride
+    chan_info[j * 6 + 5] = total;
+    total += (int64_t)cws[c] * chs[c];
+    if (cws[c] > image_width) image_width = cws[c];
+  }
+  std::vector<int32_t> scratch((size_t)std::max<int64_t>(total, 1));
+  uint64_t pos = br.pos;
+  int64_t nd = 0;
+  int ret = jxl_decode_modular(
+      data, size, &pos, use_prefix, ans_tables, ans_table_size,
+      ans_log_bucket, huff_offsets, huff_bits, huff_values, context_map,
+      num_contexts, uint_configs, lz77_enabled, min_symbol, min_length,
+      lz_config, lz_dist_cluster, lz77_enabled ? (uint32_t)image_width : 0,
+      tree_data, num_nodes, num_props, gh.wp, 3, chan_info, scratch.data(),
+      /*stream_id=*/1 + group, &nd, /*flags=*/0);
+  if (ret != 0) {
+    *bit_pos = pos;
+    return ret;
+  }
+  br.pos = pos;
+
+  const int32_t* qy = scratch.data() + chan_info[0 * 6 + 5];
+  const int32_t* qx = scratch.data() + chan_info[1 * 6 + 5];
+  const int32_t* qb = scratch.data() + chan_info[2 * 6 + 5];
+
+  if (is444) {
+    float fx = (float)(lf_factors3[0] * mul);
+    float fy = (float)(lf_factors3[1] * mul);
+    float fb = (float)(lf_factors3[2] * mul);
+    for (int y = 0; y < h; y++) {
+      const int32_t* ry = qy + (int64_t)y * w;
+      const int32_t* rx = qx + (int64_t)y * w;
+      const int32_t* rb = qb + (int64_t)y * w;
+      float* o0 = lf0 + (int64_t)(oy + y) * bw + ox;
+      float* o1 = lf1 + (int64_t)(oy + y) * bw + ox;
+      float* o2 = lf2 + (int64_t)(oy + y) * bw + ox;
+      for (int x = 0; x < w; x++) {
+        float in_y = (float)ry[x] * fy;
+        float in_x = (float)rx[x] * fx;
+        float in_b = (float)rb[x] * fb;
+        o1[x] = in_y;
+        float tx = in_y * ytox_lf;
+        o0[x] = tx + in_x;
+        float tb = in_y * ytob_lf;
+        o2[x] = tb + in_b;
+      }
+    }
+  } else {
+    // modular stream order is [Y, X, B]; lf channel c<2 uses stream c^1
+    float* lfs[3] = {lf0, lf1, lf2};
+    const int32_t* srcs[3] = {qy, qx, qb};
+    for (int c = 0; c < 3; c++) {
+      int cw = cws[c], ch = chs[c];
+      float fac = (float)(lf_factors3[c] * mul);
+      const int32_t* src = srcs[c < 2 ? (c ^ 1) : c];
+      int sx = ox >> hshift3[c], sy = oy >> vshift3[c];
+      int sw = cws[c];  // stream plane for channel c has channel-c dims
+      for (int y = 0; y < ch; y++) {
+        const int32_t* r = src + (int64_t)y * sw;
+        float* o = lfs[c] + (int64_t)(sy + y) * bw + sx;
+        for (int x = 0; x < cw; x++) o[x] = (float)r[x] * fac;
+      }
+    }
+  }
+
+  // quant-lf context bucket image (ref modular/mod.rs:903-934)
+  if (num_lf_contexts <= 1) {
+    for (int y = 0; y < h; y++)
+      std::memset(qlfmap + (int64_t)(oy + y) * bw + ox, 0, w);
+  } else {
+    const int32_t* thr0 = lf_thr;
+    const int32_t* thr1 = lf_thr + n_lf_thr[0];
+    const int32_t* thr2 = lf_thr + n_lf_thr[0] + n_lf_thr[1];
+    for (int y = 0; y < h; y++) {
+      uint8_t* o = qlfmap + (int64_t)(oy + y) * bw + ox;
+      const int32_t* px_row = qx + (int64_t)(y >> vshift3[0]) * cws[0];
+      const int32_t* py_row = qy + (int64_t)(y >> vshift3[1]) * cws[1];
+      const int32_t* pb_row = qb + (int64_t)(y >> vshift3[2]) * cws[2];
+      for (int x = 0; x < w; x++) {
+        int32_t px = px_row[x >> hshift3[0]];
+        int32_t py = py_row[x >> hshift3[1]];
+        int32_t pb = pb_row[x >> hshift3[2]];
+        int bucket = 0;
+        for (int i = 0; i < n_lf_thr[0]; i++) bucket += px > thr0[i];
+        int tmp = 0;
+        for (int i = 0; i < n_lf_thr[2]; i++) tmp += pb > thr2[i];
+        bucket = bucket * (n_lf_thr[2] + 1) + tmp;
+        tmp = 0;
+        for (int i = 0; i < n_lf_thr[1]; i++) tmp += py > thr1[i];
+        bucket = bucket * (n_lf_thr[1] + 1) + tmp;
+        o[x] = (uint8_t)bucket;
+      }
+    }
+  }
+
+  // ---- HF metadata (ref modular/mod.rs:992-1089)
+  int64_t upper_bound = (int64_t)w * h;
+  int nbits = 0;
+  while ((1ll << nbits) < upper_bound) nbits++;
+  int64_t count = (int64_t)br.Read(nbits) + 1;
+
+  GroupHeaderLite gh2;
+  ParseGroupHeaderLite(br, &gh2);
+  if (!gh2.use_global_tree || gh2.num_transforms > 0 || br.Overrun()) return 8;
+
+  int cw = (w + 7) / 8, ch2 = (h + 7) / 8;
+  int64_t meta_info[4 * 6];
+  int64_t sizes[4][2] = {{cw, ch2}, {cw, ch2}, {count, 2}, {w, h}};
+  int64_t shifts[4][2] = {{3, 3}, {3, 3}, {-1, -1}, {0, 0}};
+  int64_t mtotal = 0;
+  int mwidth = 0;
+  for (int j = 0; j < 4; j++) {
+    meta_info[j * 6 + 0] = sizes[j][0];
+    meta_info[j * 6 + 1] = sizes[j][1];
+    meta_info[j * 6 + 2] = shifts[j][0];
+    meta_info[j * 6 + 3] = shifts[j][1];
+    meta_info[j * 6 + 4] = sizes[j][0];
+    meta_info[j * 6 + 5] = mtotal;
+    mtotal += sizes[j][0] * sizes[j][1];
+    if (sizes[j][0] > mwidth) mwidth = (int)sizes[j][0];
+  }
+  std::vector<int32_t> meta((size_t)std::max<int64_t>(mtotal, 1));
+  pos = br.pos;
+  ret = jxl_decode_modular(
+      data, size, &pos, use_prefix, ans_tables, ans_table_size,
+      ans_log_bucket, huff_offsets, huff_bits, huff_values, context_map,
+      num_contexts, uint_configs, lz77_enabled, min_symbol, min_length,
+      lz_config, lz_dist_cluster, lz77_enabled ? (uint32_t)mwidth : 0,
+      tree_data, num_nodes, num_props, gh2.wp, 4, meta_info, meta.data(),
+      /*stream_id=*/1 + num_lf_groups * 2 + group, &nd, /*flags=*/0);
+  if (ret != 0) {
+    *bit_pos = pos;
+    return ret;
+  }
+  br.pos = pos;
+
+  const int32_t* mx = meta.data() + meta_info[0 * 6 + 5];
+  const int32_t* mb = meta.data() + meta_info[1 * 6 + 5];
+  const int32_t* mt = meta.data() + meta_info[2 * 6 + 5];
+  const int32_t* me = meta.data() + meta_info[3 * 6 + 5];
+
+  int cox = ox >> 3, coy = oy >> 3;
+  for (int y = 0; y < ch2; y++) {
+    int8_t* oxr = ytox_map + (int64_t)(coy + y) * tile_stride + cox;
+    int8_t* obr = ytob_map + (int64_t)(coy + y) * tile_stride + cox;
+    const int32_t* rx = mx + (int64_t)y * cw;
+    const int32_t* rb = mb + (int64_t)y * cw;
+    for (int x = 0; x < cw; x++) {
+      int32_t vx = rx[x], vb = rb[x];
+      oxr[x] = (int8_t)(vx < -128 ? -128 : vx > 127 ? 127 : vx);
+      obr[x] = (int8_t)(vb < -128 ? -128 : vb > 127 ? 127 : vb);
+    }
+  }
+  for (int y = 0; y < h; y++) {
+    const int32_t* r = me + (int64_t)y * w;
+    uint8_t* o = epf_map + (int64_t)(oy + y) * bw + ox;
+    for (int x = 0; x < w; x++) {
+      int32_t v = r[x];
+      if (v < 0 || v >= 8) return 10;
+      o[x] = (uint8_t)v;
+    }
+  }
+
+  *bit_pos = br.pos;
+  return jxl_place_transforms(mt, mt + count, (int)count, tmap, rqmap, bw, w,
+                              h, ox, oy, is444, cbx_lut, cby_lut,
+                              invalid_transform);
+}
+
+// Whole-frame single-pass VarDCT AC decode: loop the HF group sections
+// natively — per group, read the histogram-selector bits, build the
+// per-block item table straight from the transform/raw-quant/quant-lf
+// maps (the per-group work of frame/group.rs:384-446 + the block-context
+// lookup of block_context_map.rs), run the shared AC item loop, and
+// check the section's final entropy state. This replaces the per-group
+// Python orchestration of the decode fan-out (ref frame/render.rs:373-459)
+// for the dominant single-pass case.
+//
+// sec_data/sec_size/sec_pos: per decoded group, that group's section
+// buffer and in/out bit position. group_ids[i] is the frame group index;
+// slots[i] addresses the coefficient pool: coeffs for (slot, c) live at
+// slot*3*chan_stride + c*chan_stride. Maps tmap/rqmap/qlfmap are
+// full-frame, stride bw. Returns 0 ok, 1 entropy/final-state error,
+// 2 overrun, 3 invalid nonzeros, 4 invalid histogram index.
+int jxl_decode_hf_groups(
+    const void* const* sec_data, const uint64_t* sec_size, uint64_t* sec_pos,
+    int n_dec, const int32_t* group_ids,
+    int bw, int bh, int gxc, int gdim_blocks,
+    const int32_t* hshift3, const int32_t* vshift3,
+    const uint8_t* tmap, const int32_t* rqmap, const uint8_t* qlfmap,
+    const uint8_t* bctx_cmap, int num_bctx, int num_lf_contexts,
+    const int32_t* qf_thr, int num_qf_thr,
+    int num_ac_contexts, int num_histograms,
+    const int32_t* cbx_lut, const int32_t* cby_lut, const int32_t* shape_lut,
+    int use_prefix, const int32_t* ans_tables, int ans_table_size,
+    int ans_log_bucket, const int32_t* huff_offsets, const int32_t* huff_bits,
+    const int32_t* huff_values, const uint8_t* context_map, int num_contexts,
+    const int32_t* uint_configs, int lz77_enabled, uint32_t min_symbol,
+    uint32_t min_length, const int32_t* lz_config, int lz_dist_cluster,
+    const int32_t* orders, const int32_t* order_off, int shift,
+    int32_t* coeff_pool, const int32_t* slots, int64_t chan_stride,
+    // optional per-group block-table export for the render passes:
+    // rows [gbx, gby, tid, coeff_off] per block in raster order;
+    // blk_counts[i] = blocks in group i. Pass null to skip.
+    int32_t* blocks_out, int32_t* blk_counts) {
+  EntropyDecoder dec;
+  dec.use_prefix = use_prefix != 0;
+  dec.ans = AnsTables{ans_tables, ans_table_size, ans_log_bucket,
+                      (1 << ans_log_bucket) - 1};
+  dec.huff = HuffTables{huff_offsets, huff_bits, huff_values};
+  dec.context_map = context_map;
+  dec.num_contexts = num_contexts;
+  std::vector<UintConfig> cfgs;
+  {
+    int n_clusters = 0;
+    for (int i = 0; i < num_contexts; i++)
+      if (context_map[i] + 1 > n_clusters) n_clusters = context_map[i] + 1;
+    cfgs.resize(n_clusters);
+    for (int i = 0; i < n_clusters; i++)
+      cfgs[i] = UintConfig{uint_configs[3 * i], uint_configs[3 * i + 1],
+                           uint_configs[3 * i + 2]};
+  }
+  dec.uint_configs = cfgs.data();
+  dec.lz77 = lz77_enabled != 0;
+  dec.min_symbol = min_symbol;
+  dec.min_length = min_length;
+  dec.dist_multiplier = 0;  // AC streams never use 2-D special distances
+  dec.lz_dist_cluster = lz_dist_cluster;
+  if (lz77_enabled)
+    dec.lz_len_config = UintConfig{lz_config[0], lz_config[1], lz_config[2]};
+
+  int num_histo_bits = 0;
+  while ((1 << num_histo_bits) < num_histograms) num_histo_bits++;
+  static const int kChanOrder[3] = {1, 0, 2};
+  const int nq1 = num_qf_thr + 1;
+
+  std::vector<int32_t> items;
+  std::vector<int32_t> nzmaps;
+  items.reserve((size_t)gdim_blocks * gdim_blocks * 3 * 11);
+
+  for (int di = 0; di < n_dec; di++) {
+    int g = group_ids[di];
+    BitReader br{(const uint8_t*)sec_data[di], sec_size[di], sec_pos[di]};
+    int gx0 = (g % gxc) * gdim_blocks, gy0 = (g / gxc) * gdim_blocks;
+    int gw = std::min(gdim_blocks, bw - gx0);
+    int gh = std::min(gdim_blocks, bh - gy0);
+
+    uint32_t hidx = (uint32_t)br.Read(num_histo_bits);
+    if (hidx >= (uint32_t)num_histograms) {
+      sec_pos[di] = br.pos;
+      return 4;
+    }
+    int ctx_off = (int)hidx * num_ac_contexts;
+
+    dec.num_to_copy = 0;
+    dec.copy_pos = 0;
+    dec.num_decoded = 0;
+    dec.error = false;
+    dec.Init(br);
+
+    int32_t nzdims[9];
+    int nzoff = 0;
+    for (int c = 0; c < 3; c++) {
+      int w = gw >> hshift3[c], h = gh >> vshift3[c];
+      nzdims[c * 3] = w;
+      nzdims[c * 3 + 1] = h;
+      nzdims[c * 3 + 2] = nzoff;
+      nzoff += w * h;
+    }
+    nzmaps.assign(nzoff, 0);
+
+    items.clear();
+    int64_t slot_base = (int64_t)slots[di] * 3 * chan_stride;
+    int64_t block_off = 0;
+    int32_t* blk_row =
+        blocks_out ? blocks_out + (int64_t)di * gdim_blocks * gdim_blocks * 4
+                   : nullptr;
+    int n_blk = 0;
+    for (int y = 0; y < gh; y++) {
+      const uint8_t* trow = tmap + (int64_t)(gy0 + y) * bw + gx0;
+      const int32_t* rqrow = rqmap + (int64_t)(gy0 + y) * bw + gx0;
+      const uint8_t* qlfrow = qlfmap + (int64_t)(gy0 + y) * bw + gx0;
+      for (int x = 0; x < gw; x++) {
+        uint8_t t = trow[x];
+        if (!(t & 128)) continue;
+        int tid = t & 127;
+        int cx = cbx_lut[tid], cy = cby_lut[tid], shape = shape_lut[tid];
+        int nb = cx * cy, nc = nb * 64;
+        if (blk_row) {
+          blk_row[n_blk * 4] = gx0 + x;
+          blk_row[n_blk * 4 + 1] = gy0 + y;
+          blk_row[n_blk * 4 + 2] = tid;
+          blk_row[n_blk * 4 + 3] = (int32_t)block_off;
+          n_blk++;
+        }
+        int rq = rqrow[x];
+        int qlf = qlfrow[x];
+        int qf_idx = 0;
+        for (int i = 0; i < num_qf_thr; i++) qf_idx += rq > qf_thr[i];
+        for (int j = 0; j < 3; j++) {
+          int c = kChanOrder[j];
+          int hs = hshift3[c], vs = vshift3[c];
+          int sbx = x >> hs, sby = y >> vs;
+          if ((sbx << hs) != x || (sby << vs) != y) continue;
+          int cidx = c < 2 ? (c ^ 1) : 2;
+          int midx = ((cidx * 13 + shape) * nq1 + qf_idx) * num_lf_contexts + qlf;
+          int bctx = bctx_cmap[midx];
+          int32_t row[11] = {c,    sbx,  sby, nb, nc, bctx,
+                             ctx_off, order_off[shape * 3 + c],
+                             (int32_t)(slot_base + (int64_t)c * chan_stride +
+                                       block_off),
+                             cx,   cy};
+          items.insert(items.end(), row, row + 11);
+        }
+        block_off += nc;
+      }
+    }
+
+    if (blk_counts) blk_counts[di] = n_blk;
+
+    int ret = DecodeAcItems(dec, br, (int)(items.size() / 11), items.data(),
+                            orders, coeff_pool, shift, num_bctx,
+                            nzmaps.data(), nzdims);
+    sec_pos[di] = br.pos;
+    if (ret) return ret;
+    if (!dec.CheckFinal(br)) return br.Overrun() ? 2 : 1;
+  }
+  return 0;
+}
+
+// --------------------------------------------- histogram table decode
+// Native decode of a Histograms bundle (ref entropy_coding/{decode,ans,
+// context_map}.rs; python oracle jxl_tpu/entropy/*). ANS only — prefix-
+// coded bundles return NEEDS_PYTHON and the caller falls back.
+
+namespace {
+
+constexpr int kNeedsPython = 8;
+
+int ReadU8v(BitReader& br) {
+  if (!br.Read(1)) return 0;
+  int n = (int)br.Read(3);
+  return (1 << n) + (int)br.Read(n);
+}
+
+struct LogCountLut {
+  uint8_t sym[128];
+  uint8_t len[128];
+  LogCountLut() {
+    static const int codes[14][2] = {
+        {0b10001, 5}, {0b1011, 4}, {0b1111, 4}, {0b0011, 4}, {0b1001, 4},
+        {0b0111, 4},  {0b100, 3},  {0b010, 3},  {0b101, 3},  {0b110, 3},
+        {0b000, 3},   {0b100001, 6}, {0b0000001, 7}, {0b1000001, 7}};
+    for (int i = 0; i < 128; i++) { sym[i] = 0; len[i] = 0; }
+    for (int s = 0; s < 14; s++) {
+      int code = codes[s][0], length = codes[s][1];
+      for (int high = 0; high < (1 << (7 - length)); high++) {
+        int idx = (high << length) | code;
+        sym[idx] = (uint8_t)s;
+        len[idx] = (uint8_t)length;
+      }
+    }
+  }
+};
+
+// Decode one distribution summing to 4096 (ref ans.rs / python
+// decode_distribution). Returns 0 ok / 1 error.
+int DecodeDistribution(BitReader& br, int table_size, int32_t* dist) {
+  static const LogCountLut lut;
+  for (int i = 0; i < table_size; i++) dist[i] = 0;
+  if (br.Read(1)) {
+    if (br.Read(1)) {
+      int v0 = ReadU8v(br);
+      int v1 = ReadU8v(br);
+      if (v0 == v1 || v0 >= table_size || v1 >= table_size) return 1;
+      int prob = (int)br.Read(12);
+      dist[v0] = prob;
+      dist[v1] = 4096 - prob;
+    } else {
+      int val = ReadU8v(br);
+      if (val >= table_size) return 1;
+      dist[val] = 4096;
+    }
+    return 0;
+  }
+  if (br.Read(1)) {
+    int alphabet = ReadU8v(br) + 1;
+    if (alphabet > table_size) return 1;
+    int base = 4096 / alphabet, rem = 4096 % alphabet;
+    for (int i = 0; i < alphabet; i++) dist[i] = base + (i < rem ? 1 : 0);
+    return 0;
+  }
+  // complex with RLE
+  int length = 0;
+  while (length < 3 && br.Read(1)) length++;
+  int shift = (int)br.Read(length) + (1 << length) - 1;
+  if (shift > 13) return 1;
+  int alphabet = ReadU8v(br) + 3;
+  if (alphabet > table_size) return 1;
+  int logcounts[256];
+  bool same[256];
+  for (int i = 0; i < alphabet; i++) { logcounts[i] = 0; same[i] = false; }
+  int omit_pos = -1, omit_log = -1;
+  int idx = 0;
+  while (idx < alphabet) {
+    uint32_t peek = (uint32_t)br.Peek(7);
+    int sym = lut.sym[peek];
+    br.pos += lut.len[peek];
+    if (sym == 13) {
+      int repeat = ReadU8v(br) + 4;
+      if (idx + repeat > alphabet) return 1;
+      for (int i = idx; i < idx + repeat; i++) same[i] = true;
+      idx += repeat;
+      continue;
+    }
+    logcounts[idx] = sym;
+    if (sym > omit_log) { omit_log = sym; omit_pos = idx; }
+    idx++;
+  }
+  if (omit_pos < 0 || (omit_pos + 1 < alphabet && same[omit_pos + 1])) return 1;
+  int64_t acc = 0;
+  int prev = 0;
+  for (int i = 0; i < alphabet; i++) {
+    if (same[i]) {
+      dist[i] = prev;
+      acc += prev;
+      if (acc >= 4096) return 1;
+      continue;
+    }
+    int code = logcounts[i];
+    if (code == 0) { prev = 0; continue; }
+    if (i == omit_pos) { prev = 0; continue; }
+    if (code > 1) {
+      int zeros = code - 1;
+      int bitcount = shift - ((12 - zeros) >> 1);
+      if (bitcount < 0) bitcount = 0;
+      if (bitcount > zeros) bitcount = zeros;
+      code = (1 << zeros) + ((int)br.Read(bitcount) << (zeros - bitcount));
+    }
+    dist[i] = code;
+    prev = code;
+    acc += code;
+    if (acc >= 4096) return 1;
+  }
+  dist[omit_pos] = (int32_t)(4096 - acc);
+  return 0;
+}
+
+// Vose alias build (mirror python _build_alias_map exactly, incl. LIFO
+// stack order). rows: dist, alias_symbol, alias_offset, alias_cutoff,
+// alias_dist, each table_size long, laid out contiguously.
+void BuildAliasMap(int table_size, int bucket_size, int32_t* t) {
+  int32_t* dist = t;
+  int32_t* a_sym = t + table_size;
+  int32_t* a_off = t + 2 * table_size;
+  int32_t* a_cut = t + 3 * table_size;
+  int32_t* a_dst = t + 4 * table_size;
+  // degenerate single-symbol
+  for (int i = 0; i < table_size; i++) {
+    if (dist[i] == 4096) {
+      for (int j = 0; j < table_size; j++) {
+        a_sym[j] = i;
+        a_cut[j] = 0;
+        a_off[j] = bucket_size * j;
+        a_dst[j] = 4096;
+      }
+      return;
+    }
+  }
+  int32_t cutoff[256];
+  int32_t symbol[256];
+  int32_t offset[256];
+  for (int i = 0; i < table_size; i++) {
+    cutoff[i] = dist[i];
+    symbol[i] = i;
+    offset[i] = 0;
+  }
+  int under[256], over[256];
+  int nu = 0, no = 0;
+  for (int i = 0; i < table_size; i++) {
+    if (cutoff[i] < bucket_size) under[nu++] = i;
+    else if (cutoff[i] > bucket_size) over[no++] = i;
+  }
+  while (no > 0 && nu > 0) {
+    int o = over[--no];
+    int u = under[--nu];
+    int by = bucket_size - cutoff[u];
+    cutoff[o] -= by;
+    symbol[u] = o;
+    offset[u] = cutoff[o];
+    if (cutoff[o] < bucket_size) under[nu++] = o;
+    else if (cutoff[o] > bucket_size) over[no++] = o;
+  }
+  for (int i = 0; i < table_size; i++) {
+    if (cutoff[i] == bucket_size) {
+      a_sym[i] = i;
+      a_cut[i] = bucket_size;
+      a_off[i] = 0;
+      a_dst[i] = dist[i];
+    } else {
+      a_sym[i] = symbol[i];
+      a_cut[i] = cutoff[i];
+      a_off[i] = offset[i] - cutoff[i];
+      a_dst[i] = dist[symbol[i]];
+    }
+  }
+}
+
+// Read a HybridUint config (ref hybrid_uint.rs / python HybridUint.decode).
+int CeilLog2i(int x) {
+  if (x <= 1) return 0;
+  int b = 0;
+  x -= 1;
+  while (x) { b++; x >>= 1; }
+  return b;
+}
+
+int DecodeUintConfig(BitReader& br, int log_alpha, int32_t* cfg3) {
+  int se = (int)br.Read(CeilLog2i(log_alpha + 1));
+  int msb = 0, lsb = 0;
+  if (se != log_alpha) {
+    msb = (int)br.Read(CeilLog2i(se + 1));
+    if (msb > se) return 1;
+    lsb = (int)br.Read(CeilLog2i(se - msb + 1));
+  }
+  if (lsb + msb > se) return 1;
+  cfg3[0] = se; cfg3[1] = msb; cfg3[2] = lsb;
+  return 0;
+}
+
+// U32 selectors for the LZ77 header (ref decode.rs Lz77Params)
+uint32_t ReadLzMinSymbol(BitReader& br) {
+  switch (br.Read(2)) {
+    case 0: return 224;
+    case 1: return 512;
+    case 2: return 4096;
+    default: return (uint32_t)br.Read(15) + 8;
+  }
+}
+uint32_t ReadLzMinLength(BitReader& br) {
+  switch (br.Read(2)) {
+    case 0: return 3;
+    case 1: return 4;
+    case 2: return (uint32_t)br.Read(2) + 5;
+    default: return (uint32_t)br.Read(8) + 9;
+  }
+}
+
+// ---- Brotli-style prefix codes (ref entropy_coding/huffman.rs) ----------
+
+constexpr int kHuffMaxBits = 15;
+constexpr int kHuffTableBits = 8;
+constexpr int kHuffTableSize = 1 << kHuffTableBits;
+
+int DecodeVarint16(BitReader& br) {
+  if (!br.Read(1)) return 0;
+  int nbits = (int)br.Read(4);
+  if (nbits == 0) return 1;
+  return (1 << nbits) + (int)br.Read(nbits);
+}
+
+int NextKey(int key, int length) {
+  int step = 1 << (length - 1);
+  while (key & step) step >>= 1;
+  return step ? (key & (step - 1)) + step : 0;
+}
+
+int NextTableBits(const int* counts, int length, int root_bits) {
+  int left = 1 << (length - root_bits);
+  while (length < kHuffMaxBits) {
+    if (left <= counts[length]) break;
+    left -= counts[length];
+    length += 1;
+    left <<= 1;
+  }
+  return length - root_bits;
+}
+
+// Build the two-level table from code lengths (mirror of python
+// Table.from_code_lengths). Appends to bits/values vectors.
+int HuffFromCodeLengths(int root_bits, const std::vector<int>& code_lengths,
+                        std::vector<int32_t>& bits,
+                        std::vector<int32_t>& values) {
+  if ((int)code_lengths.size() > (1 << kHuffMaxBits)) return 1;
+  int counts[kHuffMaxBits + 1] = {0};
+  for (int v : code_lengths) counts[v]++;
+  int offsets[kHuffMaxBits + 1] = {0};
+  int max_length = 1, total = 0;
+  for (int length = 1; length <= kHuffMaxBits; length++) {
+    offsets[length] = total;
+    if (counts[length]) {
+      total += counts[length];
+      max_length = length;
+    }
+  }
+  std::vector<int> sorted_syms(code_lengths.size(), 0);
+  for (int sym = 0; sym < (int)code_lengths.size(); sym++) {
+    int length = code_lengths[sym];
+    if (length) sorted_syms[offsets[length]++] = sym;
+  }
+
+  int table_bits = root_bits;
+  int table_size = 1 << table_bits;
+  bits.assign(table_size, 0);
+  values.assign(table_size, 0);
+
+  if (counts[kHuffMaxBits] == 0 && total == 1) {
+    for (int i = 0; i < table_size; i++) values[i] = sorted_syms[0];
+    return 0;
+  }
+
+  int cc[kHuffMaxBits + 1];
+  for (int i = 0; i <= kHuffMaxBits; i++) cc[i] = counts[i];
+  if (table_bits > max_length) {
+    table_bits = max_length;
+    table_size = 1 << table_bits;
+  }
+
+  int key = 0, sym_idx = 0, step = 2;
+  for (int length = 1; length <= table_bits; length++) {
+    while (cc[length]) {
+      int value = sorted_syms[sym_idx++];
+      for (int pos = key; pos < table_size; pos += step) {
+        bits[pos] = length;
+        values[pos] = value;
+      }
+      key = NextKey(key, length);
+      cc[length]--;
+    }
+    step <<= 1;
+  }
+
+  int full_root = 1 << root_bits;
+  while (table_size < full_root) {
+    for (int i = 0; i < table_size; i++) {
+      bits[table_size + i] = bits[i];
+      values[table_size + i] = values[i];
+    }
+    table_size <<= 1;
+  }
+  table_size = full_root;
+
+  int mask = full_root - 1;
+  int low = -1, table_pos = 0, sub_size = 0, sub_bits = 0;
+  step = 2;
+  for (int length = root_bits + 1; length <= max_length; length++) {
+    while (cc[length]) {
+      if ((key & mask) != low) {
+        table_pos += sub_size ? sub_size : full_root;
+        sub_bits = NextTableBits(cc, length, root_bits);
+        sub_size = 1 << sub_bits;
+        low = key & mask;
+        bits[low] = sub_bits + root_bits;
+        values[low] = table_pos - low;
+        size_t need = (size_t)table_pos + sub_size;
+        if (bits.size() < need) {
+          bits.resize(need, 0);
+          values.resize(need, 0);
+        }
+      }
+      cc[length]--;
+      int nb = length - root_bits;
+      int value = sorted_syms[sym_idx++];
+      for (int pos = table_pos + (key >> root_bits); pos < table_pos + sub_size;
+           pos += step) {
+        bits[pos] = nb;
+        values[pos] = value;
+      }
+      key = NextKey(key, length);
+    }
+    step <<= 1;
+  }
+  return 0;
+}
+
+struct StaticLenLut {
+  uint8_t sym[16];
+  uint8_t len[16];
+  StaticLenLut() {
+    static const int codes[6][2] = {{0b00, 2},  {0b0111, 4}, {0b011, 3},
+                                    {0b10, 2},  {0b01, 2},   {0b1111, 4}};
+    for (int i = 0; i < 16; i++) { sym[i] = 0; len[i] = 0; }
+    for (int s = 0; s < 6; s++) {
+      int code = codes[s][0], length = codes[s][1];
+      for (int high = 0; high < (1 << (4 - length)); high++) {
+        int idx = (high << length) | code;
+        sym[idx] = (uint8_t)s;
+        len[idx] = (uint8_t)length;
+      }
+    }
+  }
+};
+
+int HuffDecodeOne(BitReader& br, int al_size, std::vector<int32_t>& bits,
+                  std::vector<int32_t>& values) {
+  static const int kOrder[18] = {1, 2, 3,  4,  0,  5,  17, 6,  16,
+                                 7, 8, 9, 10, 11, 12, 13, 14, 15};
+  static const StaticLenLut slut;
+  if (al_size == 1) {
+    bits.assign(kHuffTableSize, 0);
+    values.assign(kHuffTableSize, 0);
+    return 0;
+  }
+  if (al_size >= (1 << kHuffMaxBits)) return 1;
+  int simple_or_skip = (int)br.Read(2);
+  if (simple_or_skip == 1) {
+    int max_bits = CeilLog2i(al_size);
+    int num_symbols = (int)br.Read(2) + 1;
+    int syms[4];
+    for (int i = 0; i < num_symbols; i++) {
+      syms[i] = (int)br.Read(max_bits);
+      if (syms[i] >= al_size) return 1;
+      for (int j = 0; j < i; j++)
+        if (syms[j] == syms[i]) return 1;
+    }
+    bool tree_select = num_symbols == 4 ? br.Read(1) != 0 : false;
+    bits.assign(kHuffTableSize, 0);
+    values.assign(kHuffTableSize, 0);
+    if (num_symbols == 1) {
+      for (int i = 0; i < kHuffTableSize; i++) values[i] = syms[0];
+    } else if (num_symbols == 2) {
+      int a = syms[0] < syms[1] ? syms[0] : syms[1];
+      int b = syms[0] < syms[1] ? syms[1] : syms[0];
+      for (int i = 0; i < kHuffTableSize; i++) {
+        bits[i] = 1;
+        values[i] = (i & 1) ? b : a;
+      }
+    } else if (num_symbols == 3) {
+      int a = syms[0];
+      int b = syms[1] < syms[2] ? syms[1] : syms[2];
+      int cc = syms[1] < syms[2] ? syms[2] : syms[1];
+      for (int i = 0; i < kHuffTableSize; i++) {
+        if ((i & 1) == 0) { bits[i] = 1; values[i] = a; }
+        else if ((i & 3) == 0b01) { bits[i] = 2; values[i] = b; }
+        else { bits[i] = 2; values[i] = cc; }
+      }
+    } else if (!tree_select) {
+      int s[4] = {syms[0], syms[1], syms[2], syms[3]};
+      std::sort(s, s + 4);
+      int vals[4] = {s[0], s[2], s[1], s[3]};
+      for (int i = 0; i < kHuffTableSize; i++) {
+        bits[i] = 2;
+        values[i] = vals[i & 3];
+      }
+    } else {
+      int a = syms[0], b = syms[1];
+      int clo = syms[2] < syms[3] ? syms[2] : syms[3];
+      int chi = syms[2] < syms[3] ? syms[3] : syms[2];
+      for (int i = 0; i < kHuffTableSize; i++) {
+        if ((i & 1) == 0) { bits[i] = 1; values[i] = a; }
+        else if ((i & 3) == 0b01) { bits[i] = 2; values[i] = b; }
+        else if ((i & 7) == 0b011) { bits[i] = 3; values[i] = clo; }
+        else { bits[i] = 3; values[i] = chi; }
+      }
+    }
+    return 0;
+  }
+  // complex: code-length code
+  std::vector<int> cl_lengths(18, 0);
+  int space = 32, num_codes = 0;
+  for (int i = simple_or_skip; i < 18; i++) {
+    if (space <= 0) break;
+    uint32_t peek = (uint32_t)br.Peek(4);
+    int sym = slut.sym[peek];
+    br.pos += slut.len[peek];
+    cl_lengths[kOrder[i]] = sym;
+    if (sym) {
+      space -= 32 >> sym;
+      num_codes++;
+    }
+  }
+  if (num_codes != 1 && space != 0) return 1;
+  // read code lengths with a 5-bit root table over cl_lengths
+  std::vector<int32_t> clb, clv;
+  if (HuffFromCodeLengths(5, cl_lengths, clb, clv)) return 1;
+  std::vector<int> code_lengths(al_size, 0);
+  {
+    int symbol = 0, prev_len = 8, repeat = 0, repeat_len = 0;
+    int space2 = 1 << 15;
+    while (symbol < al_size && space2 > 0) {
+      uint32_t idx = (uint32_t)br.Peek(5);
+      br.pos += clb[idx];
+      int code_len = clv[idx];
+      if (code_len < 16) {
+        repeat = 0;
+        code_lengths[symbol++] = code_len;
+        if (code_len) {
+          prev_len = code_len;
+          space2 -= 32768 >> code_len;
+          if (space2 < 0) return 1;
+        }
+      } else {
+        int extra_bits = code_len - 14;
+        int new_len = code_len == 16 ? prev_len : 0;
+        if (repeat_len != new_len) {
+          repeat = 0;
+          repeat_len = new_len;
+        }
+        int old_repeat = repeat;
+        if (repeat > 0) repeat = (repeat - 2) << extra_bits;
+        repeat += (int)br.Read(extra_bits) + 3;
+        int delta = repeat - old_repeat;
+        if (symbol + delta > al_size) return 1;
+        for (int i = 0; i < delta; i++) code_lengths[symbol + i] = repeat_len;
+        symbol += delta;
+        if (repeat_len) {
+          space2 -= delta << (15 - repeat_len);
+          if (space2 < 0) return 1;
+        }
+      }
+    }
+    if (space2 != 0) return 1;
+  }
+  return HuffFromCodeLengths(kHuffTableBits, code_lengths, bits, values);
+}
+
+// Full bundle decode. Returns 0 ok / 1 error / 2 overrun / 8 needs-python
+// (unused; prefix codes are handled natively too). depth guards the
+// nested context-map recursion.
+int DecodeHistogramsImpl(
+    BitReader& br, int num_contexts, int allow_lz77, int depth,
+    int32_t* meta, int32_t* lz_cfg, uint8_t* context_map,
+    int32_t* uint_cfgs, int32_t* ans_tables, int32_t* singles,
+    std::vector<int32_t>* huff_offsets, std::vector<int32_t>* huff_bits,
+    std::vector<int32_t>* huff_values);
+
+// Entropy-coded context map (ref context_map.rs:43-76).
+// Byte-shift copy of `nbits` starting at `bitpos` (LSB-first). False on
+// overrun. Shared by the table-span caches: a bit-identical span decodes
+// to a bit-identical result, so matching spans skip the decode.
+static bool ExtractBitSpan(const uint8_t* data, uint64_t size, uint64_t bitpos,
+                           uint64_t nbits, std::vector<uint8_t>& out) {
+  if (bitpos + nbits > size * 8) return false;
+  const uint64_t nbytes = (nbits + 7) / 8;
+  out.resize(nbytes);
+  const uint8_t* src = data + (bitpos >> 3);
+  const int shift = (int)(bitpos & 7);
+  if (shift == 0) {
+    std::memcpy(out.data(), src, nbytes);
+  } else {
+    for (uint64_t i = 0; i < nbytes; i++) {
+      uint16_t v = src[i];
+      if ((bitpos >> 3) + i + 1 < size) v |= (uint16_t)src[i + 1] << 8;
+      out[i] = (uint8_t)(v >> shift);
+    }
+  }
+  if (nbits & 7) out[nbytes - 1] &= (uint8_t)((1u << (nbits & 7)) - 1);
+  return true;
+}
+
+int DecodeContextMap(BitReader& br, int num_contexts, int depth,
+                     uint8_t* out_map) {
+  // Per-thread span cache: animation frames typically carry an
+  // identical (RLE-coded) AC context map in every frame's HfGlobal even
+  // when the cluster distributions differ; re-decoding its ~7k entries
+  // per frame costs ~100 us vs ~1 us extract+memcmp.
+  struct CmapCache {
+    uint64_t bits = 0;
+    std::vector<uint8_t> span, cur, map;
+  };
+  // keyed by num_contexts: one frame decodes several map flavors (tree
+  // leaf maps, permutation maps, AC maps) and a single slot would thrash
+  static thread_local std::map<int, CmapCache> cmap_caches;
+  CmapCache& cc = cmap_caches[num_contexts];
+  const uint64_t pos0 = br.pos;
+  if (depth == 0 && cc.bits > 0 &&
+      ExtractBitSpan(br.data, br.size, pos0, cc.bits, cc.cur) &&
+      cc.cur == cc.span) {
+    std::memcpy(out_map, cc.map.data(), (size_t)num_contexts);
+    br.pos = pos0 + cc.bits;
+    return 0;
+  }
+  if (br.Read(1)) {  // simple
+    int bits = (int)br.Read(2);
+    for (int i = 0; i < num_contexts; i++)
+      out_map[i] = bits ? (uint8_t)br.Read(bits) : 0;
+  } else {
+    int use_mtf = (int)br.Read(1);
+    // nested single-context bundle
+    int32_t n_meta[16], n_lz[3], n_cfgs[3 * 8];
+    int32_t n_tables[8 * 5 * 256], n_single[8];
+    uint8_t n_map[8];
+    std::vector<int32_t> n_hoff, n_hbits, n_hvals;
+    int ret = DecodeHistogramsImpl(br, 1, num_contexts > 2, depth + 1, n_meta,
+                                   n_lz, n_map, n_cfgs, n_tables, n_single,
+                                   &n_hoff, &n_hbits, &n_hvals);
+    if (ret != 0) return ret;
+    // run the nested decoder for num_contexts values
+    EntropyDecoder dec;
+    dec.use_prefix = n_meta[10] != 0;
+    int ts = n_meta[8];
+    dec.ans = AnsTables{n_tables, ts, n_meta[9], (1 << n_meta[9]) - 1};
+    if (dec.use_prefix)
+      dec.huff = HuffTables{n_hoff.data(), n_hbits.data(), n_hvals.data()};
+    dec.context_map = n_map;
+    dec.num_contexts = 1 + (n_meta[0] ? 1 : 0);
+    std::vector<UintConfig> cfgs(n_meta[7]);
+    for (int i = 0; i < n_meta[7]; i++)
+      cfgs[i] = UintConfig{n_cfgs[3 * i], n_cfgs[3 * i + 1], n_cfgs[3 * i + 2]};
+    dec.uint_configs = cfgs.data();
+    dec.lz77 = n_meta[0] != 0;
+    dec.min_symbol = (uint32_t)n_meta[1];
+    dec.min_length = (uint32_t)n_meta[2];
+    dec.dist_multiplier = 0;
+    dec.lz_dist_cluster = n_map[dec.num_contexts - 1];
+    if (dec.lz77) dec.lz_len_config = UintConfig{n_lz[0], n_lz[1], n_lz[2]};
+    dec.Init(br);
+    std::vector<uint32_t> vals(num_contexts);
+    for (int i = 0; i < num_contexts; i++) {
+      vals[i] = dec.ReadUnsigned(br, 0);
+      if (vals[i] > 255) return 1;
+    }
+    if (!dec.CheckFinal(br)) return br.Overrun() ? 2 : 1;
+    if (use_mtf) {
+      uint8_t mtf[256];
+      for (int i = 0; i < 256; i++) mtf[i] = (uint8_t)i;
+      for (int i = 0; i < num_contexts; i++) {
+        int index = (int)vals[i];
+        uint8_t v = mtf[index];
+        out_map[i] = v;
+        if (index) {
+          for (int j = index; j > 0; j--) mtf[j] = mtf[j - 1];
+          mtf[0] = v;
+        }
+      }
+    } else {
+      for (int i = 0; i < num_contexts; i++) out_map[i] = (uint8_t)vals[i];
+    }
+  }
+  // holes check: distinct values must be exactly max+1
+  int maxv = 0;
+  bool seen[256] = {false};
+  int distinct = 0;
+  for (int i = 0; i < num_contexts; i++) {
+    if (out_map[i] > maxv) maxv = out_map[i];
+    if (!seen[out_map[i]]) { seen[out_map[i]] = true; distinct++; }
+  }
+  if (distinct != maxv + 1) return 1;
+  if (depth == 0) {
+    cc.bits = br.pos - pos0;
+    ExtractBitSpan(br.data, br.size, pos0, cc.bits, cc.span);
+    cc.map.assign(out_map, out_map + num_contexts);
+  }
+  return 0;
+}
+
+int DecodeHistogramsImpl(
+    BitReader& br, int num_contexts, int allow_lz77, int depth,
+    int32_t* meta, int32_t* lz_cfg, uint8_t* context_map,
+    int32_t* uint_cfgs, int32_t* ans_tables, int32_t* singles,
+    std::vector<int32_t>* huff_offsets, std::vector<int32_t>* huff_bits,
+    std::vector<int32_t>* huff_values) {
+  if (depth > 2) return 1;
+  int lz77 = (int)br.Read(1);
+  uint32_t min_symbol = 0, min_length = 0;
+  lz_cfg[0] = lz_cfg[1] = lz_cfg[2] = 0;
+  if (lz77) {
+    if (!allow_lz77) return 1;
+    min_symbol = ReadLzMinSymbol(br);
+    min_length = ReadLzMinLength(br);
+    if (DecodeUintConfig(br, 8, lz_cfg)) return 1;
+    num_contexts += 1;
+  }
+  if (num_contexts > 1) {
+    int ret = DecodeContextMap(br, num_contexts, depth, context_map);
+    if (ret != 0) return ret;
+  } else {
+    context_map[0] = 0;
+  }
+  int use_prefix = (int)br.Read(1);
+  int log_alpha = use_prefix ? kHuffMaxBits : (int)br.Read(2) + 5;
+  int table_size = use_prefix ? 0 : 1 << log_alpha;
+  int log_bucket = use_prefix ? 0 : 12 - log_alpha;
+  int num_clusters = 0;
+  for (int i = 0; i < num_contexts; i++)
+    if (context_map[i] + 1 > num_clusters) num_clusters = context_map[i] + 1;
+  for (int c = 0; c < num_clusters; c++) {
+    if (DecodeUintConfig(br, log_alpha, uint_cfgs + 3 * c)) return 1;
+  }
+  if (use_prefix) {
+    std::vector<int> sizes(num_clusters);
+    for (int c = 0; c < num_clusters; c++) {
+      sizes[c] = DecodeVarint16(br) + 1;
+      if (sizes[c] >= (1 << kHuffMaxBits)) return 1;
+    }
+    huff_offsets->assign(num_clusters, 0);
+    huff_bits->clear();
+    huff_values->clear();
+    for (int c = 0; c < num_clusters; c++) {
+      std::vector<int32_t> tb, tv;
+      if (HuffDecodeOne(br, sizes[c], tb, tv)) return 1;
+      (*huff_offsets)[c] = (int32_t)huff_bits->size();
+      huff_bits->insert(huff_bits->end(), tb.begin(), tb.end());
+      huff_values->insert(huff_values->end(), tv.begin(), tv.end());
+      singles[c] = tb[0] == 0 ? tv[0] : -1;
+    }
+  } else {
+    int bucket_size = 1 << log_bucket;
+    for (int c = 0; c < num_clusters; c++) {
+      int32_t* t = ans_tables + (int64_t)c * 5 * table_size;
+      if (DecodeDistribution(br, table_size, t)) return 1;
+      singles[c] = -1;
+      for (int i = 0; i < table_size; i++)
+        if (t[i] == 4096) singles[c] = i;
+      BuildAliasMap(table_size, bucket_size, t);
+    }
+  }
+  if (br.Overrun()) return 2;
+  meta[0] = lz77;
+  meta[1] = (int32_t)min_symbol;
+  meta[2] = (int32_t)min_length;
+  meta[6] = log_alpha;
+  meta[7] = num_clusters;
+  meta[8] = table_size;
+  meta[9] = log_bucket;
+  meta[10] = use_prefix;
+  return 0;
+}
+
+}  // namespace
+
+namespace {
+
+// Shared ctypes-args -> EntropyDecoder setup (same packing everywhere).
+void SetupDecoder(EntropyDecoder& dec, std::vector<UintConfig>& cfgs,
+                  int use_prefix, const int32_t* ans_tables,
+                  int ans_table_size, int ans_log_bucket,
+                  const int32_t* huff_offsets, const int32_t* huff_bits,
+                  const int32_t* huff_values, const uint8_t* context_map,
+                  int num_contexts, const int32_t* uint_configs,
+                  int lz77_enabled, uint32_t min_symbol, uint32_t min_length,
+                  const int32_t* lz_config, int lz_dist_cluster,
+                  uint32_t dist_multiplier) {
+  dec.use_prefix = use_prefix != 0;
+  dec.ans = AnsTables{ans_tables, ans_table_size, ans_log_bucket,
+                      (1 << ans_log_bucket) - 1};
+  dec.huff = HuffTables{huff_offsets, huff_bits, huff_values};
+  dec.context_map = context_map;
+  dec.num_contexts = num_contexts;
+  int n_clusters = 0;
+  for (int i = 0; i < num_contexts; i++)
+    if (context_map[i] + 1 > n_clusters) n_clusters = context_map[i] + 1;
+  cfgs.resize(n_clusters);
+  for (int i = 0; i < n_clusters; i++)
+    cfgs[i] = UintConfig{uint_configs[3 * i], uint_configs[3 * i + 1],
+                         uint_configs[3 * i + 2]};
+  dec.uint_configs = cfgs.data();
+  dec.lz77 = lz77_enabled != 0;
+  dec.min_symbol = min_symbol;
+  dec.min_length = min_length;
+  dec.dist_multiplier = dist_multiplier;
+  dec.lz_dist_cluster = lz_dist_cluster;
+  if (lz77_enabled)
+    dec.lz_len_config = UintConfig{lz_config[0], lz_config[1], lz_config[2]};
+}
+
+}  // namespace
+
+#define ENTROPY_PARAMS                                                        \
+  int use_prefix, const int32_t* ans_tables, int ans_table_size,              \
+      int ans_log_bucket, const int32_t* huff_offsets,                        \
+      const int32_t* huff_bits, const int32_t* huff_values,                   \
+      const uint8_t* context_map, int num_contexts,                           \
+      const int32_t* uint_configs, int lz77_enabled, uint32_t min_symbol,     \
+      uint32_t min_length, const int32_t* lz_config, int lz_dist_cluster,     \
+      uint32_t dist_multiplier
+
+#define ENTROPY_ARGS                                                          \
+  use_prefix, ans_tables, ans_table_size, ans_log_bucket, huff_offsets,       \
+      huff_bits, huff_values, context_map, num_contexts, uint_configs,        \
+      lz77_enabled, min_symbol, min_length, lz_config, lz_dist_cluster,       \
+      dist_multiplier
+
+// MA-tree node loop (ref frame/modular/tree.rs:285-363 / python
+// tree.py Tree.read). out_nodes rows: property, splitval, left, right,
+// predictor, offset, multiplier, context (pack_tree layout). Returns 0 ok,
+// 1 entropy error, 2 overrun, 3 invalid value, 9 cap exceeded.
+static int jxl_decode_tree_impl(
+    BitReader& br, EntropyDecoder& dec, int64_t size_limit, int64_t cap,
+    int32_t* out_nodes, int64_t* out_count, int32_t* out_max_prop,
+    uint64_t* bit_pos);
+
+int jxl_decode_tree(
+    const uint8_t* data, uint64_t size, uint64_t* bit_pos, ENTROPY_PARAMS,
+    int64_t size_limit, int64_t cap, int32_t* out_nodes, int64_t* out_count,
+    int32_t* out_max_prop) {
+  BitReader br{data, size, *bit_pos};
+  EntropyDecoder dec;
+  std::vector<UintConfig> cfgs;
+  SetupDecoder(dec, cfgs, ENTROPY_ARGS);
+  dec.Init(br);
+  int ret = jxl_decode_tree_impl(br, dec, size_limit, cap, out_nodes,
+                                 out_count, out_max_prop, bit_pos);
+  if ((ret == 1 || ret == 3) && br.Overrun()) return 2;
+  return ret;
+}
+
+static int jxl_decode_tree_impl(
+    BitReader& br, EntropyDecoder& dec, int64_t size_limit, int64_t cap,
+    int32_t* out_nodes, int64_t* out_count, int32_t* out_max_prop,
+    uint64_t* bit_pos) {
+  int64_t count = 0;
+  int64_t to_decode = 1;
+  int32_t leaf_id = 0;
+  int32_t max_property = 0;
+  while (to_decode > 0) {
+    if (count > size_limit) return 3;
+    if (count >= cap) return 9;
+    to_decode--;
+    int32_t* n = out_nodes + count * 8;
+    uint32_t prop_plus1 = dec.ReadUnsigned(br, 1);
+    if (prop_plus1 > 0) {
+      uint32_t prop = prop_plus1 - 1;
+      if (prop > 255) return 3;
+      if ((int32_t)prop > max_property) max_property = (int32_t)prop;
+      uint32_t sv = dec.ReadUnsigned(br, 0);
+      int32_t splitval =
+          (sv & 1) ? -(int32_t)((sv + 1) >> 1) : (int32_t)(sv >> 1);
+      n[0] = (int32_t)prop;
+      n[1] = splitval;
+      n[2] = (int32_t)(count + to_decode + 1);
+      n[3] = n[2] + 1;
+      n[4] = 0; n[5] = 0; n[6] = 1; n[7] = 0;
+      to_decode += 2;
+    } else {
+      uint32_t pred = dec.ReadUnsigned(br, 2);
+      if (pred >= 16) return 3;
+      uint32_t offu = dec.ReadUnsigned(br, 3);
+      int32_t offset =
+          (offu & 1) ? -(int32_t)((offu + 1) >> 1) : (int32_t)(offu >> 1);
+      uint32_t mul_log = dec.ReadUnsigned(br, 4);
+      if (mul_log >= 31) return 3;
+      uint64_t mul_bits = dec.ReadUnsigned(br, 5);
+      uint64_t multiplier = (mul_bits + 1) << mul_log;
+      if (multiplier > 0xFFFFFFFFull) return 3;
+      n[0] = -1;
+      n[1] = 0; n[2] = 0; n[3] = 0;
+      n[4] = (int32_t)pred;
+      n[5] = offset;
+      n[6] = (int32_t)multiplier;
+      n[7] = leaf_id++;
+    }
+    count++;
+  }
+  if (dec.error || br.Overrun()) return br.Overrun() ? 2 : 1;
+  if (!dec.CheckFinal(br)) return br.Overrun() ? 2 : 1;
+  *bit_pos = br.pos;
+  *out_count = count;
+  *out_max_prop = max_property;
+  return 0;
+}
+
+// Entropy-coded Lehmer permutation codes, several in sequence sharing one
+// decoder state (ref headers/permutation.rs + coeff_order.rs:123-149).
+// Contexts: min(ceil_log2(x + 1), 7). Returns 0 ok; 1/2 entropy errors;
+// 3 invalid size; 9 cap exceeded. out_ends[p] = number of lehmer values.
+static int jxl_read_permutations_impl(
+    BitReader& br, EntropyDecoder& dec, int n_perms, const uint32_t* sizes,
+    const uint32_t* skips, uint32_t* out_lehmer, int64_t cap,
+    int64_t* out_ends, int check_final, uint64_t* bit_pos);
+
+int jxl_read_permutations(
+    const uint8_t* data, uint64_t size, uint64_t* bit_pos, ENTROPY_PARAMS,
+    int n_perms, const uint32_t* sizes, const uint32_t* skips,
+    uint32_t* out_lehmer, int64_t cap, int64_t* out_ends, int check_final) {
+  BitReader br{data, size, *bit_pos};
+  EntropyDecoder dec;
+  std::vector<UintConfig> cfgs;
+  SetupDecoder(dec, cfgs, ENTROPY_ARGS);
+  dec.Init(br);
+  int ret = jxl_read_permutations_impl(br, dec, n_perms, sizes, skips,
+                                       out_lehmer, cap, out_ends, check_final,
+                                       bit_pos);
+  if ((ret == 1 || ret == 3) && br.Overrun()) return 2;
+  return ret;
+}
+
+static int jxl_read_permutations_impl(
+    BitReader& br, EntropyDecoder& dec, int n_perms, const uint32_t* sizes,
+    const uint32_t* skips, uint32_t* out_lehmer, int64_t cap,
+    int64_t* out_ends, int check_final, uint64_t* bit_pos) {
+  auto ctx_of = [](uint32_t x) {
+    int b = 0;
+    uint64_t v = (uint64_t)x + 1;
+    while ((1ull << b) < v) b++;
+    return b < 7 ? b : 7;
+  };
+  int64_t pos = 0;
+  for (int p = 0; p < n_perms; p++) {
+    uint32_t end = dec.ReadUnsigned(br, ctx_of(sizes[p]));
+    if (end > sizes[p] - skips[p]) return 3;
+    out_ends[p] = end;
+    uint32_t prev = 0;
+    for (uint32_t i = 0; i < end; i++) {
+      if (pos >= cap) return 9;
+      uint32_t val = dec.ReadUnsigned(br, ctx_of(prev));
+      out_lehmer[pos++] = val;
+      prev = val;
+    }
+    if (dec.error || br.Overrun()) return br.Overrun() ? 2 : 1;
+  }
+  if (check_final && !dec.CheckFinal(br)) return br.Overrun() ? 2 : 1;
+  *bit_pos = br.pos;
+  return 0;
+}
+
+// ctypes entry: decode a Histograms bundle. See DecodeHistogramsImpl for
+// the output layout; ans_tables must hold num_contexts(+1) * 5 * 256 ints.
+// Prefix-coded bundles emit two-level tables into huff_bits/huff_values
+// (capacity huff_cap each) with per-cluster offsets; meta[11] returns the
+// total entries (rerun with a larger buffer if it exceeds huff_cap).
+int jxl_decode_histograms(
+    const uint8_t* data, uint64_t size, uint64_t* bit_pos, int num_contexts,
+    int allow_lz77, int32_t* meta, int32_t* lz_cfg, uint8_t* context_map,
+    int32_t* uint_cfgs, int32_t* ans_tables, int32_t* singles,
+    int32_t* huff_offsets, int32_t* huff_bits, int32_t* huff_values,
+    int64_t huff_cap) {
+  BitReader br{data, size, *bit_pos};
+  std::vector<int32_t> hoff, hbits, hvals;
+  int ret = DecodeHistogramsImpl(br, num_contexts, allow_lz77, 0, meta, lz_cfg,
+                                 context_map, uint_cfgs, ans_tables, singles,
+                                 &hoff, &hbits, &hvals);
+  // truncated input shows up as garbage-driven validation failures: the
+  // zero-padded reads crossed the end, so report a resumable overrun
+  if (ret == 1 && br.Overrun()) return 2;
+  if (ret != 0) return ret;
+  meta[11] = (int32_t)hbits.size();
+  if (meta[10]) {
+    if ((int64_t)hbits.size() > huff_cap) return 9;  // retry with bigger buf
+    std::memcpy(huff_offsets, hoff.data(), hoff.size() * sizeof(int32_t));
+    std::memcpy(huff_bits, hbits.data(), hbits.size() * sizeof(int32_t));
+    std::memcpy(huff_values, hvals.data(), hvals.size() * sizeof(int32_t));
+  }
+  *bit_pos = br.pos;
+  return ret;
+}
+
+namespace {
+// IEEE binary16 -> float; returns false for NaN/Inf (header F16 fields are
+// invalid when non-finite, ref headers/encodings.rs F16 coder).
+bool F16ToFloat(uint32_t u, float* out) {
+  uint32_t sign = (u >> 15) & 1, exp = (u >> 10) & 31, mant = u & 1023;
+  if (exp == 31) return false;
+  float v = exp == 0 ? std::ldexp((float)mant, -24)
+                     : std::ldexp((float)(mant + 1024), (int)exp - 25);
+  *out = sign ? -v : v;
+  return true;
+}
+
+inline int32_t UnpackSigned(uint32_t u) {
+  return (u & 1) ? -(int32_t)((u + 1) >> 1) : (int32_t)(u >> 1);
+}
+}  // namespace
+
+// LfGlobal table sequence after the feature dictionaries (ref
+// frame/decode.rs:314-434 / python api/frame.py decode_lf_global):
+// LF quant factors, [VarDCT: quantizer params, block context map, color
+// correlation params], the optional global MA tree (tree histograms +
+// node loop + leaf histograms). One call replaces five Python bundle
+// readers per frame; the leaf histograms come back in the same packed
+// layout as jxl_decode_histograms.
+//
+// scal_out (int32[24]): [0] global_scale [1] quant_lf [2] bctx_default
+// [3] num_lf_contexts [4] n_qf_thr [5..7] n_lf_thr per channel
+// [8] bctx map size [9] bctx num_contexts [10] cfl color_factor
+// [11] cfl ytox_lf [12] cfl ytob_lf [13] tree_present [14] tree_count
+// [15] tree max_property.
+// dbl_out (double[8]): [0..2] lf quant factors [3] cfl base_x [4] base_b.
+//
+// Returns 0 ok; 1 entropy error; 2 overrun; 9 = leaf-histograms huff
+// buffer too small (retry bigger, meta[11] holds the needed size);
+// 11 = tree node buffer too small (retry bigger); 20 lf-quant factor too
+// small; 21 invalid context map; 22 too many block contexts; 23 CfL base
+// correlation out of range; 24 non-finite f16; 25 invalid tree value.
+int jxl_decode_lf_global_tables(
+    const uint8_t* data, uint64_t size, uint64_t* bit_pos, int is_vardct,
+    int64_t tree_size_limit, int64_t tree_cap,
+    int32_t* scal_out, double* dbl_out,
+    int32_t* lf_thr_out /* >= 45 */, int32_t* qf_thr_out /* >= 15 */,
+    uint8_t* bctx_map_out /* >= 2496 */, int32_t* tree_nodes_out,
+    int32_t* h_meta, int32_t* h_lz, uint8_t* h_cmap, int32_t* h_cfgs,
+    int32_t* h_tables, int32_t* h_singles, int32_t* h_hoff,
+    int32_t* h_hbits, int32_t* h_hvals, int64_t h_hcap) {
+  BitReader br{data, size, *bit_pos};
+
+  // ---- LF quant factors (ref frame/quantizer.rs LfQuantFactors)
+  static const double kLfQuant[3] = {1.0 / 4096.0, 1.0 / 512.0, 1.0 / 256.0};
+  if (br.Read(1)) {
+    dbl_out[0] = kLfQuant[0];
+    dbl_out[1] = kLfQuant[1];
+    dbl_out[2] = kLfQuant[2];
+  } else {
+    for (int i = 0; i < 3; i++) {
+      float v;
+      if (!F16ToFloat((uint32_t)br.Read(16), &v)) return 24;
+      double q = (double)v / 128.0;
+      if (q < 1e-8) return 20;
+      dbl_out[i] = q;
+    }
+  }
+  if (br.Overrun()) return 2;
+
+  if (is_vardct) {
+    // ---- quantizer params (ref frame/quantizer.rs QuantizerParams)
+    uint32_t sel = (uint32_t)br.Read(2);
+    int32_t gs = sel == 0   ? (int32_t)br.Read(11) + 1
+                 : sel == 1 ? (int32_t)br.Read(11) + 2049
+                 : sel == 2 ? (int32_t)br.Read(12) + 4097
+                            : (int32_t)br.Read(16) + 8193;
+    sel = (uint32_t)br.Read(2);
+    int32_t qlf = sel == 0   ? 16
+                  : sel == 1 ? (int32_t)br.Read(5) + 1
+                  : sel == 2 ? (int32_t)br.Read(8) + 1
+                             : (int32_t)br.Read(16) + 1;
+    scal_out[0] = gs;
+    scal_out[1] = qlf;
+
+    // ---- block context map (ref frame/block_context_map.rs)
+    if (br.Read(1)) {
+      scal_out[2] = 1;  // default map
+    } else {
+      scal_out[2] = 0;
+      int num_lf_contexts = 1;
+      int off = 0;
+      for (int ch = 0; ch < 3; ch++) {
+        int n = (int)br.Read(4);
+        scal_out[5 + ch] = n;
+        for (int i = 0; i < n; i++) {
+          uint32_t s = (uint32_t)br.Read(2);
+          uint32_t u = s == 0   ? (uint32_t)br.Read(4)
+                       : s == 1 ? (uint32_t)br.Read(8) + 16
+                       : s == 2 ? (uint32_t)br.Read(16) + 272
+                                : (uint32_t)br.Read(32) + 65808;
+          lf_thr_out[off++] = UnpackSigned(u);
+        }
+        num_lf_contexts *= n + 1;
+      }
+      int nq = (int)br.Read(4);
+      scal_out[4] = nq;
+      for (int i = 0; i < nq; i++) {
+        uint32_t s = (uint32_t)br.Read(2);
+        int32_t v = s == 0   ? (int32_t)br.Read(2)
+                    : s == 1 ? (int32_t)br.Read(3) + 4
+                    : s == 2 ? (int32_t)br.Read(5) + 12
+                             : (int32_t)br.Read(8) + 44;
+        qf_thr_out[i] = v + 1;
+      }
+      if (br.Overrun()) return 2;
+      if (num_lf_contexts * (nq + 1) > 64) return 21;
+      int msize = 3 * 13 * num_lf_contexts * (nq + 1);
+      int ret = DecodeContextMap(br, msize, 0, bctx_map_out);
+      if (ret != 0) return br.Overrun() ? 2 : 21;
+      int maxv = 0;
+      for (int i = 0; i < msize; i++)
+        if (bctx_map_out[i] > maxv) maxv = bctx_map_out[i];
+      if (maxv + 1 > 16) return 22;
+      scal_out[3] = num_lf_contexts;
+      scal_out[8] = msize;
+      scal_out[9] = maxv + 1;
+    }
+
+    // ---- color correlation params (ref frame/color_correlation_map.rs)
+    if (br.Read(1)) {
+      scal_out[10] = 84;  // default color factor
+      dbl_out[3] = 0.0;
+      dbl_out[4] = 1.0;
+      scal_out[11] = 0;
+      scal_out[12] = 0;
+    } else {
+      uint32_t s = (uint32_t)br.Read(2);
+      scal_out[10] = s == 0   ? 84
+                     : s == 1 ? 256
+                     : s == 2 ? (int32_t)br.Read(8) + 2
+                              : (int32_t)br.Read(16) + 258;
+      float bx, bb;
+      if (!F16ToFloat((uint32_t)br.Read(16), &bx)) return 24;
+      if (!F16ToFloat((uint32_t)br.Read(16), &bb)) return 24;
+      if (bx > 4.0f || bb > 4.0f) return 23;
+      dbl_out[3] = (double)bx;
+      dbl_out[4] = (double)bb;
+      scal_out[11] = (int32_t)br.Read(8) - 128;
+      scal_out[12] = (int32_t)br.Read(8) - 128;
+    }
+    if (br.Overrun()) return 2;
+  }
+
+  // ---- optional global MA tree (ref frame/modular/tree.rs)
+  scal_out[13] = (int32_t)br.Read(1);
+  if (scal_out[13]) {
+    // tree histograms (6 contexts), internal only
+    int32_t t_meta[16], t_lz[3], t_cfgs[3 * 8], t_single[8];
+    uint8_t t_map[8];
+    std::vector<int32_t> t_tables(8 * 5 * 256);
+    std::vector<int32_t> t_hoff, t_hbits, t_hvals;
+    int ret = DecodeHistogramsImpl(br, 6, 1, 0, t_meta, t_lz, t_map, t_cfgs,
+                                   t_tables.data(), t_single, &t_hoff,
+                                   &t_hbits, &t_hvals);
+    if (ret != 0) return br.Overrun() ? 2 : ret;
+    EntropyDecoder dec;
+    dec.use_prefix = t_meta[10] != 0;
+    dec.ans = AnsTables{t_tables.data(), t_meta[8], t_meta[9],
+                        (1 << t_meta[9]) - 1};
+    if (dec.use_prefix)
+      dec.huff = HuffTables{t_hoff.data(), t_hbits.data(), t_hvals.data()};
+    dec.context_map = t_map;
+    dec.num_contexts = 6 + (t_meta[0] ? 1 : 0);
+    std::vector<UintConfig> cfgs(t_meta[7]);
+    for (int i = 0; i < t_meta[7]; i++)
+      cfgs[i] = UintConfig{t_cfgs[3 * i], t_cfgs[3 * i + 1], t_cfgs[3 * i + 2]};
+    dec.uint_configs = cfgs.data();
+    dec.lz77 = t_meta[0] != 0;
+    dec.min_symbol = (uint32_t)t_meta[1];
+    dec.min_length = (uint32_t)t_meta[2];
+    dec.dist_multiplier = 0;
+    dec.lz_dist_cluster = t_map[dec.num_contexts - 1];
+    if (dec.lz77) dec.lz_len_config = UintConfig{t_lz[0], t_lz[1], t_lz[2]};
+    dec.Init(br);
+
+    int64_t count = 0;
+    int32_t max_prop = 0;
+    uint64_t tree_pos = br.pos;
+    ret = jxl_decode_tree_impl(br, dec, tree_size_limit, tree_cap,
+                               tree_nodes_out, &count, &max_prop, &tree_pos);
+    if (ret == 9) return 11;  // node buffer too small: retry bigger
+    if (ret == 3) return br.Overrun() ? 2 : 25;
+    if (ret != 0) return br.Overrun() ? 2 : ret;
+    br.pos = tree_pos;
+    scal_out[14] = (int32_t)count;
+    scal_out[15] = max_prop;
+
+    // leaf histograms ((count+1)/2 contexts) into the packed out arrays
+    std::vector<int32_t> hoff, hbits, hvals;
+    ret = DecodeHistogramsImpl(br, (int)((count + 1) / 2), 1, 0, h_meta, h_lz,
+                               h_cmap, h_cfgs, h_tables, h_singles, &hoff,
+                               &hbits, &hvals);
+    if (ret == 1 && br.Overrun()) return 2;
+    if (ret != 0) return ret;
+    h_meta[11] = (int32_t)hbits.size();
+    if (h_meta[10]) {
+      if ((int64_t)hbits.size() > h_hcap) return 9;
+      std::memcpy(h_hoff, hoff.data(), hoff.size() * sizeof(int32_t));
+      std::memcpy(h_hbits, hbits.data(), hbits.size() * sizeof(int32_t));
+      std::memcpy(h_hvals, hvals.data(), hvals.size() * sizeof(int32_t));
+    }
+  }
+
+  if (br.Overrun()) return 2;
+  *bit_pos = br.pos;
+  return 0;
+}
+
+// 3x3 self-correcting LF smoothing, in place on the three LF planes
+// (ref adaptive_lf_smoothing.rs; python vardct/lf.py). Bit-exact twin of
+// the numpy formulation: same f32 op order, compiled without fp
+// contraction. ~20 small whole-plane numpy passes per frame collapse to
+// one row loop (animations pay this per frame).
+void jxl_adaptive_lf_smooth(float* p0, float* p1, float* p2, int64_t h,
+                            int64_t w, float f0, float f1, float f2,
+                            float w_corner, float w_side, float w_center) {
+  if (h <= 2 || w <= 2) return;
+  float* planes[3] = {p0, p1, p2};
+  const float fac[3] = {f0, f1, f2};
+  const int64_t oh = h - 2, ow = w - 2;
+  std::vector<float> sbuf(3 * oh * ow);
+  std::vector<float> gap(oh * ow, 0.5f);
+  for (int c = 0; c < 3; ++c) {
+    const float* p = planes[c];
+    float* s = sbuf.data() + (size_t)c * oh * ow;
+    const float lfc = fac[c];
+    for (int64_t y = 0; y < oh; ++y) {
+      const float* r0 = p + y * w;
+      const float* r1 = p + (y + 1) * w;
+      const float* r2 = p + (y + 2) * w;
+      float* srow = s + y * ow;
+      float* grow = gap.data() + y * ow;
+      for (int64_t x = 0; x < ow; ++x) {
+        float corner = ((r0[x] + r0[x + 2]) + r2[x]) + r2[x + 2];
+        float side = ((r1[x] + r1[x + 2]) + r0[x + 1]) + r2[x + 1];
+        float mc = r1[x + 1];
+        float sv = corner * w_corner + side * w_side + mc * w_center;
+        srow[x] = sv;
+        float g = fabsf((mc - sv) / lfc);
+        if (g > grow[x]) grow[x] = g;
+      }
+    }
+  }
+  for (int64_t i = 0; i < oh * ow; ++i) {
+    float f = 3.0f - 4.0f * gap[i];
+    gap[i] = f > 0.0f ? f : 0.0f;
+  }
+  for (int c = 0; c < 3; ++c) {
+    float* p = planes[c];
+    const float* s = sbuf.data() + (size_t)c * oh * ow;
+    for (int64_t y = 0; y < oh; ++y) {
+      float* dst = p + (y + 1) * w + 1;
+      const float* srow = s + y * ow;
+      const float* grow = gap.data() + y * ow;
+      for (int64_t x = 0; x < ow; ++x)
+        dst[x] = (srow[x] - dst[x]) * grow[x] + dst[x];
+    }
+  }
+}
+
+// HfGlobal fast path (ref frame/decode.rs:513-583, python
+// vardct/hf_global.py): all-default dequant matrices + a single pass.
+// Reads the matrices' default bit, num_histograms, the pass-0 order
+// selector, the coded coefficient orders (permutation histograms +
+// Lehmer application against caller-supplied natural orders), then the
+// AC histograms in the jxl_decode_histograms packed layout.
+// nat_orders: the 13 natural zig-zag orders concatenated, prefix
+// offsets in nat_off[14] (each size is nb*64 with nb = size/64).
+// orders_out: final coded orders in stream order (ascending ord_idx,
+// then channel 0..2), each nb*64 int32, concatenated.
+// out_info: [0] num_histograms, [1] used_orders (pass 0).
+// Returns 0 ok; 100 = custom dequant matrices (bit_pos untouched --
+// caller re-reads through the Python oracle); 1 entropy error;
+// 2 overrun; 3 invalid permutation; 9 = huff buffer too small
+// (h_meta[11] = needed size, retry bigger).
+int jxl_decode_hf_global(
+    const uint8_t* data, uint64_t size, uint64_t* bit_pos,
+    int num_histo_bits, int num_ac_contexts,
+    const int32_t* nat_orders, const int32_t* nat_off,
+    int32_t* out_info, int32_t* orders_out,
+    int32_t* h_meta, int32_t* h_lz, uint8_t* h_cmap, int32_t* h_cfgs,
+    int32_t* h_tables, int32_t* h_singles, int32_t* h_hoff,
+    int32_t* h_hbits, int32_t* h_hvals, int64_t h_hcap) {
+  BitReader br{data, size, *bit_pos};
+  if (!br.Read(1)) return br.Overrun() ? 2 : 100;
+  int num_histograms = (int)br.Read(num_histo_bits) + 1;
+  out_info[0] = num_histograms;
+  uint32_t sel = (uint32_t)br.Read(2);
+  uint32_t used = sel == 0   ? 0x5Fu
+                  : sel == 1 ? 0x13u
+                  : sel == 2 ? 0u
+                             : (uint32_t)br.Read(13);
+  out_info[1] = (int32_t)used;
+  if (br.Overrun()) return 2;
+
+  if (used) {
+    // permutation histograms (8 contexts), internal only
+    int32_t t_meta[16], t_lz[3], t_cfgs[3 * 16], t_single[16];
+    uint8_t t_map[16];
+    std::vector<int32_t> t_tables(16 * 5 * 256);
+    std::vector<int32_t> t_hoff, t_hbits, t_hvals;
+    int ret = DecodeHistogramsImpl(br, 8, 1, 0, t_meta, t_lz, t_map, t_cfgs,
+                                   t_tables.data(), t_single, &t_hoff,
+                                   &t_hbits, &t_hvals);
+    if (ret != 0) return br.Overrun() ? 2 : ret;
+    EntropyDecoder dec;
+    dec.use_prefix = t_meta[10] != 0;
+    dec.ans = AnsTables{t_tables.data(), t_meta[8], t_meta[9],
+                        (1 << t_meta[9]) - 1};
+    if (dec.use_prefix)
+      dec.huff = HuffTables{t_hoff.data(), t_hbits.data(), t_hvals.data()};
+    dec.context_map = t_map;
+    dec.num_contexts = 8 + (t_meta[0] ? 1 : 0);
+    std::vector<UintConfig> cfgs(t_meta[7]);
+    for (int i = 0; i < t_meta[7]; i++)
+      cfgs[i] = UintConfig{t_cfgs[3 * i], t_cfgs[3 * i + 1], t_cfgs[3 * i + 2]};
+    dec.uint_configs = cfgs.data();
+    dec.lz77 = t_meta[0] != 0;
+    dec.min_symbol = (uint32_t)t_meta[1];
+    dec.min_length = (uint32_t)t_meta[2];
+    dec.dist_multiplier = 0;
+    dec.lz_dist_cluster = t_map[dec.num_contexts - 1];
+    if (dec.lz77) dec.lz_len_config = UintConfig{t_lz[0], t_lz[1], t_lz[2]};
+    dec.Init(br);
+
+    auto ctx_of = [](uint32_t x) {
+      int b = 0;
+      uint64_t v = (uint64_t)x + 1;
+      while ((1ull << b) < v) b++;
+      return b < 7 ? b : 7;
+    };
+    std::vector<uint32_t> code;
+    std::vector<int32_t> idx;
+    int64_t opos = 0;
+    for (int o = 0; o < 13; o++) {
+      if (!((used >> o) & 1)) continue;
+      const int32_t* base = nat_orders + nat_off[o];
+      int size_o = nat_off[o + 1] - nat_off[o];
+      int nb = size_o / 64;
+      for (int c = 0; c < 3; c++) {
+        uint32_t end = dec.ReadUnsigned(br, ctx_of((uint32_t)size_o));
+        if (dec.error || br.Overrun()) return br.Overrun() ? 2 : 1;
+        if (end > (uint32_t)(size_o - nb)) return 3;
+        code.resize(end);
+        uint32_t prev = 0;
+        for (uint32_t i = 0; i < end; i++) {
+          uint32_t val = dec.ReadUnsigned(br, ctx_of(prev));
+          code[i] = val;
+          prev = val;
+        }
+        if (dec.error || br.Overrun()) return br.Overrun() ? 2 : 1;
+        int n = size_o - nb;
+        idx.resize(n);
+        if (jxl_apply_lehmer(code.data(), (int64_t)end, n, idx.data()) != 0)
+          return 3;
+        int32_t* dst = orders_out + opos;
+        for (int i = 0; i < nb; i++) dst[i] = base[i];
+        for (int i = 0; i < n; i++) dst[nb + i] = base[nb + idx[i]];
+        opos += size_o;
+      }
+    }
+    if (!dec.CheckFinal(br)) return br.Overrun() ? 2 : 1;
+  }
+
+  // AC histograms into the caller's packed buffers
+  std::vector<int32_t> hoff, hbits, hvals;
+  int ret = DecodeHistogramsImpl(br, num_histograms * num_ac_contexts, 1, 0,
+                                 h_meta, h_lz, h_cmap, h_cfgs, h_tables,
+                                 h_singles, &hoff, &hbits, &hvals);
+  if (ret == 1 && br.Overrun()) return 2;
+  if (ret != 0) return ret;
+  h_meta[11] = (int32_t)hbits.size();
+  if (h_meta[10]) {
+    if ((int64_t)hbits.size() > h_hcap) return 9;
+    std::memcpy(h_hoff, hoff.data(), hoff.size() * sizeof(int32_t));
+    std::memcpy(h_hbits, hbits.data(), hbits.size() * sizeof(int32_t));
+    std::memcpy(h_hvals, hvals.data(), hvals.size() * sizeof(int32_t));
+  }
+  if (br.Overrun()) return 2;
+  *bit_pos = br.pos;
+  return 0;
+}
+
+// Place VarDCT transforms into the block maps (ref modular/mod.rs:1028-1080):
+// raster scan over the LF-group rect, claiming cy x cx rects per entry and
+// skipping already-covered cells. Returns 0 ok; 4 = count mismatch;
+// 5 = invalid transform; 6 = big block with subsampling; 7 = out of bounds.
+int jxl_place_transforms(
+    const int32_t* raw_transforms, const int32_t* raw_quants, int count,
+    uint8_t* tmap, int32_t* rqmap, int64_t stride, int w, int h, int ox,
+    int oy, int is444, const int32_t* cbx, const int32_t* cby,
+    int num_transform_types) {
+  int num = 0;
+  for (int y = 0; y < h; y++) {
+    uint8_t* trow = tmap + (int64_t)(oy + y) * stride + ox;
+    for (int x = 0; x < w; x++) {
+      if (trow[x] != num_transform_types) continue;  // INVALID marker
+      if (num >= count) return 4;
+      int raw_transform = raw_transforms[num];
+      int rq = raw_quants[num];
+      int raw_quant = 1 + (rq < 0 ? 0 : (rq > 255 ? 255 : rq));
+      if (raw_transform < 0 || raw_transform >= num_transform_types) return 5;
+      int cx = cbx[raw_transform];
+      int cyv = cby[raw_transform];
+      if ((cx > 1 || cyv > 1) && !is444) return 6;
+      int next_gx = (x / 32 + 1) * 32;
+      int next_gy = (y / 32 + 1) * 32;
+      if (x + cx > (w < next_gx ? w : next_gx) ||
+          y + cyv > (h < next_gy ? h : next_gy))
+        return 7;
+      num++;
+      for (int iy = 0; iy < cyv; iy++) {
+        uint8_t* t2 = tmap + (int64_t)(oy + y + iy) * stride + ox + x;
+        int32_t* q2 = rqmap + (int64_t)(oy + y + iy) * stride + ox + x;
+        for (int ix = 0; ix < cx; ix++) {
+          t2[ix] = (uint8_t)raw_transform;
+          q2[ix] = raw_quant;
+        }
+      }
+      trow[x] = (uint8_t)(raw_transform | 128);
+    }
+  }
+  return 0;
+}
+
+// -------------------------------------------------------------- unsqueeze
+
+static inline int64_t SmoothTendency(int64_t b, int64_t a, int64_t n) {
+  int64_t diff = 0;
+  if (b >= a && a >= n) {
+    diff = (4 * b - 3 * n - a + 6) / 12;
+    if (diff - (diff & 1) > 2 * (b - a)) diff = 2 * (b - a) + 1;
+    if (diff + (diff & 1) > 2 * (a - n)) diff = 2 * (a - n);
+  } else if (b <= a && a <= n) {
+    diff = (4 * b - 3 * n - a - 6) / 12;
+    if (diff + (diff & 1) < 2 * (b - a)) diff = 2 * (b - a) - 1;
+    if (diff - (diff & 1) < 2 * (a - n)) diff = 2 * (a - n);
+  }
+  return diff;
+}
+
+static inline void Unsqueeze1(int64_t avg, int64_t res, int64_t next_avg,
+                              int64_t prev, int32_t* a_out, int32_t* b_out) {
+  int64_t tendency = SmoothTendency(prev, avg, next_avg);
+  int64_t diff = res + tendency;
+  int64_t a = avg + diff / 2;
+  *a_out = (int32_t)a;
+  *b_out = (int32_t)(a - diff);
+}
+
+// Horizontal unsqueeze: avg (h x wa), res (h x wr), out (h x wo) where
+// wo = wa + wr. Strides in elements.
+extern "C" int jxl_hsqueeze(const int32_t* avg, int64_t avg_stride,
+                            const int32_t* res, int64_t res_stride,
+                            int32_t* out, int64_t out_stride, int h, int wa,
+                            int wr, int wo) {
+  if (h == 0 || wo == 0) return 0;
+  if (wr == 0) {
+    for (int y = 0; y < h; y++) out[y * out_stride] = avg[y * avg_stride];
+    return 0;
+  }
+  bool has_tail = (wo & 1) != 0;
+  int x_end = has_tail ? wr : wr - 1;
+  for (int y = 0; y < h; y++) {
+    const int32_t* arow = avg + y * avg_stride;
+    const int32_t* rrow = res + y * res_stride;
+    int32_t* orow = out + y * out_stride;
+    int64_t prev = arow[0];
+    for (int x = 0; x < x_end; x++) {
+      int32_t a, b;
+      Unsqueeze1(arow[x], rrow[x], arow[x + 1], prev, &a, &b);
+      orow[2 * x] = a;
+      orow[2 * x + 1] = b;
+      prev = b;
+    }
+    if (has_tail) {
+      orow[2 * wr] = arow[wr];
+    } else {
+      int32_t a, b;
+      Unsqueeze1(arow[wr - 1], rrow[wr - 1], arow[wr - 1], prev, &a, &b);
+      orow[2 * wr - 2] = a;
+      orow[2 * wr - 1] = b;
+    }
+  }
+  return 0;
+}
+
+// Vertical unsqueeze: avg (ha x w), res (hr x w), out (ho x w), ho = ha+hr.
+extern "C" int jxl_vsqueeze(const int32_t* avg, int64_t avg_stride,
+                            const int32_t* res, int64_t res_stride,
+                            int32_t* out, int64_t out_stride, int w, int ha,
+                            int hr, int ho) {
+  if (w == 0 || ho == 0) return 0;
+  if (hr == 0) {
+    std::memcpy(out, avg, sizeof(int32_t) * w);
+    return 0;
+  }
+  bool has_tail = (ho & 1) != 0;
+  int y_end = has_tail ? hr : hr - 1;
+  for (int x = 0; x < w; x++) {
+    int64_t prev = avg[x];
+    for (int y = 0; y < y_end; y++) {
+      int32_t a, b;
+      Unsqueeze1(avg[y * avg_stride + x], res[y * res_stride + x],
+                 avg[(y + 1) * avg_stride + x], prev, &a, &b);
+      out[(2 * y) * out_stride + x] = a;
+      out[(2 * y + 1) * out_stride + x] = b;
+      prev = b;
+    }
+    if (has_tail) {
+      out[(2 * hr) * out_stride + x] = avg[hr * avg_stride + x];
+    } else {
+      int32_t a, b;
+      Unsqueeze1(avg[(hr - 1) * avg_stride + x], res[(hr - 1) * res_stride + x],
+                 avg[(hr - 1) * avg_stride + x], prev, &a, &b);
+      out[(2 * hr - 2) * out_stride + x] = a;
+      out[(2 * hr - 1) * out_stride + x] = b;
+    }
+  }
+  return 0;
+}
+
+// ----------------------------------------------------------- palette apply
+
+static const int16_t kDeltaPalette[72][3] = {
+    {0,0,0},{4,4,4},{11,0,0},{0,0,-13},{0,-12,0},{-10,-10,-10},
+    {-18,-18,-18},{-27,-27,-27},{-18,-18,0},{0,0,-32},{-32,0,0},
+    {-37,-37,-37},{0,-32,-32},{24,24,45},{50,50,50},{-45,-24,-24},
+    {-24,-45,-45},{0,-24,-24},{-34,-34,0},{-24,0,-24},{-45,-45,-24},
+    {64,64,64},{-32,0,-32},{0,-32,0},{-32,0,32},{-24,-45,-24},
+    {45,24,45},{24,-24,-45},{-45,-24,24},{80,80,80},{64,0,0},
+    {0,0,-64},{0,-64,-64},{-24,-24,45},{96,96,96},{64,64,0},
+    {45,-24,-24},{34,-34,0},{112,112,112},{24,-45,-45},{45,45,-24},
+    {0,-32,32},{24,-24,45},{0,96,96},{45,-24,24},{24,-45,-24},
+    {-24,-45,24},{0,-64,0},{96,0,0},{128,128,128},{64,0,64},
+    {144,144,144},{96,96,0},{-36,-36,36},{45,-24,-45},{45,-45,-24},
+    {0,0,-96},{0,128,128},{0,96,0},{45,24,-45},{-128,0,0},
+    {24,-45,24},{-45,24,-45},{64,0,-64},{64,-64,-64},{96,0,96},
+    {45,-45,24},{24,45,-45},{64,64,-64},{128,128,0},{0,0,-128},
+    {-24,45,-45}};
+
+static int32_t GetPaletteValue(const int32_t* palette, int pal_w, int64_t index,
+                               int c, int palette_size, int bit_depth) {
+  if (index < 0) {
+    if (c >= 3) return 0;
+    int64_t i = -(index + 1);
+    i %= 1 + 2 * (72 - 1);
+    int32_t r = kDeltaPalette[(i + 1) >> 1][c] * ((i & 1) ? 1 : -1);
+    if (bit_depth > 8) r *= 1 << (bit_depth - 8);
+    return r;
+  }
+  constexpr int kSmall = 4, kSmallBits = 2, kLarge = 5, kLargeOff = 64;
+  if (index >= palette_size && index < palette_size + kLargeOff) {
+    if (c >= 3) return 0;
+    int64_t i = (index - palette_size) >> (c * kSmallBits);
+    return (int32_t)(((i % kSmall) * (((int64_t)1 << bit_depth) - 1)) >> 2) +
+           (1 << (bit_depth - 3 > 0 ? bit_depth - 3 : 0));
+  }
+  if (index >= palette_size + kLargeOff) {
+    if (c >= 3) return 0;
+    int64_t i = index - palette_size - kLargeOff;
+    if (c == 1) i /= kLarge;
+    else if (c == 2) i /= kLarge * kLarge;
+    return (int32_t)(((i % kLarge) * (((int64_t)1 << bit_depth) - 1)) >> 2);
+  }
+  return palette[(int64_t)c * pal_w + index];
+}
+
+// A run of inverse squeeze steps in one call: recs holds 11 int64 per
+// step, [horizontal, avg_ptr, avg_stride, res_ptr, res_stride, out_ptr,
+// out_stride, p0, p1, p2, p3] with (p0..p3) the trailing int args of
+// jxl_{h,v}squeeze. Steps execute in order (step k's output plane is
+// step k+1's input by pointer). Saves a ctypes round trip per step --
+// animations run ~24 squeeze steps per frame on the alpha channel.
+extern "C" void jxl_squeeze_chain(int n, const int64_t* recs) {
+  for (int i = 0; i < n; ++i) {
+    const int64_t* r = recs + (int64_t)i * 11;
+    if (r[0])
+      jxl_hsqueeze((const int32_t*)r[1], r[2], (const int32_t*)r[3], r[4],
+                   (int32_t*)r[5], r[6], (int)r[7], (int)r[8], (int)r[9],
+                   (int)r[10]);
+    else
+      jxl_vsqueeze((const int32_t*)r[1], r[2], (const int32_t*)r[3], r[4],
+                   (int32_t*)r[5], r[6], (int)r[7], (int)r[8], (int)r[9],
+                   (int)r[10]);
+  }
+}
+
+extern "C" int jxl_palette_apply(const int32_t* idx, int w, int h,
+                                 const int32_t* palette, int pal_w, int c,
+                                 int32_t* out, int num_colors, int num_deltas,
+                                 int predictor, const int32_t* wp_params,
+                                 int bit_depth) {
+  int psz = num_colors + num_deltas;
+  if (predictor == 6) {  // weighted
+    WPState wp;
+    wp.Init(wp_params, w);
+    for (int y = 0; y < h; y++) {
+      int32_t* row = out + (int64_t)y * w;
+      const int32_t* prev = y > 0 ? row - w : nullptr;
+      const int32_t* prevprev = y > 1 ? row - 2 * w : nullptr;
+      const int32_t* irow = idx + (int64_t)y * w;
+      for (int x = 0; x < w; x++) {
+        int32_t index = irow[x];
+        int32_t entry = GetPaletteValue(palette, pal_w, index, c, psz, bit_depth);
+        int32_t pd[7];
+        int32_t left = x > 0 ? row[x - 1] : (y > 0 ? prev[0] : 0);
+        int32_t top, topleft, topright, trr;
+        if (y > 0) {
+          top = prev[x];
+          topleft = x > 0 ? prev[x - 1] : left;
+          topright = x + 1 < w ? prev[x + 1] : top;
+          trr = x + 2 < w ? prev[x + 2] : topright;
+        } else {
+          top = topleft = topright = trr = left;
+        }
+        pd[0] = left; pd[1] = top; pd[2] = y > 1 ? prevprev[x] : top;
+        pd[3] = topleft; pd[4] = topright; pd[5] = x > 1 ? row[x - 2] : left;
+        pd[6] = trr;
+        int64_t wp_pred; int32_t wp_prop;
+        wp.PredictAndProperty(x, y, pd, &wp_pred, &wp_prop);
+        int64_t p = PredictOne(predictor, pd, wp_pred);
+        int32_t val = index < num_deltas ? (int32_t)(p + entry) : entry;
+        row[x] = val;
+        wp.UpdateErrors(val, x, y);
+      }
+    }
+    return 0;
+  }
+  for (int y = 0; y < h; y++) {
+    int32_t* row = out + (int64_t)y * w;
+    const int32_t* prev = y > 0 ? row - w : nullptr;
+    const int32_t* prevprev = y > 1 ? row - 2 * w : nullptr;
+    const int32_t* irow = idx + (int64_t)y * w;
+    for (int x = 0; x < w; x++) {
+      int32_t index = irow[x];
+      int32_t entry = GetPaletteValue(palette, pal_w, index, c, psz, bit_depth);
+      int32_t val;
+      if (index < num_deltas) {
+        int32_t pd[7];
+        int32_t left = x > 0 ? row[x - 1] : (y > 0 ? prev[0] : 0);
+        int32_t top, topleft, topright, trr;
+        if (y > 0) {
+          top = prev[x];
+          topleft = x > 0 ? prev[x - 1] : left;
+          topright = x + 1 < w ? prev[x + 1] : top;
+          trr = x + 2 < w ? prev[x + 2] : topright;
+        } else {
+          top = topleft = topright = trr = left;
+        }
+        pd[0] = left; pd[1] = top; pd[2] = y > 1 ? prevprev[x] : top;
+        pd[3] = topleft; pd[4] = topright; pd[5] = x > 1 ? row[x - 2] : left;
+        pd[6] = trr;
+        val = (int32_t)(PredictOne(predictor, pd, 0) + entry);
+      } else {
+        val = entry;
+      }
+      row[x] = val;
+    }
+  }
+  return 0;
+}
+
+}  // extern "C"
+
+extern "C" {
+
+// Fused dequant + CfL + separable 8x8 IDCT + plane scatter for the
+// dominant 444 single-block DCT type (ref frame/group.rs:138-210
+// dequant_block + jxl_transforms idct2d 8x8). One pass per block with all
+// intermediates in registers/L1 replaces the host pipeline's
+// (N,3,64) gather/dequant temporaries, the dense (N,64)@(64,64) sgemm,
+// and the fancy-index scatter. Exact-semantics TU (no fast-math): the
+// dequant adjustment matches the numpy formulation, the IDCT uses the
+// same 1-D basis matrix (passed in) as transforms_batch.idct2d_batch.
+//
+// q0/q1/q2: per-channel coefficient bases (offs indexes all three);
+// scales: (n,3) x/y/b multipliers; mats: (3,64) dequant matrices;
+// lf: (3,n) DC replacements; idct8: the (8,8) 1-D synthesis matrix;
+// out0/1/2 (+ fidx*frame_stride): f32 planes of width ow.
+int jxl_dct8_fused(
+    const int32_t* q0, const int32_t* q1, const int32_t* q2,
+    const int64_t* offs, int64_t n,
+    const float* scales, const float* xcc, const float* bcc,
+    const float* mats, const float* biases, const float* lf,
+    const float* idct8,
+    float* out0, float* out1, float* out2, int64_t frame_stride,
+    const int32_t* fidx,
+    const int32_t* gbx, const int32_t* gby, int64_t ow) {
+  float* outs[3] = {out0, out1, out2};
+  const int32_t* qs[3] = {q0, q1, q2};
+  const float b3 = biases[3];
+  float dq[3][64];
+  float tmp[64], px[64];
+  for (int64_t i = 0; i < n; ++i) {
+    const int64_t off = offs[i];
+    const float smul[3] = {scales[3 * i], scales[3 * i + 1], scales[3 * i + 2]};
+    // Y first (CfL source), then X/B with the correlation added
+    for (int ci = 0; ci < 3; ++ci) {
+      static const int order[3] = {1, 0, 2};
+      const int c = order[ci];
+      const int32_t* q = qs[c] + off;
+      const float bias = biases[c];
+      const float s = smul[c];
+      const float* m = mats + c * 64;
+      float* d = dq[c];
+      for (int k = 0; k < 64; ++k) {
+        const int32_t qi = q[k];
+        const float qf = (float)qi;
+        const float adj = (qi > -2 && qi < 2) ? qf * bias : qf - b3 / qf;
+        d[k] = adj * m[k] * s;
+      }
+      if (c == 0) {
+        const float cc = xcc[i];
+        for (int k = 0; k < 64; ++k) d[k] += cc * dq[1][k];
+      } else if (c == 2) {
+        const float cc = bcc[i];
+        for (int k = 0; k < 64; ++k) d[k] += cc * dq[1][k];
+      }
+    }
+    const int64_t bx = gbx[i], by = gby[i];
+    const int64_t foff = fidx ? (int64_t)fidx[i] * frame_stride : 0;
+    for (int c = 0; c < 3; ++c) {
+      float* d = dq[c];
+      d[0] = lf[c * n + i];
+      // tmp = A @ S  (S row-major in d)
+      for (int y = 0; y < 8; ++y) {
+        const float* a = idct8 + y * 8;
+        for (int x = 0; x < 8; ++x) {
+          float acc = 0.0f;
+          for (int u = 0; u < 8; ++u) acc += a[u] * d[u * 8 + x];
+          tmp[y * 8 + x] = acc;
+        }
+      }
+      // out = A @ tmp^T
+      for (int y = 0; y < 8; ++y) {
+        const float* a = idct8 + y * 8;
+        for (int x = 0; x < 8; ++x) {
+          float acc = 0.0f;
+          for (int u = 0; u < 8; ++u) acc += a[u] * tmp[x * 8 + u];
+          px[y * 8 + x] = acc;
+        }
+      }
+      float* dst = outs[c] + foff + (by * 8) * ow + bx * 8;
+      for (int y = 0; y < 8; ++y)
+        std::memcpy(dst + y * ow, px + y * 8, 8 * sizeof(float));
+    }
+  }
+  return 0;
+}
+
+}  // extern "C"
+
+extern "C" {
+
+// Dithered f32 -> u8 plane conversion (render/stages/core.py f32_to_u8:
+// scale, add 32x32 blue-noise at (y+yoff, x+xoff) mod 32, clamp, round-
+// half-even). One pass; the numpy version makes ~8 whole-plane passes.
+void jxl_dither_u8(const float* p, int64_t h, int64_t w, int64_t stride,
+                   const float* dither, int yoff, int xoff, float maxv,
+                   uint8_t* out, int64_t out_stride, int64_t out_step) {
+  for (int64_t y = 0; y < h; ++y) {
+    const float* dr = dither + (((y + yoff) & 31) * 32);
+    const float* row = p + y * stride;
+    uint8_t* orow = out + y * out_stride;
+    for (int64_t x = 0; x < w; ++x) {
+      float v = row[x] * maxv + dr[(x + xoff) & 31];
+      v = v < 0.0f ? 0.0f : (v > maxv ? maxv : v);
+      orow[x * out_step] = (uint8_t)nearbyintf(v);
+    }
+  }
+}
+
+// Row-memcpy scatter of (n, ph, pw) pixel blocks into a plane at 8-px
+// block coordinates (the numpy fancy-index version materializes two
+// (n, ph, pw) int64 index arrays per call).
+void jxl_scatter_blocks(float* out, int64_t ow, const float* pix, int64_t n,
+                        int64_t ph, int64_t pw, const int32_t* bx,
+                        const int32_t* by) {
+  for (int64_t i = 0; i < n; ++i) {
+    float* dst = out + (int64_t)by[i] * 8 * ow + (int64_t)bx[i] * 8;
+    const float* src = pix + i * ph * pw;
+    for (int64_t y = 0; y < ph; ++y)
+      std::memcpy(dst + y * ow, src + y * pw, pw * sizeof(float));
+  }
+}
+
+}  // extern "C"
+
+namespace {
+// ref util/fast_math.rs:45-59, identical to features/splines.py fast_erf
+inline float FastErf(float x) {
+  float ax = std::fabs(x);
+  float d1 = ax * 7.77394369e-02f + 2.05260015e-04f;
+  float d2 = d1 * ax + 2.32120216e-01f;
+  float d3 = d2 * ax + 2.77820801e-01f;
+  float d4 = d3 * ax + 1.0f;
+  float d5 = d4 * d4;
+  float inv = 1.0f / d5;
+  return std::copysign(-inv * inv + 1.0f, x);
+}
+}  // namespace
+
+extern "C" {
+
+// Additive Gaussian-brush splat of spline segments onto 3 planes
+// (features/splines.py Splines.draw / render/pipeline.py _spline_splat
+// semantics, ref features/spline.rs draw_segments). segs: (n, 8) f32
+// rows [cx, cy, max_dist, inv_sigma, sigma_over_4_times_intensity,
+// color_x, color_y, color_b].
+void jxl_spline_splat(float* p0, float* p1, float* p2, int64_t h, int64_t w,
+                      int64_t stride, const float* segs, int64_t n) {
+  float* planes[3] = {p0, p1, p2};
+  for (int64_t i = 0; i < n; ++i) {
+    const float* s = segs + i * 8;
+    const float cx = s[0], cy = s[1], md = s[2];
+    const float inv_sigma = s[3], s4m = s[4];
+    const float col0 = s[5], col1 = s[6], col2 = s[7];
+    int64_t x0 = std::max<int64_t>(0, (int64_t)std::nearbyint(cx - md));
+    int64_t x1 = std::min<int64_t>(w, (int64_t)std::nearbyint(cx + md) + 1);
+    int64_t y0 = std::max<int64_t>(0, (int64_t)std::nearbyint(cy - md));
+    int64_t y1 = std::min<int64_t>(h, (int64_t)std::nearbyint(cy + md) + 1);
+    if (x1 <= x0 || y1 <= y0) continue;
+    for (int64_t y = y0; y < y1; ++y) {
+      const float dy = (float)y - cy;
+      const float dy2 = dy * dy;
+      float* r0 = planes[0] + y * stride;
+      float* r1 = planes[1] + y * stride;
+      float* r2 = planes[2] + y * stride;
+      for (int64_t x = x0; x < x1; ++x) {
+        const float dx = (float)x - cx;
+        const float dist = std::sqrt(dx * dx + dy2);
+        const float a1 = (dist * 0.5f + 0.35355338f) * inv_sigma;
+        const float a2 = (dist * 0.5f - 0.35355338f) * inv_sigma;
+        const float f = FastErf(a1) - FastErf(a2);
+        const float local = s4m * f * f;
+        r0[x] += col0 * local;
+        r1[x] += col1 * local;
+        r2[x] += col2 * local;
+      }
+    }
+  }
+}
+
+}  // extern "C"
+
+// ===================================================================
+// Animation frame fold: decode every eligible frame's single-section
+// chain — LfGlobal tables -> GlobalModular header + section-0 modular
+// channels -> VarDCT LF group (LF coeffs + HF metadata) -> adaptive LF
+// smoothing -> HfGlobal (orders + AC histograms) -> HF-group AC — in ONE
+// native call. Folds the 5-call-per-frame sequence (plus its Python glue)
+// that dominated tiny-frame animations (ref frame/decode.rs:314-583,
+// frame/group.rs:384-618; VERDICT r03 item 3).
+//
+// Eligibility (checked by the Python caller AND re-verified here):
+// single-section frames (1 group, 1 LF group), VarDCT, single pass,
+// global-tree modular streams, no local transforms beyond the global
+// header's, frame dims == canvas dims, default dequant matrices.
+//
+// Returns 0 ok; on failure: the per-stage code (see each callee),
+// err_out[0] = failing frame, err_out[1] = stage (0 tables, 1 group
+// header, 2 section0, 3 lf group, 4 hf global, 5 hf groups, 6 overrun).
+// Python falls back to the per-frame path on ANY nonzero code.
+
+namespace {
+
+struct GroupHeaderFull {
+  bool use_global_tree;
+  int32_t wp[12];
+  int num_transforms;
+  // packed transform list: 7 ints per transform
+  // [id, begin, rct_or_nchan, num_colors, num_deltas, predictor, nsq]
+  // followed by 4 ints per squeeze [horizontal, in_place, begin, num]
+  int32_t packed[80];
+  int packed_len;
+};
+
+// U32 with the four coder variants used by modular transforms.
+static inline uint32_t ReadU32(BitReader& br, uint32_t v0, int b0, uint32_t v1,
+                               int b1, uint32_t v2, int b2, uint32_t v3,
+                               int b3) {
+  switch (br.Read(2)) {
+    case 0: return v0 + (uint32_t)br.Read(b0);
+    case 1: return v1 + (uint32_t)br.Read(b1);
+    case 2: return v2 + (uint32_t)br.Read(b2);
+    default: return v3 + (uint32_t)br.Read(b3);
+  }
+}
+
+// Full GroupHeader parse incl. transform params (headers/modular.rs).
+// Returns 0 ok, 1 invalid transform/predictor/RCT, 2 packed overflow.
+static int ParseGroupHeaderFull(BitReader& br, GroupHeaderFull* gh) {
+  gh->use_global_tree = br.Read(1) != 0;
+  int32_t w[12] = {16, 10, 7, 7, 7, 0, 0, 0xD, 0xC, 0xC, 0xC, 0};
+  if (br.Read(1) == 0) {
+    for (int i = 0; i < 7; i++) w[i] = (int32_t)br.Read(5);
+    for (int i = 7; i < 11; i++) w[i] = (int32_t)br.Read(4);
+  }
+  std::memcpy(gh->wp, w, sizeof w);
+  uint32_t sel = (uint32_t)br.Read(2);
+  gh->num_transforms = sel == 0   ? 0
+                       : sel == 1 ? 1
+                       : sel == 2 ? 2 + (int)br.Read(4)
+                                  : 18 + (int)br.Read(8);
+  int p = 0;
+  for (int t = 0; t < gh->num_transforms; t++) {
+    if (p + 7 > 80) return 2;
+    uint32_t id = (uint32_t)br.Read(2);
+    if (id == 3) return 1;
+    int32_t begin = 0, rct_or_nchan = 0, num_colors = 0, num_deltas = 0,
+            predictor = 0, nsq = 0;
+    if (id == 0 || id == 1)
+      begin = (int32_t)ReadU32(br, 0, 3, 8, 6, 72, 10, 1096, 13);
+    if (id == 0) {
+      rct_or_nchan = (int32_t)ReadU32(br, 6, 0, 0, 2, 2, 4, 10, 6);
+      if (rct_or_nchan >= 42) return 1;
+    }
+    if (id == 1) {
+      rct_or_nchan = (int32_t)ReadU32(br, 1, 0, 3, 0, 4, 0, 1, 13);
+      num_colors = (int32_t)ReadU32(br, 0, 8, 256, 10, 1280, 12, 5376, 16);
+      num_deltas = (int32_t)ReadU32(br, 0, 0, 1, 8, 257, 10, 1281, 16);
+      predictor = (int32_t)br.Read(4);
+      if (predictor >= 16) return 1;
+    }
+    int sq_base = -1;
+    if (id == 2) {
+      nsq = (int32_t)ReadU32(br, 0, 0, 1, 4, 9, 6, 41, 8);
+      sq_base = p + 7;
+      if (sq_base + nsq * 4 > 80) return 2;
+    }
+    gh->packed[p + 0] = (int32_t)id;
+    gh->packed[p + 1] = begin;
+    gh->packed[p + 2] = rct_or_nchan;
+    gh->packed[p + 3] = num_colors;
+    gh->packed[p + 4] = num_deltas;
+    gh->packed[p + 5] = predictor;
+    gh->packed[p + 6] = nsq;
+    p += 7;
+    for (int s = 0; s < nsq; s++) {
+      gh->packed[p + 0] = (int32_t)br.Read(1);
+      gh->packed[p + 1] = (int32_t)br.Read(1);
+      gh->packed[p + 2] = (int32_t)ReadU32(br, 0, 3, 8, 6, 72, 10, 1096, 13);
+      gh->packed[p + 3] = (int32_t)ReadU32(br, 1, 0, 2, 0, 3, 0, 4, 4);
+      p += 4;
+    }
+  }
+  gh->packed_len = p;
+  return 0;
+}
+
+}  // namespace
+
+extern "C" int jxl_anim_decode_frames(
+    const uint8_t* data, uint64_t full_size, int num_frames,
+    const uint64_t* sec_bit_pos, const uint64_t* sec_byte_end,
+    // geometry: slab capacities are canvas blocks; each frame uses its
+    // own (fbw, fbh) dims with fbw as the row stride inside its slab
+    int bw, int bh,            // canvas blocks (slab capacity dims)
+    int tcw, int tch,          // canvas CfL tile dims (slab capacity)
+    const int32_t* fbw_arr, const int32_t* fbh_arr,  // per-frame blocks
+    const int32_t* hshift3, const int32_t* vshift3, int is444,
+    const uint8_t* smooth_flags,  // per frame: run adaptive LF smoothing
+    // per-frame modular section-0 templates (squeeze plans are
+    // dims-dependent): frame f's rows are chan_template[chan_tmpl_off[f]
+    // * 6 ..], chan_counts[f] of them
+    const int32_t* chan_counts, const int64_t* chan_tmpl_off,
+    const int64_t* chan_template, int64_t chan_frame_elems,
+    int32_t* chan_out,  // (F, chan_frame_elems)
+    int64_t tree_size_limit,
+    // natural coeff orders + block LUTs
+    const int32_t* nat_orders, const int32_t* nat_off,
+    const int32_t* cbx_lut, const int32_t* cby_lut, const int32_t* shape_lut,
+    int invalid_transform,
+    // default block-context map (used when the stream picks the default)
+    const uint8_t* def_bctx_cmap, int def_num_bctx,
+    // outputs (per frame slabs)
+    int32_t* scal_out,      // (F, 24)
+    double* dbl_out,        // (F, 8)
+    int32_t* lfthr_out,     // (F, 48)
+    int32_t* qfthr_out,     // (F, 16)
+    uint8_t* bctxmap_out,   // (F, 2496)
+    int32_t* gh_out,        // (F, 96): [0] use_global_tree [1] n_transforms
+                            // [2] packed_len [3..14] wp [15..] packed
+    float* lf_out,          // (3, F, bh, bw) channel-major
+    uint8_t* qlf_out,       // (F, bh, bw)
+    uint8_t* tmap_out,      // (F, bh, bw) pre-filled with invalid marker
+    int32_t* rq_out,        // (F, bh, bw)
+    uint8_t* epf_out,       // (F, bh, bw)
+    int8_t* ytox_out, int8_t* ytob_out,  // (F, tch, tcw)
+    int32_t* hfinfo_out,    // (F, 2) num_histograms, used_orders
+    int32_t* coeff_pool,    // (F, 3, 65536)
+    int32_t* blocks_out,    // (F, 1024, 4)
+    int32_t* blk_counts,    // (F)
+    int32_t* err_out,       // (2) frame, stage
+    int64_t* stage_ns_out) {  // nullable (8): cumulative ns per stage 0..5
+  struct StageClock {
+    int64_t* out;
+    timespec t0;
+    explicit StageClock(int64_t* o) : out(o) {
+      if (out) clock_gettime(CLOCK_MONOTONIC, &t0);
+    }
+    void lap(int stage) {
+      if (!out) return;
+      timespec t1;
+      clock_gettime(CLOCK_MONOTONIC, &t1);
+      out[stage] +=
+          (t1.tv_sec - t0.tv_sec) * 1000000000LL + (t1.tv_nsec - t0.tv_nsec);
+      t0 = t1;
+    }
+  } clk(stage_ns_out);
+  // Table-section bit-span cache: animation encoders typically emit
+  // byte-for-byte identical LfGlobal table sequences and HfGlobal
+  // histogram blocks for every frame. Decoding is a pure function of the
+  // consumed bit sequence, so if the next `prev_len` bits at this
+  // frame's section start equal the previous frame's span, the decode
+  // would consume exactly the same bits and produce identical outputs —
+  // skip it and reuse the (loop-carried) scratch state + copy the
+  // previous frame's per-frame output rows. Extraction+memcmp is ~1 us
+  // vs ~240 us for the two decodes. stage_ns_out[6] counts hits.
+  auto extract_bits = [data, full_size](uint64_t bitpos, uint64_t nbits,
+                                        std::vector<uint8_t>& out) -> bool {
+    if (bitpos + nbits > full_size * 8) return false;
+    const uint64_t nbytes = (nbits + 7) / 8;
+    out.resize(nbytes);
+    const uint8_t* src = data + (bitpos >> 3);
+    const int shift = (int)(bitpos & 7);
+    if (shift == 0) {
+      std::memcpy(out.data(), src, nbytes);
+    } else {
+      for (uint64_t i = 0; i < nbytes; i++) {
+        uint16_t v = src[i];
+        if ((bitpos >> 3) + i + 1 < full_size) v |= (uint16_t)src[i + 1] << 8;
+        out[i] = (uint8_t)(v >> shift);
+      }
+    }
+    if (nbits & 7) out[nbytes - 1] &= (uint8_t)((1u << (nbits & 7)) - 1);
+    return true;
+  };
+  std::vector<uint8_t> span0_prev, span0_cur, span4_prev, span4_cur;
+  uint64_t span0_len = 0, span4_len = 0;
+  const int64_t plane = (int64_t)bw * bh;
+  const int64_t tile_plane = (int64_t)tcw * tch;
+  const int gdb = 32;  // group_dim 256 / 8
+
+  // tree + histogram scratch, reused across frames (sizes mirror the
+  // Python wrappers' thread-local scratch)
+  std::vector<int32_t> tree_nodes((size_t)(1 << 12) * 8);
+  int32_t t_meta[16], t_lz[3], t_cfgs[256 * 3], t_singles[256];
+  std::vector<uint8_t> t_cmap(1 << 16);
+  std::vector<int32_t> t_tables((size_t)256 * 5 * 256);
+  std::vector<int32_t> t_hoffv(256), t_hbits(1 << 14), t_hvals(1 << 14);
+  // AC histogram scratch
+  int32_t a_meta[16], a_lz[3], a_cfgs[256 * 3], a_singles[256];
+  std::vector<uint8_t> a_cmap(1 << 16);
+  std::vector<int32_t> a_tables((size_t)256 * 5 * 256);
+  std::vector<int32_t> a_hoffv(256), a_hbits(1 << 14), a_hvals(1 << 14);
+  const int64_t nat_total = nat_off[13];
+  std::vector<int32_t> orders_scratch((size_t)3 * nat_total);
+  std::vector<int32_t> orders_all((size_t)3 * nat_total);
+  std::vector<int32_t> order_off(13 * 3);
+
+  for (int f = 0; f < num_frames; f++) {
+    err_out[0] = f;
+    uint64_t pos = sec_bit_pos[f];
+    const uint64_t fsize = sec_byte_end[f];
+    const int fbw = fbw_arr[f], fbh = fbh_arr[f];
+    const int ftcw = (fbw + 7) / 8;
+    // single-group frames only: dims must fit one 256px group (gdb blocks)
+    if (fbw > bw || fbh > bh || fbw > gdb || fbh > gdb) {
+      err_out[1] = 0;
+      return 32;
+    }
+    int32_t* scal = scal_out + (int64_t)f * 24;
+    double* dbl = dbl_out + (int64_t)f * 8;
+
+    // ---- stage 0: LfGlobal table sequence --------------------------
+    err_out[1] = 0;
+    int ret = 0;
+    if (f > 0 && span0_len > 0 && extract_bits(pos, span0_len, span0_cur) &&
+        span0_cur == span0_prev) {
+      // identical bit span -> identical decode; scratch (trees, tables)
+      // already holds this state, copy the previous frame's output rows
+      std::memcpy(scal, scal_out + (int64_t)(f - 1) * 24, 24 * sizeof(int32_t));
+      std::memcpy(dbl, dbl_out + (int64_t)(f - 1) * 8, 8 * sizeof(double));
+      std::memcpy(lfthr_out + (int64_t)f * 48, lfthr_out + (int64_t)(f - 1) * 48,
+                  48 * sizeof(int32_t));
+      std::memcpy(qfthr_out + (int64_t)f * 16, qfthr_out + (int64_t)(f - 1) * 16,
+                  16 * sizeof(int32_t));
+      std::memcpy(bctxmap_out + (int64_t)f * 2496,
+                  bctxmap_out + (int64_t)(f - 1) * 2496, 2496);
+      pos += span0_len;
+      if (stage_ns_out) stage_ns_out[6]++;
+      clk.lap(0);
+      goto stage1;
+    }
+    std::memset(scal, 0, 24 * sizeof(int32_t));
+    {
+    const uint64_t pos0 = pos;
+    while (true) {
+      ret = jxl_decode_lf_global_tables(
+          data, fsize, &pos, /*is_vardct=*/1, tree_size_limit,
+          (int64_t)(tree_nodes.size() / 8), scal, dbl,
+          lfthr_out + (int64_t)f * 48, qfthr_out + (int64_t)f * 16,
+          bctxmap_out + (int64_t)f * 2496, tree_nodes.data(), t_meta, t_lz,
+          t_cmap.data(), t_cfgs, t_tables.data(), t_singles, t_hoffv.data(),
+          t_hbits.data(), t_hvals.data(), (int64_t)t_hbits.size());
+      if (ret == 9) {
+        size_t grown = std::max(t_hbits.size() * 2, (size_t)t_meta[11]);
+        t_hbits.resize(grown);
+        t_hvals.resize(grown);
+        continue;
+      }
+      if (ret == 11) {
+        tree_nodes.resize(tree_nodes.size() * 4);
+        continue;
+      }
+      break;
+    }
+    if (ret != 0) return ret;
+    if (!scal[13]) { err_out[1] = 0; return 31; }  // no global tree
+    span0_len = pos - pos0;
+    extract_bits(pos0, span0_len, span0_prev);
+    }
+    clk.lap(0);
+
+  stage1:
+    const int tree_count = scal[14];
+    const int num_props = scal[15] + 1;
+    // entropy args of the global tree's leaf histograms
+    const int n_base_ctx = (tree_count + 1) / 2;
+    const int t_nctx = n_base_ctx + (t_meta[0] ? 1 : 0);
+    const int t_lzdist = t_meta[0] ? t_cmap[t_nctx - 1] : 0;
+
+    // ---- stage 1: GlobalModular group header -----------------------
+    err_out[1] = 1;
+    BitReader br{data, fsize, pos};
+    GroupHeaderFull gh;
+    if (ParseGroupHeaderFull(br, &gh) != 0 || br.Overrun())
+      return br.Overrun() ? 2 : 30;
+    if (!gh.use_global_tree) return 30;
+    pos = br.pos;
+    int32_t* gho = gh_out + (int64_t)f * 96;
+    gho[0] = 1;
+    gho[1] = gh.num_transforms;
+    gho[2] = gh.packed_len;
+    std::memcpy(gho + 3, gh.wp, 12 * sizeof(int32_t));
+    std::memcpy(gho + 15, gh.packed, gh.packed_len * sizeof(int32_t));
+    clk.lap(1);
+
+    // ---- stage 2: section-0 modular channels -----------------------
+    err_out[1] = 2;
+    const int n_chan = chan_counts[f];
+    const int64_t* f_tmpl = chan_template + chan_tmpl_off[f] * 6;
+    if (n_chan > 0) {
+      int image_width = 0;
+      for (int c = 0; c < n_chan; c++)
+        if ((int)f_tmpl[c * 6 + 0] > image_width)
+          image_width = (int)f_tmpl[c * 6 + 0];
+      int64_t nd = 0;
+      ret = jxl_decode_modular(
+          data, fsize, &pos, t_meta[10], t_tables.data(), t_meta[8],
+          t_meta[9], t_hoffv.data(), t_hbits.data(), t_hvals.data(),
+          t_cmap.data(), t_nctx, t_cfgs, t_meta[0], (uint32_t)t_meta[1],
+          (uint32_t)t_meta[2], t_lz, t_lzdist,
+          t_meta[0] ? (uint32_t)image_width : 0, tree_nodes.data(),
+          tree_count, num_props, gh.wp, n_chan, f_tmpl,
+          chan_out + (int64_t)f * chan_frame_elems, /*stream_id=*/0, &nd,
+          /*flags=*/0);
+      if (ret != 0) return ret;
+    }
+    clk.lap(2);
+
+    // ---- stage 3: VarDCT LF group + HF metadata --------------------
+    err_out[1] = 3;
+    double inv_quant_lf = 65536.0 / ((double)scal[0] * (double)scal[1]);
+    double lf_factors[3] = {dbl[0] * inv_quant_lf, dbl[1] * inv_quant_lf,
+                            dbl[2] * inv_quant_lf};
+    float ytox_lf = (float)(dbl[3] + (double)scal[11] / (double)scal[10]);
+    float ytob_lf = (float)(dbl[4] + (double)scal[12] / (double)scal[10]);
+    int num_lf_contexts = 1;
+    const int32_t* lf_thr = lfthr_out + (int64_t)f * 48;
+    int32_t n_lf_thr[3] = {0, 0, 0};
+    if (!scal[2]) {
+      num_lf_contexts = scal[3];
+      n_lf_thr[0] = scal[5];
+      n_lf_thr[1] = scal[6];
+      n_lf_thr[2] = scal[7];
+    }
+    ret = jxl_decode_lf_group_vardct(
+        data, fsize, &pos, t_meta[10], t_tables.data(), t_meta[8], t_meta[9],
+        t_hoffv.data(), t_hbits.data(), t_hvals.data(), t_cmap.data(), t_nctx,
+        t_cfgs, t_meta[0], (uint32_t)t_meta[1], (uint32_t)t_meta[2], t_lz,
+        t_lzdist, tree_nodes.data(), tree_count, num_props,
+        /*group=*/0, /*num_lf_groups=*/1, /*ox=*/0, /*oy=*/0, fbw, fbh, fbw,
+        hshift3, vshift3, is444, lf_factors, ytox_lf, ytob_lf,
+        num_lf_contexts, lf_thr, n_lf_thr,
+        lf_out + (0 * (int64_t)num_frames + f) * plane,
+        lf_out + (1 * (int64_t)num_frames + f) * plane,
+        lf_out + (2 * (int64_t)num_frames + f) * plane,
+        qlf_out + (int64_t)f * plane, ytox_out + (int64_t)f * tile_plane,
+        ytob_out + (int64_t)f * tile_plane, ftcw,
+        tmap_out + (int64_t)f * plane, rq_out + (int64_t)f * plane,
+        epf_out + (int64_t)f * plane, cbx_lut, cby_lut, invalid_transform);
+    if (ret != 0) return ret;
+
+    if (smooth_flags[f]) {
+      // weights: adaptive_lf_smoothing.rs / python vardct/lf.py:277-279,
+      // pre-rounded to f32 exactly as the Python caller passes them
+      const float w_side = (float)0.20345139757231578;
+      const float w_corner = (float)0.0334829185968739;
+      const float w_center =
+          (float)(1.0 - 4.0 * (0.20345139757231578 + 0.0334829185968739));
+      jxl_adaptive_lf_smooth(
+          lf_out + (0 * (int64_t)num_frames + f) * plane,
+          lf_out + (1 * (int64_t)num_frames + f) * plane,
+          lf_out + (2 * (int64_t)num_frames + f) * plane, fbh, fbw,
+          (float)(float)lf_factors[0], (float)(float)lf_factors[1],
+          (float)(float)lf_factors[2], w_corner, w_side, w_center);
+    }
+    clk.lap(3);
+
+    // ---- stage 4: HfGlobal -----------------------------------------
+    err_out[1] = 4;
+    const int num_bctx = scal[2] ? def_num_bctx : scal[9];
+    const int num_ac_contexts = num_bctx * (37 + 458);
+    int32_t* info = hfinfo_out + (int64_t)f * 2;
+    if (f > 0 && span4_len > 0 && extract_bits(pos, span4_len, span4_cur) &&
+        span4_cur == span4_prev) {
+      // identical span -> identical histograms, orders, and mixed
+      // order buffer (all loop-carried scratch); copy the info row
+      std::memcpy(info, hfinfo_out + (int64_t)(f - 1) * 2, 2 * sizeof(int32_t));
+      pos += span4_len;
+      if (stage_ns_out) stage_ns_out[6]++;
+      clk.lap(4);
+      goto stage5;
+    }
+    {
+    const uint64_t pos4 = pos;
+    while (true) {
+      ret = jxl_decode_hf_global(
+          data, fsize, &pos, /*num_histo_bits=*/0, num_ac_contexts,
+          nat_orders, nat_off, info, orders_scratch.data(), a_meta, a_lz,
+          a_cmap.data(), a_cfgs, a_tables.data(), a_singles, a_hoffv.data(),
+          a_hbits.data(), a_hvals.data(), (int64_t)a_hbits.size());
+      if (ret == 9) {
+        size_t grown = std::max(a_hbits.size() * 2, (size_t)a_meta[11]);
+        a_hbits.resize(grown);
+        a_hvals.resize(grown);
+        continue;
+      }
+      break;
+    }
+    if (ret != 0) return ret;  // 100 = custom matrices -> python path
+
+    // mix coded + natural orders into one (shape, channel)-keyed buffer
+    const uint32_t used = (uint32_t)info[1];
+    {
+      int64_t opos = 0, cpos = 0;
+      for (int o = 0; o < 13; o++) {
+        const int64_t sz = nat_off[o + 1] - nat_off[o];
+        for (int c = 0; c < 3; c++) {
+          order_off[o * 3 + c] = (int32_t)opos;
+          if ((used >> o) & 1) {
+            std::memcpy(orders_all.data() + opos, orders_scratch.data() + cpos,
+                        sz * sizeof(int32_t));
+            cpos += sz;
+          } else {
+            std::memcpy(orders_all.data() + opos, nat_orders + nat_off[o],
+                        sz * sizeof(int32_t));
+          }
+          opos += sz;
+        }
+      }
+    }
+    span4_len = pos - pos4;
+    extract_bits(pos4, span4_len, span4_prev);
+    }
+    clk.lap(4);
+
+  stage5:
+    // ---- stage 5: HF group AC --------------------------------------
+    err_out[1] = 5;
+    // DecodeAcItems accumulates (+=) into the coefficient buffer, so the
+    // frame's used region (nblocks * 64 per channel) must start zeroed.
+    // Zeroing here (instead of a whole-pool np.zeros in the wrapper)
+    // lets the Python side keep one reusable arena across decodes.
+    for (int c = 0; c < 3; c++)
+      std::memset(coeff_pool + ((int64_t)f * 3 + c) * 65536, 0,
+                  (size_t)fbw * fbh * 64 * sizeof(int32_t));
+    const int a_nclusters_ctx = info[0] * num_ac_contexts;
+    const int a_nctx = a_nclusters_ctx + (a_meta[0] ? 1 : 0);
+    const int a_lzdist = a_meta[0] ? a_cmap[a_nctx - 1] : 0;
+    const void* sdata = (const void*)data;
+    uint64_t ssize = fsize;
+    uint64_t spos = pos;
+    int32_t gid0 = 0, slot0 = 0;
+    ret = jxl_decode_hf_groups(
+        &sdata, &ssize, &spos, /*n_dec=*/1, &gid0, fbw, fbh, /*gxc=*/1, gdb,
+        hshift3, vshift3, tmap_out + (int64_t)f * plane,
+        rq_out + (int64_t)f * plane, qlf_out + (int64_t)f * plane,
+        scal[2] ? def_bctx_cmap : bctxmap_out + (int64_t)f * 2496, num_bctx,
+        num_lf_contexts, qfthr_out + (int64_t)f * 16,
+        scal[2] ? 0 : scal[4], num_ac_contexts, info[0], cbx_lut, cby_lut,
+        shape_lut, a_meta[10], a_tables.data(), a_meta[8], a_meta[9],
+        a_hoffv.data(), a_hbits.data(), a_hvals.data(), a_cmap.data(), a_nctx,
+        a_cfgs, a_meta[0], (uint32_t)a_meta[1], (uint32_t)a_meta[2], a_lz,
+        a_lzdist, orders_all.data(), order_off.data(), /*shift=*/0,
+        coeff_pool + (int64_t)f * 3 * 65536, &slot0, /*chan_stride=*/65536,
+        blocks_out + (int64_t)f * 1024 * 4, blk_counts + f);
+    if (ret != 0) return ret;
+    pos = spos;
+    if ((pos + 7) / 8 > fsize) { err_out[1] = 6; return 2; }
+    clk.lap(5);
+  }
+  err_out[0] = -1;
+  err_out[1] = -1;
+  return 0;
+}

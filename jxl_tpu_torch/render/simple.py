@@ -1,0 +1,159 @@
+"""Whole-frame render of a Modular frame: channel planes -> display
+samples, on the caller's device.
+
+Counterpart of jxl_tpu/render/simple.py for this package's slice: the
+Modular-to-float conversion (with the XYB channel order and scaling), the
+stage assembly of render/pipeline.py, and one fused filter + colour +
+output-format program (render/device_filters.py), with the crops as
+slicing around it.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..color import tf as tfmod
+from ..color.xyb import xyb_to_linear, ycbcr_to_rgb
+from ..errors import NotSupported
+from ..io.headers import TransferFunction
+from .stages import core as st
+
+
+def _from_linear(channels, tf_spec, intensity_target, luminances=None):
+    """FromLinear stage on linear channels. `tf_spec` is ("gamma", g) or
+    ("enum", TransferFunction); `luminances` are the per-primary luminances
+    of the output space (HLG OOTF, ref xyb.rs OutputColorInfo)."""
+    kind, val = tf_spec
+    if kind == "gamma":
+        return [tfmod.linear_to_gamma(c, val) for c in channels]
+    tfv = val
+    if tfv == TransferFunction.SRGB:
+        return [tfmod.linear_to_srgb(c) for c in channels]
+    if tfv == TransferFunction.BT709:
+        return [tfmod.linear_to_bt709(c) for c in channels]
+    if tfv == TransferFunction.LINEAR:
+        return list(channels)
+    if tfv == TransferFunction.PQ:
+        return [tfmod.linear_to_pq(c, intensity_target) for c in channels]
+    if tfv == TransferFunction.DCI:
+        return [tfmod.linear_to_gamma(c, 1.0 / 2.6) for c in channels]
+    if tfv == TransferFunction.HLG:
+        lum = luminances or (0.2126, 0.7152, 0.0722)
+        r, g, b = tfmod.hlg_display_to_scene(intensity_target, lum, channels)
+        return [tfmod.scene_to_hlg(c) for c in (r, g, b)]
+    raise NotSupported(f"transfer function {tfv}")
+
+
+def _modular_to_f32(plane, bit_depth):
+    """ConvertModularToF32 (ref stages/convert.rs:345-) on an int32 tensor:
+    integer samples are scaled by 1/(2^bits-1); float samples are
+    bit-reinterpreted."""
+    if bit_depth.floating_point_sample:
+        bits = bit_depth.bits_per_sample
+        exp = bit_depth.exponent_bits_per_sample
+        if bits == 32 and exp == 8:
+            return plane.view(torch.float32).clone()
+        u = plane.to(torch.int64) & 0xFFFFFFFF
+        if bits == 16 and exp == 5:
+            h = u & 0xFFFF
+            return (h - ((h & 0x8000) << 1)).to(torch.int16).view(torch.float16).float()
+        mant_bits = bits - exp - 1
+        sign = (u >> (bits - 1)) & 1
+        e = (u >> mant_bits) & ((1 << exp) - 1)
+        m = u & ((1 << mant_bits) - 1)
+        bias = (1 << (exp - 1)) - 1
+        out_e = torch.where(e == 0, torch.zeros_like(e), e - bias + 127)
+        out = (sign << 31) | (out_e << 23) | (m << (23 - mant_bits))
+        return (out - ((out & 0x80000000) << 1)).to(torch.int32).view(torch.float32)
+    bits = bit_depth.bits_per_sample
+    return plane.to(torch.float32) * st.f32(1.0 / ((1 << bits) - 1))
+
+
+def frame_planes(frame, device) -> torch.Tensor:
+    """The frame's three colour planes as (3, H, W) float32 on `device`, in
+    XYB / YCbCr / RGB as coded (ref render/simple.py:116-131)."""
+    meta = frame.file_header.image_metadata
+    mg = frame.lf_global.modular_global
+
+    def channel(c):
+        return torch.from_numpy(np.ascontiguousarray(mg.output_channel(c))).to(device)
+
+    if meta.xyb_encoded:
+        # modular XYB order is [Y, X, B]; B has Y added (ref convert.rs:278)
+        sx_f, sy_f, sb_f = frame.lf_global.lf_quant.quant_factors
+        iy = channel(0).to(torch.float32)
+        ix = channel(1).to(torch.float32)
+        ib = channel(2).to(torch.float32)
+        planes = [ix * st.f32(sx_f), iy * st.f32(sy_f), (ib + iy) * st.f32(sb_f)]
+    else:
+        planes = [_modular_to_f32(channel(c), meta.bit_depth) for c in range(frame.color_channels)]
+        if frame.color_channels == 1:
+            planes = [planes[0], planes[0], planes[0]]
+    return torch.stack(planes)
+
+
+def render_frame(frame, device, out_format: str = "f32") -> torch.Tensor:
+    """All stages of a single visible frame, colour transform and output
+    conversion included: (3, H, W) in the output sample type on `device`."""
+    from .device_filters import run_filters_and_color
+    from .pipeline import build_render_pipeline
+
+    stages = build_render_pipeline(frame)
+    planes = frame_planes(frame, device)
+    wc, hc = stages[0].size
+    planes = planes[:, :hc, :wc]
+    rf = frame.header.restoration_filter
+    const_sigma = st.INV_SIGMA_NUM / rf.epf_sigma_for_modular if rf.epf_iters > 0 else None
+    out = run_filters_and_color(frame, planes, const_sigma, out_format)
+    wu, hu = stages[-1].size
+    return out[:, :hu, :wu]
+
+
+def color_transform(frame, planes):
+    """YCbCr|XYB -> linear -> display TF on the first 3 channels.
+
+    XYB frames render into the image's nominal output space: the opsin
+    inverse matrix is primaries/grayscale-adjusted and the TF chosen per
+    OutputColorInfo (ref xyb.rs:41-146)."""
+    header = frame.header
+    meta = frame.file_header.image_metadata
+    if meta.xyb_encoded:
+        from ..color.output import output_color_info
+
+        info = output_color_info(frame.file_header)
+        r, g, b = xyb_to_linear(
+            planes[0], planes[1], planes[2],
+            frame.file_header.transform_data.opsin_inverse_matrix,
+            info.intensity_target,
+            matrix=info.matrix,
+        )
+        planes[:3] = _from_linear([r, g, b], info.tf, info.intensity_target, info.luminances)
+    elif header.do_ycbcr:
+        r, g, b = ycbcr_to_rgb(planes[1], planes[0], planes[2])
+        planes[:3] = [r, g, b]
+    return planes
+
+
+def apply_orientation(arr, orientation):
+    """EXIF-style orientation of an (h, w, c) tensor."""
+    from ..io.headers import Orientation
+
+    o = Orientation(orientation)
+    if o == Orientation.IDENTITY:
+        return arr
+    if o == Orientation.FLIP_HORIZONTAL:
+        return arr.flip(1)
+    if o == Orientation.ROTATE_180:
+        return arr.flip(0, 1)
+    if o == Orientation.FLIP_VERTICAL:
+        return arr.flip(0)
+    if o == Orientation.TRANSPOSE:
+        return arr.transpose(0, 1)
+    if o == Orientation.ROTATE_90_CW:
+        return arr.transpose(0, 1).flip(1)
+    if o == Orientation.ANTI_TRANSPOSE:
+        return arr.transpose(0, 1).flip(0, 1)
+    if o == Orientation.ROTATE_90_CCW:
+        return arr.transpose(0, 1).flip(0)
+    raise NotSupported(f"orientation {o}")
