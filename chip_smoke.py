@@ -4,26 +4,42 @@
     python3 chip_smoke.py
 
 Needs one CUDA card (an H100: the kernels are built for sm_90a), nvcc and
-g++. Phases, each printing one JSON line, and any failure ends the run
-with a non-zero exit:
+g++. Phases, each printing JSON lines, and any failure ends the run with
+a non-zero exit:
 
-1. build   - nvcc builds the gaborish+EPF kernel (csrc/epf_gab.cu) and g++
-             the host decoder library, in parallel, from the checkout.
-2. kernels - the kernel against its plain torch version on the card, at
-             3840x2160 and ragged sizes, for gaborish on/off and
-             epf_iters 1-3, with 1/sigma that includes passthrough pixels;
-             max abs difference <= 1e-5, and <= 1e-6 more than 8 px from
-             the edge. Times are medians of CUDA-event-timed repeats.
+1. build   - nvcc builds csrc/epf_gab.cu (K1) and csrc/ans_lanes.cu (K2,
+             K3), and g++ the host decoder library, all in parallel, from
+             the checkout.
+2. kernels - K1 against its plain torch version on the card, at 3840x2160
+             and ragged sizes, for gaborish on/off and epf_iters 1-3, with
+             1/sigma that includes passthrough pixels; max abs difference
+             <= 1e-5, and <= 1e-6 more than 8 px from the edge.
+             K2 against plain ans_decode_batch, bit for bit (tokens and
+             final states), at S=135, T=4096 and a ragged S=37, on streams
+             of the VarDCT writer's rANS encoder; then K2's own path, the
+             batch decode entry point, once with its count reset.
+             K3 against plain decode_ac_sections, bit for bit (coefficients
+             and ok flags), on a 1024x1024 writer stream (16 lanes), on a
+             copy with one section corrupted (that lane alone reports not
+             ok), and on the 3840x2160 stream's 135 lanes.
+             Times are medians of CUDA-event-timed repeats.
 3. decode  - jxl_tpu_torch.decode_image of a 3840x2160 XYB Modular stream
              (gaborish on, EPF 2 steps) on the card in u8 and f32, held
              against the port's own device="cpu" decode of the same bytes
-             (f32 <= 1e-4, u8 <= 1 LSB); the kernel's launch counter must
-             rise during it.
-4. profile - one more u8 decode under torch.profiler: device time by
-             operation and the card's idle share of the decode.
+             (f32 <= 1e-4, u8 <= 1 LSB); K1's count must rise.
+4. vardct  - decode_image of a 3840x2160 XYB VarDCT writer stream (DCT8,
+             DCT16x16 and every 1x1 transform, EPF sigma per block) on the
+             card in u8 and f32, 3 reps each; K1's and K3's counts must
+             rise. K3's coefficient buffer must equal the writer's and the
+             native host decoder's (JXL_TPU_AC=host) bit for bit, and the
+             pixels the port's CPU decode with JXL_TPU_AC=host (f32 <= 1e-4,
+             u8 <= 1 LSB).
+5. profile - one more u8 decode of each stream under torch.profiler:
+             device time by operation and the card's idle share.
 
-Then one line with every kernel's numbers, and as the last line
-{"ok": true, "device": {...}}. Prints no result without a card.
+Then one line with every kernel's numbers, the card's name and power
+limit, and as the last line {"ok": true, "device": {...}}. Prints no
+result without a card.
 """
 
 from __future__ import annotations
@@ -37,7 +53,15 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
+# int32 on the CUDA cores runs at half the fp32 rate (64 of 128 lanes an
+# SM a clock on Hopper)
+INT32_OPS_PER_S = FP32_OPS_PER_S / 2
 WIDTH, HEIGHT = 3840, 2160
+# integer operations a token, as the kernels' source counts them: K2's
+# rANS step (table lookup, state update, renorm read); K3 adds the
+# context selection, HybridUint and the coefficient store
+K2_OPS_PER_TOKEN = 24
+K3_OPS_PER_TOKEN = 64
 
 
 def emit(obj) -> None:
@@ -94,6 +118,7 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
 
 def phase_build():
     from jxl_tpu_torch import native
+    from jxl_tpu_torch.ops import ans_lanes as AL
     from jxl_tpu_torch.ops import epf_gab as K
 
     errors = []
@@ -109,6 +134,7 @@ def phase_build():
 
     threads = [
         threading.Thread(target=run, args=("nvcc_epf_gab", K.load)),
+        threading.Thread(target=run, args=("nvcc_ans_lanes", AL.load)),
         threading.Thread(target=run, args=("gxx_host_decoder", native.get_lib)),
     ]
     t0 = time.perf_counter()
@@ -117,8 +143,9 @@ def phase_build():
     for t in threads:
         t.join()
     check(not errors, "build failed: " + "; ".join(errors))
-    info = K.build_info or {}
-    ptxas = [ln.strip() for ln in info.get("log", "").splitlines() if "ptxas" in ln]
+    ptxas = [ln.strip() for mod in (K, AL)
+             for ln in (mod.build_info or {}).get("log", "").splitlines()
+             if "ptxas info    : Used" in ln or "spill" in ln]
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "parts": secs,
           "ptxas": ptxas})
 
@@ -194,7 +221,7 @@ def phase_decode():
     runs = []
     K.epf_gab.launches = 0
     for fmt in ("u8", "f32"):
-        for rep in range(3):
+        for rep in range(2):
             t0 = time.perf_counter()
             img = jxl_tpu_torch.decode_image(data, pixel_format=fmt)
             torch.cuda.synchronize()
@@ -227,7 +254,294 @@ def phase_decode():
     return launches, data
 
 
-def phase_profile(data) -> None:
+def _k2_streams(S, T, seed):
+    """S rANS streams of T tokens each from the VarDCT writer's encoder
+    (a flat 40-symbol distribution: a non-trivial alias table), ending in
+    the final state 0x130000. Returns (streams (S, L) uint8, table (5, 64)
+    int32, tokens (S, T), bytes each stream needs)."""
+    import numpy as np
+
+    from jxl_tpu_torch.ops.device_ans import pack_table
+    from test_torch_vardct_streams import flat_histogram, inverse_tables, rans_encode_lanes
+
+    h = flat_histogram(40)
+    freq, inv = inverse_tables([h])
+    tok = np.random.default_rng(seed).integers(0, 40, (S, T))
+    state, words, has = rans_encode_lanes(tok, np.zeros((S, T), np.int64), np.full(S, T),
+                                          freq, inv)
+    datas = [state[s].astype("<u4").tobytes() + words[s][has[s]].astype("<u2").tobytes()
+             for s in range(S)]
+    streams = np.zeros((S, max(map(len, datas)) + 8), np.uint8)
+    for s, d in enumerate(datas):
+        streams[s, : len(d)] = np.frombuffer(d, np.uint8)
+    return streams, pack_table(h), tok, sum(map(len, datas))
+
+
+def phase_k2():
+    """K2 against its plain version, then K2's own path: the batch decode
+    entry point (decode_image runs K2's step inside K3, not K2)."""
+    import numpy as np
+    import torch
+
+    from jxl_tpu_torch.ops import ans_lanes as AL
+    from jxl_tpu_torch.ops import device_ans
+
+    dev = torch.device("cuda")
+    main = None
+    worst = 0
+    for S, T, seed in ((135, 4096, 1), (37, 1000, 2)):
+        streams, table, tok, nbytes = _k2_streams(S, T, seed)
+        st, tb = torch.from_numpy(streams).to(dev), torch.from_numpy(table).to(dev)
+        got_t, got_f = AL.ans_decode_batch(st, tb, 6, T)
+        want_t, want_f = device_ans.ans_decode_batch(st, tb, 6, T)
+        torch.cuda.synchronize()
+        err = int((got_t.long() - want_t.long()).abs().max())
+        same = torch.equal(got_t, want_t) and torch.equal(got_f, want_f)
+        writer = np.array_equal(got_t.cpu().numpy(), tok) and bool((got_f == 0x130000).all())
+        rec = {"phase": "kernels", "name": "ans_decode_batch", "S": S, "T": T,
+               "bit_exact": same, "writer_tokens_and_final_states": writer, "max_abs_diff": err}
+        check(same and writer, f"ans_decode_batch disagrees with its plain version at S={S}")
+        worst = max(worst, err)
+        if S == 135:
+            rec["kernel_ms"] = time_ms(lambda: AL.ans_decode_batch(st, tb, 6, T), reps=10)
+            rec["plain_ms"] = time_ms(lambda: device_ans.ans_decode_batch(st, tb, 6, T),
+                                      reps=2, warmup=1)
+            # bytes: the stream bytes the tokens need, the table, tokens and
+            # final states out; operations: K2_OPS_PER_TOKEN a token
+            t_bytes = (nbytes + table.nbytes + S * T * 4 + S * 4) / HBM_BYTES_PER_S
+            t_ops = S * T * K2_OPS_PER_TOKEN / INT32_OPS_PER_S
+            rec["bound_ms"] = max(t_bytes, t_ops) * 1e3
+            rec["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+            rec["longest_lane_tokens"] = T
+            rec["serial_chain_note"] = ("the real limit is each lane's serial chain of T "
+                                        "dependent table lookups, not bytes or operations")
+            main = (rec, st, tb, T)
+        emit(rec)
+    rec, st, tb, T = main
+    AL.ans_decode_batch.launches = 0
+    AL.ans_decode_batch(st, tb, 6, T)  # the path: one batch decode
+    torch.cuda.synchronize()
+    rec["launches"] = AL.ans_decode_batch.launches
+    emit({"phase": "k2_path", "entry": "jxl_tpu_torch.ops.ans_lanes.ans_decode_batch",
+          "streams": int(st.shape[0]), "tokens": T, "launches": rec["launches"]})
+    check(rec["launches"] == 1, "the batch decode path did not launch K2")
+    rec["max_abs_err"] = worst
+    return rec
+
+
+def _vardct_frame(data, device, host_ac: bool = False):
+    """The port's parse + AC decode of a VarDCT stream (the path of
+    decode_image up to the render)."""
+    from jxl_tpu_torch.api.simple import parse_frame
+    from jxl_tpu_torch.io.bit_reader import BitReader
+    from jxl_tpu_torch.io.headers import FileHeader
+
+    old = os.environ.pop("JXL_TPU_AC", None)
+    if host_ac:
+        os.environ["JXL_TPU_AC"] = "host"
+    try:
+        br = BitReader(data)
+        fh = FileHeader.read(br)
+        br.jump_to_byte_boundary()
+        frame = parse_frame(br, fh)
+        frame.decode_all_sections(br, device)
+    finally:
+        os.environ.pop("JXL_TPU_AC", None)
+        if old is not None:
+            os.environ["JXL_TPU_AC"] = old
+    return frame
+
+
+def _lane_inputs(data):
+    from jxl_tpu_torch.api.simple import parse_frame
+    from jxl_tpu_torch.io.bit_reader import BitReader
+    from jxl_tpu_torch.io.headers import FileHeader
+    from jxl_tpu_torch.vardct import device_group
+
+    br = BitReader(data)
+    fh = FileHeader.read(br)
+    br.jump_to_byte_boundary()
+    frame = parse_frame(br, fh)
+    sections = frame.split_sections(br)
+    frame.decode_lf_global(sections[frame.section_index("lf_global")])
+    for g in range(frame.header.num_lf_groups):
+        frame.decode_lf_group(g, sections[frame.section_index("lf", group=g)])
+    frame.decode_hf_global(sections[frame.section_index("hf_global")])
+    readers = {(g, 0): sections[frame.section_index("hf", group=g)]
+               for g in range(frame.header.num_groups)}
+    return device_group.lane_inputs(frame, readers)
+
+
+
+
+def ac_tokens_per_lane(inputs, coeffs):
+    """Tokens each lane decodes (one nonzeros token an item, then one a
+    coefficient position up to the item's last nonzero), from the lane
+    inputs and the decoded coefficients: what this run's data needs."""
+    import numpy as np
+
+    out = []
+    for lane in range(inputs["streams"].shape[0]):
+        g = inputs["lane_group"][lane]
+        items = inputs["items"][g, : inputs["lane_n_items"][lane]].astype(np.int64)
+        n = len(items)
+        extra = np.zeros(n, np.int64)
+        for nc in np.unique(items[:, 4]).tolist():
+            m = items[:, 4] == nc
+            it = items[m]
+            k = np.arange(nc)[None, :]
+            oidx = inputs["lane_order_base"][lane] + it[:, 6:7] + k
+            idx = (inputs["lane_coeff_base"][lane] + it[:, 7:8]
+                   + inputs["orders"][np.minimum(oidx, len(inputs["orders"]) - 1)])
+            nz = (coeffs[idx] != 0) & (k >= it[:, 3:4])
+            last = np.where(nz.any(1), nc - 1 - np.argmax(nz[:, ::-1], axis=1), -1)
+            extra[m] = np.where(last >= 0, last - it[:, 3] + 1, 0)
+        out.append(n + int(extra.sum()))
+    return out
+
+
+def phase_k3(data4k):
+    """K3 against its plain version on a 1024x1024 stream, a corrupted
+    copy and the 4K stream's lanes; times at the 4K shapes."""
+    import numpy as np
+    import torch
+
+    from jxl_tpu_torch.ops import device_ac
+    from jxl_tpu_torch.vardct.device_group import LANE_KEYWORDS
+    from test_torch_vardct_streams import encode_xyb_vardct
+
+    dev = torch.device("cuda")
+    small, small_coeffs = encode_xyb_vardct(1024, 1024, seed=8, density=0.2)
+    cases = [("1024x1024", small, small_coeffs, None)]
+    # corrupt lane 5's section in place of the bytes after its header
+    inputs = _lane_inputs(small)
+    end = inputs["lane_end_bits"][5] // 8
+    start = inputs["start_bits"][5] // 8 + 40
+    corrupt = dict(inputs, streams=inputs["streams"].copy())
+    corrupt["streams"][5, start : min(end, start + 12)] ^= 0x5A
+    cases.append(("1024x1024_corrupt_lane5", None, None, corrupt))
+    cases.append(("3840x2160", data4k, None, None))
+    worst = 0
+    main = None
+    for name, data, coeffs, given in cases:
+        inp = given if given is not None else _lane_inputs(data)
+        arrays = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                  for k, v in inp.items() if k not in LANE_KEYWORDS}
+        kw = {k: inp[k] for k in LANE_KEYWORDS}
+        got_c, got_ok = device_ac.decode_ac_sections(**arrays, **kw)
+        t0 = time.perf_counter()
+        want_c, want_ok = device_ac.decode_ac_sections_reference(*arrays.values(), **kw)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        err = int((got_c.long() - want_c.long()).abs().max())
+        same = torch.equal(got_c, want_c) and torch.equal(got_ok, want_ok)
+        ok = got_ok.cpu().numpy()
+        rec = {"phase": "kernels", "name": "decode_ac_sections", "case": name,
+               "lanes": len(ok), "bit_exact": same, "max_abs_diff": err,
+               "lanes_not_ok": np.nonzero(~ok)[0].tolist(), "plain_s": plain_s}
+        check(same, f"decode_ac_sections disagrees with its plain version on {name}")
+        if given is not None:
+            check(ok.tolist() == [i != 5 for i in range(len(ok))],
+                  f"the corrupted copy must flag lane 5 alone, got {rec['lanes_not_ok']}")
+        else:
+            check(ok.all(), f"{name}: lanes not ok")
+        if coeffs is not None:
+            check(np.array_equal(got_c.cpu().numpy(), coeffs), f"{name}: not the writer's")
+        worst = max(worst, err)
+        if name == "3840x2160":
+            rec["kernel_ms"] = time_ms(lambda: device_ac.decode_ac_sections(**arrays, **kw),
+                                       reps=5, warmup=1)
+            rec["plain_ms"] = plain_s * 1e3  # one call; the plain version is no yardstick
+            tokens = ac_tokens_per_lane(inp, got_c.cpu().numpy())
+            # bytes: each section's bytes, the items walked, orders, tables,
+            # context map, lane arrays in; the dense buffer and flags out
+            nbytes = (int(inp["lane_end_bits"].sum()) // 8
+                      + int(inp["lane_n_items"].sum()) * 40 + inp["orders"].nbytes
+                      + inp["tables"].nbytes + inp["uint_cfgs"].nbytes
+                      + inp["context_map"].nbytes + 8 * 4 * len(ok)
+                      + inp["total"] * 4 + len(ok))
+            t_bytes = nbytes / HBM_BYTES_PER_S
+            t_ops = sum(tokens) * K3_OPS_PER_TOKEN / INT32_OPS_PER_S
+            rec["bound_ms"] = max(t_bytes, t_ops) * 1e3
+            rec["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+            rec["tokens"] = sum(tokens)
+            rec["longest_lane_tokens"] = max(tokens)
+            rec["serial_chain_note"] = ("the real limit is the longest lane's serial chain "
+                                        "of dependent token steps, not bytes or operations")
+            main = rec
+        emit(rec)
+    main["max_abs_err"] = worst
+    return main
+
+
+def phase_vardct(data, coeffs):
+    """decode_image of the 4K VarDCT stream on the card, checked against
+    the writer's coefficients and the port's CPU decode (host AC)."""
+    import numpy as np
+    import torch
+
+    import jxl_tpu_torch
+    from jxl_tpu_torch.ops import ans_lanes as AL
+    from jxl_tpu_torch.ops import device_ac
+    from jxl_tpu_torch.ops import epf_gab as K
+
+    mp = WIDTH * HEIGHT / 1e6
+    runs = []
+    K.epf_gab.launches = 0
+    device_ac.decode_ac_sections.launches = 0
+    AL.ans_decode_batch.launches = 0
+    for fmt in ("u8", "f32"):
+        for rep in range(3):
+            t0 = time.perf_counter()
+            img = jxl_tpu_torch.decode_image(data, pixel_format=fmt)
+            torch.cuda.synchronize()
+            total = time.perf_counter() - t0
+            host = img.timings["host_s"]
+            runs.append((fmt, img.frames[0]))
+            emit({"phase": "vardct", "format": fmt, "rep": rep, "megapixels": mp,
+                  "seconds": total, "mp_per_s": mp / total,
+                  "host_parse_entropy_s": host, "device_s": total - host})
+    launches = {"epf_gab": K.epf_gab.launches,
+                "decode_ac_sections": device_ac.decode_ac_sections.launches,
+                "ans_decode_batch": AL.ans_decode_batch.launches}
+    emit({"phase": "vardct", "launches": launches})
+    check(launches["epf_gab"] > 0, "the VarDCT decode did not launch epf_gab")
+    check(launches["decode_ac_sections"] > 0, "the VarDCT decode did not launch K3")
+
+    lanes = _vardct_frame(data, "cuda")
+    torch.cuda.synchronize()
+    k3 = lanes.device_ac_flat.cpu().numpy()
+    host = _vardct_frame(data, "cpu", host_ac=True).host_ac_flat
+    same_writer = np.array_equal(k3, coeffs)
+    same_host = np.array_equal(k3, host)
+    emit({"phase": "vardct", "k3_equals_writer": same_writer, "k3_equals_host_decoder": same_host,
+          "nonzero_coefficients": int(np.count_nonzero(coeffs))})
+    check(same_writer and same_host, "K3's coefficients differ from the writer's or the host's")
+
+    os.environ["JXL_TPU_AC"] = "host"
+    try:
+        for fmt in ("u8", "f32"):
+            got = next(o for f, o in runs if f == fmt)
+            check(got.device.type == "cuda", "frames must stay on the card")
+            check(tuple(got.shape) == (HEIGHT, WIDTH, 3), f"bad shape {tuple(got.shape)}")
+            t0 = time.perf_counter()
+            ref = jxl_tpu_torch.decode_image(data, pixel_format=fmt, device="cpu").frames[0]
+            cpu_s = time.perf_counter() - t0
+            a = got.cpu().numpy().astype(np.float64)
+            b = ref.numpy().astype(np.float64)
+            check(np.isfinite(a).all(), "non-finite output")
+            diff = float(np.abs(a - b).max())
+            limit = 1.0 if fmt == "u8" else 1e-4
+            emit({"phase": "vardct", "format": fmt, "vs_cpu_host_ac_max_abs_diff": diff,
+                  "limit": limit, "cpu_decode_s": cpu_s, "min": float(a.min()),
+                  "max": float(a.max())})
+            check(diff <= limit, f"{fmt} VarDCT decode on the card differs from the CPU: {diff}")
+    finally:
+        os.environ.pop("JXL_TPU_AC", None)
+    return launches
+
+
+def phase_profile(data, stream: str) -> None:
     """One u8 decode under torch.profiler: device time by operation, and
     the share of the decode's wall time the card was busy."""
     import torch
@@ -251,7 +565,7 @@ def phase_profile(data) -> None:
                   if ev.device_type == DeviceType.CUDA and ev.key != "Activity Buffer Request"),
                  key=lambda t: -t[1])
     busy_ms = sum(t[1] for t in ops) / 1e3
-    emit({"phase": "profile", "format": "u8", "wall_ms": wall * 1e3,
+    emit({"phase": "profile", "stream": stream, "format": "u8", "wall_ms": wall * 1e3,
           "host_parse_entropy_ms": img.timings["host_s"] * 1e3,
           "device_busy_ms": busy_ms, "device_idle_share": 1.0 - busy_ms / (wall * 1e3),
           "top_device_ops": [{"op": k[:80], "ms": us / 1e3, "calls": n} for k, us, n in ops[:10]]})
@@ -268,25 +582,55 @@ def main() -> int:
     # fail before any output when the package or the stream writer is missing
     import jxl_tpu_torch  # noqa: F401
     import test_torch_streams  # noqa: F401
+    import test_torch_vardct_streams  # noqa: F401
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,
     )
-    print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else "nvidia-smi: n/a", flush=True)
+    smi_line = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else "nvidia-smi: n/a"
+    print(smi_line, flush=True)
     emit({"phase": "env", "python": sys.version.split()[0], "torch": torch.__version__,
           "cuda": torch.version.cuda, "device": torch.cuda.get_device_name(0)})
 
     phase_build()
     k, max_err = phase_kernels()
-    launches, data = phase_decode()
-    phase_profile(data)
-    emit({"kernels": [{
-        "name": "epf_gab", "route": "cuda", "source": "jxl_tpu_torch/csrc/epf_gab.cu",
-        "replaces": "jxl_tpu/ops/pallas_epf.py:228", "launches": launches,
-        "max_abs_err": max_err, "ms": k["kernel_ms"], "plain_ms": k["plain_ms"],
-        "bound_ms": k["bound_ms"], "bound_by": k["bound_by"], "library_ms": None,
-    }]})
+    k2 = phase_k2()
+    from test_torch_vardct_streams import encode_xyb_vardct
+
+    t0 = time.perf_counter()
+    vdata, vcoeffs = encode_xyb_vardct(WIDTH, HEIGHT, seed=7)
+    emit({"phase": "vardct", "step": "write_stream", "bytes": len(vdata),
+          "seconds": time.perf_counter() - t0})
+    k3 = phase_k3(vdata)
+    modular_launches, data = phase_decode()
+    vardct_launches = phase_vardct(vdata, vcoeffs)
+    phase_profile(data, "modular")
+    phase_profile(vdata, "vardct")
+    null_reason = "no single torch call computes a rANS decode"
+    emit({"kernels": [
+        {"name": "epf_gab", "route": "cuda", "source": "jxl_tpu_torch/csrc/epf_gab.cu",
+         "replaces": "jxl_tpu/ops/pallas_epf.py:228", "launches": vardct_launches["epf_gab"],
+         "launches_modular_path": modular_launches,
+         "max_abs_err": max_err, "ms": k["kernel_ms"], "plain_ms": k["plain_ms"],
+         "bound_ms": k["bound_ms"], "bound_by": k["bound_by"], "library_ms": None,
+         "library_note": "no single torch call computes gaborish+EPF"},
+        {"name": "ans_decode_batch", "route": "cuda", "source": "jxl_tpu_torch/csrc/ans_lanes.cu",
+         "replaces": "jxl_tpu/ops/pallas_ans.py:105", "launches": k2["launches"],
+         "launches_note": "its own path, the batch decode entry point; decode_image runs "
+                          "its step inside decode_ac_sections",
+         "max_abs_err": k2["max_abs_err"], "ms": k2["kernel_ms"], "plain_ms": k2["plain_ms"],
+         "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"], "library_ms": None,
+         "library_note": null_reason, "longest_lane_tokens": k2["longest_lane_tokens"]},
+        {"name": "decode_ac_sections", "route": "cuda",
+         "source": "jxl_tpu_torch/csrc/ans_lanes.cu",
+         "replaces": "jxl_tpu/ops/device_ac.py:55",
+         "launches": vardct_launches["decode_ac_sections"],
+         "max_abs_err": k3["max_abs_err"], "ms": k3["kernel_ms"], "plain_ms": k3["plain_ms"],
+         "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"], "library_ms": None,
+         "library_note": null_reason, "longest_lane_tokens": k3["longest_lane_tokens"]},
+    ]})
+    print(smi_line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -1,10 +1,14 @@
-"""Frame decoding orchestration (host planner), Modular frames only.
+"""Frame decoding orchestration (host planner).
 
 Capability reference: jxl/src/frame/{mod,decode}.rs. Parses LfGlobal →
-LF groups → HfGlobal → HF groups, dispatching modular section decoding
-and producing channel planes for the render pipeline. VarDCT sections,
-patches, splines and noise are outside this package's slice: the entry
-point (api/simple.py) rejects such frames before any section is read.
+LF groups → HfGlobal → HF groups, dispatching Modular and VarDCT section
+decoding. A VarDCT frame's AC coefficients are decoded by the lane
+decoder (vardct/device_group.py: kernel K3 on the card, its plain torch
+version on the CPU) or, with JXL_TPU_AC=host or for streams the lane
+decoder does not take, by the native host decoder; either way they end
+up as one dense buffer for vardct/device_frame.py. Patches, splines,
+noise and LF frames are outside this package's slice: the entry point
+(api/simple.py) rejects such frames before any section is read.
 """
 
 from __future__ import annotations
@@ -12,6 +16,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 from ..errors import LfQuantFactorTooSmall, NotSupported
 from ..io.bit_reader import BitReader
@@ -46,8 +51,23 @@ class LfQuantFactors:
 
 
 @dataclass
+class QuantizerParams:
+    global_scale: int = 1
+    quant_lf: int = 1
+
+    GLOBAL_SCALE_DENOM = 1 << 16
+
+    @property
+    def inv_global_scale(self) -> float:
+        return self.GLOBAL_SCALE_DENOM / self.global_scale
+
+
+@dataclass
 class LfGlobalState:
     lf_quant: LfQuantFactors = None
+    quant_params: QuantizerParams = None
+    block_context_map: object = None
+    color_correlation_params: object = None
     tree: Tree = None
     modular_global: FullModularImage = None
 
@@ -68,6 +88,14 @@ class Frame:
         )
         self.color_channels = 1 if is_gray else 3
         self.lf_global: LfGlobalState | None = None
+        self.hf_global = None
+        self.lf_image = None  # [3] float planes in 8x8-block resolution
+        self.hf_meta = None
+        # the dense (G * 3 * 256 * 256,) int32 AC coefficients of a VarDCT
+        # frame: a tensor from the lane decoder, or numpy from the host
+        self.device_ac_flat = None
+        self.device_ac_ok = None
+        self.host_ac_flat = None
 
     @property
     def modular_color_channels(self) -> int:
@@ -98,11 +126,10 @@ class Frame:
     # -- LfGlobal ----------------------------------------------------------------
 
     def decode_lf_global(self, br: BitReader) -> None:
-        """ref frame/decode.rs:314-434, Modular frames without patches,
-        splines or noise."""
+        """ref frame/decode.rs:314-434, frames without patches, splines or
+        noise."""
         header = self.header
-        if header.encoding != Encoding.MODULAR:
-            raise NotSupported("VarDCT frames are not in this package's slice")
+        is_vardct = header.encoding == Encoding.VARDCT
         state = LfGlobalState()
         num_ec = len(self.file_header.image_metadata.extra_channel_info)
         size_limit = min(
@@ -110,11 +137,25 @@ class Frame:
             + header.width * header.height * (self.color_channels + num_ec) // 16,
             1 << 22,
         )
-        # one native call for the table sequence (lf-quant, global tree)
+        # one native call for the table sequence (lf-quant, [VarDCT:
+        # quantizer, block context map, CfL], global tree)
         from .. import native
 
-        res = native.decode_lf_global_tables_native(br, False, size_limit)
+        res = native.decode_lf_global_tables_native(br, is_vardct, size_limit)
         state.lf_quant = LfQuantFactors(res["lf_quant"])
+        if is_vardct:
+            from ..vardct.block_context import BlockContextMap
+            from ..vardct.cfl import ColorCorrelationParams
+
+            state.quant_params = QuantizerParams(*res["quant_params"])
+            if res["bctx_default"]:
+                state.block_context_map = BlockContextMap.default()
+            else:
+                state.block_context_map = BlockContextMap(
+                    res["lf_thresholds"], res["qf_thresholds"], res["bctx_map"],
+                    res["num_lf_contexts"], res["bctx_num_contexts"],
+                )
+            state.color_correlation_params = ColorCorrelationParams(*res["cfl"])
         state.tree = res["tree"]
         state.modular_global = FullModularImage.read(
             header,
@@ -128,8 +169,30 @@ class Frame:
     # -- LF / HF groups ------------------------------------------------------------
 
     def decode_lf_group(self, group: int, br: BitReader) -> None:
+        header = self.header
         state = self.lf_global
-        state.modular_global.read_lf_stream(self.header, state.tree, group, br)
+        if header.encoding == Encoding.VARDCT:
+            from ..vardct.lf import decode_hf_metadata, decode_vardct_lf, try_decode_lf_group
+
+            if try_decode_lf_group(self, group, br):
+                return  # LF coefficients, (empty) modular LF and HF metadata
+            decode_vardct_lf(self, group, br)
+            state.modular_global.read_lf_stream(header, state.tree, group, br)
+            decode_hf_metadata(self, group, br)
+            return
+        state.modular_global.read_lf_stream(header, state.tree, group, br)
+
+    def decode_hf_global(self, br: BitReader) -> None:
+        if self.header.encoding == Encoding.VARDCT:
+            from ..vardct.hf_global import decode_hf_global
+
+            self.hf_global = decode_hf_global(self, br)
+
+    def finalize_lf(self) -> None:
+        if self.header.should_do_adaptive_lf_smoothing and self.lf_image is not None:
+            from ..vardct.lf import adaptive_lf_smoothing
+
+            adaptive_lf_smoothing(self)
 
     def decode_hf_group(self, group: int, pass_readers: list[tuple[int, BitReader]]) -> None:
         state = self.lf_global
@@ -140,9 +203,14 @@ class Frame:
 
     # -- whole-frame decode ------------------------------------------------------------
 
-    def decode_all_sections(self, br: BitReader) -> None:
+    def decode_all_sections(self, br: BitReader, device=None) -> None:
+        """Decode every section. A VarDCT frame's AC coefficients are
+        decoded on `device` (the lane decoder) unless JXL_TPU_AC=host or
+        the stream needs the host decoder."""
         header = self.header
-        if header.num_toc_entries == 1:
+        if header.encoding == Encoding.VARDCT:
+            self._decode_vardct_sections(br, torch.device(device or "cpu"))
+        elif header.num_toc_entries == 1:
             sec = self.split_sections(br)[0]
             self.decode_lf_global(sec)
             for g in range(header.num_lf_groups):
@@ -168,6 +236,42 @@ class Frame:
             ]
             self._decode_hf_groups_parallel(jobs)
         self.lf_global.modular_global.run_transforms()
+
+    def _decode_vardct_sections(self, br: BitReader, device) -> None:
+        """ref frame/decode.rs section order; the AC routing of
+        jxl_tpu/api/frame.py:_try_device_ac without its TPU-measured gates:
+        an eligible frame takes the lane decoder on either device, unless
+        JXL_TPU_AC=host sends it to the native host decoder."""
+        import os
+
+        from ..vardct.device_group import decode_ac_sections_device, eligible_for_device_ac
+        from ..vardct.group import try_decode_hf_groups
+
+        header = self.header
+        single = header.num_toc_entries == 1
+        sections = self.split_sections(br)
+        sec = sections[0]
+        self.decode_lf_global(sec if single else sections[self.section_index("lf_global")])
+        for g in range(header.num_lf_groups):
+            self.decode_lf_group(g, sec if single else sections[self.section_index("lf", group=g)])
+        self.decode_hf_global(sec if single else sections[self.section_index("hf_global")])
+        self.finalize_lf()
+        host = os.environ.get("JXL_TPU_AC", "auto") == "host"
+        if not single and not host and eligible_for_device_ac(self):
+            readers = {
+                (g, p): sections[self.section_index("hf", group=g, pass_idx=p)]
+                for g in range(header.num_groups)
+                for p in range(header.passes.num_passes)
+            }
+            decode_ac_sections_device(self, readers, device)
+            return
+        hf = [(g, sec if single else sections[self.section_index("hf", group=g)])
+              for g in range(header.num_groups)]
+        if not try_decode_hf_groups(self, hf):
+            raise NotSupported(
+                "VarDCT frames with more than one pass whose AC the lane decoder does "
+                "not take, or with modular HF channels, are not in this package's slice"
+            )
 
     def _decode_hf_groups_parallel(self, jobs) -> None:
         """Fan HF-group section decoding out over a host thread pool (the

@@ -1,9 +1,10 @@
-"""Whole-buffer decode entry point (non-streaming), single-frame Modular.
+"""Whole-buffer decode entry point (non-streaming), single frame.
 
 Counterpart of jxl_tpu/api/simple.py:decode_image restricted to its
-single-frame path: one visible Modular frame, no preview, animation, ICC
-profile or extra channels. Host parse and entropy decode run in numpy and
-C++ (native/); the render runs on the caller's device.
+single-frame path: one visible Modular or 4:4:4 VarDCT frame, no preview,
+animation, ICC profile or extra channels. Host parse and entropy decode
+run in numpy and C++ (native/); a VarDCT frame's AC coefficients are
+decoded on the caller's device (api/frame.py), and the render runs there.
 """
 
 from __future__ import annotations
@@ -76,7 +77,10 @@ def _check_image(fh) -> None:
 
 def _check_frame(header) -> None:
     if header.encoding == Encoding.VARDCT:
-        raise NotSupported("VarDCT frames are not in this package's slice")
+        if not header.is444:
+            raise NotSupported("chroma-subsampled VarDCT frames are not in this package's slice")
+        if header.has_lf_frame:
+            raise NotSupported("LF frames are not in this package's slice")
     if header.frame_type not in (FrameType.REGULAR, FrameType.SKIP_PROGRESSIVE):
         raise NotSupported(f"{header.frame_type.name} frames are not in this package's slice")
     if not header.is_last:
@@ -94,13 +98,15 @@ def _check_frame(header) -> None:
 def decode_image(
     data: bytes, *, pixel_format: str = "f32", device="cuda"
 ) -> DecodedImage:
-    """Decode a single-frame Modular .jxl file.
+    """Decode a single-frame Modular or 4:4:4 VarDCT .jxl file.
 
     pixel_format: "f32" (default), "u8", "u16", or "f16" — the output sample
     format (ref JxlDataFormat + ConvertF32To* stages, convert.rs:549-).
     device: where the render runs and the frames are returned. "cuda" (the
     default) raises where no card is present; pass "cpu" explicitly to
-    render with the plain torch versions on the host.
+    render with the plain torch versions on the host. A VarDCT frame's AC
+    coefficients are decoded there too (kernel K3 on the card); set
+    JXL_TPU_AC=host to decode them with the native host decoder instead.
     Streams outside this slice raise NotSupported with the reason."""
     if pixel_format not in PIXEL_FORMATS:
         raise ValueError(f"unknown pixel format {pixel_format!r}")
@@ -120,7 +126,7 @@ def decode_image(
     br.jump_to_byte_boundary()
     frame = parse_frame(br, fh, state)
     _check_frame(frame.header)
-    frame.decode_all_sections(br)
+    frame.decode_all_sections(br, device)
     host_s = time.perf_counter() - t0
 
     planes = render_frame(frame, device, pixel_format)

@@ -671,6 +671,116 @@ def decode_modular_native(
     return True
 
 
+_NAT_ORDERS = None
+
+
+def _natural_orders_concat():
+    """Process-cached concatenation of the 13 natural zig-zag orders
+    (int32) + the 14-entry prefix-offset table for the native HfGlobal
+    fast path."""
+    global _NAT_ORDERS
+    if _NAT_ORDERS is None:
+        from ..vardct.coeff_order import TRANSFORM_TYPE_LUT, natural_order_array
+
+        parts = [natural_order_array(t) for t in TRANSFORM_TYPE_LUT]
+        off = np.zeros(14, dtype=np.int32)
+        for i, p in enumerate(parts):
+            off[i + 1] = off[i] + len(p)
+        _NAT_ORDERS = (
+            np.ascontiguousarray(np.concatenate(parts)).astype(np.int32),
+            off,
+        )
+    return _NAT_ORDERS
+
+
+_hf_global_scratch = _threading.local()
+
+
+def decode_hf_global_native(br, num_histo_bits: int, num_ac_contexts: int):
+    """Single-pass HfGlobal with all-default dequant matrices in one
+    native call (ref frame/decode.rs:513-583): default bit,
+    num_histograms, pass-0 order selector, coded coefficient orders
+    (permutations + Lehmer against the cached natural orders), AC
+    histograms. Returns (num_histograms, used_orders, coded-orders dict,
+    Histograms), or None when the stream carries custom matrices or
+    prefix-coded order histograms (bit position untouched: the Python
+    readers of vardct/hf_global.py read it); raises typed errors on bad
+    streams."""
+    lib = get_lib()
+    from ..errors import InvalidPermutation, NativeDecodeError, OutOfBounds
+
+    nat, nat_off = _natural_orders_concat()
+    scr = _hf_global_scratch.__dict__
+    max_ctx = (1 << num_histo_bits) * num_ac_contexts + 8
+    if scr.get("cap", -1) < max_ctx:
+        scr["cap"] = max(max_ctx, 4096)
+        scr["cmap"] = np.empty(scr["cap"] + 1, dtype=np.uint8)
+    if "orders" not in scr:
+        scr["orders"] = np.empty(3 * len(nat), dtype=np.int32)
+        scr["cfgs"] = np.empty((256, 3), dtype=np.int32)
+        scr["tables"] = np.empty((256, 5, 256), dtype=np.int32)
+        scr["singles"] = np.empty(256, dtype=np.int32)
+        scr["huff_off"] = np.empty(256, dtype=np.int32)
+        scr["huff_bits"] = np.empty(1 << 14, dtype=np.int32)
+        scr["huff_vals"] = np.empty(1 << 14, dtype=np.int32)
+    info = np.zeros(2, dtype=np.int32)
+    meta = np.zeros(16, dtype=np.int32)
+    lz_cfg = np.zeros(3, dtype=np.int32)
+    orders = scr["orders"]
+    cmap = scr["cmap"]
+    cfgs = scr["cfgs"]
+    tables = scr["tables"]
+    singles = scr["singles"]
+    huff_off = scr["huff_off"]
+    data = _databuf(br)
+    while True:
+        huff_bits = scr["huff_bits"]
+        huff_vals = scr["huff_vals"]
+        bit_pos = ctypes.c_uint64(br.pos)
+        ret = lib.jxl_decode_hf_global(
+            data, ctypes.c_uint64(len(data)), ctypes.byref(bit_pos),
+            ctypes.c_int(num_histo_bits), ctypes.c_int(num_ac_contexts),
+            _ptr(nat, ctypes.c_int32), _ptr(nat_off, ctypes.c_int32),
+            _ptr(info, ctypes.c_int32), _ptr(orders, ctypes.c_int32),
+            _ptr(meta, ctypes.c_int32), _ptr(lz_cfg, ctypes.c_int32),
+            _ptr(cmap, ctypes.c_uint8), _ptr(cfgs, ctypes.c_int32),
+            _ptr(tables, ctypes.c_int32), _ptr(singles, ctypes.c_int32),
+            _ptr(huff_off, ctypes.c_int32), _ptr(huff_bits, ctypes.c_int32),
+            _ptr(huff_vals, ctypes.c_int32), ctypes.c_int64(len(huff_bits)),
+        )
+        if ret != 9:
+            break
+        grown = max(len(huff_bits) * 2, int(meta[11]))
+        scr["huff_bits"] = np.empty(grown, dtype=np.int32)
+        scr["huff_vals"] = np.empty(grown, dtype=np.int32)
+    if ret == 100 or ret == 8:
+        return None  # custom matrices / prefix path: python oracle
+    if ret == 2:
+        raise OutOfBounds(1)
+    if ret == 3:
+        raise InvalidPermutation("invalid permutation size")
+    if ret != 0:
+        raise NativeDecodeError(f"native HfGlobal decode failed (code {ret})")
+    br.pos = bit_pos.value
+    num_histograms = int(info[0])
+    used_orders = int(info[1])
+    coded = {}
+    pos = 0
+    for o in range(13):
+        if not (used_orders >> o) & 1:
+            continue
+        size = int(nat_off[o + 1] - nat_off[o])
+        for c in range(3):
+            coded[3 * o + c] = orders[pos : pos + size].copy()
+            pos += size
+    histograms = _histograms_from_packed(
+        meta, lz_cfg, cmap, cfgs, tables, singles,
+        huff_off, scr["huff_bits"], scr["huff_vals"],
+        num_histograms * num_ac_contexts,
+    )
+    return num_histograms, used_orders, coded, histograms
+
+
 def decode_lf_global_tables_native(br, is_vardct: bool, tree_size_limit: int):
     """LfGlobal table sequence in one native call (ref frame/decode.rs:
     314-434): LF quant factors, [VarDCT: quantizer params + block context
@@ -843,3 +953,162 @@ def rct_native(ins, outs, op: int, perm: int) -> bool:
     lib.jxl_rct(*args, ctypes.c_int64(w), ctypes.c_int64(h),
                 ctypes.c_int(op), ctypes.c_int(perm))
     return True
+
+
+def decode_lf_group_vardct_native(
+    br, tree, group, num_lf_groups, ox, oy, w, h, bw, hshift3, vshift3,
+    is444, lf_factors3, ytox_lf, ytob_lf, num_lf_contexts, lf_thr, n_lf_thr,
+    lf_planes, qlfmap, ytox_map, ytob_map, tmap, rqmap, epf_map, cbx, cby,
+    invalid_transform,
+):
+    """VarDCT LF-group decode in one native call: LF modular substream +
+    dequant + CfL at LF + quant-lf bucketing + HF metadata substream +
+    transform placement (ref frame/modular/mod.rs:939-1089).
+
+    Returns True on success (br.pos advanced, planes/maps written),
+    False when the stream needs the Python path (local tree / local
+    transforms); raises typed errors on invalid streams."""
+    lib = get_lib()
+    from ..errors import InvalidBitstream, InvalidEpfValue, NativeDecodeError
+
+    ent = pack_entropy(tree.histograms)
+    tree_arr = getattr(tree, "_native_packed", None)
+    if tree_arr is None:
+        tree_arr = pack_tree(tree)
+        try:
+            tree._native_packed = tree_arr
+        except AttributeError:
+            pass
+    data = _databuf(br)
+    bit_pos = ctypes.c_uint64(br.pos)
+    ret = lib.jxl_decode_lf_group_vardct(
+        data, ctypes.c_uint64(len(data)), ctypes.byref(bit_pos),
+        ctypes.c_int(ent["use_prefix"]),
+        _ptr(ent["ans_tables"], ctypes.c_int32), ctypes.c_int(ent["table_size"]),
+        ctypes.c_int(ent["log_bucket"]),
+        _ptr(ent["huff_offsets"], ctypes.c_int32),
+        _ptr(ent["huff_bits"], ctypes.c_int32),
+        _ptr(ent["huff_values"], ctypes.c_int32),
+        _ptr(ent["context_map"], ctypes.c_uint8),
+        ctypes.c_int(len(ent["context_map"])),
+        _ptr(ent["uint_configs"], ctypes.c_int32),
+        ctypes.c_int(ent["lz77"]), ctypes.c_uint32(ent["min_symbol"]),
+        ctypes.c_uint32(ent["min_length"]), _ptr(ent["lz_cfg"], ctypes.c_int32),
+        ctypes.c_int(ent["lz_dist_cluster"]),
+        _ptr(tree_arr, ctypes.c_int32), ctypes.c_int(len(tree_arr)),
+        ctypes.c_int(tree.num_properties),
+        ctypes.c_int(group), ctypes.c_int(num_lf_groups),
+        ctypes.c_int(ox), ctypes.c_int(oy), ctypes.c_int(w), ctypes.c_int(h),
+        ctypes.c_int(bw),
+        _ptr(hshift3, ctypes.c_int32), _ptr(vshift3, ctypes.c_int32),
+        ctypes.c_int(is444),
+        _ptr(lf_factors3, ctypes.c_double),
+        ctypes.c_float(ytox_lf), ctypes.c_float(ytob_lf),
+        ctypes.c_int(num_lf_contexts),
+        _ptr(lf_thr, ctypes.c_int32), _ptr(n_lf_thr, ctypes.c_int32),
+        lf_planes[0].ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        lf_planes[1].ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        lf_planes[2].ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        qlfmap.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+        ytox_map.ctypes.data_as(ctypes.POINTER(ctypes.c_int8)),
+        ytob_map.ctypes.data_as(ctypes.POINTER(ctypes.c_int8)),
+        ctypes.c_int64(ytox_map.shape[1]),
+        tmap.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+        rqmap.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        epf_map.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+        _ptr(cbx, ctypes.c_int32), _ptr(cby, ctypes.c_int32),
+        ctypes.c_int(invalid_transform),
+    )
+    if ret == 8:
+        return False  # local tree/transforms: Python path
+    if ret == 10:
+        raise InvalidEpfValue("invalid EPF value")
+    if ret in (4, 5, 6, 7):
+        from ..vardct.lf import _PLACE_ERRORS
+
+        raise InvalidBitstream(_PLACE_ERRORS.get(ret, f"placement failed ({ret})"))
+    if ret != 0:
+        raise NativeDecodeError(f"native lf-group decode failed (code {ret})")
+    br.pos = bit_pos.value
+    return True
+
+
+def decode_hf_groups_native(
+    readers, group_ids, slots, bw, bh, gxc, gdim_blocks, hshift3, vshift3,
+    tmap, rqmap, qlfmap, bctx_cmap, num_bctx, num_lf_contexts, qf_thr,
+    num_ac_contexts, num_histograms, cbx, cby, shape_lut, ent, orders,
+    order_off, shift, coeff_pool, chan_stride, blocks_out=None,
+    blk_counts=None,
+):
+    """Whole-frame single-pass VarDCT AC decode: one native call loops the
+    HF group sections (histogram selector, per-block item build from the
+    transform/raw-quant/quant-lf maps, shared AC loop, final-state check).
+    With blocks_out/blk_counts ((n, gdim^2, 4) int32 and (n,) int32), the
+    per-group block tables [gbx, gby, tid, coeff_off] are exported for the
+    render passes.
+
+    Returns the list of final bit positions per reader; raises typed
+    errors on bad streams."""
+    lib = get_lib()
+    from ..errors import (
+        InvalidBitstream,
+        InvalidHistogramIndex,
+        InvalidNumNonZeros,
+        NativeDecodeError,
+    )
+
+    n = len(readers)
+    ptrs = (ctypes.c_void_p * n)()
+    sizes = (ctypes.c_uint64 * n)()
+    poss = (ctypes.c_uint64 * n)()
+    keep = []
+    for i, br in enumerate(readers):
+        buf = _databuf(br)
+        keep.append(buf)
+        if isinstance(buf, bytes):
+            ptrs[i] = ctypes.cast(ctypes.c_char_p(buf), ctypes.c_void_p)
+        else:
+            ptrs[i] = ctypes.cast(buf, ctypes.c_void_p)
+        sizes[i] = len(buf)
+        poss[i] = br.pos
+    gids = np.ascontiguousarray(group_ids, dtype=np.int32)
+    slots_arr = np.ascontiguousarray(slots, dtype=np.int32)
+    ret = lib.jxl_decode_hf_groups(
+        ptrs, sizes, poss, ctypes.c_int(n), _ptr(gids, ctypes.c_int32),
+        ctypes.c_int(bw), ctypes.c_int(bh), ctypes.c_int(gxc),
+        ctypes.c_int(gdim_blocks),
+        _ptr(hshift3, ctypes.c_int32), _ptr(vshift3, ctypes.c_int32),
+        _ptr(tmap, ctypes.c_uint8), _ptr(rqmap, ctypes.c_int32),
+        _ptr(qlfmap, ctypes.c_uint8),
+        _ptr(bctx_cmap, ctypes.c_uint8), ctypes.c_int(num_bctx),
+        ctypes.c_int(num_lf_contexts),
+        _ptr(qf_thr, ctypes.c_int32), ctypes.c_int(len(qf_thr)),
+        ctypes.c_int(num_ac_contexts), ctypes.c_int(num_histograms),
+        _ptr(cbx, ctypes.c_int32), _ptr(cby, ctypes.c_int32),
+        _ptr(shape_lut, ctypes.c_int32),
+        ctypes.c_int(ent["use_prefix"]),
+        _ptr(ent["ans_tables"], ctypes.c_int32), ctypes.c_int(ent["table_size"]),
+        ctypes.c_int(ent["log_bucket"]),
+        _ptr(ent["huff_offsets"], ctypes.c_int32),
+        _ptr(ent["huff_bits"], ctypes.c_int32),
+        _ptr(ent["huff_values"], ctypes.c_int32),
+        _ptr(ent["context_map"], ctypes.c_uint8),
+        ctypes.c_int(len(ent["context_map"])),
+        _ptr(ent["uint_configs"], ctypes.c_int32),
+        ctypes.c_int(ent["lz77"]), ctypes.c_uint32(ent["min_symbol"]),
+        ctypes.c_uint32(ent["min_length"]), _ptr(ent["lz_cfg"], ctypes.c_int32),
+        ctypes.c_int(ent["lz_dist_cluster"]),
+        _ptr(orders, ctypes.c_int32), _ptr(order_off, ctypes.c_int32),
+        ctypes.c_int(shift),
+        _ptr(coeff_pool, ctypes.c_int32),
+        _ptr(slots_arr, ctypes.c_int32), ctypes.c_int64(chan_stride),
+        _ptr(blocks_out, ctypes.c_int32) if blocks_out is not None else None,
+        _ptr(blk_counts, ctypes.c_int32) if blk_counts is not None else None,
+    )
+    if ret == 4:
+        raise InvalidHistogramIndex("invalid histogram index")
+    if ret == 3:
+        raise InvalidNumNonZeros("invalid number of nonzeros")
+    if ret != 0:
+        raise NativeDecodeError(f"native hf-groups decode failed (code {ret})")
+    return [int(poss[i]) for i in range(n)]

@@ -1,0 +1,104 @@
+"""The rANS lane kernels of csrc/ans_lanes.cu: K2 (`ans_decode_batch`,
+here) and K3 (ops/device_ac.py:decode_ac_sections), built together.
+
+K2 replaces the TPU kernel jxl_tpu/ops/pallas_ans.py:
+ans_decode_batch_pallas: `num_tokens` rANS symbols from each of S streams
+through one alias table, one thread per stream, the table in shared
+memory. A lane is a serial chain of dependent table lookups, so the
+longest lane's token count, not bytes or operations, bounds it (see the
+note at the top of the .cu file).
+
+The wrapper takes the plain version (ops/device_ans.py:ans_decode_batch)
+for a tensor on the CPU and launches the kernel for a CUDA tensor, or
+raises; it never falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+
+import torch
+
+from . import _nvcc
+from .device_ans import ans_decode_batch as ans_decode_batch_reference
+
+_lock = threading.Lock()
+_lib = None
+# what the last build in this process reported (see _nvcc.build); None
+# when the library was already built
+build_info = None
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+def load():
+    """Build csrc/ans_lanes.cu with nvcc for sm_90a at first use and load
+    it; raises NativeBuildError when the build fails."""
+    global _lib, build_info
+    with _lock:
+        if _lib is not None:
+            return _lib
+        path, info = _nvcc.build("ans_lanes")
+        if info is not None:
+            build_info = info
+        lib = ctypes.CDLL(str(path))
+        lib.ans_decode_lanes_launch.argtypes = [_P, _I, _I, _P, _I, _I, _I, _P, _P, _P]
+        lib.ans_decode_lanes_launch.restype = _I
+        lib.ac_sections_launch.argtypes = (
+            [_P, _I, _I] + [_P] * 9 + [_I, _P, _I, _P, _I, _I, _P, _P, _I]
+            + [_I, _I, _I, _P, _P, _P]
+        )
+        lib.ac_sections_launch.restype = _I
+        lib.ans_lanes_error_string.argtypes = [_I]
+        lib.ans_lanes_error_string.restype = ctypes.c_char_p
+        _lib = lib
+        return _lib
+
+
+def check_launch(lib, err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(
+            f"{what} kernel launch failed: {lib.ans_lanes_error_string(err).decode()}"
+        )
+
+
+def ans_decode_batch(streams, table, log_bucket_size: int, num_tokens: int):
+    """Decode `num_tokens` symbols from each of S streams.
+
+    streams: (S, L) uint8 (each starts with the 32-bit initial state,
+    LSB-first, then renorm bits); table: (5, n_buckets) int32, on one
+    device. Returns (tokens (S, T) int32, final_states (S,) int64 holding
+    the uint32 states)."""
+    if streams.dtype != torch.uint8 or streams.dim() != 2:
+        raise ValueError("streams must be an (S, L) uint8 tensor")
+    if table.dtype != torch.int32 or table.dim() != 2 or table.shape[0] != 5:
+        raise ValueError("table must be a (5, n_buckets) int32 tensor")
+    if table.device != streams.device:
+        raise ValueError("streams and table must lie on one device")
+    nb = table.shape[1]
+    if not 0 <= log_bucket_size <= 12 or nb << log_bucket_size < 4096 or num_tokens < 0:
+        raise ValueError(f"bad log_bucket_size {log_bucket_size} for {nb} buckets")
+    if streams.device.type == "cpu":
+        return ans_decode_batch_reference(streams, table, log_bucket_size, num_tokens)
+    if streams.device.type != "cuda":
+        raise ValueError(f"ans_decode_batch runs on cpu or cuda, not {streams.device}")
+    if not (streams.is_contiguous() and table.is_contiguous()):
+        raise ValueError("ans_decode_batch takes contiguous tensors")
+    s, length = streams.shape
+    lib = load()
+    tokens = torch.empty((s, num_tokens), dtype=torch.int32, device=streams.device)
+    final = torch.empty((s,), dtype=torch.int32, device=streams.device)
+    with torch.cuda.device(streams.device):
+        stream = torch.cuda.current_stream(streams.device).cuda_stream
+        err = lib.ans_decode_lanes_launch(
+            streams.data_ptr(), s, length, table.data_ptr(), nb, log_bucket_size,
+            num_tokens, tokens.data_ptr(), final.data_ptr(), stream,
+        )
+    check_launch(lib, err, "ans_decode_batch")
+    ans_decode_batch.launches += 1
+    return tokens, final.to(torch.int64) & 0xFFFFFFFF
+
+
+ans_decode_batch.launches = 0

@@ -16,29 +16,14 @@ kernel for a CUDA tensor, or raises; it never falls back.
 from __future__ import annotations
 
 import ctypes
-import fcntl
-import hashlib
-import os
-import pathlib
-import shutil
-import subprocess
 import threading
-import time
 from types import SimpleNamespace
 
 import numpy as np
 import torch
 
-from ..errors import NativeBuildError
 from ..render.stages import core
-
-_PKG = pathlib.Path(__file__).resolve().parents[1]
-_SRC = _PKG / "csrc" / "epf_gab.cu"
-_BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+from . import _nvcc
 
 _lock = threading.Lock()
 _lib = None
@@ -46,14 +31,6 @@ _lib = None
 # (ptxas registers, shared memory and spills); None when the library was
 # already built
 build_info = None
-
-
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    for cand in (shutil.which("nvcc"), os.path.join(home, "bin", "nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise NativeBuildError("nvcc not found (looked on PATH and in $CUDA_HOME/bin)")
 
 
 def load():
@@ -64,29 +41,10 @@ def load():
     with _lock:
         if _lib is not None:
             return _lib
-        tag = hashlib.sha256(_SRC.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        out = _BUILD_DIR / f"epf_gab_{tag}.so"
-        if not out.exists():
-            _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            with open(_BUILD_DIR / "epf_gab.lock", "w") as lock:
-                fcntl.flock(lock, fcntl.LOCK_EX)
-                if not out.exists():
-                    t0 = time.perf_counter()
-                    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-                    res = subprocess.run(
-                        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
-                        capture_output=True, text=True, timeout=600,
-                    )
-                    if res.returncode != 0:
-                        raise NativeBuildError(
-                            f"nvcc failed on {_SRC.name}:\n{res.stdout}{res.stderr}"
-                        )
-                    os.replace(tmp, out)
-                    build_info = {
-                        "seconds": time.perf_counter() - t0,
-                        "log": res.stdout + res.stderr,
-                    }
-        lib = ctypes.CDLL(str(out))
+        path, info = _nvcc.build("epf_gab")
+        if info is not None:
+            build_info = info
+        lib = ctypes.CDLL(str(path))
         lib.epf_gab_launch.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_int, ctypes.c_int, ctypes.c_void_p,

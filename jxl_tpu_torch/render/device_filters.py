@@ -27,20 +27,26 @@ def _gab_key(rf):
     )
 
 
-def run_filters_and_color(frame, planes, constant_sigma, out_format: str = "f32"):
+def run_filters_and_color(frame, planes, sigma_block, constant_sigma, out_format: str = "f32"):
     """planes: (3, H, W) float32 on the caller's device, already cropped to
-    the visible frame. constant_sigma: the Modular frame's constant stored
-    1/sigma (ref render/simple.py:213-217). Returns (3, H, W) in the
-    output sample type, on the same device."""
+    the visible frame. sigma_block: a VarDCT frame's (bh, bw) per-block
+    stored 1/sigma on the same device, expanded here to one value a pixel
+    (ref device_filters.py:110-116); else constant_sigma, a Modular
+    frame's constant stored 1/sigma (ref render/simple.py:213-217). Both
+    None without EPF. Returns (3, H, W) in the output sample type, on the
+    same device."""
     rf = frame.header.restoration_filter
     gab_weights = _gab_key(rf)
     epf_iters = int(rf.epf_iters)
     if gab_weights is not None or epf_iters > 0:
         h, w = planes.shape[1:]
-        inv_sigma = torch.full(
-            (h, w), st.f32(constant_sigma if epf_iters > 0 else 0.0),
-            dtype=torch.float32, device=planes.device,
-        )
+        if epf_iters > 0 and sigma_block is not None:
+            inv_sigma = st._expand_sigma(sigma_block, h, w, (0, 0)).contiguous()
+        else:
+            inv_sigma = torch.full(
+                (h, w), st.f32(constant_sigma if epf_iters > 0 else 0.0),
+                dtype=torch.float32, device=planes.device,
+            )
         planes = epf_gab(
             planes.contiguous(), inv_sigma, gab_weights, epf_iters,
             rf.epf_pass0_sigma_scale, rf.epf_pass2_sigma_scale,

@@ -51,3 +51,19 @@ def build_render_pipeline(frame) -> list:
             stages.append(Stage(f"epf{step}", border=(border, border)))
     stages.append(Stage("crop", size=header.size_upsampled()))
     return stages
+
+
+def sigma_source(frame):
+    """(sigma_block, constant_sigma) of the EPF stages (ref
+    render/pipeline.py:678-680): a VarDCT frame's per-block 1/sigma image
+    ((bh, bw) float32 numpy), or a Modular frame's constant stored 1/sigma;
+    (None, None) without EPF."""
+    from ..io.headers.frame import Encoding
+    from .stages import core as st
+
+    rf = frame.header.restoration_filter
+    if rf.epf_iters == 0:
+        return None, None
+    if frame.header.encoding == Encoding.VARDCT:
+        return st.compute_sigma_image(frame), None
+    return None, st.INV_SIGMA_NUM / rf.epf_sigma_for_modular

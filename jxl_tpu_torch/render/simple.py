@@ -1,9 +1,10 @@
-"""Whole-frame render of a Modular frame: channel planes -> display
-samples, on the caller's device.
+"""Whole-frame render: channel planes -> display samples, on the caller's
+device.
 
 Counterpart of jxl_tpu/render/simple.py for this package's slice: the
-Modular-to-float conversion (with the XYB channel order and scaling), the
-stage assembly of render/pipeline.py, and one fused filter + colour +
+VarDCT planes (vardct/device_frame.py, from the dense AC coefficients) or
+the Modular-to-float conversion (with the XYB channel order and scaling),
+the stage assembly of render/pipeline.py, and one fused filter + colour +
 output-format program (render/device_filters.py), with the crops as
 slicing around it.
 """
@@ -93,19 +94,40 @@ def frame_planes(frame, device) -> torch.Tensor:
     return torch.stack(planes)
 
 
+def vardct_planes(frame, device) -> torch.Tensor:
+    """A VarDCT frame's (3, bh*8, bw*8) XYB planes on `device`, from the
+    lane decoder's coefficients (already there) or the host decoder's (one
+    dense upload); the lane flags are checked after the render is queued
+    (ref render/simple.py:108-115, api/frame.py:_finish_device_render)."""
+    from ..vardct.device_frame import render_vardct_frame_device
+    from ..vardct.device_group import check_device_ac_ok
+
+    flat = frame.device_ac_flat
+    if flat is None:
+        flat = torch.from_numpy(frame.host_ac_flat).to(device)
+    planes = render_vardct_frame_device(frame, flat.to(device))
+    check_device_ac_ok(frame)
+    return planes
+
+
 def render_frame(frame, device, out_format: str = "f32") -> torch.Tensor:
     """All stages of a single visible frame, colour transform and output
     conversion included: (3, H, W) in the output sample type on `device`."""
+    from ..io.headers.frame import Encoding
     from .device_filters import run_filters_and_color
-    from .pipeline import build_render_pipeline
+    from .pipeline import build_render_pipeline, sigma_source
 
     stages = build_render_pipeline(frame)
-    planes = frame_planes(frame, device)
+    if frame.header.encoding == Encoding.VARDCT:
+        planes = vardct_planes(frame, device)
+    else:
+        planes = frame_planes(frame, device)
     wc, hc = stages[0].size
     planes = planes[:, :hc, :wc]
-    rf = frame.header.restoration_filter
-    const_sigma = st.INV_SIGMA_NUM / rf.epf_sigma_for_modular if rf.epf_iters > 0 else None
-    out = run_filters_and_color(frame, planes, const_sigma, out_format)
+    sigma_block, const_sigma = sigma_source(frame)
+    if sigma_block is not None:
+        sigma_block = torch.from_numpy(sigma_block).to(device)
+    out = run_filters_and_color(frame, planes, sigma_block, const_sigma, out_format)
     wu, hu = stages[-1].size
     return out[:, :hu, :wu]
 

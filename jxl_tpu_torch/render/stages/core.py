@@ -166,6 +166,19 @@ def epf_step_px(planes, inv_sigma_px, frame_rf, step: int, pos=(0, 0)):
     )
 
 
+def compute_sigma_image(frame) -> np.ndarray:
+    """A VarDCT frame's per-block stored 1/sigma, (bh, bw) float32 numpy
+    (ref features/epf.rs SigmaSource)."""
+    rf = frame.header.restoration_filter
+    hf = frame.hf_meta
+    quant_scale = 1.0 / frame.lf_global.quant_params.inv_global_scale
+    raw_quant = hf["raw_quant"].astype(np.float32)
+    sigma_quant = rf.epf_quant_mul / (quant_scale * raw_quant * INV_SIGMA_NUM)
+    sigma = sigma_quant * np.array(rf.epf_sharp_lut, dtype=np.float32)[hf["epf"]]
+    sigma = np.minimum(sigma, -1e-4)
+    return (1.0 / sigma).astype(np.float32)
+
+
 def _expand_sigma(sigma_block, h, w, pos):
     x0, y0 = pos
     by0 = y0 // BLOCK_DIM

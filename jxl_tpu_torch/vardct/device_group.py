@@ -1,0 +1,187 @@
+"""Host planner of the lane AC decoder: every HF section of a frame
+becomes one lane of ops/device_ac.py:decode_ac_sections (kernel K3 on the
+card, its plain torch version on the CPU), and the decoded coefficients
+stay where they were decoded, for vardct/device_frame.py.
+
+The counterpart of jxl_tpu/vardct/device_group.py. Capability reference:
+jxl/src/frame/group.rs:384-618 (the decode loop); the native host decoder
+(vardct/group.py:try_decode_hf_groups) gives the same coefficients bit for
+bit.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..io.headers.frame import Encoding
+from .group import GROUP_DIM, _BlockList, _build_pass_items
+
+
+def _ceil_log2(x: int) -> int:
+    return (x - 1).bit_length() if x > 1 else 0
+
+
+def _next_pow2(n: int, floor: int = 1) -> int:
+    return max(floor, 1 << max(0, (max(n, 1) - 1).bit_length()))
+
+
+def eligible_for_device_ac(frame) -> bool:
+    """The lane decoder covers frames whose HF sections hold only the
+    VarDCT AC tokens (no modular HF channels: nothing needs the post-AC
+    bit cursor), coded with ANS and without LZ77 in every pass, with one
+    alias-table geometry across passes."""
+    if frame.header.encoding != Encoding.VARDCT or frame.hf_global is None:
+        return False
+    mg = frame.lf_global.modular_global
+    num_passes = frame.header.passes.num_passes
+    if mg.buffer_infos and any(mg.section_buffer_indices[2 + p] for p in range(num_passes)):
+        return False
+    hists = [p.histograms for p in frame.hf_global.passes]
+    if any(h.use_prefix_code or h.lz77_enabled for h in hists):
+        return False
+    from .. import native
+
+    geo = {(pk["table_size"], pk["log_bucket"]) for pk in map(native.pack_entropy, hists)}
+    return len(geo) == 1
+
+
+def _group_items(frame, bl, bctx):
+    """(n, 10) int32 pass-independent item table of one group, in
+    bitstream token order: c, sbx, sby, num_blocks, num_coeffs, bctx,
+    order_key, coeffs_off, cx, cy. order_key is shape_id*3+c, rewritten
+    to an offset into the shared orders array by the caller."""
+    items11, flat_keys, _ = _build_pass_items(frame, bl, bctx)
+    out = np.zeros((len(items11), 10), dtype=np.int32)
+    out[:, 0:6] = items11[:, 0:6]
+    out[:, 6] = flat_keys
+    out[:, 7:10] = items11[:, 8:11]
+    return out
+
+
+def lane_inputs(frame, group_readers: dict) -> dict:
+    """The numpy inputs of decode_ac_sections for every (group, pass)
+    section: {"streams", eight lane arrays, "items", "orders", "tables",
+    "uint_cfgs", "context_map", and the keywords log_bucket, num_bctx,
+    total, n_buckets}. group_readers: {(group, pass): BitReader}; each
+    reader's histogram index is read here."""
+    from .. import native
+    from ..errors import InvalidHistogramIndex
+
+    header = frame.header
+    hf_global = frame.hf_global
+    bctx = frame.lf_global.block_context_map
+    num_passes = header.passes.num_passes
+    num_groups = header.num_groups
+    num_histo_bits = _ceil_log2(hf_global.num_histograms)
+
+    # orders: one concatenated array over (pass, used order keys)
+    blists = [_BlockList(frame, g) for g in range(num_groups)]
+    used_keys = sorted({
+        int(sid) * 3 + c for bl in blists for sid in np.unique(bl.shape_ids) for c in range(3)
+    })
+    order_parts = []
+    pass_order_base = []
+    key_lut = np.zeros(40, dtype=np.int32)
+    pos = 0
+    for p, pstate in enumerate(hf_global.passes):
+        pass_order_base.append(pos)
+        for k in used_keys:
+            order = np.asarray(pstate.coeff_orders[k], dtype=np.int32)
+            if p == 0:
+                key_lut[k] = pos
+            order_parts.append(order)
+            pos += len(order)
+    orders = np.concatenate(order_parts) if order_parts else np.zeros(1, np.int32)
+
+    # one flat (C, 5, NB) stack of every pass's clusters; context maps
+    # shifted per pass so one flat map serves all lanes
+    packs = [native.pack_entropy(p.histograms) for p in hf_global.passes]
+    tables = np.concatenate([pk["ans_tables"] for pk in packs]).astype(np.int32)
+    uint_cfgs = np.concatenate([pk["uint_configs"] for pk in packs]).astype(np.int32)
+    cluster_base = np.cumsum([0] + [pk["ans_tables"].shape[0] for pk in packs])
+    ctx_base = np.cumsum([0] + [len(pk["context_map"]) for pk in packs])
+    context_map = np.concatenate([
+        pk["context_map"].astype(np.int32) + np.int32(cluster_base[p]) for p, pk in enumerate(packs)
+    ])
+
+    g_items = []
+    for bl in blists:
+        it = _group_items(frame, bl, bctx)
+        it[:, 6] = key_lut[it[:, 6]]
+        g_items.append(it)
+    i_max = _next_pow2(max((len(it) for it in g_items), default=1), 16)
+    items = np.zeros((num_groups, i_max, 10), dtype=np.int32)
+    for g, it in enumerate(g_items):
+        items[g, : len(it)] = it
+
+    S = num_groups * num_passes
+    lanes = {name: np.zeros(S, np.int32) for name in (
+        "start_bits", "lane_group", "lane_ctx_off", "lane_shift", "lane_order_base",
+        "lane_coeff_base", "lane_n_items", "lane_end_bits")}
+    datas = []
+    li = 0
+    for g in range(num_groups):
+        for p in range(num_passes):
+            br = group_readers[(g, p)]
+            hist_idx = br.read(num_histo_bits)
+            if hist_idx >= hf_global.num_histograms:
+                raise InvalidHistogramIndex("invalid histogram index")
+            lanes["lane_group"][li] = g
+            lanes["lane_ctx_off"][li] = hist_idx * bctx.num_ac_contexts + ctx_base[p]
+            lanes["lane_shift"][li] = header.passes.shift[p] if p < len(header.passes.shift) else 0
+            lanes["lane_order_base"][li] = pass_order_base[p]
+            lanes["lane_coeff_base"][li] = g * 3 * GROUP_DIM * GROUP_DIM
+            lanes["lane_n_items"][li] = len(g_items[g])
+            lanes["lane_end_bits"][li] = len(br.data) * 8
+            lanes["start_bits"][li] = br.pos
+            datas.append(bytes(br.data))
+            li += 1
+    l_max = _next_pow2(max(len(d) for d in datas) + 8, 64)
+    streams = np.zeros((S, l_max), dtype=np.uint8)
+    for i, d in enumerate(datas):
+        streams[i, : len(d)] = np.frombuffer(d, dtype=np.uint8)
+    return dict(
+        streams=streams, **lanes, items=items, orders=orders, tables=tables,
+        uint_cfgs=uint_cfgs, context_map=context_map,
+        log_bucket=int(packs[0]["log_bucket"]), num_bctx=bctx.num_contexts,
+        total=num_groups * 3 * GROUP_DIM * GROUP_DIM, n_buckets=int(packs[0]["table_size"]),
+    )
+
+
+# the scalar (keyword) inputs among those of lane_inputs()
+LANE_KEYWORDS = ("log_bucket", "num_bctx", "total", "n_buckets")
+
+
+def run_lanes(inputs: dict, device):
+    """decode_ac_sections on `device` with the numpy `inputs` of
+    lane_inputs(): (coeffs (total,) int32, ok (S,) bool) tensors there."""
+    from ..ops.device_ac import decode_ac_sections
+
+    arrays = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+              for k, v in inputs.items() if k not in LANE_KEYWORDS}
+    return decode_ac_sections(**arrays, **{k: inputs[k] for k in LANE_KEYWORDS})
+
+
+def decode_ac_sections_device(frame, group_readers: dict, device) -> None:
+    """Decode every (group, pass) AC section of an eligible frame on
+    `device`. The coefficient buffer stays there as frame.device_ac_flat,
+    the per-lane flags as frame.device_ac_ok (check_device_ac_ok reads
+    them)."""
+    coeffs, ok = run_lanes(lane_inputs(frame, group_readers), device)
+    frame.device_ac_flat = coeffs
+    frame.device_ac_ok = ok
+
+
+def check_device_ac_ok(frame) -> None:
+    """Read the lane flags (a sync point) and raise on corrupt lanes."""
+    from ..errors import NativeDecodeError
+
+    ok = getattr(frame, "device_ac_ok", None)
+    if ok is None:
+        return
+    frame.device_ac_ok = None
+    flags = ok.cpu().numpy()
+    if not flags.all():
+        bad = np.nonzero(~flags)[0].tolist()
+        raise NativeDecodeError(f"lane AC decode failed for sections {bad}")

@@ -1,0 +1,195 @@
+"""VarDCT HF groups on the host: block geometry, the AC item table, the
+quant bias, and the native whole-frame AC decode.
+
+Capability reference: jxl/src/frame/group.rs; the counterpart of the parts
+of jxl_tpu/vardct/group.py that this package's VarDCT path runs. The host
+numeric render of that module does not come across: the port renders
+VarDCT frames through vardct/device_frame.py on either device.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ..io.headers.frame import Encoding
+from .transform_map import block_shape_id, covered_blocks_x, covered_blocks_y
+
+BLOCK_DIM = 8
+BLOCK_SIZE = 64
+GROUP_DIM = 256
+
+
+def adjust_quant_bias(quant: np.ndarray, c: int, biases) -> np.ndarray:
+    """ref group.rs:85-97."""
+    q = quant.astype(np.float32)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        adjusted = np.where(quant == 0, 0.0, q - np.float32(biases[3]) / q)
+    return np.where(np.abs(quant) < 2, q * np.float32(biases[c]), adjusted).astype(
+        np.float32
+    )
+
+
+_CBX_ARR = np.array([covered_blocks_x(t) for t in range(27)], dtype=np.int32)
+_CBY_ARR = np.array([covered_blocks_y(t) for t in range(27)], dtype=np.int32)
+_SHAPE_ARR = np.array([block_shape_id(t) for t in range(27)], dtype=np.int32)
+
+
+class _BlockList:
+    """Geometry of all transform blocks in a group, precomputed once.
+
+    Vectorized over the group's transform map: per-block arrays (raster
+    order, matching the reference's by/bx scan in frame/group.rs:418).
+    `offs` is each block's int32 offset into the group's coefficient
+    buffer: the running sum of the earlier blocks' coefficient counts.
+    """
+
+    def __init__(self, frame, group):
+        header = frame.header
+        hf = frame.hf_meta
+        (gx0, gy0), (gw, gh) = header.block_group_rect(group)
+        self.origin = (gx0, gy0)
+        self.size = (gw, gh)
+        self.hshift = [header.hshift(c) for c in range(3)]
+        self.vshift = [header.vshift(c) for c in range(3)]
+        region = np.asarray(hf["transform"][gy0 : gy0 + gh, gx0 : gx0 + gw])
+        bys, bxs = np.nonzero(region >= 128)
+        self.bys = bys.astype(np.int32)
+        self.bxs = bxs.astype(np.int32)
+        self.tids = (region[bys, bxs] & 127).astype(np.int32)
+        self.cxs = _CBX_ARR[self.tids]
+        self.cys = _CBY_ARR[self.tids]
+        self.shape_ids = _SHAPE_ARR[self.tids]
+        sizes = self.cxs * self.cys * BLOCK_SIZE
+        self.offs = np.zeros(len(sizes), dtype=np.int32)
+        if len(sizes) > 1:
+            # np.cumsum into an int32 out keeps the reference's int32 offsets
+            np.cumsum(sizes[:-1], out=self.offs[1:])
+        self._pass_cache = {}
+
+
+def _build_pass_items(frame, bl, bctx):
+    """Pass-independent item table of the AC decoders, vectorized.
+
+    Rows interleave channels (1, 0, 2) per block in raster order, matching
+    the bitstream token order (ref frame/group.rs:418-446). Columns: c,
+    sbx, sby, num_blocks, num_coeffs, block_context, (6, 7 filled by the
+    caller), c*GD*GD + coefficient offset, cx, cy. Also returns each row's
+    (shape_id, c) order key and the keys in first-occurrence order.
+    """
+    hshift, vshift = bl.hshift, bl.vshift
+    (gx0, gy0) = bl.origin
+    hf = frame.hf_meta
+    n = len(bl.tids)
+    rq = np.asarray(hf["raw_quant"])[gy0 + bl.bys, gx0 + bl.bxs].astype(np.int64)
+    qlf = np.asarray(hf["quant_lf"])[gy0 + bl.bys, gx0 + bl.bxs].astype(np.int64)
+    if bctx.qf_thresholds:
+        thr = np.asarray(bctx.qf_thresholds, dtype=np.int64)
+        qf_idx = (rq[:, None] > thr[None, :]).sum(axis=1)
+    else:
+        qf_idx = np.zeros(n, dtype=np.int64)
+    cmap = np.asarray(bctx.context_map, dtype=np.int32)
+    nq1 = len(bctx.qf_thresholds) + 1
+    num_blocks = bl.cxs * bl.cys
+    num_coeffs = num_blocks * BLOCK_SIZE
+
+    cols = np.zeros((n, 3, 11), dtype=np.int32)
+    valid = np.zeros((n, 3), dtype=bool)
+    keys = np.zeros((n, 3), dtype=np.int32)
+    for j, c in enumerate((1, 0, 2)):
+        hs, vs = hshift[c], vshift[c]
+        sbx = bl.bxs >> hs
+        sby = bl.bys >> vs
+        valid[:, j] = ((sbx << hs) == bl.bxs) & ((sby << vs) == bl.bys)
+        cidx = (c ^ 1) if c < 2 else 2
+        midx = (cidx * 13 + bl.shape_ids.astype(np.int64)) * nq1 + qf_idx
+        midx = midx * bctx.num_lf_contexts + qlf
+        keys[:, j] = bl.shape_ids * 3 + c
+        cols[:, j, 0] = c
+        cols[:, j, 1] = sbx
+        cols[:, j, 2] = sby
+        cols[:, j, 3] = num_blocks
+        cols[:, j, 4] = num_coeffs
+        cols[:, j, 5] = cmap[midx]
+        cols[:, j, 8] = c * GROUP_DIM * GROUP_DIM + bl.offs
+        cols[:, j, 9] = bl.cxs
+        cols[:, j, 10] = bl.cys
+    vmask = valid.reshape(-1)
+    items = cols.reshape(-1, 11)[vmask]
+    flat_keys = keys.reshape(-1)[vmask]
+    # (shape_id, c) keys in first-occurrence order; order lengths are fixed
+    # per shape so the concatenated-offset layout is identical across passes
+    _, first = np.unique(flat_keys, return_index=True)
+    ordered_keys = flat_keys[np.sort(first)]
+    return items, flat_keys, ordered_keys.tolist()
+
+
+def try_decode_hf_groups(frame, group_readers: list) -> bool:
+    """Whole-frame native HF-group decode: one C++ call decodes every
+    group's AC section into one dense (G * 3 * GD * GD,) int32 buffer,
+    kept as frame.host_ac_flat for the render.
+
+    Single-pass VarDCT frames whose modular HF sections carry no channels;
+    returns False for any other frame. `group_readers` is
+    [(group_index, BitReader)] in group order. Raises typed errors on
+    invalid streams."""
+    header = frame.header
+    if header.encoding != Encoding.VARDCT or header.passes.num_passes != 1:
+        return False
+    from .. import native
+
+    state = frame.lf_global
+    mg = state.modular_global
+    if any(len(s) > 0 for s in mg.section_buffer_indices[2:]):
+        return False  # modular HF channels interleave with the AC tokens
+    hf_global = frame.hf_global
+    hf = frame.hf_meta
+    bctx = state.block_context_map
+    pstate = hf_global.passes[0]
+
+    tmap = hf["transform"]
+    # coeff orders for the shapes present in this frame, concatenated with
+    # a per-(shape, channel)-key offset LUT
+    tids = np.unique(tmap[tmap >= 128]).astype(np.int32) & 127
+    shapes = np.unique(_SHAPE_ARR[tids]).tolist()
+    order_off = np.zeros(13 * 3, dtype=np.int32)
+    parts = []
+    pos = 0
+    for s in shapes:
+        for c in range(3):
+            k = int(s) * 3 + c
+            arr = np.ascontiguousarray(pstate.coeff_orders[k], dtype=np.int32)
+            order_off[k] = pos
+            parts.append(arr)
+            pos += len(arr)
+    orders_arr = np.concatenate(parts) if parts else np.zeros(1, np.int32)
+
+    n = len(group_readers)
+    if [g for g, _ in group_readers] != list(range(header.num_groups)):
+        raise ValueError("try_decode_hf_groups takes every group, in order")
+    stride = GROUP_DIM * GROUP_DIM  # VarDCT groups are always 256 px
+    pool = np.zeros((n, 3, stride), dtype=np.int32)
+    bw, bh = header.size_blocks()
+    out_pos = native.decode_hf_groups_native(
+        [sec for _, sec in group_readers],
+        list(range(n)),
+        list(range(n)),
+        bw, bh, header.size_groups()[0], GROUP_DIM // BLOCK_DIM,
+        np.array([header.hshift(c) for c in range(3)], dtype=np.int32),
+        np.array([header.vshift(c) for c in range(3)], dtype=np.int32),
+        np.ascontiguousarray(tmap),
+        np.ascontiguousarray(hf["raw_quant"], dtype=np.int32),
+        np.ascontiguousarray(hf["quant_lf"]),
+        np.asarray(bctx.context_map, dtype=np.uint8),
+        bctx.num_contexts, bctx.num_lf_contexts,
+        np.asarray(bctx.qf_thresholds, dtype=np.int32),
+        bctx.num_ac_contexts, hf_global.num_histograms,
+        _CBX_ARR, _CBY_ARR, _SHAPE_ARR,
+        native.pack_entropy(pstate.histograms),
+        orders_arr, order_off,
+        header.passes.shift[0] if len(header.passes.shift) > 0 else 0,
+        pool, stride,
+    )
+    for i, (_, sec) in enumerate(group_readers):
+        sec.pos = out_pos[i]
+    frame.host_ac_flat = pool.reshape(-1)
+    return True

@@ -1,0 +1,679 @@
+"""XYB VarDCT test streams, and checks that the JAX package reads them back.
+
+`encode_xyb_vardct(width, height, seed, transforms=...)` writes a
+single-frame 4:4:4 XYB VarDCT codestream and returns the quantized AC
+coefficients it encoded, as the dense (G * 3 * 256 * 256,) int32 buffer
+the AC decoders fill (group after group, channel after channel, each
+block's coefficients at its raster-order offset and natural-order slot).
+
+The frame: default RestorationFilter (gaborish on, EPF 2 steps), one
+pass, default block context map, CfL and dequant matrices, a quantizer
+with global_scale 4096 and quant_lf 16. LfGlobal carries a global MA tree
+whose own tokens are rANS-coded; it splits on stream, channel, y and x
+into Zero-predictor leaves (each with an offset and a multiplier), whose
+residuals use Brotli-simple prefix codes of at most 4 symbols. So per LF
+group the LF coefficients take 4 values a channel, and the HF metadata
+varies: a CfL map of small values, transform types from bands of the
+coefficient list (DCT8 and DCT16x16 in each, and two of the other 1x1
+types: all ten 1x1 types appear in a frame with enough blocks), raw quant
+values 5, 7, 9 or 11, and EPF sharpness 0-7. HfGlobal uses the natural
+coefficient orders and three ANS clusters over 7425 AC contexts, with
+flat distributions of 64, 48 and 40 symbols; the third cluster's
+HybridUint config (4, 1, 0) gives larger values tail bits. The writer
+computes every token's context as the decoder does, so the clusters test
+the context model. Each group's tokens are rANS-encoded from the final
+state 0x130000, vectorized across groups with numpy; alias tables come
+from jxl_tpu_torch.entropy.ans.AnsHistogram.
+
+This module imports neither jax nor jxl_tpu at the top: chip_smoke.py
+imports the writer. The tests below import the JAX package inside each
+test.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+
+from mini_encoder import BW, token_bits, u32, u64, varint16
+
+GROUP_DIM = 256
+GD_BLOCKS = GROUP_DIM // 8
+LF_GROUP_BLOCKS = 256  # 2048 px
+GROUP_STRIDE = 3 * GROUP_DIM * GROUP_DIM
+FINAL_STATE = 0x130000
+NUM_BCTX = 15  # default block context map
+NUM_AC_CONTEXTS = NUM_BCTX * (37 + 458)
+CTX_PAD = 16  # ZERO_DENSITY_CONTEXT_LIMIT - ZERO_DENSITY_CONTEXT_COUNT
+LOG_ALPHA = 6
+AC_ALPHABETS = (64, 48, 40)
+AC_UINT = ((6, 0, 0), (6, 0, 0), (4, 1, 0))  # split_exponent, msb, lsb
+TREE_UINT = (4, 0, 0)
+DCT16 = 4
+# 1x1 types beside DCT8 (0), two per band of the coefficient list
+BAND_TYPES = ((2, 3), (1, 12), (13, 14), (15, 16), (17, 2))
+MAX_COEFF = 20
+
+_FREQ_CTX = np.array(
+    [0, 0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 15, 16, 16, 17, 17, 18, 18,
+     19, 19, 20, 20, 21, 21, 22, 22, 23, 23, 23, 23, 24, 24, 24, 24, 25, 25, 25, 25, 26, 26,
+     26, 26, 27, 27, 27, 27, 28, 28, 28, 28, 29, 29, 29, 29, 30, 30, 30, 30])
+_NUM_NZ_CTX = np.array(
+    [0, 0, 31, 62, 62, 93, 93, 93, 93, 123, 123, 123, 123, 152, 152, 152, 152, 152, 152,
+     152, 152, 180, 180, 180, 180, 180, 180, 180, 180, 180, 180, 180, 180]
+    + [206] * 31)
+
+
+def _ceil_log2(x: int) -> int:
+    return (x - 1).bit_length() if x > 1 else 0
+
+
+def _signed_token(v):
+    v = np.asarray(v, dtype=np.int64)
+    return np.where(v >= 0, 2 * v, -2 * v - 1)
+
+
+def _residual(tok):
+    tok = np.asarray(tok, dtype=np.int64)
+    return np.where(tok & 1, -((tok + 1) >> 1), tok >> 1)
+
+
+class BitList:
+    """LSB-first bit writer that takes single values and numpy arrays of
+    (value, nbits) and packs everything at once."""
+
+    def __init__(self):
+        self.vals = []
+        self.nbits = []
+
+    def write(self, value: int, nbits: int):
+        self.vals.append(np.array([value & ((1 << nbits) - 1) if nbits else 0], np.uint64))
+        self.nbits.append(np.array([nbits], np.int64))
+
+    def extend(self, vals, nbits):
+        self.vals.append(np.asarray(vals, dtype=np.uint64).reshape(-1))
+        self.nbits.append(np.asarray(nbits, dtype=np.int64).reshape(-1))
+
+    def finish(self) -> bytes:
+        vals = np.concatenate(self.vals) if self.vals else np.zeros(0, np.uint64)
+        nb = np.concatenate(self.nbits) if self.nbits else np.zeros(0, np.int64)
+        keep = nb > 0
+        vals, nb = vals[keep], nb[keep]
+        if not len(nb):
+            return b""
+        width = int(nb.max())
+        bits = (vals[:, None] >> np.arange(width, dtype=np.uint64)[None, :]) & np.uint64(1)
+        flat = bits.astype(np.uint8)[np.arange(width)[None, :] < nb[:, None]]
+        return np.packbits(flat, bitorder="little").tobytes()
+
+
+# -- entropy coding ------------------------------------------------------------
+
+
+def hybrid_encode(v, cfg):
+    """HybridUint (split_exponent, msb, lsb): values -> (tokens, raw bits,
+    raw bit counts), inverting ref hybrid_uint.rs:28-71."""
+    se, msb, lsb = cfg
+    v = np.asarray(v, dtype=np.int64)
+    small = v < (1 << se)
+    n = np.zeros_like(v)
+    big = np.maximum(v, 1)
+    while True:  # n = floor(log2 v), exactly
+        more = (big >> (n + 1)) > 0
+        if not more.any():
+            break
+        n += more
+    nbits = n - msb - lsb
+    low = v & ((1 << lsb) - 1)
+    msb_bits = (v >> (lsb + np.maximum(nbits, 0))) & ((1 << msb) - 1)
+    raw = (v >> lsb) & ((np.int64(1) << np.maximum(nbits, 0)) - 1)
+    tok = (1 << se) + (((n - se) << (msb + lsb)) | (msb_bits << lsb) | low)
+    return (np.where(small, v, tok), np.where(small, 0, raw),
+            np.where(small, 0, nbits))
+
+
+def flat_histogram(alphabet: int):
+    """The port's AnsHistogram of a flat distribution over `alphabet`
+    symbols at log_alpha_size 6, as the decoder builds it."""
+    from jxl_tpu_torch.entropy.ans import SUM_PROBS, AnsHistogram
+
+    table = 1 << LOG_ALPHA
+    base, rem = divmod(SUM_PROBS, alphabet)
+    h = AnsHistogram.__new__(AnsHistogram)
+    h.dist = [base + (1 if i < rem else 0) for i in range(alphabet)] + [0] * (table - alphabet)
+    h.log_bucket_size = 12 - LOG_ALPHA
+    h.bucket_mask = (1 << h.log_bucket_size) - 1
+    h.single_symbol = None
+    h._build_alias_map(table, 1 << h.log_bucket_size)
+    return h
+
+
+def inverse_tables(hists):
+    """(freq (C, 64), inv (C, 64, max_freq)): inv[c, sym, off] is the
+    12-bit slot the alias table maps to (sym, off)."""
+    freq = np.array([h.dist for h in hists], dtype=np.int64)
+    inv = np.zeros((len(hists), freq.shape[1], int(freq.max())), dtype=np.int64)
+    idx = np.arange(1 << 12)
+    for c, h in enumerate(hists):
+        i = idx >> h.log_bucket_size
+        pos = idx & h.bucket_mask
+        cut = np.asarray(h.alias_cutoff)[i]
+        alias = pos >= cut
+        sym = np.where(alias, np.asarray(h.alias_symbol)[i], i)
+        off = np.where(alias, np.asarray(h.alias_offset)[i] + pos, pos)
+        inv[c, sym, off] = idx
+    return freq, inv
+
+
+def rans_encode_lanes(tok, cl, lengths, freq, inv):
+    """rANS-encode each lane's tokens (S, T) with clusters (S, T) backward
+    from FINAL_STATE. Returns (initial states (S,), words (S, T), has_word
+    (S, T)): the decoder reads word t right after decoding token t."""
+    S, T = tok.shape
+    state = np.full(S, FINAL_STATE, dtype=np.int64)
+    words = np.zeros((S, T), dtype=np.int64)
+    has = np.zeros((S, T), dtype=bool)
+    for t in range(T - 1, -1, -1):
+        act = t < lengths
+        f = np.where(act, freq[cl[:, t], tok[:, t]], 1)
+        need = act & (state >= (f << 20))
+        words[:, t] = state & 0xFFFF
+        has[:, t] = need
+        state = np.where(need, state >> 16, state)
+        q, r = np.divmod(state, f)
+        state = np.where(act, q * 4096 + inv[cl[:, t], tok[:, t], np.where(act, r, 0)], state)
+    return state, words, has
+
+
+def write_ans_flat_histograms(w, cmap, alphabets, uint_cfgs, lz77=False):
+    """Histograms bundle: simple context map `cmap`, ANS at log_alpha 6,
+    per-cluster HybridUint configs and flat distributions. With lz77 the
+    bundle enables LZ77 with min_symbol 224, which no token reaches: the
+    stream decodes the same, but the lane decoder does not take it."""
+    w.write(1 if lz77 else 0, 1)
+    if lz77:
+        w.write(0, 2)  # min_symbol 224
+        w.write(0, 2)  # min_length 3
+        w.write(8, 4)  # length HybridUint at log_alpha 8: split_exponent 8
+        cmap = list(cmap) + [0]  # the distance context
+    if len(cmap) > 1:
+        bits = _ceil_log2(max(cmap) + 1)
+        w.write(1, 1)  # simple context map
+        w.write(bits, 2)
+        if bits:
+            w.extend(np.asarray(cmap), np.full(len(cmap), bits))
+    w.write(0, 1)  # ANS
+    w.write(LOG_ALPHA - 5, 2)
+    for se, msb, lsb in uint_cfgs:
+        w.write(se, _ceil_log2(LOG_ALPHA + 1))
+        if se != LOG_ALPHA:
+            w.write(msb, _ceil_log2(se + 1))
+            w.write(lsb, _ceil_log2(se - msb + 1))
+    for a in alphabets:
+        w.write(0, 1)
+        w.write(1, 1)  # evenly distributed
+        v = a - 1  # read_u8
+        if v == 0:
+            w.write(0, 1)
+        else:
+            n = v.bit_length() - 1
+            w.write(1, 1)
+            w.write(n, 3)
+            w.write(v - (1 << n), n)
+
+
+def write_prefix_clusters(w, cmap, token_sets):
+    """Histograms bundle: simple context map `cmap` over clusters that are
+    Brotli-simple prefix codes of 1-4 tokens each (token == value)."""
+    w.write(0, 1)  # no lz77
+    if len(cmap) > 1:
+        bits = _ceil_log2(max(cmap) + 1)
+        w.write(1, 1)
+        w.write(bits, 2)
+        for c in cmap:
+            w.write(c, bits)
+    w.write(1, 1)  # prefix codes
+    for _ in token_sets:
+        w.write(15, 4)  # split_exponent 15: token == value
+    sizes = [max(t) + 1 for t in token_sets]
+    for s in sizes:
+        varint16(w, s - 1)
+    for toks, s in zip(token_sets, sizes):
+        if s == 1:
+            continue
+        toks = sorted(toks)
+        w.write(1, 2)
+        w.write(len(toks) - 1, 2)
+        for t in toks:
+            w.write(t, _ceil_log2(s))
+        if len(toks) == 4:
+            w.write(0, 1)
+
+
+def _code_lut(tokens):
+    """(code, nbits) arrays indexed by token for one simple prefix code."""
+    size = max(tokens) + 1
+    code = np.zeros(size, np.int64)
+    nb = np.zeros(size, np.int64)
+    for t in tokens:
+        code[t], nb[t] = token_bits(set(tokens), t)
+    return code, nb
+
+
+# -- the MA tree -----------------------------------------------------------------
+
+
+def _split(prop, val, left, right):
+    return ("split", prop, val, left, right)
+
+
+def _leaf(key, offset, mul_log):
+    return ("leaf", key, offset, mul_log)
+
+
+S0 = (0, 1, 2, 3)  # residuals 0, -1, 1, -2
+
+
+def _leaf_sets():
+    sets = {k: S0 for k in ("lf_y", "lf_x", "lf_b", "cfl", "quant", "epf_lo", "epf_hi")}
+    for b, extra in enumerate(BAND_TYPES):
+        sets[f"band{b}"] = tuple(sorted(_signed_token((0, DCT16) + extra).tolist()))
+    return sets
+
+
+def build_tree(num_lf_groups: int, band_step: int):
+    types = _leaf("band0", 0, 0)
+    for b in range(1, len(BAND_TYPES)):
+        types = _split(3, b * band_step - 1, _leaf(f"band{b}", 0, 0), types)
+    meta = _split(0, 1,
+                  _split(0, 2,
+                         _split(3, 31, _leaf("epf_hi", 6, 0), _leaf("epf_lo", 2, 0)),
+                         _split(2, 0, _leaf("quant", 8, 1), types)),
+                  _leaf("cfl", 0, 0))
+    lf = _split(0, 0, _split(0, 1, _leaf("lf_b", 0, 2), _leaf("lf_x", 0, 3)),
+                _leaf("lf_y", 256, 4))
+    return _split(1, num_lf_groups, meta, lf)
+
+
+def write_tree(w, tree):
+    """Tree tokens (rANS, one flat cluster, HybridUint TREE_UINT) and the
+    leaf histograms. Returns {leaf key: (code LUT, nbits LUT, offset,
+    multiplier)}."""
+    order, queue = [], [tree]
+    while queue:  # breadth first, the property > splitval child first
+        node = queue.pop(0)
+        order.append(node)
+        if node[0] == "split":
+            queue += [node[3], node[4]]
+    toks = []  # (context, value)
+    leaves = []
+    for node in order:
+        if node[0] == "split":
+            toks += [(1, node[1] + 1), (0, int(_signed_token(node[2])))]
+        else:
+            toks += [(1, 0), (2, 0), (3, int(_signed_token(node[2]))), (4, node[3]), (5, 0)]
+            leaves.append(node)
+    write_ans_flat_histograms(w, [0] * 6, [64], [TREE_UINT])
+    vals = np.array([v for _, v in toks])
+    tk, raw, nraw = hybrid_encode(vals, TREE_UINT)
+    hist = flat_histogram(64)
+    freq, inv = inverse_tables([hist])
+    state, words, has = rans_encode_lanes(tk[None], np.zeros((1, len(tk)), np.int64),
+                                          np.array([len(tk)]), freq, inv)
+    w.write(int(state[0]), 32)
+    w.extend(np.stack([words[0], raw], 1), np.stack([np.where(has[0], 16, 0), nraw], 1))
+
+    sets = _leaf_sets()
+    clusters = sorted({sets[leaf[1]] for leaf in leaves})
+    write_prefix_clusters(w, [clusters.index(sets[leaf[1]]) for leaf in leaves], clusters)
+    out = {}
+    for leaf in leaves:
+        code, nb = _code_lut(sets[leaf[1]])
+        out[leaf[1]] = (code, nb, leaf[2], 1 << leaf[3])
+    return out
+
+
+def _modular_bits(w, leaves, key, values):
+    """Append the prefix codes of `values` (any shape) under leaf `key`."""
+    code, nb, offset, mul = leaves[key]
+    r = (np.asarray(values, np.int64).reshape(-1) - offset)
+    assert (r % mul == 0).all(), key
+    tok = _signed_token(r // mul)
+    assert (tok < len(code)).all() and (nb[tok] > 0).all(), key
+    w.extend(code[tok], nb[tok])
+
+
+# -- the frame's content ------------------------------------------------------------
+
+
+def _frame_layout(width, height):
+    bw, bh = -(-width // 8), -(-height // 8)
+    gx, gy = -(-width // GROUP_DIM), -(-height // GROUP_DIM)
+    lgx, lgy = -(-bw // LF_GROUP_BLOCKS), -(-bh // LF_GROUP_BLOCKS)
+    return bw, bh, gx, gy, lgx, lgy
+
+
+def _lf_rects(bw, bh, lgx, lgy):
+    return [(x * LF_GROUP_BLOCKS, y * LF_GROUP_BLOCKS,
+             min(LF_GROUP_BLOCKS, bw - x * LF_GROUP_BLOCKS),
+             min(LF_GROUP_BLOCKS, bh - y * LF_GROUP_BLOCKS))
+            for y in range(lgy) for x in range(lgx)]
+
+
+def _place_transforms(rng, bw, bh, rects, mixed: bool):
+    """Transform map (origin cells carry | 128) and, per LF group, the
+    types of its coefficient list in raster order."""
+    tmap = np.full((bh, bw), 128, dtype=np.uint8)
+    if mixed:
+        ys, xs = np.meshgrid(np.arange(0, bh - 1, 2), np.arange(0, bw - 1, 2), indexing="ij")
+        ys, xs = ys.reshape(-1), xs.reshape(-1)
+        # a DCT16 stays inside its LF group (which holds whole groups)
+        fits = np.ones(len(ys), bool)
+        for (ox, oy, w, h) in rects:
+            inside = (xs >= ox) & (xs < ox + w) & (ys >= oy) & (ys < oy + h)
+            fits &= ~inside | ((xs + 2 <= ox + w) & (ys + 2 <= oy + h))
+        pick = fits & (rng.random(len(ys)) < 0.15)
+        for dy in (0, 1):
+            for dx in (0, 1):
+                tmap[ys[pick] + dy, xs[pick] + dx] = DCT16
+        tmap[ys[pick], xs[pick]] = DCT16 | 128
+    counts = []
+    for (ox, oy, w, h) in rects:
+        counts.append(int((tmap[oy : oy + h, ox : ox + w] >= 128).sum()))
+    band_step = max(1, min(counts) // len(BAND_TYPES))
+    lists = []
+    for (ox, oy, w, h) in rects:
+        sub = tmap[oy : oy + h, ox : ox + w]
+        oys, oxs = np.nonzero(sub >= 128)
+        types = (sub[oys, oxs] & 127).astype(np.int64)
+        if mixed:
+            band = np.minimum(np.arange(len(types)) // band_step, len(BAND_TYPES) - 1)
+            choice = rng.integers(0, 3, len(types))  # DCT8 or one of the band's two
+            extra = np.array(BAND_TYPES)[band, np.maximum(choice - 1, 0)]
+            one = types != DCT16
+            types[one] = np.where(choice[one] == 0, 0, extra[one])
+            sub[oys[one], oxs[one]] = (types[one] | 128).astype(np.uint8)
+        lists.append(types)
+    return tmap, lists, band_step
+
+
+def _lf_group_section(rng, leaves, rect, types, cfl_zero):
+    ox, oy, w, h = rect
+    sec = BitList()
+    sec.write(0, 2)  # extra_precision
+    sec.write(1, 1)  # GroupHeader: use_global_tree
+    sec.write(1, 1)  # default weighted-predictor header
+    sec.write(0, 2)  # no transforms
+    for key, base, mul in (("lf_y", 256, 16), ("lf_x", 0, 8), ("lf_b", 0, 4)):
+        vals = base + mul * _residual(rng.integers(0, 4, (h, w)))
+        _modular_bits(sec, leaves, key, vals)
+    count = len(types)
+    sec.write(count - 1, _ceil_log2(w * h))
+    sec.write(1, 1)
+    sec.write(1, 1)
+    sec.write(0, 2)
+    cw, ch = -(-w // 8), -(-h // 8)
+    for _ in range(2):  # ytox, ytob
+        vals = np.zeros((ch, cw), np.int64) if cfl_zero else _residual(rng.integers(0, 4, (ch, cw)))
+        _modular_bits(sec, leaves, "cfl", vals)
+    # transform image row 0: types, by band of the list index
+    for b in range(len(BAND_TYPES)):
+        step = leaves["_band_step"]
+        lo = b * step
+        hi = count if b == len(BAND_TYPES) - 1 else min(count, (b + 1) * step)
+        if lo < hi:
+            _modular_bits(sec, leaves, f"band{b}", types[lo:hi])
+    quants = 8 + 2 * _residual(rng.integers(0, 4, count))
+    _modular_bits(sec, leaves, "quant", quants)
+    epf = rng.integers(0, 4, (h, w)) + np.where(np.arange(w) > 31, 4, 0)[None, :]
+    # the EPF channel is coded row by row, each sample under its x's leaf
+    code_lo, nb_lo, off_lo, _ = leaves["epf_lo"]
+    code_hi, nb_hi, off_hi, _ = leaves["epf_hi"]
+    hi_px = np.broadcast_to(np.arange(w) > 31, (h, w)).reshape(-1)
+    e = epf.reshape(-1)
+    tok = _signed_token(e - np.where(hi_px, off_hi, off_lo))
+    sec.extend(np.where(hi_px, code_hi[tok], code_lo[tok]),
+               np.where(hi_px, nb_hi[tok], nb_lo[tok]))
+    return sec.finish(), quants + 1, epf
+
+
+def _ac_tokens(rng, tmap, g, gxn, density):
+    """One group's AC content: (item arrays, token values, contexts, and
+    the (coefficient index, value) pairs it encodes)."""
+    from jxl_tpu_torch.vardct.block_context import BlockContextMap
+    from jxl_tpu_torch.vardct.coeff_order import TRANSFORM_TYPE_LUT, natural_order_array
+    from jxl_tpu_torch.vardct.transform_map import block_shape_id, covered_blocks_x, covered_blocks_y
+
+    bh, bw = tmap.shape
+    gx0, gy0 = (g % gxn) * GD_BLOCKS, (g // gxn) * GD_BLOCKS
+    sub = tmap[gy0 : gy0 + GD_BLOCKS, gx0 : gx0 + GD_BLOCKS]
+    bys, bxs = np.nonzero(sub >= 128)
+    tids = (sub[bys, bxs] & 127).astype(np.int64)
+    cxs = np.array([covered_blocks_x(t) for t in range(27)])[tids]
+    cys = np.array([covered_blocks_y(t) for t in range(27)])[tids]
+    shapes = np.array([block_shape_id(t) for t in range(27)])[tids]
+    nbs = cxs * cys
+    ncs = nbs * 64
+    offs = np.concatenate([[0], np.cumsum(ncs)[:-1]])
+    bmap = np.asarray(BlockContextMap.default().context_map)
+    # items: per block, channels 1, 0, 2
+    chan = np.tile(np.array([1, 0, 2]), len(tids))
+    rep = lambda a: np.repeat(a, 3)  # noqa: E731
+    bx, by, tid, cx, cy, nb, nc, off, shape = map(rep, (bxs, bys, tids, cxs, cys, nbs, ncs,
+                                                        offs, shapes))
+    cidx = np.where(chan < 2, chan ^ 1, 2)
+    bctx = bmap[cidx * 13 + shape]
+    M = len(chan)
+    L = np.where(rng.random(M) < density, rng.integers(1, 13, M), 0)
+    L = np.minimum(L, nc - nb)
+    # coefficient values: nonzero with probability 0.6, the last one always
+    cstart = np.cumsum(L) - L
+    item_of_c = np.repeat(np.arange(M), L)
+    j = np.arange(L.sum()) - cstart[item_of_c]
+    mag = np.minimum(rng.geometric(0.45, len(j)), MAX_COEFF)
+    val = mag * np.where(rng.random(len(j)) < 0.5, -1, 1)
+    val = np.where((rng.random(len(j)) < 0.6) | (j == L[item_of_c] - 1), val, 0)
+    isnz = (val != 0).astype(np.int64)
+    nz = np.bincount(item_of_c, weights=isnz, minlength=M).astype(np.int64)
+    # nonzeros map after the whole group (what every top/left read sees)
+    nzmap = np.zeros((3, GD_BLOCKS, GD_BLOCKS), np.int64)
+    fill = -(-nz // nb)
+    for dy in (0, 1):
+        for dx in (0, 1):
+            m = (dy < cy) & (dx < cx)
+            nzmap[chan[m], by[m] + dy, bx[m] + dx] = fill[m]
+    up = nzmap[chan, np.maximum(by - 1, 0), bx]
+    left = nzmap[chan, by, np.maximum(bx - 1, 0)]
+    pred = np.where(bx == 0, np.where(by == 0, 32, up), np.where(by == 0, left, (up + left + 1) // 2))
+    nzctx = np.where(pred < 8, pred, np.where(pred < 64, 4 + pred // 2, 36))
+    ctx_nz = nzctx * NUM_BCTX + bctx
+    # coefficient-token contexts
+    lnb = np.log2(nb).astype(np.int64)[item_of_c]
+    before = np.concatenate([[0], np.cumsum(isnz)])  # nonzeros before token t
+    left_nz = nz[item_of_c] - (before[:-1] - before[cstart][item_of_c])
+    k = nb[item_of_c] + j
+    nzl = np.minimum((left_nz + (1 << lnb) - 1) >> lnb, 63)
+    kn = k >> lnb
+    prev_init = np.where(nz > (nc >> 4), 0, 1)
+    prev_tok = np.concatenate([[0], isnz[:-1]]) if len(j) else isnz
+    prev = np.where(j == 0, prev_init[item_of_c], prev_tok)
+    ctx_c = NUM_BCTX * 37 + 458 * bctx[item_of_c] + (_NUM_NZ_CTX[nzl] + _FREQ_CTX[kn]) * 2 + prev
+    # token stream: per item the nonzeros count, then its coefficients
+    ntok = 1 + L
+    tstart = np.cumsum(ntok) - ntok
+    tok_val = np.empty(ntok.sum(), np.int64)
+    tok_ctx = np.empty(ntok.sum(), np.int64)
+    tok_val[tstart] = nz
+    tok_ctx[tstart] = ctx_nz
+    cpos = tstart[item_of_c] + 1 + j
+    tok_val[cpos] = _signed_token(val)
+    tok_ctx[cpos] = ctx_c
+    # dense coefficients
+    orders = {}
+    for s in np.unique(shape).tolist():
+        orders[s] = natural_order_array(TRANSFORM_TYPE_LUT[s]).astype(np.int64)
+    shape_c = shape[item_of_c]
+    slot = np.zeros(len(k), np.int64)
+    for s, order in orders.items():
+        m = shape_c == s
+        slot[m] = order[k[m]]
+    dest = g * GROUP_STRIDE + chan[item_of_c] * GROUP_DIM * GROUP_DIM + off[item_of_c] + slot
+    return tok_val, tok_ctx, dest, val
+
+
+def ac_context_map():
+    """cluster of each AC context (the padded tail maps to cluster 0)."""
+    ctx = np.arange(NUM_AC_CONTEXTS)
+    return np.concatenate([(ctx * 7 + ctx // 5) % 3, np.zeros(CTX_PAD, np.int64)])
+
+
+def _ac_sections(tok_vals, tok_ctxs):
+    """rANS-encode every group's token list at once (one lane a group)."""
+    cmap = ac_context_map()
+    hists = [flat_histogram(a) for a in AC_ALPHABETS]
+    freq, inv = inverse_tables(hists)
+    G = len(tok_vals)
+    lengths = np.array([len(t) for t in tok_vals])
+    T = max(int(lengths.max()), 1)
+    tok = np.zeros((G, T), np.int64)
+    cl = np.zeros((G, T), np.int64)
+    raw = np.zeros((G, T), np.int64)
+    nraw = np.zeros((G, T), np.int64)
+    for g, (v, c) in enumerate(zip(tok_vals, tok_ctxs)):
+        clus = cmap[c]
+        cl[g, : len(v)] = clus
+        for ci, cfg in enumerate(AC_UINT):
+            m = clus == ci
+            t, r, n = hybrid_encode(v[m], cfg)
+            assert (t < AC_ALPHABETS[ci]).all()
+            idx = np.nonzero(m)[0]
+            tok[g, idx], raw[g, idx], nraw[g, idx] = t, r, n
+    state, words, has = rans_encode_lanes(tok, cl, lengths, freq, inv)
+    out = []
+    for g in range(G):
+        n = lengths[g]
+        w = BitList()
+        w.write(int(state[g]), 32)
+        w.extend(np.stack([words[g, :n], raw[g, :n]], 1),
+                 np.stack([np.where(has[g, :n], 16, 0), nraw[g, :n]], 1))
+        out.append(w.finish())
+    return out
+
+
+def _headers(width, height, sections):
+    w = BW()
+    w.write(0xFF, 8)
+    w.write(0x0A, 8)
+    w.write(0, 1)  # SizeHeader: not small
+    u32(w, (("bits", 9), ("bits", 13), ("bits", 18), ("bits", 30)), height - 1)
+    w.write(0, 3)
+    u32(w, (("bits", 9), ("bits", 13), ("bits", 18), ("bits", 30)), width - 1)
+    w.write(0, 1)  # ImageMetadata all_default = 0
+    w.write(0, 1)  # extra_fields = 0
+    w.write(0, 1)  # integer samples
+    w.write(0, 2)  # 8 bits
+    w.write(1, 1)  # modular_16bit_sufficient
+    w.write(0, 2)  # no extra channels
+    w.write(1, 1)  # xyb_encoded
+    w.write(1, 1)  # colour encoding all_default (sRGB)
+    w.write(0, 2)  # extensions
+    w.write(1, 1)  # CustomTransformData all_default
+    w.pad_to_byte()
+    w.write(0, 1)  # FrameHeader all_default = 0
+    w.write(0, 2)  # REGULAR
+    w.write(0, 1)  # VarDCT
+    u64(w, 0)  # flags (adaptive LF smoothing on)
+    u32(w, (("val", 1), ("val", 2), ("val", 4), ("val", 8)), 1)  # upsampling
+    w.write(3, 3)  # x_qm_scale
+    w.write(2, 3)  # b_qm_scale
+    u32(w, (("val", 1), ("val", 2), ("val", 3), ("bitsoff", 3, 4)), 1)  # one pass
+    w.write(0, 1)  # no crop
+    u32(w, (("val", 0), ("val", 1), ("val", 2), ("bitsoff", 2, 3)), 0)  # REPLACE
+    w.write(1, 1)  # is_last
+    u32(w, (("val", 0), ("bits", 4), ("bitsoff", 5, 16), ("bitsoff", 10, 48)), 0)  # name
+    w.write(1, 1)  # RestorationFilter all_default
+    w.write(0, 2)  # extensions
+    w.write(0, 1)  # TOC not permuted
+    w.pad_to_byte()
+    for s in sections:
+        u32(w, (("bits", 10), ("bitsoff", 14, 1024), ("bitsoff", 22, 17408),
+                ("bitsoff", 30, 4211712)), len(s))
+    w.pad_to_byte()
+    return w.finish()
+
+
+def encode_xyb_vardct(width: int, height: int, seed: int = 0, transforms: str = "mixed",
+                      density: float = 0.35, cfl_zero: bool = False, lz77: bool = False):
+    """(codestream, coeffs): a width x height XYB VarDCT frame of more than
+    one group, and the dense (G * 3 * 256 * 256,) int32 quantized AC
+    coefficients it encodes. transforms: "mixed" (DCT16x16 on aligned 2x2
+    positions and every 1x1 type) or "dct8"; density: the share of
+    (block, channel) items that carry coefficients; lz77: enable (unused)
+    LZ77 in the AC histograms, which makes the frame one for the host
+    AC decoder."""
+    if width <= GROUP_DIM and height <= GROUP_DIM:
+        raise ValueError("the writer lays out multi-group frames only")
+    if transforms not in ("mixed", "dct8"):
+        raise ValueError(f"unknown transforms {transforms!r}")
+    rng = np.random.default_rng(seed)
+    bw, bh, gxn, gyn, lgx, lgy = _frame_layout(width, height)
+    rects = _lf_rects(bw, bh, lgx, lgy)
+    tmap, type_lists, band_step = _place_transforms(rng, bw, bh, rects, transforms == "mixed")
+
+    lg = BitList()
+    lg.write(1, 1)  # LfQuantFactors all_default
+    lg.write(1, 2)  # global_scale: 2049 + 11 bits
+    lg.write(4096 - 2049, 11)
+    lg.write(0, 2)  # quant_lf = 16
+    lg.write(1, 1)  # default block context map
+    lg.write(1, 1)  # default CfL
+    lg.write(1, 1)  # global tree
+    leaves = write_tree(lg, build_tree(len(rects), band_step))
+    leaves["_band_step"] = band_step
+    lf_sections = [
+        _lf_group_section(rng, leaves, rect, types, cfl_zero)[0]
+        for rect, types in zip(rects, type_lists)
+    ]
+    hg = BitList()
+    hg.write(1, 1)  # default dequant matrices
+    hg.write(0, _ceil_log2(gxn * gyn))  # one histogram
+    hg.write(2, 2)  # natural coefficient orders
+    write_ans_flat_histograms(hg, ac_context_map()[:NUM_AC_CONTEXTS].tolist(), AC_ALPHABETS,
+                              AC_UINT, lz77=lz77)
+    coeffs = np.zeros(gxn * gyn * GROUP_STRIDE, np.int32)
+    tok_vals, tok_ctxs = [], []
+    for g in range(gxn * gyn):
+        v, c, dest, val = _ac_tokens(rng, tmap, g, gxn, density)
+        tok_vals.append(v)
+        tok_ctxs.append(c)
+        coeffs[dest] = val
+    sections = [lg.finish()] + lf_sections + [hg.finish()] + _ac_sections(tok_vals, tok_ctxs)
+    return _headers(width, height, sections) + b"".join(sections), coeffs
+
+
+# -- the JAX package reads the streams back --------------------------------------
+
+
+@pytest.mark.parametrize("size,transforms", [((520, 300), "mixed"), ((600, 520), "dct8"),
+                                              ((300, 1030), "mixed")])
+def test_jxl_tpu_decodes_writer_coefficients(size, transforms):
+    from test_device_ac import _decode_frame_coeffs
+
+    data, coeffs = encode_xyb_vardct(*size, seed=5, transforms=transforms)
+    got = _decode_frame_coeffs(data, force_device=False)
+    np.testing.assert_array_equal(got, coeffs)
+    assert np.count_nonzero(coeffs) > 100
+
+
+def test_writer_covers_every_1x1_type_and_dct16():
+    from jxl_tpu.api.simple import decode_first_frame
+
+    data, _ = encode_xyb_vardct(1100, 700, seed=6)
+    frame = decode_first_frame(data).frame
+    tmap = np.asarray(frame.hf_meta["transform"])
+    types = set(np.unique(tmap[tmap >= 128] & 127).tolist())
+    assert types == {0, 1, 2, 3, 4, 12, 13, 14, 15, 16, 17}
+    assert len(np.unique(frame.hf_meta["epf"])) == 8
+    assert len(np.unique(frame.hf_meta["raw_quant"])) == 4
+    rf = frame.header.restoration_filter
+    assert rf.gab and rf.epf_iters == 2
