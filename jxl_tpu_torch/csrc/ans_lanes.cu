@@ -9,24 +9,61 @@
 // selection, rANS symbol, HybridUint tail bits, coefficient order and pass
 // shift), storing each coefficient into the frame's dense buffer.
 //
-// Both call one __device__ rANS step, ans_step(), in exact integer
-// arithmetic: the state is a uint32 and every table value an int32 (the
-// TPU reference once lost renorm bits to bf16 matrix rounding,
-// pallas_ans.py:19-23).
+// Both do exact integer arithmetic: the state is a uint32 and every table
+// value an integer (the TPU reference once lost renorm bits to bf16 matrix
+// rounding, pallas_ans.py:19-23).
 //
-// What bounds them. Each lane is a serial chain: a symbol's table row
-// depends on the state the previous symbol left, and in K3 the context of
-// a token depends on the tokens before it (nonzeros left, the previous
-// coefficient, the nonzeros map). So the time of a launch is the longest
-// lane's token count times the latency of one step (a few dependent loads
-// from L1/shared memory), not bytes or operations: at 135 lanes the card
-// is almost idle. The design keeps each step's loads close: K2 holds the
-// (5, NB) table in shared memory; K3 holds its lane's 3x32x32 nonzeros map
-// in shared memory and the packed alias tables too when they fit, and
-// otherwise reads them from global memory (L1/L2 cached). K3 runs one lane
-// per block (one active thread), so lanes never diverge inside a warp and
-// spread over the SMs. Making the lanes shorter (more, smaller lanes) is a
-// redesign for a later change.
+// What bounds them on an H100. Each lane is a serial chain: a symbol's
+// table row depends on the state the previous symbol left, and in K3 the
+// context of a token depends on the tokens before it (nonzeros left, the
+// previous coefficient, the nonzeros map). So a launch takes the longest
+// lane's token count times the latency of one step; bytes and operations
+// are far below that, and at 135 lanes the card is almost idle. The step's
+// dependent latency is the whole cost.
+//
+// K2 keeps its table in shared memory and reads the stream bytes where it
+// stands (ans_step below).
+//
+// K3 keeps the whole dependent chain of a step in registers and shared
+// memory, so no global load is on it:
+//   - Stream bits: a ring of the lane's bytes in shared memory, read a
+//     64-bit window (three words, two funnel shifts) a token; the window
+//     loads depend only on the previous token's bit count, so they are in
+//     flight while the token's table row is looked up. The ring has two
+//     halves; when the reader enters one half, the warp stages the half
+//     after it into the other (any section length, one code path). A renorm
+//     or tail read is then a shift and a mask.
+//   - Context -> cluster: the lane's slice of the context map in shared
+//     memory, every context a block context in range can reach, each
+//     entry clamped to the map as the whole map is; 16-bit cluster ids (a
+//     stack of passes offsets each pass's clusters past 255; the wrapper
+//     refuses more than 65536). A context outside the slice, which only a
+//     wild block context reaches, reads the global map out of line.
+//   - Table: each bucket's five fields packed into one 64-bit word (the
+//     wrapper packs them and checks their ranges), so a symbol is one
+//     shared load; each cluster's HybridUint config sits beside the tables.
+//   - Items: a ring of the group's items in shared memory, staged like the
+//     stream, one 64-byte slot an item (four vector loads) holding its
+//     fields and the values derived from them when it is staged (the map
+//     cells its context reads, log2 of its block count, its histogram and
+//     order bases, which checks it can skip); the next item is loaded one
+//     item ahead.
+//   - Coefficient tokens: the next token's context depends on this one
+//     only through whether its coefficient is zero, so both candidate
+//     clusters and the next order entry are looked up while the token
+//     decodes; the zero-density LUTs and the 3x32x32 nonzeros map live in
+//     shared memory, and the store is a fire-and-forget reduction.
+//   - Code size: the stagings and the wild-context lookup are out of line,
+//     the HybridUint tail is branch-free, and the coefficient loop has a
+//     variant without slice checks for items whose contexts all lie in the
+//     slice, so the hot loop stays small for the instruction cache.
+// One warp walks each lane (one lane a block, 128 threads to stage, then
+// warp 0 alone): all 32 threads run the same uniform chain, which costs
+// nothing over one thread, and share the stagings and the nonzeros-map
+// fills; thread 0 alone stores. What remains is one warp issuing a chain of
+// mostly dependent instructions, a few cycles each. The shared-memory plan
+// comes from the wrapper (ops/device_ac.py:ac_smem_plan) and is checked
+// here.
 //
 // Semantics follow the JAX twins exactly, including their clipping: byte
 // indices clip to the row (a cursor past the end re-reads the row's last
@@ -34,6 +71,8 @@
 // arrays, and int32 arithmetic wraps as XLA's does.
 
 #include <cstdint>
+#include <type_traits>
+
 #include <cuda_runtime.h>
 
 namespace {
@@ -41,6 +80,9 @@ namespace {
 constexpr int kLogSumProbs = 12;
 constexpr int kGroupDimBlocks = 32;
 constexpr int kNzArea = kGroupDimBlocks * kGroupDimBlocks;
+constexpr int kItemFields = 10;
+constexpr int kItemSlot = 16;  // ints an item takes in the ring (64 bytes)
+constexpr int kStageThreads = 128;
 
 __constant__ int kFreqCtx[64] = {
     0,  0,  1,  2,  3,  4,  5,  6,  7,  8,  9,  10, 11, 12, 13, 14,
@@ -65,6 +107,11 @@ __device__ __forceinline__ int floordiv(int a, int b) {  // b > 0
   int q = a / b;
   return (a % b != 0 && a < 0) ? q - 1 : q;
 }
+__device__ __forceinline__ int clampi(int x, int lo, int hi) {
+  return x < lo ? lo : (x > hi ? hi : x);
+}
+
+// ---- K2 ------------------------------------------------------------------
 
 // 16 bits LSB-first at bit cursor bp of a row of L bytes, byte indices
 // clipped to [0, L-1]
@@ -86,9 +133,9 @@ __device__ __forceinline__ unsigned read_bits(const uint8_t* row, int L, int bp,
   return v & mask;
 }
 
-// The shared rANS step: (state, cursor, table row) -> (symbol, state',
-// cursor'). tab(r, i) returns row r (dist, alias symbol, alias offset,
-// alias cutoff, alias dist) at bucket i.
+// One rANS step: (state, cursor, table row) -> (symbol, state', cursor').
+// tab(r, i) returns row r (dist, alias symbol, alias offset, alias cutoff,
+// alias dist) at bucket i.
 template <class Tab>
 __device__ __forceinline__ int ans_step(unsigned& state, int& bitpos, const uint8_t* row,
                                         int L, int log_bucket, const Tab& tab) {
@@ -107,8 +154,6 @@ __device__ __forceinline__ int ans_step(unsigned& state, int& bitpos, const uint
   state = ns;
   return sym;
 }
-
-// ---- K2 ------------------------------------------------------------------
 
 __global__ void ans_decode_lanes_kernel(const uint8_t* __restrict__ streams, int S, int L,
                                         const int* __restrict__ table, int NB, int log_bucket,
@@ -145,137 +190,411 @@ struct AcArgs {
   int I;
   const int* orders;
   int O;
-  const int* tables;  // (C, 5, NB)
+  // (C, NB) packed buckets: bits 0-12 alias cutoff, 13-25 dist, 26-38 alias
+  // dist, 39-50 alias symbol, 51-63 alias offset (signed)
+  const unsigned long long* packed;
+  // (C,) HybridUint configs: split exponent | msb << 8 | lsb << 16
+  const int* cfgs;
   int C, NB;
-  const int* uint_cfgs;  // (C, 3)
   const int* context_map;
   int NC;
   int log_bucket, num_bctx, total;
   int* coeffs;  // (total,)
   uint8_t* ok;  // (S,)
-  int tables_in_shared;
+  int ctx_slice;  // context-map entries staged per lane
+  int off_cfg;    // byte offsets in shared memory (ac_layout)
+  int off_tab;
 };
 
-__global__ void ac_sections_kernel(AcArgs a) {
-  __shared__ int s_nz[3 * kNzArea];
-  extern __shared__ int s_tables[];
-  const int lane = blockIdx.x;
-  for (int j = threadIdx.x; j < 3 * kNzArea; j += blockDim.x) s_nz[j] = 0;
-  if (a.tables_in_shared)
-    for (int j = threadIdx.x; j < a.C * 5 * a.NB; j += blockDim.x) s_tables[j] = a.tables[j];
-  __syncthreads();
-  if (threadIdx.x != 0 || lane >= a.S) return;
+// Shared memory of a block: the fixed regions first, at constant offsets,
+// then the lane's context slice, the HybridUint configs and (when they
+// fit) the packed tables. ops/device_ac.py:ac_smem_layout is the same.
+constexpr int kRingHalf = 1024;  // stream ring half, 32-bit words (4 KB)
+constexpr int kItemHalf = 64;    // item ring half, items
+constexpr int kOffNz = 0;
+constexpr int kOffLut = kOffNz + 3 * kNzArea * 4;
+constexpr int kOffItems = kOffLut + 128 * 4;
+constexpr int kOffRing = kOffItems + 2 * kItemHalf * kItemSlot * 4;
+constexpr int kOffCtx = kOffRing + 2 * kRingHalf * 4;
 
-  const int* tflat = a.tables_in_shared ? s_tables : a.tables;
-  const int tlast = a.C * 5 * a.NB - 1;
-  const uint8_t* row = a.streams + static_cast<size_t>(lane) * a.L;
-  const int g = a.lane_group[lane];
-  const int ctx_off = a.lane_ctx_off[lane];
-  const int shift = a.lane_shift[lane];
-  const int order_base = a.lane_order_base[lane];
-  const int coeff_base = a.lane_coeff_base[lane];
-  const int n_items = a.lane_n_items[lane];
+struct AcLayout {
+  size_t cfg, tab, total;
+};
 
-  int bitpos = a.start_bits[lane];
-  unsigned state = read_bits(row, a.L, bitpos, 32);
-  bitpos += 32;
-  int item = 0, k = -1, nonzeros = 0, prev = 0;
-  bool err = false;
+__host__ __device__ inline size_t align_up(size_t x, size_t a) { return (x + a - 1) / a * a; }
 
-  while (item < n_items && !err) {
-    const int it = item < 0 ? 0 : (item > a.I - 1 ? a.I - 1 : item);
-    const int* f = a.items + (static_cast<size_t>(g) * a.I + it) * 10;
-    const int c = f[0], sbx = f[1], sby = f[2], nb = f[3], nc = f[4], bctx = f[5];
-    const int order_off = f[6], coeffs_off = f[7], cx = f[8], cy = f[9];
-    const int lnb = 31 - __clz(nb > 1 ? nb : 1);
-    const bool need_nz = k < 0;
+inline AcLayout ac_layout(int tab_shared, int C, int NB, int ctx_slice) {
+  AcLayout l;
+  l.cfg = align_up(kOffCtx + static_cast<size_t>(ctx_slice) * sizeof(uint16_t), 16);
+  l.tab = align_up(l.cfg + static_cast<size_t>(C) * 4, 16);
+  l.total = l.tab + (tab_shared ? static_cast<size_t>(C) * NB * 8 : 0);
+  return l;
+}
 
-    // context selection
-    int ctx;
-    if (need_nz) {
-      const int ch_base = c * kNzArea;
-      int iu = ch_base + (sby - 1) * kGroupDimBlocks + sbx;
-      int il = ch_base + sby * kGroupDimBlocks + (sbx - 1 > 0 ? sbx - 1 : 0);
-      iu = iu < 0 ? 0 : (iu > 3 * kNzArea - 1 ? 3 * kNzArea - 1 : iu);
-      il = il < 0 ? 0 : (il > 3 * kNzArea - 1 ? 3 * kNzArea - 1 : il);
-      const int up = s_nz[iu], left = s_nz[il];
-      const int predicted = sbx == 0 ? (sby == 0 ? 32 : up)
-                                     : (sby == 0 ? left : (wadd(wadd(up, left), 1) >> 1));
-      const int nzctx = predicted < 8 ? predicted : (predicted < 64 ? 4 + predicted / 2 : 36);
-      ctx = wadd(wadd(wmul(nzctx, a.num_bctx), bctx), ctx_off);
+// words [w0, w0 + n) of the lane's virtual byte sequence, whose word 0
+// starts at byte `base` and whose byte b is row[clip(b, 0, L-1)], into dst.
+// Out of line, as stage_items: the token loop stays small enough for the
+// instruction cache.
+__device__ __noinline__ void stage_words(uint32_t* dst, const uint8_t* row, int L,
+                                            long long base, int w0, int n, int tid,
+                                            int nthreads, bool aligned) {
+  for (int w = tid; w < n; w += nthreads) {
+    const long long b = base + 4LL * (w0 + w);
+    uint32_t v;
+    if (aligned && b >= 0 && b + 3 < L) {
+      v = *reinterpret_cast<const uint32_t*>(row + b);
     } else {
-      const int nzl = min((nonzeros + (1 << lnb) - 1) >> lnb, 63);
-      const int kn = (k < 0 ? 0 : (k > (1 << 20) ? (1 << 20) : k)) >> lnb;
-      const int histo_base = a.num_bctx * 37 + 458 * bctx + ctx_off;
-      ctx = histo_base + (kNumNzCtx[nzl & 63] + kFreqCtx[kn & 63]) * 2 + prev;
-    }
-    const int cluster = a.context_map[ctx < 0 ? 0 : (ctx > a.NC - 1 ? a.NC - 1 : ctx)];
-
-    // rANS symbol + HybridUint
-    auto tab = [&](int r, int i) {
-      int fi = (cluster * 5 + r) * a.NB + i;
-      return tflat[fi < 0 ? 0 : (fi > tlast ? tlast : fi)];
-    };
-    const unsigned token =
-        static_cast<unsigned>(ans_step(state, bitpos, row, a.L, a.log_bucket, tab));
-    const unsigned se = static_cast<unsigned>(a.uint_cfgs[cluster * 3 + 0]);
-    const unsigned msb = static_cast<unsigned>(a.uint_cfgs[cluster * 3 + 1]);
-    const unsigned lsb = static_cast<unsigned>(a.uint_cfgs[cluster * 3 + 2]);
-    const unsigned split = 1u << se;
-    unsigned value = token;
-    if (token >= split) {
-      const unsigned bit = msb + lsb;
-      const int nbits = static_cast<int>((se - bit + ((token - split) >> bit)) & 31u);
-      const unsigned raw = read_bits(row, a.L, bitpos, nbits);
-      bitpos += nbits;
-      const unsigned low = token & ((1u << lsb) - 1u);
-      const unsigned hi = ((token >> lsb) & ((1u << msb) - 1u)) | (1u << msb);
-      value = (((hi << nbits) | raw) << lsb) | low;
-    }
-
-    if (need_nz) {
-      const int nz_val = static_cast<int>(value);
-      const bool bad = wadd(nz_val, nb) > nc;
-      if (!bad && c >= 0 && c < 3) {
-        const int fill = floordiv(wadd(wadd(nz_val, nb), -1), nb > 1 ? nb : 1);
-        const int y0 = sby > 0 ? sby : 0, y1 = min(sby + cy, kGroupDimBlocks);
-        const int x0 = sbx > 0 ? sbx : 0, x1 = min(sbx + cx, kGroupDimBlocks);
-        for (int y = y0; y < y1; ++y)
-          for (int x = x0; x < x1; ++x) s_nz[c * kNzArea + y * kGroupDimBlocks + x] = fill;
+      v = 0;
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        long long bb = b + t;
+        bb = bb < 0 ? 0 : (bb > L - 1 ? L - 1 : bb);
+        v |= static_cast<uint32_t>(row[bb]) << (8 * t);
       }
-      prev = nz_val > (nc >> 4) ? 0 : 1;
-      if (bad) {
-        err = true;
-      } else if (nz_val > 0) {
-        k = nb;
-        nonzeros = nz_val;
-      } else if (nz_val == 0) {
-        ++item;
-      }
-    } else {
-      const int mag = static_cast<int>((value + 1u) >> 1);
-      int coeff = (value & 1u) ? static_cast<int>(0u - static_cast<unsigned>(mag))
-                               : static_cast<int>(value >> 1);
-      coeff = static_cast<int>(static_cast<unsigned>(coeff) << shift);
-      int oi = order_base + order_off + (k > 0 ? k : 0);
-      oi = oi < 0 ? 0 : (oi > a.O - 1 ? a.O - 1 : oi);
-      const int dest = coeff_base + coeffs_off + a.orders[oi];
-      if (dest >= 0 && dest < a.total && coeff != 0) atomicAdd(a.coeffs + dest, coeff);
-      const int is_nz = coeff != 0 ? 1 : 0;
-      const int nz_after = nonzeros - is_nz;
-      if (nz_after > 0 && k + 1 >= nc) err = true;
-      if (nz_after == 0 || k + 1 >= nc) {
-        ++item;
-        k = -1;
-      } else {
-        ++k;
-      }
-      nonzeros = nz_after;
-      prev = is_nz;
     }
+    dst[w] = v;
   }
-  a.ok[lane] = (!err && item >= n_items && state == 0x130000u &&
-                bitpos <= a.lane_end_bits[lane]) ? 1 : 0;
+}
+
+// An item's slot in the ring: its ten fields, then values derived from them
+// once, when the item is staged, so the walk does not compute them.
+struct Item {
+  int c, sbx, sby, nb, nc, bctx, order_off, coeffs_off, cx, cy;
+  int cells;       // the nonzeros-map cells its context reads: above | left << 16
+  int flags;       // kItem* bits | log2(block count) << 8
+  int histo_base;  // the coefficient contexts' base
+  int nz_base;     // the nonzeros context less nzctx * num_bctx
+  int ob;          // order base, held in [-2^30, 2^30]
+  int fill_cell;   // the map cell of a one-block item
+};
+constexpr int kItemSbx0 = 1, kItemSby0 = 2, kItemFill1 = 4, kItemChannel = 8;
+constexpr int kItemNzInSlice = 16, kItemCoefFast = 32;
+
+// what the derived values depend on besides the item
+struct ItemCtx {
+  int ctx_off, num_bctx, n_slice, order_base, O;
+};
+
+// items [first, first + n) of a group (indices clipped to I-1) into dst,
+// one slot each, with their derived values
+__device__ __noinline__ void stage_items(int* dst, const int* gitems, int I, int first,
+                                         int n, int tid, int nthreads, ItemCtx x) {
+  for (int v = tid; v < n; v += nthreads) {
+    const int* f = gitems + min(first + v, I - 1) * kItemFields;
+    Item t{f[0], f[1], f[2], f[3], f[4], f[5], f[6], f[7], f[8], f[9]};
+    const int ch_base = t.c * kNzArea;
+    const int iu = clampi(ch_base + (t.sby - 1) * kGroupDimBlocks + t.sbx, 0, 3 * kNzArea - 1);
+    const int il = clampi(ch_base + t.sby * kGroupDimBlocks + (t.sbx - 1 > 0 ? t.sbx - 1 : 0),
+                          0, 3 * kNzArea - 1);
+    t.cells = iu | (il << 16);
+    const bool channel = t.c >= 0 && t.c < 3;
+    const bool fill1 = channel && t.cx == 1 && t.cy == 1 &&
+                       static_cast<unsigned>(t.sbx) < kGroupDimBlocks &&
+                       static_cast<unsigned>(t.sby) < kGroupDimBlocks;
+    t.histo_base = x.num_bctx * 37 + 458 * t.bctx + x.ctx_off;
+    t.nz_base = wadd(t.bctx, x.ctx_off);
+    constexpr long long kHold = 1LL << 30;
+    const long long ob64 = static_cast<long long>(x.order_base) + t.order_off;
+    t.ob = static_cast<int>(ob64 < -kHold ? -kHold : (ob64 > kHold ? kHold : ob64));
+    t.fill_cell = fill1 ? ch_base + t.sby * kGroupDimBlocks + t.sbx : 0;
+    // nonzeros contexts reach 36 * num_bctx + the block context; the
+    // coefficient contexts [histo_base, histo_base + 473]; the orders
+    // [ob + nb, ob + nc]
+    const bool nz_in_slice = 37LL * x.num_bctx <= x.n_slice && t.bctx >= 0 &&
+                             t.bctx < x.num_bctx;
+    const long long rel0 = static_cast<long long>(t.histo_base) - x.ctx_off;
+    const bool coef_fast = rel0 >= 0 && rel0 + 2 * (206 + 30) + 1 < x.n_slice && t.nb >= 0 &&
+                           ob64 >= 0 && ob64 <= kHold && ob64 + t.nc <= x.O - 1;
+    const int lnb = 31 - __clz(t.nb > 1 ? t.nb : 1);
+    t.flags = (t.sbx == 0 ? kItemSbx0 : 0) | (t.sby == 0 ? kItemSby0 : 0) |
+              (fill1 ? kItemFill1 : 0) | (channel ? kItemChannel : 0) |
+              (nz_in_slice ? kItemNzInSlice : 0) | (coef_fast ? kItemCoefFast : 0) | (lnb << 8);
+    int4* d = reinterpret_cast<int4*>(dst + v * kItemSlot);
+    d[0] = make_int4(t.c, t.sbx, t.sby, t.nb);
+    d[1] = make_int4(t.nc, t.bctx, t.order_off, t.coeffs_off);
+    d[2] = make_int4(t.cx, t.cy, t.cells, t.flags);
+    d[3] = make_int4(t.histo_base, t.nz_base, t.ob, t.fill_cell);
+  }
+}
+
+__device__ __forceinline__ Item load_item(const int* s) {  // a 16-byte aligned slot
+  const int4* q = reinterpret_cast<const int4*>(s);
+  const int4 a = q[0], b = q[1], c = q[2], d = q[3];
+  return Item{a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, c.x, c.y, c.z, c.w, d.x, d.y, d.z, d.w};
+}
+
+__device__ __noinline__ int cluster_of_wild_context(const int* context_map, int ctx, int NC1) {
+  return __ldg(context_map + clampi(ctx, 0, NC1));
+}
+
+// coeffs[dest] += v, fire and forget
+__device__ __forceinline__ void red_add(int* p, int v) {
+  asm volatile("red.relaxed.gpu.global.add.s32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+
+template <bool kTabShared>
+__global__ void __launch_bounds__(kStageThreads, 1) ac_sections_kernel(AcArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int* s_nz = reinterpret_cast<int*>(smem + kOffNz);
+  int* s_numnz = reinterpret_cast<int*>(smem + kOffLut);
+  int* s_freq = s_numnz + 64;
+  int* s_items = reinterpret_cast<int*>(smem + kOffItems);
+  uint32_t* s_ring = reinterpret_cast<uint32_t*>(smem + kOffRing);
+  uint16_t* s_ctx = reinterpret_cast<uint16_t*>(smem + kOffCtx);
+  int* s_cfg = reinterpret_cast<int*>(smem + a.off_cfg);
+  unsigned long long* s_tab = reinterpret_cast<unsigned long long*>(smem + a.off_tab);
+
+  const int lane = blockIdx.x;
+  const int tid = threadIdx.x;
+  const uint8_t* row = a.streams + static_cast<size_t>(lane) * a.L;
+  const bool aligned = (reinterpret_cast<uintptr_t>(row) & 3) == 0;
+  const int g = a.lane_group[lane];
+  const int* gitems = a.items + static_cast<size_t>(g) * a.I * kItemFields;
+  const int ctx_off = a.lane_ctx_off[lane];
+  const int start = a.start_bits[lane];
+  // word 0 of the ring holds the aligned word around the first bit
+  const long long base = static_cast<long long>(start >> 5) * 4;
+  // the staged slice: contexts [ctx_off, ctx_off + ctx_slice), each entry
+  // the cluster of the context clamped to the map, as the whole map gives
+  const int n_slice = a.ctx_slice;
+
+  // ---- prologue: every thread stages
+  if (kTabShared)
+    for (int j = tid; j < a.C * a.NB; j += kStageThreads) s_tab[j] = a.packed[j];
+  for (int j = tid; j < 3 * kNzArea; j += kStageThreads) s_nz[j] = 0;
+  for (int j = tid; j < 64; j += kStageThreads) {
+    s_numnz[j] = kNumNzCtx[j];
+    s_freq[j] = kFreqCtx[j];
+  }
+  for (int j = tid; j < a.C; j += kStageThreads) s_cfg[j] = a.cfgs[j];
+  for (int j = tid; j < n_slice; j += kStageThreads) {
+    const long long ctx = static_cast<long long>(ctx_off) + j;
+    const long long at = ctx < 0 ? 0 : (ctx > a.NC - 1 ? a.NC - 1 : ctx);
+    s_ctx[j] = static_cast<uint16_t>(a.context_map[at]);
+  }
+  const ItemCtx ictx{ctx_off, a.num_bctx, n_slice, a.lane_order_base[lane], a.O};
+  stage_items(s_items, gitems, a.I, 0, 2 * kItemHalf, tid, kStageThreads, ictx);
+  stage_words(s_ring, row, a.L, base, 0, 2 * kRingHalf, tid, kStageThreads, aligned);
+  __syncthreads();
+  if (tid >= 32) return;
+
+  // ---- warp 0 walks the lane; every value below is uniform in the warp
+  const int lid = tid;
+  // values the token loop reads every token, pinned in registers (the
+  // empty asm keeps the compiler from rematerializing them there, e.g.
+  // the lane id from a special-register read)
+  int leader = lid == 0 ? 1 : 0;
+  asm volatile("" : "+r"(leader));
+  const int shift = a.lane_shift[lane];
+  const int n_items = a.lane_n_items[lane];
+  const int NB = a.NB, lb = a.log_bucket;
+  const int NC1 = a.NC - 1;
+  const unsigned bmask = (1u << lb) - 1u;
+
+  // bit reader: the cursor bp indexes the lane's virtual bytes; a token
+  // reads a 64-bit window at bp from three ring words at once and moves bp
+  // past its renorm and tail bits. The ring word of bp is wrel; when it
+  // enters half h, half h+1 is staged over half h-1
+  const int q0 = start >> 5;
+  int bp = start;
+  int stage_at = kRingHalf;
+  auto window = [&](unsigned& lo, unsigned& hi) {
+    const int wrel = (bp >> 5) - q0;
+    if (wrel >= stage_at) {
+      const int h = stage_at / kRingHalf;
+      __syncwarp();
+      stage_words(s_ring + ((h + 1) & 1) * kRingHalf, row, a.L, base, (h + 1) * kRingHalf,
+                  kRingHalf, lid, 32, aligned);
+      __syncwarp();
+      stage_at += kRingHalf;
+    }
+    constexpr int M = 2 * kRingHalf - 1;
+    const uint32_t w0 = s_ring[wrel & M], w1 = s_ring[(wrel + 1) & M], w2 = s_ring[(wrel + 2) & M];
+    lo = __funnelshift_r(w0, w1, static_cast<unsigned>(bp));
+    hi = __funnelshift_r(w1, w2, static_cast<unsigned>(bp));
+  };
+
+  // context -> cluster: the staged slice, else (a wild block context) the
+  // whole map, clamped
+  auto lookup = [&](int ctx) -> int {
+    const unsigned rel = static_cast<unsigned>(ctx) - static_cast<unsigned>(ctx_off);
+    if (rel < static_cast<unsigned>(n_slice)) return s_ctx[rel];
+    return cluster_of_wild_context(a.context_map, ctx, NC1);
+  };
+
+  // one rANS symbol of `cluster` and its HybridUint value: its renorm and
+  // tail bits come from one window (16 + 31 bits at most)
+  unsigned state;
+  {
+    unsigned lo, hi;
+    window(lo, hi);
+    state = lo;
+    bp += 32;
+  }
+  auto decode = [&](int cluster) -> unsigned {
+    unsigned lo, hi;
+    window(lo, hi);
+    const unsigned idx = state & 0xFFFu;
+    const int bucket = cluster * NB + static_cast<int>(idx >> lb);
+    const unsigned long long w = kTabShared ? s_tab[bucket] : __ldg(a.packed + bucket);
+    const unsigned cfg = static_cast<unsigned>(s_cfg[cluster]);
+    const unsigned pos = idx & bmask;
+    const unsigned wlo = static_cast<unsigned>(w), whi = static_cast<unsigned>(w >> 32);
+    const bool use_alias = pos >= (wlo & 0x1FFFu);
+    const unsigned token = use_alias ? ((whi >> 7) & 0xFFFu) : (idx >> lb);
+    const unsigned off = use_alias ? static_cast<unsigned>(static_cast<int>(whi) >> 19) + pos : pos;
+    const unsigned d = use_alias ? (((wlo >> 26) | (whi << 6)) & 0x1FFFu) : ((wlo >> 13) & 0x1FFFu);
+    const unsigned ns = (state >> kLogSumProbs) * d + off;
+    const bool renorm = ns < (1u << 16);
+    state = renorm ? ((ns << 16) | (lo & 0xFFFFu)) : ns;
+    const unsigned rest = renorm ? __funnelshift_r(lo, hi, 16) : lo;
+    // HybridUint, without a branch: a token below the split reads no bits
+    const unsigned se = cfg & 0xFFu, msb = (cfg >> 8) & 0xFFu, lsb = cfg >> 16;
+    const unsigned split = 1u << se;
+    const bool tail = token >= split;
+    const unsigned bit = msb + lsb;
+    const unsigned nbits = tail ? ((se - bit + ((token - split) >> bit)) & 31u) : 0u;
+    const unsigned raw = rest & ((1u << nbits) - 1u);
+    const unsigned low = token & ((1u << lsb) - 1u);
+    const unsigned hib = ((token >> lsb) & ((1u << msb) - 1u)) | (1u << msb);
+    bp += (renorm ? 16 : 0) + static_cast<int>(nbits);
+    return tail ? ((((hib << nbits) | raw) << lsb) | low) : token;
+  };
+
+  // the current item; the next one is loaded one item ahead
+  int item = 0;
+  bool err = false;
+  Item it = load_item(s_items);
+  Item nx = load_item(s_items + kItemSlot);
+  auto advance = [&]() {
+    ++item;
+    if ((item & (kItemHalf - 1)) == 0) {
+      const int h = item / kItemHalf;
+      __syncwarp();
+      stage_items(s_items + ((h + 1) & 1) * kItemHalf * kItemSlot, gitems, a.I,
+                  (h + 1) * kItemHalf, kItemHalf, lid, 32, ictx);
+      __syncwarp();
+    }
+    it = nx;
+    nx = load_item(s_items + ((item + 1) & (2 * kItemHalf - 1)) * kItemSlot);
+  };
+
+  while (item < n_items) {
+    const int nb = it.nb, nc = it.nc, flags = it.flags;
+    const int lnb = flags >> 8;
+    const unsigned nround = (1u << lnb) - 1u;
+
+    // the nonzeros token: context from the nonzeros map
+    const int up = s_nz[it.cells & 0xFFFF], left = s_nz[it.cells >> 16];
+    const int avg = wadd(wadd(up, left), 1) >> 1;  // both loads issue at once
+    const int predicted = (flags & kItemSby0) ? ((flags & kItemSbx0) ? 32 : left)
+                                              : ((flags & kItemSbx0) ? up : avg);
+    const int nzctx = predicted < 8 ? predicted : (predicted < 64 ? 4 + (predicted >> 1) : 36);
+    const int nz_ctx = wadd(wmul(nzctx, a.num_bctx), it.nz_base);
+    const int nz_val = static_cast<int>(decode(
+        (flags & kItemNzInSlice)
+            ? s_ctx[static_cast<unsigned>(nz_ctx) - static_cast<unsigned>(ctx_off)]
+            : lookup(nz_ctx)));
+    if (wadd(nz_val, nb) > nc) {
+      err = true;
+      break;
+    }
+    if (flags & kItemChannel) {
+      const int num = wadd(wadd(nz_val, nb), -1);
+      const int fill = nb > 1 ? ((nb & (nb - 1)) == 0 ? (num >> lnb) : floordiv(num, nb)) : num;
+      if (flags & kItemFill1) {
+        // one block: every thread stores the same word and reads its own
+        // store later, so no warp barrier is needed
+        s_nz[it.fill_cell] = fill;
+      } else {
+        // a column a thread, between barriers: every earlier store is seen
+        // before, and these after
+        __syncwarp();
+        const int ch_base = it.c * kNzArea;
+        const int y0 = it.sby > 0 ? it.sby : 0, y1 = min(it.sby + it.cy, kGroupDimBlocks);
+        const int x = (it.sbx > 0 ? it.sbx : 0) + lid, x1 = min(it.sbx + it.cx, kGroupDimBlocks);
+        if (x < x1)
+          for (int y = y0; y < y1; ++y) s_nz[ch_base + y * kGroupDimBlocks + x] = fill;
+        __syncwarp();
+      }
+    }
+    // a negative count neither starts nor skips the item, and a start with a
+    // negative block count leaves the next token a nonzeros token: either
+    // way the same item's nonzeros token comes again
+    if (nz_val < 0 || (nz_val > 0 && nb < 0)) continue;
+
+    if (nz_val > 0) {
+      // the coefficient tokens. The next token's context depends on this
+      // token only through whether its coefficient is zero, so both of
+      // its candidate clusters and its order entry are looked up ahead
+      int histo_base = it.histo_base;
+      asm volatile("" : "+r"(histo_base));
+      const int ob = it.ob;
+      const int O1 = a.O - 1;
+      int* const cdst = a.coeffs;
+      const long long cbase = static_cast<long long>(a.lane_coeff_base[lane]) + it.coeffs_off;
+      const unsigned long long total = static_cast<unsigned long long>(a.total);
+      auto nzl = [&](int n) {  // n >= 0: the unsigned sum cannot wrap
+        const unsigned v = (static_cast<unsigned>(n) + nround) >> lnb;
+        return v < 63u ? static_cast<int>(v) : 63;
+      };
+      auto kn = [&](int k) { return ((k > (1 << 20) ? (1 << 20) : k) >> lnb) & 63; };
+      // an item whose contexts all lie in the slice and whose orders all
+      // lie in the array (kItemCoefFast) looks them up unchecked
+      auto walk = [&](auto checked) {
+        constexpr bool kChecked = decltype(checked)::value;
+        auto lk = [&](int ctx) -> int {
+          if (kChecked) return lookup(ctx);
+          return s_ctx[static_cast<unsigned>(ctx) - static_cast<unsigned>(ctx_off)];
+        };
+        auto order_at = [&](int k) {
+          return __ldg(a.orders + (kChecked ? clampi(ob + k, 0, O1) : ob + k));
+        };
+        int k = nb, nonzeros = nz_val;
+        const int prev0 = nz_val > (nc >> 4) ? 0 : 1;
+        int cluster = lk(histo_base + (s_numnz[nzl(nonzeros)] + s_freq[kn(k)]) * 2 + prev0);
+        int ord = order_at(k);
+        for (;;) {
+          const int f1 = s_freq[kn(k + 1)];
+          const int cl_zero = lk(histo_base + (s_numnz[nzl(nonzeros)] + f1) * 2);
+          const int cl_nz = lk(histo_base + (s_numnz[nzl(nonzeros - 1)] + f1) * 2 + 1);
+          const int ord_next = order_at(k + 1);
+
+          const unsigned value = decode(cluster);
+          const int mag = static_cast<int>((value + 1u) >> 1);
+          int coeff = (value & 1u) ? static_cast<int>(0u - static_cast<unsigned>(mag))
+                                   : static_cast<int>(value >> 1);
+          coeff = static_cast<int>(static_cast<unsigned>(coeff) << shift);
+          const long long dest = cbase + ord;
+          if (leader && coeff != 0 && static_cast<unsigned long long>(dest) < total)
+            red_add(cdst + dest, coeff);
+          const int is_nz = coeff != 0 ? 1 : 0;
+          nonzeros -= is_nz;
+          if (nonzeros == 0 || k + 1 >= nc) return nonzeros > 0;
+          ++k;
+          cluster = is_nz ? cl_nz : cl_zero;
+          ord = ord_next;
+        }
+      };
+      err = (flags & kItemCoefFast) ? walk(std::false_type{}) : walk(std::true_type{});
+      if (err) break;
+    }
+    advance();
+  }
+  if (lid == 0) {
+    a.ok[lane] = (!err && item >= n_items && state == 0x130000u &&
+                  bp <= a.lane_end_bits[lane]) ? 1 : 0;
+  }
+}
+
+template <bool kTabShared>
+cudaError_t launch_ac(const AcArgs& a, size_t smem, cudaStream_t stream) {
+  auto kern = ac_sections_kernel<kTabShared>;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  kern<<<a.S, kStageThreads, smem, stream>>>(a);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -295,20 +614,20 @@ int ans_decode_lanes_launch(const void* streams, int S, int L, const void* table
   return static_cast<int>(cudaGetLastError());
 }
 
-// Shared memory K3 may take for the packed tables (the nonzeros map takes
-// another 12 KB); larger tables are read from global memory.
-constexpr size_t kMaxSharedTables = 160 * 1024;
-
 int ac_sections_launch(const void* streams, int S, int L, const void* start_bits,
                        const void* lane_group, const void* lane_ctx_off,
                        const void* lane_shift, const void* lane_order_base,
                        const void* lane_coeff_base, const void* lane_n_items,
                        const void* lane_end_bits, const void* items, int I,
-                       const void* orders, int O, const void* tables, int C, int NB,
-                       const void* uint_cfgs, const void* context_map, int NC,
-                       int log_bucket, int num_bctx, int total, void* coeffs, void* ok,
-                       void* stream) {
+                       const void* orders, int O, const void* packed, const void* cfgs, int C,
+                       int NB, const void* context_map, int NC, int log_bucket, int num_bctx,
+                       int total, void* coeffs, void* ok, int tab_shared, int ctx_slice,
+                       int smem_bytes, void* stream) {
+  // the plan (ops/device_ac.py:ac_smem_plan) must match this layout
   if (S <= 0) return 0;
+  const AcLayout lay = ac_layout(tab_shared, C, NB, ctx_slice);
+  if (ctx_slice < 0 || C > 65536 || lay.total != static_cast<size_t>(smem_bytes))
+    return static_cast<int>(cudaErrorInvalidValue);
   AcArgs a;
   a.streams = static_cast<const uint8_t*>(streams);
   a.S = S;
@@ -325,10 +644,10 @@ int ac_sections_launch(const void* streams, int S, int L, const void* start_bits
   a.I = I;
   a.orders = static_cast<const int*>(orders);
   a.O = O;
-  a.tables = static_cast<const int*>(tables);
+  a.packed = static_cast<const unsigned long long*>(packed);
+  a.cfgs = static_cast<const int*>(cfgs);
   a.C = C;
   a.NB = NB;
-  a.uint_cfgs = static_cast<const int*>(uint_cfgs);
   a.context_map = static_cast<const int*>(context_map);
   a.NC = NC;
   a.log_bucket = log_bucket;
@@ -336,15 +655,13 @@ int ac_sections_launch(const void* streams, int S, int L, const void* start_bits
   a.total = total;
   a.coeffs = static_cast<int*>(coeffs);
   a.ok = static_cast<uint8_t*>(ok);
-  const size_t tbytes = static_cast<size_t>(C) * 5 * NB * sizeof(int);
-  a.tables_in_shared = tbytes <= kMaxSharedTables ? 1 : 0;
-  const size_t smem = a.tables_in_shared ? tbytes : 0;
-  cudaError_t e = cudaFuncSetAttribute(ac_sections_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       static_cast<int>(kMaxSharedTables));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  ac_sections_kernel<<<S, 32, smem, static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  a.ctx_slice = ctx_slice;
+  a.off_cfg = static_cast<int>(lay.cfg);
+  a.off_tab = static_cast<int>(lay.tab);
+  const size_t smem = static_cast<size_t>(smem_bytes);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(tab_shared ? launch_ac<true>(a, smem, st)
+                                    : launch_ac<false>(a, smem, st));
 }
 
 const char* ans_lanes_error_string(int code) {

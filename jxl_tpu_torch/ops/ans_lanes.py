@@ -47,8 +47,8 @@ def load():
         lib.ans_decode_lanes_launch.argtypes = [_P, _I, _I, _P, _I, _I, _I, _P, _P, _P]
         lib.ans_decode_lanes_launch.restype = _I
         lib.ac_sections_launch.argtypes = (
-            [_P, _I, _I] + [_P] * 9 + [_I, _P, _I, _P, _I, _I, _P, _P, _I]
-            + [_I, _I, _I, _P, _P, _P]
+            [_P, _I, _I] + [_P] * 9 + [_I, _P, _I, _P, _P, _I, _I, _P, _I]
+            + [_I, _I, _I, _P, _P] + [_I] * 3 + [_P]
         )
         lib.ac_sections_launch.restype = _I
         lib.ans_lanes_error_string.argtypes = [_I]

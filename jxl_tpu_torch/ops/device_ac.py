@@ -4,12 +4,25 @@ HybridUint + context modeling for every HF section of a frame.
 `decode_ac_sections` launches the kernel K3 (csrc/ans_lanes.cu, built by
 ops/ans_lanes.py) for CUDA tensors and takes the plain torch version,
 `decode_ac_sections_reference`, for tensors on the CPU; it never falls
-back. The plain version is the lockstep body of the XLA decoder it ports,
-jxl_tpu/ops/device_ac.py:decode_ac_sections: one token per lane per step
-until every lane finishes, with each chunk of steps' (index, value) pairs
-scatter-added into the coefficient buffer. The kernel walks each lane
-serially and stores each coefficient with an integer atomicAdd, which sums
-the passes of a group in any order to the same values.
+back. K3 replaces the XLA lane decoder
+jxl_tpu/ops/device_ac.py:decode_ac_sections, whose lockstep body the plain
+version is: one token per lane per step until every lane finishes, with
+each chunk of steps' (index, value) pairs scatter-added into the
+coefficient buffer.
+
+What bounds K3 on an H100: each lane is a serial chain of dependent steps
+(a token's context and table row depend on the tokens before it), so a
+launch takes the longest lane's token count times one step's dependent
+latency. K3 keeps that chain in registers and shared memory: 64-bit
+windows read from a ring of the lane's bytes, the lane's slice of the
+context map, packed 64-bit alias buckets (one load a symbol) with the
+HybridUint configs beside them, a ring of the group's items, and the
+nonzeros map (see the note at the top of the .cu file). `ac_smem_plan`
+sizes those regions from the tables' shapes; `pack_buckets` and
+`pack_hybrid_configs` build the packed tables on the host, and the wrapper
+raises ValueError on tables the packing cannot hold. Coefficients are
+stored with an integer atomic add, which sums the passes of a group in any
+order to the same values.
 
 Semantics mirror the native host decoder (native/modular_decode.cc
 jxl_decode_vardct_ac, ref frame/group.rs:384-618), with the XLA version's
@@ -49,6 +62,26 @@ _NUM_NZ_CTX = np.array(
     dtype=np.int64,
 )
 
+# K3's shared-memory plan (mirrors ac_layout() in csrc/ans_lanes.cu)
+SMEM_LIMIT = 227 * 1024  # bytes a block may use on sm_90
+# what one lane's block may take, so that two blocks fit on an SM (228 KB,
+# 1 KB of it reserved a block): 264 lanes run at once on 132 SMs
+BLOCK_BUDGET = (228 * 1024) // 2 - 1024
+RING_HALF = 1024  # stream ring half, 32-bit words (4 KB)
+ITEM_HALF = 64  # item ring half, items
+ITEM_SLOT_BYTES = 64  # an item's ten int32 fields and six derived ones in the ring
+CTX_ENTRY_BYTES = 2  # a cluster id in the staged slice
+# context-map entries a lane reads with a block context in range: the
+# num_bctx * (37 + 458) AC contexts and the 16 the zero-density LUTs reach
+# past them (ref block_context_map.rs)
+CTX_PER_BCTX = 37 + 458
+CTX_TAIL = 16
+
+# (low, high) of each row of a (C, 5, NB) table that a packed bucket holds:
+# dist, alias symbol, alias offset, alias cutoff, alias dist
+BUCKET_RANGES = ((0, 4096), (0, 4095), (-4096, 4095), (0, 4096), (0, 4096))
+_BUCKET_ROWS = ("dist", "alias symbol", "alias offset", "alias cutoff", "alias dist")
+
 _LANE_ARRAYS = ("start_bits", "lane_group", "lane_ctx_off", "lane_shift",
                 "lane_order_base", "lane_coeff_base", "lane_n_items", "lane_end_bits")
 _TABLE_ARRAYS = ("items", "orders", "tables", "uint_cfgs", "context_map")
@@ -57,6 +90,90 @@ _TABLE_ARRAYS = ("items", "orders", "tables", "uint_cfgs", "context_map")
 def _w32(x):
     """int64 tensor -> the int32 value XLA's wrapping arithmetic gives."""
     return ((x + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)
+
+
+def _align16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def ac_smem_layout(tab_shared: bool, C: int, NB: int, ctx_slice: int) -> dict:
+    """Bytes of each shared-memory region of K3, in the kernel's order: the
+    fixed regions (nonzeros map, LUTs, item ring, stream ring), then the
+    context slice, the HybridUint configs and the packed tables (when
+    shared); "total" is the block's dynamic shared memory."""
+    regions = {
+        "nonzeros_map": 3 * NZ_AREA * 4,
+        "luts": 128 * 4,
+        "items": 2 * ITEM_HALF * ITEM_SLOT_BYTES,
+        "stream": 2 * RING_HALF * 4,
+    }
+    off = sum(regions.values())
+    regions["context_slice"] = _align16(off + ctx_slice * CTX_ENTRY_BYTES) - off
+    off += regions["context_slice"]
+    regions["uint_cfgs"] = _align16(off + C * 4) - off
+    regions["tables"] = C * NB * 8 if tab_shared else 0
+    regions["total"] = sum(regions.values())
+    return regions
+
+
+def ac_smem_plan(*, C: int, NB: int, num_bctx: int, NC: int,
+                 budget: int = BLOCK_BUDGET) -> dict:
+    """K3's per-launch shared-memory plan from the tables' shapes: C
+    clusters of NB buckets, num_bctx block contexts, a context map of NC
+    entries. The stream and item rings have a fixed size whatever the
+    section's length and the group's item count (the kernel restages them
+    as the lane goes); the lane's context slice comes next (the contexts a
+    block context in range reaches, in 16-bit cluster ids), then the
+    packed tables if they still fit (else the kernel reads them from
+    global memory). Raises ValueError on more clusters than 16 bits hold,
+    or when the fixed regions exceed the budget."""
+    budget = min(budget, SMEM_LIMIT)
+    fixed = ac_smem_layout(False, C, NB, 0)["total"]
+    if C > 1 << 16 or fixed > budget:
+        raise ValueError(f"decode_ac_sections cannot take {C} clusters: "
+                         f"{fixed} bytes of shared memory before the tables")
+    want = max(1, num_bctx * CTX_PER_BCTX + CTX_TAIL)
+    ctx_slice = max(0, min(want, (budget - fixed - 15) // CTX_ENTRY_BYTES))
+    tab_shared = ac_smem_layout(True, C, NB, ctx_slice)["total"] <= budget
+    layout = ac_smem_layout(tab_shared, C, NB, ctx_slice)
+    return dict(tab_shared=tab_shared, ctx_slice=ctx_slice, ctx_entry_bytes=CTX_ENTRY_BYTES,
+                ring_half=RING_HALF, item_half=ITEM_HALF, regions=layout,
+                smem_bytes=layout["total"])
+
+
+def check_table_ranges(tables, uint_cfgs, context_map) -> None:
+    """Raise ValueError on tables K3's packing cannot hold: a bucket field
+    outside BUCKET_RANGES, a HybridUint config outside 0 <= msb, lsb and
+    msb + lsb <= split_exponent <= 31, or a context-map entry that is not a
+    cluster. Takes numpy arrays."""
+    lo = np.array([r[0] for r in BUCKET_RANGES]).reshape(1, 5, 1)
+    hi = np.array([r[1] for r in BUCKET_RANGES]).reshape(1, 5, 1)
+    bad_rows = ((tables < lo) | (tables > hi)).any(axis=(0, 2))
+    for row in np.nonzero(bad_rows)[0]:
+        raise ValueError(f"tables: {_BUCKET_ROWS[row]} outside {BUCKET_RANGES[row]}")
+    se, msb, lsb = uint_cfgs.astype(np.int64).T
+    if ((msb < 0) | (lsb < 0) | (msb + lsb > se) | (se > 31)).any():
+        raise ValueError("uint_cfgs: need 0 <= msb, lsb and msb + lsb <= split_exponent <= 31")
+    if ((context_map < 0) | (context_map >= tables.shape[0])).any():
+        raise ValueError(f"context_map: entries must be clusters in [0, {tables.shape[0]})")
+
+
+def pack_buckets(tables) -> np.ndarray:
+    """(C, 5, NB) alias tables (numpy) -> (C, NB, 2) int32, each bucket one
+    little-endian 64-bit word: bits 0-12 alias cutoff, 13-25 dist, 26-38
+    alias dist, 39-50 alias symbol, 51-63 alias offset (two's complement).
+    Fields must lie in BUCKET_RANGES (check_table_ranges)."""
+    dist, asym, aoff, cut, adist = np.moveaxis(tables.astype(np.int64), 1, 0)
+    low = cut | (dist << 13) | ((adist & 0x3F) << 26)
+    high = (adist >> 6) | (asym << 7) | ((aoff & 0x1FFF) << 19)
+    return np.stack([low, high], axis=-1).astype(np.uint32).view(np.int32)
+
+
+def pack_hybrid_configs(uint_cfgs) -> np.ndarray:
+    """(C, 3) HybridUint configs (numpy) -> (C,) int32 split_exponent | msb
+    << 8 | lsb << 16."""
+    se, msb, lsb = uint_cfgs.astype(np.int32).T
+    return np.ascontiguousarray(se | (msb << 8) | (lsb << 16))
 
 
 def decode_ac_sections_reference(streams, start_bits, lane_group, lane_ctx_off, lane_shift,
@@ -211,7 +328,8 @@ def decode_ac_sections(streams, start_bits, lane_group, lane_ctx_off, lane_shift
     alias tables; uint_cfgs (C, 3) int32; context_map (NC,) int32; all on
     one device. Returns (coeffs (total,) int32, ok (S,) bool): ok means no
     range error, every item walked, final state 0x130000, and the cursor
-    within the section's bytes."""
+    within the section's bytes. Raises ValueError on tables K3's packing
+    cannot hold (check_table_ranges), on either device."""
     lane_arrays = (start_bits, lane_group, lane_ctx_off, lane_shift, lane_order_base,
                    lane_coeff_base, lane_n_items, lane_end_bits)
     tabs = (items, orders, tables, uint_cfgs, context_map)
@@ -234,6 +352,13 @@ def decode_ac_sections(streams, start_bits, lane_group, lane_ctx_off, lane_shift
         raise ValueError("empty items, orders, context map or tables")
     if not 0 <= log_bucket <= 12 or n_buckets << log_bucket < 4096:
         raise ValueError(f"bad log_bucket {log_bucket} for {n_buckets} buckets")
+    # the small tables come to the host in one copy, to be checked and packed
+    n_tab, n_cfg = tables.numel(), uint_cfgs.numel()
+    flat = torch.cat([tables.reshape(-1), uint_cfgs.reshape(-1), context_map.reshape(-1)])
+    flat = flat.cpu().numpy()
+    tab_np = flat[:n_tab].reshape(tables.shape)
+    cfg_np = flat[n_tab : n_tab + n_cfg].reshape(uint_cfgs.shape)
+    check_table_ranges(tab_np, cfg_np, flat[n_tab + n_cfg :])
     kw = dict(log_bucket=log_bucket, num_bctx=num_bctx, total=total, n_buckets=n_buckets)
     if streams.device.type == "cpu":
         return decode_ac_sections_reference(streams, *lane_arrays, *tabs, **kw)
@@ -241,6 +366,12 @@ def decode_ac_sections(streams, start_bits, lane_group, lane_ctx_off, lane_shift
         raise ValueError(f"decode_ac_sections runs on cpu or cuda, not {streams.device}")
     if not all(x.is_contiguous() for x in (streams,) + lane_arrays + tabs):
         raise ValueError("decode_ac_sections takes contiguous tensors")
+    C = tables.shape[0]
+    plan = ac_smem_plan(C=C, NB=n_buckets, num_bctx=num_bctx, NC=context_map.numel())
+    # the packed buckets and configs go up in one copy
+    host = np.concatenate([pack_buckets(tab_np).reshape(-1), pack_hybrid_configs(cfg_np)])
+    dev_tabs = torch.from_numpy(host).to(streams.device)
+    packed, cfgs = dev_tabs[: C * n_buckets * 2], dev_tabs[C * n_buckets * 2 :]
     lib = load()
     coeffs = torch.zeros(total, dtype=torch.int32, device=streams.device)
     ok = torch.empty(S, dtype=torch.uint8, device=streams.device)
@@ -250,9 +381,10 @@ def decode_ac_sections(streams, start_bits, lane_group, lane_ctx_off, lane_shift
             streams.data_ptr(), S, streams.shape[1],
             *(x.data_ptr() for x in lane_arrays),
             items.data_ptr(), items.shape[1], orders.data_ptr(), orders.numel(),
-            tables.data_ptr(), tables.shape[0], n_buckets, uint_cfgs.data_ptr(),
+            packed.data_ptr(), cfgs.data_ptr(), C, n_buckets,
             context_map.data_ptr(), context_map.numel(), log_bucket, num_bctx, total,
-            coeffs.data_ptr(), ok.data_ptr(), stream,
+            coeffs.data_ptr(), ok.data_ptr(), int(plan["tab_shared"]), plan["ctx_slice"],
+            plan["smem_bytes"], stream,
         )
     check_launch(lib, err, "decode_ac_sections")
     decode_ac_sections.launches += 1

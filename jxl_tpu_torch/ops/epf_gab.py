@@ -5,9 +5,17 @@ Replaces the TPU kernel jxl_tpu/ops/pallas_epf.py:epf_gab_pallas. On an
 H100 the chain is bound by memory: 28 bytes a pixel (3 planes and 1/sigma
 read once, 3 planes written once), about 69 us for a 3840x2160 frame at
 3.35 TB/s; with EPF step 0 enabled (epf_iters 3) its operations bound it
-instead. The kernel reads each input pixel from device memory once and
-writes each output pixel once, running every stage on a tile held in
-shared memory (see the note at the top of the .cu file).
+instead. The kernel reads each input pixel from device memory once (plus
+the halo of its tile) and writes each output pixel once, running every
+stage on a tile held in shared memory; what limits it in practice is that
+tile's shared-memory traffic and instruction count. So the stage set is a
+compile-time choice (one instantiation per (gaborish, epf_iters)) whose
+halo is just the sum of the borders of the stages that run, stages update
+the tile in place through registers (three blocks an SM on the main path),
+interior tiles load with 16-byte loads, and EPF steps 1 and 2 share each
+neighbour SAD between the two pixels it joins (see the note at the top of
+the .cu file). `epf_gab_plan` gives the geometry the wrapper launches
+with; the kernel checks it against its own.
 
 `epf_gab` takes the plain version for a tensor on the CPU and launches the
 kernel for a CUDA tensor, or raises; it never falls back.
@@ -16,8 +24,9 @@ kernel for a CUDA tensor, or raises; it never falls back.
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
-from types import SimpleNamespace
+from types import MappingProxyType, SimpleNamespace
 
 import numpy as np
 import torch
@@ -48,13 +57,41 @@ def load():
         lib.epf_gab_launch.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+            ctypes.c_void_p,
         ]
         lib.epf_gab_launch.restype = ctypes.c_int
         lib.epf_gab_error_string.argtypes = [ctypes.c_int]
         lib.epf_gab_error_string.restype = ctypes.c_char_p
         _lib = lib
         return _lib
+
+
+TILE = (32, 64)  # output rows, columns of one block (csrc/epf_gab.cu TH, TW)
+SMEM_LIMIT = 227 * 1024  # bytes a block may use on sm_90
+
+
+@functools.lru_cache(maxsize=16)
+def epf_gab_plan(use_gab: bool, epf_iters: int) -> dict:
+    """The kernel's tile geometry for one stage set (csrc/epf_gab.cu Geo):
+    the halo is the sum of the borders of the stages that run (gaborish 1,
+    EPF0 3, EPF1 2, EPF2 1), rounded up to 4 columns horizontally so that
+    tiles start 16-byte aligned; shared memory holds the three planes, and
+    with EPF also 1/sigma and two SAD planes. `input_bytes_per_px` is what
+    an interior tile reads from device memory per output pixel (3 planes,
+    and 1/sigma with EPF, over the tile and its halo)."""
+    epf_iters = int(epf_iters)
+    halo = int(bool(use_gab)) + 3 * (epf_iters >= 3) + 2 * (epf_iters >= 1) + (epf_iters >= 2)
+    halo_x = -(-halo // 4) * 4
+    th, tw = TILE
+    rows, cols = th + 2 * halo, tw + 2 * halo_x
+    planes = 0 if halo == 0 else (6 if epf_iters > 0 else 3)
+    read_planes = 4 if epf_iters > 0 else 3
+    smem = planes * rows * cols * 4
+    return MappingProxyType(dict(
+        halo=halo, halo_x=halo_x, tile=TILE, shared_tile=(rows, cols), smem_planes=planes,
+        smem_bytes=smem,
+        input_bytes_per_px=read_planes * 4 * (rows * cols if halo else th * tw) / (th * tw)))
 
 
 def _steps(epf_iters: int) -> list:
@@ -84,10 +121,12 @@ def epf_gab_reference(planes, inv_sigma, gab_weights, epf_iters, pass0_scale,
     return torch.stack(chans)
 
 
+@functools.lru_cache(maxsize=64)
 def _kernel_params(gab_weights, pass0_scale, pass2_scale, border_sad_mul,
                    channel_scale) -> np.ndarray:
     """The 18 float32 constants of csrc/epf_gab.cu's Params, rounded as the
-    plain version rounds them."""
+    plain version rounds them (cached: hashable arguments, read-only
+    result)."""
     rf = _rf(pass0_scale, pass2_scale, border_sad_mul, channel_scale)
     gab = [core.gaborish_weights(w1, w2) for w1, w2 in (gab_weights or ((0.0, 0.0),) * 3)]
     sm, bsm = [], []
@@ -96,7 +135,9 @@ def _kernel_params(gab_weights, pass0_scale, pass2_scale, border_sad_mul,
         sm.append(s)
         bsm.append(b)
     vals = [v for g in gab for v in g] + sm + bsm + list(channel_scale)
-    return np.array(vals, dtype=np.float32)
+    out = np.array(vals, dtype=np.float32)
+    out.setflags(write=False)
+    return out
 
 
 def epf_gab(planes, inv_sigma, gab_weights, epf_iters, pass0_scale,
@@ -126,15 +167,17 @@ def epf_gab(planes, inv_sigma, gab_weights, epf_iters, pass0_scale,
     if not (planes.is_contiguous() and inv_sigma.is_contiguous()):
         raise ValueError("epf_gab takes contiguous tensors")
     lib = load()
-    params = _kernel_params(gab_weights, pass0_scale, pass2_scale,
-                            border_sad_mul, channel_scale)
+    params = _kernel_params(None if gab_weights is None else tuple(map(tuple, gab_weights)),
+                            float(pass0_scale), float(pass2_scale), float(border_sad_mul),
+                            tuple(map(float, channel_scale)))
+    plan = epf_gab_plan(gab_weights is not None, int(epf_iters))
     out = torch.empty_like(planes)
     with torch.cuda.device(planes.device):
         stream = torch.cuda.current_stream(planes.device).cuda_stream
         err = lib.epf_gab_launch(
             planes.data_ptr(), inv_sigma.data_ptr(), out.data_ptr(), h, w,
             params.ctypes.data, int(gab_weights is not None), int(epf_iters),
-            stream,
+            plan["halo"], plan["smem_bytes"], stream,
         )
     if err != 0:
         raise RuntimeError(

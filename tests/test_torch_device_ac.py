@@ -13,13 +13,12 @@ import torch
 import jax.numpy as jnp
 from jxl_tpu.ops.device_ac import decode_ac_sections as jax_decode_ac_sections
 
-from jxl_tpu_torch.entropy.ans import AnsHistogram
 from jxl_tpu_torch.ops import device_ac
-from jxl_tpu_torch.ops.device_ans import pack_table
 from jxl_tpu_torch.vardct import device_group
 from test_device_ac import _decode_frame_coeffs
 from test_device_ans import FINAL_STATE
 from test_torch_vardct_streams import encode_xyb_vardct
+from test_torch_vardct_streams import random_lanes as _random_lanes
 
 
 
@@ -88,55 +87,6 @@ def test_corrupted_section_flags_the_same_lanes():
     np.testing.assert_array_equal(got_ok, ref_ok)
     np.testing.assert_array_equal(got_c, ref_c)
     assert not got_ok[1] and got_ok[0] and got_ok[2]
-
-
-def _random_lanes(seed, S=6, G=3, I=48, log_alpha=5):
-    rng = np.random.default_rng(seed)
-    nb_t = 1 << log_alpha
-    lb = 12 - log_alpha
-    hists = []
-    for _ in range(3):
-        h = AnsHistogram.__new__(AnsHistogram)
-        w = rng.integers(1, 100, nb_t).astype(np.float64)
-        d = np.floor(w / w.sum() * 4096).astype(int)
-        d[0] += 4096 - d.sum()
-        h.dist = d.tolist()
-        h.log_bucket_size, h.bucket_mask = lb, (1 << lb) - 1
-        h.single_symbol = None
-        h._build_alias_map(nb_t, 1 << lb)
-        hists.append(h)
-    tables = np.stack([pack_table(h) for h in hists]).astype(np.int32)
-    uint_cfgs = np.array([[log_alpha, 0, 0], [4, 1, 0], [3, 1, 1]], np.int32)
-    cx = rng.integers(1, 3, (G, I))
-    cy = rng.integers(1, 3, (G, I))
-    nb = cx * cy
-    items = np.stack([
-        rng.integers(0, 3, (G, I)),  # c
-        rng.integers(0, 31, (G, I)),  # sbx
-        rng.integers(0, 31, (G, I)),  # sby
-        nb, nb * 64,
-        rng.integers(0, 15, (G, I)),  # block context
-        np.zeros((G, I), np.int64),  # order offset
-        rng.integers(0, 3 * 65536 - 256, (G, I)),  # coefficient offset
-        cx, cy,
-    ], axis=2).astype(np.int32)
-    orders = np.concatenate([rng.permutation(256) for _ in range(2)]).astype(np.int32)
-    n_ctx = 2 * 15 * 495 + 16
-    S_len = 96
-    return dict(
-        streams=rng.integers(0, 256, (S, S_len), dtype=np.uint8),
-        start_bits=rng.integers(0, 40, S).astype(np.int32),
-        lane_group=(np.arange(S) % G).astype(np.int32),
-        lane_ctx_off=rng.integers(0, 2, S).astype(np.int32) * 15 * 495,
-        lane_shift=rng.integers(0, 3, S).astype(np.int32),
-        lane_order_base=rng.integers(0, 256, S).astype(np.int32),
-        lane_coeff_base=((np.arange(S) % G) * 3 * 65536).astype(np.int32),
-        lane_n_items=rng.integers(1, I + 1, S).astype(np.int32),
-        lane_end_bits=np.full(S, S_len * 8 - 64, np.int32),
-        items=items, orders=orders, tables=tables, uint_cfgs=uint_cfgs,
-        context_map=rng.integers(0, 3, n_ctx).astype(np.int32),
-        log_bucket=lb, num_bctx=15, total=G * 3 * 65536, n_buckets=nb_t,
-    )
 
 
 @pytest.mark.parametrize("seed", [31, 32, 33])

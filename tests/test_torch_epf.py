@@ -110,7 +110,7 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("size", [(150, 200), (77, 131), (5, 7)])
+@pytest.mark.parametrize("size", [(150, 200), (77, 131), (5, 7), (1, 1), (2, 3), (3, 4097)])
 def test_kernel_matches_plain_version_on_card(cuda_device, size):
     planes, sigma = _inputs(*size, seed=7)
     args = list(_args(planes, sigma, GAB, 3))
