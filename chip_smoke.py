@@ -23,12 +23,18 @@ a non-zero exit:
              K3 against plain decode_ac_sections, bit for bit (coefficients
              and ok flags), on a 1024x1024 writer stream (16 lanes), on a
              copy with one section corrupted (that lane alone reports not
-             ok), on random lanes (tests/test_torch_vardct_streams.py::
-             random_lanes, three seeds), and on the 3840x2160 stream's 135
-             lanes, timed with its time per step of the longest lane.
+             ok), on a stream of 20 KB sections (the stream ring restaged
+             over real bytes; plain version on the host), on random lanes
+             (tests/test_torch_vardct_streams.py::random_lanes, three
+             seeds, and one of 160 clusters whose tables stay in global
+             memory), and on the 3840x2160 stream's 135 lanes, timed with
+             its time per step of the longest lane. Writer streams go in
+             with their tables packed on the host, as the decode passes
+             them; random lanes without, so the wrapper packs them.
              Kernel times ("ms") are the kernel's mean device time over
-             repeated calls, from torch.profiler; "call_ms" is the median
-             CUDA-event-timed wrapper call, its host work included.
+             repeated calls, from CUDA events right around its launch;
+             "call_ms" is the median CUDA-event-timed wrapper call, its
+             host work included.
 3. decode  - jxl_tpu_torch.decode_image of a 3840x2160 XYB Modular stream
              (gaborish on, EPF 2 steps) on the card in u8 and f32, held
              against the port's own device="cpu" decode of the same bytes
@@ -42,8 +48,7 @@ a non-zero exit:
              u8 <= 1 LSB).
 5. profile - a u8 decode of each stream under torch.profiler: device
              time by operation and the card's idle share. It runs right
-             after the build, before the other phases open their own
-             profiler sessions to time the kernels.
+             after the build, and no other phase opens a profiler session.
 
 Then one line with every kernel's numbers, the card's name and power
 limit, and as the last line {"ok": true, "device": {...}}. Prints no
@@ -124,30 +129,48 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return times[len(times) // 2]
 
 
-def device_times(jobs, reps: int = 10) -> dict:
-    """{key: mean device time in ms of the kernels whose name contains
-    `kernel`, per call of `fn`} for jobs [(key, fn, kernel)], from one
-    torch.profiler session over `reps` calls of each after a warm one: the
-    kernel alone, without the wrapper's host work."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+# cycles the card spins before each timed launch: longer than the host
+# takes to queue the launch, so the event before it does not wait on the host
+SPIN_CYCLES = 200_000
 
-    for _, fn, _ in jobs:
+
+def device_times(jobs, reps: int = 10) -> dict:
+    """{key: mean device time in ms of one kernel launch} for jobs
+    [(key, fn, lib, entry)]: `fn` calls a wrapper that launches its kernel
+    through the C entry point `entry` of the ctypes library `lib`. For
+    `reps` calls after a warm one, that entry point is wrapped so that CUDA
+    events on the launch's stream, right before and after it, time the
+    kernel alone, without the wrapper's host work; each launch is queued
+    behind a spin on the card, so the first event does not wait for the
+    host. (torch.profiler's trace has lost every launch of a kernel in a
+    session on the H100, so the times do not come from it.)"""
+    import torch
+
+    out = {}
+    for key, fn, lib, entry in jobs:
         fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _, fn, _ in jobs:
+        launch = getattr(lib, entry)
+        pairs = []
+
+        def timed(*args, launch=launch, pairs=pairs):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(SPIN_CYCLES)
+            a.record()
+            err = launch(*args)
+            b.record()
+            pairs.append((a, b))
+            return err
+
+        setattr(lib, entry, timed)
+        try:
             for _ in range(reps):
                 fn()
+        finally:
+            setattr(lib, entry, launch)
         torch.cuda.synchronize()
-    evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    out = {}
-    for key, _, kernel in jobs:
-        mine = [e for e in evs if kernel in e.key]
-        n = sum(e.count for e in mine)  # CUPTI may drop a buffer: the mean of those seen
-        check(n > 0, f"the profiler saw no {kernel} launch")
-        out[key] = sum(e.device_time_total for e in mine) / n / 1e3
+        check(len(pairs) == reps, f"{entry} ran {len(pairs)} times in {reps} calls")
+        out[key] = sum(a.elapsed_time(b) for a, b in pairs) / reps
     return out
 
 
@@ -244,14 +267,16 @@ def phase_kernels():
         rec = {"name": "epf_gab", "shape": [3, h, w], "gab": gab, "epf_iters": iters,
                "launches": launches, "max_abs_diff": err, "max_abs_diff_inner": inner}
         if (h, w) == (HEIGHT, WIDTH):
-            # every stage set at 4K: time it beside its bound
+            # every stage set at 4K: time it beside its bound, with the
+            # geometry of its tile (csrc/kernel_geometry.h; the bytes a
+            # pixel are that geometry's model of the traffic, not a reading)
             plan = K.epf_gab_plan(gab, iters)
-            rec["halo"] = plan["halo"]
-            rec["smem_bytes"] = plan["smem_bytes"]
-            rec["input_bytes_per_px"] = plan["input_bytes_per_px"]
+            emit({"phase": "kernels", "name": "epf_gab", "gab": gab, "epf_iters": iters,
+                  "geometry": {k: plan[k] for k in ("halo", "halo_x", "smem_bytes",
+                                                    "input_bytes_per_px")}})
             rec["call_ms"] = time_ms(lambda: K.epf_gab(*args))
-            timed.append((len(results), lambda args=args: K.epf_gab(*args),
-                          f"epf_gab_kernel<{str(gab).lower()}, {iters}>"))
+            timed.append((len(results), lambda args=args: K.epf_gab(*args), K.load(),
+                          "epf_gab_launch"))
             rec["plain_ms"] = time_ms(lambda: K.epf_gab_reference(*args), reps=3, warmup=1)
             rec["bound_ms"], rec["bound_by"] = epf_gab_bound_ms(h, w, gab, iters)
             rec["library_ms"] = None  # no single torch call computes gaborish+EPF
@@ -270,8 +295,8 @@ def phase_kernels():
     # the main path's configuration: gaborish + EPF 2 steps
     main_rec = next(r for r in results if "kernel_ms" in r and r["gab"] and r["epf_iters"] == 2)
     main_rec["stage_sets"] = [
-        {k: r[k] for k in ("gab", "epf_iters", "halo", "input_bytes_per_px", "kernel_ms",
-                           "call_ms", "plain_ms", "bound_ms", "bound_by", "share_of_bound")}
+        {"stages": ("gaborish+" if r["gab"] else "") + f"epf_iters={r['epf_iters']}",
+         **{k: r[k] for k in ("kernel_ms", "call_ms", "plain_ms", "bound_ms", "bound_by")}}
         for r in results if "kernel_ms" in r]
     return main_rec, max(r["max_abs_diff"] for r in results)
 
@@ -370,7 +395,8 @@ def phase_k2():
         worst = max(worst, err)
         if S == 135:
             rec["kernel_ms"] = device_times(
-                [(0, lambda: AL.ans_decode_batch(st, tb, 6, T), "ans_decode_lanes_kernel")])[0]
+                [(0, lambda: AL.ans_decode_batch(st, tb, 6, T), AL.load(),
+                  "ans_decode_lanes_launch")])[0]
             rec["call_ms"] = time_ms(lambda: AL.ans_decode_batch(st, tb, 6, T), reps=10)
             rec["plain_ms"] = time_ms(lambda: device_ans.ans_decode_batch(st, tb, 6, T),
                                       reps=2, warmup=1)
@@ -470,46 +496,74 @@ def ac_tokens_per_lane(inputs, coeffs):
 
 def phase_k3(data4k):
     """K3 against its plain version on a 1024x1024 stream, a corrupted
-    copy, random lanes and the 4K stream's lanes; times at the 4K shapes."""
+    copy, a stream of long sections, random lanes (one set with its tables
+    in global memory) and the 4K stream's lanes; times at the 4K shapes."""
     import numpy as np
     import torch
 
+    from jxl_tpu_torch.ops import ans_lanes as AL
     from jxl_tpu_torch.ops import device_ac
     from jxl_tpu_torch.vardct.device_group import LANE_KEYWORDS
-    from test_torch_vardct_streams import encode_xyb_vardct, random_lanes
+    from test_torch_vardct_streams import encode_xyb_vardct, long_section_stream, random_lanes
 
     dev = torch.device("cuda")
     small, small_coeffs = encode_xyb_vardct(1024, 1024, seed=8, density=0.2)
-    # (name, lane inputs, the writer's coefficients, expected ok flags)
+    # (name, lane inputs, the writer's coefficients, expected ok flags,
+    # tables packed on the host, the plain version's device)
     inputs = _lane_inputs(small)
-    cases = [("1024x1024", inputs, small_coeffs, "all")]
+    cases = [("1024x1024", inputs, small_coeffs, "all", True, dev)]
     # corrupt lane 5's section in place of the bytes after its header
     end = inputs["lane_end_bits"][5] // 8
     start = inputs["start_bits"][5] // 8 + 40
     corrupt = dict(inputs, streams=inputs["streams"].copy())
     corrupt["streams"][5, start : min(end, start + 12)] ^= 0x5A
-    cases.append(("1024x1024_corrupt_lane5", corrupt, None, "lane5"))
+    cases.append(("1024x1024_corrupt_lane5", corrupt, None, "lane5", True, dev))
+    # 20 KB sections: the kernel restages its 8 KB stream ring over real
+    # bytes; the plain version's ~30k lockstep steps run faster on the host
+    long_data, long_coeffs = long_section_stream()
+    long_inp = _lane_inputs(long_data)
+    ring_bytes = device_ac.ac_smem_plan(
+        C=long_inp["tables"].shape[0], NB=long_inp["n_buckets"], num_bctx=long_inp["num_bctx"],
+        NC=len(long_inp["context_map"]))["regions"]["stream"]
+    sections = (long_inp["lane_end_bits"] - long_inp["start_bits"]) // 8
+    check(sections.min() > 2 * ring_bytes, f"long sections of {sections.tolist()} bytes")
+    cases.append(("512x256_long_sections", long_inp, long_coeffs, "all", True,
+                  torch.device("cpu")))
     for seed in (31, 32, 33):
-        cases.append((f"random_lanes_seed{seed}", random_lanes(seed), None, None))
-    cases.append(("3840x2160", _lane_inputs(data4k), None, "all"))
+        cases.append((f"random_lanes_seed{seed}", random_lanes(seed), None, None, False, dev))
+    many = random_lanes(34, log_alpha=6, clusters=160)
+    check(not device_ac.ac_smem_plan(C=160, NB=many["n_buckets"], num_bctx=many["num_bctx"],
+                                     NC=len(many["context_map"]))["tab_shared"],
+          "the 160-cluster lanes must plan their tables in global memory")
+    cases.append(("random_lanes_160_clusters_global_tables", many, None, None, False, dev))
+    cases.append(("3840x2160", _lane_inputs(data4k), None, "all", True, dev))
     worst = 0
     main = None
-    for name, inp, coeffs, expect in cases:
+    for name, inp, coeffs, expect, packed, plain_dev in cases:
         arrays = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
                   for k, v in inp.items() if k not in LANE_KEYWORDS}
         kw = {k: inp[k] for k in LANE_KEYWORDS}
-        got_c, got_ok = device_ac.decode_ac_sections(**arrays, **kw)
+        packs = {}
+        if packed:  # as vardct/device_group.py:run_lanes passes them
+            b, c = device_ac.pack_tables(inp["tables"], inp["uint_cfgs"], inp["context_map"])
+            packs = dict(packed_buckets=torch.from_numpy(b).to(dev),
+                         packed_cfgs=torch.from_numpy(c).to(dev))
+        got_c, got_ok = device_ac.decode_ac_sections(**arrays, **kw, **packs)
         t0 = time.perf_counter()
-        want_c, want_ok = device_ac.decode_ac_sections_reference(*arrays.values(), **kw)
+        want_c, want_ok = device_ac.decode_ac_sections_reference(
+            *(x.to(plain_dev) for x in arrays.values()), **kw)
         torch.cuda.synchronize()
         plain_s = time.perf_counter() - t0
+        want_c, want_ok = want_c.to(dev), want_ok.to(dev)
         err = int((got_c.long() - want_c.long()).abs().max())
         same = torch.equal(got_c, want_c) and torch.equal(got_ok, want_ok)
         ok = got_ok.cpu().numpy()
         rec = {"phase": "kernels", "name": "decode_ac_sections", "case": name,
                "lanes": len(ok), "bit_exact": same, "max_abs_diff": err,
                "lanes_not_ok": np.nonzero(~ok)[0].tolist(),
-               "nonzero_coefficients": int(torch.count_nonzero(got_c)), "plain_s": plain_s}
+               "nonzero_coefficients": int(torch.count_nonzero(got_c)),
+               "tables_packed_on_host": packed, "plain_device": plain_dev.type,
+               "plain_s": plain_s}
         check(same, f"decode_ac_sections disagrees with its plain version on {name}")
         if expect == "lane5":
             check(ok.tolist() == [i != 5 for i in range(len(ok))],
@@ -524,9 +578,9 @@ def phase_k3(data4k):
                                           num_bctx=inp["num_bctx"], NC=len(inp["context_map"]))
             rec["smem_plan"] = plan
             rec["kernel_ms"] = device_times(
-                [(0, lambda: device_ac.decode_ac_sections(**arrays, **kw), "ac_sections_kernel")],
-                reps=5)[0]
-            rec["call_ms"] = time_ms(lambda: device_ac.decode_ac_sections(**arrays, **kw),
+                [(0, lambda: device_ac.decode_ac_sections(**arrays, **kw, **packs),
+                  AL.load(), "ac_sections_launch")], reps=5)[0]
+            rec["call_ms"] = time_ms(lambda: device_ac.decode_ac_sections(**arrays, **kw, **packs),
                                      reps=10, warmup=2)
             rec["plain_ms"] = plain_s * 1e3  # one call; the plain version is no yardstick
             tokens = ac_tokens_per_lane(inp, got_c.cpu().numpy())
@@ -688,8 +742,8 @@ def main() -> int:
     vdata, vcoeffs = encode_xyb_vardct(WIDTH, HEIGHT, seed=7)
     emit({"phase": "vardct", "step": "write_stream", "bytes": len(vdata),
           "seconds": time.perf_counter() - t0})
-    # the decode profiles take the process's first profiler sessions: CUPTI
-    # has dropped a long decode's events after the kernel timings' sessions
+    # the only profiler sessions of the process: CUPTI has dropped events
+    # in sessions after the first few
     phase_profile(data, "modular", "epf_gab_kernel")
     phase_profile(vdata, "vardct", "ac_sections_kernel")
     k, max_err = phase_kernels()
@@ -706,7 +760,7 @@ def main() -> int:
          "plain_ms": k["plain_ms"],
          "bound_ms": k["bound_ms"], "bound_by": k["bound_by"], "library_ms": None,
          "library_note": "no single torch call computes gaborish+EPF",
-         "input_bytes_per_px": k["input_bytes_per_px"], "stage_sets": k["stage_sets"]},
+         "stage_sets": k["stage_sets"]},
         {"name": "ans_decode_batch", "route": "cuda", "source": "jxl_tpu_torch/csrc/ans_lanes.cu",
          "replaces": "jxl_tpu/ops/pallas_ans.py:105", "launches": k2["launches"],
          "launches_note": "its own path, the batch decode entry point; decode_image runs "
@@ -714,7 +768,7 @@ def main() -> int:
          "max_abs_err": k2["max_abs_err"], "ms": k2["kernel_ms"], "call_ms": k2["call_ms"],
          "plain_ms": k2["plain_ms"],
          "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"], "library_ms": None,
-         "library_note": null_reason, "longest_lane_tokens": k2["longest_lane_tokens"]},
+         "library_note": null_reason},
         {"name": "decode_ac_sections", "route": "cuda",
          "source": "jxl_tpu_torch/csrc/ans_lanes.cu",
          "replaces": "jxl_tpu/ops/device_ac.py:55",
@@ -722,8 +776,7 @@ def main() -> int:
          "max_abs_err": k3["max_abs_err"], "ms": k3["kernel_ms"], "call_ms": k3["call_ms"],
          "plain_ms": k3["plain_ms"],
          "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"], "library_ms": None,
-         "library_note": null_reason, "longest_lane_tokens": k3["longest_lane_tokens"],
-         "ns_per_step": k3["ns_per_step"]},
+         "library_note": null_reason},
     ]})
     print(smi_line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -61,9 +61,14 @@
 // warp 0 alone): all 32 threads run the same uniform chain, which costs
 // nothing over one thread, and share the stagings and the nonzeros-map
 // fills; thread 0 alone stores. What remains is one warp issuing a chain of
-// mostly dependent instructions, a few cycles each. The shared-memory plan
-// comes from the wrapper (ops/device_ac.py:ac_smem_plan) and is checked
-// here.
+// mostly dependent instructions, a few cycles each. The shared-memory
+// layout is csrc/kernel_geometry.h's (k3); the wrapper chooses the two
+// sizes it leaves open, the context slice and whether the tables are
+// shared (ops/device_ac.py:ac_smem_plan).
+//
+// Built with -DK3_PROBE, the kernel also counts each lane's cycles, tokens
+// and cycles in the coefficient loop (read by k3_probe_read; the tool
+// tools/k3_probe.py); the normal build has none of it.
 //
 // Semantics follow the JAX twins exactly, including their clipping: byte
 // indices clip to the row (a cursor past the end re-reads the row's last
@@ -75,13 +80,26 @@
 
 #include <cuda_runtime.h>
 
+#include "kernel_geometry.h"
+
+#ifdef K3_PROBE
+constexpr int kProbeLanes = 4096;
+__device__ long long g_k3_probe[3 * kProbeLanes];  // cycles, tokens, loop cycles
+#define K3_PROBE_ONLY(...) __VA_ARGS__
+#else
+#define K3_PROBE_ONLY(...)
+#endif
+
 namespace {
 
+using k3::kGroupDimBlocks;
+using k3::kItemHalf;
+using k3::kItemSlot;
+using k3::kNzArea;
+using k3::kRingHalf;
+
 constexpr int kLogSumProbs = 12;
-constexpr int kGroupDimBlocks = 32;
-constexpr int kNzArea = kGroupDimBlocks * kGroupDimBlocks;
 constexpr int kItemFields = 10;
-constexpr int kItemSlot = 16;  // ints an item takes in the ring (64 bytes)
 constexpr int kStageThreads = 128;
 
 __constant__ int kFreqCtx[64] = {
@@ -202,34 +220,11 @@ struct AcArgs {
   int* coeffs;  // (total,)
   uint8_t* ok;  // (S,)
   int ctx_slice;  // context-map entries staged per lane
-  int off_cfg;    // byte offsets in shared memory (ac_layout)
+  int off_cfg;    // byte offsets in shared memory (k3::layout)
   int off_tab;
 };
 
-// Shared memory of a block: the fixed regions first, at constant offsets,
-// then the lane's context slice, the HybridUint configs and (when they
-// fit) the packed tables. ops/device_ac.py:ac_smem_layout is the same.
-constexpr int kRingHalf = 1024;  // stream ring half, 32-bit words (4 KB)
-constexpr int kItemHalf = 64;    // item ring half, items
-constexpr int kOffNz = 0;
-constexpr int kOffLut = kOffNz + 3 * kNzArea * 4;
-constexpr int kOffItems = kOffLut + 128 * 4;
-constexpr int kOffRing = kOffItems + 2 * kItemHalf * kItemSlot * 4;
-constexpr int kOffCtx = kOffRing + 2 * kRingHalf * 4;
-
-struct AcLayout {
-  size_t cfg, tab, total;
-};
-
-__host__ __device__ inline size_t align_up(size_t x, size_t a) { return (x + a - 1) / a * a; }
-
-inline AcLayout ac_layout(int tab_shared, int C, int NB, int ctx_slice) {
-  AcLayout l;
-  l.cfg = align_up(kOffCtx + static_cast<size_t>(ctx_slice) * sizeof(uint16_t), 16);
-  l.tab = align_up(l.cfg + static_cast<size_t>(C) * 4, 16);
-  l.total = l.tab + (tab_shared ? static_cast<size_t>(C) * NB * 8 : 0);
-  return l;
-}
+static_assert(k3::kCtxEntryBytes == sizeof(uint16_t), "the slice holds 16-bit cluster ids");
 
 // words [w0, w0 + n) of the lane's virtual byte sequence, whose word 0
 // starts at byte `base` and whose byte b is row[clip(b, 0, L-1)], into dst.
@@ -335,12 +330,12 @@ __device__ __forceinline__ void red_add(int* p, int v) {
 template <bool kTabShared>
 __global__ void __launch_bounds__(kStageThreads, 1) ac_sections_kernel(AcArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  int* s_nz = reinterpret_cast<int*>(smem + kOffNz);
-  int* s_numnz = reinterpret_cast<int*>(smem + kOffLut);
+  int* s_nz = reinterpret_cast<int*>(smem + k3::kOffNz);
+  int* s_numnz = reinterpret_cast<int*>(smem + k3::kOffLut);
   int* s_freq = s_numnz + 64;
-  int* s_items = reinterpret_cast<int*>(smem + kOffItems);
-  uint32_t* s_ring = reinterpret_cast<uint32_t*>(smem + kOffRing);
-  uint16_t* s_ctx = reinterpret_cast<uint16_t*>(smem + kOffCtx);
+  int* s_items = reinterpret_cast<int*>(smem + k3::kOffItems);
+  uint32_t* s_ring = reinterpret_cast<uint32_t*>(smem + k3::kOffRing);
+  uint16_t* s_ctx = reinterpret_cast<uint16_t*>(smem + k3::kOffCtx);
   int* s_cfg = reinterpret_cast<int*>(smem + a.off_cfg);
   unsigned long long* s_tab = reinterpret_cast<unsigned long long*>(smem + a.off_tab);
 
@@ -380,6 +375,7 @@ __global__ void __launch_bounds__(kStageThreads, 1) ac_sections_kernel(AcArgs a)
 
   // ---- warp 0 walks the lane; every value below is uniform in the warp
   const int lid = tid;
+  K3_PROBE_ONLY(const long long probe_t0 = clock64(); long long probe_tokens = 0, probe_loop = 0;)
   // values the token loop reads every token, pinned in registers (the
   // empty asm keeps the compiler from rematerializing them there, e.g.
   // the lane id from a special-register read)
@@ -432,6 +428,7 @@ __global__ void __launch_bounds__(kStageThreads, 1) ac_sections_kernel(AcArgs a)
     bp += 32;
   }
   auto decode = [&](int cluster) -> unsigned {
+    K3_PROBE_ONLY(++probe_tokens;)
     unsigned lo, hi;
     window(lo, hi);
     const unsigned idx = state & 0xFFFu;
@@ -576,7 +573,9 @@ __global__ void __launch_bounds__(kStageThreads, 1) ac_sections_kernel(AcArgs a)
           ord = ord_next;
         }
       };
+      K3_PROBE_ONLY(const long long probe_w0 = clock64();)
       err = (flags & kItemCoefFast) ? walk(std::false_type{}) : walk(std::true_type{});
+      K3_PROBE_ONLY(probe_loop += clock64() - probe_w0;)
       if (err) break;
     }
     advance();
@@ -584,6 +583,11 @@ __global__ void __launch_bounds__(kStageThreads, 1) ac_sections_kernel(AcArgs a)
   if (lid == 0) {
     a.ok[lane] = (!err && item >= n_items && state == 0x130000u &&
                   bp <= a.lane_end_bits[lane]) ? 1 : 0;
+    K3_PROBE_ONLY(if (lane < kProbeLanes) {
+      g_k3_probe[3 * lane] = clock64() - probe_t0;
+      g_k3_probe[3 * lane + 1] = probe_tokens;
+      g_k3_probe[3 * lane + 2] = probe_loop;
+    })
   }
 }
 
@@ -622,12 +626,11 @@ int ac_sections_launch(const void* streams, int S, int L, const void* start_bits
                        const void* orders, int O, const void* packed, const void* cfgs, int C,
                        int NB, const void* context_map, int NC, int log_bucket, int num_bctx,
                        int total, void* coeffs, void* ok, int tab_shared, int ctx_slice,
-                       int smem_bytes, void* stream) {
-  // the plan (ops/device_ac.py:ac_smem_plan) must match this layout
+                       void* stream) {
+  // tab_shared and ctx_slice: the wrapper's plan (ops/device_ac.py:ac_smem_plan)
   if (S <= 0) return 0;
-  const AcLayout lay = ac_layout(tab_shared, C, NB, ctx_slice);
-  if (ctx_slice < 0 || C > 65536 || lay.total != static_cast<size_t>(smem_bytes))
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (ctx_slice < 0 || C > 65536) return static_cast<int>(cudaErrorInvalidValue);
+  const k3::Layout lay = k3::layout(tab_shared != 0, C, NB, ctx_slice);
   AcArgs a;
   a.streams = static_cast<const uint8_t*>(streams);
   a.S = S;
@@ -658,7 +661,7 @@ int ac_sections_launch(const void* streams, int S, int L, const void* start_bits
   a.ctx_slice = ctx_slice;
   a.off_cfg = static_cast<int>(lay.cfg);
   a.off_tab = static_cast<int>(lay.tab);
-  const size_t smem = static_cast<size_t>(smem_bytes);
+  const size_t smem = static_cast<size_t>(lay.total);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return static_cast<int>(tab_shared ? launch_ac<true>(a, smem, st)
                                     : launch_ac<false>(a, smem, st));
@@ -667,5 +670,15 @@ int ac_sections_launch(const void* streams, int S, int L, const void* start_bits
 const char* ans_lanes_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
+
+#ifdef K3_PROBE
+// the counters of the last launch: 3 per lane (cycles of its walk, tokens,
+// cycles in its coefficient loops) for the first n lanes, into host memory
+int k3_probe_read(void* host, int n) {
+  if (n < 0 || n > kProbeLanes) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(
+      cudaMemcpyFromSymbol(host, g_k3_probe, sizeof(long long) * 3 * static_cast<size_t>(n)));
+}
+#endif
 
 }  // extern "C"

@@ -15,7 +15,8 @@
 // cuts both:
 //
 // - Stage set at compile time. (use_gab, epf_iters) are template
-//   parameters, one instantiation per combination. The halo is the sum of
+//   parameters, one instantiation per combination, whose tile geometry is
+//   csrc/kernel_geometry.h's (k1::geometry). The halo is the sum of
 //   the borders of the stages that run (gaborish 1, EPF0 3, EPF1 2, EPF2 1:
 //   4 on the main path, gaborish + EPF 2 steps), and each stage computes
 //   exactly the ring around the tile that later stages read; the last
@@ -55,10 +56,12 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "kernel_geometry.h"
+
 namespace {
 
-constexpr int TH = 32;   // output tile rows
-constexpr int TW = 64;   // output tile columns
+constexpr int TH = k1::kTileRows;  // output tile rows
+constexpr int TW = k1::kTileCols;  // output tile columns
 constexpr int NT = 256;  // threads per block
 constexpr int kRun = 4;   // cells a thread walks down a column in one run
 constexpr float MIN_SIGMA = -3.90524291751269967465540850526868f;
@@ -70,18 +73,19 @@ struct Params {
   float cs[3];      // per channel SAD scale
 };
 
-// Tile geometry of one stage set (ops/epf_gab.py:epf_gab_plan mirrors it).
+// Tile geometry of one stage set (k1::geometry)
 template <bool GAB, int ITERS>
 struct Geo {
-  static constexpr int R = (GAB ? 1 : 0) + (ITERS >= 3 ? 3 : 0) + (ITERS >= 1 ? 2 : 0) +
-                           (ITERS >= 2 ? 1 : 0);
-  static constexpr int RX = (R + 3) / 4 * 4;  // horizontal halo, 16-byte aligned
-  static constexpr int SH = TH + 2 * R;
-  static constexpr int SW = TW + 2 * RX;
+  static constexpr k1::Geometry kGeo = k1::geometry(GAB, ITERS);
+  static constexpr int R = kGeo.halo;
+  static constexpr int RX = kGeo.halo_x;  // horizontal halo, 16-byte aligned
+  static constexpr int SH = kGeo.rows;
+  static constexpr int SW = kGeo.cols;
   static constexpr int PLANE = SH * SW;
   // 3 planes; with EPF also 1/sigma and the right/down SAD planes
-  static constexpr int NPLANES = R == 0 ? 0 : (ITERS > 0 ? 6 : 3);
-  static constexpr size_t SMEM = static_cast<size_t>(NPLANES) * PLANE * sizeof(float);
+  static constexpr int NPLANES = kGeo.planes;
+  static constexpr size_t SMEM = static_cast<size_t>(kGeo.smem);
+  static_assert(SMEM == static_cast<size_t>(NPLANES) * PLANE * sizeof(float), "plane layout");
   // blocks an SM (228 KB of shared memory, 1 KB reserved a block), at most 3
   static constexpr int BLOCKS =
       SMEM == 0 ? 3 : (233472 / (SMEM + 1024) >= 3 ? 3 : (233472 / (SMEM + 1024) >= 2 ? 2 : 1));
@@ -523,9 +527,8 @@ epf_gab_kernel(const float* __restrict__ in, const float* __restrict__ sigma,
 
 template <bool GAB, int ITERS>
 cudaError_t launch(const float* in, const float* sigma, float* out, int H, int W,
-                   const Params& prm, int halo, size_t smem, cudaStream_t stream) {
+                   const Params& prm, cudaStream_t stream) {
   using G = Geo<GAB, ITERS>;
-  if (halo != G::R || smem != G::SMEM) return cudaErrorInvalidValue;
   auto kern = epf_gab_kernel<GAB, ITERS>;
   if (G::SMEM > 0) {
     cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -540,12 +543,9 @@ cudaError_t launch(const float* in, const float* sigma, float* out, int H, int W
 }  // namespace
 
 // params: gab[3][3], sm[3], bsm[3], cs[3] as 18 floats (host memory).
-// halo and smem_bytes: the wrapper's plan (ops/epf_gab.py:epf_gab_plan),
-// checked against the compiled geometry. Launches on `stream`; returns
-// cudaGetLastError() (0 on success).
+// Launches on `stream`; returns cudaGetLastError() (0 on success).
 extern "C" int epf_gab_launch(const float* in, const float* sigma, float* out, int H, int W,
-                              const float* params, int use_gab, int epf_iters, int halo,
-                              long long smem_bytes, void* stream) {
+                              const float* params, int use_gab, int epf_iters, void* stream) {
   Params prm;
   for (int c = 0; c < 3; ++c)
     for (int k = 0; k < 3; ++k) prm.gab[c][k] = params[3 * c + k];
@@ -554,18 +554,17 @@ extern "C" int epf_gab_launch(const float* in, const float* sigma, float* out, i
     prm.bsm[s] = params[12 + s];
     prm.cs[s] = params[15 + s];
   }
-  const size_t smem = static_cast<size_t>(smem_bytes);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e = cudaErrorInvalidValue;
   switch ((use_gab ? 4 : 0) + epf_iters) {
-    case 0: e = launch<false, 0>(in, sigma, out, H, W, prm, halo, smem, st); break;
-    case 1: e = launch<false, 1>(in, sigma, out, H, W, prm, halo, smem, st); break;
-    case 2: e = launch<false, 2>(in, sigma, out, H, W, prm, halo, smem, st); break;
-    case 3: e = launch<false, 3>(in, sigma, out, H, W, prm, halo, smem, st); break;
-    case 4: e = launch<true, 0>(in, sigma, out, H, W, prm, halo, smem, st); break;
-    case 5: e = launch<true, 1>(in, sigma, out, H, W, prm, halo, smem, st); break;
-    case 6: e = launch<true, 2>(in, sigma, out, H, W, prm, halo, smem, st); break;
-    case 7: e = launch<true, 3>(in, sigma, out, H, W, prm, halo, smem, st); break;
+    case 0: e = launch<false, 0>(in, sigma, out, H, W, prm, st); break;
+    case 1: e = launch<false, 1>(in, sigma, out, H, W, prm, st); break;
+    case 2: e = launch<false, 2>(in, sigma, out, H, W, prm, st); break;
+    case 3: e = launch<false, 3>(in, sigma, out, H, W, prm, st); break;
+    case 4: e = launch<true, 0>(in, sigma, out, H, W, prm, st); break;
+    case 5: e = launch<true, 1>(in, sigma, out, H, W, prm, st); break;
+    case 6: e = launch<true, 2>(in, sigma, out, H, W, prm, st); break;
+    case 7: e = launch<true, 3>(in, sigma, out, H, W, prm, st); break;
     default: break;
   }
   return static_cast<int>(e);

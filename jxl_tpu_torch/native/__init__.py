@@ -31,7 +31,10 @@ _SOURCES = (
     (_DIR / "filters.cc", []),
     (_DIR / "hostops.cc", ["-ffp-contract=off"]),
     (_DIR / "colors.cc", ["-ffast-math", "-fopenmp-simd"]),
+    (_DIR / "kernel_geometry.cc", []),
 )
+# headers the sources include from the CUDA kernels' directory
+_HEADERS = (_DIR.parent / "csrc" / "kernel_geometry.h",)
 
 _lib = None
 _lib_lock = _threading.Lock()
@@ -51,11 +54,12 @@ def _cpu_id() -> bytes:
 
 
 def _build() -> pathlib.Path:
-    """Compile the four sources (in parallel) into one shared library,
+    """Compile the sources (in parallel) into one shared library,
     keyed by a hash of sources and flags. Concurrent processes serialize
     on a lock file; the library is renamed into place only when complete."""
     # -march=native: the library is only valid on the CPU it was built for
     key = _cpu_id() + b"".join(s.read_bytes() + " ".join(f).encode() for s, f in _SOURCES)
+    key += b"".join(h.read_bytes() for h in _HEADERS)
     tag = hashlib.sha256(key).hexdigest()[:16]
     out = _BUILD_DIR / f"_modular_decode_{tag}.so"
     if out.exists():
@@ -117,6 +121,24 @@ def get_lib():
             lib.jxl_rct.restype = None
             _lib = lib
     return _lib
+
+
+def k1_geometry(use_gab: bool, epf_iters: int) -> dict:
+    """K1's tile for one stage set, as csrc/kernel_geometry.h defines it."""
+    out = (ctypes.c_longlong * 6)()
+    get_lib().jxl_k1_geometry(int(use_gab), int(epf_iters), out)
+    return dict(zip(("halo", "halo_x", "rows", "cols", "planes", "smem_bytes"), out))
+
+
+def k3_layout(tab_shared: bool, C: int, NB: int, ctx_slice: int) -> dict:
+    """K3's shared-memory layout, as csrc/kernel_geometry.h defines it:
+    "offsets", the byte offsets of its seven regions in order and of their
+    end; the stream ring half in words, the item ring half in items, and
+    the bytes of an item slot and of a context-slice entry."""
+    out = (ctypes.c_longlong * 12)()
+    get_lib().jxl_k3_layout(int(tab_shared), int(C), int(NB), int(ctx_slice), out)
+    return dict(offsets=tuple(out[:8]), ring_half=out[8], item_half=out[9],
+                item_slot_bytes=out[10], ctx_entry_bytes=out[11])
 
 
 def available() -> bool:

@@ -2,10 +2,10 @@
 libraries with a plain C interface, loaded with ctypes.
 
 Each source is built for sm_90a at first use into the package's _build/
-directory (listed in .gitignore), keyed by a hash of the source and the
-flags; concurrent processes serialize on a lock file and the library is
-renamed into place only when complete. A failed build raises
-NativeBuildError.
+directory (listed in .gitignore), keyed by a hash of the source, the
+headers beside it and the flags; concurrent processes serialize on a lock
+file and the library is renamed into place only when complete. A failed
+build raises NativeBuildError.
 """
 
 from __future__ import annotations
@@ -37,25 +37,29 @@ def _nvcc() -> str:
     raise NativeBuildError("nvcc not found (looked on PATH and in $CUDA_HOME/bin)")
 
 
-def build(name: str):
-    """Build csrc/<name>.cu unless its library exists. Returns (path of
-    the .so, build info): info is {"seconds", "log"} (nvcc's output, with
-    ptxas's registers, shared memory and spills) when this call built it,
-    else None."""
+def build(name: str, defines: tuple = ()):
+    """Build csrc/<name>.cu, with -D of each of `defines` (a variant with
+    its own library), unless its library exists. Returns (path of the .so,
+    build info): info is {"seconds", "log"} (nvcc's output, with ptxas's
+    registers, shared memory and spills) when this call built it, else
+    None."""
     src = PKG / "csrc" / f"{name}.cu"
-    tag = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"{name}_{tag}.so"
+    flags = (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
+    key = src.read_bytes() + b"".join(h.read_bytes() for h in sorted(src.parent.glob("*.h")))
+    tag = hashlib.sha256(key + " ".join(flags).encode()).hexdigest()[:16]
+    variant = "".join(f"_{d.lower()}" for d in defines)
+    out = BUILD_DIR / f"{name}{variant}_{tag}.so"
     if out.exists():
         return out, None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with open(BUILD_DIR / f"{name}.lock", "w") as lock:
+    with open(BUILD_DIR / f"{name}{variant}.lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         if out.exists():
             return out, None
         t0 = time.perf_counter()
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         res = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+            [_nvcc(), *flags, "-o", str(tmp), str(src)],
             capture_output=True, text=True, timeout=600,
         )
         if res.returncode != 0:

@@ -24,7 +24,7 @@ from . import _nvcc
 from .device_ans import ans_decode_batch as ans_decode_batch_reference
 
 _lock = threading.Lock()
-_lib = None
+_libs = {}  # probe flag -> loaded library
 # what the last build in this process reported (see _nvcc.build); None
 # when the library was already built
 build_info = None
@@ -33,28 +33,33 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
-def load():
+def load(probe: bool = False):
     """Build csrc/ans_lanes.cu with nvcc for sm_90a at first use and load
-    it; raises NativeBuildError when the build fails."""
-    global _lib, build_info
+    it; raises NativeBuildError when the build fails. probe=True gives the
+    variant built with -DK3_PROBE, whose K3 also counts cycles and tokens
+    per lane (k3_probe_read; tools/k3_probe.py)."""
+    global build_info
     with _lock:
-        if _lib is not None:
-            return _lib
-        path, info = _nvcc.build("ans_lanes")
-        if info is not None:
+        if probe in _libs:
+            return _libs[probe]
+        path, info = _nvcc.build("ans_lanes", ("K3_PROBE",) if probe else ())
+        if info is not None and not probe:
             build_info = info
         lib = ctypes.CDLL(str(path))
         lib.ans_decode_lanes_launch.argtypes = [_P, _I, _I, _P, _I, _I, _I, _P, _P, _P]
         lib.ans_decode_lanes_launch.restype = _I
         lib.ac_sections_launch.argtypes = (
             [_P, _I, _I] + [_P] * 9 + [_I, _P, _I, _P, _P, _I, _I, _P, _I]
-            + [_I, _I, _I, _P, _P] + [_I] * 3 + [_P]
+            + [_I, _I, _I, _P, _P] + [_I] * 2 + [_P]
         )
         lib.ac_sections_launch.restype = _I
         lib.ans_lanes_error_string.argtypes = [_I]
         lib.ans_lanes_error_string.restype = ctypes.c_char_p
-        _lib = lib
-        return _lib
+        if probe:
+            lib.k3_probe_read.argtypes = [_P, _I]
+            lib.k3_probe_read.restype = _I
+        _libs[probe] = lib
+        return lib
 
 
 def check_launch(lib, err: int, what: str) -> None:

@@ -17,12 +17,14 @@ latency. K3 keeps that chain in registers and shared memory: 64-bit
 windows read from a ring of the lane's bytes, the lane's slice of the
 context map, packed 64-bit alias buckets (one load a symbol) with the
 HybridUint configs beside them, a ring of the group's items, and the
-nonzeros map (see the note at the top of the .cu file). `ac_smem_plan`
-sizes those regions from the tables' shapes; `pack_buckets` and
-`pack_hybrid_configs` build the packed tables on the host, and the wrapper
-raises ValueError on tables the packing cannot hold. Coefficients are
-stored with an integer atomic add, which sums the passes of a group in any
-order to the same values.
+nonzeros map (see the note at the top of the .cu file). Their layout is
+csrc/kernel_geometry.h's; `ac_smem_plan` chooses the two sizes it leaves
+open from the tables' shapes. `pack_tables` checks and packs the tables
+on the host, where they are built (vardct/device_group.py:run_lanes
+passes the packed tables to the wrapper, so the card's path reads nothing
+back), and raises ValueError on tables the packing cannot hold.
+Coefficients are stored with an integer atomic add, which sums the passes
+of a group in any order to the same values.
 
 Semantics mirror the native host decoder (native/modular_decode.cc
 jxl_decode_vardct_ac, ref frame/group.rs:384-618), with the XLA version's
@@ -38,6 +40,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import native
 from .ans_lanes import check_launch, load
 from .device_ans import ans_step, hybrid_uint, read_bits
 
@@ -62,15 +65,11 @@ _NUM_NZ_CTX = np.array(
     dtype=np.int64,
 )
 
-# K3's shared-memory plan (mirrors ac_layout() in csrc/ans_lanes.cu)
+# K3's shared-memory plan
 SMEM_LIMIT = 227 * 1024  # bytes a block may use on sm_90
 # what one lane's block may take, so that two blocks fit on an SM (228 KB,
 # 1 KB of it reserved a block): 264 lanes run at once on 132 SMs
 BLOCK_BUDGET = (228 * 1024) // 2 - 1024
-RING_HALF = 1024  # stream ring half, 32-bit words (4 KB)
-ITEM_HALF = 64  # item ring half, items
-ITEM_SLOT_BYTES = 64  # an item's ten int32 fields and six derived ones in the ring
-CTX_ENTRY_BYTES = 2  # a cluster id in the staged slice
 # context-map entries a lane reads with a block context in range: the
 # num_bctx * (37 + 458) AC contexts and the 16 the zero-density LUTs reach
 # past them (ref block_context_map.rs)
@@ -92,27 +91,18 @@ def _w32(x):
     return ((x + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)
 
 
-def _align16(n: int) -> int:
-    return (n + 15) // 16 * 16
+_REGIONS = ("nonzeros_map", "luts", "items", "stream", "context_slice", "uint_cfgs", "tables")
 
 
 def ac_smem_layout(tab_shared: bool, C: int, NB: int, ctx_slice: int) -> dict:
-    """Bytes of each shared-memory region of K3, in the kernel's order: the
-    fixed regions (nonzeros map, LUTs, item ring, stream ring), then the
-    context slice, the HybridUint configs and the packed tables (when
-    shared); "total" is the block's dynamic shared memory."""
-    regions = {
-        "nonzeros_map": 3 * NZ_AREA * 4,
-        "luts": 128 * 4,
-        "items": 2 * ITEM_HALF * ITEM_SLOT_BYTES,
-        "stream": 2 * RING_HALF * 4,
-    }
-    off = sum(regions.values())
-    regions["context_slice"] = _align16(off + ctx_slice * CTX_ENTRY_BYTES) - off
-    off += regions["context_slice"]
-    regions["uint_cfgs"] = _align16(off + C * 4) - off
-    regions["tables"] = C * NB * 8 if tab_shared else 0
-    regions["total"] = sum(regions.values())
+    """Bytes of each shared-memory region of K3 as the kernel lays them
+    out (csrc/kernel_geometry.h, read through the host library), in its
+    order: the fixed regions (nonzeros map, LUTs, item ring, stream ring),
+    then the context slice, the HybridUint configs and the packed tables
+    (when shared); "total" is the block's dynamic shared memory."""
+    off = native.k3_layout(tab_shared, C, NB, ctx_slice)["offsets"]
+    regions = {name: off[i + 1] - off[i] for i, name in enumerate(_REGIONS)}
+    regions["total"] = off[-1]
     return regions
 
 
@@ -125,20 +115,23 @@ def ac_smem_plan(*, C: int, NB: int, num_bctx: int, NC: int,
     as the lane goes); the lane's context slice comes next (the contexts a
     block context in range reaches, in 16-bit cluster ids), then the
     packed tables if they still fit (else the kernel reads them from
-    global memory). Raises ValueError on more clusters than 16 bits hold,
-    or when the fixed regions exceed the budget."""
+    global memory). The wrapper passes the two choices, tab_shared and
+    ctx_slice, to the launch. Raises ValueError on more clusters than 16
+    bits hold, or when the fixed regions exceed the budget."""
     budget = min(budget, SMEM_LIMIT)
-    fixed = ac_smem_layout(False, C, NB, 0)["total"]
+    sizes = native.k3_layout(False, C, NB, 0)
+    fixed = sizes["offsets"][-1]
     if C > 1 << 16 or fixed > budget:
         raise ValueError(f"decode_ac_sections cannot take {C} clusters: "
                          f"{fixed} bytes of shared memory before the tables")
     want = max(1, num_bctx * CTX_PER_BCTX + CTX_TAIL)
-    ctx_slice = max(0, min(want, (budget - fixed - 15) // CTX_ENTRY_BYTES))
+    ctx_slice = max(0, min(want, (budget - fixed - 15) // sizes["ctx_entry_bytes"]))
     tab_shared = ac_smem_layout(True, C, NB, ctx_slice)["total"] <= budget
     layout = ac_smem_layout(tab_shared, C, NB, ctx_slice)
-    return dict(tab_shared=tab_shared, ctx_slice=ctx_slice, ctx_entry_bytes=CTX_ENTRY_BYTES,
-                ring_half=RING_HALF, item_half=ITEM_HALF, regions=layout,
-                smem_bytes=layout["total"])
+    return dict(tab_shared=tab_shared, ctx_slice=ctx_slice,
+                ctx_entry_bytes=sizes["ctx_entry_bytes"], ring_half=sizes["ring_half"],
+                item_half=sizes["item_half"], item_slot_bytes=sizes["item_slot_bytes"],
+                regions=layout, smem_bytes=layout["total"])
 
 
 def check_table_ranges(tables, uint_cfgs, context_map) -> None:
@@ -174,6 +167,15 @@ def pack_hybrid_configs(uint_cfgs) -> np.ndarray:
     << 8 | lsb << 16."""
     se, msb, lsb = uint_cfgs.astype(np.int32).T
     return np.ascontiguousarray(se | (msb << 8) | (lsb << 16))
+
+
+def pack_tables(tables, uint_cfgs, context_map) -> tuple:
+    """What K3 reads in place of `tables` and `uint_cfgs`, from the numpy
+    arrays where they are built: (packed buckets (C, NB, 2) int32, packed
+    HybridUint configs (C,) int32). Raises ValueError on tables the packing
+    cannot hold (check_table_ranges)."""
+    check_table_ranges(tables, uint_cfgs, context_map)
+    return pack_buckets(tables), pack_hybrid_configs(uint_cfgs)
 
 
 def decode_ac_sections_reference(streams, start_bits, lane_group, lane_ctx_off, lane_shift,
@@ -315,7 +317,8 @@ def decode_ac_sections_reference(streams, start_bits, lane_group, lane_ctx_off, 
 def decode_ac_sections(streams, start_bits, lane_group, lane_ctx_off, lane_shift,
                        lane_order_base, lane_coeff_base, lane_n_items, lane_end_bits,
                        items, orders, tables, uint_cfgs, context_map, *, log_bucket: int,
-                       num_bctx: int, total: int, n_buckets: int):
+                       num_bctx: int, total: int, n_buckets: int, packed_buckets=None,
+                       packed_cfgs=None):
     """Decode every lane's AC token stream.
 
     streams (S, L) uint8, zero-padded (>= 8 bytes slack); eight (S,) int32
@@ -326,10 +329,15 @@ def decode_ac_sections(streams, start_bits, lane_group, lane_ctx_off, lane_shift
     num_blocks, num_coeffs, block context, order offset, coefficient
     offset, cx, cy); orders (O,) int32; tables (C, 5, NB) int32 packed
     alias tables; uint_cfgs (C, 3) int32; context_map (NC,) int32; all on
-    one device. Returns (coeffs (total,) int32, ok (S,) bool): ok means no
-    range error, every item walked, final state 0x130000, and the cursor
-    within the section's bytes. Raises ValueError on tables K3's packing
-    cannot hold (check_table_ranges), on either device."""
+    one device. packed_buckets, packed_cfgs: pack_tables() of the same
+    tables, on the same device, made where the tables are built; the
+    kernel reads them in place of `tables` and `uint_cfgs`. Without them
+    the wrapper copies the tables to the host to check and pack them (a
+    sync on the card). Returns (coeffs (total,) int32, ok (S,) bool): ok
+    means no range error, every item walked, final state 0x130000, and the
+    cursor within the section's bytes. Raises ValueError on tables K3's
+    packing cannot hold (check_table_ranges): always on the CPU, and on the
+    card when it packs them itself."""
     lane_arrays = (start_bits, lane_group, lane_ctx_off, lane_shift, lane_order_base,
                    lane_coeff_base, lane_n_items, lane_end_bits)
     tabs = (items, orders, tables, uint_cfgs, context_map)
@@ -352,26 +360,35 @@ def decode_ac_sections(streams, start_bits, lane_group, lane_ctx_off, lane_shift
         raise ValueError("empty items, orders, context map or tables")
     if not 0 <= log_bucket <= 12 or n_buckets << log_bucket < 4096:
         raise ValueError(f"bad log_bucket {log_bucket} for {n_buckets} buckets")
-    # the small tables come to the host in one copy, to be checked and packed
-    n_tab, n_cfg = tables.numel(), uint_cfgs.numel()
-    flat = torch.cat([tables.reshape(-1), uint_cfgs.reshape(-1), context_map.reshape(-1)])
-    flat = flat.cpu().numpy()
-    tab_np = flat[:n_tab].reshape(tables.shape)
-    cfg_np = flat[n_tab : n_tab + n_cfg].reshape(uint_cfgs.shape)
-    check_table_ranges(tab_np, cfg_np, flat[n_tab + n_cfg :])
+    C = tables.shape[0]
+    if (packed_buckets is None) != (packed_cfgs is None):
+        raise ValueError("pass both packed_buckets and packed_cfgs, or neither")
+    if packed_buckets is not None:
+        for name, x, shape in (("packed_buckets", packed_buckets, (C, n_buckets, 2)),
+                               ("packed_cfgs", packed_cfgs, (C,))):
+            if x.dtype != torch.int32 or x.device != streams.device or tuple(x.shape) != shape:
+                raise ValueError(f"{name} must be int32 {shape} on {streams.device}")
     kw = dict(log_bucket=log_bucket, num_bctx=num_bctx, total=total, n_buckets=n_buckets)
     if streams.device.type == "cpu":
+        check_table_ranges(tables.numpy(), uint_cfgs.numpy(), context_map.numpy())
         return decode_ac_sections_reference(streams, *lane_arrays, *tabs, **kw)
     if streams.device.type != "cuda":
         raise ValueError(f"decode_ac_sections runs on cpu or cuda, not {streams.device}")
-    if not all(x.is_contiguous() for x in (streams,) + lane_arrays + tabs):
+    if packed_buckets is None:
+        # the small tables come to the host in one copy, to be checked and
+        # packed, and the packed ones go up in one
+        n_tab, n_cfg = tables.numel(), uint_cfgs.numel()
+        flat = torch.cat([tables.reshape(-1), uint_cfgs.reshape(-1), context_map.reshape(-1)])
+        flat = flat.cpu().numpy()
+        buckets, cfgs = pack_tables(flat[:n_tab].reshape(tables.shape),
+                                    flat[n_tab : n_tab + n_cfg].reshape(uint_cfgs.shape),
+                                    flat[n_tab + n_cfg :])
+        up = torch.from_numpy(np.concatenate([buckets.reshape(-1), cfgs])).to(streams.device)
+        packed_buckets, packed_cfgs = up[: buckets.size], up[buckets.size :]
+    if not all(x.is_contiguous() for x in (streams, packed_buckets, packed_cfgs)
+               + lane_arrays + tabs):
         raise ValueError("decode_ac_sections takes contiguous tensors")
-    C = tables.shape[0]
     plan = ac_smem_plan(C=C, NB=n_buckets, num_bctx=num_bctx, NC=context_map.numel())
-    # the packed buckets and configs go up in one copy
-    host = np.concatenate([pack_buckets(tab_np).reshape(-1), pack_hybrid_configs(cfg_np)])
-    dev_tabs = torch.from_numpy(host).to(streams.device)
-    packed, cfgs = dev_tabs[: C * n_buckets * 2], dev_tabs[C * n_buckets * 2 :]
     lib = load()
     coeffs = torch.zeros(total, dtype=torch.int32, device=streams.device)
     ok = torch.empty(S, dtype=torch.uint8, device=streams.device)
@@ -381,10 +398,9 @@ def decode_ac_sections(streams, start_bits, lane_group, lane_ctx_off, lane_shift
             streams.data_ptr(), S, streams.shape[1],
             *(x.data_ptr() for x in lane_arrays),
             items.data_ptr(), items.shape[1], orders.data_ptr(), orders.numel(),
-            packed.data_ptr(), cfgs.data_ptr(), C, n_buckets,
+            packed_buckets.data_ptr(), packed_cfgs.data_ptr(), C, n_buckets,
             context_map.data_ptr(), context_map.numel(), log_bucket, num_bctx, total,
-            coeffs.data_ptr(), ok.data_ptr(), int(plan["tab_shared"]), plan["ctx_slice"],
-            plan["smem_bytes"], stream,
+            coeffs.data_ptr(), ok.data_ptr(), int(plan["tab_shared"]), plan["ctx_slice"], stream,
         )
     check_launch(lib, err, "decode_ac_sections")
     decode_ac_sections.launches += 1

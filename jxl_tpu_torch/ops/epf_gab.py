@@ -14,8 +14,8 @@ halo is just the sum of the borders of the stages that run, stages update
 the tile in place through registers (three blocks an SM on the main path),
 interior tiles load with 16-byte loads, and EPF steps 1 and 2 share each
 neighbour SAD between the two pixels it joins (see the note at the top of
-the .cu file). `epf_gab_plan` gives the geometry the wrapper launches
-with; the kernel checks it against its own.
+the .cu file). The geometry of each stage set is csrc/kernel_geometry.h's;
+`epf_gab_plan` reads it for reports and tests.
 
 `epf_gab` takes the plain version for a tensor on the CPU and launches the
 kernel for a CUDA tensor, or raises; it never falls back.
@@ -31,6 +31,7 @@ from types import MappingProxyType, SimpleNamespace
 import numpy as np
 import torch
 
+from .. import native
 from ..render.stages import core
 from . import _nvcc
 
@@ -57,8 +58,7 @@ def load():
         lib.epf_gab_launch.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-            ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
         lib.epf_gab_launch.restype = ctypes.c_int
         lib.epf_gab_error_string.argtypes = [ctypes.c_int]
@@ -67,31 +67,28 @@ def load():
         return _lib
 
 
-TILE = (32, 64)  # output rows, columns of one block (csrc/epf_gab.cu TH, TW)
-SMEM_LIMIT = 227 * 1024  # bytes a block may use on sm_90
+TILE = (32, 64)  # output rows, columns of one block (csrc/kernel_geometry.h k1)
 
 
 @functools.lru_cache(maxsize=16)
 def epf_gab_plan(use_gab: bool, epf_iters: int) -> dict:
-    """The kernel's tile geometry for one stage set (csrc/epf_gab.cu Geo):
-    the halo is the sum of the borders of the stages that run (gaborish 1,
-    EPF0 3, EPF1 2, EPF2 1), rounded up to 4 columns horizontally so that
-    tiles start 16-byte aligned; shared memory holds the three planes, and
-    with EPF also 1/sigma and two SAD planes. `input_bytes_per_px` is what
-    an interior tile reads from device memory per output pixel (3 planes,
-    and 1/sigma with EPF, over the tile and its halo)."""
-    epf_iters = int(epf_iters)
-    halo = int(bool(use_gab)) + 3 * (epf_iters >= 3) + 2 * (epf_iters >= 1) + (epf_iters >= 2)
-    halo_x = -(-halo // 4) * 4
+    """The kernel's tile geometry for one stage set, as
+    csrc/kernel_geometry.h defines it (read through the host library): the
+    halo is the sum of the borders of the stages that run (gaborish 1, EPF0
+    3, EPF1 2, EPF2 1), rounded up to 4 columns horizontally so that tiles
+    start 16-byte aligned; shared memory holds the three planes, and with
+    EPF also 1/sigma and two SAD planes. `input_bytes_per_px` models the
+    traffic of that geometry: the bytes an interior tile reads from device
+    memory per output pixel (3 planes, and 1/sigma with EPF, over the tile
+    and its halo). It is a model, not a reading."""
+    g = native.k1_geometry(bool(use_gab), int(epf_iters))
     th, tw = TILE
-    rows, cols = th + 2 * halo, tw + 2 * halo_x
-    planes = 0 if halo == 0 else (6 if epf_iters > 0 else 3)
-    read_planes = 4 if epf_iters > 0 else 3
-    smem = planes * rows * cols * 4
+    read_planes = 4 if int(epf_iters) > 0 else 3
+    cells = g["rows"] * g["cols"] if g["halo"] else th * tw
     return MappingProxyType(dict(
-        halo=halo, halo_x=halo_x, tile=TILE, shared_tile=(rows, cols), smem_planes=planes,
-        smem_bytes=smem,
-        input_bytes_per_px=read_planes * 4 * (rows * cols if halo else th * tw) / (th * tw)))
+        halo=g["halo"], halo_x=g["halo_x"], tile=TILE, shared_tile=(g["rows"], g["cols"]),
+        smem_planes=g["planes"], smem_bytes=g["smem_bytes"],
+        input_bytes_per_px=read_planes * 4 * cells / (th * tw)))
 
 
 def _steps(epf_iters: int) -> list:
@@ -170,14 +167,12 @@ def epf_gab(planes, inv_sigma, gab_weights, epf_iters, pass0_scale,
     params = _kernel_params(None if gab_weights is None else tuple(map(tuple, gab_weights)),
                             float(pass0_scale), float(pass2_scale), float(border_sad_mul),
                             tuple(map(float, channel_scale)))
-    plan = epf_gab_plan(gab_weights is not None, int(epf_iters))
     out = torch.empty_like(planes)
     with torch.cuda.device(planes.device):
         stream = torch.cuda.current_stream(planes.device).cuda_stream
         err = lib.epf_gab_launch(
             planes.data_ptr(), inv_sigma.data_ptr(), out.data_ptr(), h, w,
-            params.ctypes.data, int(gab_weights is not None), int(epf_iters),
-            plan["halo"], plan["smem_bytes"], stream,
+            params.ctypes.data, int(gab_weights is not None), int(epf_iters), stream,
         )
     if err != 0:
         raise RuntimeError(

@@ -155,12 +155,18 @@ LANE_KEYWORDS = ("log_bucket", "num_bctx", "total", "n_buckets")
 
 def run_lanes(inputs: dict, device):
     """decode_ac_sections on `device` with the numpy `inputs` of
-    lane_inputs(): (coeffs (total,) int32, ok (S,) bool) tensors there."""
-    from ..ops.device_ac import decode_ac_sections
+    lane_inputs(): (coeffs (total,) int32, ok (S,) bool) tensors there.
+    The tables are checked and packed here, on the host, and go up with
+    the other arrays (pack_tables raises ValueError on tables K3 cannot
+    take)."""
+    from ..ops.device_ac import decode_ac_sections, pack_tables
 
+    buckets, cfgs = pack_tables(inputs["tables"], inputs["uint_cfgs"], inputs["context_map"])
     arrays = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
               for k, v in inputs.items() if k not in LANE_KEYWORDS}
-    return decode_ac_sections(**arrays, **{k: inputs[k] for k in LANE_KEYWORDS})
+    return decode_ac_sections(**arrays, **{k: inputs[k] for k in LANE_KEYWORDS},
+                              packed_buckets=torch.from_numpy(buckets).to(device),
+                              packed_cfgs=torch.from_numpy(cfgs).to(device))
 
 
 def decode_ac_sections_device(frame, group_readers: dict, device) -> None:

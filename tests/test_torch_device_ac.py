@@ -98,6 +98,16 @@ def test_plain_lanes_match_jxl_tpu_on_random_lanes(seed):
     assert np.count_nonzero(got_c) > 0
 
 
+def test_plain_lanes_match_jxl_tpu_on_random_lanes_of_many_clusters():
+    """160 clusters of 64 buckets: on the card K3 reads these tables from
+    global memory (tests/test_torch_kernel_plans.py)."""
+    inputs = _random_lanes(34, log_alpha=6, clusters=160)
+    (ref_c, ref_ok), (got_c, got_ok) = _both(inputs)
+    np.testing.assert_array_equal(got_ok, ref_ok)
+    np.testing.assert_array_equal(got_c, ref_c)
+    assert np.count_nonzero(got_c) > 0
+
+
 def test_lane_inputs_clip_and_pad_like_jxl_tpu():
     data, _ = encode_xyb_vardct(300, 200, seed=24, density=0.1)
     frame, readers = _port_frame_and_readers(data)

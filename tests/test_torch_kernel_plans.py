@@ -1,8 +1,9 @@
 """What the kernels K1 and K3 take from the host, checked on the CPU: their
-shared-memory plans, K3's packed alias buckets and the tables it refuses,
-and K1's stage-set geometry. The kernels themselves run only on a card
-(chip_smoke.py holds them against their plain versions there); these
-tests hold the host side to what the kernels assume.
+shared-memory plans (from csrc/kernel_geometry.h, which the kernels compile
+in and the host library exports), K3's packed alias buckets and the tables
+it refuses, and K1's stage-set geometry. The kernels themselves run only
+on a card (chip_smoke.py holds them against their plain versions there);
+these tests hold the host side to what the kernels assume.
 """
 
 import numpy as np
@@ -13,7 +14,7 @@ from jxl_tpu_torch.ops import device_ac
 from jxl_tpu_torch.ops import epf_gab as K
 from jxl_tpu_torch.ops.device_ans import ans_step
 from jxl_tpu_torch.vardct import device_group
-from test_torch_vardct_streams import encode_xyb_vardct, random_lanes
+from test_torch_vardct_streams import encode_xyb_vardct, long_section_stream, random_lanes
 
 SMEM_LIMIT = 227 * 1024
 
@@ -48,9 +49,11 @@ def _check_plan(plan):
     assert plan["smem_bytes"] <= device_ac.BLOCK_BUDGET  # two blocks an SM
     assert regions["total"] == sum(v for k, v in regions.items() if k != "total")
     # the rings are restaged as a lane goes: fixed sizes, whatever its length
-    assert regions["stream"] == 8 * device_ac.RING_HALF == 8 * plan["ring_half"]
-    assert regions["items"] == 2 * device_ac.ITEM_HALF * device_ac.ITEM_SLOT_BYTES
-    assert regions["context_slice"] >= 2 * plan["ctx_slice"]
+    assert regions["stream"] == 8 * plan["ring_half"] == 8 * 1024
+    assert regions["items"] == 2 * plan["item_half"] * plan["item_slot_bytes"] == 2 * 64 * 64
+    assert regions["context_slice"] >= plan["ctx_entry_bytes"] * plan["ctx_slice"]
+    starts = np.cumsum([0] + [regions[k] for k in device_ac._REGIONS])[:-1]
+    assert (starts % 16 == 0).all()  # every region starts 16-byte aligned
 
 
 def test_k3_plan_of_the_4k_writer_stream():
@@ -76,7 +79,29 @@ def test_k3_plan_of_a_long_section_and_a_full_group():
     _check_plan(plan)
     assert plan == _plan_of(random_lanes(42))
     assert plan["regions"]["stream"] * 40 < inputs["streams"].shape[1]
-    assert plan["regions"]["items"] * 20 < inputs["items"].shape[1] * device_ac.ITEM_SLOT_BYTES
+    assert plan["regions"]["items"] * 20 < inputs["items"].shape[1] * plan["item_slot_bytes"]
+
+
+def test_k3_plan_of_the_long_section_stream():
+    """The writer stream chip_smoke.py holds K3 to for long sections: each
+    section wraps the 8 KB stream ring more than twice over real bytes."""
+    data, _ = long_section_stream()
+    inputs = _port_lane_inputs(data)
+    plan = _plan_of(inputs)
+    _check_plan(plan)
+    sections = (inputs["lane_end_bits"] - inputs["start_bits"]) // 8
+    assert sections.min() > 2 * plan["regions"]["stream"]
+    assert (inputs["lane_n_items"] == 3 * 32 * 32).all()  # DCT8 only: full groups
+
+
+def test_k3_plan_of_many_clusters_leaves_the_tables_in_global_memory():
+    """The random lanes chip_smoke.py holds K3 to with tables in global
+    memory (the kernel's other instantiation)."""
+    inputs = random_lanes(34, log_alpha=6, clusters=160)
+    plan = _plan_of(inputs)
+    _check_plan(plan)
+    assert not plan["tab_shared"] and plan["ctx_slice"] == 15 * 495 + 16
+    assert plan["regions"]["tables"] == 0
 
 
 @pytest.mark.parametrize("case", ["stacked_passes", "huge_tables", "tiny"])
@@ -178,6 +203,34 @@ _BAD_TABLES = {
     "context_map_high": lambda t, c, m: m.__setitem__(17, 3),
     "context_map_negative": lambda t, c, m: m.__setitem__(0, -1),
 }
+
+
+def test_pack_tables_checks_then_packs():
+    inputs = random_lanes(43)
+    buckets, cfgs = device_ac.pack_tables(inputs["tables"], inputs["uint_cfgs"],
+                                          inputs["context_map"])
+    np.testing.assert_array_equal(buckets, device_ac.pack_buckets(inputs["tables"]))
+    np.testing.assert_array_equal(cfgs, device_ac.pack_hybrid_configs(inputs["uint_cfgs"]))
+    bad = inputs["context_map"].copy()
+    bad[3] = inputs["tables"].shape[0]
+    with pytest.raises(ValueError):
+        device_ac.pack_tables(inputs["tables"], inputs["uint_cfgs"], bad)
+
+
+@pytest.mark.parametrize("which", ["buckets_only", "cfgs_only", "bucket_shape", "cfg_dtype"])
+def test_k3_wrapper_refuses_packed_tables_that_do_not_fit(which):
+    inputs = random_lanes(44)
+    arrays = {k: torch.from_numpy(v) for k, v in inputs.items()
+              if k not in device_group.LANE_KEYWORDS}
+    kw = {k: inputs[k] for k in device_group.LANE_KEYWORDS}
+    b, c = (torch.from_numpy(x) for x in device_ac.pack_tables(
+        inputs["tables"], inputs["uint_cfgs"], inputs["context_map"]))
+    packs = {"buckets_only": dict(packed_buckets=b),
+             "cfgs_only": dict(packed_cfgs=c),
+             "bucket_shape": dict(packed_buckets=b[:, :-1], packed_cfgs=c),
+             "cfg_dtype": dict(packed_buckets=b, packed_cfgs=c.long())}[which]
+    with pytest.raises(ValueError):
+        device_ac.decode_ac_sections(**arrays, **kw, **packs)
 
 
 @pytest.mark.parametrize("what", sorted(_BAD_TABLES))

@@ -437,7 +437,7 @@ def _lf_group_section(rng, leaves, rect, types, cfl_zero):
     return sec.finish(), quants + 1, epf
 
 
-def _ac_tokens(rng, tmap, g, gxn, density):
+def _ac_tokens(rng, tmap, g, gxn, density, max_run=12):
     """One group's AC content: (item arrays, token values, contexts, and
     the (coefficient index, value) pairs it encodes)."""
     from jxl_tpu_torch.vardct.block_context import BlockContextMap
@@ -464,7 +464,7 @@ def _ac_tokens(rng, tmap, g, gxn, density):
     cidx = np.where(chan < 2, chan ^ 1, 2)
     bctx = bmap[cidx * 13 + shape]
     M = len(chan)
-    L = np.where(rng.random(M) < density, rng.integers(1, 13, M), 0)
+    L = np.where(rng.random(M) < density, rng.integers(1, max_run + 1, M), 0)
     L = np.minimum(L, nc - nb)
     # coefficient values: nonzero with probability 0.6, the last one always
     cstart = np.cumsum(L) - L
@@ -603,12 +603,14 @@ def _headers(width, height, sections):
 
 
 def encode_xyb_vardct(width: int, height: int, seed: int = 0, transforms: str = "mixed",
-                      density: float = 0.35, cfl_zero: bool = False, lz77: bool = False):
+                      density: float = 0.35, cfl_zero: bool = False, lz77: bool = False,
+                      max_run: int = 12):
     """(codestream, coeffs): a width x height XYB VarDCT frame of more than
     one group, and the dense (G * 3 * 256 * 256,) int32 quantized AC
     coefficients it encodes. transforms: "mixed" (DCT16x16 on aligned 2x2
     positions and every 1x1 type) or "dct8"; density: the share of
-    (block, channel) items that carry coefficients; lz77: enable (unused)
+    (block, channel) items that carry coefficients, each 1 to max_run
+    coefficient positions (a higher max_run writes longer sections); lz77: enable (unused)
     LZ77 in the AC histograms, which makes the frame one for the host
     AC decoder."""
     if width <= GROUP_DIM and height <= GROUP_DIM:
@@ -643,7 +645,7 @@ def encode_xyb_vardct(width: int, height: int, seed: int = 0, transforms: str = 
     coeffs = np.zeros(gxn * gyn * GROUP_STRIDE, np.int32)
     tok_vals, tok_ctxs = [], []
     for g in range(gxn * gyn):
-        v, c, dest, val = _ac_tokens(rng, tmap, g, gxn, density)
+        v, c, dest, val = _ac_tokens(rng, tmap, g, gxn, density, max_run)
         tok_vals.append(v)
         tok_ctxs.append(c)
         coeffs[dest] = val
@@ -651,11 +653,18 @@ def encode_xyb_vardct(width: int, height: int, seed: int = 0, transforms: str = 
     return _headers(width, height, sections) + b"".join(sections), coeffs
 
 
-def random_lanes(seed, S=6, G=3, I=48, log_alpha=5):
+def long_section_stream():
+    """(codestream, coeffs) of two full 256x256 groups, every item of
+    them carrying coefficients: sections of about 20 KB."""
+    return encode_xyb_vardct(512, 256, seed=9, transforms="dct8", density=1.0, max_run=16)
+
+
+def random_lanes(seed, S=6, G=3, I=48, log_alpha=5, clusters=3):
     """Inputs of decode_ac_sections for S random lanes over G groups of I
     random items (wild positions, block contexts and coefficient offsets),
-    valid packed alias tables of 2**log_alpha symbols and random stream
-    bytes: corrupt lanes that exercise every clip and error path."""
+    valid packed alias tables of 2**log_alpha symbols in `clusters`
+    clusters and random stream bytes: corrupt lanes that exercise every
+    clip and error path."""
     from jxl_tpu_torch.entropy.ans import AnsHistogram
     from jxl_tpu_torch.ops.device_ans import pack_table
 
@@ -663,7 +672,7 @@ def random_lanes(seed, S=6, G=3, I=48, log_alpha=5):
     nb_t = 1 << log_alpha
     lb = 12 - log_alpha
     hists = []
-    for _ in range(3):
+    for _ in range(clusters):
         h = AnsHistogram.__new__(AnsHistogram)
         w = rng.integers(1, 100, nb_t).astype(np.float64)
         d = np.floor(w / w.sum() * 4096).astype(int)
@@ -674,7 +683,8 @@ def random_lanes(seed, S=6, G=3, I=48, log_alpha=5):
         h._build_alias_map(nb_t, 1 << lb)
         hists.append(h)
     tables = np.stack([pack_table(h) for h in hists]).astype(np.int32)
-    uint_cfgs = np.array([[log_alpha, 0, 0], [4, 1, 0], [3, 1, 1]], np.int32)
+    uint_cfgs = np.array([[log_alpha, 0, 0], [4, 1, 0], [3, 1, 1]], np.int32)[
+        np.arange(clusters) % 3]
     cx = rng.integers(1, 3, (G, I))
     cy = rng.integers(1, 3, (G, I))
     nb = cx * cy
@@ -702,7 +712,7 @@ def random_lanes(seed, S=6, G=3, I=48, log_alpha=5):
         lane_n_items=rng.integers(1, I + 1, S).astype(np.int32),
         lane_end_bits=np.full(S, S_len * 8 - 64, np.int32),
         items=items, orders=orders, tables=tables, uint_cfgs=uint_cfgs,
-        context_map=rng.integers(0, 3, n_ctx).astype(np.int32),
+        context_map=rng.integers(0, clusters, n_ctx).astype(np.int32),
         log_bucket=lb, num_bctx=15, total=G * 3 * 65536, n_buckets=nb_t,
     )
 

@@ -4,47 +4,27 @@
     python3 tools/k3_probe.py [--sass PATH]
 
 Needs one CUDA card, nvcc and the package beside it, as chip_smoke.py
-does. It writes the 3840x2160 VarDCT test stream, builds a copy of
-jxl_tpu_torch/csrc/ans_lanes.cu with clock64() counters added (whole
-lane walk, and the coefficient-token loop), runs it on the stream's
-lanes with the wrapper's plan and packed tables, and prints one JSON line:
-the K3 device time of the unmodified kernel (torch.profiler), and for the
-lane with the most cycles its tokens, items, cycles a token and the share
-of its cycles spent in the coefficient loop. With --sass it also writes
-the unmodified kernel's SASS (cuobjdump) to PATH.
+does. It writes the 3840x2160 VarDCT test stream and decodes its lanes
+through the K3 wrapper (ops/device_ac.py:decode_ac_sections) twice: with
+the normal build, timed by CUDA events around its launch
+(chip_smoke.device_times), and with the build of the same
+source with -DK3_PROBE, whose kernel counts each lane's cycles, tokens and
+cycles in the coefficient loop (clock64). It prints one JSON line: the K3
+device time, and for the lane with the most cycles its tokens, items,
+cycles a token and the share of its cycles spent in the coefficient loop.
+With --sass it also writes the normal build's SASS (cuobjdump) to PATH.
 """
 
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import os
 import subprocess
 import sys
+from unittest import mock
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-# (text of csrc/ans_lanes.cu, text put in its place) for the counters
-PATCHES = (
-    ("namespace {\n\nconstexpr int kLogSumProbs",
-     "__device__ long long g_probe[4 * 4096];\nnamespace {\n\nconstexpr int kLogSumProbs"),
-    ("  // ---- warp 0 walks the lane; every value below is uniform in the warp\n",
-     "  const long long t_start = clock64();\n  long long n_tok = 0, t_walk = 0;\n"),
-    ("  auto decode = [&](int cluster) -> unsigned {\n",
-     "  auto decode = [&](int cluster) -> unsigned {\n    ++n_tok;\n"),
-    ("      err = (flags & kItemCoefFast) ? walk(std::false_type{}) : walk(std::true_type{});",
-     "      const long long t0 = clock64();\n"
-     "      err = (flags & kItemCoefFast) ? walk(std::false_type{}) : walk(std::true_type{});\n"
-     "      t_walk += clock64() - t0;"),
-    ("  if (lid == 0) {\n    a.ok[lane] =",
-     "  if (lid == 0) {\n    g_probe[4 * lane] = clock64() - t_start;\n"
-     "    g_probe[4 * lane + 1] = n_tok;\n    g_probe[4 * lane + 2] = t_walk;\n  }\n"
-     "  if (lid == 0) {\n    a.ok[lane] ="),
-    ('extern "C" {\n',
-     'extern "C" {\nint k3_probe_read(void* h) {\n'
-     '  return (int)cudaMemcpyFromSymbol(h, g_probe, sizeof(g_probe));\n}\n'),
-)
 
 
 def main() -> int:
@@ -64,32 +44,15 @@ def main() -> int:
     from jxl_tpu_torch.vardct.device_group import LANE_KEYWORDS
     from test_torch_vardct_streams import encode_xyb_vardct
 
-    lib = AL.load()
+    AL.load()
     if args.sass:
-        so = next(_nvcc.BUILD_DIR.glob("ans_lanes_*.so"))
+        so, _ = _nvcc.build("ans_lanes")
         cuda = os.environ.get("CUDA_HOME", "/usr/local/cuda")
         res = subprocess.run([os.path.join(cuda, "bin", "cuobjdump"), "-sass", str(so)],
                              capture_output=True, text=True, timeout=300)
         with open(args.sass, "w") as f:
             f.write(res.stdout + res.stderr)
-
-    src = (_nvcc.PKG / "csrc" / "ans_lanes.cu").read_text()
-    for old, new in PATCHES:
-        if src.count(old) != 1:
-            raise RuntimeError(f"ans_lanes.cu changed: cannot place a counter at {old[:40]!r}")
-        src = src.replace(old, new)
-    _nvcc.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = _nvcc.BUILD_DIR / "k3_probe.cu"
-    so = _nvcc.BUILD_DIR / "k3_probe.so"
-    cu.write_text(src)
-    res = subprocess.run([_nvcc._nvcc(), *_nvcc.NVCC_FLAGS, "-o", str(so), str(cu)],
-                         capture_output=True, text=True, timeout=600)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed:\n{res.stdout}{res.stderr}")
-    probe = ctypes.CDLL(str(so))
-    probe.ac_sections_launch.argtypes = lib.ac_sections_launch.argtypes
-    probe.ac_sections_launch.restype = ctypes.c_int
-    probe.k3_probe_read.argtypes = [ctypes.c_void_p]
+    probe = AL.load(probe=True)
 
     data, written = encode_xyb_vardct(chip_smoke.WIDTH, chip_smoke.HEIGHT, seed=7)
     inp = chip_smoke._lane_inputs(data)
@@ -97,37 +60,21 @@ def main() -> int:
     arrays = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
               for k, v in inp.items() if k not in LANE_KEYWORDS}
     kw = {k: inp[k] for k in LANE_KEYWORDS}
+    b, c = device_ac.pack_tables(inp["tables"], inp["uint_cfgs"], inp["context_map"])
+    kw.update(packed_buckets=torch.from_numpy(b).to(dev), packed_cfgs=torch.from_numpy(c).to(dev))
     kernel_ms = chip_smoke.device_times(
-        [(0, lambda: device_ac.decode_ac_sections(**arrays, **kw), "ac_sections_kernel")],
-        reps=5)[0]
+        [(0, lambda: device_ac.decode_ac_sections(**arrays, **kw), AL.load(),
+          "ac_sections_launch")], reps=5)[0]
 
-    C, NB = inp["tables"].shape[0], inp["n_buckets"]
-    plan = device_ac.ac_smem_plan(C=C, NB=NB, num_bctx=inp["num_bctx"],
-                                  NC=len(inp["context_map"]))
-    host = np.concatenate([device_ac.pack_buckets(inp["tables"]).reshape(-1),
-                           device_ac.pack_hybrid_configs(inp["uint_cfgs"])])
-    tabs = torch.from_numpy(host).to(dev)
-    coeffs = torch.zeros(kw["total"], dtype=torch.int32, device=dev)
-    ok = torch.empty(len(inp["start_bits"]), dtype=torch.uint8, device=dev)
-    lanes = ("start_bits", "lane_group", "lane_ctx_off", "lane_shift", "lane_order_base",
-             "lane_coeff_base", "lane_n_items", "lane_end_bits")
-    st = arrays["streams"]
-    err = probe.ac_sections_launch(
-        st.data_ptr(), st.shape[0], st.shape[1], *(arrays[k].data_ptr() for k in lanes),
-        arrays["items"].data_ptr(), arrays["items"].shape[1], arrays["orders"].data_ptr(),
-        arrays["orders"].numel(), tabs.data_ptr(), tabs[C * NB * 2:].data_ptr(), C, NB,
-        arrays["context_map"].data_ptr(), arrays["context_map"].numel(), kw["log_bucket"],
-        kw["num_bctx"], kw["total"], coeffs.data_ptr(), ok.data_ptr(),
-        int(plan["tab_shared"]), plan["ctx_slice"], plan["smem_bytes"],
-        torch.cuda.current_stream().cuda_stream)
+    with mock.patch.object(device_ac, "load", lambda: probe):
+        coeffs, ok = device_ac.decode_ac_sections(**arrays, **kw)
     torch.cuda.synchronize()
-    if err != 0:
-        raise RuntimeError(f"instrumented launch failed: {err}")
-    counts = np.zeros(4 * 4096, np.int64)
-    if probe.k3_probe_read(counts.ctypes.data) != 0:
-        raise RuntimeError("reading the counters failed")
     S = len(inp["start_bits"])
-    cycles, tokens, walk = counts[0:4 * S:4], counts[1:4 * S:4], counts[2:4 * S:4]
+    counts = np.zeros(3 * S, np.int64)
+    err = probe.k3_probe_read(counts.ctypes.data, S)
+    if err != 0:
+        raise RuntimeError(f"reading the counters failed: {probe.ans_lanes_error_string(err)}")
+    cycles, tokens, loop = counts[0::3], counts[1::3], counts[2::3]
     m = int(np.argmax(cycles))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
@@ -136,7 +83,7 @@ def main() -> int:
         "coefficients_equal_the_writers": bool(np.array_equal(coeffs.cpu().numpy(), written)),
         "longest_lane": m, "tokens": int(tokens[m]), "items": int(inp["lane_n_items"][m]),
         "cycles": int(cycles[m]), "cycles_per_token": float(cycles[m] / tokens[m]),
-        "coefficient_loop_share": float(walk[m] / cycles[m]),
+        "coefficient_loop_share": float(loop[m] / cycles[m]),
         "cycles_per_token_all_lanes": float(cycles.sum() / tokens.sum()),
         "ok_lanes": int(ok.sum())}))
     return 0
