@@ -17,9 +17,14 @@ a non-zero exit:
              abs difference <= 1e-5, and <= 1e-6 more than 8 px from the
              edge.
              K2 against plain ans_decode_batch, bit for bit (tokens and
-             final states), at S=135, T=4096 and a ragged S=37, on streams
-             of the VarDCT writer's rANS encoder; then K2's own path, the
-             batch decode entry point, once with its count reset.
+             final states): streams of the VarDCT writer's rANS encoder at
+             S=135, T=4096 (timed), S=4224, T=1024 (32 streams an SM,
+             timed), S=37 and S=37, T=8000 (rows longer than the ring),
+             rows cut short, an odd row length, rows of 1
+             and 3 bytes, T=0, S=1 and T=31, and random rows with
+             arbitrary int32 tables at log_bucket 0, 4, 6 (S=135, T=4096),
+             8 and 12; then K2's own path, the batch decode entry point,
+             once with its count reset.
              K3 against plain decode_ac_sections, bit for bit (coefficients
              and ok flags), on a 1024x1024 writer stream (16 lanes), on a
              copy with one section corrupted (that lane alone reports not
@@ -368,9 +373,53 @@ def _k2_streams(S, T, seed):
     return streams, pack_table(h), tok, sum(map(len, datas))
 
 
+def _k2_cases():
+    """(name, streams, table, log_bucket, T, the writer's tokens or None,
+    bytes the tokens need, timed) of K2's cases: writer streams (S=135 and
+    T=4096, the main case; 32 streams an SM at S=4224; S=37), rows cut
+    short so that cursors run past their ends, rows longer than a ring
+    (S=37, T=8000), an odd row length, rows
+    shorter than the state, T = 0, S = 1, T below a chunk, and random
+    rows with arbitrary int32 tables at log_bucket 0, 4, 6, 8 and 12 (the
+    writer's tables have 64 buckets: log_bucket 6)."""
+    import numpy as np
+
+    from test_torch_vardct_streams import random_int32_table
+
+    def writer(S, T, seed, name=None, timed=False):
+        streams, table, tok, nbytes = _k2_streams(S, T, seed)
+        return (name or f"writer_S{S}_T{T}", streams, table, 6, T, tok, nbytes, timed)
+
+    yield writer(135, 4096, 1, timed=True)
+    yield writer(4224, 1024, 3, timed=True)
+    base = writer(37, 1000, 2)
+    yield base
+    _, streams, table, _, _, tok, nbytes, _ = base
+    L = streams.shape[1]
+    cut = np.ascontiguousarray(streams[:, : L * 3 // 5])
+    yield ("truncated", cut, table, 6, 1200, None, cut.nbytes, False)
+    odd = np.zeros((37, L + 1 + L % 2), np.uint8)
+    odd[:, :L] = streams
+    yield ("odd_L", odd, table, 6, 1000, tok, nbytes, False)
+    for n in (1, 3):
+        yield (f"L{n}", np.ascontiguousarray(streams[:, :n]), table, 6, 40, None, 37 * n, False)
+    yield ("T0", streams, table, 6, 0, None, 0, False)
+    # rows past the largest ring (4 KB): restaged over real bytes
+    yield writer(37, 8000, 7, name="restaged_S37_T8000")
+    yield writer(1, 1000, 4, name="S1")
+    yield writer(37, 31, 5, name="T31")
+    rng = np.random.default_rng(6)
+    for lb in (0, 4, 6, 8, 12):
+        S, T = (135, 4096) if lb == 6 else (37, 500)
+        rows = rng.integers(0, 256, (S, 4 + 2 * T), dtype=np.uint8)
+        yield (f"random_int32_lb{lb}_S{S}_T{T}", rows, random_int32_table(rng, lb), lb, T,
+               None, rows.nbytes, False)
+
+
 def phase_k2():
-    """K2 against its plain version, then K2's own path: the batch decode
-    entry point (decode_image runs K2's step inside K3, not K2)."""
+    """K2 against its plain version, bit for bit, on every case of
+    _k2_cases; the S=135 and S=4224 writer cases timed. Then K2's own
+    path: the batch decode entry point (no decode path calls K2)."""
     import numpy as np
     import torch
 
@@ -378,40 +427,58 @@ def phase_k2():
     from jxl_tpu_torch.ops import device_ans
 
     dev = torch.device("cuda")
-    main = None
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    timed_cases = {}  # S -> (record, streams, table, T)
     worst = 0
-    for S, T, seed in ((135, 4096, 1), (37, 1000, 2)):
-        streams, table, tok, nbytes = _k2_streams(S, T, seed)
+    for name, streams, table, lb, T, tok, nbytes, timed in _k2_cases():
+        S = streams.shape[0]
         st, tb = torch.from_numpy(streams).to(dev), torch.from_numpy(table).to(dev)
-        got_t, got_f = AL.ans_decode_batch(st, tb, 6, T)
-        want_t, want_f = device_ans.ans_decode_batch(st, tb, 6, T)
+        got_t, got_f = AL.ans_decode_batch(st, tb, lb, T)
+        t0 = time.perf_counter()
+        want_t, want_f = device_ans.ans_decode_batch(st, tb, lb, T)
         torch.cuda.synchronize()
-        err = int((got_t.long() - want_t.long()).abs().max())
+        plain_s = time.perf_counter() - t0
+        err = int((got_t.long() - want_t.long()).abs().max()) if got_t.numel() else 0
         same = torch.equal(got_t, want_t) and torch.equal(got_f, want_f)
-        writer = np.array_equal(got_t.cpu().numpy(), tok) and bool((got_f == 0x130000).all())
-        rec = {"phase": "kernels", "name": "ans_decode_batch", "S": S, "T": T,
-               "bit_exact": same, "writer_tokens_and_final_states": writer, "max_abs_diff": err}
-        check(same and writer, f"ans_decode_batch disagrees with its plain version at S={S}")
+        rec = {"phase": "kernels", "name": "ans_decode_batch", "case": name, "S": S, "T": T,
+               "L": int(streams.shape[1]), "log_bucket": lb, "bit_exact": same,
+               "max_abs_diff": err, "plain_s": plain_s,
+               "plan": dict(AL.k2_plan(S, T, int(streams.shape[1]), sms))}
+        if name.startswith("restaged"):
+            check(rec["plan"]["ring_bytes"] < streams.shape[1], f"{name} fits its ring")
+        if tok is not None:
+            rec["writer_tokens_and_final_states"] = (
+                np.array_equal(got_t.cpu().numpy(), tok) and bool((got_f == 0x130000).all()))
+            check(rec["writer_tokens_and_final_states"], f"K2 lost the writer's tokens on {name}")
+        check(same, f"ans_decode_batch disagrees with its plain version on {name}")
         worst = max(worst, err)
-        if S == 135:
+        if timed:
             rec["kernel_ms"] = device_times(
-                [(0, lambda: AL.ans_decode_batch(st, tb, 6, T), AL.load(),
+                [(0, lambda: AL.ans_decode_batch(st, tb, lb, T), AL.load(),
                   "ans_decode_lanes_launch")])[0]
-            rec["call_ms"] = time_ms(lambda: AL.ans_decode_batch(st, tb, 6, T), reps=10)
-            rec["plain_ms"] = time_ms(lambda: device_ans.ans_decode_batch(st, tb, 6, T),
-                                      reps=2, warmup=1)
+            rec["call_ms"] = time_ms(lambda: AL.ans_decode_batch(st, tb, lb, T), reps=10)
+            rec["plain_ms"] = plain_s * 1e3  # one call; the plain version is no yardstick
             # bytes: the stream bytes the tokens need, the table, tokens and
             # final states out; operations: K2_OPS_PER_TOKEN a token
             t_bytes = (nbytes + table.nbytes + S * T * 4 + S * 4) / HBM_BYTES_PER_S
             t_ops = S * T * K2_OPS_PER_TOKEN / INT32_OPS_PER_S
             rec["bound_ms"] = max(t_bytes, t_ops) * 1e3
             rec["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-            rec["longest_lane_tokens"] = T
-            rec["serial_chain_note"] = ("the real limit is each lane's serial chain of T "
+            rec["ns_per_step"] = rec["kernel_ms"] * 1e6 / T
+            # the same launch with T = 0 (the prologue and the launch): what
+            # is left is the token loop's
+            rec["kernel_ms_T0"] = device_times(
+                [(0, lambda: AL.ans_decode_batch(st, tb, lb, 0), AL.load(),
+                  "ans_decode_lanes_launch")])[0]
+            rec["loop_ns_per_step"] = (rec["kernel_ms"] - rec["kernel_ms_T0"]) * 1e6 / T
+            rec["serial_chain_note"] = ("the real limit is each stream's serial chain of T "
                                         "dependent table lookups, not bytes or operations")
-            main = (rec, st, tb, T)
+            timed_cases[S] = (rec, st, tb, T)
         emit(rec)
-    rec, st, tb, T = main
+    rec, st, tb, T = timed_cases[135]
+    wide = timed_cases[4224][0]
+    rec["S4224_T1024"] = {k: wide[k] for k in ("kernel_ms", "call_ms", "ns_per_step",
+                                              "kernel_ms_T0", "bound_ms", "bound_by")}
     AL.ans_decode_batch.launches = 0
     AL.ans_decode_batch(st, tb, 6, T)  # the path: one batch decode
     torch.cuda.synchronize()
@@ -763,18 +830,18 @@ def main() -> int:
          "stage_sets": k["stage_sets"]},
         {"name": "ans_decode_batch", "route": "cuda", "source": "jxl_tpu_torch/csrc/ans_lanes.cu",
          "replaces": "jxl_tpu/ops/pallas_ans.py:105", "launches": k2["launches"],
-         "launches_note": "its own path, the batch decode entry point; decode_image runs "
-                          "its step inside decode_ac_sections",
+         "launches_note": "its own path, the batch decode entry point; no decode path "
+                          "calls K2",
          "max_abs_err": k2["max_abs_err"], "ms": k2["kernel_ms"], "call_ms": k2["call_ms"],
-         "plain_ms": k2["plain_ms"],
+         "plain_ms": k2["plain_ms"], "ns_per_step": k2["ns_per_step"],
          "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"], "library_ms": None,
-         "library_note": null_reason},
+         "library_note": null_reason, "S4224_T1024": k2["S4224_T1024"]},
         {"name": "decode_ac_sections", "route": "cuda",
          "source": "jxl_tpu_torch/csrc/ans_lanes.cu",
          "replaces": "jxl_tpu/ops/device_ac.py:55",
          "launches": vardct_launches["decode_ac_sections"],
          "max_abs_err": k3["max_abs_err"], "ms": k3["kernel_ms"], "call_ms": k3["call_ms"],
-         "plain_ms": k3["plain_ms"],
+         "plain_ms": k3["plain_ms"], "ns_per_step": k3["ns_per_step"],
          "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"], "library_ms": None,
          "library_note": null_reason},
     ]})

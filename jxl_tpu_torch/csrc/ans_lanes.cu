@@ -21,8 +21,45 @@
 // are far below that, and at 135 lanes the card is almost idle. The step's
 // dependent latency is the whole cost.
 //
-// K2 keeps its table in shared memory and reads the stream bytes where it
-// stands (ans_step below).
+// K2's chain is one step's dependent instructions. A step needs the
+// table slot of state & 0xFFF (alias bucket, cutoff compare, then the
+// symbol, offset and dist), the multiply-add (state >> 12) * dist + offset,
+// the renorm compare and, on a renorm, the 16 bits at the stream's cursor.
+// As first ported it ran five dependent shared loads and a global byte
+// read on that chain, one thread a stream on 3 SMs (127 ns a step on an
+// H100). The model this design was cut to: one shared load (about 30
+// cycles) and a few integer instructions (4-6 each), 55-70 cycles, 28-35
+// ns at 1.98 GHz. What the design takes off the chain:
+//   - Alias selection: the block expands the (5, NB) alias table into one
+//     16-byte slot a 12-bit state in its prologue, with the JAX twin's
+//     arithmetic (signed pos >= cutoff, wrapping alias offset + pos), so
+//     every int32 table is held exactly and the host checks and packs
+//     nothing: (16 offset, 16 dist, offset, dist), the symbol beside it
+//     (80 KB, csrc/kernel_geometry.h's k2). The cutoff load and the loads
+//     behind it become one load, and the second multiply-add, beside the
+//     first, gives 16 times the next state, whose low 16 bits masked are
+//     the next slot's byte offset: no shift after the state's multiply-add.
+//     What stays on the chain: the load, the multiply-add, the renorm
+//     compare and the masked select of the next slot.
+//   - Renorm bits: a stream's cursor starts at bit 32 and moves 16 bits a
+//     renorm, so the bits a step may take are the 16-bit halfword at the
+//     cursor. A ring of the stream's bytes in shared memory (K3's
+//     stage_words and two halves) holds them, and each step loads the
+//     halfword two past the cursor, so the bits a renorm takes, and the
+//     slot they give, are in registers before the step needs them: no load
+//     of stream bytes is on the chain. The ring is restaged only between
+//     chunks of 32 steps.
+//   - Spread: one warp a stream, all 32 threads on the same uniform chain;
+//     the streams spread over every SM before a block takes a second one
+//     (k2::plan), so 135 streams run on 68 SMs, not 3. A block has 1024
+//     threads to build the table and stage the rings, and the warps
+//     without a stream then exit.
+//   - Stores: lane t % 32 keeps step t's symbol, and every 32 steps the warp
+//     writes 128 contiguous bytes, off the chain.
+// On an H100 80GB HBM3 the step runs about 57 cycles (chip_smoke.py's K2
+// time less its launch with T = 0, over T): the shared load takes most of
+// it, and a variant that kept the renorm slot's entry loaded ahead, off
+// the chain on a renorm, ran slower.
 //
 // K3 keeps the whole dependent chain of a step in registers and shared
 // memory, so no global load is on it:
@@ -66,9 +103,11 @@
 // sizes it leaves open, the context slice and whether the tables are
 // shared (ops/device_ac.py:ac_smem_plan).
 //
-// Built with -DK3_PROBE, the kernel also counts each lane's cycles, tokens
-// and cycles in the coefficient loop (read by k3_probe_read; the tool
-// tools/k3_probe.py); the normal build has none of it.
+// Built with -DK3_PROBE, K3 also counts each lane's cycles, tokens and
+// cycles in the coefficient loop (read by k3_probe_read), and K2 each
+// stream's cycles in its token loop and before it and the loop's
+// nanoseconds (k2_probe_read); the tool tools/k3_probe.py reads both. The
+// normal build has none of it.
 //
 // Semantics follow the JAX twins exactly, including their clipping: byte
 // indices clip to the row (a cursor past the end re-reads the row's last
@@ -85,6 +124,13 @@
 #ifdef K3_PROBE
 constexpr int kProbeLanes = 4096;
 __device__ long long g_k3_probe[3 * kProbeLanes];  // cycles, tokens, loop cycles
+// K2: cycles of a stream's token loop, cycles before it, its nanoseconds
+__device__ long long g_k2_probe[3 * kProbeLanes];
+__device__ __forceinline__ long long globaltimer() {
+  long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
 #define K3_PROBE_ONLY(...) __VA_ARGS__
 #else
 #define K3_PROBE_ONLY(...)
@@ -129,66 +175,170 @@ __device__ __forceinline__ int clampi(int x, int lo, int hi) {
   return x < lo ? lo : (x > hi ? hi : x);
 }
 
+// words [w0, w0 + n) of the lane's virtual byte sequence, whose word 0
+// starts at byte `base` and whose byte b is row[clip(b, 0, L-1)], into dst.
+// Out of line, as stage_items: the token loops stay small enough for the
+// instruction cache.
+__device__ __noinline__ void stage_words(uint32_t* dst, const uint8_t* row, int L,
+                                            long long base, int w0, int n, int tid,
+                                            int nthreads, bool aligned) {
+  for (int w = tid; w < n; w += nthreads) {
+    const long long b = base + 4LL * (w0 + w);
+    uint32_t v;
+    if (aligned && b >= 0 && b + 3 < L) {
+      v = *reinterpret_cast<const uint32_t*>(row + b);
+    } else {
+      v = 0;
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        long long bb = b + t;
+        bb = bb < 0 ? 0 : (bb > L - 1 ? L - 1 : bb);
+        v |= static_cast<uint32_t>(row[bb]) << (8 * t);
+      }
+    }
+    dst[w] = v;
+  }
+}
+
 // ---- K2 ------------------------------------------------------------------
 
-// 16 bits LSB-first at bit cursor bp of a row of L bytes, byte indices
-// clipped to [0, L-1]
-__device__ __forceinline__ unsigned window16(const uint8_t* row, int L, int bp) {
-  int byte0 = bp >> 3;
-  unsigned w = 0;
-#pragma unroll
-  for (int j = 0; j < 3; ++j) {
-    int idx = byte0 + j;
-    idx = idx < 0 ? 0 : (idx > L - 1 ? L - 1 : idx);
-    w |= static_cast<unsigned>(row[idx]) << (8 * j);
+// One warp a stream, k2::plan's `warps` streams a block (see the note at
+// the top). The table's slots and the rings: csrc/kernel_geometry.h's k2.
+__global__ void __launch_bounds__(k2::kThreads)
+    ans_decode_lanes_kernel(const uint8_t* __restrict__ streams, int S, int L,
+                            const int* __restrict__ table, int NB, int log_bucket, int T,
+                            int warps, int ring_words, int* __restrict__ tokens,
+                            unsigned* __restrict__ final_states) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint32_t* s_rings = reinterpret_cast<uint32_t*>(smem + k2::kOffRings);
+  constexpr int nthreads = k2::kThreads;
+  const int tid = threadIdx.x;
+  const int first = blockIdx.x * warps;
+  K3_PROBE_ONLY(const long long probe_entry = clock64();)
+
+  // ---- prologue: every thread builds the slots; each stream's ring is
+  // staged by its share of the threads
+  {
+    const int* dist = table;
+    const int* asym = table + static_cast<size_t>(NB);
+    const int* aoff = table + 2 * static_cast<size_t>(NB);
+    const int* acut = table + 3 * static_cast<size_t>(NB);
+    const int* adist = table + 4 * static_cast<size_t>(NB);
+    const unsigned bmask = (1u << log_bucket) - 1u;
+    uint4* s_slot = reinterpret_cast<uint4*>(smem);
+    int* s_sym = reinterpret_cast<int*>(smem + k2::kOffSym);
+#pragma unroll 4
+    for (int j = tid; j < k2::kSlots; j += nthreads) {
+      const int i = j >> log_bucket;
+      const int pos = static_cast<int>(static_cast<unsigned>(j) & bmask);
+      const int cut = __ldg(acut + i), sym = __ldg(asym + i), off = __ldg(aoff + i);
+      const int d0 = __ldg(dist + i), d1 = __ldg(adist + i);
+      const bool alias = pos >= cut;
+      const unsigned o = static_cast<unsigned>(alias ? wadd(off, pos) : pos);
+      const unsigned d = static_cast<unsigned>(alias ? d1 : d0);
+      s_slot[j] = make_uint4(o * k2::kSlotBytes, d * k2::kSlotBytes, o, d);
+      s_sym[j] = alias ? sym : i;
+    }
+    const int group = nthreads / warps;  // threads a ring
+    const int w = tid / group;
+    if (w < warps && first + w < S) {
+      const uint8_t* row = streams + static_cast<size_t>(first + w) * L;
+      stage_words(s_rings + w * ring_words, row, L, 0, 0, ring_words, tid - w * group, group,
+                  (reinterpret_cast<uintptr_t>(row) & 3) == 0);
+    }
   }
-  return (w >> (bp & 7)) & 0xFFFFu;
-}
-
-__device__ __forceinline__ unsigned read_bits(const uint8_t* row, int L, int bp, int nbits) {
-  unsigned v = window16(row, L, bp) | (window16(row, L, bp + 16) << 16);
-  unsigned mask = nbits >= 32 ? 0xFFFFFFFFu : ((1u << nbits) - 1u);
-  return v & mask;
-}
-
-// One rANS step: (state, cursor, table row) -> (symbol, state', cursor').
-// tab(r, i) returns row r (dist, alias symbol, alias offset, alias cutoff,
-// alias dist) at bucket i.
-template <class Tab>
-__device__ __forceinline__ int ans_step(unsigned& state, int& bitpos, const uint8_t* row,
-                                        int L, int log_bucket, const Tab& tab) {
-  unsigned idx = state & 0xFFFu;
-  int i = static_cast<int>(idx >> log_bucket);
-  int pos = static_cast<int>(idx & ((1u << log_bucket) - 1u));
-  bool use_alias = pos >= tab(3, i);
-  int sym = use_alias ? tab(1, i) : i;
-  int off = use_alias ? tab(2, i) + pos : pos;
-  int d = use_alias ? tab(4, i) : tab(0, i);
-  unsigned ns = (state >> kLogSumProbs) * static_cast<unsigned>(d) + static_cast<unsigned>(off);
-  if (ns < (1u << 16)) {
-    ns = (ns << 16) | read_bits(row, L, bitpos, 16);
-    bitpos += 16;
-  }
-  state = ns;
-  return sym;
-}
-
-__global__ void ans_decode_lanes_kernel(const uint8_t* __restrict__ streams, int S, int L,
-                                        const int* __restrict__ table, int NB, int log_bucket,
-                                        int T, int* __restrict__ tokens,
-                                        unsigned* __restrict__ final_states) {
-  extern __shared__ int s_table[];  // (5, NB)
-  for (int j = threadIdx.x; j < 5 * NB; j += blockDim.x) s_table[j] = table[j];
   __syncthreads();
-  int s = blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= S) return;
+
+  const int wid = tid >> 5, lane = tid & 31;
+  const int s = first + wid;
+  if (wid >= warps || s >= S) return;
   const uint8_t* row = streams + static_cast<size_t>(s) * L;
-  auto tab = [&](int r, int i) { return s_table[r * NB + i]; };
-  unsigned state = read_bits(row, L, 0, 32);
-  int bitpos = 32;
+  const bool aligned = (reinterpret_cast<uintptr_t>(row) & 3) == 0;
+  uint32_t* ring = s_rings + wid * ring_words;
+  const uint16_t* ring16 = reinterpret_cast<const uint16_t*>(ring);
+  const int half = ring_words >> 1;
+  const unsigned hw_mask = 2u * ring_words - 1u;
+  const long long n_words = k2::words_read(T, L);
+  // a cursor past the row reads the halfword of word ceil(L / 4), whose
+  // bytes are all the row's last
+  const long long k_row = 2 * ((static_cast<long long>(L) + 3) / 4);
+  const int k_max = k_row < 0x7FFFFFFF ? static_cast<int>(k_row) : 0x7FFFFFFF;
+  int stage_at = half;
+  // the ring word of the cursor enters half h = stage_at / half: stage the
+  // half after it over the one before, unless no step takes bits that far
+  auto restage = [&](int k) {
+    if ((min(k, k_max) >> 1) >= stage_at && stage_at + half < n_words) {
+      const int h = stage_at / half;
+      __syncwarp();
+      stage_words(ring + ((h + 1) & 1) * half, row, L, 0, (h + 1) * half, half, lane, 32,
+                  aligned);
+      __syncwarp();
+      stage_at += half;
+    }
+  };
+  // halfword j of the stream: bits [16j, 16j + 16)
+  auto halfword = [&](int j) -> unsigned {
+    return ring16[static_cast<unsigned>(min(j, k_max)) & hw_mask];
+  };
+
+  // the chain runs through `slot`, the byte offset of the state's slot;
+  // cur and nxt are the halfwords at the cursor and after it
+  unsigned state = ring[0];  // bytes 0-3, clipped to the row
+  unsigned slot = (state & 0xFFFu) * k2::kSlotBytes;
+  int k = 2;                 // the cursor, in halfwords: bit 16k
+  unsigned cur = halfword(2), nxt = halfword(3);
+  // one step; every value is uniform in the warp
+  auto step = [&]() -> int {
+    const uint4 e = *reinterpret_cast<const uint4*>(smem + slot);
+    const int sym = *reinterpret_cast<const int*>(smem + k2::kOffSym + slot / 4);
+    const unsigned ahead = halfword(k + 2);
+    const unsigned renorm_slot = (cur * k2::kSlotBytes) & k2::kSlotMask;
+    const unsigned hi = state >> kLogSumProbs;
+    const unsigned ns = hi * e.w + e.z;  // (state >> 12) * dist + offset
+    // 16 times that, masked, is its slot; computed whether or not the step
+    // renormalises (the empty asm keeps the compiler from computing it only
+    // after the compare, one instruction deeper on the chain)
+    unsigned next_slot = (hi * e.y + e.x) & k2::kSlotMask;
+    asm volatile("" : "+r"(next_slot));
+    const bool renorm = ns < (1u << 16);
+    slot = renorm ? renorm_slot : next_slot;
+    state = renorm ? ((ns << 16) | cur) : ns;
+    k += renorm ? 1 : 0;
+    cur = renorm ? nxt : cur;
+    nxt = renorm ? ahead : nxt;
+    return sym;
+  };
+
   int* out = tokens + static_cast<size_t>(s) * T;
-  for (int t = 0; t < T; ++t) out[t] = ans_step(state, bitpos, row, L, log_bucket, tab);
-  final_states[s] = state;
+  int keep = 0;  // this lane's symbol of the chunk
+  K3_PROBE_ONLY(const long long probe_t0 = clock64(); const long long probe_ns0 = globaltimer();)
+  int t0 = 0;
+  for (; T - t0 >= k2::kChunk; t0 += k2::kChunk) {
+    restage(k);
+#pragma unroll
+    for (int j = 0; j < k2::kChunk; ++j) {
+      const int sym = step();
+      keep = j == lane ? sym : keep;
+    }
+    out[t0 + lane] = keep;
+  }
+  if (t0 < T) {
+    restage(k);
+    const int n = T - t0;
+    for (int j = 0; j < n; ++j) {
+      const int sym = step();
+      keep = j == lane ? sym : keep;
+    }
+    if (lane < n) out[t0 + lane] = keep;
+  }
+  if (lane == 0) {
+    final_states[s] = state;
+    K3_PROBE_ONLY(if (s < kProbeLanes) {
+      g_k2_probe[3 * s] = clock64() - probe_t0;
+      g_k2_probe[3 * s + 1] = probe_t0 - probe_entry;
+      g_k2_probe[3 * s + 2] = globaltimer() - probe_ns0;
+    })
+  }
 }
 
 // ---- K3 ------------------------------------------------------------------
@@ -225,31 +375,6 @@ struct AcArgs {
 };
 
 static_assert(k3::kCtxEntryBytes == sizeof(uint16_t), "the slice holds 16-bit cluster ids");
-
-// words [w0, w0 + n) of the lane's virtual byte sequence, whose word 0
-// starts at byte `base` and whose byte b is row[clip(b, 0, L-1)], into dst.
-// Out of line, as stage_items: the token loop stays small enough for the
-// instruction cache.
-__device__ __noinline__ void stage_words(uint32_t* dst, const uint8_t* row, int L,
-                                            long long base, int w0, int n, int tid,
-                                            int nthreads, bool aligned) {
-  for (int w = tid; w < n; w += nthreads) {
-    const long long b = base + 4LL * (w0 + w);
-    uint32_t v;
-    if (aligned && b >= 0 && b + 3 < L) {
-      v = *reinterpret_cast<const uint32_t*>(row + b);
-    } else {
-      v = 0;
-#pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        long long bb = b + t;
-        bb = bb < 0 ? 0 : (bb > L - 1 ? L - 1 : bb);
-        v |= static_cast<uint32_t>(row[bb]) << (8 * t);
-      }
-    }
-    dst[w] = v;
-  }
-}
 
 // An item's slot in the ring: its ten fields, then values derived from them
 // once, when the item is staged, so the walk does not compute them.
@@ -606,15 +731,25 @@ cudaError_t launch_ac(const AcArgs& a, size_t smem, cudaStream_t stream) {
 extern "C" {
 
 int ans_decode_lanes_launch(const void* streams, int S, int L, const void* table, int NB,
-                            int log_bucket, int T, void* tokens, void* final_states,
-                            void* stream) {
+                            int log_bucket, int T, void* tokens, void* final_states, int warps,
+                            int ring_words, void* stream) {
+  // warps and ring_words: the wrapper's plan (ops/ans_lanes.py:k2_plan)
   if (S <= 0) return 0;
-  const int threads = 64;
-  const size_t smem = static_cast<size_t>(5) * NB * sizeof(int);
-  ans_decode_lanes_kernel<<<(S + threads - 1) / threads, threads, smem,
+  if (L <= 0 || T < 0 || log_bucket < 0 || log_bucket > 12 ||
+      (static_cast<long long>(NB) << log_bucket) < k2::kSlots || warps < 1 ||
+      warps > k2::kMaxWarps || ring_words < k2::kMinRingWords ||
+      ring_words > k2::kMaxRingWords || (ring_words & (ring_words - 1)) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const k2::Plan p = k2::plan_of(warps, ring_words);
+  cudaError_t e = cudaFuncSetAttribute(ans_decode_lanes_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(p.smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  ans_decode_lanes_kernel<<<(S + warps - 1) / warps, k2::kThreads, p.smem,
                             static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(streams), S, L, static_cast<const int*>(table), NB,
-      log_bucket, T, static_cast<int*>(tokens), static_cast<unsigned*>(final_states));
+      log_bucket, T, warps, ring_words, static_cast<int*>(tokens),
+      static_cast<unsigned*>(final_states));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -678,6 +813,15 @@ int k3_probe_read(void* host, int n) {
   if (n < 0 || n > kProbeLanes) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(
       cudaMemcpyFromSymbol(host, g_k3_probe, sizeof(long long) * 3 * static_cast<size_t>(n)));
+}
+
+// K2's counters of the last launch: 3 per stream (cycles of its token
+// loop, cycles from the kernel's entry to the loop, nanoseconds of the
+// loop) for the first n streams, into host memory
+int k2_probe_read(void* host, int n) {
+  if (n < 0 || n > kProbeLanes) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(
+      cudaMemcpyFromSymbol(host, g_k2_probe, sizeof(long long) * 3 * static_cast<size_t>(n)));
 }
 #endif
 

@@ -141,6 +141,19 @@ def k3_layout(tab_shared: bool, C: int, NB: int, ctx_slice: int) -> dict:
                 item_slot_bytes=out[10], ctx_entry_bytes=out[11])
 
 
+def k2_plan(S: int, T: int, L: int, sms: int) -> dict:
+    """K2's launch plan, as csrc/kernel_geometry.h defines it: streams
+    (warps) and threads a block, ring words a stream, shared bytes a block,
+    the table's bytes and the steps between a warp's token stores."""
+    fn = get_lib().jxl_k2_plan
+    fn.argtypes = [ctypes.c_longlong] * 3 + [ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = None
+    out = (ctypes.c_longlong * 6)()
+    fn(S, T, L, sms, out)
+    return dict(zip(("warps", "threads", "ring_words", "smem_bytes", "table_bytes", "chunk"),
+                    out))
+
+
 def available() -> bool:
     """Always true once get_lib() returned: a failed build raised."""
     return get_lib() is not None

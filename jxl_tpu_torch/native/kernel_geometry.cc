@@ -1,6 +1,6 @@
 // The kernels' geometry (csrc/kernel_geometry.h) for Python: K1's tile per
-// stage set and K3's shared-memory layout, from the same definitions the
-// kernels compile in.
+// stage set, K2's launch plan and K3's shared-memory layout, from the same
+// definitions the kernels compile in.
 
 #include "../csrc/kernel_geometry.h"
 
@@ -27,6 +27,15 @@ void jxl_k3_layout(int tab_shared, int C, int NB, int ctx_slice, long long* out)
                            k3::kOffCtx, l.cfg,        l.tab,             l.total,
                            k3::kRingHalf, k3::kItemHalf, k3::kItemSlot * 4, k3::kCtxEntryBytes};
   for (int i = 0; i < 12; ++i) out[i] = v[i];
+}
+
+// out: warps (streams) a block, threads a block, ring words a stream,
+// shared bytes a block, the table's bytes (the rings' offset) and the
+// steps between token stores
+void jxl_k2_plan(long long S, long long T, long long L, int sms, long long* out) {
+  const k2::Plan p = k2::plan(S, T, L, sms);
+  const long long v[6] = {p.warps, k2::kThreads, p.ring_words, p.smem, k2::kOffRings, k2::kChunk};
+  for (int i = 0; i < 6; ++i) out[i] = v[i];
 }
 
 }  // extern "C"

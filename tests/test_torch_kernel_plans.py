@@ -1,7 +1,7 @@
-"""What the kernels K1 and K3 take from the host, checked on the CPU: their
-shared-memory plans (from csrc/kernel_geometry.h, which the kernels compile
-in and the host library exports), K3's packed alias buckets and the tables
-it refuses, and K1's stage-set geometry. The kernels themselves run only
+"""What the kernels K1, K2 and K3 take from the host, checked on the CPU:
+their plans (from csrc/kernel_geometry.h, which the kernels compile in and
+the host library exports), K3's packed alias buckets and the tables it
+refuses, and K1's stage-set geometry. The kernels themselves run only
 on a card (chip_smoke.py holds them against their plain versions there);
 these tests hold the host side to what the kernels assume.
 """
@@ -297,6 +297,41 @@ def test_k3_bit_ring_rereads_the_last_byte_past_the_row(L, start):
         want = read_bits(streams, torch.tensor([pos]), torch.tensor([n]))
         assert g == int(want[0]), (pos, n)
         pos += n
+
+
+@pytest.mark.parametrize("S,T,L,sms", [
+    (135, 4096, 2776, 132),  # the S=135 writer case chip_smoke.py times
+    (4224, 1024, 712, 132),  # 32 streams an SM
+    (1, 0, 3, 132),          # T = 0, a row shorter than the state
+    (37, 4096, 400 * 1024, 132),  # rows longer than the ring: restaged
+    (10 ** 6, 31, 69, 114),  # capped at 32 streams a block; another card
+])
+def test_k2_plan_from_the_geometry_header(S, T, L, sms):
+    """K2's plan as the host library reads csrc/kernel_geometry.h, against
+    the rule it states: streams spread over every SM first (one warp each,
+    at most 32 a block); a ring of a power of two of 64 to 1024 words holds
+    every word T steps read (bytes [0, 4 + 2T), at most the row and the
+    all-last-byte word past it); the 80 KB table and the rings fit a block."""
+    from jxl_tpu_torch.ops.ans_lanes import k2_plan
+
+    plan = k2_plan(S, T, L, sms)
+    warps = min(32, max(1, -(-S // sms)))
+    words = min((2 * T + 7) // 4, (L + 3) // 4 + 1)
+    ring = 64
+    while ring < 1024 and ring < words:
+        ring *= 2
+    assert (plan["warps"], plan["ring_words"], plan["ring_bytes"]) == (warps, ring, 4 * ring)
+    assert plan["threads"] == 1024
+    assert plan["table_bytes"] == 4096 * (16 + 4)
+    assert plan["smem_bytes"] == plan["table_bytes"] + warps * 4 * ring <= SMEM_LIMIT
+    assert plan["blocks"] * warps >= S > (plan["blocks"] - 1) * warps
+    # the ring is restaged only between chunks: a chunk's steps read at most
+    # chunk / 2 + 1 words past the cursor's, less than half a ring
+    assert plan["chunk"] == 32 and plan["chunk"] // 2 + 1 < ring // 2
+    if S == 135:
+        assert plan["blocks"] == 68  # 135 streams on 68 SMs
+    if S == 37:
+        assert ring == 1024 and 4 * ring < L
 
 
 @pytest.mark.parametrize("use_gab", [False, True])

@@ -659,6 +659,18 @@ def long_section_stream():
     return encode_xyb_vardct(512, 256, seed=9, transforms="dct8", density=1.0, max_run=16)
 
 
+def random_int32_table(rng, log_bucket, extra=3):
+    """(5, NB) table of arbitrary int32 fields for the batch rANS decode
+    (K2), NB past 4096 >> log_bucket: negative offsets and dists, cutoffs
+    both far out of range and inside a bucket, so that both sides of the
+    signed cutoff compare and the wrapping alias offset + pos run."""
+    nb = (4096 >> log_bucket) + extra
+    t = rng.integers(-(1 << 31), 1 << 31, (5, nb), dtype=np.int64)
+    near = rng.random(nb) < 0.5
+    t[3, near] = rng.integers(-2, (1 << log_bucket) + 2, int(near.sum()))
+    return t.astype(np.int32)
+
+
 def random_lanes(seed, S=6, G=3, I=48, log_alpha=5, clusters=3):
     """Inputs of decode_ac_sections for S random lanes over G groups of I
     random items (wild positions, block contexts and coefficient offsets),

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Where K3's time goes on the card: cycles a token on each lane.
+"""Where K3's and K2's time goes on the card: cycles a step of each lane.
 
     python3 tools/k3_probe.py [--sass PATH]
 
@@ -9,10 +9,16 @@ through the K3 wrapper (ops/device_ac.py:decode_ac_sections) twice: with
 the normal build, timed by CUDA events around its launch
 (chip_smoke.device_times), and with the build of the same
 source with -DK3_PROBE, whose kernel counts each lane's cycles, tokens and
-cycles in the coefficient loop (clock64). It prints one JSON line: the K3
-device time, and for the lane with the most cycles its tokens, items,
-cycles a token and the share of its cycles spent in the coefficient loop.
-With --sass it also writes the normal build's SASS (cuobjdump) to PATH.
+cycles in the coefficient loop (clock64). Then it decodes chip_smoke.py's
+main K2 case (135 writer streams, 4096 steps each) through the K2 wrapper
+(ops/ans_lanes.py:ans_decode_batch) the same two ways; the probe build
+counts each stream's cycles in its token loop and before it, and the
+loop's nanoseconds (so the SM clock). It prints one JSON line:
+the K3 device time, and for the lane with the most cycles its tokens,
+items, cycles a token and the share of its cycles spent in the
+coefficient loop; then K2's device time and its cycles a step (the
+slowest stream, and over all streams). With --sass it also writes the
+normal build's SASS (cuobjdump) to PATH.
 """
 
 from __future__ import annotations
@@ -76,6 +82,20 @@ def main() -> int:
         raise RuntimeError(f"reading the counters failed: {probe.ans_lanes_error_string(err)}")
     cycles, tokens, loop = counts[0::3], counts[1::3], counts[2::3]
     m = int(np.argmax(cycles))
+
+    streams, table, k2_tokens, _ = chip_smoke._k2_streams(135, 4096, 1)
+    st, tb = torch.from_numpy(streams).to(dev), torch.from_numpy(table).to(dev)
+    T = k2_tokens.shape[1]
+    k2_ms = chip_smoke.device_times(
+        [(0, lambda: AL.ans_decode_batch(st, tb, 6, T), AL.load(), "ans_decode_lanes_launch")])[0]
+    with mock.patch.object(AL, "load", lambda: probe):
+        k2_got, _ = AL.ans_decode_batch(st, tb, 6, T)
+    torch.cuda.synchronize()
+    k2_counts = np.zeros(3 * len(streams), np.int64)
+    err = probe.k2_probe_read(k2_counts.ctypes.data, len(streams))
+    if err != 0:
+        raise RuntimeError(f"reading K2's counters failed: {probe.ans_lanes_error_string(err)}")
+    k2_cycles, k2_before, k2_ns = k2_counts[0::3], k2_counts[1::3], k2_counts[2::3]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
     print(json.dumps({
@@ -85,7 +105,14 @@ def main() -> int:
         "cycles": int(cycles[m]), "cycles_per_token": float(cycles[m] / tokens[m]),
         "coefficient_loop_share": float(loop[m] / cycles[m]),
         "cycles_per_token_all_lanes": float(cycles.sum() / tokens.sum()),
-        "ok_lanes": int(ok.sum())}))
+        "ok_lanes": int(ok.sum()),
+        "k2": {"streams": len(streams), "steps": T, "kernel_ms": k2_ms,
+               "ns_per_step": k2_ms * 1e6 / T,
+               "tokens_equal_the_writers": bool(np.array_equal(k2_got.cpu().numpy(), k2_tokens)),
+               "cycles_per_step_slowest": float(k2_cycles.max() / T),
+               "cycles_per_step_mean": float(k2_cycles.mean() / T),
+               "cycles_before_the_loop": int(k2_before.max()),
+               "sm_clock_ghz": float(k2_cycles.sum() / k2_ns.sum())}}))
     return 0
 
 
