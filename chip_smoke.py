@@ -12,7 +12,9 @@ a non-zero exit:
              the checkout.
 2. kernels - K1 against its plain torch version on the card, at 3840x2160
              for all six stage sets (gaborish on/off x epf_iters 1-3, each
-             timed beside its bound) and at ragged sizes down to 1x1, 2x3
+             timed beside its bound), at 1920x1080 (the upsampled VarDCT
+             frame's coded size, gaborish + EPF 2 steps: timed, and equal
+             to its plain version) and at ragged sizes down to 1x1, 2x3
              and 3x4097, with 1/sigma that includes passthrough pixels; max
              abs difference <= 1e-5, and <= 1e-6 more than 8 px from the
              edge.
@@ -51,9 +53,21 @@ a non-zero exit:
              native host decoder's (JXL_TPU_AC=host) bit for bit, and the
              pixels the port's CPU decode with JXL_TPU_AC=host (f32 <= 1e-4,
              u8 <= 1 LSB).
-5. profile - a u8 decode of each stream under torch.profiler: device
-             time by operation and the card's idle share. It runs right
-             after the build, and no other phase opens a profiler session.
+5. features - decode_image on the card of two streams with the
+             single-frame feature stages, 3840x2160 out: a 1920x1080 XYB
+             VarDCT frame upsampled 2x with photon noise (K3, then K1 at
+             1920x1080, then the upsampling and the noise at 3840x2160) and
+             a 3840x2160 XYB Modular frame with an 8-bit alpha channel (K1
+             at 3840x2160), u8 and f32, 3 reps each, with the noise field's
+             host seconds and its upload; K1's and K3's counts must rise,
+             and each decode is held against the port's CPU decode (VarDCT
+             with JXL_TPU_AC=host; f32 <= 1e-4, u8 <= 1 LSB). Then the
+             device time of each step of the upsampled VarDCT render, from
+             CUDA events.
+6. profile - a u8 decode of each stream (Modular, VarDCT, the upsampled
+             VarDCT with noise) under torch.profiler: device time by
+             operation and the card's idle share. It runs right after the
+             build, and no other phase opens a profiler session.
 
 Then one line with every kernel's numbers, the card's name and power
 limit, and as the last line {"ok": true, "device": {...}}. Prints no
@@ -253,6 +267,9 @@ def phase_kernels():
     results = []
     timed = []  # (index in results, call, kernel name) of the 4K stage sets
     cases = [((HEIGHT, WIDTH), g, it) for g in (True, False) for it in (1, 2, 3)]
+    # the upsampled VarDCT frame of the features phase runs K1 at its coded size
+    half = (HEIGHT // 2, WIDTH // 2)
+    cases.append((half, True, 2))
     cases += [((777, 1001), True, 3), ((777, 1001), False, 2), ((33, 65), True, 3),
               ((45, 67), True, 3), ((5, 7), True, 3), ((1, 1), True, 2), ((1, 1), True, 3),
               ((2, 3), True, 2), ((2, 3), False, 3), ((3, 4097), True, 2),
@@ -271,10 +288,11 @@ def phase_kernels():
         inner = float(d[:, 8:-8, 8:-8].max()) if h > 16 and w > 16 else 0.0
         rec = {"name": "epf_gab", "shape": [3, h, w], "gab": gab, "epf_iters": iters,
                "launches": launches, "max_abs_diff": err, "max_abs_diff_inner": inner}
-        if (h, w) == (HEIGHT, WIDTH):
-            # every stage set at 4K: time it beside its bound, with the
-            # geometry of its tile (csrc/kernel_geometry.h; the bytes a
-            # pixel are that geometry's model of the traffic, not a reading)
+        if (h, w) in ((HEIGHT, WIDTH), half):
+            # every stage set at 4K, and the main one at 1920x1080: time it
+            # beside its bound, with the geometry of its tile
+            # (csrc/kernel_geometry.h; the bytes a pixel are that geometry's
+            # model of the traffic, not a reading)
             plan = K.epf_gab_plan(gab, iters)
             emit({"phase": "kernels", "name": "epf_gab", "gab": gab, "epf_iters": iters,
                   "geometry": {k: plan[k] for k in ("halo", "halo_x", "smem_bytes",
@@ -289,6 +307,7 @@ def phase_kernels():
         check(launches == 1 and err <= 1e-5 and inner <= 1e-6,
               f"epf_gab disagrees with its plain version at {h}x{w} gab={gab} "
               f"iters={iters}: {err} (inner {inner})")
+        check((h, w) != half or err == 0.0, f"epf_gab at {h}x{w} is {err} from its plain version")
         results.append(rec)
     for i, ms in device_times(timed).items():
         r = results[i]
@@ -298,12 +317,14 @@ def phase_kernels():
               "epf_iters": r["epf_iters"], "kernel_ms": ms, "bound_ms": r["bound_ms"],
               "share_of_bound": r["share_of_bound"]})
     # the main path's configuration: gaborish + EPF 2 steps
-    main_rec = next(r for r in results if "kernel_ms" in r and r["gab"] and r["epf_iters"] == 2)
+    four_k = [r for r in results if "kernel_ms" in r and r["shape"][1:] == [HEIGHT, WIDTH]]
+    main_rec = next(r for r in four_k if r["gab"] and r["epf_iters"] == 2)
     main_rec["stage_sets"] = [
         {"stages": ("gaborish+" if r["gab"] else "") + f"epf_iters={r['epf_iters']}",
          **{k: r[k] for k in ("kernel_ms", "call_ms", "plain_ms", "bound_ms", "bound_by")}}
-        for r in results if "kernel_ms" in r]
-    return main_rec, max(r["max_abs_diff"] for r in results)
+        for r in four_k]
+    half_rec = next(r for r in results if "kernel_ms" in r and r["shape"][1:] == list(half))
+    return main_rec, half_rec, max(r["max_abs_diff"] for r in results)
 
 
 def phase_decode(data):
@@ -740,6 +761,157 @@ def phase_vardct(data, coeffs):
     return launches
 
 
+def feature_streams():
+    """[(name, codestream, channels out)] of the features phase, both
+    3840x2160 out: a 1920x1080 XYB VarDCT frame upsampled 2x with photon
+    noise (a seeded LUT), and a 3840x2160 XYB Modular frame with an 8-bit
+    alpha channel."""
+    import numpy as np
+
+    from test_torch_streams import encode_xyb_modular
+    from test_torch_vardct_streams import encode_xyb_vardct
+
+    lut = np.random.default_rng(7).integers(64, 512, 8).tolist()
+    vd, _ = encode_xyb_vardct(WIDTH // 2, HEIGHT // 2, seed=7, upsampling=2, noise=lut)
+    md, _ = encode_xyb_modular(WIDTH, HEIGHT, seed=7, num_ec=1)
+    return [("vardct_up2_noise", vd, 3), ("modular_alpha", md, 4)]
+
+
+def phase_features(streams):
+    """decode_image of the feature streams on the card, 3 reps a format,
+    held against the port's CPU decode (VarDCT AC on the host decoder)."""
+    import numpy as np
+    import torch
+
+    import jxl_tpu_torch
+    from jxl_tpu_torch.ops import ans_lanes as AL
+    from jxl_tpu_torch.ops import device_ac
+    from jxl_tpu_torch.ops import epf_gab as K
+
+    mp = WIDTH * HEIGHT / 1e6
+    runs = {}
+    K.epf_gab.launches = 0
+    device_ac.decode_ac_sections.launches = 0
+    AL.ans_decode_batch.launches = 0
+    for name, data, _ in streams:
+        for fmt in ("u8", "f32"):
+            for rep in range(3):
+                t0 = time.perf_counter()
+                img = jxl_tpu_torch.decode_image(data, pixel_format=fmt)
+                torch.cuda.synchronize()
+                total = time.perf_counter() - t0
+                host = img.timings["host_s"]
+                runs[(name, fmt)] = img.frames[0]
+                emit({"phase": "features", "stream": name, "format": fmt, "rep": rep,
+                      "megapixels": mp, "seconds": total, "mp_per_s": mp / total,
+                      "host_parse_entropy_s": host,
+                      "noise_field_host_s": img.timings.get("noise_field_s"),
+                      "device_s": total - host})
+    launches = {"epf_gab": K.epf_gab.launches,
+                "decode_ac_sections": device_ac.decode_ac_sections.launches,
+                "ans_decode_batch": AL.ans_decode_batch.launches}
+    emit({"phase": "features", "launches": launches})
+    check(launches["epf_gab"] > 0, "the feature decodes did not launch epf_gab")
+    check(launches["decode_ac_sections"] > 0, "the upsampled VarDCT decode did not launch K3")
+    # the noise field's upload: a pinned buffer of its shape, as the decode
+    # makes it, copied to the card
+    field = torch.empty((3, HEIGHT, WIDTH), dtype=torch.float32, pin_memory=True)
+    upload_ms = time_ms(lambda: field.to("cuda", non_blocking=True), reps=5, warmup=1)
+    emit({"phase": "features", "noise_field_bytes": field.nbytes,
+          "noise_field_upload_ms": upload_ms,
+          "upload_gb_per_s": field.nbytes / upload_ms / 1e6})
+
+    os.environ["JXL_TPU_AC"] = "host"
+    try:
+        for name, data, channels in streams:
+            for fmt in ("u8", "f32"):
+                got = runs[(name, fmt)]
+                check(got.device.type == "cuda", "frames must stay on the card")
+                check(tuple(got.shape) == (HEIGHT, WIDTH, channels),
+                      f"{name}: bad shape {tuple(got.shape)}")
+                t0 = time.perf_counter()
+                ref = jxl_tpu_torch.decode_image(data, pixel_format=fmt, device="cpu").frames[0]
+                cpu_s = time.perf_counter() - t0
+                a = got.cpu().numpy().astype(np.float64)
+                b = ref.numpy().astype(np.float64)
+                check(np.isfinite(a).all(), "non-finite output")
+                diff = float(np.abs(a - b).max())
+                limit = 1.0 if fmt == "u8" else 1e-4
+                emit({"phase": "features", "stream": name, "format": fmt,
+                      "vs_cpu_max_abs_diff": diff, "limit": limit, "cpu_decode_s": cpu_s,
+                      "min": float(a.min()), "max": float(a.max())})
+                check(diff <= limit, f"{name} {fmt} decode on the card differs from the CPU: "
+                      f"{diff}")
+    finally:
+        os.environ.pop("JXL_TPU_AC", None)
+    return launches
+
+
+# cycles the card spins before each step of the breakdown: longer than the
+# host takes to queue the step's operations
+BREAKDOWN_SPIN_CYCLES = 4_000_000
+
+
+def phase_feature_breakdown(data) -> None:
+    """The upsampled VarDCT render of decode_image taken apart: the host
+    parse with the AC decode (K3), then, timed with CUDA events each
+    behind a spin on the card, the VarDCT planes, the noise field's upload,
+    K1, each feature stage, the colour transform and the u8 conversion;
+    the noise field on the host clock."""
+    import torch
+
+    from jxl_tpu_torch.features.noise import generate_noise_field
+    from jxl_tpu_torch.render.pipeline import (build_render_pipeline, color_transform_stage,
+                                               convert_output_stage)
+    from jxl_tpu_torch.render.simple import vardct_planes
+    from jxl_tpu_torch.render.span_exec import run_span
+
+    dev = torch.device("cuda")
+    steps = []
+
+    def timed(name, fn):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(BREAKDOWN_SPIN_CYCLES)
+        a.record()
+        out = fn()
+        b.record()
+        steps.append((name, a, b))
+        return out
+
+    for rep in range(2):  # the first warms the allocator
+        steps.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frame = _vardct_frame(data, dev)
+        torch.cuda.synchronize()
+        parse_s = time.perf_counter() - t0
+        planes = timed("vardct_planes", lambda: vardct_planes(frame, dev))
+        t0 = time.perf_counter()
+        field = generate_noise_field(frame, pin_memory=True)
+        field_s = time.perf_counter() - t0
+        ctx = {"frame": frame, "noise_field": timed(
+            "noise_field_upload", lambda: field.to(dev, non_blocking=True))}
+        span = build_render_pipeline(frame) + [color_transform_stage(frame),
+                                               convert_output_stage("u8", (0, 1, 2))]
+        segments, i = [], 0
+        while i < len(span):  # a run of filter stages is one K1 launch
+            j = i + 1
+            while span[i].is_filter and j < len(span) and span[j].is_filter:
+                j += 1
+            segments.append(span[i:j])
+            i = j
+        chans = list(planes.unbind(0))
+        for seg in segments:
+            name = "+".join(s.name for s in seg)
+            chans = timed(name, lambda seg=seg, chans=chans: run_span(seg, chans, ctx))
+        torch.cuda.synchronize()
+    emit({"phase": "features_breakdown", "stream": "vardct_up2_noise", "format": "u8",
+          "host_parse_and_ac_decode_s": parse_s, "noise_field_host_s": field_s,
+          "device_ms": [[name, a.elapsed_time(b)] for name, a, b in steps],
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
+
+
 def phase_profile(data, stream: str, expect: str) -> None:
     """One u8 decode under torch.profiler: device time by operation, and
     the share of the decode's wall time the card was busy. A trace that
@@ -809,25 +981,36 @@ def main() -> int:
     vdata, vcoeffs = encode_xyb_vardct(WIDTH, HEIGHT, seed=7)
     emit({"phase": "vardct", "step": "write_stream", "bytes": len(vdata),
           "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    fstreams = feature_streams()
+    emit({"phase": "features", "step": "write_streams",
+          "bytes": {name: len(d) for name, d, _ in fstreams},
+          "seconds": time.perf_counter() - t0})
     # the only profiler sessions of the process: CUPTI has dropped events
     # in sessions after the first few
+    phase_profile(fstreams[0][1], "vardct_up2_noise", "epf_gab_kernel")
     phase_profile(data, "modular", "epf_gab_kernel")
     phase_profile(vdata, "vardct", "ac_sections_kernel")
-    k, max_err = phase_kernels()
+    k, k_half, max_err = phase_kernels()
     k2 = phase_k2()
     k3 = phase_k3(vdata)
     modular_launches = phase_decode(data)
     vardct_launches = phase_vardct(vdata, vcoeffs)
+    feature_launches = phase_features(fstreams)
+    phase_feature_breakdown(fstreams[0][1])
     null_reason = "no single torch call computes a rANS decode"
     emit({"kernels": [
         {"name": "epf_gab", "route": "cuda", "source": "jxl_tpu_torch/csrc/epf_gab.cu",
          "replaces": "jxl_tpu/ops/pallas_epf.py:228", "launches": vardct_launches["epf_gab"],
          "launches_modular_path": modular_launches,
+         "launches_features_path": feature_launches["epf_gab"],
          "max_abs_err": max_err, "ms": k["kernel_ms"], "call_ms": k["call_ms"],
          "plain_ms": k["plain_ms"],
          "bound_ms": k["bound_ms"], "bound_by": k["bound_by"], "library_ms": None,
          "library_note": "no single torch call computes gaborish+EPF",
-         "stage_sets": k["stage_sets"]},
+         "stage_sets": k["stage_sets"],
+         "at_1920x1080": {key: k_half[key] for key in ("kernel_ms", "call_ms", "plain_ms",
+                                                      "bound_ms", "bound_by", "max_abs_diff")}},
         {"name": "ans_decode_batch", "route": "cuda", "source": "jxl_tpu_torch/csrc/ans_lanes.cu",
          "replaces": "jxl_tpu/ops/pallas_ans.py:105", "launches": k2["launches"],
          "launches_note": "its own path, the batch decode entry point; no decode path "
@@ -840,6 +1023,7 @@ def main() -> int:
          "source": "jxl_tpu_torch/csrc/ans_lanes.cu",
          "replaces": "jxl_tpu/ops/device_ac.py:55",
          "launches": vardct_launches["decode_ac_sections"],
+         "launches_features_path": feature_launches["decode_ac_sections"],
          "max_abs_err": k3["max_abs_err"], "ms": k3["kernel_ms"], "call_ms": k3["call_ms"],
          "plain_ms": k3["plain_ms"], "ns_per_step": k3["ns_per_step"],
          "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"], "library_ms": None,

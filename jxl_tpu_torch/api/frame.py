@@ -6,9 +6,10 @@ decoding. A VarDCT frame's AC coefficients are decoded by the lane
 decoder (vardct/device_group.py: kernel K3 on the card, its plain torch
 version on the CPU) or, with JXL_TPU_AC=host or for streams the lane
 decoder does not take, by the native host decoder; either way they end
-up as one dense buffer for vardct/device_frame.py. Patches, splines,
-noise and LF frames are outside this package's slice: the entry point
-(api/simple.py) rejects such frames before any section is read.
+up as one dense buffer for vardct/device_frame.py. A Modular frame's
+global image carries its extra channels. Patches, splines and LF frames
+are outside this package's slice: the entry point (api/simple.py) rejects
+such frames before any section is read.
 """
 
 from __future__ import annotations
@@ -70,6 +71,7 @@ class LfGlobalState:
     color_correlation_params: object = None
     tree: Tree = None
     modular_global: FullModularImage = None
+    noise: object = None  # features/noise.py Noise, when the frame has noise
 
 
 class Frame:
@@ -126,11 +128,18 @@ class Frame:
     # -- LfGlobal ----------------------------------------------------------------
 
     def decode_lf_global(self, br: BitReader) -> None:
-        """ref frame/decode.rs:314-434, frames without patches, splines or
-        noise."""
+        """ref frame/decode.rs:314-434, frames without patches or splines:
+        the noise parameters, then the tables and the global Modular
+        image."""
         header = self.header
         is_vardct = header.encoding == Encoding.VARDCT
         state = LfGlobalState()
+        if header.has_patches or header.has_splines:
+            raise NotSupported("patches and splines are not in this package's slice")
+        if header.has_noise:
+            from ..features.noise import Noise
+
+            state.noise = Noise.read(br)
         num_ec = len(self.file_header.image_metadata.extra_channel_info)
         size_limit = min(
             1024

@@ -1,10 +1,12 @@
 """Whole-buffer decode entry point (non-streaming), single frame.
 
 Counterpart of jxl_tpu/api/simple.py:decode_image restricted to its
-single-frame path: one visible Modular or 4:4:4 VarDCT frame, no preview,
-animation, ICC profile or extra channels. Host parse and entropy decode
-run in numpy and C++ (native/); a VarDCT frame's AC coefficients are
-decoded on the caller's device (api/frame.py), and the render runs there.
+single-frame path: one visible Modular or 4:4:4 VarDCT frame, upsampled or
+not, with or without photon noise, a Modular frame with or without extra
+channels; no preview, animation, ICC profile, patches or splines. Host
+parse and entropy decode run in numpy and C++ (native/); a VarDCT frame's
+AC coefficients are decoded on the caller's device (api/frame.py), and
+the render runs there.
 """
 
 from __future__ import annotations
@@ -32,7 +34,8 @@ class DecodedImage:
     icc_profile: bytes | None = None
     durations: list = dfield(default_factory=list)
     # seconds of host parse + entropy decode ("host_s"); the device render
-    # is queued asynchronously and not included
+    # is queued asynchronously and not included. A frame with noise adds
+    # "noise_field_s", the host seconds of its random field.
     timings: dict = dfield(default_factory=dict)
 
     def output_icc(self) -> bytes:
@@ -71,8 +74,6 @@ def _check_image(fh) -> None:
         raise NotSupported("preview frames are not in this package's slice")
     if meta.animation is not None:
         raise NotSupported("animation is not in this package's slice")
-    if meta.extra_channel_info:
-        raise NotSupported("extra channels are not in this package's slice")
 
 
 def _check_frame(header) -> None:
@@ -81,6 +82,8 @@ def _check_frame(header) -> None:
             raise NotSupported("chroma-subsampled VarDCT frames are not in this package's slice")
         if header.has_lf_frame:
             raise NotSupported("LF frames are not in this package's slice")
+        if header.num_extra_channels:
+            raise NotSupported("extra channels of VarDCT frames are not in this package's slice")
     if header.frame_type not in (FrameType.REGULAR, FrameType.SKIP_PROGRESSIVE):
         raise NotSupported(f"{header.frame_type.name} frames are not in this package's slice")
     if not header.is_last:
@@ -89,16 +92,17 @@ def _check_frame(header) -> None:
         raise NotSupported("lf_level is not in this package's slice")
     if header.needs_blending():
         raise NotSupported("cropped or blended frames are not in this package's slice")
-    if header.has_patches or header.has_splines or header.has_noise:
-        raise NotSupported("patches, splines and noise are not in this package's slice")
-    if header.upsampling > 1:
-        raise NotSupported("upsampling is not in this package's slice")
+    if header.has_patches:
+        raise NotSupported("patches are not in this package's slice")
+    if header.has_splines:
+        raise NotSupported("splines are not in this package's slice")
 
 
 def decode_image(
     data: bytes, *, pixel_format: str = "f32", device="cuda"
 ) -> DecodedImage:
-    """Decode a single-frame Modular or 4:4:4 VarDCT .jxl file.
+    """Decode a single-frame Modular or 4:4:4 VarDCT .jxl file: frames of
+    shape (H, W, 3 + extra channels), in the requested sample type.
 
     pixel_format: "f32" (default), "u8", "u16", or "f16" — the output sample
     format (ref JxlDataFormat + ConvertF32To* stages, convert.rs:549-).
@@ -129,7 +133,8 @@ def decode_image(
     frame.decode_all_sections(br, device)
     host_s = time.perf_counter() - t0
 
-    planes = render_frame(frame, device, pixel_format)
+    timings = {"host_s": host_s}
+    planes = render_frame(frame, device, pixel_format, timings)
     planes = planes[:, : fh.ysize, : fh.xsize]
     arr = apply_orientation(planes.permute(1, 2, 0).contiguous(), fh.image_metadata.orientation)
-    return DecodedImage(fh, [arr], None, [0.0], {"host_s": host_s})
+    return DecodedImage(fh, [arr], None, [0.0], timings)

@@ -119,6 +119,11 @@ def get_lib():
             ):
                 getattr(lib, name).restype = ctypes.c_int
             lib.jxl_rct.restype = None
+            lib.jxl_noise_field.restype = None
+            lib.jxl_noise_field.argtypes = (
+                [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 2 + [ctypes.c_int] * 4
+                + [ctypes.c_uint32] * 2
+            )
             _lib = lib
     return _lib
 
@@ -1147,3 +1152,23 @@ def decode_hf_groups_native(
     if ret != 0:
         raise NativeDecodeError(f"native hf-groups decode failed (code {ret})")
     return [int(poss[i]) for i in range(n)]
+
+
+def noise_field_native(field, up, group_dim, gx_count, gy_count, vfi, nfi) -> None:
+    """Fill field, a C-contiguous (3, hu, wu) float32 array, with the
+    per-group xorshift128+ noise field in place (filters.cc
+    jxl_noise_field)."""
+    if field.dtype != np.float32 or field.ndim != 3 or field.shape[0] != 3:
+        raise ValueError("noise field must be (3, hu, wu) float32")
+    if not field.flags.c_contiguous:
+        raise ValueError("noise field must be C-contiguous")
+    lib = get_lib()
+    _, hu, wu = field.shape
+    lib.jxl_noise_field(
+        _ptr(field[0], ctypes.c_float), _ptr(field[1], ctypes.c_float),
+        _ptr(field[2], ctypes.c_float),
+        ctypes.c_int64(hu), ctypes.c_int64(wu),
+        ctypes.c_int(int(up)), ctypes.c_int(int(group_dim)),
+        ctypes.c_int(int(gx_count)), ctypes.c_int(int(gy_count)),
+        ctypes.c_uint32(int(vfi)), ctypes.c_uint32(int(nfi)),
+    )

@@ -1,5 +1,4 @@
-"""Filters + colour transform + output conversion as one pass on the
-caller's device.
+"""Filters, colour transform and output conversion on the caller's device.
 
 The JAX package meant its whole-frame route to run this (ref
 jxl_tpu/render/device_filters.py:run_filters_and_color): gaborish + EPF,
@@ -7,6 +6,13 @@ the XYB/YCbCr -> display colour transform and the ConvertF32To* output
 stage with a single upload and a single download per frame. Here the
 filter chain is the hand-written kernel of ops/epf_gab.py whenever the
 planes lie on the card, and its plain torch version on the CPU.
+
+run_filters is the filter chain alone. A frame with feature stages
+(upsampling, noise, extra channels) runs it on the coded-size planes and
+then its other stages (render/span_exec.py). This differs from jxl_tpu on
+purpose: there such frames run gaborish and EPF as plain jnp stage bodies
+inside the span (jxl_tpu/render/simple.py:223-234), where the port
+launches the kernel as it does for frames without feature stages.
 """
 
 from __future__ import annotations
@@ -27,31 +33,43 @@ def _gab_key(rf):
     )
 
 
-def run_filters_and_color(frame, planes, sigma_block, constant_sigma, out_format: str = "f32"):
-    """planes: (3, H, W) float32 on the caller's device, already cropped to
-    the visible frame. sigma_block: a VarDCT frame's (bh, bw) per-block
-    stored 1/sigma on the same device, expanded here to one value a pixel
-    (ref device_filters.py:110-116); else constant_sigma, a Modular
-    frame's constant stored 1/sigma (ref render/simple.py:213-217). Both
-    None without EPF. Returns (3, H, W) in the output sample type, on the
-    same device."""
+def run_filters(frame, planes):
+    """Gaborish + EPF of the frame on planes, a (3, H, W) float32 tensor
+    already cropped to the coded frame: one launch of the kernel on the
+    card, its plain version on the CPU. EPF's 1/sigma is a VarDCT frame's
+    per-block image, uploaded and expanded here to one value a pixel (ref
+    device_filters.py:110-116), or a Modular frame's constant (ref
+    render/simple.py:213-217). Returns the planes unchanged when the frame
+    has no filter."""
+    from .pipeline import sigma_source
+
     rf = frame.header.restoration_filter
     gab_weights = _gab_key(rf)
     epf_iters = int(rf.epf_iters)
-    if gab_weights is not None or epf_iters > 0:
-        h, w = planes.shape[1:]
-        if epf_iters > 0 and sigma_block is not None:
-            inv_sigma = st._expand_sigma(sigma_block, h, w, (0, 0)).contiguous()
-        else:
-            inv_sigma = torch.full(
-                (h, w), st.f32(constant_sigma if epf_iters > 0 else 0.0),
-                dtype=torch.float32, device=planes.device,
-            )
-        planes = epf_gab(
-            planes.contiguous(), inv_sigma, gab_weights, epf_iters,
-            rf.epf_pass0_sigma_scale, rf.epf_pass2_sigma_scale,
-            rf.epf_border_sad_mul, tuple(rf.epf_channel_scale),
+    if gab_weights is None and epf_iters == 0:
+        return planes
+    h, w = planes.shape[1:]
+    sigma_block, constant_sigma = sigma_source(frame)
+    if sigma_block is not None:
+        sigma_block = torch.from_numpy(sigma_block).to(planes.device)
+        inv_sigma = st._expand_sigma(sigma_block, h, w, (0, 0)).contiguous()
+    else:
+        inv_sigma = torch.full(
+            (h, w), st.f32(constant_sigma if epf_iters > 0 else 0.0),
+            dtype=torch.float32, device=planes.device,
         )
+    return epf_gab(
+        planes.contiguous(), inv_sigma, gab_weights, epf_iters,
+        rf.epf_pass0_sigma_scale, rf.epf_pass2_sigma_scale,
+        rf.epf_border_sad_mul, tuple(rf.epf_channel_scale),
+    )
+
+
+def run_filters_and_color(frame, planes, out_format: str = "f32"):
+    """run_filters, then the colour transform and the output conversion:
+    (3, H, W) float32 planes in, (3, H, W) in the output sample type out,
+    on the same device."""
+    planes = run_filters(frame, planes)
     from .simple import color_transform
 
     chans = color_transform(frame, [planes[0], planes[1], planes[2]])

@@ -3,13 +3,17 @@ device.
 
 Counterpart of jxl_tpu/render/simple.py for this package's slice: the
 VarDCT planes (vardct/device_frame.py, from the dense AC coefficients) or
-the Modular-to-float conversion (with the XYB channel order and scaling),
-the stage assembly of render/pipeline.py, and one fused filter + colour +
-output-format program (render/device_filters.py), with the crops as
-slicing around it.
+the Modular-to-float conversion (with the XYB channel order and scaling,
+and each extra channel at its own bit depth), the stage assembly of
+render/pipeline.py, then either one fused filter + colour + output-format
+pass (render/device_filters.py) for a frame without feature stages, or the
+stage list run by render/span_exec.py (the filters, upsampling, noise) and
+the colour transform for one with upsampling, noise or extra channels.
 """
 
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
@@ -110,26 +114,102 @@ def vardct_planes(frame, device) -> torch.Tensor:
     return planes
 
 
-def render_frame(frame, device, out_format: str = "f32") -> torch.Tensor:
+def _extra_channel_planes(frame, device) -> list:
+    """A Modular frame's extra channels as float32 planes on `device`, each
+    at its own bit depth (ref render/simple.py:133-136)."""
+    meta = frame.file_header.image_metadata
+    mg = frame.lf_global.modular_global
+    return [
+        _modular_to_f32(
+            torch.from_numpy(np.ascontiguousarray(mg.output_channel(3 + i))).to(device),
+            info.bit_depth,
+        )
+        for i, info in enumerate(meta.extra_channel_info)
+    ]
+
+
+def render_frame(frame, device, out_format: str = "f32", timings=None) -> torch.Tensor:
     """All stages of a single visible frame, colour transform and output
-    conversion included: (3, H, W) in the output sample type on `device`."""
+    conversion included: (3 + extra channels, H, W) in the output sample
+    type on `device`. timings, a dict, gets "noise_field_s", the host
+    seconds of the noise field, when the frame has noise."""
     from ..io.headers.frame import Encoding
     from .device_filters import run_filters_and_color
-    from .pipeline import build_render_pipeline, sigma_source
+    from .pipeline import build_render_pipeline, color_transform_stage, convert_output_stage
+    from .span_exec import run_span
 
+    header = frame.header
+    num_ec = len(frame.file_header.image_metadata.extra_channel_info)
     stages = build_render_pipeline(frame)
-    if frame.header.encoding == Encoding.VARDCT:
+    if header.encoding == Encoding.VARDCT:
         planes = vardct_planes(frame, device)
     else:
         planes = frame_planes(frame, device)
-    wc, hc = stages[0].size
-    planes = planes[:, :hc, :wc]
-    sigma_block, const_sigma = sigma_source(frame)
-    if sigma_block is not None:
-        sigma_block = torch.from_numpy(sigma_block).to(device)
-    out = run_filters_and_color(frame, planes, sigma_block, const_sigma, out_format)
-    wu, hu = stages[-1].size
-    return out[:, :hu, :wu]
+    wc, hc = header.size()
+    wu, hu = header.size_upsampled()
+    if not (num_ec or header.upsampling > 1 or header.has_noise):
+        out = run_filters_and_color(frame, planes[:, :hc, :wc], out_format)
+        return out[:, :hu, :wu]
+
+    chans = list(planes.unbind(0))
+    if num_ec:
+        chans += _extra_channel_planes(frame, device)
+    ctx = {"frame": frame}
+    if header.has_noise:
+        from ..features.noise import generate_noise_field
+
+        t0 = time.perf_counter()
+        field = generate_noise_field(frame, pin_memory=device.type == "cuda")
+        if timings is not None:
+            timings["noise_field_s"] = time.perf_counter() - t0
+        ctx["noise_field"] = field.to(device, non_blocking=True)
+    # with extra channels the stages end in f32 and the conversion follows
+    # spot colours and premultiplication (ref api/simple.py:204-210)
+    fmt = "f32" if num_ec else out_format
+    tail = [color_transform_stage(frame)]
+    if fmt != "f32":
+        tail.append(convert_output_stage(fmt, (0, 1, 2)))
+    chans = run_span(stages + tail, chans, ctx)
+    if num_ec:
+        chans = apply_spot_and_premultiply(frame, chans)
+        if out_format != "f32":
+            chans = [st.convert_output(c, out_format, channel=i) for i, c in enumerate(chans)]
+    return torch.stack(chans)
+
+
+def apply_spot_and_premultiply(frame, canvas, options=None):
+    """SpotColorStage + PremultiplyAlphaStage (ref stages/spot.rs:9-68,
+    stages/premultiply_alpha.rs:11-; inserted per frame/render.rs:773-846).
+
+    Spot channels mix their linear RGBA color into the color planes; with
+    premultiply_output the color planes are multiplied by a straight
+    (non-associated) alpha channel. An associated alpha is already
+    premultiplied and passes through."""
+    from ..io.headers import ExtraChannel
+
+    meta = frame.file_header.image_metadata
+    canvas = list(canvas)
+    render_spots = options is None or getattr(options, "render_spot_colors", True)
+    if render_spots:
+        for i, info in enumerate(meta.extra_channel_info):
+            if info.ec_type == ExtraChannel.SPOT_COLOR:
+                sc = [st.f32(v) for v in info.spot_color]
+                mix = sc[3] * canvas[3 + i]
+                for c in range(3):
+                    canvas[c] = mix * sc[c] + (1.0 - mix) * canvas[c]
+    if options is not None and getattr(options, "premultiply_output", False):
+        alpha = next(
+            (
+                3 + i
+                for i, info in enumerate(meta.extra_channel_info)
+                if info.ec_type == ExtraChannel.ALPHA and not info.alpha_associated
+            ),
+            None,
+        )
+        if alpha is not None:
+            for c in range(3):
+                canvas[c] = canvas[c] * canvas[alpha]
+    return canvas
 
 
 def color_transform(frame, planes):

@@ -192,6 +192,42 @@ def _expand_sigma(sigma_block, h, w, pos):
     return px[oy : oy + h, ox : ox + w]
 
 
+# -- N-x upsampling --------------------------------------------------------------
+
+
+def build_upsample_kernels(weights, n: int) -> np.ndarray:
+    """(N, N, 5, 5) kernels from packed triangular weights (ref upsample.rs)."""
+    kernel = np.zeros((n, n, 5, 5), dtype=np.float32)
+    half = n // 2
+    for i in range(5 * half):
+        for j in range(5 * half):
+            y, x = min(i, j), max(i, j)
+            index = 5 * half * y - y * (y - 1) // 2 + x - y
+            v = weights[index]
+            kernel[j // 5, i // 5, j % 5, i % 5] = v
+            kernel[(n - 1) - j // 5, i // 5, 4 - (j % 5), i % 5] = v
+            kernel[j // 5, (n - 1) - i // 5, j % 5, 4 - (i % 5)] = v
+            kernel[(n - 1) - j // 5, (n - 1) - i // 5, 4 - (j % 5), 4 - (i % 5)] = v
+    return kernel
+
+
+def upsample(plane, kernels: np.ndarray, n: int):
+    """N-x upsampling: per-output-phase 5x5 conv of the mirror-padded
+    plane, clamped to the local 5x5 min/max (ref upsample.rs). The 25
+    shifted views are stacked, (5, 5, h, w) floats, and every phase is one
+    contraction with its kernel."""
+    h, w = plane.shape
+    p = _pad_mirror(plane, 2, 2)
+    stack = torch.stack([p[dy : dy + h, dx : dx + w] for dy in range(5) for dx in range(5)])
+    stack = stack.reshape(5, 5, h, w)
+    mins = stack.amin(dim=(0, 1))
+    maxs = stack.amax(dim=(0, 1))
+    k = torch.from_numpy(kernels).to(plane.device)
+    acc = torch.einsum("abij,ijhw->abhw", k, stack)
+    acc = torch.minimum(torch.maximum(acc, mins), maxs)
+    return acc.permute(2, 0, 3, 1).reshape(h * n, w * n)
+
+
 # -- output pixel-format conversion ------------------------------------------------
 
 _DITHER = None

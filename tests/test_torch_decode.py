@@ -107,7 +107,6 @@ def test_parsed_state_matches_jxl_tpu(name):
 @pytest.mark.parametrize(
     "make,reason",
     [
-        (lambda: encode_constant_modular(300, 300, num_ec=1), "extra channels"),
         (lambda: encode_patches_modular(300, 300), "frame"),
     ],
 )

@@ -27,6 +27,8 @@ GROUP_DIM = 256
 # the default LF quant factors Y = iy/512, X = ix/4096, B = (ib + iy)/256,
 # so these give Y ~ 0.5 +- 0.06, X ~ 0 +- 0.004, B ~ 0.5 +- 0.07: in gamut.
 XYB_LEAVES = ((256, 4), (0, 3), (-128, 2))
+# the alpha channel's leaf: 0, 64, 128 or 192
+ALPHA_LEAF = (128, 6)
 _RESIDUAL_TOKENS = (0, 1, 2, 3)  # unsigned tokens of residuals 0, -1, 1, -2
 
 
@@ -83,34 +85,41 @@ def write_per_context_histograms(w: BW, token_sets: list):
 
 
 def write_channel_split_tree(w: BW, leaves):
-    """MA tree: split on property 0 (channel index) into three
-    Zero-predictor leaves for channels 0, 1, 2 with (offset, mul_log)."""
-    # tree nodes in decode order: root (c > 0 ?), node (c > 1 ?), leaf c=0,
-    # leaf c=2, leaf c=1 (left child = property > splitval)
-    order = (leaves[0], leaves[2], leaves[1])
+    """MA tree: a chain of splits on property 0 (the channel index), one
+    Zero-predictor leaf per channel with its (offset, mul_log)."""
+    # node k asks "c > k ?"; its left child (property > splitval) is node
+    # k + 1, or the last channel's leaf, and its right child channel k's
+    # leaf. The decoder reads nodes breadth first.
+    n = len(leaves)
+    order, queue = [], [("split", 0)]
+    while queue:
+        kind, k = queue.pop(0)
+        order.append((kind, k))
+        if kind == "split":
+            queue += [("split", k + 1) if k + 1 < n - 1 else ("leaf", n - 1), ("leaf", k)]
     # contexts: splitval, property, predictor, offset, mul_log, mul_bits
-    props = [1, 1, 0, 0, 0]
-    splits = [_signed_token(0), _signed_token(1)]
-    offsets = [_signed_token(o) for o, _ in order]
-    logs = [lg for _, lg in order]
-    token_sets = [set(splits), set(props), {0}, set(offsets), set(logs), {0}]
+    splits = [_signed_token(k) for k in range(n - 1)]
+    offsets = [_signed_token(o) for o, _ in leaves]
+    token_sets = [set(splits), {0, 1}, {0}, set(offsets), {lg for _, lg in leaves}, {0}]
     write_per_context_histograms(w, token_sets)
 
     def put(ctx, value):
-        bits, n = token_bits(token_sets[ctx], value)
-        w.write(bits, n)
+        bits, nb = token_bits(token_sets[ctx], value)
+        w.write(bits, nb)
 
-    for node in range(2):  # the two splits
-        put(1, 1)
-        put(0, splits[node])
-    for leaf in range(3):
-        put(1, 0)
-        put(2, 0)  # Zero predictor
-        put(3, offsets[leaf])
-        put(4, logs[leaf])
-        put(5, 0)
-    # leaf histograms: 3 contexts share one cluster over the residual tokens
-    write_prefix_histograms(w, 3, set(_RESIDUAL_TOKENS))
+    for kind, k in order:
+        if kind == "split":
+            put(1, 1)
+            put(0, splits[k])
+        else:
+            put(1, 0)
+            put(2, 0)  # Zero predictor
+            put(3, offsets[k])
+            put(4, leaves[k][1])
+            put(5, 0)
+    # leaf histograms: the leaves' contexts share one cluster over the
+    # residual tokens
+    write_prefix_histograms(w, n, set(_RESIDUAL_TOKENS))
 
 
 def _group_section(tokens) -> bytes:
@@ -126,23 +135,42 @@ def _group_section(tokens) -> bytes:
     return packed.astype(np.uint8).tobytes()
 
 
-def _headers(width: int, height: int, sections: list) -> bytes:
-    """Codestream headers (8-bit, XYB, sRGB colour encoding) and the frame
-    header of one REGULAR Modular frame with the default RestorationFilter,
-    then the TOC."""
+def _extra_channel_info(w: BW, associated: bool):
+    """ExtraChannelInfo of an 8-bit alpha channel (dim_shift 0, no name)."""
+    if not associated:
+        w.write(1, 1)  # all_default: alpha, 8-bit, not associated
+        return
+    w.write(0, 1)  # all_default = 0
+    w.write(0, 2)  # type: alpha
+    w.write(0, 1)  # integer samples
+    w.write(0, 2)  # bits_per_sample Val(8)
+    w.write(0, 2)  # dim_shift 0
+    w.write(0, 2)  # no name
+    w.write(1, 1)  # alpha_associated
+
+
+def _headers(width: int, height: int, sections: list, upsampling: int = 1,
+             ec_upsampling: tuple = (), alpha_associated: bool = False) -> bytes:
+    """Codestream headers (8-bit, XYB, sRGB colour encoding, one 8-bit
+    alpha channel a value of ec_upsampling) and the frame header of one
+    REGULAR Modular frame with the default RestorationFilter, coded at
+    width x height and upsampled `upsampling` times, then the TOC."""
+    ups = (("val", 1), ("val", 2), ("val", 4), ("val", 8))
     w = BW()
     w.write(0xFF, 8)
     w.write(0x0A, 8)
     w.write(0, 1)  # SizeHeader: not small
-    u32(w, (("bits", 9), ("bits", 13), ("bits", 18), ("bits", 30)), height - 1)
+    u32(w, (("bits", 9), ("bits", 13), ("bits", 18), ("bits", 30)), height * upsampling - 1)
     w.write(0, 3)  # ratio
-    u32(w, (("bits", 9), ("bits", 13), ("bits", 18), ("bits", 30)), width - 1)
+    u32(w, (("bits", 9), ("bits", 13), ("bits", 18), ("bits", 30)), width * upsampling - 1)
     w.write(0, 1)  # ImageMetadata all_default = 0
     w.write(0, 1)  # extra_fields = 0
     w.write(0, 1)  # bit_depth: integer samples
     w.write(0, 2)  # bits_per_sample Val(8)
     w.write(1, 1)  # modular_16bit_sufficient
-    w.write(0, 2)  # no extra channels
+    w.write(len(ec_upsampling), 2)  # extra channels: Val(0) or Val(1)
+    for _ in ec_upsampling:
+        _extra_channel_info(w, alpha_associated)
     w.write(1, 1)  # xyb_encoded = 1
     w.write(1, 1)  # color_encoding all_default (sRGB)
     w.write(0, 2)  # extensions
@@ -153,11 +181,14 @@ def _headers(width: int, height: int, sections: list) -> bytes:
     w.write(1, 1)  # MODULAR
     u64(w, 0)  # flags
     # xyb_encoded: no do_ycbcr bit
-    u32(w, (("val", 1), ("val", 2), ("val", 4), ("val", 8)), 1)  # upsampling
+    u32(w, ups, upsampling)
+    for e in ec_upsampling:
+        u32(w, ups, e)
     w.write(1, 2)  # group_size_shift = 1 -> 256
     u32(w, (("val", 1), ("val", 2), ("val", 3), ("bitsoff", 3, 4)), 1)  # passes
     w.write(0, 1)  # have_crop = 0
-    u32(w, (("val", 0), ("val", 1), ("val", 2), ("bitsoff", 2, 3)), 0)  # REPLACE
+    for _ in range(1 + len(ec_upsampling)):  # colour, then each extra channel
+        u32(w, (("val", 0), ("val", 1), ("val", 2), ("bitsoff", 2, 3)), 0)  # REPLACE
     w.write(1, 1)  # is_last
     u32(w, (("val", 0), ("bits", 4), ("bitsoff", 5, 16), ("bitsoff", 10, 48)), 0)  # name
     w.write(1, 1)  # RestorationFilter all_default (gaborish on, EPF 2 steps)
@@ -175,17 +206,37 @@ def _headers(width: int, height: int, sections: list) -> bytes:
     return w.finish()
 
 
-def encode_xyb_modular(width: int, height: int, seed: int = 0, leaves=XYB_LEAVES):
-    """(codestream, planes): a width x height XYB Modular frame of more
-    than one group, and the int32 (3, height, width) planes it encodes in
-    modular channel order [Y, X, B]."""
+def encode_xyb_modular(width: int, height: int, seed: int = 0, leaves=XYB_LEAVES,
+                       upsampling: int = 1, num_ec: int = 0, ec_upsampling: int | None = None,
+                       alpha_associated: bool = False):
+    """(codestream, planes): an XYB Modular frame of more than one group,
+    coded at width x height and upsampled `upsampling` (1, 2, 4 or 8)
+    times, so the image is upsampling * width x upsampling * height. planes
+    are the int32 (3, height, width) planes it encodes in modular channel
+    order [Y, X, B]. With num_ec=1 the image also has an 8-bit alpha
+    channel (associated with alpha_associated), coded at 1/ec_upsampling
+    (default: 1/upsampling) of the image's size; planes is then the list of
+    the four channel planes."""
     if width <= GROUP_DIM and height <= GROUP_DIM:
         raise ValueError("the writer lays out multi-group frames only")
+    if num_ec not in (0, 1):
+        raise ValueError("the writer writes at most one extra channel")
+    ec_up = (ec_upsampling or upsampling,) * num_ec
     rng = np.random.default_rng(seed)
     tokens = rng.integers(0, 4, size=(3, height, width), dtype=np.uint8)
     planes = np.stack([
         off + (_residual(tokens[c]) << lg) for c, (off, lg) in enumerate(leaves)
     ]).astype(np.int32)
+    # each channel's tokens and the side of its tile in a group
+    channels = [(tokens[c], GROUP_DIM) for c in range(3)]
+    if num_ec:
+        leaves = tuple(leaves) + (ALPHA_LEAF,)
+        ew, eh = -(-width * upsampling // ec_up[0]), -(-height * upsampling // ec_up[0])
+        shift = ec_up[0].bit_length() - upsampling.bit_length()
+        ec_tokens = rng.integers(0, 4, size=(eh, ew), dtype=np.uint8)
+        channels.append((ec_tokens, GROUP_DIM >> shift))
+        off, lg = ALPHA_LEAF
+        planes = list(planes) + [(off + (_residual(ec_tokens) << lg)).astype(np.int32)]
 
     lg = BW()
     lg.write(1, 1)  # LfQuantFactors all_default
@@ -200,12 +251,12 @@ def encode_xyb_modular(width: int, height: int, seed: int = 0, leaves=XYB_LEAVES
     groups = []
     for j in range(gy):
         for i in range(gx):
-            groups.append(_group_section(np.ascontiguousarray(
-                tokens[:, j * GROUP_DIM : (j + 1) * GROUP_DIM,
-                       i * GROUP_DIM : (i + 1) * GROUP_DIM]
-            )))
+            groups.append(_group_section(np.concatenate([
+                t[j * d : (j + 1) * d, i * d : (i + 1) * d].reshape(-1) for t, d in channels
+            ])))
     sections = [lg.finish()] + [b""] * lf_groups + [b""] + groups
-    return _headers(width, height, sections) + b"".join(sections), planes
+    head = _headers(width, height, sections, upsampling, ec_up, alpha_associated)
+    return head + b"".join(sections), planes
 
 
 # -- both decoders read the streams back ------------------------------------
@@ -244,3 +295,46 @@ def test_writer_content_varies_in_every_block():
     _, planes = encode_xyb_modular(300, 260, seed=5)
     blocks = planes[:, :256, :296].reshape(3, 32, 8, 37, 8)
     assert (blocks.max(axis=(2, 4)) > blocks.min(axis=(2, 4))).all()
+
+
+# sha256 of the writer's bytes before it had options: the defaults still
+# write them
+_DEFAULT_BYTES = {
+    (600, 700, 3): "8d1e728e1e334bfe92632c062aa05cf53d3fdc32c01b3ecf0d093978c1baa89e",
+    (517, 300, 4): "2094dbb125d7733ef9c4c50e89e6d87b432989855871296f6946aef815b570b4",
+}
+
+
+@pytest.mark.parametrize("args", list(_DEFAULT_BYTES))
+def test_defaults_write_the_earlier_bytes(args):
+    import hashlib
+
+    w, h, seed = args
+    data, _ = encode_xyb_modular(w, h, seed=seed)
+    assert hashlib.sha256(data).hexdigest() == _DEFAULT_BYTES[args]
+
+
+@pytest.mark.parametrize("kw", [
+    dict(upsampling=2), dict(upsampling=4), dict(upsampling=8), dict(num_ec=1),
+    dict(num_ec=1, upsampling=2), dict(num_ec=1, ec_upsampling=2),
+    dict(num_ec=1, upsampling=2, ec_upsampling=4), dict(num_ec=1, alpha_associated=True),
+])
+def test_jxl_tpu_decodes_writer_options(kw):
+    from jxl_tpu.api.simple import decode_first_frame
+
+    data, planes = encode_xyb_modular(300, 264, seed=6, **kw)
+    dec = decode_first_frame(data)
+    up = kw.get("upsampling", 1)
+    header = dec.frame.header
+    assert header.upsampling == up
+    fh = dec.frame.file_header
+    assert (fh.xsize, fh.ysize) == (300 * up, 264 * up)
+    infos = fh.image_metadata.extra_channel_info
+    assert len(infos) == len(planes) - 3 == kw.get("num_ec", 0)
+    if infos:
+        assert header.ec_upsampling == [kw.get("ec_upsampling", up)]
+        assert infos[0].alpha_associated == kw.get("alpha_associated", False)
+        assert infos[0].bit_depth.bits_per_sample == 8
+        assert planes[3].min() >= 0 and planes[3].max() <= 255
+    for c in range(len(planes)):
+        np.testing.assert_array_equal(np.asarray(dec.channels[c]), planes[c])

@@ -560,14 +560,14 @@ def _ac_sections(tok_vals, tok_ctxs):
     return out
 
 
-def _headers(width, height, sections):
+def _headers(width, height, sections, upsampling=1, noise=False):
     w = BW()
     w.write(0xFF, 8)
     w.write(0x0A, 8)
     w.write(0, 1)  # SizeHeader: not small
-    u32(w, (("bits", 9), ("bits", 13), ("bits", 18), ("bits", 30)), height - 1)
+    u32(w, (("bits", 9), ("bits", 13), ("bits", 18), ("bits", 30)), height * upsampling - 1)
     w.write(0, 3)
-    u32(w, (("bits", 9), ("bits", 13), ("bits", 18), ("bits", 30)), width - 1)
+    u32(w, (("bits", 9), ("bits", 13), ("bits", 18), ("bits", 30)), width * upsampling - 1)
     w.write(0, 1)  # ImageMetadata all_default = 0
     w.write(0, 1)  # extra_fields = 0
     w.write(0, 1)  # integer samples
@@ -582,8 +582,8 @@ def _headers(width, height, sections):
     w.write(0, 1)  # FrameHeader all_default = 0
     w.write(0, 2)  # REGULAR
     w.write(0, 1)  # VarDCT
-    u64(w, 0)  # flags (adaptive LF smoothing on)
-    u32(w, (("val", 1), ("val", 2), ("val", 4), ("val", 8)), 1)  # upsampling
+    u64(w, 1 if noise else 0)  # flags: noise or none (adaptive LF smoothing on)
+    u32(w, (("val", 1), ("val", 2), ("val", 4), ("val", 8)), upsampling)
     w.write(3, 3)  # x_qm_scale
     w.write(2, 3)  # b_qm_scale
     u32(w, (("val", 1), ("val", 2), ("val", 3), ("bitsoff", 3, 4)), 1)  # one pass
@@ -604,25 +604,31 @@ def _headers(width, height, sections):
 
 def encode_xyb_vardct(width: int, height: int, seed: int = 0, transforms: str = "mixed",
                       density: float = 0.35, cfl_zero: bool = False, lz77: bool = False,
-                      max_run: int = 12):
-    """(codestream, coeffs): a width x height XYB VarDCT frame of more than
-    one group, and the dense (G * 3 * 256 * 256,) int32 quantized AC
-    coefficients it encodes. transforms: "mixed" (DCT16x16 on aligned 2x2
-    positions and every 1x1 type) or "dct8"; density: the share of
-    (block, channel) items that carry coefficients, each 1 to max_run
-    coefficient positions (a higher max_run writes longer sections); lz77: enable (unused)
-    LZ77 in the AC histograms, which makes the frame one for the host
-    AC decoder."""
+                      max_run: int = 12, upsampling: int = 1, noise=None):
+    """(codestream, coeffs): an XYB VarDCT frame of more than one group,
+    coded at width x height, and the dense (G * 3 * 256 * 256,) int32
+    quantized AC coefficients it encodes. transforms: "mixed" (DCT16x16 on
+    aligned 2x2 positions and every 1x1 type) or "dct8"; density: the share
+    of (block, channel) items that carry coefficients, each 1 to max_run
+    coefficient positions (a higher max_run writes longer sections); lz77:
+    enable (unused) LZ77 in the AC histograms, which makes the frame one for
+    the host AC decoder; upsampling: 1, 2, 4 or 8, the image is that many
+    times the coded size; noise: None, or the 8 integers 0-1023 of the
+    photon-noise LUT (entry / 1024), which turns the frame's noise on."""
     if width <= GROUP_DIM and height <= GROUP_DIM:
         raise ValueError("the writer lays out multi-group frames only")
     if transforms not in ("mixed", "dct8"):
         raise ValueError(f"unknown transforms {transforms!r}")
+    if noise is not None and (len(noise) != 8 or not all(0 <= v < 1024 for v in noise)):
+        raise ValueError("noise is 8 integers 0-1023")
     rng = np.random.default_rng(seed)
     bw, bh, gxn, gyn, lgx, lgy = _frame_layout(width, height)
     rects = _lf_rects(bw, bh, lgx, lgy)
     tmap, type_lists, band_step = _place_transforms(rng, bw, bh, rects, transforms == "mixed")
 
     lg = BitList()
+    for v in noise or ():
+        lg.write(int(v), 10)  # the noise LUT comes first in LfGlobal
     lg.write(1, 1)  # LfQuantFactors all_default
     lg.write(1, 2)  # global_scale: 2049 + 11 bits
     lg.write(4096 - 2049, 11)
@@ -650,7 +656,8 @@ def encode_xyb_vardct(width: int, height: int, seed: int = 0, transforms: str = 
         tok_ctxs.append(c)
         coeffs[dest] = val
     sections = [lg.finish()] + lf_sections + [hg.finish()] + _ac_sections(tok_vals, tok_ctxs)
-    return _headers(width, height, sections) + b"".join(sections), coeffs
+    head = _headers(width, height, sections, upsampling, noise is not None)
+    return head + b"".join(sections), coeffs
 
 
 def long_section_stream():
@@ -755,3 +762,41 @@ def test_writer_covers_every_1x1_type_and_dct16():
     assert len(np.unique(frame.hf_meta["raw_quant"])) == 4
     rf = frame.header.restoration_filter
     assert rf.gab and rf.epf_iters == 2
+
+
+# sha256 of the writer's bytes before it had the upsampling and noise
+# options: the defaults still write them
+_DEFAULT_BYTES = {
+    "520x300_seed5": "26b2147f482e6e5786018758691b8aa99343e6f948106298a7a9a6d60f7dc58b",
+    "300x200_dct8_seed42": "8ad817bba2419613d3ed40365581ddce0fe1b351ff056a64f9782a9457637ed6",
+}
+
+
+@pytest.mark.parametrize("name", list(_DEFAULT_BYTES))
+def test_defaults_write_the_earlier_bytes(name):
+    import hashlib
+
+    if name == "520x300_seed5":
+        data, _ = encode_xyb_vardct(520, 300, seed=5)
+    else:
+        data, _ = encode_xyb_vardct(300, 200, seed=42, transforms="dct8", density=0.15)
+    assert hashlib.sha256(data).hexdigest() == _DEFAULT_BYTES[name]
+
+
+@pytest.mark.parametrize("upsampling,noise", [(2, None), (1, (5, 0, 1023, 7, 512, 3, 9, 100)),
+                                              (2, (40, 90, 130, 200, 260, 330, 400, 470)),
+                                              (4, None), (8, (1,) * 8)])
+def test_jxl_tpu_decodes_writer_options(upsampling, noise):
+    from jxl_tpu.api.simple import decode_first_frame
+    from test_device_ac import _decode_frame_coeffs
+
+    data, coeffs = encode_xyb_vardct(300, 264, seed=12, density=0.1, upsampling=upsampling,
+                                     noise=noise)
+    np.testing.assert_array_equal(_decode_frame_coeffs(data, force_device=False), coeffs)
+    frame = decode_first_frame(data).frame
+    assert frame.header.upsampling == upsampling
+    assert (frame.file_header.xsize, frame.file_header.ysize) == (300 * upsampling,
+                                                                   264 * upsampling)
+    assert frame.header.has_noise == (noise is not None)
+    if noise is not None:
+        assert frame.lf_global.noise.lut == [v / 1024.0 for v in noise]
