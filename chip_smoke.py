@@ -61,9 +61,10 @@ a non-zero exit:
              at 3840x2160), u8 and f32, 3 reps each, with the noise field's
              host seconds and its upload; K1's and K3's counts must rise,
              and each decode is held against the port's CPU decode (VarDCT
-             with JXL_TPU_AC=host; f32 <= 1e-4, u8 <= 1 LSB). Then the
-             device time of each step of the upsampled VarDCT render, from
-             CUDA events.
+             with JXL_TPU_AC=host; f32 <= 1e-4, u8 <= 1 LSB). Then each
+             step of the upsampled VarDCT render: the host's time to queue
+             it, and its device time from CUDA events with the step
+             queued behind a spin.
 6. profile - a u8 decode of each stream (Modular, VarDCT, the upsampled
              VarDCT with noise) under torch.profiler: device time by
              operation and the card's idle share. It runs right after the
@@ -847,17 +848,19 @@ def phase_features(streams):
     return launches
 
 
-# cycles the card spins before each step of the breakdown: longer than the
-# host takes to queue the step's operations
-BREAKDOWN_SPIN_CYCLES = 4_000_000
+# the SM clock the breakdown's spins are sized for (an H100 SXM's boost
+# clock; a slower clock only makes a spin last longer)
+SPIN_CYCLES_PER_S = 1.98e9
 
 
 def phase_feature_breakdown(data) -> None:
     """The upsampled VarDCT render of decode_image taken apart: the host
-    parse with the AC decode (K3), then, timed with CUDA events each
-    behind a spin on the card, the VarDCT planes, the noise field's upload,
-    K1, each feature stage, the colour transform and the u8 conversion;
-    the noise field on the host clock."""
+    parse with the AC decode (K3); then each step (the VarDCT planes, the
+    noise field's upload, K1, each feature stage, the colour transform,
+    the u8 conversion) is called once to read how long the host takes to
+    queue it, and again behind a spin on the card twice that long, so
+    that CUDA events around the second call read the card's time alone.
+    The noise field on the host clock."""
     import torch
 
     from jxl_tpu_torch.features.noise import generate_noise_field
@@ -870,45 +873,50 @@ def phase_feature_breakdown(data) -> None:
     steps = []
 
     def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        host_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(BREAKDOWN_SPIN_CYCLES)
+        torch.cuda._sleep(int((2 * host_s + 1e-3) * SPIN_CYCLES_PER_S))
         a.record()
         out = fn()
         b.record()
-        steps.append((name, a, b))
+        steps.append((name, host_s, a, b))
         return out
 
-    for rep in range(2):  # the first warms the allocator
-        steps.clear()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        frame = _vardct_frame(data, dev)
-        torch.cuda.synchronize()
-        parse_s = time.perf_counter() - t0
-        planes = timed("vardct_planes", lambda: vardct_planes(frame, dev))
-        t0 = time.perf_counter()
-        field = generate_noise_field(frame, pin_memory=True)
-        field_s = time.perf_counter() - t0
-        ctx = {"frame": frame, "noise_field": timed(
-            "noise_field_upload", lambda: field.to(dev, non_blocking=True))}
-        span = build_render_pipeline(frame) + [color_transform_stage(frame),
-                                               convert_output_stage("u8", (0, 1, 2))]
-        segments, i = [], 0
-        while i < len(span):  # a run of filter stages is one K1 launch
-            j = i + 1
-            while span[i].is_filter and j < len(span) and span[j].is_filter:
-                j += 1
-            segments.append(span[i:j])
-            i = j
-        chans = list(planes.unbind(0))
-        for seg in segments:
-            name = "+".join(s.name for s in seg)
-            chans = timed(name, lambda seg=seg, chans=chans: run_span(seg, chans, ctx))
-        torch.cuda.synchronize()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    frame = _vardct_frame(data, dev)
+    torch.cuda.synchronize()
+    parse_s = time.perf_counter() - t0
+    planes = timed("vardct_planes", lambda: vardct_planes(frame, dev))
+    t0 = time.perf_counter()
+    field = generate_noise_field(frame, pin_memory=True)
+    field_s = time.perf_counter() - t0
+    ctx = {"frame": frame, "noise_field": timed(
+        "noise_field_upload", lambda: field.to(dev, non_blocking=True))}
+    span = build_render_pipeline(frame) + [color_transform_stage(frame),
+                                           convert_output_stage("u8", (0, 1, 2))]
+    segments, i = [], 0
+    while i < len(span):  # a run of filter stages is one K1 launch
+        j = i + 1
+        while span[i].is_filter and j < len(span) and span[j].is_filter:
+            j += 1
+        segments.append(span[i:j])
+        i = j
+    chans = list(planes.unbind(0))
+    for seg in segments:
+        name = "+".join(s.name for s in seg)
+        chans = timed(name, lambda seg=seg, chans=chans: run_span(seg, chans, ctx))
+    torch.cuda.synchronize()
     emit({"phase": "features_breakdown", "stream": "vardct_up2_noise", "format": "u8",
           "host_parse_and_ac_decode_s": parse_s, "noise_field_host_s": field_s,
-          "device_ms": [[name, a.elapsed_time(b)] for name, a, b in steps],
+          "steps": [{"step": name, "host_queue_ms": host_s * 1e3,
+                     "device_ms": a.elapsed_time(b)} for name, host_s, a, b in steps],
+          "device_ms_total": sum(a.elapsed_time(b) for _, _, a, b in steps),
           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
 
 
