@@ -763,24 +763,26 @@ def phase_vardct(data, coeffs):
 
 
 def feature_streams():
-    """[(name, codestream, channels out)] of the features phase, both
-    3840x2160 out: a 1920x1080 XYB VarDCT frame upsampled 2x with photon
-    noise (a seeded LUT), and a 3840x2160 XYB Modular frame with an 8-bit
-    alpha channel."""
+    """[(name, codestream, channels out, the writer's AC coefficients or
+    None)] of the features phase, both 3840x2160 out: a 1920x1080 XYB
+    VarDCT frame upsampled 2x with photon noise (a seeded LUT), and a
+    3840x2160 XYB Modular frame with an 8-bit alpha channel."""
     import numpy as np
 
     from test_torch_streams import encode_xyb_modular
     from test_torch_vardct_streams import encode_xyb_vardct
 
     lut = np.random.default_rng(7).integers(64, 512, 8).tolist()
-    vd, _ = encode_xyb_vardct(WIDTH // 2, HEIGHT // 2, seed=7, upsampling=2, noise=lut)
+    vd, vcoeffs = encode_xyb_vardct(WIDTH // 2, HEIGHT // 2, seed=7, upsampling=2, noise=lut)
     md, _ = encode_xyb_modular(WIDTH, HEIGHT, seed=7, num_ec=1)
-    return [("vardct_up2_noise", vd, 3), ("modular_alpha", md, 4)]
+    return [("vardct_up2_noise", vd, 3, vcoeffs), ("modular_alpha", md, 4, None)]
 
 
 def phase_features(streams):
     """decode_image of the feature streams on the card, 3 reps a format,
-    held against the port's CPU decode (VarDCT AC on the host decoder)."""
+    held against the port's CPU decode (VarDCT AC on the host decoder);
+    K3's coefficients of the upsampled frame (40 lanes) bit for bit
+    against the writer's and the host decoder's."""
     import numpy as np
     import torch
 
@@ -794,7 +796,7 @@ def phase_features(streams):
     K.epf_gab.launches = 0
     device_ac.decode_ac_sections.launches = 0
     AL.ans_decode_batch.launches = 0
-    for name, data, _ in streams:
+    for name, data, _, _ in streams:
         for fmt in ("u8", "f32"):
             for rep in range(3):
                 t0 = time.perf_counter()
@@ -814,6 +816,20 @@ def phase_features(streams):
     emit({"phase": "features", "launches": launches})
     check(launches["epf_gab"] > 0, "the feature decodes did not launch epf_gab")
     check(launches["decode_ac_sections"] > 0, "the upsampled VarDCT decode did not launch K3")
+    for name, data, _, coeffs in streams:
+        if coeffs is None:
+            continue
+        lanes = _vardct_frame(data, "cuda")
+        torch.cuda.synchronize()
+        k3 = lanes.device_ac_flat.cpu().numpy()
+        host = _vardct_frame(data, "cpu", host_ac=True).host_ac_flat
+        same_writer = np.array_equal(k3, coeffs)
+        same_host = np.array_equal(k3, host)
+        emit({"phase": "features", "stream": name, "lanes": lanes.header.num_groups,
+              "k3_equals_writer": same_writer, "k3_equals_host_decoder": same_host,
+              "nonzero_coefficients": int(np.count_nonzero(coeffs))})
+        check(same_writer and same_host,
+              f"{name}: K3's coefficients differ from the writer's or the host's")
     # the noise field's upload: a pinned buffer of its shape, as the decode
     # makes it, copied to the card
     field = torch.empty((3, HEIGHT, WIDTH), dtype=torch.float32, pin_memory=True)
@@ -824,7 +840,7 @@ def phase_features(streams):
 
     os.environ["JXL_TPU_AC"] = "host"
     try:
-        for name, data, channels in streams:
+        for name, data, channels, _ in streams:
             for fmt in ("u8", "f32"):
                 got = runs[(name, fmt)]
                 check(got.device.type == "cuda", "frames must stay on the card")
@@ -867,7 +883,7 @@ def phase_feature_breakdown(data) -> None:
     from jxl_tpu_torch.render.pipeline import (build_render_pipeline, color_transform_stage,
                                                convert_output_stage)
     from jxl_tpu_torch.render.simple import vardct_planes
-    from jxl_tpu_torch.render.span_exec import run_span
+    from jxl_tpu_torch.render.span_exec import run_span, segments
 
     dev = torch.device("cuda")
     steps = []
@@ -900,15 +916,8 @@ def phase_feature_breakdown(data) -> None:
         "noise_field_upload", lambda: field.to(dev, non_blocking=True))}
     span = build_render_pipeline(frame) + [color_transform_stage(frame),
                                            convert_output_stage("u8", (0, 1, 2))]
-    segments, i = [], 0
-    while i < len(span):  # a run of filter stages is one K1 launch
-        j = i + 1
-        while span[i].is_filter and j < len(span) and span[j].is_filter:
-            j += 1
-        segments.append(span[i:j])
-        i = j
     chans = list(planes.unbind(0))
-    for seg in segments:
+    for seg in segments(span):  # the pieces decode_image's run_span runs
         name = "+".join(s.name for s in seg)
         chans = timed(name, lambda seg=seg, chans=chans: run_span(seg, chans, ctx))
     torch.cuda.synchronize()
@@ -992,7 +1001,7 @@ def main() -> int:
     t0 = time.perf_counter()
     fstreams = feature_streams()
     emit({"phase": "features", "step": "write_streams",
-          "bytes": {name: len(d) for name, d, _ in fstreams},
+          "bytes": {name: len(d) for name, d, _, _ in fstreams},
           "seconds": time.perf_counter() - t0})
     # the only profiler sessions of the process: CUPTI has dropped events
     # in sessions after the first few

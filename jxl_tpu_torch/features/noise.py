@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from ..io.bit_reader import BitReader
-from ..render.stages.core import _pad_mirror, f32
+from ..render.stages.core import _pad_mirror, f32, to_device
 
 _M64 = (1 << 64) - 1
 
@@ -38,7 +38,7 @@ class Noise:
         floor = torch.where(big, torch.full_like(floor, k_scale), floor)
         frac = torch.where(big, torch.ones_like(frac), frac)
         idx = torch.clamp_max(floor.to(torch.int64), len(self.lut) - 2)
-        lut = torch.tensor(np.asarray(self.lut, dtype=np.float32), device=vx.device)
+        lut = to_device(np.asarray(self.lut, dtype=np.float32), vx.device)
         low = lut[idx]
         hi = lut[idx + 1]
         return torch.clamp((hi - low) * frac + low, 0.0, 1.0)

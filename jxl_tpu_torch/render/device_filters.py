@@ -1,18 +1,15 @@
-"""Filters, colour transform and output conversion on the caller's device.
+"""The restoration filters (gaborish + EPF) on the caller's device.
 
-The JAX package meant its whole-frame route to run this (ref
-jxl_tpu/render/device_filters.py:run_filters_and_color): gaborish + EPF,
-the XYB/YCbCr -> display colour transform and the ConvertF32To* output
-stage with a single upload and a single download per frame. Here the
-filter chain is the hand-written kernel of ops/epf_gab.py whenever the
-planes lie on the card, and its plain torch version on the CPU.
-
-run_filters is the filter chain alone. A frame with feature stages
-(upsampling, noise, extra channels) runs it on the coded-size planes and
-then its other stages (render/span_exec.py). This differs from jxl_tpu on
-purpose: there such frames run gaborish and EPF as plain jnp stage bodies
-inside the span (jxl_tpu/render/simple.py:223-234), where the port
-launches the kernel as it does for frames without feature stages.
+Counterpart of the filter half of jxl_tpu/render/device_filters.py:
+run_filters_and_color. Here the filter chain is the hand-written kernel
+of ops/epf_gab.py whenever the planes lie on the card, and its plain
+torch version on the CPU. render/span_exec.py runs it for the run of
+filter stages of every frame, on the coded-size planes, before the
+frame's other stages (upsampling, noise, colour, output conversion).
+This differs from jxl_tpu on purpose: there a frame with feature stages
+runs gaborish and EPF as plain jnp stage bodies inside the span
+(jxl_tpu/render/simple.py:223-234), where the port launches the kernel
+for every frame.
 """
 
 from __future__ import annotations
@@ -51,7 +48,7 @@ def run_filters(frame, planes):
     h, w = planes.shape[1:]
     sigma_block, constant_sigma = sigma_source(frame)
     if sigma_block is not None:
-        sigma_block = torch.from_numpy(sigma_block).to(planes.device)
+        sigma_block = st.to_device(sigma_block, planes.device)
         inv_sigma = st._expand_sigma(sigma_block, h, w, (0, 0)).contiguous()
     else:
         inv_sigma = torch.full(
@@ -64,15 +61,3 @@ def run_filters(frame, planes):
         rf.epf_border_sad_mul, tuple(rf.epf_channel_scale),
     )
 
-
-def run_filters_and_color(frame, planes, out_format: str = "f32"):
-    """run_filters, then the colour transform and the output conversion:
-    (3, H, W) float32 planes in, (3, H, W) in the output sample type out,
-    on the same device."""
-    planes = run_filters(frame, planes)
-    from .simple import color_transform
-
-    chans = color_transform(frame, [planes[0], planes[1], planes[2]])
-    if out_format != "f32":
-        chans = [st.convert_output(c, out_format, channel=i) for i, c in enumerate(chans)]
-    return torch.stack(chans)

@@ -5,10 +5,8 @@ Counterpart of jxl_tpu/render/simple.py for this package's slice: the
 VarDCT planes (vardct/device_frame.py, from the dense AC coefficients) or
 the Modular-to-float conversion (with the XYB channel order and scaling,
 and each extra channel at its own bit depth), the stage assembly of
-render/pipeline.py, then either one fused filter + colour + output-format
-pass (render/device_filters.py) for a frame without feature stages, or the
-stage list run by render/span_exec.py (the filters, upsampling, noise) and
-the colour transform for one with upsampling, noise or extra channels.
+render/pipeline.py, then the stage list (the filters, upsampling, noise,
+colour transform, output conversion) run by render/span_exec.py.
 """
 
 from __future__ import annotations
@@ -134,7 +132,6 @@ def render_frame(frame, device, out_format: str = "f32", timings=None) -> torch.
     type on `device`. timings, a dict, gets "noise_field_s", the host
     seconds of the noise field, when the frame has noise."""
     from ..io.headers.frame import Encoding
-    from .device_filters import run_filters_and_color
     from .pipeline import build_render_pipeline, color_transform_stage, convert_output_stage
     from .span_exec import run_span
 
@@ -145,12 +142,6 @@ def render_frame(frame, device, out_format: str = "f32", timings=None) -> torch.
         planes = vardct_planes(frame, device)
     else:
         planes = frame_planes(frame, device)
-    wc, hc = header.size()
-    wu, hu = header.size_upsampled()
-    if not (num_ec or header.upsampling > 1 or header.has_noise):
-        out = run_filters_and_color(frame, planes[:, :hc, :wc], out_format)
-        return out[:, :hu, :wu]
-
     chans = list(planes.unbind(0))
     if num_ec:
         chans += _extra_channel_planes(frame, device)

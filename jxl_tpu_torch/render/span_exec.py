@@ -13,6 +13,21 @@ from __future__ import annotations
 import torch
 
 
+def segments(span) -> list:
+    """`span` cut into the pieces run_span runs one at a time: a run of
+    filter stages together (one call of run_filters), every other stage
+    alone."""
+    out, i = [], 0
+    while i < len(span):
+        j = i + 1
+        if span[i].is_filter:
+            while j < len(span) and span[j].is_filter:
+                j += 1
+        out.append(span[i:j])
+        i = j
+    return out
+
+
 def run_span(span, chans, ctx):
     """Run `span` (list of pipeline.Stage) over `chans` (list of 2-D
     float32 tensors on one device) and return the new list. ctx holds the
@@ -21,13 +36,9 @@ def run_span(span, chans, ctx):
     from .device_filters import run_filters
 
     chans = list(chans)
-    i = 0
-    while i < len(span):
-        if not span[i].is_filter:
-            chans = span[i].fn(chans, ctx)
-            i += 1
-            continue
-        while i < len(span) and span[i].is_filter:
-            i += 1
-        chans[:3] = run_filters(ctx["frame"], torch.stack(chans[:3])).unbind(0)
+    for seg in segments(span):
+        if seg[0].is_filter:
+            chans[:3] = run_filters(ctx["frame"], torch.stack(chans[:3])).unbind(0)
+        else:
+            chans = seg[0].fn(chans, ctx)
     return chans

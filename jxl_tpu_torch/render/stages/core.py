@@ -29,6 +29,16 @@ def f32(x: float) -> float:
     return float(np.float32(x))
 
 
+def to_device(array: np.ndarray, device) -> torch.Tensor:
+    """A small host array (kernel weights, a table) on `device`. On the
+    card it is copied from page-locked memory without waiting: a copy from
+    pageable memory makes the host wait for all the work queued before it."""
+    t = torch.from_numpy(np.ascontiguousarray(array))
+    if torch.device(device).type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 def mirror_index(n: int, b: int, device) -> torch.Tensor:
     """Source indices of numpy's mode="symmetric" padding of a length-n
     axis by b on both sides: the edge sample repeats, period 2n."""
@@ -222,7 +232,7 @@ def upsample(plane, kernels: np.ndarray, n: int):
     stack = stack.reshape(5, 5, h, w)
     mins = stack.amin(dim=(0, 1))
     maxs = stack.amax(dim=(0, 1))
-    k = torch.from_numpy(kernels).to(plane.device)
+    k = to_device(kernels, plane.device)
     acc = torch.einsum("abij,ijhw->abhw", k, stack)
     acc = torch.minimum(torch.maximum(acc, mins), maxs)
     return acc.permute(2, 0, 3, 1).reshape(h * n, w * n)
@@ -249,7 +259,7 @@ def f32_to_u8(plane, bit_depth: int = 8, channel: int = 0, pos=(0, 0)):
     h, w = plane.shape
     dev = plane.device
     maxv = f32((1 << bit_depth) - 1)
-    tab = torch.from_numpy(dither_table().reshape(-1)).to(dev)
+    tab = to_device(dither_table().reshape(-1), dev)
     ys = (torch.arange(h, device=dev) + (pos[1] + 13 * channel)) % 32
     xs = (torch.arange(w, device=dev) + (pos[0] + 23 * channel)) % 32
     dith = tab[ys[:, None] * 32 + xs[None, :]]

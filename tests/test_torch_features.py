@@ -12,7 +12,7 @@ import torch
 
 import jxl_tpu_torch
 from jxl_tpu.api.simple import decode_image as ref_decode
-from mini_encoder import encode_constant_modular, encode_patches_modular
+from mini_encoder import encode_constant_modular
 from test_torch_render_stages import NOISE_LUT
 from test_torch_streams import encode_xyb_modular
 from test_torch_vardct_streams import encode_xyb_vardct
@@ -162,9 +162,3 @@ def test_render_pipeline_refuses_what_it_lacks(what, reason, monkeypatch):
     with pytest.raises(jxl_tpu_torch.NotSupported, match=reason):
         build_render_pipeline(frame)
 
-
-def test_patched_multi_frame_stream_raises():
-    """The mini encoder's patches stream is two frames, a reference frame
-    and the patched one: the first frame is already outside the slice."""
-    with pytest.raises(jxl_tpu_torch.NotSupported, match="frame"):
-        jxl_tpu_torch.decode_image(encode_patches_modular(300, 300), device="cpu")

@@ -215,6 +215,23 @@ def test_total_border_walks_through_shifts():
     assert port_pipeline.total_border(stages) == (8, 6)
 
 
+def test_span_segments_join_each_run_of_filters():
+    """run_span's pieces: a run of filter stages is one piece (one K1
+    launch), every stage with a body a piece of its own."""
+    from jxl_tpu_torch.render.span_exec import segments
+
+    S = port_pipeline.Stage
+
+    def body(chans, ctx):
+        return chans
+
+    span = [S("crop", body), S("gaborish", None), S("epf1", None), S("epf2", None),
+            S("up", body), S("crop", body), S("epf0", None)]
+    assert [[s.name for s in seg] for seg in segments(span)] == [
+        ["crop"], ["gaborish", "epf1", "epf2"], ["up"], ["crop"], ["epf0"]]
+    assert segments([]) == []
+
+
 @pytest.mark.parametrize("premultiply", [False, True])
 def test_spot_and_premultiply_match_jxl_tpu(premultiply):
     """Spot colours mix into the colour planes; premultiplication (asked
