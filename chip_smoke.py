@@ -65,7 +65,21 @@ a non-zero exit:
              step of the upsampled VarDCT render: the host's time to queue
              it, and its device time from CUDA events with the step
              queued behind a spin.
-6. profile - a u8 decode of each stream (Modular, VarDCT, the upsampled
+6. layouts - decode_image on the card of the two VarDCT frame layouts of
+             recompressed JPEGs and lossy images with alpha: (a) a 3840x2160
+             YCbCr 4:2:0 frame, DCT8 only, no filters (K3, the subsampled
+             render, the chroma upsampling); (b) a 1920x1080 YCbCr 4:2:0
+             frame with gaborish + EPF (K3, the chroma upsampling, then
+             K1); (c) a 3840x2160 XYB frame with an 8-bit alpha in each
+             group's modular HF stream (the host AC decode group by group,
+             then K1); u8 and f32, 3 reps each, with each stream's K1 and
+             K3 launches (K3 must rise on (a) and (b), K1 on (b) and (c)),
+             K3's buffer of (a) bit for bit against the writer's and the
+             host decoder's, and each decode held against the port's CPU
+             decode (host AC; f32 <= 1e-4, u8 <= 1 LSB). Then (a)'s render
+             taken apart as in features: the chroma upsampling's device
+             time beside its bytes bound.
+7. profile - a u8 decode of each stream (Modular, VarDCT, the upsampled
              VarDCT with noise) under torch.profiler: device time by
              operation and the card's idle share. It runs right after the
              build, and no other phase opens a profiler session.
@@ -869,14 +883,15 @@ def phase_features(streams):
 SPIN_CYCLES_PER_S = 1.98e9
 
 
-def phase_feature_breakdown(data) -> None:
-    """The upsampled VarDCT render of decode_image taken apart: the host
-    parse with the AC decode (K3); then each step (the VarDCT planes, the
-    noise field's upload, K1, each feature stage, the colour transform,
-    the u8 conversion) is called once to read how long the host takes to
-    queue it, and again behind a spin on the card twice that long, so
-    that CUDA events around the second call read the card's time alone.
-    The noise field on the host clock."""
+def phase_render_breakdown(data, stream: str, phase: str) -> list:
+    """A VarDCT render of decode_image taken apart: the host parse with
+    the AC decode; then each step (the VarDCT planes, the noise field's
+    upload when the frame has noise, each run of stages that run_span runs
+    at once: chroma upsampling, K1, each feature stage, the colour
+    transform, the u8 conversion) is called once to read how long the host
+    takes to queue it, and again behind a spin on the card twice that long,
+    so that CUDA events around the second call read the card's time alone.
+    The noise field on the host clock. Returns the steps' records."""
     import torch
 
     from jxl_tpu_torch.features.noise import generate_noise_field
@@ -908,25 +923,138 @@ def phase_feature_breakdown(data) -> None:
     frame = _vardct_frame(data, dev)
     torch.cuda.synchronize()
     parse_s = time.perf_counter() - t0
-    planes = timed("vardct_planes", lambda: vardct_planes(frame, dev))
-    t0 = time.perf_counter()
-    field = generate_noise_field(frame, pin_memory=True)
-    field_s = time.perf_counter() - t0
-    ctx = {"frame": frame, "noise_field": timed(
-        "noise_field_upload", lambda: field.to(dev, non_blocking=True))}
+    chans = timed("vardct_planes", lambda: vardct_planes(frame, dev))
+    ctx = {"frame": frame}
+    field_s = None
+    if frame.header.has_noise:
+        t0 = time.perf_counter()
+        field = generate_noise_field(frame, pin_memory=True)
+        field_s = time.perf_counter() - t0
+        ctx["noise_field"] = timed("noise_field_upload",
+                                   lambda: field.to(dev, non_blocking=True))
     span = build_render_pipeline(frame) + [color_transform_stage(frame),
                                            convert_output_stage("u8", (0, 1, 2))]
-    chans = list(planes.unbind(0))
     for seg in segments(span):  # the pieces decode_image's run_span runs
         name = "+".join(s.name for s in seg)
         chans = timed(name, lambda seg=seg, chans=chans: run_span(seg, chans, ctx))
     torch.cuda.synchronize()
-    emit({"phase": "features_breakdown", "stream": "vardct_up2_noise", "format": "u8",
+    records = [{"step": name, "host_queue_ms": host_s * 1e3, "device_ms": a.elapsed_time(b)}
+               for name, host_s, a, b in steps]
+    emit({"phase": phase, "stream": stream, "format": "u8",
           "host_parse_and_ac_decode_s": parse_s, "noise_field_host_s": field_s,
-          "steps": [{"step": name, "host_queue_ms": host_s * 1e3,
-                     "device_ms": a.elapsed_time(b)} for name, host_s, a, b in steps],
-          "device_ms_total": sum(a.elapsed_time(b) for _, _, a, b in steps),
+          "steps": records, "device_ms_total": sum(r["device_ms"] for r in records),
           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
+    return records
+
+
+def layout_streams():
+    """[(name, codestream, (width, height), channels out, the writer's AC
+    coefficients or None)] of the layouts phase: (a) the 3840x2160 YCbCr
+    4:2:0 frame of a recompressed JPEG (DCT8, no filters), (b) a 1920x1080
+    YCbCr 4:2:0 frame with the default filters, (c) a 3840x2160 XYB frame
+    with an 8-bit alpha and the default filters."""
+    from test_torch_vardct_streams import encode_xyb_vardct, encode_ycbcr_vardct
+
+    a, a_coeffs = encode_ycbcr_vardct(WIDTH, HEIGHT, seed=7, filters=False)
+    b, _ = encode_ycbcr_vardct(WIDTH // 2, HEIGHT // 2, seed=8)
+    c, _, _ = encode_xyb_vardct(WIDTH, HEIGHT, seed=9, num_ec=1)
+    return [("ycbcr420_jpeg", a, (WIDTH, HEIGHT), 3, a_coeffs),
+            ("ycbcr420_filtered", b, (WIDTH // 2, HEIGHT // 2), 3, None),
+            ("xyb_alpha", c, (WIDTH, HEIGHT), 4, None)]
+
+
+def phase_layouts(streams) -> dict:
+    """decode_image of the layout streams on the card, 3 reps a format,
+    with each stream's K1 and K3 launches; K3's buffer of the JPEG frame
+    against the writer's and the host decoder's; every decode against the
+    port's CPU decode (host AC); then the JPEG frame's render taken apart,
+    its chroma upsampling timed beside its bytes bound."""
+    import numpy as np
+    import torch
+
+    import jxl_tpu_torch
+    from jxl_tpu_torch.ops import ans_lanes as AL
+    from jxl_tpu_torch.ops import device_ac
+    from jxl_tpu_torch.ops import epf_gab as K
+
+    runs = {}
+    per_stream = {}
+    K.epf_gab.launches = 0
+    device_ac.decode_ac_sections.launches = 0
+    AL.ans_decode_batch.launches = 0
+    for name, data, (w, h), _, _ in streams:
+        k1, k3 = K.epf_gab.launches, device_ac.decode_ac_sections.launches
+        mp = w * h / 1e6
+        for fmt in ("u8", "f32"):
+            for rep in range(3):
+                t0 = time.perf_counter()
+                img = jxl_tpu_torch.decode_image(data, pixel_format=fmt)
+                torch.cuda.synchronize()
+                total = time.perf_counter() - t0
+                host = img.timings["host_s"]
+                runs[(name, fmt)] = img.frames[0]
+                emit({"phase": "layouts", "stream": name, "format": fmt, "rep": rep,
+                      "megapixels": mp, "seconds": total, "mp_per_s": mp / total,
+                      "host_parse_entropy_s": host, "device_s": total - host})
+        per_stream[name] = {"epf_gab": K.epf_gab.launches - k1,
+                            "decode_ac_sections": device_ac.decode_ac_sections.launches - k3}
+        emit({"phase": "layouts", "stream": name, "launches": per_stream[name]})
+    launches = {"epf_gab": K.epf_gab.launches,
+                "decode_ac_sections": device_ac.decode_ac_sections.launches,
+                "ans_decode_batch": AL.ans_decode_batch.launches, "per_stream": per_stream}
+    emit({"phase": "layouts", "launches": launches})
+    (a, a_data, _, _, a_coeffs), (b, *_), (c, *_) = streams
+    check(per_stream[a]["decode_ac_sections"] > 0 and per_stream[b]["decode_ac_sections"] > 0,
+          "the YCbCr 4:2:0 decodes did not launch K3")
+    check(per_stream[b]["epf_gab"] > 0 and per_stream[c]["epf_gab"] > 0,
+          "the filtered layout decodes did not launch epf_gab")
+
+    lanes = _vardct_frame(a_data, "cuda")
+    torch.cuda.synchronize()
+    k3 = lanes.device_ac_flat.cpu().numpy()
+    host = _vardct_frame(a_data, "cpu", host_ac=True).host_ac_flat
+    same_writer = np.array_equal(k3, a_coeffs)
+    same_host = np.array_equal(k3, host)
+    emit({"phase": "layouts", "stream": a, "lanes": lanes.header.num_groups,
+          "k3_equals_writer": same_writer, "k3_equals_host_decoder": same_host,
+          "nonzero_coefficients": int(np.count_nonzero(a_coeffs))})
+    check(same_writer and same_host, f"{a}: K3's coefficients differ from the writer's or the host's")
+
+    os.environ["JXL_TPU_AC"] = "host"
+    try:
+        for name, data, (w, h), channels, _ in streams:
+            for fmt in ("u8", "f32"):
+                got = runs[(name, fmt)]
+                check(got.device.type == "cuda", "frames must stay on the card")
+                check(tuple(got.shape) == (h, w, channels), f"{name}: bad shape {tuple(got.shape)}")
+                t0 = time.perf_counter()
+                ref = jxl_tpu_torch.decode_image(data, pixel_format=fmt, device="cpu").frames[0]
+                cpu_s = time.perf_counter() - t0
+                x = got.cpu().numpy().astype(np.float64)
+                y = ref.numpy().astype(np.float64)
+                check(np.isfinite(x).all(), "non-finite output")
+                diff = float(np.abs(x - y).max())
+                limit = 1.0 if fmt == "u8" else 1e-4
+                emit({"phase": "layouts", "stream": name, "format": fmt,
+                      "vs_cpu_max_abs_diff": diff, "limit": limit, "cpu_decode_s": cpu_s,
+                      "min": float(x.min()), "max": float(x.max())})
+                check(diff <= limit, f"{name} {fmt} decode on the card differs from the CPU: "
+                      f"{diff}")
+    finally:
+        os.environ.pop("JXL_TPU_AC", None)
+
+    steps = [r for r in phase_render_breakdown(a_data, a, "layouts_breakdown")
+             if r["step"].startswith("chroma_upsample")]
+    # bytes: Cb and Cr read once at a quarter of the frame, written once whole
+    nbytes = 2 * 4 * (WIDTH * HEIGHT // 4 + WIDTH * HEIGHT)
+    rec = {"phase": "layouts", "stream": a, "chroma_upsample_steps": len(steps),
+           "chroma_upsample_device_ms": sum(r["device_ms"] for r in steps),
+           "chroma_upsample_host_queue_ms": sum(r["host_queue_ms"] for r in steps),
+           "chroma_upsample_bytes": nbytes,
+           "chroma_upsample_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+    emit(rec)
+    check(len(steps) == 4, f"{a}: {len(steps)} chroma upsampling steps, not 4")
+    return launches
 
 
 def phase_profile(data, stream: str, expect: str) -> None:
@@ -986,7 +1114,16 @@ def main() -> int:
     emit({"phase": "env", "python": sys.version.split()[0], "torch": torch.__version__,
           "cuda": torch.version.cuda, "device": torch.cuda.get_device_name(0)})
 
-    phase_build()
+    start = time.perf_counter()
+    phase_s = {}
+
+    def run(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = phase_s.get(name, 0.0) + time.perf_counter() - t0
+        return out
+
+    run("build", phase_build)
     from test_torch_streams import encode_xyb_modular
     from test_torch_vardct_streams import encode_xyb_vardct
 
@@ -1003,24 +1140,34 @@ def main() -> int:
     emit({"phase": "features", "step": "write_streams",
           "bytes": {name: len(d) for name, d, _, _ in fstreams},
           "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    lstreams = layout_streams()
+    emit({"phase": "layouts", "step": "write_streams",
+          "bytes": {name: len(d) for name, d, _, _, _ in lstreams},
+          "seconds": time.perf_counter() - t0})
+    phase_s["write_streams"] = time.perf_counter() - start - phase_s["build"]
     # the only profiler sessions of the process: CUPTI has dropped events
     # in sessions after the first few
-    phase_profile(fstreams[0][1], "vardct_up2_noise", "epf_gab_kernel")
-    phase_profile(data, "modular", "epf_gab_kernel")
-    phase_profile(vdata, "vardct", "ac_sections_kernel")
-    k, k_half, max_err = phase_kernels()
-    k2 = phase_k2()
-    k3 = phase_k3(vdata)
-    modular_launches = phase_decode(data)
-    vardct_launches = phase_vardct(vdata, vcoeffs)
-    feature_launches = phase_features(fstreams)
-    phase_feature_breakdown(fstreams[0][1])
+    run("profile", phase_profile, fstreams[0][1], "vardct_up2_noise", "epf_gab_kernel")
+    run("profile", phase_profile, data, "modular", "epf_gab_kernel")
+    run("profile", phase_profile, vdata, "vardct", "ac_sections_kernel")
+    k, k_half, max_err = run("kernels", phase_kernels)
+    k2 = run("k2", phase_k2)
+    k3 = run("k3", phase_k3, vdata)
+    modular_launches = run("decode", phase_decode, data)
+    vardct_launches = run("vardct", phase_vardct, vdata, vcoeffs)
+    feature_launches = run("features", phase_features, fstreams)
+    run("features_breakdown", phase_render_breakdown, fstreams[0][1], "vardct_up2_noise",
+        "features_breakdown")
+    layout_launches = run("layouts", phase_layouts, lstreams)
+    emit({"phase": "timing", "seconds": phase_s, "total_s": time.perf_counter() - start})
     null_reason = "no single torch call computes a rANS decode"
     emit({"kernels": [
         {"name": "epf_gab", "route": "cuda", "source": "jxl_tpu_torch/csrc/epf_gab.cu",
          "replaces": "jxl_tpu/ops/pallas_epf.py:228", "launches": vardct_launches["epf_gab"],
          "launches_modular_path": modular_launches,
          "launches_features_path": feature_launches["epf_gab"],
+         "launches_layouts_path": layout_launches["epf_gab"],
          "max_abs_err": max_err, "ms": k["kernel_ms"], "call_ms": k["call_ms"],
          "plain_ms": k["plain_ms"],
          "bound_ms": k["bound_ms"], "bound_by": k["bound_by"], "library_ms": None,
@@ -1041,6 +1188,7 @@ def main() -> int:
          "replaces": "jxl_tpu/ops/device_ac.py:55",
          "launches": vardct_launches["decode_ac_sections"],
          "launches_features_path": feature_launches["decode_ac_sections"],
+         "launches_layouts_path": layout_launches["decode_ac_sections"],
          "max_abs_err": k3["max_abs_err"], "ms": k3["kernel_ms"], "call_ms": k3["call_ms"],
          "plain_ms": k3["plain_ms"], "ns_per_step": k3["ns_per_step"],
          "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"], "library_ms": None,

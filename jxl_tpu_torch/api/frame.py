@@ -6,8 +6,11 @@ decoding. A VarDCT frame's AC coefficients are decoded by the lane
 decoder (vardct/device_group.py: kernel K3 on the card, its plain torch
 version on the CPU) or, with JXL_TPU_AC=host or for streams the lane
 decoder does not take, by the native host decoder; either way they end
-up as one dense buffer for vardct/device_frame.py. A Modular frame's
-global image carries its extra channels. Patches, splines and LF frames
+up as one dense buffer for vardct/device_frame.py. The global modular
+image carries the frame's extra channels; in a VarDCT frame each group
+codes its part of them right after its AC tokens, and such frames decode
+group by group on the host (vardct/group.py:decode_vardct_group, then the
+group's modular HF stream). Patches, splines and LF frames
 are outside this package's slice: the entry point (api/simple.py) rejects
 such frames before any section is read.
 """
@@ -204,7 +207,15 @@ class Frame:
             adaptive_lf_smoothing(self)
 
     def decode_hf_group(self, group: int, pass_readers: list[tuple[int, BitReader]]) -> None:
+        """One group's HF sections: a VarDCT frame's AC into the group's
+        slot of host_ac_flat, then each pass's modular HF stream at the bit
+        where its AC ended (ref jxl_tpu/api/frame.py:_decode_hf_group)."""
         state = self.lf_global
+        if self.header.encoding == Encoding.VARDCT:
+            from ..vardct.group import GROUP_DIM, decode_vardct_group
+
+            pool = self.host_ac_flat.reshape(-1, 3, GROUP_DIM * GROUP_DIM)
+            decode_vardct_group(self, group, pass_readers, pool[group])
         for pass_idx, br in pass_readers:
             state.modular_global.read_hf_stream(
                 self.header, state.tree, pass_idx, group, br
@@ -254,7 +265,6 @@ class Frame:
         import os
 
         from ..vardct.device_group import decode_ac_sections_device, eligible_for_device_ac
-        from ..vardct.group import try_decode_hf_groups
 
         header = self.header
         single = header.num_toc_entries == 1
@@ -274,13 +284,35 @@ class Frame:
             }
             decode_ac_sections_device(self, readers, device)
             return
-        hf = [(g, sec if single else sections[self.section_index("hf", group=g)])
-              for g in range(header.num_groups)]
-        if not try_decode_hf_groups(self, hf):
+        self.decode_vardct_ac_on_host(
+            [(g, sec if single else sections[self.section_index("hf", group=g)])
+             for g in range(header.num_groups)], device)
+
+    def decode_vardct_ac_on_host(self, hf, device) -> None:
+        """A single-pass VarDCT frame's AC on the host, into host_ac_flat:
+        the whole frame in one native call, or, when modular HF channels
+        follow each group's AC, group by group over the thread pool, each
+        group then reading its modular HF stream (the groups write disjoint
+        slots of one pool). The pool is page-locked when the render runs on
+        the card, so its upload needs no staging copy and no wait. hf:
+        [(group, BitReader)] in group order. A frame with more than one
+        pass raises NotSupported."""
+        from ..vardct.group import GROUP_DIM, try_decode_hf_groups
+
+        n = self.header.num_groups * 3 * GROUP_DIM * GROUP_DIM
+        if torch.device(device).type == "cuda":
+            pool = torch.zeros(n, dtype=torch.int32, pin_memory=True).numpy()
+        else:
+            pool = np.zeros(n, np.int32)
+        if try_decode_hf_groups(self, hf, pool):
+            return
+        if self.header.passes.num_passes != 1:
             raise NotSupported(
                 "VarDCT frames with more than one pass whose AC the lane decoder does "
-                "not take, or with modular HF channels, are not in this package's slice"
+                "not take are not in this package's slice"
             )
+        self.host_ac_flat = pool
+        self._decode_hf_groups_parallel([(g, [(0, br)]) for g, br in hf])
 
     def _decode_hf_groups_parallel(self, jobs) -> None:
         """Fan HF-group section decoding out over a host thread pool (the

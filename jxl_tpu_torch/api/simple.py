@@ -1,9 +1,10 @@
 """Whole-buffer decode entry point (non-streaming), single frame.
 
 Counterpart of jxl_tpu/api/simple.py:decode_image restricted to its
-single-frame path: one visible Modular or 4:4:4 VarDCT frame, upsampled or
-not, with or without photon noise, a Modular frame with or without extra
-channels; no preview, animation, ICC profile, patches or splines. Host
+single-frame path: one visible Modular or VarDCT frame (XYB or YCbCr, a
+VarDCT frame 4:4:4 or chroma-subsampled), upsampled or not, with or
+without photon noise, with or without extra channels; no preview,
+animation, ICC profile, patches or splines. Host
 parse and entropy decode run in numpy and C++ (native/); a VarDCT frame's
 AC coefficients are decoded on the caller's device (api/frame.py), and
 the render runs there.
@@ -77,13 +78,8 @@ def _check_image(fh) -> None:
 
 
 def _check_frame(header) -> None:
-    if header.encoding == Encoding.VARDCT:
-        if not header.is444:
-            raise NotSupported("chroma-subsampled VarDCT frames are not in this package's slice")
-        if header.has_lf_frame:
-            raise NotSupported("LF frames are not in this package's slice")
-        if header.num_extra_channels:
-            raise NotSupported("extra channels of VarDCT frames are not in this package's slice")
+    if header.encoding == Encoding.VARDCT and header.has_lf_frame:
+        raise NotSupported("LF frames are not in this package's slice")
     if header.frame_type not in (FrameType.REGULAR, FrameType.SKIP_PROGRESSIVE):
         raise NotSupported(f"{header.frame_type.name} frames are not in this package's slice")
     if not header.is_last:
@@ -101,8 +97,10 @@ def _check_frame(header) -> None:
 def decode_image(
     data: bytes, *, pixel_format: str = "f32", device="cuda"
 ) -> DecodedImage:
-    """Decode a single-frame Modular or 4:4:4 VarDCT .jxl file: frames of
-    shape (H, W, 3 + extra channels), in the requested sample type.
+    """Decode a single-frame Modular or VarDCT .jxl file (a VarDCT frame
+    4:4:4 XYB or YCbCr, or chroma-subsampled YCbCr as a recompressed JPEG
+    codes it; with extra channels or not): frames of shape (H, W, 3 +
+    extra channels), in the requested sample type.
 
     pixel_format: "f32" (default), "u8", "u16", or "f16" — the output sample
     format (ref JxlDataFormat + ConvertF32To* stages, convert.rs:549-).

@@ -1154,6 +1154,54 @@ def decode_hf_groups_native(
     return [int(poss[i]) for i in range(n)]
 
 
+def decode_vardct_ac_native(br, ent, items, orders, coeffs, shift, num_bctx, nzeros_maps,
+                            nz_dims) -> None:
+    """One pass of one group's VarDCT AC (modular_decode.cc
+    jxl_decode_vardct_ac): the tokens of `items`, (n, 11) int32 rows [c,
+    sbx, sby, num_blocks, num_coeffs, bctx, context offset, order offset,
+    coefficient offset, cx, cy], decoded with the packed entropy `ent`
+    into the int32 buffer `coeffs` (offsets absolute into it), then the
+    ANS final-state check. nzeros_maps/nz_dims: the per-channel nonzeros
+    grids, (w, h, offset) a channel. Leaves br at the bit after the AC;
+    raises typed errors on bad streams."""
+    from ..errors import InvalidNumNonZeros, NativeDecodeError
+
+    for name, a in (("items", items), ("orders", orders), ("coeffs", coeffs),
+                    ("nzeros_maps", nzeros_maps), ("nz_dims", nz_dims)):
+        if a.dtype != np.int32 or not a.flags.c_contiguous:
+            raise ValueError(f"{name} must be a C-contiguous int32 array")
+    if items.ndim != 2 or items.shape[1] != 11 or nz_dims.shape != (3, 3):
+        raise ValueError("items must be (n, 11) and nz_dims (3, 3)")
+    if len(items) and int((items[:, 8] + items[:, 4]).max()) > coeffs.size:
+        raise ValueError("an item's coefficients lie past the coefficient buffer")
+    lib = get_lib()
+    bit_pos = ctypes.c_uint64(br.pos)
+    ret = lib.jxl_decode_vardct_ac(
+        _databuf(br), ctypes.c_uint64(len(br.data)), ctypes.byref(bit_pos),
+        ctypes.c_int(ent["use_prefix"]),
+        _ptr(ent["ans_tables"], ctypes.c_int32),
+        ctypes.c_int(ent["table_size"]), ctypes.c_int(ent["log_bucket"]),
+        _ptr(ent["huff_offsets"], ctypes.c_int32),
+        _ptr(ent["huff_bits"], ctypes.c_int32),
+        _ptr(ent["huff_values"], ctypes.c_int32),
+        _ptr(ent["context_map"], ctypes.c_uint8),
+        ctypes.c_int(len(ent["context_map"])),
+        _ptr(ent["uint_configs"], ctypes.c_int32),
+        ctypes.c_int(ent["lz77"]), ctypes.c_uint32(ent["min_symbol"]),
+        ctypes.c_uint32(ent["min_length"]), _ptr(ent["lz_cfg"], ctypes.c_int32),
+        ctypes.c_int(ent["lz_dist_cluster"]), ctypes.c_uint32(0),
+        ctypes.c_int(len(items)), _ptr(items, ctypes.c_int32),
+        _ptr(orders, ctypes.c_int32), _ptr(coeffs, ctypes.c_int32),
+        ctypes.c_int(shift), ctypes.c_int(num_bctx),
+        _ptr(nzeros_maps, ctypes.c_int32), _ptr(nz_dims, ctypes.c_int32),
+    )
+    if ret == 3:
+        raise InvalidNumNonZeros("invalid number of nonzeros")
+    if ret != 0:
+        raise NativeDecodeError(f"native vardct AC decode failed (code {ret})")
+    br.pos = bit_pos.value
+
+
 def noise_field_native(field, up, group_dim, gx_count, gy_count, vfi, nfi) -> None:
     """Fill field, a C-contiguous (3, hu, wu) float32 array, with the
     per-group xorshift128+ noise field in place (filters.cc

@@ -8,9 +8,9 @@ torch tensors on one device, with the halo it reads (`border`), the log2
 upsampling it applies (`shift`) and the channels it touches. The filter
 stages (gaborish, EPF) have no body of their own: render/span_exec.py runs
 a run of them as one launch of the gaborish + EPF kernel
-(render/device_filters.py:run_filters). Patches, splines and chroma
-upsampling are not in this package's slice: frames that need them raise
-NotSupported.
+(render/device_filters.py:run_filters). Patches and splines are not in
+this package's slice, nor chroma-subsampled Modular frames: frames that
+need them raise NotSupported.
 """
 
 from __future__ import annotations
@@ -96,6 +96,24 @@ def upsample_stage(frame, n: int, channels) -> Stage:
                  channels=tuple(channels))
 
 
+def chroma_upsample_stage(channel: int, horizontal: bool) -> Stage:
+    """HorizontalChromaUpsample / VerticalChromaUpsample (ref
+    stages/chroma_upsample.rs:9,87): 2x along one axis of one channel,
+    BORDER 1 and SHIFT 1 along that axis."""
+    from .stages import core as st
+
+    f = st.chroma_upsample_h if horizontal else st.chroma_upsample_v
+
+    def fn(chans, ctx):
+        out = list(chans)
+        out[channel] = f(out[channel])
+        return out
+
+    return Stage(f"chroma_upsample_{'h' if horizontal else 'v'}[{channel}]", fn,
+                 border=(1, 0) if horizontal else (0, 1),
+                 shift=(1, 0) if horizontal else (0, 1), channels=(channel,))
+
+
 def crop_stage(w: int, h: int, channels) -> Stage:
     """Restrict channels to the visible rect (spec edge-extension point)."""
 
@@ -152,23 +170,31 @@ def convert_output_stage(fmt: str, channels) -> Stage:
 
 def build_render_pipeline(frame):
     """Per-frame stage assembly in reference order (ref
-    frame/render.rs:506-885): visible crop -> gaborish -> EPF0/1/2 ->
-    early EC upsample -> upsample -> upsampled crop -> noise. The colour
-    transform and output conversion are appended by the caller. Raises
-    NotSupported for a frame whose pipeline needs patches, splines or
-    chroma upsampling."""
+    frame/render.rs:506-885): chroma upsample (per channel, its
+    horizontal steps, then its vertical ones) -> visible crop -> gaborish
+    -> EPF0/1/2 -> early EC upsample -> upsample -> upsampled crop ->
+    noise. The colour transform and output conversion are appended by the
+    caller. Raises NotSupported for a frame whose pipeline needs patches or
+    splines, and for a chroma-subsampled Modular frame."""
+    from ..io.headers.frame import Encoding
+
     header = frame.header
     meta = frame.file_header.image_metadata
     num_ec = len(meta.extra_channel_info)
-    if not header.is444:
-        raise NotSupported("chroma-subsampled frames are not in this package's slice")
+    if not header.is444 and header.encoding != Encoding.VARDCT:
+        # no writer of this package's tests codes YCbCr Modular frames
+        raise NotSupported("chroma-subsampled Modular frames are not in this package's slice")
     if header.has_patches:
         raise NotSupported("patches are not in this package's slice")
     if header.has_splines:
         raise NotSupported("splines are not in this package's slice")
 
+    stages = []
+    for c in range(3):
+        stages += [chroma_upsample_stage(c, True)] * header.hshift(c)
+        stages += [chroma_upsample_stage(c, False)] * header.vshift(c)
     wc, hc = header.size()
-    stages = [crop_stage(wc, hc, (0, 1, 2))]
+    stages.append(crop_stage(wc, hc, (0, 1, 2)))
     rf = header.restoration_filter
     if rf.gab:
         stages.append(gaborish_stage())

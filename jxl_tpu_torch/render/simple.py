@@ -2,18 +2,20 @@
 device.
 
 Counterpart of jxl_tpu/render/simple.py for this package's slice: the
-VarDCT planes (vardct/device_frame.py, from the dense AC coefficients) or
-the Modular-to-float conversion (with the XYB channel order and scaling,
-and each extra channel at its own bit depth), the stage assembly of
-render/pipeline.py, then the stage list (the filters, upsampling, noise,
-colour transform, output conversion) run by render/span_exec.py.
+VarDCT planes (vardct/device_frame.py, from the dense AC coefficients;
+chroma-subsampled planes at their own sizes) or the Modular-to-float
+conversion (with the XYB channel order and scaling), each extra channel at
+its own bit depth, the stage assembly of render/pipeline.py, then the
+stage list (chroma upsampling, the filters, upsampling, noise, colour
+transform, output conversion) run by render/span_exec.py. Host planes go
+to the card through render/stages/core.py:to_device (pinned, without a
+wait).
 """
 
 from __future__ import annotations
 
 import time
 
-import numpy as np
 import torch
 
 from ..color import tf as tfmod
@@ -80,7 +82,7 @@ def frame_planes(frame, device) -> torch.Tensor:
     mg = frame.lf_global.modular_global
 
     def channel(c):
-        return torch.from_numpy(np.ascontiguousarray(mg.output_channel(c))).to(device)
+        return st.to_device(mg.output_channel(c), device)
 
     if meta.xyb_encoded:
         # modular XYB order is [Y, X, B]; B has Y added (ref convert.rs:278)
@@ -96,32 +98,40 @@ def frame_planes(frame, device) -> torch.Tensor:
     return torch.stack(planes)
 
 
-def vardct_planes(frame, device) -> torch.Tensor:
-    """A VarDCT frame's (3, bh*8, bw*8) XYB planes on `device`, from the
-    lane decoder's coefficients (already there) or the host decoder's (one
-    dense upload); the lane flags are checked after the render is queued
-    (ref render/simple.py:108-115, api/frame.py:_finish_device_render)."""
-    from ..vardct.device_frame import render_vardct_frame_device
+def vardct_planes(frame, device) -> list:
+    """A VarDCT frame's three planes (XYB, or Cb, Y, Cr) on `device`, each
+    (bh*8 >> vshift, bw*8 >> hshift): the whole frame's size unless the
+    frame is chroma-subsampled. From the lane decoder's coefficients
+    (already there) or the host decoder's (one dense upload); the lane
+    flags are checked after the render is queued (ref
+    render/simple.py:108-115, api/frame.py:_finish_device_render,
+    :509-513)."""
+    from ..vardct.device_frame import (render_vardct_frame_device,
+                                       render_vardct_frame_device_subsampled)
     from ..vardct.device_group import check_device_ac_ok
 
     flat = frame.device_ac_flat
     if flat is None:
-        flat = torch.from_numpy(frame.host_ac_flat).to(device)
-    planes = render_vardct_frame_device(frame, flat.to(device))
+        flat = st.to_device(frame.host_ac_flat, device)
+    flat = flat.to(device)
+    if frame.header.is444:
+        planes = list(render_vardct_frame_device(frame, flat).unbind(0))
+    else:
+        planes = render_vardct_frame_device_subsampled(frame, flat)
     check_device_ac_ok(frame)
     return planes
 
 
 def _extra_channel_planes(frame, device) -> list:
-    """A Modular frame's extra channels as float32 planes on `device`, each
-    at its own bit depth (ref render/simple.py:133-136)."""
+    """The frame's extra channels as float32 planes on `device`, each at
+    its own bit depth (ref render/simple.py:133-136). The global modular
+    image holds them after the colour channels of a Modular frame and
+    alone in a VarDCT frame; either way output_channel finds extra channel
+    i by its output index 3 + i."""
     meta = frame.file_header.image_metadata
     mg = frame.lf_global.modular_global
     return [
-        _modular_to_f32(
-            torch.from_numpy(np.ascontiguousarray(mg.output_channel(3 + i))).to(device),
-            info.bit_depth,
-        )
+        _modular_to_f32(st.to_device(mg.output_channel(3 + i), device), info.bit_depth)
         for i, info in enumerate(meta.extra_channel_info)
     ]
 
@@ -139,10 +149,9 @@ def render_frame(frame, device, out_format: str = "f32", timings=None) -> torch.
     num_ec = len(frame.file_header.image_metadata.extra_channel_info)
     stages = build_render_pipeline(frame)
     if header.encoding == Encoding.VARDCT:
-        planes = vardct_planes(frame, device)
+        chans = vardct_planes(frame, device)
     else:
-        planes = frame_planes(frame, device)
-    chans = list(planes.unbind(0))
+        chans = list(frame_planes(frame, device).unbind(0))
     if num_ec:
         chans += _extra_channel_planes(frame, device)
     ctx = {"frame": frame}

@@ -39,6 +39,37 @@ def to_device(array: np.ndarray, device) -> torch.Tensor:
     return t.pin_memory().to(device, non_blocking=True)
 
 
+def to_device_all(arrays, device) -> list:
+    """Several small host arrays on `device`, as to_device puts one, but
+    with one page-locked buffer and one copy for each dtype among them:
+    each array comes back as a view of its dtype's buffer. A render that
+    uploads a few tables per transform type then makes a few copies, not
+    hundreds, and fewer page-locked allocations, each of which can wait
+    for the card."""
+    arrays = [np.ascontiguousarray(a) for a in arrays]
+    if torch.device(device).type != "cuda":
+        return [torch.from_numpy(a) for a in arrays]
+    out = [None] * len(arrays)
+    by_dtype = {}
+    for i, a in enumerate(arrays):
+        by_dtype.setdefault(a.dtype, []).append(i)
+    for idx in by_dtype.values():
+        n = sum(arrays[i].size for i in idx)
+        dtype = torch.from_numpy(np.empty(0, arrays[idx[0]].dtype)).dtype
+        host = torch.empty(n, dtype=dtype, pin_memory=True)
+        view = host.numpy()
+        at = []
+        pos = 0
+        for i in idx:
+            view[pos : pos + arrays[i].size] = arrays[i].reshape(-1)
+            at.append(pos)
+            pos += arrays[i].size
+        buf = host.to(device, non_blocking=True)
+        for i, p in zip(idx, at):
+            out[i] = buf[p : p + arrays[i].size].view(arrays[i].shape)
+    return out
+
+
 def mirror_index(n: int, b: int, device) -> torch.Tensor:
     """Source indices of numpy's mode="symmetric" padding of a length-n
     axis by b on both sides: the edge sample repeats, period 2n."""
@@ -200,6 +231,32 @@ def _expand_sigma(sigma_block, h, w, pos):
     oy = y0 - by0 * BLOCK_DIM
     ox = x0 - bx0 * BLOCK_DIM
     return px[oy : oy + h, ox : ox + w]
+
+
+# -- chroma upsampling ----------------------------------------------------------
+
+
+def chroma_upsample_h(plane):
+    """Horizontal 2x (ref stages/chroma_upsample.rs:9): each sample gives
+    the pair (0.25 left + 0.75 cur, 0.75 cur + 0.25 right) of the
+    mirror-padded plane."""
+    p = _pad_mirror(plane, 0, 1)
+    cur = p[:, 1:-1]
+    left = p[:, :-2] * f32(0.25) + cur * f32(0.75)
+    right = p[:, 2:] * f32(0.25) + cur * f32(0.75)
+    h, w = plane.shape
+    return torch.stack([left, right], dim=-1).reshape(h, 2 * w)
+
+
+def chroma_upsample_v(plane):
+    """Vertical 2x (ref stages/chroma_upsample.rs:87), the same stencil
+    down the columns."""
+    p = _pad_mirror(plane, 1, 0)
+    cur = p[1:-1, :]
+    up = p[:-2, :] * f32(0.25) + cur * f32(0.75)
+    down = p[2:, :] * f32(0.25) + cur * f32(0.75)
+    h, w = plane.shape
+    return torch.stack([up, down], dim=1).reshape(2 * h, w)
 
 
 # -- N-x upsampling --------------------------------------------------------------

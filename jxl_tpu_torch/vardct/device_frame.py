@@ -1,13 +1,16 @@
-"""Whole-frame VarDCT dequant + CfL + IDCT of a 4:4:4 frame, in torch on
-the coefficient buffer's device.
+"""Whole-frame VarDCT dequant + CfL + IDCT, in torch on the coefficient
+buffer's device.
 
 The counterpart of jxl_tpu/vardct/device_frame.py:render_vardct_frame_device
-(the reference's per-group numeric path, frame/group.rs:138-237
-dequant_and_transform_to_pixels, over the whole frame): per transform type,
-gather the blocks' quantized coefficients from the dense
-(G * 3 * GD * GD,) int32 buffer in place, dequantize with the quant bias,
-add chroma from luma, run the inverse transforms (transforms_batch.py) and
-scatter the pixels. The planes stay on the device for the filters.
+and render_vardct_frame_device_subsampled (the reference's per-group
+numeric path, frame/group.rs:138-237 dequant_and_transform_to_pixels, over
+the whole frame): per transform type, gather the blocks' quantized
+coefficients from the dense (G * 3 * GD * GD,) int32 buffer in place,
+dequantize with the quant bias, add chroma from luma, run the inverse
+transforms (transforms_batch.py) and scatter the pixels. The planes stay
+on the device for the filters. The host tables of a render go up through
+render/stages/core.py:to_device_all: pinned, one copy a dtype, without a
+wait.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..render.stages.core import to_device_all
 from .group import BLOCK_SIZE, GROUP_DIM
 from .transform_map import covered_blocks_x, covered_blocks_y
 from .transforms_batch import transform_to_pixels_batch
@@ -60,52 +64,68 @@ def _frame_blocks(frame, group_ids: list) -> dict:
     }
 
 
+def _constants(frame) -> tuple:
+    """(x_dm, b_dm, 1/global_scale, colour factor, base correlations x and
+    b): float32 values as Python floats (torch keeps tensors float32)."""
+    header = frame.header
+    ccp = frame.lf_global.color_correlation_params
+    qp = frame.lf_global.quant_params
+    return tuple(float(np.float32(v)) for v in (
+        (1.0 / 1.25) ** (header.x_qm_scale - 2.0), (1.0 / 1.25) ** (header.b_qm_scale - 2.0),
+        qp.inv_global_scale, ccp.color_factor, ccp.base_correlation_x,
+        ccp.base_correlation_b))
+
+
+def _frame_tables(frame) -> list:
+    """The host tables every render uploads: LF (3, bh, bw), raw quant
+    (bh, bw) int32, ytox and ytob tiles float32, quant biases (4,)."""
+    bw, bh = frame.header.size_blocks()
+    th = -(-bh // COLOR_TILE_DIM_IN_BLOCKS)
+    tw = -(-bw // COLOR_TILE_DIM_IN_BLOCKS)
+    hf = frame.hf_meta
+    biases = frame.file_header.transform_data.opsin_inverse_matrix.quant_biases
+    return [
+        np.stack(frame.lf_image).astype(np.float32),
+        np.asarray(hf["raw_quant"], np.int32),
+        np.asarray(hf["ytox"][:th, :tw], np.float32),
+        np.asarray(hf["ytob"][:th, :tw], np.float32),
+        np.asarray(biases, np.float32),
+    ]
+
+
+def _matrices(frame, t: int, nc: int) -> np.ndarray:
+    """(3, nc) float32 dequant weights of transform type t."""
+    dqm = frame.hf_global.dequant_matrices
+    return np.stack([np.asarray(dqm.matrix(t, c)[:nc], np.float32) for c in range(3)])
+
+
 def render_vardct_frame_device(frame, flat) -> torch.Tensor:
     """(3, bh*8, bw*8) float32 planes in XYB on flat's device, from the
     dense (G * 3 * GD * GD,) int32 coefficient buffer `flat` of every
     group in order."""
     header = frame.header
     if not header.is444:
-        from ..errors import NotSupported
-
-        raise NotSupported("chroma-subsampled VarDCT frames are not in this package's slice")
+        raise ValueError("a chroma-subsampled frame renders through "
+                         "render_vardct_frame_device_subsampled")
     dev = flat.device
-    hf = frame.hf_meta
-    lf_global = frame.lf_global
-    ccp = lf_global.color_correlation_params
-    qp = lf_global.quant_params
-    dqm = frame.hf_global.dequant_matrices
-    biases = np.asarray(
-        frame.file_header.transform_data.opsin_inverse_matrix.quant_biases, dtype=np.float32
-    )
-    # float32 constants, as Python floats (torch keeps tensors float32)
-    x_dm, b_dm, igs, cf, bcx, bcb = (float(np.float32(v)) for v in (
-        (1.0 / 1.25) ** (header.x_qm_scale - 2.0), (1.0 / 1.25) ** (header.b_qm_scale - 2.0),
-        qp.inv_global_scale, ccp.color_factor, ccp.base_correlation_x,
-        ccp.base_correlation_b))
+    x_dm, b_dm, igs, cf, bcx, bcb = _constants(frame)
     bw, bh = header.size_blocks()
     W = bw * BLOCK_DIM
-    th = -(-bh // COLOR_TILE_DIM_IN_BLOCKS)
-    tw = -(-bw // COLOR_TILE_DIM_IN_BLOCKS)
-
-    def up(a, dtype=None):
-        t = torch.from_numpy(np.ascontiguousarray(a))
-        return (t if dtype is None else t.to(dtype)).to(dev)
-
     blocks = _frame_blocks(frame, list(range(header.num_groups)))
-    lf_flat = up(np.stack(frame.lf_image)).reshape(3, -1)
-    rq = up(hf["raw_quant"], torch.int32)
-    ytox = up(hf["ytox"][:th, :tw]).to(torch.float32)
-    ytob = up(hf["ytob"][:th, :tw]).to(torch.float32)
-    b_c = up(biases)
+    types = sorted(blocks)
+    host = _frame_tables(frame)
+    for t in types:
+        host += [a.astype(np.int64) for a in blocks[t]]
+        host.append(_matrices(frame, t, covered_blocks_x(t) * covered_blocks_y(t) * BLOCK_SIZE))
+    lf, rq, ytox, ytob, b_c, *per_type = to_device_all(host, dev)
+    lf_flat = lf.reshape(3, -1)
     planes = torch.zeros((3, bh * BLOCK_DIM * W), dtype=torch.float32, device=dev)
     stride_c = GROUP_DIM * GROUP_DIM
-    for t in sorted(blocks):
-        gbx, gby, gi, off = (up(a).to(torch.int64) for a in blocks[t])
+    for k, t in enumerate(types):
+        gbx, gby, gi, off, mats = per_type[5 * k : 5 * k + 5]
         n = gbx.shape[0]
         cx, cy = covered_blocks_x(t), covered_blocks_y(t)
         nc = cx * cy * BLOCK_SIZE
-        mats = up(np.stack([np.asarray(dqm.matrix(t, c)[:nc], np.float32) for c in range(3)]))
         base = gi * _GROUP_STRIDE + off
         gidx = (base[:, None, None] + torch.arange(3, device=dev)[None, :, None] * stride_c
                 + torch.arange(nc, device=dev)[None, None, :])
@@ -138,3 +158,89 @@ def render_vardct_frame_device(frame, flat) -> torch.Tensor:
             pix = transform_to_pixels_batch(t, lf_tiles, dq[:, c].contiguous())
             planes[c, pidx] = pix.reshape(-1)
     return planes.reshape(3, bh * BLOCK_DIM, W)
+
+
+def render_vardct_frame_device_subsampled(frame, flat) -> list:
+    """The chroma-subsampled render (4:2:0, 4:2:2, 4:4:0; DCT8-sized
+    transforms only, as the format allows): [Cb, Y, Cr] float32 planes on
+    flat's device, channel c at its own size (bh*8 >> vshift(c), bw*8 >>
+    hshift(c)), from the dense coefficient buffer `flat`.
+
+    Channel c decodes only at the blocks aligned to its grid; its LF is
+    read at the channel's block (cby, cbx) of the frame's (3, bh, bw) LF
+    stack, stride bw; X and B add Y's dequantized block at the same
+    full-resolution block (Y's matrix, no x/b scale). Unlike the
+    reference, which upsamples and crops in the same program, the planes
+    come back at their own sizes: the render pipeline's chroma upsampling
+    stages (render/pipeline.py) upsample each channel, horizontal first,
+    before the visible crop and the filters, the same order (ref
+    render/simple.py:145-146)."""
+    header = frame.header
+    dev = flat.device
+    x_dm, b_dm, igs, cf, bcx, bcb = _constants(frame)
+    bw, bh = header.size_blocks()
+    H, W = bh * BLOCK_DIM, bw * BLOCK_DIM
+    blocks = _frame_blocks(frame, list(range(header.num_groups)))
+    types = sorted(blocks)
+    for t in types:
+        if covered_blocks_x(t) != 1 or covered_blocks_y(t) != 1:
+            raise ValueError(f"transform {t} covers more than one block in a subsampled frame")
+    # every upload in one copy a dtype: the tables, each type's matrices,
+    # then each (channel, type)'s blocks aligned to the channel's grid
+    host = _frame_tables(frame) + [_matrices(frame, t, BLOCK_SIZE) for t in types]
+    jobs = []  # (channel, type)
+    for c in range(3):
+        hs, vs = header.hshift(c), header.vshift(c)
+        for t in types:
+            gbx, gby, gi, off = blocks[t]
+            m = (((gbx >> hs) << hs) == gbx) & (((gby >> vs) << vs) == gby)
+            if m.any():
+                jobs.append((c, t))
+                host += [a[m].astype(np.int64) for a in (gbx, gby, gi, off)]
+    lf, rq, ytox, ytob, b_c, *rest = to_device_all(host, dev)
+    lf_flat = lf.reshape(3, -1)
+    mats = dict(zip(types, rest))
+    job_blocks = rest[len(types):]
+    stride_c = GROUP_DIM * GROUP_DIM
+    lanes = torch.arange(BLOCK_SIZE, device=dev)
+    py = torch.arange(BLOCK_DIM, device=dev)
+
+    def dequant(qb, c, t, scale):
+        q = qb.to(torch.float32)
+        # quant bias where |q| < 2, else q - b3/q; 0 stays 0
+        adj = torch.where(qb.abs() < 2, q * b_c[c], q - b_c[3] / torch.where(qb == 0, 1.0, q))
+        adj = torch.where(qb == 0, 0.0, adj)
+        return adj * mats[t][c][None] * scale[:, None]
+
+    sizes = [(H >> header.vshift(c), W >> header.hshift(c)) for c in range(3)]
+    # one slot past each plane takes the pixels the reference drops
+    planes = [torch.zeros(hc * wc + 1, dtype=torch.float32, device=dev) for hc, wc in sizes]
+    for k, (c, t) in enumerate(jobs):
+        gbx, gby, gi, off = job_blocks[4 * k : 4 * k + 4]
+        hs, vs = header.hshift(c), header.vshift(c)
+        hc, wc = sizes[c]
+        base = gi * _GROUP_STRIDE + off
+        scaled_y = igs / rq[gby, gbx].to(torch.float32)
+
+        def gather(ch):
+            return flat[((base + ch * stride_c)[:, None] + lanes[None, :]).reshape(-1)
+                        ].reshape(-1, BLOCK_SIZE)
+
+        dq = dequant(gather(c), c, t, scaled_y * {0: x_dm, 1: 1.0, 2: b_dm}[c])
+        if c != 1:
+            # CfL: Y's dequantized block at the same full-resolution block
+            tx = gbx // COLOR_TILE_DIM_IN_BLOCKS
+            ty = gby // COLOR_TILE_DIM_IN_BLOCKS
+            cc = bcx + ytox[ty, tx] / cf if c == 0 else bcb + ytob[ty, tx] / cf
+            dq = dq + cc[:, None] * dequant(gather(1), 1, t, scaled_y)
+        cbx, cby = gbx >> hs, gby >> vs
+        lf_tiles = lf_flat[c][cby * bw + cbx]
+        pix = transform_to_pixels_batch(t, lf_tiles[:, None, None], dq.contiguous())
+        rows = cby[:, None, None] * BLOCK_DIM + py[None, :, None]
+        cols = cbx[:, None, None] * BLOCK_DIM + py[None, None, :]
+        # the reference drops pixels past the channel's plane (mode
+        # "drop"): here they land in the spare slot, without a boolean
+        # mask that would make the host wait for the card
+        idx = torch.where((rows < hc) & (cols < wc), rows * wc + cols, hc * wc)
+        planes[c][idx.expand_as(pix).reshape(-1)] = pix.reshape(-1)
+    return [p[: hc * wc].reshape(hc, wc) for p, (hc, wc) in zip(planes, sizes)]

@@ -12,14 +12,9 @@ bit.
 from __future__ import annotations
 
 import numpy as np
-import torch
 
 from ..io.headers.frame import Encoding
-from .group import GROUP_DIM, _BlockList, _build_pass_items
-
-
-def _ceil_log2(x: int) -> int:
-    return (x - 1).bit_length() if x > 1 else 0
+from .group import GROUP_DIM, _BlockList, _build_pass_items, _ceil_log2
 
 
 def _next_pow2(n: int, floor: int = 1) -> int:
@@ -158,15 +153,16 @@ def run_lanes(inputs: dict, device):
     lane_inputs(): (coeffs (total,) int32, ok (S,) bool) tensors there.
     The tables are checked and packed here, on the host, and go up with
     the other arrays (pack_tables raises ValueError on tables K3 cannot
-    take)."""
+    take), through render/stages/core.py:to_device: pinned, without a
+    wait."""
     from ..ops.device_ac import decode_ac_sections, pack_tables
+    from ..render.stages.core import to_device
 
     buckets, cfgs = pack_tables(inputs["tables"], inputs["uint_cfgs"], inputs["context_map"])
-    arrays = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
-              for k, v in inputs.items() if k not in LANE_KEYWORDS}
+    arrays = {k: to_device(v, device) for k, v in inputs.items() if k not in LANE_KEYWORDS}
     return decode_ac_sections(**arrays, **{k: inputs[k] for k in LANE_KEYWORDS},
-                              packed_buckets=torch.from_numpy(buckets).to(device),
-                              packed_cfgs=torch.from_numpy(cfgs).to(device))
+                              packed_buckets=to_device(buckets, device),
+                              packed_cfgs=to_device(cfgs, device))
 
 
 def decode_ac_sections_device(frame, group_readers: dict, device) -> None:

@@ -1,10 +1,13 @@
 """VarDCT HF groups on the host: block geometry, the AC item table, the
-quant bias, and the native whole-frame AC decode.
+quant bias, the native whole-frame AC decode, and the per-group AC decode
+of frames whose groups also carry modular HF channels.
 
 Capability reference: jxl/src/frame/group.rs; the counterpart of the parts
 of jxl_tpu/vardct/group.py that this package's VarDCT path runs. The host
 numeric render of that module does not come across: the port renders
-VarDCT frames through vardct/device_frame.py on either device.
+VarDCT frames through vardct/device_frame.py on either device. Nor does
+its pure-Python AC decoder (_decode_pass_oracle): the port's native
+library raises when it cannot be built, so nothing would call it.
 """
 
 from __future__ import annotations
@@ -17,6 +20,10 @@ from .transform_map import block_shape_id, covered_blocks_x, covered_blocks_y
 BLOCK_DIM = 8
 BLOCK_SIZE = 64
 GROUP_DIM = 256
+
+
+def _ceil_log2(x: int) -> int:
+    return (x - 1).bit_length() if x > 1 else 0
 
 
 def adjust_quant_bias(quant: np.ndarray, c: int, biases) -> np.ndarray:
@@ -123,10 +130,11 @@ def _build_pass_items(frame, bl, bctx):
     return items, flat_keys, ordered_keys.tolist()
 
 
-def try_decode_hf_groups(frame, group_readers: list) -> bool:
+def try_decode_hf_groups(frame, group_readers: list, pool: np.ndarray) -> bool:
     """Whole-frame native HF-group decode: one C++ call decodes every
-    group's AC section into one dense (G * 3 * GD * GD,) int32 buffer,
-    kept as frame.host_ac_flat for the render.
+    group's AC section into `pool`, the zeroed dense (G * 3 * GD * GD,)
+    int32 buffer (page-locked when the render runs on the card), kept as
+    frame.host_ac_flat for the render.
 
     Single-pass VarDCT frames whose modular HF sections carry no channels;
     returns False for any other frame. `group_readers` is
@@ -167,7 +175,8 @@ def try_decode_hf_groups(frame, group_readers: list) -> bool:
     if [g for g, _ in group_readers] != list(range(header.num_groups)):
         raise ValueError("try_decode_hf_groups takes every group, in order")
     stride = GROUP_DIM * GROUP_DIM  # VarDCT groups are always 256 px
-    pool = np.zeros((n, 3, stride), dtype=np.int32)
+    if pool.shape != (n * 3 * stride,) or pool.dtype != np.int32:
+        raise ValueError("pool must be the frame's (G * 3 * GD * GD,) int32 buffer")
     bw, bh = header.size_blocks()
     out_pos = native.decode_hf_groups_native(
         [sec for _, sec in group_readers],
@@ -191,5 +200,52 @@ def try_decode_hf_groups(frame, group_readers: list) -> bool:
     )
     for i, (_, sec) in enumerate(group_readers):
         sec.pos = out_pos[i]
-    frame.host_ac_flat = pool.reshape(-1)
+    frame.host_ac_flat = pool
     return True
+
+
+def decode_vardct_group(frame, group: int, pass_readers: list, coeffs: np.ndarray) -> None:
+    """One group's AC, pass after pass, into `coeffs`, the group's
+    (3, GD * GD) int32 slot of the frame's coefficient pool (ref
+    frame/group.rs:384-618; jxl_tpu/vardct/group.py:decode_vardct_group
+    and _decode_pass_native). pass_readers: [(pass index, BitReader)];
+    each reader is left at the bit after its AC, where the group's
+    modular HF stream of that pass begins."""
+    from .. import native
+    from ..errors import InvalidHistogramIndex
+
+    header = frame.header
+    hf_global = frame.hf_global
+    bctx = frame.lf_global.block_context_map
+    bl = _BlockList(frame, group)
+    items, flat_keys, ordered_keys = _build_pass_items(frame, bl, bctx)
+    gw, gh = bl.size
+    nz_dims = np.zeros((3, 3), dtype=np.int32)
+    pos = 0
+    for c in range(3):
+        w, h = gw >> bl.hshift[c], gh >> bl.vshift[c]
+        nz_dims[c] = (w, h, pos)
+        pos += w * h
+    num_histo_bits = _ceil_log2(hf_global.num_histograms)
+    for pass_idx, br in pass_readers:
+        histogram_index = br.read(num_histo_bits)
+        if histogram_index >= hf_global.num_histograms:
+            raise InvalidHistogramIndex("invalid histogram index")
+        pstate = hf_global.passes[pass_idx]
+        # the pass's coefficient orders of the group's (shape, channel) keys
+        off_lut = np.zeros(max(ordered_keys, default=0) + 1, dtype=np.int32)
+        parts = []
+        at = 0
+        for k in ordered_keys:
+            parts.append(np.asarray(pstate.coeff_orders[k], dtype=np.int32))
+            off_lut[k] = at
+            at += len(parts[-1])
+        orders = np.concatenate(parts) if parts else np.zeros(1, np.int32)
+        pass_items = items.copy()
+        pass_items[:, 6] = histogram_index * bctx.num_ac_contexts
+        pass_items[:, 7] = off_lut[flat_keys]
+        shift = header.passes.shift[pass_idx] if pass_idx < len(header.passes.shift) else 0
+        native.decode_vardct_ac_native(
+            br, native.pack_entropy(pstate.histograms), pass_items, orders, coeffs, shift,
+            bctx.num_contexts, np.zeros(max(pos, 1), dtype=np.int32), nz_dims,
+        )

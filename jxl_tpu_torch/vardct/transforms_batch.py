@@ -12,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..render.stages.core import to_device
 from ._afv_basis import AFV4X4BASIS
 from .transform_map import HfTransformType as T
 from .transforms import coeff_storage_shape, dct_matrix, dct_scales, idct_matrix, pixel_shape
@@ -29,7 +30,7 @@ def _const(name: str, n: int, device) -> torch.Tensor:
             "idct": idct_matrix, "dct": dct_matrix, "scales": dct_scales,
             "afv": lambda _: _AFV_BASIS,
         }[name](n)
-        m = torch.from_numpy(np.ascontiguousarray(src, dtype=np.float32)).to(device)
+        m = to_device(np.ascontiguousarray(src, dtype=np.float32), device)
         _CONST[key] = m
     return m
 

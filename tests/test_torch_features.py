@@ -3,7 +3,8 @@ on writer streams with the single-frame feature stages: a 2x-upsampled
 VarDCT frame with photon noise, Modular frames upsampled 4x and 8x, and
 Modular frames with an alpha channel (upsampled early, late or not at all;
 associated or not). f32 max abs 1e-4, u8 at most 1 LSB, the limits of the
-frames without these stages. And what still raises NotSupported.
+frames without these stages. And what still raises NotSupported, and the
+VarDCT headers (chroma-subsampled, extra channels) that no longer do.
 """
 
 import numpy as np
@@ -127,28 +128,36 @@ def _header(data):
 @pytest.mark.parametrize("what,reason", [
     ("patches", "patches"),
     ("splines", "splines"),
-    ("chroma", "chroma-subsampled"),
-    ("vardct_ec", "extra channels of VarDCT"),
 ])
 def test_frames_outside_the_slice_raise(what, reason):
     from jxl_tpu_torch.api.simple import _check_frame
     from jxl_tpu_torch.io.headers.frame import Flags
 
     header = _header(_stream("vardct_up2_noise"))
-    if what == "patches":
-        header.flags |= Flags.ENABLE_PATCHES
-    elif what == "splines":
-        header.flags |= Flags.ENABLE_SPLINES
-    elif what == "chroma":
-        header.jpeg_upsampling = [1, 0, 0]
-    else:
-        header.num_extra_channels = 1
+    header.flags |= Flags.ENABLE_PATCHES if what == "patches" else Flags.ENABLE_SPLINES
     with pytest.raises(jxl_tpu_torch.NotSupported, match=reason):
         _check_frame(header)
 
 
+@pytest.mark.parametrize("what", ["chroma", "vardct_ec"])
+def test_vardct_layouts_pass_the_frame_check(what):
+    """Chroma-subsampled VarDCT frames and VarDCT frames with extra
+    channels, which earlier slices refused here, pass the check (their
+    decodes: test_torch_layouts.py)."""
+    from jxl_tpu_torch.api.simple import _check_frame
+
+    header = _header(_stream("vardct_up2_noise"))
+    if what == "chroma":
+        header.jpeg_upsampling = [1, 0, 0]
+        assert not header.is444
+    else:
+        header.num_extra_channels = 1
+    _check_frame(header)
+
+
 @pytest.mark.parametrize("what,reason", [
-    ("patches", "patches"), ("splines", "splines"), ("chroma", "chroma-subsampled")])
+    ("patches", "patches"), ("splines", "splines"),
+    ("chroma", "chroma-subsampled Modular frames")])
 def test_render_pipeline_refuses_what_it_lacks(what, reason, monkeypatch):
     from jxl_tpu_torch.io.headers.frame import Flags
     from jxl_tpu_torch.render.pipeline import build_render_pipeline

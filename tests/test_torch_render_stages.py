@@ -2,7 +2,8 @@
 inputs: N-x upsampling (max abs 1e-5), the noise field (bit-equal to
 jxl_tpu's and to a plain xorshift128+ walk), the noise convolution and add
 (max abs 1e-6), and the stage lists (names, borders, shifts, channels,
-total border) the two packages assemble for the writers' frames.
+total border) the two packages assemble for the writers' frames, chroma
+upsampling of the subsampled YCbCr frames included.
 """
 
 import numpy as np
@@ -18,7 +19,7 @@ from jxl_tpu_torch.features import noise as port_noise
 from jxl_tpu_torch.render import pipeline as port_pipeline
 from jxl_tpu_torch.render.stages import core as port_core
 from test_torch_streams import encode_xyb_modular
-from test_torch_vardct_streams import encode_xyb_vardct
+from test_torch_vardct_streams import encode_xyb_vardct, encode_ycbcr_vardct
 
 NOISE_LUT = (40, 90, 130, 200, 260, 330, 400, 470)
 
@@ -37,6 +38,12 @@ STREAMS = {
                                                       ec_upsampling=2)[0],
     "modular_alpha_up2_ec4": lambda: encode_xyb_modular(300, 264, seed=10, num_ec=1,
                                                         upsampling=2, ec_upsampling=4)[0],
+    "ycbcr420": lambda: encode_ycbcr_vardct(300, 200, seed=11, density=0.05)[0],
+    "ycbcr422_no_filters": lambda: encode_ycbcr_vardct(300, 200, seed=12, subsampling="422",
+                                                       density=0.05, filters=False)[0],
+    "ycbcr440": lambda: encode_ycbcr_vardct(300, 200, seed=13, subsampling="440",
+                                            density=0.05)[0],
+    "vardct_alpha": lambda: encode_xyb_vardct(300, 200, seed=14, density=0.05, num_ec=1)[0],
 }
 _CACHE = {}
 

@@ -104,12 +104,15 @@ def _port_frame(data, through_ac: bool = False):
     return frame
 
 
-def carry_vardct_state(ref_frame, data):
+def carry_vardct_state(ref_frame, data, flat=None):
     """The port's render inputs from jxl_tpu's parsed VarDCT state, as
     numpy: the frame's own headers (parsed by the port from the same
-    bytes), and copies of the HF metadata maps, the LF image, the
-    quantizer, the CfL parameters and the dequant tables. A decoder has no
-    weights; this is what carries across."""
+    bytes, chroma shifts included), and copies of the HF metadata maps, the
+    LF image, the quantizer, the CfL parameters and the dequant tables. A
+    decoder has no weights; this is what carries across. With `flat`, the
+    dense coefficient buffer, the state also stands in for a decoded
+    frame whose AC the host decoder gave (render/simple.py:vardct_planes
+    takes it)."""
     from jxl_tpu_torch.api.frame import QuantizerParams
     from jxl_tpu_torch.api.simple import parse_frame
     from jxl_tpu_torch.io.bit_reader import BitReader
@@ -138,6 +141,9 @@ def carry_vardct_state(ref_frame, data):
         hf_global=SimpleNamespace(dequant_matrices=DequantMatrices(
             [np.array(t) for t in ref_frame.hf_global.dequant_matrices.tables])),
         restoration_filter=ref_frame.header.restoration_filter,
+        host_ac_flat=None if flat is None else np.array(flat, dtype=np.int32),
+        device_ac_flat=None,
+        device_ac_ok=None,
     )
 
 
@@ -242,15 +248,16 @@ def test_lz77_ac_histograms_take_the_host_decoder(monkeypatch):
     assert np.abs(got - want).max() <= 1e-4
 
 
-def test_chroma_subsampled_vardct_raises():
+def test_chroma_subsampled_vardct_passes_the_frame_check():
+    """A chroma-subsampled VarDCT header is in the slice now (its decodes
+    are held against jxl_tpu in test_torch_layouts.py)."""
     from jxl_tpu_torch.api.simple import _check_frame
 
     data, _ = _stream("dct8_300x200")
     header = _port_frame(data).header
     header.jpeg_upsampling = [1, 0, 0]  # 4:2:0-style chroma shifts
     assert not header.is444
-    with pytest.raises(jxl_tpu_torch.NotSupported, match="chroma-subsampled"):
-        _check_frame(header)
+    _check_frame(header)
 
 
 def test_lf_frame_vardct_raises():

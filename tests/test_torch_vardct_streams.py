@@ -275,13 +275,17 @@ S0 = (0, 1, 2, 3)  # residuals 0, -1, 1, -2
 
 
 def _leaf_sets():
-    sets = {k: S0 for k in ("lf_y", "lf_x", "lf_b", "cfl", "quant", "epf_lo", "epf_hi")}
+    sets = {k: S0 for k in ("lf_y", "lf_x", "lf_b", "cfl", "quant", "epf_lo", "epf_hi", "alpha")}
     for b, extra in enumerate(BAND_TYPES):
         sets[f"band{b}"] = tuple(sorted(_signed_token((0, DCT16) + extra).tolist()))
     return sets
 
 
-def build_tree(num_lf_groups: int, band_step: int):
+def build_tree(num_lf_groups: int, band_step: int, lf_y_offset: int = 256,
+               first_hf_stream: int | None = None):
+    """The global tree. With first_hf_stream (the modular stream id of
+    group 0's HF section), every HF group stream, where the alpha channel
+    is coded, takes one more leaf: 0, 64, 128 or 192."""
     types = _leaf("band0", 0, 0)
     for b in range(1, len(BAND_TYPES)):
         types = _split(3, b * band_step - 1, _leaf(f"band{b}", 0, 0), types)
@@ -291,8 +295,11 @@ def build_tree(num_lf_groups: int, band_step: int):
                          _split(2, 0, _leaf("quant", 8, 1), types)),
                   _leaf("cfl", 0, 0))
     lf = _split(0, 0, _split(0, 1, _leaf("lf_b", 0, 2), _leaf("lf_x", 0, 3)),
-                _leaf("lf_y", 256, 4))
-    return _split(1, num_lf_groups, meta, lf)
+                _leaf("lf_y", lf_y_offset, 4))
+    tree = _split(1, num_lf_groups, meta, lf)
+    if first_hf_stream is not None:
+        tree = _split(1, first_hf_stream - 1, _leaf("alpha", 128, 6), tree)
+    return tree
 
 
 def write_tree(w, tree):
@@ -346,8 +353,9 @@ def _modular_bits(w, leaves, key, values):
 # -- the frame's content ------------------------------------------------------------
 
 
-def _frame_layout(width, height):
-    bw, bh = -(-width // 8), -(-height // 8)
+def _frame_layout(width, height, maxhs=0, maxvs=0):
+    bw = -(-width // (8 << maxhs)) << maxhs
+    bh = -(-height // (8 << maxvs)) << maxvs
     gx, gy = -(-width // GROUP_DIM), -(-height // GROUP_DIM)
     lgx, lgy = -(-bw // LF_GROUP_BLOCKS), -(-bh // LF_GROUP_BLOCKS)
     return bw, bh, gx, gy, lgx, lgy
@@ -397,15 +405,17 @@ def _place_transforms(rng, bw, bh, rects, mixed: bool):
     return tmap, lists, band_step
 
 
-def _lf_group_section(rng, leaves, rect, types, cfl_zero):
+def _lf_group_section(rng, leaves, rect, types, cfl_zero, hs=(0, 0, 0), vs=(0, 0, 0)):
     ox, oy, w, h = rect
     sec = BitList()
     sec.write(0, 2)  # extra_precision
     sec.write(1, 1)  # GroupHeader: use_global_tree
     sec.write(1, 1)  # default weighted-predictor header
     sec.write(0, 2)  # no transforms
-    for key, base, mul in (("lf_y", 256, 16), ("lf_x", 0, 8), ("lf_b", 0, 4)):
-        vals = base + mul * _residual(rng.integers(0, 4, (h, w)))
+    # modular order [Y, X, B], each channel at its own (subsampled) size
+    for key, c in (("lf_y", 1), ("lf_x", 0), ("lf_b", 2)):
+        _, _, base, mul = leaves[key]
+        vals = base + mul * _residual(rng.integers(0, 4, (h >> vs[c], w >> hs[c])))
         _modular_bits(sec, leaves, key, vals)
     count = len(types)
     sec.write(count - 1, _ceil_log2(w * h))
@@ -437,9 +447,11 @@ def _lf_group_section(rng, leaves, rect, types, cfl_zero):
     return sec.finish(), quants + 1, epf
 
 
-def _ac_tokens(rng, tmap, g, gxn, density, max_run=12):
+def _ac_tokens(rng, tmap, g, gxn, density, max_run=12, hs=(0, 0, 0), vs=(0, 0, 0)):
     """One group's AC content: (item arrays, token values, contexts, and
-    the (coefficient index, value) pairs it encodes)."""
+    the (coefficient index, value) pairs it encodes). With chroma shifts
+    hs/vs a channel has items only at the blocks aligned to its grid, and
+    its nonzeros are predicted on that grid."""
     from jxl_tpu_torch.vardct.block_context import BlockContextMap
     from jxl_tpu_torch.vardct.coeff_order import TRANSFORM_TYPE_LUT, natural_order_array
     from jxl_tpu_torch.vardct.transform_map import block_shape_id, covered_blocks_x, covered_blocks_y
@@ -461,6 +473,11 @@ def _ac_tokens(rng, tmap, g, gxn, density, max_run=12):
     rep = lambda a: np.repeat(a, 3)  # noqa: E731
     bx, by, tid, cx, cy, nb, nc, off, shape = map(rep, (bxs, bys, tids, cxs, cys, nbs, ncs,
                                                         offs, shapes))
+    hs_c, vs_c = np.asarray(hs)[chan], np.asarray(vs)[chan]
+    sbx, sby = bx >> hs_c, by >> vs_c
+    aligned = ((sbx << hs_c) == bx) & ((sby << vs_c) == by)
+    chan, bx, by, tid, cx, cy, nb, nc, off, shape, sbx, sby = (
+        a[aligned] for a in (chan, bx, by, tid, cx, cy, nb, nc, off, shape, sbx, sby))
     cidx = np.where(chan < 2, chan ^ 1, 2)
     bctx = bmap[cidx * 13 + shape]
     M = len(chan)
@@ -481,10 +498,11 @@ def _ac_tokens(rng, tmap, g, gxn, density, max_run=12):
     for dy in (0, 1):
         for dx in (0, 1):
             m = (dy < cy) & (dx < cx)
-            nzmap[chan[m], by[m] + dy, bx[m] + dx] = fill[m]
-    up = nzmap[chan, np.maximum(by - 1, 0), bx]
-    left = nzmap[chan, by, np.maximum(bx - 1, 0)]
-    pred = np.where(bx == 0, np.where(by == 0, 32, up), np.where(by == 0, left, (up + left + 1) // 2))
+            nzmap[chan[m], sby[m] + dy, sbx[m] + dx] = fill[m]
+    up = nzmap[chan, np.maximum(sby - 1, 0), sbx]
+    left = nzmap[chan, sby, np.maximum(sbx - 1, 0)]
+    pred = np.where(sbx == 0, np.where(sby == 0, 32, up),
+                    np.where(sby == 0, left, (up + left + 1) // 2))
     nzctx = np.where(pred < 8, pred, np.where(pred < 64, 4 + pred // 2, 36))
     ctx_nz = nzctx * NUM_BCTX + bctx
     # coefficient-token contexts
@@ -527,8 +545,10 @@ def ac_context_map():
     return np.concatenate([(ctx * 7 + ctx // 5) % 3, np.zeros(CTX_PAD, np.int64)])
 
 
-def _ac_sections(tok_vals, tok_ctxs):
-    """rANS-encode every group's token list at once (one lane a group)."""
+def _ac_sections(tok_vals, tok_ctxs, tails=None):
+    """rANS-encode every group's token list at once (one lane a group).
+    tails: None, or a BitList a group whose bits follow its AC tokens
+    (its modular HF stream)."""
     cmap = ac_context_map()
     hists = [flat_histogram(a) for a in AC_ALPHABETS]
     freq, inv = inverse_tables(hists)
@@ -556,11 +576,32 @@ def _ac_sections(tok_vals, tok_ctxs):
         w.write(int(state[g]), 32)
         w.extend(np.stack([words[g, :n], raw[g, :n]], 1),
                  np.stack([np.where(has[g, :n], 16, 0), nraw[g, :n]], 1))
+        if tails is not None:
+            w.vals += tails[g].vals
+            w.nbits += tails[g].nbits
         out.append(w.finish())
     return out
 
 
-def _headers(width, height, sections, upsampling=1, noise=False):
+# jpeg_upsampling of each subsampling (YCbCr; the sampling factor is Y's)
+JPEG_UPSAMPLING = {"444": (0, 0, 0), "420": (0, 1, 0), "422": (0, 2, 0), "440": (0, 3, 0)}
+_H_SHIFT = (0, 1, 1, 0)
+_V_SHIFT = (0, 1, 0, 1)
+SKIP_ADAPTIVE_LF_SMOOTHING = 0x80
+
+
+def chroma_shifts(subsampling):
+    """(hshift, vshift) of channels (Cb, Y, Cr) as the decoder derives
+    them from jpeg_upsampling; all zero for XYB (subsampling None)."""
+    ju = JPEG_UPSAMPLING[subsampling] if subsampling else (0, 0, 0)
+    mh = max(_H_SHIFT[u] for u in ju)
+    mv = max(_V_SHIFT[u] for u in ju)
+    return (tuple(mh - _H_SHIFT[u] for u in ju), tuple(mv - _V_SHIFT[u] for u in ju))
+
+
+def _headers(width, height, sections, upsampling=1, noise=False, subsampling=None, num_ec=0,
+             filters=True):
+    ycbcr = subsampling is not None
     w = BW()
     w.write(0xFF, 8)
     w.write(0x0A, 8)
@@ -573,8 +614,10 @@ def _headers(width, height, sections, upsampling=1, noise=False):
     w.write(0, 1)  # integer samples
     w.write(0, 2)  # 8 bits
     w.write(1, 1)  # modular_16bit_sufficient
-    w.write(0, 2)  # no extra channels
-    w.write(1, 1)  # xyb_encoded
+    w.write(num_ec, 2)  # extra channels: Val(0) or Val(1)
+    for _ in range(num_ec):
+        w.write(1, 1)  # ExtraChannelInfo all_default: 8-bit straight alpha
+    w.write(0 if ycbcr else 1, 1)  # xyb_encoded
     w.write(1, 1)  # colour encoding all_default (sRGB)
     w.write(0, 2)  # extensions
     w.write(1, 1)  # CustomTransformData all_default
@@ -582,16 +625,33 @@ def _headers(width, height, sections, upsampling=1, noise=False):
     w.write(0, 1)  # FrameHeader all_default = 0
     w.write(0, 2)  # REGULAR
     w.write(0, 1)  # VarDCT
-    u64(w, 1 if noise else 0)  # flags: noise or none (adaptive LF smoothing on)
-    u32(w, (("val", 1), ("val", 2), ("val", 4), ("val", 8)), upsampling)
-    w.write(3, 3)  # x_qm_scale
-    w.write(2, 3)  # b_qm_scale
+    # flags: noise; a YCbCr frame (a recompressed JPEG) skips the adaptive
+    # LF smoothing, which a subsampled frame must
+    u64(w, (1 if noise else 0) | (SKIP_ADAPTIVE_LF_SMOOTHING if ycbcr else 0))
+    if ycbcr:
+        w.write(1, 1)  # do_ycbcr
+        for u in JPEG_UPSAMPLING[subsampling]:
+            w.write(u, 2)
+    ups = (("val", 1), ("val", 2), ("val", 4), ("val", 8))
+    u32(w, ups, upsampling)
+    for _ in range(num_ec):
+        u32(w, ups, upsampling)  # ec_upsampling
+    if not ycbcr:
+        w.write(3, 3)  # x_qm_scale
+        w.write(2, 3)  # b_qm_scale
     u32(w, (("val", 1), ("val", 2), ("val", 3), ("bitsoff", 3, 4)), 1)  # one pass
     w.write(0, 1)  # no crop
-    u32(w, (("val", 0), ("val", 1), ("val", 2), ("bitsoff", 2, 3)), 0)  # REPLACE
+    for _ in range(1 + num_ec):  # colour, then each extra channel
+        u32(w, (("val", 0), ("val", 1), ("val", 2), ("bitsoff", 2, 3)), 0)  # REPLACE
     w.write(1, 1)  # is_last
     u32(w, (("val", 0), ("bits", 4), ("bitsoff", 5, 16), ("bitsoff", 10, 48)), 0)  # name
-    w.write(1, 1)  # RestorationFilter all_default
+    if filters:
+        w.write(1, 1)  # RestorationFilter all_default (gaborish, EPF 2 steps)
+    else:
+        w.write(0, 1)  # RestorationFilter: not all_default
+        w.write(0, 1)  # gaborish off
+        w.write(0, 2)  # epf_iters 0
+        w.write(0, 2)  # extensions
     w.write(0, 2)  # extensions
     w.write(0, 1)  # TOC not permuted
     w.pad_to_byte()
@@ -604,7 +664,8 @@ def _headers(width, height, sections, upsampling=1, noise=False):
 
 def encode_xyb_vardct(width: int, height: int, seed: int = 0, transforms: str = "mixed",
                       density: float = 0.35, cfl_zero: bool = False, lz77: bool = False,
-                      max_run: int = 12, upsampling: int = 1, noise=None):
+                      max_run: int = 12, upsampling: int = 1, noise=None, subsampling=None,
+                      filters: bool = True, num_ec: int = 0):
     """(codestream, coeffs): an XYB VarDCT frame of more than one group,
     coded at width x height, and the dense (G * 3 * 256 * 256,) int32
     quantized AC coefficients it encodes. transforms: "mixed" (DCT16x16 on
@@ -614,15 +675,32 @@ def encode_xyb_vardct(width: int, height: int, seed: int = 0, transforms: str = 
     enable (unused) LZ77 in the AC histograms, which makes the frame one for
     the host AC decoder; upsampling: 1, 2, 4 or 8, the image is that many
     times the coded size; noise: None, or the 8 integers 0-1023 of the
-    photon-noise LUT (entry / 1024), which turns the frame's noise on."""
+    photon-noise LUT (entry / 1024), which turns the frame's noise on.
+
+    subsampling: None (XYB), or "444", "420", "422" or "440": a YCbCr frame
+    as a JPEG recompression writes it (do_ycbcr, jpeg_upsampling, adaptive
+    LF smoothing skipped, zero CfL), whose Cb and Cr channels have their LF
+    and AC items at their own resolution; subsampled frames take DCT8
+    only. filters=False writes gaborish off and no EPF. num_ec=1 adds an
+    8-bit straight alpha channel (0, 64, 128 or 192), coded in each group's
+    modular HF stream right after its AC tokens; the result is then
+    (codestream, coeffs, alpha) with alpha the (height, width) int32 plane."""
     if width <= GROUP_DIM and height <= GROUP_DIM:
         raise ValueError("the writer lays out multi-group frames only")
     if transforms not in ("mixed", "dct8"):
         raise ValueError(f"unknown transforms {transforms!r}")
     if noise is not None and (len(noise) != 8 or not all(0 <= v < 1024 for v in noise)):
         raise ValueError("noise is 8 integers 0-1023")
+    if subsampling is not None and subsampling not in JPEG_UPSAMPLING:
+        raise ValueError(f"unknown subsampling {subsampling!r}")
+    if subsampling not in (None, "444") and transforms != "dct8":
+        raise ValueError("chroma-subsampled frames take DCT8 only")
+    if num_ec not in (0, 1) or (num_ec and upsampling != 1):
+        raise ValueError("the writer writes at most one extra channel, not upsampled")
+    ycbcr = subsampling is not None
+    hs, vs = chroma_shifts(subsampling)
     rng = np.random.default_rng(seed)
-    bw, bh, gxn, gyn, lgx, lgy = _frame_layout(width, height)
+    bw, bh, gxn, gyn, lgx, lgy = _frame_layout(width, height, max(hs), max(vs))
     rects = _lf_rects(bw, bh, lgx, lgy)
     tmap, type_lists, band_step = _place_transforms(rng, bw, bh, rects, transforms == "mixed")
 
@@ -634,12 +712,30 @@ def encode_xyb_vardct(width: int, height: int, seed: int = 0, transforms: str = 
     lg.write(4096 - 2049, 11)
     lg.write(0, 2)  # quant_lf = 16
     lg.write(1, 1)  # default block context map
-    lg.write(1, 1)  # default CfL
+    if ycbcr:
+        lg.write(0, 1)  # CfL: not default
+        lg.write(0, 2)  # colour factor 84
+        lg.write(0, 16)  # base_correlation_x = 0.0 (f16)
+        lg.write(0, 16)  # base_correlation_b = 0.0
+        lg.write(128, 8)  # ytox_lf = 0
+        lg.write(128, 8)  # ytob_lf = 0
+    else:
+        lg.write(1, 1)  # default CfL
     lg.write(1, 1)  # global tree
-    leaves = write_tree(lg, build_tree(len(rects), band_step))
+    # the modular stream id of group 0's HF section (pass 0)
+    first_hf = 1 + 3 * len(rects) + 17 if num_ec else None
+    # YCbCr: Y's LF about 0, as the zero-centred Y of a JPEG
+    leaves = write_tree(lg, build_tree(len(rects), band_step, 0 if ycbcr else 256, first_hf))
     leaves["_band_step"] = band_step
+    if num_ec:
+        # the global modular image (the alpha channel alone): its
+        # GroupHeader; the channel is larger than a group, so section 0 is
+        # empty and each group codes its part
+        lg.write(1, 1)  # use_global_tree
+        lg.write(1, 1)  # default weighted-predictor header
+        lg.write(0, 2)  # no transforms
     lf_sections = [
-        _lf_group_section(rng, leaves, rect, types, cfl_zero)[0]
+        _lf_group_section(rng, leaves, rect, types, cfl_zero or ycbcr, hs, vs)[0]
         for rect, types in zip(rects, type_lists)
     ]
     hg = BitList()
@@ -651,13 +747,37 @@ def encode_xyb_vardct(width: int, height: int, seed: int = 0, transforms: str = 
     coeffs = np.zeros(gxn * gyn * GROUP_STRIDE, np.int32)
     tok_vals, tok_ctxs = [], []
     for g in range(gxn * gyn):
-        v, c, dest, val = _ac_tokens(rng, tmap, g, gxn, density, max_run)
+        v, c, dest, val = _ac_tokens(rng, tmap, g, gxn, density, max_run, hs, vs)
         tok_vals.append(v)
         tok_ctxs.append(c)
         coeffs[dest] = val
-    sections = [lg.finish()] + lf_sections + [hg.finish()] + _ac_sections(tok_vals, tok_ctxs)
-    head = _headers(width, height, sections, upsampling, noise is not None)
+    tails = alpha = None
+    if num_ec:
+        alpha = (128 + 64 * _residual(rng.integers(0, 4, (height, width)))).astype(np.int32)
+        tails = []
+        for g in range(gxn * gyn):
+            x0, y0 = (g % gxn) * GROUP_DIM, (g // gxn) * GROUP_DIM
+            t = BitList()
+            t.write(1, 1)  # GroupHeader: use_global_tree
+            t.write(1, 1)  # default weighted-predictor header
+            t.write(0, 2)  # no transforms
+            _modular_bits(t, leaves, "alpha", alpha[y0 : y0 + GROUP_DIM, x0 : x0 + GROUP_DIM])
+            tails.append(t)
+    sections = ([lg.finish()] + lf_sections + [hg.finish()]
+                + _ac_sections(tok_vals, tok_ctxs, tails))
+    head = _headers(width, height, sections, upsampling, noise is not None, subsampling, num_ec,
+                    filters)
+    if num_ec:
+        return head + b"".join(sections), coeffs, alpha
     return head + b"".join(sections), coeffs
+
+
+def encode_ycbcr_vardct(width: int, height: int, seed: int = 0, subsampling: str = "420",
+                        **kw):
+    """(codestream, coeffs): the YCbCr VarDCT frame of a recompressed JPEG,
+    DCT8 only (encode_xyb_vardct with `subsampling`)."""
+    return encode_xyb_vardct(width, height, seed, transforms="dct8", subsampling=subsampling,
+                             **kw)
 
 
 def long_section_stream():
@@ -800,3 +920,55 @@ def test_jxl_tpu_decodes_writer_options(upsampling, noise):
     assert frame.header.has_noise == (noise is not None)
     if noise is not None:
         assert frame.lf_global.noise.lut == [v / 1024.0 for v in noise]
+
+
+@pytest.mark.parametrize("subsampling", ["420", "422", "440"])
+def test_jxl_tpu_decodes_ycbcr_writer_streams(subsampling):
+    """A recompressed-JPEG layout: YCbCr, the chroma shifts, adaptive LF
+    smoothing skipped, zero CfL; jxl_tpu returns the writer's coefficients,
+    Cb and Cr only at the blocks aligned to their grid."""
+    from jxl_tpu.api.simple import decode_first_frame
+    from test_device_ac import _decode_frame_coeffs
+
+    data, coeffs = encode_ycbcr_vardct(520, 300, seed=51, subsampling=subsampling, density=0.2,
+                                       filters=subsampling != "422")
+    np.testing.assert_array_equal(_decode_frame_coeffs(data, force_device=False), coeffs)
+    frame = decode_first_frame(data).frame
+    header = frame.header
+    assert header.do_ycbcr and not frame.file_header.image_metadata.xyb_encoded
+    assert list(header.jpeg_upsampling) == list(JPEG_UPSAMPLING[subsampling])
+    hs, vs = chroma_shifts(subsampling)
+    assert [header.hshift(c) for c in range(3)] == list(hs)
+    assert [header.vshift(c) for c in range(3)] == list(vs)
+    assert not header.should_do_adaptive_lf_smoothing
+    ccp = frame.lf_global.color_correlation_params
+    assert (ccp.base_correlation_x, ccp.base_correlation_b, ccp.ytox_lf, ccp.ytob_lf) == (0, 0, 0, 0)
+    assert not np.asarray(frame.hf_meta["ytox"]).any() and not np.asarray(frame.hf_meta["ytob"]).any()
+    rf = header.restoration_filter
+    assert (rf.gab, rf.epf_iters) == ((True, 2) if subsampling != "422" else (False, 0))
+    # every channel carries coefficients, Y the most
+    per = [np.count_nonzero(coeffs.reshape(-1, 3, GROUP_DIM * GROUP_DIM)[:, c]) for c in range(3)]
+    assert min(per) > 100 and per[1] == max(per)
+
+
+def test_jxl_tpu_decodes_writer_alpha():
+    """num_ec=1: the alpha in each group's modular HF stream after its AC;
+    jxl_tpu returns the writer's coefficients and alpha plane."""
+    from jxl_tpu.api.simple import decode_first_frame
+    from test_device_ac import _decode_frame_coeffs
+
+    data, coeffs, alpha = encode_xyb_vardct(520, 300, seed=52, density=0.2, num_ec=1)
+    np.testing.assert_array_equal(_decode_frame_coeffs(data, force_device=False), coeffs)
+    dec = decode_first_frame(data)
+    infos = dec.frame.file_header.image_metadata.extra_channel_info
+    assert len(infos) == 1 and infos[0].bit_depth.bits_per_sample == 8
+    assert not infos[0].alpha_associated
+    # a VarDCT frame's modular image holds the extra channel alone
+    assert len(dec.channels) == 1
+    np.testing.assert_array_equal(np.asarray(dec.channels[0]), alpha)
+    assert alpha.shape == (300, 520) and set(np.unique(alpha).tolist()) == {0, 64, 128, 192}
+
+
+def test_ycbcr_writer_refuses_big_blocks_when_subsampled():
+    with pytest.raises(ValueError, match="DCT8 only"):
+        encode_xyb_vardct(520, 300, subsampling="420")
