@@ -29,23 +29,13 @@ def f32(x: float) -> float:
     return float(np.float32(x))
 
 
-def to_device(array: np.ndarray, device) -> torch.Tensor:
-    """A small host array (kernel weights, a table) on `device`. On the
-    card it is copied from page-locked memory without waiting: a copy from
-    pageable memory makes the host wait for all the work queued before it."""
-    t = torch.from_numpy(np.ascontiguousarray(array))
-    if torch.device(device).type != "cuda":
-        return t
-    return t.pin_memory().to(device, non_blocking=True)
-
-
 def to_device_all(arrays, device) -> list:
-    """Several small host arrays on `device`, as to_device puts one, but
-    with one page-locked buffer and one copy for each dtype among them:
-    each array comes back as a view of its dtype's buffer. A render that
-    uploads a few tables per transform type then makes a few copies, not
-    hundreds, and fewer page-locked allocations, each of which can wait
-    for the card."""
+    """Small host arrays (kernel weights, tables) on `device`. On the card
+    they go up from one page-locked buffer, in one copy, for each dtype
+    among them, without waiting: a copy from pageable memory makes the host
+    wait for all the work queued before it, and so can each page-locked
+    allocation. Each array comes back as a view of its dtype's buffer,
+    starting on a 16-byte boundary."""
     arrays = [np.ascontiguousarray(a) for a in arrays]
     if torch.device(device).type != "cuda":
         return [torch.from_numpy(a) for a in arrays]
@@ -53,21 +43,26 @@ def to_device_all(arrays, device) -> list:
     by_dtype = {}
     for i, a in enumerate(arrays):
         by_dtype.setdefault(a.dtype, []).append(i)
-    for idx in by_dtype.values():
-        n = sum(arrays[i].size for i in idx)
-        dtype = torch.from_numpy(np.empty(0, arrays[idx[0]].dtype)).dtype
-        host = torch.empty(n, dtype=dtype, pin_memory=True)
-        view = host.numpy()
+    for dt, idx in by_dtype.items():
+        align = max(1, 16 // dt.itemsize)
         at = []
         pos = 0
         for i in idx:
-            view[pos : pos + arrays[i].size] = arrays[i].reshape(-1)
             at.append(pos)
-            pos += arrays[i].size
+            pos += -(-arrays[i].size // align) * align
+        host = torch.empty(pos, dtype=torch.from_numpy(np.empty(0, dt)).dtype, pin_memory=True)
+        view = host.numpy()
+        for i, p in zip(idx, at):
+            view[p : p + arrays[i].size] = arrays[i].reshape(-1)
         buf = host.to(device, non_blocking=True)
         for i, p in zip(idx, at):
             out[i] = buf[p : p + arrays[i].size].view(arrays[i].shape)
     return out
+
+
+def to_device(array: np.ndarray, device) -> torch.Tensor:
+    """One small host array on `device`, as to_device_all puts several."""
+    return to_device_all([array], device)[0]
 
 
 def mirror_index(n: int, b: int, device) -> torch.Tensor:

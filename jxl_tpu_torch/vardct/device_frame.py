@@ -99,6 +99,26 @@ def _matrices(frame, t: int, nc: int) -> np.ndarray:
     return np.stack([np.asarray(dqm.matrix(t, c)[:nc], np.float32) for c in range(3)])
 
 
+def _dequant(qb, bias, b3, mats, scale):
+    """Dequantized coefficients of the int32 quantized ones `qb`: the
+    quant bias (q * bias where |q| < 2, else q - b3 / q; 0 stays 0) times
+    the dequant weights `mats` times the blocks' `scale`, each broadcast
+    against qb."""
+    q = qb.to(torch.float32)
+    adj = torch.where(qb.abs() < 2, q * bias, q - b3 / torch.where(qb == 0, 1.0, q))
+    adj = torch.where(qb == 0, 0.0, adj)
+    return adj * mats * scale
+
+
+def _cfl_factors(gbx, gby, ytox, ytob, cf, bcx, bcb) -> tuple:
+    """(x, b) chroma-from-luma factors of the blocks at (gbx, gby): the
+    base correlation plus the block's colour tile's ytox or ytob over the
+    colour factor."""
+    tx = gbx // COLOR_TILE_DIM_IN_BLOCKS
+    ty = gby // COLOR_TILE_DIM_IN_BLOCKS
+    return bcx + ytox[ty, tx] / cf, bcb + ytob[ty, tx] / cf
+
+
 def render_vardct_frame_device(frame, flat) -> torch.Tensor:
     """(3, bh*8, bw*8) float32 planes in XYB on flat's device, from the
     dense (G * 3 * GD * GD,) int32 coefficient buffer `flat` of every
@@ -130,18 +150,10 @@ def render_vardct_frame_device(frame, flat) -> torch.Tensor:
         gidx = (base[:, None, None] + torch.arange(3, device=dev)[None, :, None] * stride_c
                 + torch.arange(nc, device=dev)[None, None, :])
         qb = flat[gidx.reshape(-1)].reshape(n, 3, nc)
-        q = qb.to(torch.float32)
-        # quant bias where |q| < 2, else q - b3/q; 0 stays 0
-        adj = torch.where(qb.abs() < 2, q * b_c[:3][None, :, None],
-                          q - b_c[3] / torch.where(qb == 0, 1.0, q))
-        adj = torch.where(qb == 0, 0.0, adj)
         scaled_y = igs / rq[gby, gbx].to(torch.float32)
-        tx = gbx // COLOR_TILE_DIM_IN_BLOCKS
-        ty = gby // COLOR_TILE_DIM_IN_BLOCKS
-        x_cc = bcx + ytox[ty, tx] / cf
-        b_cc = bcb + ytob[ty, tx] / cf
+        x_cc, b_cc = _cfl_factors(gbx, gby, ytox, ytob, cf, bcx, bcb)
         scales = torch.stack([scaled_y * x_dm, scaled_y, scaled_y * b_dm], dim=1)
-        dq = adj * mats[None] * scales[:, :, None]
+        dq = _dequant(qb, b_c[:3][None, :, None], b_c[3], mats[None], scales[:, :, None])
         # X and B get Y's dequantized value times their correlation
         dq[:, 0] += x_cc[:, None] * dq[:, 1]
         dq[:, 2] += b_cc[:, None] * dq[:, 1]
@@ -206,11 +218,7 @@ def render_vardct_frame_device_subsampled(frame, flat) -> list:
     py = torch.arange(BLOCK_DIM, device=dev)
 
     def dequant(qb, c, t, scale):
-        q = qb.to(torch.float32)
-        # quant bias where |q| < 2, else q - b3/q; 0 stays 0
-        adj = torch.where(qb.abs() < 2, q * b_c[c], q - b_c[3] / torch.where(qb == 0, 1.0, q))
-        adj = torch.where(qb == 0, 0.0, adj)
-        return adj * mats[t][c][None] * scale[:, None]
+        return _dequant(qb, b_c[c], b_c[3], mats[t][c][None], scale[:, None])
 
     sizes = [(H >> header.vshift(c), W >> header.hshift(c)) for c in range(3)]
     # one slot past each plane takes the pixels the reference drops
@@ -229,9 +237,7 @@ def render_vardct_frame_device_subsampled(frame, flat) -> list:
         dq = dequant(gather(c), c, t, scaled_y * {0: x_dm, 1: 1.0, 2: b_dm}[c])
         if c != 1:
             # CfL: Y's dequantized block at the same full-resolution block
-            tx = gbx // COLOR_TILE_DIM_IN_BLOCKS
-            ty = gby // COLOR_TILE_DIM_IN_BLOCKS
-            cc = bcx + ytox[ty, tx] / cf if c == 0 else bcb + ytob[ty, tx] / cf
+            cc = _cfl_factors(gbx, gby, ytox, ytob, cf, bcx, bcb)[c // 2]
             dq = dq + cc[:, None] * dequant(gather(1), 1, t, scaled_y)
         cbx, cby = gbx >> hs, gby >> vs
         lf_tiles = lf_flat[c][cby * bw + cbx]

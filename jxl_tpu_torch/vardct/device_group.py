@@ -153,16 +153,17 @@ def run_lanes(inputs: dict, device):
     lane_inputs(): (coeffs (total,) int32, ok (S,) bool) tensors there.
     The tables are checked and packed here, on the host, and go up with
     the other arrays (pack_tables raises ValueError on tables K3 cannot
-    take), through render/stages/core.py:to_device: pinned, without a
-    wait."""
+    take), all in one render/stages/core.py:to_device_all: pinned, one
+    copy a dtype, without a wait."""
     from ..ops.device_ac import decode_ac_sections, pack_tables
-    from ..render.stages.core import to_device
+    from ..render.stages.core import to_device_all
 
     buckets, cfgs = pack_tables(inputs["tables"], inputs["uint_cfgs"], inputs["context_map"])
-    arrays = {k: to_device(v, device) for k, v in inputs.items() if k not in LANE_KEYWORDS}
-    return decode_ac_sections(**arrays, **{k: inputs[k] for k in LANE_KEYWORDS},
-                              packed_buckets=to_device(buckets, device),
-                              packed_cfgs=to_device(cfgs, device))
+    names = [k for k in inputs if k not in LANE_KEYWORDS]
+    *up, packed_buckets, packed_cfgs = to_device_all(
+        [inputs[k] for k in names] + [buckets, cfgs], device)
+    return decode_ac_sections(**dict(zip(names, up)), **{k: inputs[k] for k in LANE_KEYWORDS},
+                              packed_buckets=packed_buckets, packed_cfgs=packed_cfgs)
 
 
 def decode_ac_sections_device(frame, group_readers: dict, device) -> None:

@@ -1,62 +1,59 @@
 #!/usr/bin/env python3
-"""Timing of the port's VarDCT decode and of its "VarDCT planes" step on
-the card, for the checkout at --root: run it once for each of two
-checkouts (this one and an unpacked parent commit) in one machine call,
-in the order parent, change, change, parent, to compare them.
+"""Timing of the port's VarDCT decode and of its render's steps on the
+card, for the checkout at --root: run it once for each of two checkouts
+(this one and an unpacked parent commit) in one machine call, in the order
+parent, change, change, parent, to compare them.
 
-    python3 tools/render_ab.py --root DIR [--reps 5] [--sync-debug] [--profile]
+    python3 tools/render_ab.py --root DIR
 
-Imports jxl_tpu_torch and the test writers from DIR, writes the two
-VarDCT streams of chip_smoke.py (the 1920x1080 frame upsampled 2x with
-noise, and the 3840x2160 frame), and prints one JSON line a stream: the
-decode_image walls and host_s of `reps` u8 decodes, and the VarDCT planes
-step (render/simple.py:vardct_planes) read as chip_smoke.py's breakdown
-reads it: the host's time to queue it, then the card's time from CUDA
-events with the step queued behind a spin twice that long. With
---sync-debug it also lists each place where the step made the host wait
-for the card (torch.cuda.set_sync_debug_mode("warn")); with --profile,
-the host-to-card copies of one u8 decode under torch.profiler, pageable
-and pinned apart.
+Imports jxl_tpu_torch and the test writers from DIR, and chip_smoke.py
+from this checkout. For each of chip_smoke.py's two VarDCT streams (the
+1920x1080 frame upsampled 2x with noise, and the 3840x2160 frame) it
+prints chip_smoke.py's breakdown of the render (phase_render_breakdown:
+each step's host queueing time, then its card time), then one JSON line:
+the walls and host_s of five u8 decodes, each place where the VarDCT
+planes step made the host wait for the card
+(torch.cuda.set_sync_debug_mode("warn")), and the host-to-card copies of
+one u8 decode under torch.profiler, pageable and pinned apart.
 """
 
 from __future__ import annotations
 
 import argparse
-import json
 import os
 import subprocess
 import sys
 import time
 import warnings
 
-SPIN_CYCLES_PER_S = 1.98e9
+REPS = 5
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", required=True)
-    ap.add_argument("--reps", type=int, default=5)
-    ap.add_argument("--sync-debug", action="store_true")
-    ap.add_argument("--profile", action="store_true")
     args = ap.parse_args()
     import torch
 
     if not torch.cuda.is_available():
         print("render_ab: no CUDA device", file=sys.stderr)
         return 1
+    # chip_smoke from this checkout first: it imports the package lazily,
+    # so its phases then run the checkout at --root
+    sys.path.insert(0, HERE)
+    import chip_smoke
+
     root = os.path.abspath(args.root)
     sys.path[:0] = [root, os.path.join(root, "tests")]
     import numpy as np
 
     import jxl_tpu_torch
-    from jxl_tpu_torch.api.simple import parse_frame
-    from jxl_tpu_torch.io.bit_reader import BitReader
-    from jxl_tpu_torch.io.headers import FileHeader
     from jxl_tpu_torch.render.simple import vardct_planes
     from test_torch_vardct_streams import encode_xyb_vardct
+    from torch.profiler import ProfilerActivity, profile
 
-    check = jxl_tpu_torch.__file__.startswith(root)
-    if not check:
+    if not jxl_tpu_torch.__file__.startswith(root):
         raise RuntimeError(f"jxl_tpu_torch came from {jxl_tpu_torch.__file__}, not {root}")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
@@ -69,67 +66,40 @@ def main() -> int:
     for name, data in streams:
         jxl_tpu_torch.decode_image(data, pixel_format="u8")  # warm: builds, caches
         walls, hosts = [], []
-        for _ in range(args.reps):
+        for _ in range(REPS):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             img = jxl_tpu_torch.decode_image(data, pixel_format="u8")
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
             hosts.append(img.timings["host_s"])
+        steps = chip_smoke.phase_render_breakdown(data, name, "render_ab_breakdown")
+        planes = next(r for r in steps if r["step"] == "vardct_planes")
 
-        def frame():
-            br = BitReader(data)
-            fh = FileHeader.read(br)
-            br.jump_to_byte_boundary()
-            f = parse_frame(br, fh)
-            f.decode_all_sections(br, dev)
+        frame = chip_smoke._vardct_frame(data, dev)
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                vardct_planes(frame, dev)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        syncs = {}
+        for w in caught:
+            key = f"{os.path.relpath(w.filename, root)}:{w.lineno}"
+            syncs[key] = syncs.get(key, 0) + 1
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            jxl_tpu_torch.decode_image(data, pixel_format="u8")
             torch.cuda.synchronize()
-            return f
-
-        f = frame()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        vardct_planes(f, dev)
-        host_s = time.perf_counter() - t0
-        torch.cuda.synchronize()
-        f = frame()
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(int((2 * host_s + 1e-3) * SPIN_CYCLES_PER_S))
-        a.record()
-        vardct_planes(f, dev)
-        b.record()
-        torch.cuda.synchronize()
-        rec = {"root": args.root, "stream": name, "card": smi, "reps": args.reps,
-               "wall_s": walls, "host_s": hosts, "planes_host_queue_ms": host_s * 1e3,
-               "planes_device_ms": a.elapsed_time(b)}
-        if args.sync_debug:
-            f = frame()
-            with warnings.catch_warnings(record=True) as caught:
-                warnings.simplefilter("always")
-                torch.cuda.set_sync_debug_mode("warn")
-                try:
-                    vardct_planes(f, dev)
-                finally:
-                    torch.cuda.set_sync_debug_mode("default")
-            places = {}
-            for w in caught:
-                key = f"{os.path.relpath(w.filename, root)}:{w.lineno}"
-                places[key] = places.get(key, 0) + 1
-            rec["planes_syncs"] = places
-        if args.profile:
-            from torch.profiler import ProfilerActivity, profile
-
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                jxl_tpu_torch.decode_image(data, pixel_format="u8")
-                torch.cuda.synchronize()
-            copies = {}
-            for e in prof.key_averages():
-                if e.key.startswith("Memcpy HtoD"):
-                    copies[e.key] = {"calls": e.count,
-                                     "ms": getattr(e, "device_time_total", 0.0) / 1e3}
-            rec["profile_htod"] = copies
-        print(json.dumps(rec), flush=True)
+        copies = {e.key: {"calls": e.count, "ms": e.device_time_total / 1e3}
+                  for e in prof.key_averages() if e.key.startswith("Memcpy HtoD")}
+        chip_smoke.emit({"root": args.root, "stream": name, "card": smi, "reps": REPS,
+                         "wall_s": walls, "host_s": hosts,
+                         "planes_host_queue_ms": planes["host_queue_ms"],
+                         "planes_device_ms": planes["device_ms"], "planes_syncs": syncs,
+                         "profile_htod": copies})
     return 0
 
 
