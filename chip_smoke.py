@@ -79,7 +79,25 @@ a non-zero exit:
              decode (host AC; f32 <= 1e-4, u8 <= 1 LSB). Then (a)'s render
              taken apart as in features: the chroma upsampling's device
              time beside its bytes bound.
-7. profile - a u8 decode of each stream (Modular, VarDCT, the upsampled
+7. frames  - decode_image on the card of three multi-frame streams: an
+             XYB VarDCT animation at 1920x1080 (8 frames, the later seven
+             960x544 crops at offsets across the canvas, one with a
+             negative x0, one past the right edge, blending by REPLACE,
+             ADD and MUL over slots 0 and 1), an sRGB Modular animation
+             with an 8-bit alpha at 1920x1080 (8 frames, cropped frames
+             BLENDing with their alpha) and a 3840x2160 XYB VarDCT frame
+             with 7000 16x32 ADD patches from a 1024x512 REFERENCE_ONLY
+             Modular atlas saved before the colour transform; u8 and f32,
+             3 reps each, with wall time, host_s and MP/s of output. K3
+             and K1 must launch once a VarDCT frame and once a filtered
+             frame (8 and 8 a decode of the animation, 1 and 1 of the
+             patches frame, none of the Modular animation); every frame
+             and duration is held against the port's CPU decode (host
+             AC; f32 <= 1e-4, u8 <= 1 LSB). Then the blend, slot save and
+             patch steps' card time from CUDA events, and those steps
+             once more under torch.cuda.set_sync_debug_mode("error"),
+             where a host sync fails the run.
+8. profile - a u8 decode of each stream (Modular, VarDCT, the upsampled
              VarDCT with noise) under torch.profiler: device time by
              operation and the card's idle share. It runs right after the
              build, and no other phase opens a profiler session.
@@ -1057,6 +1075,185 @@ def phase_layouts(streams) -> dict:
     return launches
 
 
+def frame_streams():
+    """[(name, codestream, (width, height), channels out, frames out, K3
+    and K1 launches a decode)] of the frames phase
+    (tests/test_torch_frame_streams.py): an XYB VarDCT animation at
+    1920x1080 whose seven later frames are 960x544 crops blending by
+    REPLACE, ADD and MUL; an sRGB Modular animation with alpha at
+    1920x1080 whose later frames BLEND; a 3840x2160 XYB VarDCT frame with
+    7000 16x32 glyph patches from a 1024x512 REFERENCE_ONLY Modular atlas."""
+    from test_torch_frame_streams import anim_rgba_stream, anim_vardct_stream, patches_stream
+
+    half = (WIDTH // 2, HEIGHT // 2)
+    crop = (960, 544)
+    return [
+        ("anim_vardct_1080p", anim_vardct_stream(*half, crop, num_frames=8, seed=7), half, 3,
+         8, {"decode_ac_sections": 8, "epf_gab": 8}),
+        ("anim_rgba_1080p", anim_rgba_stream(*half, crop, num_frames=8, seed=8), half, 4, 8,
+         {"decode_ac_sections": 0, "epf_gab": 0}),
+        ("patches_4k", patches_stream(WIDTH, HEIGHT, (1024, 512), 7000, 128, seed=9),
+         (WIDTH, HEIGHT), 3, 1, {"decode_ac_sections": 1, "epf_gab": 1}),
+    ]
+
+
+def _instrument_frame_steps(records, sync_debug: bool):
+    """Wrap the decode's blend (render/simple.py:blend_and_extend), slot
+    save (DecoderState.save_reference) and patch stage so that each call
+    is queued behind a spin on the card and timed by CUDA events around
+    it (its card time alone), with the host's time to queue it; with
+    sync_debug the calls run under torch.cuda.set_sync_debug_mode("error"),
+    so a host sync inside them raises. Returns a function that undoes it."""
+    import torch
+
+    from jxl_tpu_torch.api.state import DecoderState
+    from jxl_tpu_torch.render import pipeline, simple
+
+    def timed(name, fn):
+        def call(*args, **kw):
+            torch.cuda._sleep(int(5e-3 * SPIN_CYCLES_PER_S))
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            if sync_debug:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                a.record()
+                out = fn(*args, **kw)
+                b.record()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            records.append((name, time.perf_counter() - t0, a, b))
+            return out
+        return call
+
+    real_blend = simple.blend_and_extend
+    real_save = DecoderState.save_reference
+    real_patches = pipeline.patches_stage
+
+    def patches_stage(frame):
+        stage = real_patches(frame)
+        return pipeline.Stage(stage.name, timed("patches", stage.fn), stage.border, stage.shift,
+                              stage.channels)
+
+    simple.blend_and_extend = timed("blend", real_blend)
+    DecoderState.save_reference = timed("save", real_save)
+    pipeline.patches_stage = patches_stage
+
+    def undo():
+        simple.blend_and_extend = real_blend
+        DecoderState.save_reference = real_save
+        pipeline.patches_stage = real_patches
+    return undo
+
+
+def phase_frames(streams) -> dict:
+    """decode_image of the multi-frame streams on the card, u8 and f32, 3
+    reps each: wall time, host_s, MP/s of output, each stream's K3 and K1
+    launches a decode (8 and 8 for the VarDCT animation, 1 and 1 for the
+    patches frame); every frame and duration against the port's CPU decode
+    (host AC; f32 <= 1e-4, u8 <= 1 LSB); then one instrumented u8 decode a
+    stream: the blend, slot save and patch steps' card time from CUDA
+    events, each queued behind a spin, and the same steps again under
+    torch.cuda.set_sync_debug_mode("error")."""
+    import numpy as np
+    import torch
+
+    import jxl_tpu_torch
+    from jxl_tpu_torch.ops import ans_lanes as AL
+    from jxl_tpu_torch.ops import device_ac
+    from jxl_tpu_torch.ops import epf_gab as K
+
+    runs = {}
+    per_stream = {}
+    K.epf_gab.launches = 0
+    device_ac.decode_ac_sections.launches = 0
+    AL.ans_decode_batch.launches = 0
+    for name, data, (w, h), _, nframes, expect in streams:
+        mp = w * h * nframes / 1e6
+        counts = []
+        for fmt in ("u8", "f32"):
+            for rep in range(3):
+                k1, k3 = K.epf_gab.launches, device_ac.decode_ac_sections.launches
+                t0 = time.perf_counter()
+                img = jxl_tpu_torch.decode_image(data, pixel_format=fmt)
+                torch.cuda.synchronize()
+                total = time.perf_counter() - t0
+                host = img.timings["host_s"]
+                counts.append({"decode_ac_sections": device_ac.decode_ac_sections.launches - k3,
+                               "epf_gab": K.epf_gab.launches - k1})
+                runs[(name, fmt)] = img
+                emit({"phase": "frames", "stream": name, "format": fmt, "rep": rep,
+                      "frames": len(img.frames), "megapixels": mp, "seconds": total,
+                      "mp_per_s": mp / total, "host_parse_entropy_s": host,
+                      "device_s": total - host})
+        per_stream[name] = counts[0]
+        emit({"phase": "frames", "stream": name, "launches_per_decode": counts[0],
+              "expected": expect})
+        check(all(c == expect for c in counts),
+              f"{name}: launches a decode {counts}, expected {expect}")
+    launches = {"epf_gab": K.epf_gab.launches,
+                "decode_ac_sections": device_ac.decode_ac_sections.launches,
+                "ans_decode_batch": AL.ans_decode_batch.launches, "per_stream": per_stream}
+    emit({"phase": "frames", "launches": launches})
+
+    os.environ["JXL_TPU_AC"] = "host"
+    try:
+        for name, data, (w, h), channels, nframes, _ in streams:
+            for fmt in ("u8", "f32"):
+                got = runs[(name, fmt)]
+                t0 = time.perf_counter()
+                ref = jxl_tpu_torch.decode_image(data, pixel_format=fmt, device="cpu")
+                cpu_s = time.perf_counter() - t0
+                check(len(got.frames) == len(ref.frames) == nframes,
+                      f"{name}: {len(got.frames)} frames on the card, {len(ref.frames)} on the "
+                      f"CPU, {nframes} written")
+                check(got.durations == ref.durations, f"{name}: durations differ")
+                diff = 0.0
+                for x, y in zip(got.frames, ref.frames):
+                    check(x.device.type == "cuda", "frames must stay on the card")
+                    check(tuple(x.shape) == (h, w, channels), f"{name}: bad shape {tuple(x.shape)}")
+                    a = x.cpu().numpy().astype(np.float64)
+                    check(np.isfinite(a).all(), "non-finite output")
+                    diff = max(diff, float(np.abs(a - y.numpy().astype(np.float64)).max()))
+                limit = 1.0 if fmt == "u8" else 1e-4
+                emit({"phase": "frames", "stream": name, "format": fmt,
+                      "vs_cpu_max_abs_diff": diff, "limit": limit, "cpu_decode_s": cpu_s,
+                      "durations_ms": got.durations})
+                check(diff <= limit, f"{name} {fmt} decode on the card differs from the CPU: "
+                      f"{diff}")
+    finally:
+        os.environ.pop("JXL_TPU_AC", None)
+
+    steps = {}
+    for name, data, *_ in streams:
+        for sync_debug in (False, True):
+            records = []
+            undo = _instrument_frame_steps(records, sync_debug)
+            try:
+                jxl_tpu_torch.decode_image(data, pixel_format="u8")
+                torch.cuda.synchronize()
+            finally:
+                undo()
+            if sync_debug:
+                emit({"phase": "frames", "stream": name, "sync_debug_error_mode": "no sync",
+                      "steps_checked": len(records)})
+                continue
+            by = {}
+            for step, host_s, a, b in records:
+                r = by.setdefault(step, {"calls": 0, "device_ms": 0.0, "host_queue_ms": 0.0})
+                r["calls"] += 1
+                r["device_ms"] += a.elapsed_time(b)
+                r["host_queue_ms"] += host_s * 1e3
+            steps[name] = by
+            emit({"phase": "frames", "stream": name, "format": "u8", "steps": by})
+    check(steps["patches_4k"].get("patches", {}).get("calls") == 1,
+          "the patches frame did not run the patch stage")
+    check(steps["anim_vardct_1080p"].get("blend", {}).get("calls") == 7,
+          "the VarDCT animation did not blend its seven cropped frames")
+    return launches
+
+
 def phase_profile(data, stream: str, expect: str) -> None:
     """One u8 decode under torch.profiler: device time by operation, and
     the share of the decode's wall time the card was busy. A trace that
@@ -1103,6 +1300,7 @@ def main() -> int:
     # fail before any output when the package or the stream writer is missing
     import jxl_tpu_torch  # noqa: F401
     import test_torch_streams  # noqa: F401
+    import test_torch_frame_streams  # noqa: F401
     import test_torch_vardct_streams  # noqa: F401
 
     smi = subprocess.run(
@@ -1145,6 +1343,11 @@ def main() -> int:
     emit({"phase": "layouts", "step": "write_streams",
           "bytes": {name: len(d) for name, d, _, _, _ in lstreams},
           "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    mstreams = frame_streams()
+    emit({"phase": "frames", "step": "write_streams",
+          "bytes": {name: len(d) for name, d, *_ in mstreams},
+          "seconds": time.perf_counter() - t0})
     phase_s["write_streams"] = time.perf_counter() - start - phase_s["build"]
     # the only profiler sessions of the process: CUPTI has dropped events
     # in sessions after the first few
@@ -1160,6 +1363,7 @@ def main() -> int:
     run("features_breakdown", phase_render_breakdown, fstreams[0][1], "vardct_up2_noise",
         "features_breakdown")
     layout_launches = run("layouts", phase_layouts, lstreams)
+    frame_launches = run("frames", phase_frames, mstreams)
     emit({"phase": "timing", "seconds": phase_s, "total_s": time.perf_counter() - start})
     null_reason = "no single torch call computes a rANS decode"
     emit({"kernels": [
@@ -1168,6 +1372,7 @@ def main() -> int:
          "launches_modular_path": modular_launches,
          "launches_features_path": feature_launches["epf_gab"],
          "launches_layouts_path": layout_launches["epf_gab"],
+         "launches_frames_path": frame_launches["epf_gab"],
          "max_abs_err": max_err, "ms": k["kernel_ms"], "call_ms": k["call_ms"],
          "plain_ms": k["plain_ms"],
          "bound_ms": k["bound_ms"], "bound_by": k["bound_by"], "library_ms": None,
@@ -1189,6 +1394,7 @@ def main() -> int:
          "launches": vardct_launches["decode_ac_sections"],
          "launches_features_path": feature_launches["decode_ac_sections"],
          "launches_layouts_path": layout_launches["decode_ac_sections"],
+         "launches_frames_path": frame_launches["decode_ac_sections"],
          "max_abs_err": k3["max_abs_err"], "ms": k3["kernel_ms"], "call_ms": k3["call_ms"],
          "plain_ms": k3["plain_ms"], "ns_per_step": k3["ns_per_step"],
          "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"], "library_ms": None,

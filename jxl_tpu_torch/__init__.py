@@ -6,8 +6,10 @@ the entropy-coded sections; the render runs on torch tensors on the
 caller's device, with the restoration-filter chain as a hand-written
 CUDA kernel for Hopper (ops/epf_gab.py, csrc/epf_gab.cu).
 
-This slice decodes single-frame Modular images (XYB or not, with the
-default gaborish + EPF filters); other streams raise NotSupported.
+decode_image decodes whole files: Modular and VarDCT frames, animations,
+cropped and blended frames, reference frames and patches, with every
+frame's render on the caller's device; LF frames, splines and ICC
+profiles raise NotSupported.
 """
 
 import torch

@@ -10,9 +10,10 @@ up as one dense buffer for vardct/device_frame.py. The global modular
 image carries the frame's extra channels; in a VarDCT frame each group
 codes its part of them right after its AC tokens, and such frames decode
 group by group on the host (vardct/group.py:decode_vardct_group, then the
-group's modular HF stream). Patches, splines and LF frames
-are outside this package's slice: the entry point (api/simple.py) rejects
-such frames before any section is read.
+group's modular HF stream). A frame's patches dictionary is read in
+LfGlobal against the decoder state's reference slots. Splines and LF
+frames are outside this package's slice: the entry point (api/simple.py)
+rejects such frames before any section is read.
 """
 
 from __future__ import annotations
@@ -74,6 +75,7 @@ class LfGlobalState:
     color_correlation_params: object = None
     tree: Tree = None
     modular_global: FullModularImage = None
+    patches: object = None  # features/patches.py PatchesDictionary, when the frame has patches
     noise: object = None  # features/noise.py Noise, when the frame has noise
 
 
@@ -131,14 +133,22 @@ class Frame:
     # -- LfGlobal ----------------------------------------------------------------
 
     def decode_lf_global(self, br: BitReader) -> None:
-        """ref frame/decode.rs:314-434, frames without patches or splines:
-        the noise parameters, then the tables and the global Modular
-        image."""
+        """ref frame/decode.rs:314-434, frames without splines: the patches
+        dictionary (read against the reference slots' shapes), the noise
+        parameters, then the tables and the global Modular image."""
         header = self.header
         is_vardct = header.encoding == Encoding.VARDCT
         state = LfGlobalState()
-        if header.has_patches or header.has_splines:
-            raise NotSupported("patches and splines are not in this package's slice")
+        if header.has_patches:
+            from ..features.patches import PatchesDictionary
+
+            w, h = header.size_padded()
+            refs = self.decoder_state.reference_frames if self.decoder_state else [None] * 4
+            state.patches = PatchesDictionary.read(
+                br, w, h, len(self.file_header.image_metadata.extra_channel_info), refs
+            )
+        if header.has_splines:
+            raise NotSupported("splines are not in this package's slice")
         if header.has_noise:
             from ..features.noise import Noise
 

@@ -1,13 +1,16 @@
-"""Whole-buffer decode entry point (non-streaming), single frame.
+"""Whole-buffer decode entry point (non-streaming).
 
-Counterpart of jxl_tpu/api/simple.py:decode_image restricted to its
-single-frame path: one visible Modular or VarDCT frame (XYB or YCbCr, a
-VarDCT frame 4:4:4 or chroma-subsampled), upsampled or not, with or
-without photon noise, with or without extra channels; no preview,
-animation, ICC profile, patches or splines. Host
-parse and entropy decode run in numpy and C++ (native/); a VarDCT frame's
-AC coefficients are decoded on the caller's device (api/frame.py), and
-the render runs there.
+Counterpart of jxl_tpu/api/simple.py:decode_image and its per-frame
+loop: every frame of the file in order, Modular or VarDCT (XYB or YCbCr,
+a VarDCT frame 4:4:4 or chroma-subsampled), upsampled or not, with or
+without photon noise, extra channels or patches; reference frames in the
+decoder state's slots, cropped and blended frames composited onto the
+canvas, animations with their durations, a preview skipped. LF frames,
+splines and ICC profiles are not in this package's slice, nor the JAX
+package's batched animation routes (the per-frame loop gives their
+result). Host parse and entropy decode run in numpy and C++ (native/); a
+VarDCT frame's AC coefficients are decoded on the caller's device
+(api/frame.py), and the render, the slots and the canvases stay there.
 """
 
 from __future__ import annotations
@@ -17,9 +20,9 @@ from dataclasses import dataclass, field as dfield
 
 import torch
 
-from ..errors import NotSupported
+from ..errors import InvalidBox, NotSupported
 from ..io.bit_reader import BitReader
-from ..io.container import extract_codestream
+from ..io.container import extract_codestream_ex
 from ..io.headers import FileHeader
 from ..io.headers.frame import Encoding, FrameHeader, FrameType, Toc
 from .frame import Frame
@@ -33,10 +36,10 @@ class DecodedImage:
     file_header: FileHeader
     frames: list  # visible frames: (h, w, c) tensors on the decode device (oriented)
     icc_profile: bytes | None = None
-    durations: list = dfield(default_factory=list)
-    # seconds of host parse + entropy decode ("host_s"); the device render
-    # is queued asynchronously and not included. A frame with noise adds
-    # "noise_field_s", the host seconds of its random field.
+    durations: list = dfield(default_factory=list)  # ms a frame; 0.0 without animation
+    # seconds of host parse + entropy decode of every frame ("host_s"); the
+    # device render is queued asynchronously and not included. Frames with
+    # noise add "noise_field_s", the host seconds of their random fields.
     timings: dict = dfield(default_factory=dict)
 
     def output_icc(self) -> bytes:
@@ -55,10 +58,27 @@ class DecodedImage:
         return synthesize_icc(enc, meta.tone_mapping.intensity_target)
 
 
-def parse_frame(br: BitReader, file_header: FileHeader, decoder_state=None) -> Frame:
-    frame_header = FrameHeader.read(br, file_header)
+def parse_frame(br: BitReader, file_header: FileHeader, decoder_state=None,
+                preview: bool = False) -> Frame:
+    """The next frame's header and TOC. A preview frame (preview=True) is
+    read at the preview's size and does not advance the frame counters
+    that seed the noise RNG (ref jxl_tpu/api/simple.py:58-80)."""
+    if preview:
+        p = file_header.image_metadata.preview
+        meta = file_header.image_metadata
+        frame_header = FrameHeader.read_with(
+            br,
+            xyb_encoded=meta.xyb_encoded,
+            extra_channel_info=meta.extra_channel_info,
+            have_animation=meta.animation is not None,
+            have_timecode=meta.animation.have_timecodes if meta.animation else False,
+            img_width=p.xsize,
+            img_height=p.ysize,
+        )
+    else:
+        frame_header = FrameHeader.read(br, file_header)
     toc = Toc.read(br, frame_header.num_toc_entries)
-    if decoder_state is not None:
+    if decoder_state is not None and not preview:
         if frame_header.is_visible:
             decoder_state.visible_frame_index += 1
             decoder_state.nonvisible_frame_index = 0
@@ -68,48 +88,50 @@ def parse_frame(br: BitReader, file_header: FileHeader, decoder_state=None) -> F
 
 
 def _check_image(fh) -> None:
-    meta = fh.image_metadata
-    if meta.color_encoding.want_icc:
+    if fh.image_metadata.color_encoding.want_icc:
         raise NotSupported("ICC profiles are not in this package's slice")
-    if meta.preview is not None:
-        raise NotSupported("preview frames are not in this package's slice")
-    if meta.animation is not None:
-        raise NotSupported("animation is not in this package's slice")
 
 
 def _check_frame(header) -> None:
+    if header.frame_type == FrameType.LF_FRAME or header.lf_level != 0:
+        raise NotSupported("LF frames and lf_level are not in this package's slice")
     if header.encoding == Encoding.VARDCT and header.has_lf_frame:
         raise NotSupported("LF frames are not in this package's slice")
-    if header.frame_type not in (FrameType.REGULAR, FrameType.SKIP_PROGRESSIVE):
-        raise NotSupported(f"{header.frame_type.name} frames are not in this package's slice")
-    if not header.is_last:
-        raise NotSupported("more than one frame is not in this package's slice")
-    if header.lf_level != 0:
-        raise NotSupported("lf_level is not in this package's slice")
-    if header.needs_blending():
-        raise NotSupported("cropped or blended frames are not in this package's slice")
-    if header.has_patches:
-        raise NotSupported("patches are not in this package's slice")
     if header.has_splines:
-        raise NotSupported("splines are not in this package's slice")
+        raise NotSupported("frames with splines are not in this package's slice")
+
+
+def _duration_ms(header, meta) -> float:
+    if meta.animation is None:
+        return 0.0
+    return header.duration * 1000.0 * meta.animation.tps_denominator / meta.animation.tps_numerator
 
 
 def decode_image(
-    data: bytes, *, pixel_format: str = "f32", device="cuda"
+    data: bytes, *, keep_all_frames: bool = True, pixel_format: str = "f32", device="cuda"
 ) -> DecodedImage:
-    """Decode a single-frame Modular or VarDCT .jxl file (a VarDCT frame
-    4:4:4 XYB or YCbCr, or chroma-subsampled YCbCr as a recompressed JPEG
-    codes it; with extra channels or not): frames of shape (H, W, 3 +
-    extra channels), in the requested sample type.
+    """Decode a whole .jxl file, every frame in order (ref
+    jxl_tpu/api/simple.py:decode_image, its per-frame loop :137-224):
+    Modular or VarDCT frames (a VarDCT frame 4:4:4 XYB or YCbCr, or
+    chroma-subsampled YCbCr as a recompressed JPEG codes it; with extra
+    channels or not), reference frames kept in the decoder state's four
+    slots, patches from a slot, cropped frames blended onto the canvas,
+    animations and a skipped preview. Returns every visible frame, shape
+    (H, W, 3 + extra channels) in the requested sample type, with its
+    duration in ms (0 without an animation header).
 
+    keep_all_frames: taken as jxl_tpu takes it; every visible frame is
+    returned either way, and the loop ends at the last frame.
     pixel_format: "f32" (default), "u8", "u16", or "f16" — the output sample
     format (ref JxlDataFormat + ConvertF32To* stages, convert.rs:549-).
-    device: where the render runs and the frames are returned. "cuda" (the
-    default) raises where no card is present; pass "cpu" explicitly to
-    render with the plain torch versions on the host. A VarDCT frame's AC
-    coefficients are decoded there too (kernel K3 on the card); set
-    JXL_TPU_AC=host to decode them with the native host decoder instead.
-    Streams outside this slice raise NotSupported with the reason."""
+    device: where the render runs and the frames, slots and canvases stay.
+    "cuda" (the default) raises where no card is present; pass "cpu"
+    explicitly to render with the plain torch versions on the host. A
+    VarDCT frame's AC coefficients are decoded there too (kernel K3 on the
+    card); set JXL_TPU_AC=host to decode them with the native host decoder
+    instead. Streams outside this slice (LF frames, splines, ICC profiles)
+    raise NotSupported with the reason. DecodedImage.timings["host_s"]
+    sums the host parse and entropy decode of every frame."""
     if pixel_format not in PIXEL_FORMATS:
         raise ValueError(f"unknown pixel format {pixel_format!r}")
     device = torch.device(device)
@@ -118,21 +140,62 @@ def decode_image(
             "decode_image: no CUDA device is available; pass device='cpu' "
             "to render on the host"
         )
-    from ..render.simple import apply_orientation, render_frame
+    from ..render.simple import (apply_orientation, apply_spot_and_premultiply,
+                                 blend_and_extend, color_transform, render_frame_channels)
+    from ..render.stages import core as st
 
     t0 = time.perf_counter()
-    br = BitReader(extract_codestream(data))
+    codestream, ooo_ranges = extract_codestream_ex(data)
+    br = BitReader(codestream)
     fh = FileHeader.read(br)
     _check_image(fh)
+    meta = fh.image_metadata
     state = DecoderState(fh)
-    br.jump_to_byte_boundary()
-    frame = parse_frame(br, fh, state)
-    _check_frame(frame.header)
-    frame.decode_all_sections(br, device)
+    if meta.preview is not None:
+        # skip the preview frame by its TOC size
+        pframe = parse_frame(br, fh, None, preview=True)
+        br.jump_to_byte_boundary()
+        br.skip_bits(pframe.toc.total_size * 8)
+    out = DecodedImage(fh, [], None, [], {})
     host_s = time.perf_counter() - t0
+    while True:
+        t0 = time.perf_counter()
+        br.jump_to_byte_boundary()
+        start_byte = br.pos // 8
+        for lo, hi in ooo_ranges:
+            if lo <= start_byte < hi:
+                # ref tests/api.rs:36-44: a frame must start in a box that
+                # is a valid checkpoint (physically in logical order)
+                raise InvalidBox("frame starts in out-of-order jxlp box")
+        frame = parse_frame(br, fh, state)
+        header = frame.header
+        _check_frame(header)
+        frame.decode_all_sections(br, device)
+        host_s += time.perf_counter() - t0
 
-    timings = {"host_s": host_s}
-    planes = render_frame(frame, device, pixel_format, timings)
-    planes = planes[:, : fh.ysize, : fh.xsize]
-    arr = apply_orientation(planes.permute(1, 2, 0).contiguous(), fh.image_metadata.orientation)
-    return DecodedImage(fh, [arr], None, [0.0], timings)
+        planes, color_done, converted = render_frame_channels(
+            frame, device, pixel_format, out.timings)
+        if header.can_be_referenced and header.save_before_ct:
+            state.save_reference(header.save_as_reference, planes, True)
+        if header.frame_type != FrameType.REFERENCE_ONLY and not color_done:
+            planes = color_transform(frame, planes)
+        if header.needs_blending():
+            canvas = blend_and_extend(frame, planes)
+        else:
+            canvas = [p[: fh.ysize, : fh.xsize] for p in planes]
+        if header.can_be_referenced and not header.save_before_ct:
+            state.save_reference(header.save_as_reference, canvas, False)
+        if header.is_visible:
+            canvas = apply_spot_and_premultiply(frame, canvas)
+            if pixel_format != "f32" and not converted:
+                canvas = [st.convert_output(p, pixel_format, channel=i)
+                          for i, p in enumerate(canvas)]
+            arr = torch.stack(canvas, dim=-1)
+            out.frames.append(apply_orientation(arr, meta.orientation))
+            out.durations.append(_duration_ms(header, meta))
+            if not keep_all_frames and header.is_last:
+                break
+        if header.is_last:
+            break
+    out.timings["host_s"] = host_s
+    return out

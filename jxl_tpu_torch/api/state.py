@@ -2,10 +2,15 @@
 
 Capability reference: jxl/src/frame/mod.rs (DecoderState) — 4 reference
 slots + 4 LF-frame slots carried across frames; visible/nonvisible frame
-indices seed the noise RNG.
+indices seed the noise RNG. A reference slot holds its planes as one
+(C, H, W) float32 tensor on the decode's device, a copy that no later
+stage or frame writes.
 """
 
 from __future__ import annotations
+
+import numpy as np
+import torch
 
 MAX_STORED_FRAMES = 4
 
@@ -13,7 +18,7 @@ MAX_STORED_FRAMES = 4
 class DecoderState:
     def __init__(self, file_header, options=None):
         self.file_header = file_header
-        # each slot: {"frame": [np planes], "saved_before_color_transform": bool}
+        # each slot: {"frame": (C, H, W) tensor, "saved_before_color_transform": bool}
         self.reference_frames = [None] * MAX_STORED_FRAMES
         self.lf_frames = [None] * MAX_STORED_FRAMES  # [3] planes each
         self.visible_frame_index = 0
@@ -26,3 +31,32 @@ class DecoderState:
     @property
     def extra_channel_info(self):
         return self.file_header.image_metadata.extra_channel_info
+
+    def save_reference(self, slot: int, planes, before_ct: bool) -> None:
+        """Keep `planes` (a list of same-shape 2-D tensors) in reference
+        slot `slot`. torch.stack copies them, so the slot shares no storage
+        with the frame's planes, which later stages write in place."""
+        self.reference_frames[slot] = {
+            "frame": torch.stack(list(planes)).to(torch.float32),
+            "saved_before_color_transform": before_ct,
+        }
+
+
+def state_from_numpy(ref_state, device) -> DecoderState:
+    """This package's DecoderState carrying the slots and frame counters of
+    `ref_state`, a jxl_tpu DecoderState (numpy planes), with each slot's
+    planes stacked into one float32 tensor on `device`: the decoder's
+    counterpart of carrying weights across, so that the patch and blend
+    steps can run on the reference's own state."""
+    state = DecoderState(ref_state.file_header)
+    for i, rf in enumerate(ref_state.reference_frames):
+        if rf is None:
+            continue
+        planes = np.stack([np.asarray(p, dtype=np.float32) for p in rf["frame"]])
+        state.reference_frames[i] = {
+            "frame": torch.from_numpy(planes).to(device),
+            "saved_before_color_transform": bool(rf["saved_before_color_transform"]),
+        }
+    state.visible_frame_index = ref_state.visible_frame_index
+    state.nonvisible_frame_index = ref_state.nonvisible_frame_index
+    return state

@@ -8,7 +8,9 @@ torch tensors on one device, with the halo it reads (`border`), the log2
 upsampling it applies (`shift`) and the channels it touches. The filter
 stages (gaborish, EPF) have no body of their own: render/span_exec.py runs
 a run of them as one launch of the gaborish + EPF kernel
-(render/device_filters.py:run_filters). Patches and splines are not in
+(render/device_filters.py:run_filters). The patch stage blends
+rectangles of a reference slot onto the planes with gathers and scatters
+built on the device from a host plan of the dictionary. Splines are not in
 this package's slice, nor chroma-subsampled Modular frames: frames that
 need them raise NotSupported.
 """
@@ -17,6 +19,9 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Callable
+
+import numpy as np
+import torch
 
 from ..errors import NotSupported
 
@@ -144,6 +149,135 @@ def noise_convolve_add_stage(frame) -> Stage:
     return Stage("noise", fn, border=(2, 2))
 
 
+# -- patches -----------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class PatchGroup:
+    """Patches of one layer that read one reference slot and share one
+    blending descriptor: rows [first, first + count) of the plan's table,
+    `pixels` pixels in all."""
+
+    slot: int
+    blending: tuple  # (colour PatchBlending, *extra-channel PatchBlendings)
+    first: int
+    count: int
+    pixels: int
+
+
+def patch_layers(rects, h: int, w: int) -> np.ndarray:
+    """The layer of each patch, rects (n, 4) int64 [y, x, ph, pw] in
+    dictionary order: 0 for a patch that overlaps no earlier one, else one
+    more than the highest layer among the earlier patches it overlaps. So
+    every patch lands in a later layer than each earlier patch it
+    overlaps, and applying the layers in order, each as one scatter,
+    gives the sequential result wherever patches overlap. (The first-fit
+    layers of jxl_tpu/render/pipeline.py:_dense_patch_layers can place a
+    patch before an earlier one it overlaps.)"""
+    n = len(rects)
+    layers = np.zeros(n, np.int64)
+    # the highest layer + 1 that covers each pixel so far
+    top = np.zeros((h, w), np.int32)
+    for i, (y, x, ph, pw) in enumerate(rects.tolist()):
+        region = top[y : y + ph, x : x + pw]
+        layers[i] = region.max()
+        region[...] = layers[i] + 1
+    return layers
+
+
+def patch_plan(frame, h: int, w: int):
+    """Host plan of the frame's patches on (h, w) planes, from the
+    dictionary and the reference slots' shapes alone: (table, groups).
+    table is (P, 5) int64, one row a patch: the flat index of its first
+    pixel in the planes and in its slot's planes, its width, the index of
+    its first pixel among its group's and its pixel count. groups: the
+    PatchGroup list, in layer order. Each patch is clipped to the planes
+    and to its slot."""
+    pd = frame.lf_global.patches
+    refs = frame.decoder_state.reference_frames if frame.decoder_state else [None] * 4
+    stride = pd.blendings_stride
+    rows = []  # y, x, ry, rx, ph, pw, slot, dictionary index
+    for pi, pos in enumerate(pd.positions):
+        rp = pd.ref_positions[pos.ref_pos_idx]
+        ref_h, ref_w = refs[rp.reference]["frame"][0].shape
+        ph = min(rp.ysize, h - pos.y, ref_h - rp.y0)
+        pw = min(rp.xsize, w - pos.x, ref_w - rp.x0)
+        if ph > 0 and pw > 0:
+            rows.append((pos.y, pos.x, rp.y0, rp.x0, ph, pw, rp.reference, pi))
+    if not rows:
+        return np.zeros((0, 5), np.int64), []
+    r = np.array(rows, np.int64)
+    layers = patch_layers(r[:, [0, 1, 4, 5]], h, w)
+    descs = [tuple(pd.blendings[pi * stride : (pi + 1) * stride]) for pi in r[:, 7].tolist()]
+    desc_ids = {d: i for i, d in enumerate(dict.fromkeys(descs))}
+    key = np.array([desc_ids[d] for d in descs], np.int64)
+    order = np.lexsort((key, r[:, 6], layers))
+    r, layers, key = r[order], layers[order], key[order]
+    by_id = list(desc_ids)
+    ref_w = {s: refs[s]["frame"][0].shape[1] for s in set(r[:, 6].tolist())}
+    table = np.empty((len(r), 5), np.int64)
+    table[:, 0] = r[:, 0] * w + r[:, 1]
+    table[:, 1] = r[:, 2] * np.array([ref_w[s] for s in r[:, 6].tolist()], np.int64) + r[:, 3]
+    table[:, 2] = r[:, 5]
+    px = r[:, 4] * r[:, 5]
+    table[:, 4] = px
+    groups = []
+    cut = np.nonzero(np.diff(np.stack([layers, r[:, 6], key]), axis=1).any(axis=0))[0] + 1
+    for a, b in zip(np.concatenate([[0], cut]).tolist(), np.concatenate([cut, [len(r)]]).tolist()):
+        table[a:b, 3] = np.cumsum(px[a:b]) - px[a:b]
+        groups.append(PatchGroup(int(r[a, 6]), by_id[int(key[a])], a, b - a, int(px[a:b].sum())))
+    return table, groups
+
+
+def patches_stage(frame) -> Stage:
+    """PatchesStage (ref stages/patches.rs; jxl_tpu/render/pipeline.py:551
+    with its _patch_plan/_dense_patch_layers design, as gathers): the
+    host plans the dictionary once (patch_plan); the plan's table goes up
+    in one copy; for each group the device expands the table into each
+    covered pixel's flat index in the planes and in the slot, gathers the
+    foreground from the slot's tensor and the background from the planes,
+    blends them with features/blending.py and scatters the result back.
+    Patches of one layer cover disjoint pixels, and the layers run in
+    order. Nothing goes back to the host."""
+    from ..features.blending import perform_blending
+
+    eci = frame.file_header.image_metadata.extra_channel_info
+    num_c = 3 + len(eci)
+    wc, hc = frame.header.size()
+    table, groups = patch_plan(frame, hc, wc)
+    refs = frame.decoder_state.reference_frames if frame.decoder_state else [None] * 4
+
+    def fn(chans, ctx):
+        from .stages.core import to_device
+
+        if not groups:
+            return list(chans)
+        dev = chans[0].device
+        tab = to_device(table, dev)
+        img = torch.stack(chans[:num_c]).reshape(num_c, -1)
+        for g in groups:
+            t = tab[g.first : g.first + g.count]
+            # the patch of each covered pixel; output_size keeps the
+            # repeat off the host
+            pid = torch.repeat_interleave(t[:, 4], output_size=g.pixels)
+            local = torch.arange(g.pixels, device=dev) - t[pid, 3]
+            w_p = t[pid, 2]
+            ly = torch.div(local, w_p, rounding_mode="floor")
+            lx = local - ly * w_p
+            ref = refs[g.slot]["frame"]
+            dst = t[pid, 0] + ly * wc + lx
+            src = t[pid, 1] + ly * ref.shape[2] + lx
+            fg = ref.reshape(ref.shape[0], -1)[:num_c, src]
+            bg = img[:, dst]
+            out = perform_blending(list(bg.unbind(0)), list(fg.unbind(0)), g.blending[0],
+                                   g.blending[1:], eci)
+            img[:, dst] = torch.stack(out)
+        img = img.reshape(num_c, hc, wc)
+        return list(img.unbind(0)) + list(chans[num_c:])
+
+    return Stage("patches", fn, channels=tuple(range(num_c)))
+
+
 def color_transform_stage(frame) -> Stage:
     """XybStage + FromLinearStage (or YCbCr) via render/simple.py."""
 
@@ -172,9 +306,9 @@ def build_render_pipeline(frame):
     """Per-frame stage assembly in reference order (ref
     frame/render.rs:506-885): chroma upsample (per channel, its
     horizontal steps, then its vertical ones) -> visible crop -> gaborish
-    -> EPF0/1/2 -> early EC upsample -> upsample -> upsampled crop ->
-    noise. The colour transform and output conversion are appended by the
-    caller. Raises NotSupported for a frame whose pipeline needs patches or
+    -> EPF0/1/2 -> early EC upsample -> patches -> upsample -> upsampled
+    crop -> noise. The colour transform and output conversion are appended
+    by the caller. Raises NotSupported for a frame whose pipeline needs
     splines, and for a chroma-subsampled Modular frame."""
     from ..io.headers.frame import Encoding
 
@@ -184,8 +318,6 @@ def build_render_pipeline(frame):
     if not header.is444 and header.encoding != Encoding.VARDCT:
         # no writer of this package's tests codes YCbCr Modular frames
         raise NotSupported("chroma-subsampled Modular frames are not in this package's slice")
-    if header.has_patches:
-        raise NotSupported("patches are not in this package's slice")
     if header.has_splines:
         raise NotSupported("splines are not in this package's slice")
 
@@ -209,6 +341,8 @@ def build_render_pipeline(frame):
         for i, ec_up in enumerate(header.ec_upsampling):
             if ec_up > 1:
                 stages.append(upsample_stage(frame, ec_up, (3 + i,)))
+    if header.has_patches:
+        stages.append(patches_stage(frame))
     if header.upsampling > 1:
         n_up = 3 + num_ec if late_ec_upsample else 3
         stages.append(upsample_stage(frame, header.upsampling, tuple(range(n_up))))

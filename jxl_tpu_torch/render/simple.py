@@ -6,10 +6,11 @@ VarDCT planes (vardct/device_frame.py, from the dense AC coefficients;
 chroma-subsampled planes at their own sizes) or the Modular-to-float
 conversion (with the XYB channel order and scaling), each extra channel at
 its own bit depth, the stage assembly of render/pipeline.py, then the
-stage list (chroma upsampling, the filters, upsampling, noise, colour
-transform, output conversion) run by render/span_exec.py. Host planes go
-to the card through render/stages/core.py:to_device (pinned, without a
-wait).
+stage list (chroma upsampling, the filters, patches, upsampling, noise,
+colour transform, output conversion) run by render/span_exec.py, and the
+blend of a cropped or blended frame onto the image canvas
+(blend_and_extend). Host planes go to the card through
+render/stages/core.py:to_device (pinned, without a wait).
 """
 
 from __future__ import annotations
@@ -136,12 +137,19 @@ def _extra_channel_planes(frame, device) -> list:
     ]
 
 
-def render_frame(frame, device, out_format: str = "f32", timings=None) -> torch.Tensor:
-    """All stages of a single visible frame, colour transform and output
-    conversion included: (3 + extra channels, H, W) in the output sample
-    type on `device`. timings, a dict, gets "noise_field_s", the host
-    seconds of the noise field, when the frame has noise."""
-    from ..io.headers.frame import Encoding
+def render_frame_channels(frame, device, out_format: str = "f32", timings=None):
+    """All stages of one frame on `device` (ref jxl_tpu/render/simple.py:
+    render_frame_channels_ex, :153-204): (planes, color_done, converted),
+    planes a list of 3 + extra channels tensors at the frame's upsampled
+    size. The colour transform runs here unless the frame is
+    REFERENCE_ONLY or is saved before it (then the planes stay XYB or
+    YCbCr, for the caller to save); the output conversion runs here only
+    for a frame that neither blends nor is referenced and has no extra
+    channels: every other frame stays float32, and the caller converts the
+    canvas after blending, so that the dither pattern sits at the image's
+    (0, 0). timings, a dict, gets "noise_field_s", the host seconds of the
+    noise field, when the frame has noise."""
+    from ..io.headers.frame import Encoding, FrameType
     from .pipeline import build_render_pipeline, color_transform_stage, convert_output_stage
     from .span_exec import run_span
 
@@ -161,20 +169,75 @@ def render_frame(frame, device, out_format: str = "f32", timings=None) -> torch.
         t0 = time.perf_counter()
         field = generate_noise_field(frame, pin_memory=device.type == "cuda")
         if timings is not None:
-            timings["noise_field_s"] = time.perf_counter() - t0
+            timings["noise_field_s"] = timings.get("noise_field_s", 0.0) + time.perf_counter() - t0
         ctx["noise_field"] = field.to(device, non_blocking=True)
-    # with extra channels the stages end in f32 and the conversion follows
-    # spot colours and premultiplication (ref api/simple.py:204-210)
-    fmt = "f32" if num_ec else out_format
-    tail = [color_transform_stage(frame)]
-    if fmt != "f32":
-        tail.append(convert_output_stage(fmt, (0, 1, 2)))
+    color_done = not (header.frame_type == FrameType.REFERENCE_ONLY
+                      or (header.can_be_referenced and header.save_before_ct))
+    fmt = out_format
+    if header.needs_blending() or header.can_be_referenced or num_ec:
+        fmt = "f32"
+    tail = []
+    if color_done:
+        tail.append(color_transform_stage(frame))
+        if fmt != "f32":
+            tail.append(convert_output_stage(fmt, (0, 1, 2)))
     chans = run_span(stages + tail, chans, ctx)
-    if num_ec:
-        chans = apply_spot_and_premultiply(frame, chans)
-        if out_format != "f32":
-            chans = [st.convert_output(c, out_format, channel=i) for i, c in enumerate(chans)]
-    return torch.stack(chans)
+    return chans, color_done, color_done and fmt != "f32"
+
+
+def blend_and_extend(frame, planes) -> list:
+    """Blending + ExtendToImageDimensions onto the whole image canvas (ref
+    jxl_tpu/render/simple.py:365, stages/{blending,extend}.rs), as torch
+    ops on the planes' device: each channel's canvas is a copy of its
+    source slot (colour and each extra channel name their own), or zeros;
+    the frame rect, whose x0 and y0 may be negative, is intersected with
+    the image, and there the frame's pixels (bg) blend with the canvas
+    (fg) by the frame's mode. Returns the canvas planes."""
+    from ..features.blending import perform_blending
+    from ..features.patches import BlendMode, PatchBlending
+    from ..io.headers.frame import BlendingMode
+
+    header = frame.header
+    fh = frame.file_header
+    img_w, img_h = fh.xsize, fh.ysize
+    dev = planes[0].device
+    refs = frame.decoder_state.reference_frames if frame.decoder_state else [None] * 4
+    mode_map = {
+        BlendingMode.REPLACE: BlendMode.NONE,
+        BlendingMode.ADD: BlendMode.ADD,
+        BlendingMode.MUL: BlendMode.MUL,
+        BlendingMode.BLEND: BlendMode.BLEND_BELOW,
+        BlendingMode.ALPHA_WEIGHTED_ADD: BlendMode.ALPHA_WEIGHTED_ADD_BELOW,
+    }
+    canvas = []
+    for c in range(len(planes)):
+        src = header.blending_info.source if c < 3 else header.ec_blending_info[c - 3].source
+        ref = refs[src]
+        if ref is not None:
+            canvas.append(ref["frame"][c].clone())
+        else:
+            canvas.append(torch.zeros((img_h, img_w), dtype=torch.float32, device=dev))
+
+    x0, y0 = header.x0, header.y0
+    fh_px, fw = planes[0].shape
+    ix0, iy0 = max(x0, 0), max(y0, 0)
+    ix1, iy1 = min(x0 + fw, img_w), min(y0 + fh_px, img_h)
+    if ix1 <= ix0 or iy1 <= iy0:
+        return canvas
+    fx0, fy0 = ix0 - x0, iy0 - y0
+    fx1, fy1 = fx0 + (ix1 - ix0), fy0 + (iy1 - iy0)
+    bg = [p[fy0:fy1, fx0:fx1] for p in planes]
+    fg = [c[iy0:iy1, ix0:ix1] for c in canvas]
+    bi = header.blending_info
+    out = perform_blending(
+        bg, fg, PatchBlending(mode_map[bi.mode], bi.alpha_channel, bi.clamp),
+        [PatchBlending(mode_map[b.mode], b.alpha_channel, b.clamp)
+         for b in header.ec_blending_info],
+        fh.image_metadata.extra_channel_info,
+    )
+    for c in range(len(planes)):
+        canvas[c][iy0:iy1, ix0:ix1] = out[c]
+    return canvas
 
 
 def apply_spot_and_premultiply(frame, canvas, options=None):

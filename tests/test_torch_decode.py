@@ -20,7 +20,8 @@ import torch
 import jxl_tpu_torch
 from jxl_tpu.api.simple import decode_first_frame as ref_first_frame
 from jxl_tpu.api.simple import decode_image as ref_decode
-from mini_encoder import encode_constant_modular, encode_patches_modular
+from mini_encoder import encode_constant_modular
+from test_torch_frame_streams import lf_frame_stream
 from test_torch_streams import encode_xyb_modular
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -64,7 +65,9 @@ def test_decode_filters_really_change_pixels():
     dec = _port_frame(data)
     dec.header.restoration_filter.gab = False
     dec.header.restoration_filter.epf_iters = 0
-    plain = rs.render_frame(dec, torch.device("cpu")).permute(1, 2, 0)
+    chans, color_done, _ = rs.render_frame_channels(dec, torch.device("cpu"))
+    assert color_done
+    plain = torch.stack(chans, dim=-1)
     assert (img - plain).abs().max().item() > 1e-3
 
 
@@ -107,7 +110,8 @@ def test_parsed_state_matches_jxl_tpu(name):
 @pytest.mark.parametrize(
     "make,reason",
     [
-        (lambda: encode_patches_modular(300, 300), "frame"),
+        # the patches stream this case held decodes now (test_torch_frames.py)
+        (lambda: lf_frame_stream(), "frame"),
     ],
 )
 def test_streams_outside_the_slice_raise(make, reason):

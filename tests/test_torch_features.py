@@ -126,7 +126,7 @@ def _header(data):
 
 
 @pytest.mark.parametrize("what,reason", [
-    ("patches", "patches"),
+    ("lf_frame", "LF frames"),
     ("splines", "splines"),
 ])
 def test_frames_outside_the_slice_raise(what, reason):
@@ -134,9 +134,20 @@ def test_frames_outside_the_slice_raise(what, reason):
     from jxl_tpu_torch.io.headers.frame import Flags
 
     header = _header(_stream("vardct_up2_noise"))
-    header.flags |= Flags.ENABLE_PATCHES if what == "patches" else Flags.ENABLE_SPLINES
+    header.flags |= Flags.USE_LF_FRAME if what == "lf_frame" else Flags.ENABLE_SPLINES
     with pytest.raises(jxl_tpu_torch.NotSupported, match=reason):
         _check_frame(header)
+
+
+def test_patches_pass_the_frame_check():
+    """Frames with patches, which earlier slices refused here, pass the
+    check (their decodes: test_torch_frames.py)."""
+    from jxl_tpu_torch.api.simple import _check_frame
+    from jxl_tpu_torch.io.headers.frame import Flags
+
+    header = _header(_stream("vardct_up2_noise"))
+    header.flags |= Flags.ENABLE_PATCHES
+    _check_frame(header)
 
 
 @pytest.mark.parametrize("what", ["chroma", "vardct_ec"])
@@ -156,8 +167,7 @@ def test_vardct_layouts_pass_the_frame_check(what):
 
 
 @pytest.mark.parametrize("what,reason", [
-    ("patches", "patches"), ("splines", "splines"),
-    ("chroma", "chroma-subsampled Modular frames")])
+    ("splines", "splines"), ("chroma", "chroma-subsampled Modular frames")])
 def test_render_pipeline_refuses_what_it_lacks(what, reason, monkeypatch):
     from jxl_tpu_torch.io.headers.frame import Flags
     from jxl_tpu_torch.render.pipeline import build_render_pipeline
@@ -167,7 +177,24 @@ def test_render_pipeline_refuses_what_it_lacks(what, reason, monkeypatch):
     if what == "chroma":
         frame.header.jpeg_upsampling = [1, 0, 0]
     else:
-        frame.header.flags |= Flags.ENABLE_PATCHES if what == "patches" else Flags.ENABLE_SPLINES
+        frame.header.flags |= Flags.ENABLE_SPLINES
     with pytest.raises(jxl_tpu_torch.NotSupported, match=reason):
         build_render_pipeline(frame)
+
+
+def test_render_pipeline_places_the_patch_stage(monkeypatch):
+    """A frame with patches, which earlier slices refused here, gets the
+    patch stage after the filters and before the upsampling, as in
+    jxl_tpu (its decodes: test_torch_frames.py)."""
+    from jxl_tpu_torch.features.patches import PatchesDictionary
+    from jxl_tpu_torch.io.headers.frame import Flags
+    from jxl_tpu_torch.render.pipeline import build_render_pipeline
+    from test_torch_render_stages import port_frame
+
+    frame = port_frame(_stream("modular_alpha_late_up2"), monkeypatch)
+    frame.header.flags |= Flags.ENABLE_PATCHES
+    frame.lf_global.patches = PatchesDictionary([], [], [], 2)
+    names = [s.name for s in build_render_pipeline(frame)]
+    assert names.index("patches") == names.index("epf2") + 1
+    assert names[names.index("patches") + 1].startswith("upsample2x")
 
