@@ -34,8 +34,12 @@ a non-zero exit:
              over real bytes; plain version on the host), on random lanes
              (tests/test_torch_vardct_streams.py::random_lanes, three
              seeds, and one of 160 clusters whose tables stay in global
-             memory), and on the 3840x2160 stream's 135 lanes, timed with
-             its time per step of the longest lane. Writer streams go in
+             memory), on a two-pass 1024x1024 stream (two lanes a group,
+             each pass's coefficients added into the same buffer), and on
+             the 3840x2160 stream's 135 lanes, timed with its time per
+             step of the longest lane; then on the 270 lanes of the same
+             stream in two passes, timed and held against the writer's
+             coefficients. Writer streams go in
              with their tables packed on the host, as the decode passes
              them; random lanes without, so the wrapper packs them.
              Kernel times ("ms") are the kernel's mean device time over
@@ -97,7 +101,22 @@ a non-zero exit:
              patch steps' card time from CUDA events, and those steps
              once more under torch.cuda.set_sync_debug_mode("error"),
              where a host sync fails the run.
-8. profile - a u8 decode of each stream (Modular, VarDCT, the upsampled
+8. tools   - decode_image on the card of the coding tools' streams:
+             progressive_4k (a 480x270 XYB Modular LF frame, then a
+             3840x2160 XYB VarDCT frame that reads its LF from it, two AC
+             passes, default filters: K3 over 270 lanes, then K1),
+             progressive_rgba_1080p (1920x1080 XYB VarDCT with an 8-bit
+             alpha in two passes: the host AC route, then K1), icc_jpeg_4k
+             (the 3840x2160 YCbCr 4:2:0 JPEG frame, no filters, with a
+             BT.2100 PQ profile embedded: K3) and splines_4k (3840x2160 XYB
+             VarDCT with 64 splines: K3, K1, the spline stage); u8 and f32,
+             3 reps each, with each stream's K3 and K1 launches a decode
+             and K3's lane count; output_icc() against the profile
+             written; every decode against the port's CPU decode (host
+             AC; f32 <= 1e-4, u8 <= 1 LSB). Then the spline stage's card
+             time beside its bytes bound, with the segment and splatted
+             pixel counts, and the LF adoption's card time.
+9. profile - a u8 decode of each stream (Modular, VarDCT, the upsampled
              VarDCT with noise) under torch.profiler: device time by
              operation and the card's idle share. It runs right after the
              build, and no other phase opens a profiler session.
@@ -582,11 +601,10 @@ def _lane_inputs(data):
     for g in range(frame.header.num_lf_groups):
         frame.decode_lf_group(g, sections[frame.section_index("lf", group=g)])
     frame.decode_hf_global(sections[frame.section_index("hf_global")])
-    readers = {(g, 0): sections[frame.section_index("hf", group=g)]
-               for g in range(frame.header.num_groups)}
+    readers = {(g, p): sections[frame.section_index("hf", group=g, pass_idx=p)]
+               for g in range(frame.header.num_groups)
+               for p in range(frame.header.passes.num_passes)}
     return device_group.lane_inputs(frame, readers)
-
-
 
 
 def ac_tokens_per_lane(inputs, coeffs):
@@ -615,10 +633,33 @@ def ac_tokens_per_lane(inputs, coeffs):
     return out
 
 
+def two_pass_tokens_per_lane(inp, arrays, kw, packs):
+    """Tokens each lane of a two-pass lane set decodes: K3 run on each
+    pass's lanes alone (lane g * 2 + p is group g's pass p) gives that
+    pass's coefficients, from which ac_tokens_per_lane counts its lanes'
+    tokens; the summed buffer would count the other pass's positions."""
+    from jxl_tpu_torch.ops import device_ac
+
+    S = inp["streams"].shape[0]
+    per_lane = [0] * S
+    lane_keys = [k for k in inp if k in ("streams", "start_bits") or k.startswith("lane_")]
+    for p in range(2):
+        sub = dict(inp, **{k: inp[k][p::2] for k in lane_keys})
+        sub_arrays = dict(arrays, **{k: arrays[k][p::2].contiguous() for k in lane_keys})
+        coeffs, _ = device_ac.decode_ac_sections(**sub_arrays, **kw, **packs)
+        for i, t in enumerate(ac_tokens_per_lane(sub, coeffs.cpu().numpy())):
+            per_lane[2 * i + p] = t
+    return per_lane
+
+
 def phase_k3(data4k):
     """K3 against its plain version on a 1024x1024 stream, a corrupted
     copy, a stream of long sections, random lanes (one set with its tables
-    in global memory) and the 4K stream's lanes; times at the 4K shapes."""
+    in global memory), a two-pass 1024x1024 stream (two lanes a group,
+    summed by atomic add) and the 4K stream's lanes; times at the 4K
+    shapes, and on the 270 lanes of the 4K stream in two passes, held
+    against the writer's coefficients (its plain version would take
+    minutes)."""
     import numpy as np
     import torch
 
@@ -657,9 +698,13 @@ def phase_k3(data4k):
                                      NC=len(many["context_map"]))["tab_shared"],
           "the 160-cluster lanes must plan their tables in global memory")
     cases.append(("random_lanes_160_clusters_global_tables", many, None, None, False, dev))
+    two, two_coeffs = encode_xyb_vardct(1024, 1024, seed=8, density=0.2, passes=2)
+    cases.append(("1024x1024_two_pass", _lane_inputs(two), two_coeffs, "all", True, dev))
     cases.append(("3840x2160", _lane_inputs(data4k), None, "all", True, dev))
+    four, four_coeffs = encode_xyb_vardct(WIDTH, HEIGHT, seed=7, passes=2)
+    cases.append(("3840x2160_two_pass", _lane_inputs(four), four_coeffs, "all", True, None))
     worst = 0
-    main = None
+    main = two_pass = None
     for name, inp, coeffs, expect, packed, plain_dev in cases:
         arrays = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
                   for k, v in inp.items() if k not in LANE_KEYWORDS}
@@ -670,30 +715,45 @@ def phase_k3(data4k):
             packs = dict(packed_buckets=torch.from_numpy(b).to(dev),
                          packed_cfgs=torch.from_numpy(c).to(dev))
         got_c, got_ok = device_ac.decode_ac_sections(**arrays, **kw, **packs)
-        t0 = time.perf_counter()
-        want_c, want_ok = device_ac.decode_ac_sections_reference(
-            *(x.to(plain_dev) for x in arrays.values()), **kw)
-        torch.cuda.synchronize()
-        plain_s = time.perf_counter() - t0
-        want_c, want_ok = want_c.to(dev), want_ok.to(dev)
-        err = int((got_c.long() - want_c.long()).abs().max())
-        same = torch.equal(got_c, want_c) and torch.equal(got_ok, want_ok)
         ok = got_ok.cpu().numpy()
         rec = {"phase": "kernels", "name": "decode_ac_sections", "case": name,
-               "lanes": len(ok), "bit_exact": same, "max_abs_diff": err,
-               "lanes_not_ok": np.nonzero(~ok)[0].tolist(),
+               "lanes": len(ok), "lanes_not_ok": np.nonzero(~ok)[0].tolist(),
                "nonzero_coefficients": int(torch.count_nonzero(got_c)),
-               "tables_packed_on_host": packed, "plain_device": plain_dev.type,
-               "plain_s": plain_s}
-        check(same, f"decode_ac_sections disagrees with its plain version on {name}")
+               "tables_packed_on_host": packed}
+        if plain_dev is not None:
+            t0 = time.perf_counter()
+            want_c, want_ok = device_ac.decode_ac_sections_reference(
+                *(x.to(plain_dev) for x in arrays.values()), **kw)
+            torch.cuda.synchronize()
+            plain_s = time.perf_counter() - t0
+            want_c, want_ok = want_c.to(dev), want_ok.to(dev)
+            err = int((got_c.long() - want_c.long()).abs().max())
+            same = torch.equal(got_c, want_c) and torch.equal(got_ok, want_ok)
+            rec.update(bit_exact=same, max_abs_diff=err, plain_device=plain_dev.type,
+                       plain_s=plain_s)
+            check(same, f"decode_ac_sections disagrees with its plain version on {name}")
+            worst = max(worst, err)
         if expect == "lane5":
             check(ok.tolist() == [i != 5 for i in range(len(ok))],
                   f"the corrupted copy must flag lane 5 alone, got {rec['lanes_not_ok']}")
         elif expect == "all":
             check(ok.all(), f"{name}: lanes not ok")
         if coeffs is not None:
-            check(np.array_equal(got_c.cpu().numpy(), coeffs), f"{name}: not the writer's")
-        worst = max(worst, err)
+            same_writer = np.array_equal(got_c.cpu().numpy(), coeffs)
+            rec["equals_writer"] = same_writer
+            check(same_writer, f"{name}: not the writer's")
+        if name == "3840x2160_two_pass":
+            tokens = two_pass_tokens_per_lane(inp, arrays, kw, packs)
+            rec["kernel_ms"] = device_times(
+                [(0, lambda: device_ac.decode_ac_sections(**arrays, **kw, **packs),
+                  AL.load(), "ac_sections_launch")], reps=5)[0]
+            rec["call_ms"] = time_ms(lambda: device_ac.decode_ac_sections(**arrays, **kw, **packs),
+                                     reps=10, warmup=2)
+            rec["tokens"] = sum(tokens)
+            rec["longest_lane_tokens"] = max(tokens)
+            rec["ns_per_step"] = rec["kernel_ms"] * 1e6 / max(tokens)
+            two_pass = {k: rec[k] for k in ("lanes", "kernel_ms", "call_ms", "tokens",
+                                            "longest_lane_tokens", "ns_per_step")}
         if name == "3840x2160":
             plan = device_ac.ac_smem_plan(C=inp["tables"].shape[0], NB=inp["n_buckets"],
                                           num_bctx=inp["num_bctx"], NC=len(inp["context_map"]))
@@ -724,6 +784,7 @@ def phase_k3(data4k):
             main = rec
         emit(rec)
     main["max_abs_err"] = worst
+    main["two_pass_3840x2160"] = two_pass
     return main
 
 
@@ -1097,35 +1158,55 @@ def frame_streams():
     ]
 
 
-def _instrument_frame_steps(records, sync_debug: bool):
-    """Wrap the decode's blend (render/simple.py:blend_and_extend), slot
-    save (DecoderState.save_reference) and patch stage so that each call
-    is queued behind a spin on the card and timed by CUDA events around
-    it (its card time alone), with the host's time to queue it; with
-    sync_debug the calls run under torch.cuda.set_sync_debug_mode("error"),
-    so a host sync inside them raises. Returns a function that undoes it."""
+def _timed_call(records, name, fn, sync_debug: bool = False):
+    """fn wrapped so that each call is queued behind a spin on the card and
+    timed by CUDA events around it (its card time alone), with the host's
+    time to queue it: (name, host seconds, start event, end event) go to
+    `records`. With sync_debug the call runs under
+    torch.cuda.set_sync_debug_mode("error"), so a host sync inside it
+    raises."""
     import torch
 
+    def call(*args, **kw):
+        torch.cuda._sleep(int(5e-3 * SPIN_CYCLES_PER_S))
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        if sync_debug:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            a.record()
+            out = fn(*args, **kw)
+            b.record()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        records.append((name, time.perf_counter() - t0, a, b))
+        return out
+    return call
+
+
+def _step_totals(records) -> dict:
+    """{step: {"calls", "device_ms", "host_queue_ms"}} of _timed_call's
+    records (read after a synchronize)."""
+    by = {}
+    for step, host_s, a, b in records:
+        r = by.setdefault(step, {"calls": 0, "device_ms": 0.0, "host_queue_ms": 0.0})
+        r["calls"] += 1
+        r["device_ms"] += a.elapsed_time(b)
+        r["host_queue_ms"] += host_s * 1e3
+    return by
+
+
+def _instrument_frame_steps(records, sync_debug: bool):
+    """Wrap the decode's blend (render/simple.py:blend_and_extend), slot
+    save (DecoderState.save_reference) and patch stage with _timed_call
+    (sync_debug: a host sync inside them raises). Returns a function that
+    undoes it."""
     from jxl_tpu_torch.api.state import DecoderState
     from jxl_tpu_torch.render import pipeline, simple
 
     def timed(name, fn):
-        def call(*args, **kw):
-            torch.cuda._sleep(int(5e-3 * SPIN_CYCLES_PER_S))
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            t0 = time.perf_counter()
-            if sync_debug:
-                torch.cuda.set_sync_debug_mode("error")
-            try:
-                a.record()
-                out = fn(*args, **kw)
-                b.record()
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
-            records.append((name, time.perf_counter() - t0, a, b))
-            return out
-        return call
+        return _timed_call(records, name, fn, sync_debug)
 
     real_blend = simple.blend_and_extend
     real_save = DecoderState.save_reference
@@ -1239,18 +1320,215 @@ def phase_frames(streams) -> dict:
                 emit({"phase": "frames", "stream": name, "sync_debug_error_mode": "no sync",
                       "steps_checked": len(records)})
                 continue
-            by = {}
-            for step, host_s, a, b in records:
-                r = by.setdefault(step, {"calls": 0, "device_ms": 0.0, "host_queue_ms": 0.0})
-                r["calls"] += 1
-                r["device_ms"] += a.elapsed_time(b)
-                r["host_queue_ms"] += host_s * 1e3
+            by = _step_totals(records)
             steps[name] = by
             emit({"phase": "frames", "stream": name, "format": "u8", "steps": by})
     check(steps["patches_4k"].get("patches", {}).get("calls") == 1,
           "the patches frame did not run the patch stage")
     check(steps["anim_vardct_1080p"].get("blend", {}).get("calls") == 7,
           "the VarDCT animation did not blend its seven cropped frames")
+    return launches
+
+
+def tool_streams():
+    """[(name, codestream, (width, height), channels out, K3 and K1
+    launches a decode)] of the tools phase (the coding tools of
+    tests/test_torch_{frame,icc,spline}_streams.py): progressive_4k, a
+    480x270 XYB Modular LF frame (lf_level 1, no filters) ahead of a
+    3840x2160 XYB VarDCT frame that reads its LF from it, in two AC
+    passes with the default filters (cjxl -p --progressive_dc=1);
+    progressive_rgba_1080p, 1920x1080 XYB VarDCT with an 8-bit alpha in
+    two passes (the host AC route); icc_jpeg_4k, the 3840x2160 YCbCr 4:2:0
+    frame of a recompressed JPEG without filters, with a BT.2100 PQ
+    profile (a 4096-entry curv TRC) embedded; splines_4k, 3840x2160 XYB
+    VarDCT with 64 splines of 8-16 control points and sigma 1-4 px."""
+    from test_torch_frame_streams import lf_frame_stream
+    from test_torch_icc_streams import pq_profile
+    from test_torch_spline_streams import splines_stream
+    from test_torch_vardct_streams import encode_xyb_vardct, encode_ycbcr_vardct
+
+    half = (WIDTH // 2, HEIGHT // 2)
+    full = (WIDTH, HEIGHT)
+    rgba, _, _ = encode_xyb_vardct(*half, seed=12, num_ec=1, passes=2)
+    jpeg, _ = encode_ycbcr_vardct(*full, seed=13, filters=False, icc=pq_profile())
+    spl, _ = splines_stream(*full, 64, seed=14)
+    return [
+        ("progressive_4k", lf_frame_stream(*full, passes=2, seed=11), full, 3,
+         {"decode_ac_sections": 1, "epf_gab": 1}),
+        ("progressive_rgba_1080p", rgba, half, 4, {"decode_ac_sections": 0, "epf_gab": 1}),
+        ("icc_jpeg_4k", jpeg, full, 3, {"decode_ac_sections": 1, "epf_gab": 0}),
+        ("splines_4k", spl, full, 3, {"decode_ac_sections": 1, "epf_gab": 1}),
+    ]
+
+
+def _instrument_tool_steps(records, lanes):
+    """Wrap the spline stage's body and the LF adoption
+    (api/frame.py:Frame._adopt_lf_frame) with _timed_call, and record the
+    lane count of each lane decoder run (vardct/device_group.py:run_lanes)
+    in `lanes`. Returns a function that undoes it."""
+    from jxl_tpu_torch.api.frame import Frame
+    from jxl_tpu_torch.render import pipeline
+    from jxl_tpu_torch.vardct import device_group
+
+    real_splines = pipeline.splines_stage
+    real_adopt = Frame._adopt_lf_frame
+    real_run_lanes = device_group.run_lanes
+
+    def splines_stage(frame):
+        stage = real_splines(frame)
+        return pipeline.Stage(stage.name, _timed_call(records, "splines", stage.fn),
+                              stage.border, stage.shift, stage.channels)
+
+    def run_lanes(inputs, device):
+        lanes.append(int(inputs["start_bits"].shape[0]))
+        return real_run_lanes(inputs, device)
+
+    pipeline.splines_stage = splines_stage
+    Frame._adopt_lf_frame = _timed_call(records, "adopt_lf_frame", real_adopt)
+    device_group.run_lanes = run_lanes
+
+    def undo():
+        pipeline.splines_stage = real_splines
+        Frame._adopt_lf_frame = real_adopt
+        device_group.run_lanes = real_run_lanes
+    return undo
+
+
+def phase_tools(streams) -> dict:
+    """decode_image of the coding-tool streams on the card, u8 and f32, 3
+    reps each: wall time, host_s, MP/s, each stream's K3 and K1 launches a
+    decode and K3's lane count (270 for progressive_4k: two lanes a
+    group); the embedded profile's bytes; every decode against the port's
+    CPU decode (host AC; f32 <= 1e-4, u8 <= 1 LSB); then one instrumented
+    u8 decode a stream: the spline stage's card time beside its bytes
+    bound (segments, splatted pixels) and the LF adoption's card time."""
+    import numpy as np
+    import torch
+
+    import jxl_tpu_torch
+    from jxl_tpu_torch.ops import ans_lanes as AL
+    from jxl_tpu_torch.ops import device_ac
+    from jxl_tpu_torch.ops import epf_gab as K
+    from jxl_tpu_torch.render.pipeline import spline_plan
+    from test_torch_icc_streams import pq_profile
+
+    runs = {}
+    per_stream = {}
+    K.epf_gab.launches = 0
+    device_ac.decode_ac_sections.launches = 0
+    AL.ans_decode_batch.launches = 0
+    for name, data, (w, h), _, expect in streams:
+        mp = w * h / 1e6
+        counts = []
+        for fmt in ("u8", "f32"):
+            for rep in range(3):
+                k1, k3 = K.epf_gab.launches, device_ac.decode_ac_sections.launches
+                t0 = time.perf_counter()
+                img = jxl_tpu_torch.decode_image(data, pixel_format=fmt)
+                torch.cuda.synchronize()
+                total = time.perf_counter() - t0
+                host = img.timings["host_s"]
+                counts.append({"decode_ac_sections": device_ac.decode_ac_sections.launches - k3,
+                               "epf_gab": K.epf_gab.launches - k1})
+                runs[(name, fmt)] = img
+                emit({"phase": "tools", "stream": name, "format": fmt, "rep": rep,
+                      "megapixels": mp, "seconds": total, "mp_per_s": mp / total,
+                      "host_parse_entropy_s": host, "device_s": total - host})
+        per_stream[name] = counts[0]
+        emit({"phase": "tools", "stream": name, "launches_per_decode": counts[0],
+              "expected": expect})
+        check(all(c == expect for c in counts),
+              f"{name}: launches a decode {counts}, expected {expect}")
+    launches = {"epf_gab": K.epf_gab.launches,
+                "decode_ac_sections": device_ac.decode_ac_sections.launches,
+                "ans_decode_batch": AL.ans_decode_batch.launches, "per_stream": per_stream}
+    emit({"phase": "tools", "launches": launches})
+    profile = pq_profile()
+    for fmt in ("u8", "f32"):
+        img = runs[("icc_jpeg_4k", fmt)]
+        same = img.icc_profile == profile and img.output_icc() == profile
+        emit({"phase": "tools", "stream": "icc_jpeg_4k", "format": fmt,
+              "icc_bytes": len(profile), "output_icc_equals_written": same})
+        check(same, "icc_jpeg_4k: the embedded profile is not the one written")
+
+    os.environ["JXL_TPU_AC"] = "host"
+    try:
+        for name, data, (w, h), channels, _ in streams:
+            for fmt in ("u8", "f32"):
+                got = runs[(name, fmt)].frames
+                t0 = time.perf_counter()
+                ref = jxl_tpu_torch.decode_image(data, pixel_format=fmt, device="cpu").frames
+                cpu_s = time.perf_counter() - t0
+                check(len(got) == len(ref) == 1, f"{name}: {len(got)} frames, not 1")
+                x = got[0]
+                check(x.device.type == "cuda", "frames must stay on the card")
+                check(tuple(x.shape) == (h, w, channels), f"{name}: bad shape {tuple(x.shape)}")
+                a = x.cpu().numpy().astype(np.float64)
+                check(np.isfinite(a).all(), "non-finite output")
+                diff = float(np.abs(a - ref[0].numpy().astype(np.float64)).max())
+                limit = 1.0 if fmt == "u8" else 1e-4
+                emit({"phase": "tools", "stream": name, "format": fmt,
+                      "vs_cpu_max_abs_diff": diff, "limit": limit, "cpu_decode_s": cpu_s,
+                      "min": float(a.min()), "max": float(a.max())})
+                check(diff <= limit, f"{name} {fmt} decode on the card differs from the CPU: "
+                      f"{diff}")
+    finally:
+        os.environ.pop("JXL_TPU_AC", None)
+
+    steps = {}
+    lane_counts = {}
+    for name, data, *_ in streams:
+        records, lanes = [], []
+        undo = _instrument_tool_steps(records, lanes)
+        try:
+            jxl_tpu_torch.decode_image(data, pixel_format="u8")
+            torch.cuda.synchronize()
+        finally:
+            undo()
+        steps[name] = _step_totals(records)
+        lane_counts[name] = lanes
+        emit({"phase": "tools", "stream": name, "format": "u8", "steps": steps[name],
+              "k3_lanes": lanes})
+    check(lane_counts["progressive_4k"] == [270],
+          f"progressive_4k: K3 ran {lane_counts['progressive_4k']} lanes, not [270]")
+    check(steps["progressive_4k"].get("adopt_lf_frame", {}).get("calls") == 1,
+          "progressive_4k did not adopt its LF frame")
+
+    # the splines: the draw cache's segments and the pixels their boxes
+    # cover, as the stage plans them
+    from jxl_tpu_torch.api.simple import parse_frame
+    from jxl_tpu_torch.io.bit_reader import BitReader
+    from jxl_tpu_torch.io.headers import FileHeader
+
+    data = next(d for n, d, *_ in streams if n == "splines_4k")
+    br = BitReader(data)
+    fh = FileHeader.read(br)
+    br.jump_to_byte_boundary()
+    frame = parse_frame(br, fh)
+    t0 = time.perf_counter()
+    frame.decode_lf_global(frame.split_sections(br)[0])
+    lf_global_s = time.perf_counter() - t0
+    table = frame.lf_global.splines.table
+    rows, boxes, chunks = spline_plan(table, HEIGHT, WIDTH)
+    pixels = int(boxes[:, 3].sum())
+    # bytes: the table and boxes in; each splatted pixel's three planes
+    # read and written once
+    nbytes = rows.nbytes + boxes.nbytes + pixels * 3 * 4 * 2
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    # float operations a pixel: position, distance, two fast_erf, the brush
+    # and three multiply-adds (about 40)
+    t_ops = pixels * 40 / FP32_OPS_PER_S
+    st = steps["splines_4k"].get("splines", {})
+    check(st.get("calls") == 1, "splines_4k did not run the spline stage")
+    rec = {"phase": "tools", "stream": "splines_4k", "splines": len(frame.lf_global.splines.splines),
+           "segments": len(table), "segments_on_frame": len(rows), "splat_chunks": len(chunks),
+           "splatted_pixels": pixels, "lf_global_with_draw_cache_s": lf_global_s,
+           "splines_device_ms": st.get("device_ms"),
+           "splines_host_queue_ms": st.get("host_queue_ms"),
+           "splines_bound_ms": max(t_bytes, t_ops) * 1e3,
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    emit(rec)
+    launches["k3_lanes"] = lane_counts
     return launches
 
 
@@ -1301,6 +1579,8 @@ def main() -> int:
     import jxl_tpu_torch  # noqa: F401
     import test_torch_streams  # noqa: F401
     import test_torch_frame_streams  # noqa: F401
+    import test_torch_icc_streams  # noqa: F401
+    import test_torch_spline_streams  # noqa: F401
     import test_torch_vardct_streams  # noqa: F401
 
     smi = subprocess.run(
@@ -1348,6 +1628,11 @@ def main() -> int:
     emit({"phase": "frames", "step": "write_streams",
           "bytes": {name: len(d) for name, d, *_ in mstreams},
           "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    tstreams = tool_streams()
+    emit({"phase": "tools", "step": "write_streams",
+          "bytes": {name: len(d) for name, d, *_ in tstreams},
+          "seconds": time.perf_counter() - t0})
     phase_s["write_streams"] = time.perf_counter() - start - phase_s["build"]
     # the only profiler sessions of the process: CUPTI has dropped events
     # in sessions after the first few
@@ -1364,6 +1649,7 @@ def main() -> int:
         "features_breakdown")
     layout_launches = run("layouts", phase_layouts, lstreams)
     frame_launches = run("frames", phase_frames, mstreams)
+    tool_launches = run("tools", phase_tools, tstreams)
     emit({"phase": "timing", "seconds": phase_s, "total_s": time.perf_counter() - start})
     null_reason = "no single torch call computes a rANS decode"
     emit({"kernels": [
@@ -1373,6 +1659,7 @@ def main() -> int:
          "launches_features_path": feature_launches["epf_gab"],
          "launches_layouts_path": layout_launches["epf_gab"],
          "launches_frames_path": frame_launches["epf_gab"],
+         "launches_tools_path": tool_launches["epf_gab"],
          "max_abs_err": max_err, "ms": k["kernel_ms"], "call_ms": k["call_ms"],
          "plain_ms": k["plain_ms"],
          "bound_ms": k["bound_ms"], "bound_by": k["bound_by"], "library_ms": None,
@@ -1395,10 +1682,11 @@ def main() -> int:
          "launches_features_path": feature_launches["decode_ac_sections"],
          "launches_layouts_path": layout_launches["decode_ac_sections"],
          "launches_frames_path": frame_launches["decode_ac_sections"],
+         "launches_tools_path": tool_launches["decode_ac_sections"],
          "max_abs_err": k3["max_abs_err"], "ms": k3["kernel_ms"], "call_ms": k3["call_ms"],
          "plain_ms": k3["plain_ms"], "ns_per_step": k3["ns_per_step"],
          "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"], "library_ms": None,
-         "library_note": null_reason},
+         "library_note": null_reason, "two_pass_3840x2160": k3["two_pass_3840x2160"]},
     ]})
     print(smi_line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

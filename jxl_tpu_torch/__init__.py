@@ -6,10 +6,11 @@ the entropy-coded sections; the render runs on torch tensors on the
 caller's device, with the restoration-filter chain as a hand-written
 CUDA kernel for Hopper (ops/epf_gab.py, csrc/epf_gab.cu).
 
-decode_image decodes whole files: Modular and VarDCT frames, animations,
-cropped and blended frames, reference frames and patches, with every
-frame's render on the caller's device; LF frames, splines and ICC
-profiles raise NotSupported.
+decode_image decodes whole files: Modular and VarDCT frames (one pass or
+several), animations, cropped and blended frames, reference frames and
+patches, splines, LF frames and embedded ICC profiles, with every frame's
+render on the caller's device; chroma-subsampled Modular frames raise
+NotSupported.
 """
 
 import torch

@@ -10,10 +10,14 @@ up as one dense buffer for vardct/device_frame.py. The global modular
 image carries the frame's extra channels; in a VarDCT frame each group
 codes its part of them right after its AC tokens, and such frames decode
 group by group on the host (vardct/group.py:decode_vardct_group, then the
-group's modular HF stream). A frame's patches dictionary is read in
-LfGlobal against the decoder state's reference slots. Splines and LF
-frames are outside this package's slice: the entry point (api/simple.py)
-rejects such frames before any section is read.
+group's modular HF stream). A frame of more than one pass decodes each
+group's passes in turn, and each pass's coefficients add into the same
+buffer. LfGlobal holds the patches dictionary (read against the decoder
+state's reference slots), the splines, whose draw cache is built there,
+and the noise parameters. A VarDCT frame that reads an LF frame
+(USE_LF_FRAME) codes no LF coefficients: it adopts the LF frame's planes
+from the decoder state, a tensor on the decode's device that stays there
+for the render (vardct/device_frame.py).
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..errors import LfQuantFactorTooSmall, NotSupported
+from ..errors import LfQuantFactorTooSmall, NoLfFrame
 from ..io.bit_reader import BitReader
 from ..io.bundle import F16
 from ..io.headers import ColorSpace, FileHeader
@@ -76,6 +80,7 @@ class LfGlobalState:
     tree: Tree = None
     modular_global: FullModularImage = None
     patches: object = None  # features/patches.py PatchesDictionary, when the frame has patches
+    splines: object = None  # features/splines.py Splines, when the frame has splines
     noise: object = None  # features/noise.py Noise, when the frame has noise
 
 
@@ -97,6 +102,8 @@ class Frame:
         self.lf_global: LfGlobalState | None = None
         self.hf_global = None
         self.lf_image = None  # [3] float planes in 8x8-block resolution
+        # (3, bh, bw) float32 LF adopted from an LF frame, on its device
+        self.lf_device = None
         self.hf_meta = None
         # the dense (G * 3 * 256 * 256,) int32 AC coefficients of a VarDCT
         # frame: a tensor from the lane decoder, or numpy from the host
@@ -133,9 +140,11 @@ class Frame:
     # -- LfGlobal ----------------------------------------------------------------
 
     def decode_lf_global(self, br: BitReader) -> None:
-        """ref frame/decode.rs:314-434, frames without splines: the patches
-        dictionary (read against the reference slots' shapes), the noise
-        parameters, then the tables and the global Modular image."""
+        """ref frame/decode.rs:314-434: the patches dictionary (read
+        against the reference slots' shapes), the splines, the noise
+        parameters, then the tables and the global Modular image; the
+        splines' draw cache is built once the colour correlation is known
+        (ref jxl_tpu/api/frame.py:171-174, 231-233)."""
         header = self.header
         is_vardct = header.encoding == Encoding.VARDCT
         state = LfGlobalState()
@@ -148,7 +157,9 @@ class Frame:
                 br, w, h, len(self.file_header.image_metadata.extra_channel_info), refs
             )
         if header.has_splines:
-            raise NotSupported("splines are not in this package's slice")
+            from ..features.splines import Splines
+
+            state.splines = Splines.read(br, header.width * header.height)
         if header.has_noise:
             from ..features.noise import Noise
 
@@ -179,6 +190,9 @@ class Frame:
                 )
             state.color_correlation_params = ColorCorrelationParams(*res["cfl"])
         state.tree = res["tree"]
+        if state.splines is not None:
+            w, h = header.size()
+            state.splines.initialize_draw_cache(w, h, state.color_correlation_params)
         state.modular_global = FullModularImage.read(
             header,
             self.file_header.image_metadata,
@@ -191,18 +205,46 @@ class Frame:
     # -- LF / HF groups ------------------------------------------------------------
 
     def decode_lf_group(self, group: int, br: BitReader) -> None:
+        """ref jxl_tpu/api/frame.py:248-263: a VarDCT frame's LF
+        coefficients, or the adopted LF frame, then the modular LF stream
+        and the HF metadata."""
         header = self.header
         state = self.lf_global
         if header.encoding == Encoding.VARDCT:
             from ..vardct.lf import decode_hf_metadata, decode_vardct_lf, try_decode_lf_group
 
-            if try_decode_lf_group(self, group, br):
+            if header.has_lf_frame:
+                if self.lf_device is None:  # once, at the first LF group
+                    self._adopt_lf_frame()
+            elif try_decode_lf_group(self, group, br):
                 return  # LF coefficients, (empty) modular LF and HF metadata
-            decode_vardct_lf(self, group, br)
+            else:
+                decode_vardct_lf(self, group, br)
             state.modular_global.read_lf_stream(header, state.tree, group, br)
             decode_hf_metadata(self, group, br)
             return
         state.modular_global.read_lf_stream(header, state.tree, group, br)
+
+    def _adopt_lf_frame(self) -> None:
+        """USE_LF_FRAME: the LF image is the planes of the LF frame one
+        level up, kept in the decoder state on the decode's device (ref
+        decode.rs:744-750; jxl_tpu/api/frame.py:265-288). They become
+        lf_device, (3, bh, bw) float32 on that device, clipped or padded
+        with zeros to the frame's blocks, and stay there for the render:
+        nothing comes back to the host. A missing LF frame raises
+        NoLfFrame."""
+        from ..vardct.lf import ensure_vardct_buffers
+
+        ensure_vardct_buffers(self)
+        slots = self.decoder_state.lf_frames if self.decoder_state else [None] * 4
+        lf = slots[self.header.lf_level]
+        if lf is None:
+            raise NoLfFrame("frame references a missing LF frame")
+        bw, bh = self.header.size_blocks()
+        h, w = min(bh, lf.shape[1]), min(bw, lf.shape[2])
+        out = torch.zeros((3, bh, bw), dtype=torch.float32, device=lf.device)
+        out[:, :h, :w] = lf[:, :h, :w]
+        self.lf_device = out
 
     def decode_hf_global(self, br: BitReader) -> None:
         if self.header.encoding == Encoding.VARDCT:
@@ -233,13 +275,14 @@ class Frame:
 
     # -- whole-frame decode ------------------------------------------------------------
 
-    def decode_all_sections(self, br: BitReader, device=None) -> None:
+    def decode_all_sections(self, br: BitReader, device="cuda") -> None:
         """Decode every section. A VarDCT frame's AC coefficients are
-        decoded on `device` (the lane decoder) unless JXL_TPU_AC=host or
-        the stream needs the host decoder."""
+        decoded on `device` (the lane decoder; the card unless the caller
+        asks for the CPU) unless JXL_TPU_AC=host or the stream needs the
+        host decoder."""
         header = self.header
         if header.encoding == Encoding.VARDCT:
-            self._decode_vardct_sections(br, torch.device(device or "cpu"))
+            self._decode_vardct_sections(br, torch.device(device))
         elif header.num_toc_entries == 1:
             sec = self.split_sections(br)[0]
             self.decode_lf_global(sec)
@@ -295,18 +338,22 @@ class Frame:
             decode_ac_sections_device(self, readers, device)
             return
         self.decode_vardct_ac_on_host(
-            [(g, sec if single else sections[self.section_index("hf", group=g)])
+            [(g, [(p, sec if single else sections[self.section_index("hf", group=g, pass_idx=p)])
+                  for p in range(header.passes.num_passes)])
              for g in range(header.num_groups)], device)
 
-    def decode_vardct_ac_on_host(self, hf, device) -> None:
-        """A single-pass VarDCT frame's AC on the host, into host_ac_flat:
-        the whole frame in one native call, or, when modular HF channels
-        follow each group's AC, group by group over the thread pool, each
-        group then reading its modular HF stream (the groups write disjoint
-        slots of one pool). The pool is page-locked when the render runs on
-        the card, so its upload needs no staging copy and no wait. hf:
-        [(group, BitReader)] in group order. A frame with more than one
-        pass raises NotSupported."""
+    def decode_vardct_ac_on_host(self, jobs, device) -> None:
+        """A VarDCT frame's AC on the host, into host_ac_flat: a
+        single-pass frame without modular HF channels in one native call
+        for the whole frame; any other frame (more than one pass, or
+        modular HF channels after each group's AC) group by group over the
+        thread pool, each job decoding its group's passes in turn, each
+        pass's AC and then its modular HF stream (ref
+        jxl_tpu/api/frame.py:620; the groups write disjoint slots of one
+        pool, and a group's passes add into its slot). The pool is
+        page-locked when the render runs on the card, so its upload needs
+        no staging copy and no wait. jobs: [(group, [(pass, BitReader)])]
+        in group order."""
         from ..vardct.group import GROUP_DIM, try_decode_hf_groups
 
         n = self.header.num_groups * 3 * GROUP_DIM * GROUP_DIM
@@ -314,15 +361,10 @@ class Frame:
             pool = torch.zeros(n, dtype=torch.int32, pin_memory=True).numpy()
         else:
             pool = np.zeros(n, np.int32)
-        if try_decode_hf_groups(self, hf, pool):
+        if try_decode_hf_groups(self, [(g, readers[0][1]) for g, readers in jobs], pool):
             return
-        if self.header.passes.num_passes != 1:
-            raise NotSupported(
-                "VarDCT frames with more than one pass whose AC the lane decoder does "
-                "not take are not in this package's slice"
-            )
         self.host_ac_flat = pool
-        self._decode_hf_groups_parallel([(g, [(0, br)]) for g, br in hf])
+        self._decode_hf_groups_parallel(jobs)
 
     def _decode_hf_groups_parallel(self, jobs) -> None:
         """Fan HF-group section decoding out over a host thread pool (the

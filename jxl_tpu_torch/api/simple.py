@@ -1,13 +1,15 @@
 """Whole-buffer decode entry point (non-streaming).
 
 Counterpart of jxl_tpu/api/simple.py:decode_image and its per-frame
-loop: every frame of the file in order, Modular or VarDCT (XYB or YCbCr,
-a VarDCT frame 4:4:4 or chroma-subsampled), upsampled or not, with or
-without photon noise, extra channels or patches; reference frames in the
-decoder state's slots, cropped and blended frames composited onto the
-canvas, animations with their durations, a preview skipped. LF frames,
-splines and ICC profiles are not in this package's slice, nor the JAX
-package's batched animation routes (the per-frame loop gives their
+loop: an embedded ICC profile, then every frame of the file in order,
+Modular or VarDCT (XYB or YCbCr, a VarDCT frame 4:4:4 or
+chroma-subsampled, in one pass or several), upsampled or not, with or
+without photon noise, extra channels, patches or splines; reference
+frames and LF frames in the decoder state's slots, VarDCT frames that
+take their LF from an LF frame, cropped and blended frames composited
+onto the canvas, animations with their durations, a preview skipped.
+Chroma-subsampled Modular frames are not in this package's slice, nor the
+JAX package's batched animation routes (the per-frame loop gives their
 result). Host parse and entropy decode run in numpy and C++ (native/); a
 VarDCT frame's AC coefficients are decoded on the caller's device
 (api/frame.py), and the render, the slots and the canvases stay there.
@@ -20,11 +22,12 @@ from dataclasses import dataclass, field as dfield
 
 import torch
 
-from ..errors import InvalidBox, NotSupported
+from ..errors import InvalidBox
 from ..io.bit_reader import BitReader
 from ..io.container import extract_codestream_ex
 from ..io.headers import FileHeader
-from ..io.headers.frame import Encoding, FrameHeader, FrameType, Toc
+from ..io.headers.frame import FrameHeader, FrameType, Toc
+from ..render.pipeline import check_frame as _check_frame
 from .frame import Frame
 from .state import DecoderState
 
@@ -35,7 +38,7 @@ PIXEL_FORMATS = ("f32", "u8", "u16", "f16")
 class DecodedImage:
     file_header: FileHeader
     frames: list  # visible frames: (h, w, c) tensors on the decode device (oriented)
-    icc_profile: bytes | None = None
+    icc_profile: bytes | None = None  # the embedded profile, as coded
     durations: list = dfield(default_factory=list)  # ms a frame; 0.0 without animation
     # seconds of host parse + entropy decode of every frame ("host_s"); the
     # device render is queued asynchronously and not included. Frames with
@@ -43,16 +46,23 @@ class DecodedImage:
     timings: dict = dfield(default_factory=dict)
 
     def output_icc(self) -> bytes:
-        """The output color profile, synthesized from the color encoding
-        (ref JxlColorProfile::as_icc, api/color.rs:1201 + maybe_create_profile
-        :768)."""
+        """The profile of the output pixels: the embedded ICC profile of an
+        image whose pixels are coded in its space, else one synthesized
+        from the color encoding (ref JxlColorProfile::as_icc,
+        api/color.rs:1201 + maybe_create_profile :768; jxl_tpu/api/
+        simple.py:39-56). An XYB-coded image renders to sRGB whatever
+        profile it embeds (color/output.py, as in jxl_tpu, which has no
+        CMS), so its output profile is sRGB's; jxl_tpu returns the
+        embedded profile for those sRGB pixels."""
         from ..color.icc_synth import synthesize_icc
         from ..io.headers import ColorSpace
         from ..io.headers.image import default_color_encoding
 
         meta = self.file_header.image_metadata
+        if self.icc_profile is not None and not meta.xyb_encoded:
+            return self.icc_profile
         enc = meta.color_encoding
-        if enc.color_space == ColorSpace.XYB:
+        if enc.color_space == ColorSpace.XYB or (enc.want_icc and meta.xyb_encoded):
             # decoded output is sRGB when the encoding is XYB-only
             enc = default_color_encoding()
         return synthesize_icc(enc, meta.tone_mapping.intensity_target)
@@ -87,20 +97,6 @@ def parse_frame(br: BitReader, file_header: FileHeader, decoder_state=None,
     return Frame(frame_header, toc, file_header, decoder_state)
 
 
-def _check_image(fh) -> None:
-    if fh.image_metadata.color_encoding.want_icc:
-        raise NotSupported("ICC profiles are not in this package's slice")
-
-
-def _check_frame(header) -> None:
-    if header.frame_type == FrameType.LF_FRAME or header.lf_level != 0:
-        raise NotSupported("LF frames and lf_level are not in this package's slice")
-    if header.encoding == Encoding.VARDCT and header.has_lf_frame:
-        raise NotSupported("LF frames are not in this package's slice")
-    if header.has_splines:
-        raise NotSupported("frames with splines are not in this package's slice")
-
-
 def _duration_ms(header, meta) -> float:
     if meta.animation is None:
         return 0.0
@@ -114,11 +110,15 @@ def decode_image(
     jxl_tpu/api/simple.py:decode_image, its per-frame loop :137-224):
     Modular or VarDCT frames (a VarDCT frame 4:4:4 XYB or YCbCr, or
     chroma-subsampled YCbCr as a recompressed JPEG codes it; with extra
-    channels or not), reference frames kept in the decoder state's four
-    slots, patches from a slot, cropped frames blended onto the canvas,
-    animations and a skipped preview. Returns every visible frame, shape
-    (H, W, 3 + extra channels) in the requested sample type, with its
-    duration in ms (0 without an animation header).
+    channels or not; in one pass or several, as a progressive encoder
+    writes it), reference frames kept in the decoder state's four slots,
+    patches from a slot, splines, LF frames kept in the state's LF slots
+    for the VarDCT frames that read their LF from them, cropped frames
+    blended onto the canvas, animations and a skipped preview. An embedded
+    ICC profile is read after the file header and kept in
+    DecodedImage.icc_profile. Returns every visible frame, shape (H, W, 3
+    + extra channels) in the requested sample type, with its duration in
+    ms (0 without an animation header).
 
     keep_all_frames: taken as jxl_tpu takes it; every visible frame is
     returned either way, and the loop ends at the last frame.
@@ -129,9 +129,9 @@ def decode_image(
     explicitly to render with the plain torch versions on the host. A
     VarDCT frame's AC coefficients are decoded there too (kernel K3 on the
     card); set JXL_TPU_AC=host to decode them with the native host decoder
-    instead. Streams outside this slice (LF frames, splines, ICC profiles)
-    raise NotSupported with the reason. DecodedImage.timings["host_s"]
-    sums the host parse and entropy decode of every frame."""
+    instead. A chroma-subsampled Modular frame raises NotSupported with
+    the reason. DecodedImage.timings["host_s"] sums the host parse and
+    entropy decode of every frame."""
     if pixel_format not in PIXEL_FORMATS:
         raise ValueError(f"unknown pixel format {pixel_format!r}")
     device = torch.device(device)
@@ -148,15 +148,21 @@ def decode_image(
     codestream, ooo_ranges = extract_codestream_ex(data)
     br = BitReader(codestream)
     fh = FileHeader.read(br)
-    _check_image(fh)
     meta = fh.image_metadata
+    icc_profile = None
+    if meta.color_encoding.want_icc:
+        # right after the file header, before the preview (ref
+        # jxl_tpu/api/simple.py:106-110)
+        from ..icc.decode import read_icc
+
+        icc_profile = read_icc(br)
     state = DecoderState(fh)
     if meta.preview is not None:
         # skip the preview frame by its TOC size
         pframe = parse_frame(br, fh, None, preview=True)
         br.jump_to_byte_boundary()
         br.skip_bits(pframe.toc.total_size * 8)
-    out = DecodedImage(fh, [], None, [], {})
+    out = DecodedImage(fh, [], icc_profile, [], {})
     host_s = time.perf_counter() - t0
     while True:
         t0 = time.perf_counter()
@@ -175,6 +181,12 @@ def decode_image(
 
         planes, color_done, converted = render_frame_channels(
             frame, device, pixel_format, out.timings)
+        if header.lf_level != 0:
+            state.save_lf_frame(header.lf_level, planes)
+        if header.frame_type == FrameType.LF_FRAME:
+            # an LF frame is neither shown nor referenced, and never the
+            # last: jxl_tpu's colour transform and crop of it go unused
+            continue
         if header.can_be_referenced and header.save_before_ct:
             state.save_reference(header.save_as_reference, planes, True)
         if header.frame_type != FrameType.REFERENCE_ONLY and not color_done:

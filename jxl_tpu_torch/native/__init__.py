@@ -115,10 +115,11 @@ def get_lib():
             for name in (
                 "jxl_decode_modular", "jxl_read_unsigned_run",
                 "jxl_decode_lf_global_tables", "jxl_decode_histograms",
-                "jxl_decode_tree", "jxl_apply_lehmer",
+                "jxl_decode_tree", "jxl_apply_lehmer", "jxl_decode_icc",
             ):
                 getattr(lib, name).restype = ctypes.c_int
             lib.jxl_rct.restype = None
+            lib.jxl_spline_splat.restype = None
             lib.jxl_noise_field.restype = None
             lib.jxl_noise_field.argtypes = (
                 [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 2 + [ctypes.c_int] * 4
@@ -1219,4 +1220,52 @@ def noise_field_native(field, up, group_dim, gx_count, gy_count, vfi, nfi) -> No
         ctypes.c_int(int(up)), ctypes.c_int(int(group_dim)),
         ctypes.c_int(int(gx_count)), ctypes.c_int(int(gy_count)),
         ctypes.c_uint32(int(vfi)), ctypes.c_uint32(int(nfi)),
+    )
+
+
+def decode_icc_native(histograms, br, length: int) -> bytes:
+    """The `length` coded bytes of an embedded ICC profile (modular_decode.cc
+    jxl_decode_icc; each byte's context from the two before it, as
+    icc/decode.py:_icc_context gives it). Leaves br at the bit after them;
+    raises InvalidIccStream on a symbol past 255, OutOfBounds on a
+    truncated stream and InvalidBitstream on any other fault."""
+    from ..errors import InvalidBitstream, InvalidIccStream, OutOfBounds
+
+    lib = get_lib()
+    ent = pack_entropy(histograms)
+    out = np.zeros(max(length, 1), dtype=np.uint8)
+    bit_pos = ctypes.c_uint64(br.pos)
+    ret = lib.jxl_decode_icc(
+        _databuf(br), ctypes.c_uint64(len(br.data)), ctypes.byref(bit_pos),
+        *_entropy_args(ent), ctypes.c_int64(length), _ptr(out, ctypes.c_uint8),
+    )
+    if ret == 3:
+        raise InvalidIccStream("invalid ICC stream symbol")
+    if ret == 2:
+        raise OutOfBounds(1)
+    if ret != 0:
+        raise InvalidBitstream("ICC entropy stream decode failed")
+    br.pos = bit_pos.value
+    return out.tobytes()[:length]
+
+
+def spline_splat_native(planes, table) -> None:
+    """Add the spline segments of `table`, the (S, 8) float32 draw cache of
+    features/splines.py (centre x, y, maximum distance, 1/sigma, intensity
+    term, colour X, Y, B), onto three (h, w) float32 planes in place
+    (modular_decode.cc jxl_spline_splat): each segment's box, rounded to
+    even from its float32 bounds and clipped to the planes."""
+    if table.dtype != np.float32 or table.ndim != 2 or table.shape[1] != 8:
+        raise ValueError("the segment table must be (S, 8) float32")
+    table = np.ascontiguousarray(table)
+    h, w = planes[0].shape
+    for p in planes[:3]:
+        if p.dtype != np.float32 or p.shape != (h, w) or not p.flags.c_contiguous:
+            raise ValueError("planes must be three C-contiguous (h, w) float32 arrays")
+    lib = get_lib()
+    lib.jxl_spline_splat(
+        _ptr(planes[0], ctypes.c_float), _ptr(planes[1], ctypes.c_float),
+        _ptr(planes[2], ctypes.c_float),
+        ctypes.c_int64(h), ctypes.c_int64(w), ctypes.c_int64(w),
+        _ptr(table, ctypes.c_float), ctypes.c_int64(len(table)),
     )

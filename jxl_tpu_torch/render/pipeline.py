@@ -10,9 +10,10 @@ stages (gaborish, EPF) have no body of their own: render/span_exec.py runs
 a run of them as one launch of the gaborish + EPF kernel
 (render/device_filters.py:run_filters). The patch stage blends
 rectangles of a reference slot onto the planes with gathers and scatters
-built on the device from a host plan of the dictionary. Splines are not in
-this package's slice, nor chroma-subsampled Modular frames: frames that
-need them raise NotSupported.
+built on the device from a host plan of the dictionary; the spline stage
+splats the splines' segment table there, each segment's box expanded on
+the device. Chroma-subsampled Modular frames are not in this package's
+slice: check_frame raises NotSupported for them.
 """
 
 from __future__ import annotations
@@ -278,6 +279,95 @@ def patches_stage(frame) -> Stage:
     return Stage("patches", fn, channels=tuple(range(num_c)))
 
 
+# -- splines ---------------------------------------------------------------
+
+# pixels of one splat step: bounds the step's index and value temporaries
+# (about 80 bytes a pixel) on the device
+SPLAT_CHUNK_PIXELS = 1 << 22
+
+
+def spline_plan(table, h: int, w: int):
+    """Host plan of the spline splat on (h, w) planes, from the (S, 8)
+    float32 segment table (features/splines.py): (rows, boxes, chunks).
+    rows is the table's segments whose box meets the planes; boxes is
+    (n, 5) int64, a row a segment: x0, y0, box width, pixel count and the
+    index of its first pixel within its chunk; chunks is a list of (first
+    segment, end segment, pixels), in segment order, each of at most
+    SPLAT_CHUNK_PIXELS pixels unless one segment alone is larger. A box is
+    rounded to even from the segment's float32 bounds and clipped to the
+    planes, as jxl_spline_splat (native/modular_decode.cc) clips it."""
+    cx, cy, md = table[:, 0], table[:, 1], table[:, 2]
+    x0 = np.maximum(np.rint(cx - md).astype(np.int64), 0)
+    x1 = np.minimum(np.rint(cx + md).astype(np.int64) + 1, w)
+    y0 = np.maximum(np.rint(cy - md).astype(np.int64), 0)
+    y1 = np.minimum(np.rint(cy + md).astype(np.int64) + 1, h)
+    keep = (x1 > x0) & (y1 > y0)
+    rows = table[keep]
+    bw = (x1 - x0)[keep]
+    px = bw * (y1 - y0)[keep]
+    boxes = np.stack([x0[keep], y0[keep], bw, px, np.zeros_like(px)], 1)
+    chunks = []
+    a = 0
+    while a < len(px):
+        csum = np.cumsum(px[a:])
+        b = a + max(1, int(np.searchsorted(csum, SPLAT_CHUNK_PIXELS, side="right")))
+        boxes[a:b, 4] = csum[: b - a] - px[a:b]
+        chunks.append((a, b, int(csum[b - a - 1])))
+        a = b
+    return rows, boxes, chunks
+
+
+def splines_stage(frame) -> Stage:
+    """SplinesStage (ref stages/splines.rs; placed as
+    jxl_tpu/render/pipeline.py:701-713 places it, after the patches): the
+    host plans the segment table once (spline_plan), the table and the
+    boxes go up in one copy, and for each chunk of segments the device
+    expands every box into its pixels (repeat_interleave with output_size,
+    as the patch stage expands patches: no wait for the card), evaluates
+    the Gaussian brush with fast_erf in float32, in jxl_spline_splat's
+    operation order, and index_adds the colour times it into the three
+    planes. Each segment's term is bit-equal to the native splat's
+    (jxl_spline_splat, the plain host version), but index_add_ does not
+    add a pixel's segments in table order (on the card its atomic adds
+    take any order), so a pixel may differ from the native splat by float
+    rounding: the tests hold it within 1e-5."""
+    from ..features.splines import fast_erf
+
+    wc, hc = frame.header.size()
+    rows, boxes, chunks = spline_plan(frame.lf_global.splines.table, hc, wc)
+
+    def fn(chans, ctx):
+        from .stages.core import to_device_all
+
+        if not chunks:
+            return list(chans)
+        dev = chans[0].device
+        tab, box = to_device_all([rows, boxes], dev)
+        planes = [p.reshape(-1) for p in chans[:3]]
+        for a, b, pixels in chunks:
+            t, bx = tab[a:b], box[a:b]
+            sid = torch.repeat_interleave(bx[:, 3], output_size=pixels)
+            local = torch.arange(pixels, device=dev) - bx[sid, 4]
+            w_s = bx[sid, 2]
+            ly = torch.div(local, w_s, rounding_mode="floor")
+            x = bx[sid, 0] + local - ly * w_s
+            y = bx[sid, 1] + ly
+            s = t[sid]
+            dx = x.to(torch.float32) - s[:, 0]
+            dy = y.to(torch.float32) - s[:, 1]
+            dist = torch.sqrt(dx * dx + dy * dy)
+            inv_sigma = s[:, 3]
+            f = (fast_erf((dist * 0.5 + 0.35355338) * inv_sigma)
+                 - fast_erf((dist * 0.5 - 0.35355338) * inv_sigma))
+            brush = s[:, 4] * f * f
+            idx = y * wc + x
+            for c in range(3):
+                planes[c].index_add_(0, idx, s[:, 5 + c] * brush)
+        return [p.reshape(hc, wc) for p in planes] + list(chans[3:])
+
+    return Stage("splines", fn)
+
+
 def color_transform_stage(frame) -> Stage:
     """XybStage + FromLinearStage (or YCbCr) via render/simple.py."""
 
@@ -302,24 +392,29 @@ def convert_output_stage(fmt: str, channels) -> Stage:
     return Stage(f"convert_{fmt}", fn, channels=tuple(channels))
 
 
+def check_frame(header) -> None:
+    """Raise NotSupported for a frame outside this package's slice: a
+    chroma-subsampled Modular frame (no writer of this package's tests
+    codes YCbCr Modular frames). decode_image calls it before any section
+    is read, build_render_pipeline again."""
+    from ..io.headers.frame import Encoding
+
+    if not header.is444 and header.encoding != Encoding.VARDCT:
+        raise NotSupported("chroma-subsampled Modular frames are not in this package's slice")
+
+
 def build_render_pipeline(frame):
     """Per-frame stage assembly in reference order (ref
     frame/render.rs:506-885): chroma upsample (per channel, its
     horizontal steps, then its vertical ones) -> visible crop -> gaborish
-    -> EPF0/1/2 -> early EC upsample -> patches -> upsample -> upsampled
-    crop -> noise. The colour transform and output conversion are appended
-    by the caller. Raises NotSupported for a frame whose pipeline needs
-    splines, and for a chroma-subsampled Modular frame."""
-    from ..io.headers.frame import Encoding
-
+    -> EPF0/1/2 -> early EC upsample -> patches -> splines -> upsample ->
+    upsampled crop -> noise. The colour transform and output conversion
+    are appended by the caller. Raises NotSupported for a
+    chroma-subsampled Modular frame (check_frame)."""
     header = frame.header
     meta = frame.file_header.image_metadata
     num_ec = len(meta.extra_channel_info)
-    if not header.is444 and header.encoding != Encoding.VARDCT:
-        # no writer of this package's tests codes YCbCr Modular frames
-        raise NotSupported("chroma-subsampled Modular frames are not in this package's slice")
-    if header.has_splines:
-        raise NotSupported("splines are not in this package's slice")
+    check_frame(header)
 
     stages = []
     for c in range(3):
@@ -343,6 +438,8 @@ def build_render_pipeline(frame):
                 stages.append(upsample_stage(frame, ec_up, (3 + i,)))
     if header.has_patches:
         stages.append(patches_stage(frame))
+    if header.has_splines:
+        stages.append(splines_stage(frame))
     if header.upsampling > 1:
         n_up = 3 + num_ec if late_ec_upsample else 3
         stages.append(upsample_stage(frame, header.upsampling, tuple(range(n_up))))

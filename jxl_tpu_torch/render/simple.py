@@ -6,10 +6,10 @@ VarDCT planes (vardct/device_frame.py, from the dense AC coefficients;
 chroma-subsampled planes at their own sizes) or the Modular-to-float
 conversion (with the XYB channel order and scaling), each extra channel at
 its own bit depth, the stage assembly of render/pipeline.py, then the
-stage list (chroma upsampling, the filters, patches, upsampling, noise,
-colour transform, output conversion) run by render/span_exec.py, and the
-blend of a cropped or blended frame onto the image canvas
-(blend_and_extend). Host planes go to the card through
+stage list (chroma upsampling, the filters, patches, splines,
+upsampling, noise, colour transform, output conversion) run by
+render/span_exec.py, and the blend of a cropped or blended frame onto
+the image canvas (blend_and_extend). Host planes go to the card through
 render/stages/core.py:to_device (pinned, without a wait).
 """
 
@@ -142,12 +142,12 @@ def render_frame_channels(frame, device, out_format: str = "f32", timings=None):
     render_frame_channels_ex, :153-204): (planes, color_done, converted),
     planes a list of 3 + extra channels tensors at the frame's upsampled
     size. The colour transform runs here unless the frame is
-    REFERENCE_ONLY or is saved before it (then the planes stay XYB or
-    YCbCr, for the caller to save); the output conversion runs here only
-    for a frame that neither blends nor is referenced and has no extra
-    channels: every other frame stays float32, and the caller converts the
-    canvas after blending, so that the dither pattern sits at the image's
-    (0, 0). timings, a dict, gets "noise_field_s", the host seconds of the
+    REFERENCE_ONLY, is saved before it or is an LF frame (then the planes
+    stay XYB or YCbCr, for the caller to save); the output conversion
+    runs here only for a frame that neither blends nor is referenced and
+    has no extra channels: every other frame stays float32, and the
+    caller converts the canvas after blending, so that the dither pattern
+    sits at the image's (0, 0). timings, a dict, gets "noise_field_s", the host seconds of the
     noise field, when the frame has noise."""
     from ..io.headers.frame import Encoding, FrameType
     from .pipeline import build_render_pipeline, color_transform_stage, convert_output_stage
@@ -171,8 +171,11 @@ def render_frame_channels(frame, device, out_format: str = "f32", timings=None):
         if timings is not None:
             timings["noise_field_s"] = timings.get("noise_field_s", 0.0) + time.perf_counter() - t0
         ctx["noise_field"] = field.to(device, non_blocking=True)
+    # an LF frame keeps its planes as coded for the frames that adopt them
+    # (ref jxl_tpu/render/simple.py:163, 198)
     color_done = not (header.frame_type == FrameType.REFERENCE_ONLY
-                      or (header.can_be_referenced and header.save_before_ct))
+                      or (header.can_be_referenced and header.save_before_ct)
+                      or header.lf_level != 0)
     fmt = out_format
     if header.needs_blending() or header.can_be_referenced or num_ec:
         fmt = "f32"

@@ -7,8 +7,10 @@ numeric path, frame/group.rs:138-237 dequant_and_transform_to_pixels, over
 the whole frame): per transform type, gather the blocks' quantized
 coefficients from the dense (G * 3 * GD * GD,) int32 buffer in place,
 dequantize with the quant bias, add chroma from luma, run the inverse
-transforms (transforms_batch.py) and scatter the pixels. The planes stay
-on the device for the filters. The host tables of a render go up through
+transforms (transforms_batch.py) and scatter the pixels. The LF is the
+frame's own or, for a frame that reads an LF frame, that frame's planes,
+already on the device. The planes stay on the device for the filters.
+The host tables of a render go up through
 render/stages/core.py:to_device_all: pinned, one copy a dtype, without a
 wait.
 """
@@ -77,20 +79,31 @@ def _constants(frame) -> tuple:
 
 
 def _frame_tables(frame) -> list:
-    """The host tables every render uploads: LF (3, bh, bw), raw quant
-    (bh, bw) int32, ytox and ytob tiles float32, quant biases (4,)."""
+    """The host tables every render uploads: raw quant (bh, bw) int32,
+    ytox and ytob tiles float32, quant biases (4,)."""
     bw, bh = frame.header.size_blocks()
     th = -(-bh // COLOR_TILE_DIM_IN_BLOCKS)
     tw = -(-bw // COLOR_TILE_DIM_IN_BLOCKS)
     hf = frame.hf_meta
     biases = frame.file_header.transform_data.opsin_inverse_matrix.quant_biases
     return [
-        np.stack(frame.lf_image).astype(np.float32),
         np.asarray(hf["raw_quant"], np.int32),
         np.asarray(hf["ytox"][:th, :tw], np.float32),
         np.asarray(hf["ytob"][:th, :tw], np.float32),
         np.asarray(biases, np.float32),
     ]
+
+
+def _upload(frame, extra: list, dev) -> list:
+    """[LF (3, bh, bw), raw quant, ytox, ytob, biases, *extra] on dev: the
+    host arrays in one render/stages/core.py:to_device_all. The LF is the
+    frame's own (lf_image, from its LF coefficients) or, for a frame that
+    reads an LF frame, the adopted planes, already on the device
+    (api/frame.py:_adopt_lf_frame)."""
+    if frame.lf_device is not None:
+        return [frame.lf_device.to(dev)] + to_device_all(_frame_tables(frame) + extra, dev)
+    lf = np.stack(frame.lf_image).astype(np.float32)
+    return to_device_all([lf] + _frame_tables(frame) + extra, dev)
 
 
 def _matrices(frame, t: int, nc: int) -> np.ndarray:
@@ -133,11 +146,11 @@ def render_vardct_frame_device(frame, flat) -> torch.Tensor:
     W = bw * BLOCK_DIM
     blocks = _frame_blocks(frame, list(range(header.num_groups)))
     types = sorted(blocks)
-    host = _frame_tables(frame)
+    host = []
     for t in types:
         host += [a.astype(np.int64) for a in blocks[t]]
         host.append(_matrices(frame, t, covered_blocks_x(t) * covered_blocks_y(t) * BLOCK_SIZE))
-    lf, rq, ytox, ytob, b_c, *per_type = to_device_all(host, dev)
+    lf, rq, ytox, ytob, b_c, *per_type = _upload(frame, host, dev)
     lf_flat = lf.reshape(3, -1)
     planes = torch.zeros((3, bh * BLOCK_DIM * W), dtype=torch.float32, device=dev)
     stride_c = GROUP_DIM * GROUP_DIM
@@ -199,7 +212,7 @@ def render_vardct_frame_device_subsampled(frame, flat) -> list:
             raise ValueError(f"transform {t} covers more than one block in a subsampled frame")
     # every upload in one copy a dtype: the tables, each type's matrices,
     # then each (channel, type)'s blocks aligned to the channel's grid
-    host = _frame_tables(frame) + [_matrices(frame, t, BLOCK_SIZE) for t in types]
+    host = [_matrices(frame, t, BLOCK_SIZE) for t in types]
     jobs = []  # (channel, type)
     for c in range(3):
         hs, vs = header.hshift(c), header.vshift(c)
@@ -209,7 +222,7 @@ def render_vardct_frame_device_subsampled(frame, flat) -> list:
             if m.any():
                 jobs.append((c, t))
                 host += [a[m].astype(np.int64) for a in (gbx, gby, gi, off)]
-    lf, rq, ytox, ytob, b_c, *rest = to_device_all(host, dev)
+    lf, rq, ytox, ytob, b_c, *rest = _upload(frame, host, dev)
     lf_flat = lf.reshape(3, -1)
     mats = dict(zip(types, rest))
     job_blocks = rest[len(types):]

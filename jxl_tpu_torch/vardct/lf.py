@@ -6,7 +6,9 @@ Capability reference: jxl/src/frame/modular/mod.rs:845-1089 and
 frame/adaptive_lf_smoothing.rs; the counterpart of jxl_tpu/vardct/lf.py.
 The LF group section decodes in one native call where the stream allows
 it, else through the modular decoder; numeric parts are numpy on the
-host. LF upsampling (progressive flush, LF frames) is outside this
+host. A frame that reads an LF frame codes no LF coefficients
+(try_decode_lf_group declines it; api/frame.py adopts the LF frame's
+planes). The LF upsampling of the progressive flush is outside this
 package's slice.
 """
 

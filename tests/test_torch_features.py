@@ -130,13 +130,20 @@ def _header(data):
     ("splines", "splines"),
 ])
 def test_frames_outside_the_slice_raise(what, reason):
+    """Frames that read an LF frame and frames with splines, which earlier
+    slices refused here, pass the frame check now (their decodes:
+    test_torch_progressive.py, test_torch_splines.py); the check still
+    refuses a chroma-subsampled Modular frame."""
     from jxl_tpu_torch.api.simple import _check_frame
     from jxl_tpu_torch.io.headers.frame import Flags
 
     header = _header(_stream("vardct_up2_noise"))
     header.flags |= Flags.USE_LF_FRAME if what == "lf_frame" else Flags.ENABLE_SPLINES
-    with pytest.raises(jxl_tpu_torch.NotSupported, match=reason):
-        _check_frame(header)
+    _check_frame(header)
+    modular = _header(_stream("modular_alpha_late_up2"))
+    modular.jpeg_upsampling = [1, 0, 0]
+    with pytest.raises(jxl_tpu_torch.NotSupported, match="chroma-subsampled Modular"):
+        _check_frame(modular)
 
 
 def test_patches_pass_the_frame_check():
@@ -169,6 +176,10 @@ def test_vardct_layouts_pass_the_frame_check(what):
 @pytest.mark.parametrize("what,reason", [
     ("splines", "splines"), ("chroma", "chroma-subsampled Modular frames")])
 def test_render_pipeline_refuses_what_it_lacks(what, reason, monkeypatch):
+    """A chroma-subsampled Modular frame is refused with its reason; a
+    frame with splines, which earlier slices refused here, gets the spline
+    stage after the filters and before the upsampling, as in jxl_tpu."""
+    from jxl_tpu_torch.features.splines import Splines
     from jxl_tpu_torch.io.headers.frame import Flags
     from jxl_tpu_torch.render.pipeline import build_render_pipeline
     from test_torch_render_stages import port_frame
@@ -176,10 +187,14 @@ def test_render_pipeline_refuses_what_it_lacks(what, reason, monkeypatch):
     frame = port_frame(_stream("modular_alpha_late_up2"), monkeypatch)
     if what == "chroma":
         frame.header.jpeg_upsampling = [1, 0, 0]
-    else:
-        frame.header.flags |= Flags.ENABLE_SPLINES
-    with pytest.raises(jxl_tpu_torch.NotSupported, match=reason):
-        build_render_pipeline(frame)
+        with pytest.raises(jxl_tpu_torch.NotSupported, match=reason):
+            build_render_pipeline(frame)
+        return
+    frame.header.flags |= Flags.ENABLE_SPLINES
+    frame.lf_global.splines = Splines()
+    names = [s.name for s in build_render_pipeline(frame)]
+    assert names.index(reason) == names.index("epf2") + 1
+    assert names[names.index(reason) + 1].startswith("upsample2x")
 
 
 def test_render_pipeline_places_the_patch_stage(monkeypatch):

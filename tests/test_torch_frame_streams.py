@@ -40,11 +40,12 @@ from dataclasses import dataclass
 import numpy as np
 import pytest
 
-from mini_encoder import BW, encode_constant_modular, u32, u64
+from mini_encoder import BW, u32, u64
 from test_torch_streams import encode_xyb_modular
-from test_torch_vardct_streams import (BitList, _signed_token, encode_xyb_vardct, flat_histogram,
-                                       hybrid_encode, inverse_tables, rans_encode_lanes,
-                                       write_ans_flat_histograms)
+from test_torch_vardct_streams import (USE_LF_FRAME, BitList, _signed_token, bitlist_bits,
+                                       encode_xyb_vardct, hybrid_tokens, write_ans_flat_histograms,
+                                       write_bits, write_colour_encoding, write_passes,
+                                       write_rans_stream)
 
 # frame types and blending modes, as the frame header codes them
 REGULAR, LF_FRAME, REFERENCE_ONLY = 0, 1, 2
@@ -90,6 +91,7 @@ class FrameSpec:
     filters: bool = True
     flags: int = 0
     lf_level: int = 1
+    passes: int = 1
 
 
 def frame_sections(data: bytes) -> list:
@@ -113,7 +115,9 @@ def frame_sections(data: bytes) -> list:
     return out
 
 
-def _file_header(w: BW, width, height, xyb, num_ec, animation, preview):
+def _file_header(w: BW, width, height, xyb, num_ec, animation, preview, icc=None):
+    """The file header (and, with `icc`, the bits of an ICC profile from
+    test_torch_icc_streams.encode_icc after it)."""
     w.write(0xFF, 8)
     w.write(0x0A, 8)
     w.write(0, 1)  # SizeHeader: not small
@@ -149,11 +153,13 @@ def _file_header(w: BW, width, height, xyb, num_ec, animation, preview):
     for _ in range(num_ec):
         w.write(1, 1)  # ExtraChannelInfo all_default: 8-bit straight alpha
     w.write(int(xyb), 1)  # xyb_encoded
-    w.write(1, 1)  # colour encoding all_default (sRGB)
+    write_colour_encoding(w, icc)
     if extra:
         w.write(1, 1)  # tone mapping all_default
     w.write(0, 2)  # extensions
     w.write(1, 1)  # CustomTransformData all_default
+    if icc is not None:
+        write_bits(w, icc)
 
 
 def _blending(w: BW, b, num_ec, full_frame):
@@ -180,16 +186,17 @@ def _frame_header(w: BW, f: FrameSpec, img, xyb, num_ec, animation):
     u64(w, f.flags)
     if not xyb:
         w.write(0, 1)  # do_ycbcr
-    u32(w, _UPS, 1)  # upsampling
-    for _ in range(num_ec):
-        u32(w, _UPS, 1)  # ec_upsampling
+    if not f.flags & USE_LF_FRAME:  # a frame that reads an LF frame codes none
+        u32(w, _UPS, 1)  # upsampling
+        for _ in range(num_ec):
+            u32(w, _UPS, 1)  # ec_upsampling
     if f.encoding == "modular":
         w.write(1, 2)  # group_size_shift = 1 -> 256
     elif xyb:
         w.write(3, 3)  # x_qm_scale
         w.write(2, 3)  # b_qm_scale
     if f.frame_type != REFERENCE_ONLY:
-        u32(w, (("val", 1), ("val", 2), ("val", 3), ("bitsoff", 3, 4)), 1)  # one pass
+        write_passes(w, f.passes)
     if f.frame_type == LF_FRAME:
         u32(w, (("val", 1), ("val", 2), ("val", 3), ("val", 4)), f.lf_level)
     full_frame = True
@@ -244,14 +251,20 @@ def _frame_header(w: BW, f: FrameSpec, img, xyb, num_ec, animation):
 
 
 def encode_frames(width: int, height: int, frames, *, xyb: bool = True, num_ec: int = 0,
-                  animation=None, preview=None) -> bytes:
+                  animation=None, preview=None, icc=None) -> bytes:
     """A codestream of `frames` (FrameSpec list) under one file header:
     8-bit, sRGB, XYB or not, num_ec 8-bit straight alpha channels (0 or 1),
     an animation header (tps numerator, denominator) or None, and a preview
-    (FrameSpec, its (width, height)) or None, written before the frames."""
+    (FrameSpec, its (width, height)) or None, written before the frames.
+    icc: None, or the bytes of an ICC profile, embedded after the file
+    header (before the preview)."""
     w = BW()
+    if icc is not None:
+        from test_torch_icc_streams import encode_icc
+
+        icc = encode_icc(icc)
     _file_header(w, width, height, xyb, num_ec, animation,
-                 None if preview is None else preview[1])
+                 None if preview is None else preview[1], icc)
     out = bytearray()
     todo = [(preview[0], preview[1])] if preview is not None else []
     todo += [(f, (width, height)) for f in frames]
@@ -299,22 +312,11 @@ def patches_dictionary(refs, placements, mode=PATCH_ADD, num_ec=0) -> tuple:
     w = BitList()
     write_ans_flat_histograms(w, _PATCH_CMAP, _PATCH_ALPHABETS, _PATCH_UINT)
     ctx = np.array([c for c, _ in toks])
-    vals = np.array([v for _, v in toks], np.int64)
     cl = np.array(_PATCH_CMAP)[ctx]
-    tk = np.zeros(len(vals), np.int64)
-    raw = np.zeros(len(vals), np.int64)
-    nraw = np.zeros(len(vals), np.int64)
-    for ci, cfg in enumerate(_PATCH_UINT):
-        m = cl == ci
-        tk[m], raw[m], nraw[m] = hybrid_encode(vals[m], cfg)
-        assert (tk[m] < _PATCH_ALPHABETS[ci]).all()
-    freq, inv = inverse_tables([flat_histogram(a) for a in _PATCH_ALPHABETS])
-    state, words, has = rans_encode_lanes(tk[None], cl[None], np.array([len(tk)]), freq, inv)
-    w.write(int(state[0]), 32)
-    w.extend(np.stack([words[0], raw], 1), np.stack([np.where(has[0], 16, 0), nraw], 1))
-    nbits = int(sum(int(n.sum()) for n in w.nbits))
-    bits = np.unpackbits(np.frombuffer(w.finish(), np.uint8), bitorder="little")[:nbits]
-    return bits, nbits
+    tk, raw, nraw = hybrid_tokens([v for _, v in toks], cl, _PATCH_UINT, _PATCH_ALPHABETS)
+    write_rans_stream(w, tk, cl, raw, nraw, _PATCH_ALPHABETS)
+    bits = bitlist_bits(w)
+    return bits, len(bits)
 
 
 def prepend_bits(bits, section: bytes) -> bytes:
@@ -456,12 +458,32 @@ def anim_replace_stream(width, height, num_frames=5, seed=0) -> bytes:
     return encode_frames(width, height, frames, animation=(100, 1))
 
 
-def lf_frame_stream(width=320, height=200) -> bytes:
-    """An LF frame (lf_level 1: a constant Modular frame at 1/8 of the
-    image's size) ahead of a VarDCT frame: outside the port's slice."""
-    lf = frame_sections(encode_constant_modular(-(-width // 8), -(-height // 8)))
-    frames = [FrameSpec(lf, "modular", frame_type=LF_FRAME, filters=False),
-              FrameSpec(_vardct(width, height, 5), "vardct", is_last=True)]
+def lf_frame_stream(width=320, height=200, levels=1, passes=1, seed=5, density=0.2,
+                    lz77=False) -> bytes:
+    """A progressive still image as cjxl -p --progressive_dc writes it: an
+    XYB Modular LF frame at 1/8 of the image's size (lf_level 1, no
+    filters), then the last frame, an XYB VarDCT frame with the default
+    filters that reads its LF from it (USE_LF_FRAME) and codes its AC in
+    `passes` passes (lz77: LZ77 on in the AC histograms, which sends the
+    AC to the host decoder). With levels=2 the LF frame is itself a VarDCT
+    frame (lf_level 1) that reads its LF from a Modular LF frame at 1/64
+    of the image's size (lf_level 2); its width must then pass 256."""
+    frames = []
+    for level in range(levels, 0, -1):
+        d = 8 ** level
+        lw, lh = -(-width // d), -(-height // d)
+        if level == levels:
+            frames.append(FrameSpec(_modular(lw, lh, seed + level), "modular",
+                                    frame_type=LF_FRAME, lf_level=level, filters=False))
+        else:
+            data, _ = encode_xyb_vardct(lw, lh, seed=seed + level, density=density,
+                                        lf_frame=True)
+            frames.append(FrameSpec(frame_sections(data), "vardct", frame_type=LF_FRAME,
+                                    lf_level=level, flags=USE_LF_FRAME))
+    data, _ = encode_xyb_vardct(width, height, seed=seed, density=density, passes=passes,
+                                lf_frame=True, lz77=lz77)
+    frames.append(FrameSpec(frame_sections(data), "vardct", is_last=True, flags=USE_LF_FRAME,
+                            passes=passes))
     return encode_frames(width, height, frames)
 
 

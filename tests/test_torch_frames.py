@@ -401,22 +401,38 @@ def test_saved_slots_are_left_unchanged(name, monkeypatch):
 
 @pytest.mark.parametrize("what,reason", [("lf_frame", "LF frames"), ("splines", "splines"),
                                          ("icc", "ICC")])
-def test_what_stays_outside_the_slice_raises(what, reason):
-    from jxl_tpu_torch.api.simple import _check_frame, _check_image
-    from jxl_tpu_torch.io.headers.frame import Flags
+def test_what_stays_outside_the_slice_raises(what, reason, monkeypatch):
+    """LF frames, splines and ICC profiles, which earlier slices refused,
+    decode now: each case's multi-frame stream (an LF frame ahead of a
+    VarDCT frame that reads it; the REPLACE animation with splines in its
+    second frame; the REPLACE animation with an embedded profile) decodes
+    as jxl_tpu decodes it (f32 within 1e-4, the same durations and
+    profile)."""
+    from test_torch_frame_streams import FrameSpec, encode_frames, frame_sections
+    from test_torch_icc_streams import display_p3_profile
+    from test_torch_spline_streams import splines_stream
+    from test_torch_vardct_streams import ENABLE_SPLINES, encode_xyb_vardct
 
     if what == "lf_frame":
-        with pytest.raises(jxl_tpu_torch.NotSupported, match=reason):
-            jxl_tpu_torch.decode_image(lf_frame_stream(), device="cpu")
-        return
-    fh, header = _headers(_stream("anim_replace"), "jxl_tpu_torch")[0]
-    with pytest.raises(jxl_tpu_torch.NotSupported, match=reason):
-        if what == "splines":
-            header.flags |= Flags.ENABLE_SPLINES
-            _check_frame(header)
-        else:
-            fh.image_metadata.color_encoding.want_icc = True
-            _check_image(fh)
+        data = lf_frame_stream()
+    elif what == "splines":
+        frames = [FrameSpec(frame_sections(splines_stream(320, 200, 4, seed=20 + k)[0]),
+                            "vardct", duration=TICKS, is_last=k == 1, flags=ENABLE_SPLINES)
+                  for k in range(2)]
+        data = encode_frames(320, 200, frames, animation=(100, 1))
+    else:
+        frames = [FrameSpec(frame_sections(encode_xyb_vardct(320, 200, seed=22 + k,
+                                                             density=0.1)[0]),
+                            "vardct", duration=TICKS, is_last=k == 1) for k in range(2)]
+        data = encode_frames(320, 200, frames, animation=(100, 1), icc=display_p3_profile())
+    monkeypatch.setenv("JXL_TPU_AC", "host")
+    got = jxl_tpu_torch.decode_image(data, device="cpu")
+    want = ref_decode(data)
+    assert len(got.frames) == len(want.frames) and got.durations == want.durations, reason
+    for g, w in zip(got.frames, want.frames):
+        assert _diff(g.numpy(), w).max() <= 1e-4
+    assert got.icc_profile == want.icc_profile
+    assert (got.icc_profile is not None) == (what == "icc")
 
 
 # -- on the card ----------------------------------------------------------------------------------

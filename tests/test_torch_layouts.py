@@ -218,13 +218,19 @@ def test_native_vardct_ac_checks_its_buffers(fault):
 
 
 def test_multi_pass_frames_on_the_host_route_raise(monkeypatch):
-    """More than one pass, AC the lane decoder does not take: still outside
-    the slice (no writer covers it), with its reason."""
-    from jxl_tpu_torch.errors import NotSupported
-    from jxl_tpu_torch.io.bit_reader import BitReader
+    """More than one pass, AC the lane decoder does not take (here: an
+    alpha in the groups' modular HF streams), which earlier slices refused
+    on this route: each group's passes decode in turn into the writer's
+    coefficients (the sum of each pass's shifted coefficients), and the
+    alpha, coded in the last pass, comes back as written."""
+    from test_torch_progressive import _port_frame_and_readers
 
-    frame = _port_frame(_stream("vardct_alpha")[0])
-    frame.header.passes.num_passes = 2
-    with pytest.raises(NotSupported, match="more than one pass"):
-        frame.decode_vardct_ac_on_host([(g, BitReader(b"\0" * 64))
-                                        for g in range(frame.header.num_groups)], "cpu")
+    data, coeffs, alpha = encode_xyb_vardct(520, 300, seed=66, density=0.1, num_ec=1,
+                                            passes=2)
+    frame, readers = _port_frame_and_readers(data)
+    assert frame.header.passes.num_passes == 2
+    frame.decode_vardct_ac_on_host([(g, [(p, readers[(g, p)]) for p in range(2)])
+                                    for g in range(frame.header.num_groups)], "cpu")
+    np.testing.assert_array_equal(frame.host_ac_flat, coeffs)
+    frame.lf_global.modular_global.run_transforms()
+    np.testing.assert_array_equal(frame.modular_channel(3), alpha)

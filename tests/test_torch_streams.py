@@ -209,16 +209,19 @@ def _headers(width: int, height: int, sections: list, upsampling: int = 1,
 def encode_xyb_modular(width: int, height: int, seed: int = 0, leaves=XYB_LEAVES,
                        upsampling: int = 1, num_ec: int = 0, ec_upsampling: int | None = None,
                        alpha_associated: bool = False):
-    """(codestream, planes): an XYB Modular frame of more than one group,
-    coded at width x height and upsampled `upsampling` (1, 2, 4 or 8)
-    times, so the image is upsampling * width x upsampling * height. planes
+    """(codestream, planes): an XYB Modular frame coded at width x height
+    and upsampled `upsampling` (1, 2, 4 or 8) times, so the image is
+    upsampling * width x upsampling * height. A frame of one group (at
+    most 256 x 256, without extra channels) codes its channels in its one
+    section, right after the global modular header. planes
     are the int32 (3, height, width) planes it encodes in modular channel
     order [Y, X, B]. With num_ec=1 the image also has an 8-bit alpha
     channel (associated with alpha_associated), coded at 1/ec_upsampling
     (default: 1/upsampling) of the image's size; planes is then the list of
     the four channel planes."""
-    if width <= GROUP_DIM and height <= GROUP_DIM:
-        raise ValueError("the writer lays out multi-group frames only")
+    single = width <= GROUP_DIM and height <= GROUP_DIM
+    if single and num_ec:
+        raise ValueError("the writer codes extra channels in frames of more than one group")
     if num_ec not in (0, 1):
         raise ValueError("the writer writes at most one extra channel")
     ec_up = (ec_upsampling or upsampling,) * num_ec
@@ -245,6 +248,12 @@ def encode_xyb_modular(width: int, height: int, seed: int = 0, leaves=XYB_LEAVES
     lg.write(1, 1)  # GlobalModular GroupHeader: use_global_tree
     lg.write(1, 1)  # wp_header all_default
     lg.write(0, 2)  # no transforms
+    if single:  # the channels, in the global section
+        code = [token_bits(set(_RESIDUAL_TOKENS), t)[0] for t in range(4)]
+        for t in tokens.reshape(-1).tolist():
+            lg.write(code[t], 2)
+        sections = [lg.finish()]
+        return _headers(width, height, sections, upsampling, ec_up, False) + sections[0], planes
     # no channel fits in the global section of a multi-group frame
     gx, gy = -(-width // GROUP_DIM), -(-height // GROUP_DIM)
     lf_groups = -(-width // (8 * GROUP_DIM)) * -(-height // (8 * GROUP_DIM))
@@ -286,7 +295,7 @@ def test_port_host_layer_decodes_writer_planes(size):
     fh = FileHeader.read(br)
     br.jump_to_byte_boundary()
     frame = parse_frame(br, fh)
-    frame.decode_all_sections(br)
+    frame.decode_all_sections(br, "cpu")
     for c in range(3):
         np.testing.assert_array_equal(frame.modular_channel(c), planes[c])
 

@@ -131,6 +131,7 @@ def carry_vardct_state(ref_frame, data, flat=None):
         file_header=fh,
         hf_meta={k: np.array(v) for k, v in ref_frame.hf_meta.items()},
         lf_image=[np.array(p, dtype=np.float32) for p in ref_frame.lf_image],
+        lf_device=None,  # the frame codes its own LF
         lf_global=SimpleNamespace(
             quant_params=QuantizerParams(rg.quant_params.global_scale, rg.quant_params.quant_lf),
             color_correlation_params=ColorCorrelationParams(
@@ -260,15 +261,22 @@ def test_chroma_subsampled_vardct_passes_the_frame_check():
     _check_frame(header)
 
 
-def test_lf_frame_vardct_raises():
+def test_lf_frame_vardct_raises(monkeypatch):
+    """A VarDCT frame that reads an LF frame, which earlier slices refused:
+    it passes the frame check and, behind its LF frame, decodes as
+    jxl_tpu decodes it (f32 within 1e-4)."""
     from jxl_tpu_torch.api.simple import _check_frame
     from jxl_tpu_torch.io.headers.frame import Flags
+    from test_torch_frame_streams import lf_frame_stream
 
     data, _ = _stream("dct8_300x200")
     header = _port_frame(data).header
     header.flags |= Flags.USE_LF_FRAME
-    with pytest.raises(jxl_tpu_torch.NotSupported, match="LF frames"):
-        _check_frame(header)
+    _check_frame(header)
+    stream = lf_frame_stream(300, 200, seed=43, density=0.1)
+    monkeypatch.setenv("JXL_TPU_AC", "host")
+    got = jxl_tpu_torch.decode_image(stream, device="cpu").frames[0].numpy()
+    assert np.abs(got - ref_decode(stream).frames[0]).max() <= 1e-4
 
 
 def test_corrupt_ac_section_raises_on_both_routes(monkeypatch):

@@ -185,17 +185,62 @@ def rans_encode_lanes(tok, cl, lengths, freq, inv):
     return state, words, has
 
 
+def hybrid_tokens(vals, clusters, uint_cfgs, alphabets):
+    """(tokens, raw bits, raw bit counts) of `vals`, each value coded with
+    its cluster's HybridUint config; every token stays inside its
+    cluster's alphabet."""
+    vals = np.asarray(vals, np.int64)
+    clusters = np.asarray(clusters, np.int64)
+    tk, raw, nraw = (np.zeros(len(vals), np.int64) for _ in range(3))
+    for ci, cfg in enumerate(uint_cfgs):
+        m = clusters == ci
+        tk[m], raw[m], nraw[m] = hybrid_encode(vals[m], cfg)
+        assert (tk[m] < alphabets[ci]).all()
+    return tk, raw, nraw
+
+
+def write_rans_stream(w, tk, cl, raw, nraw, alphabets):
+    """One rANS stream of tokens `tk` in clusters `cl` (flat histograms
+    over `alphabets`, as write_ans_flat_histograms writes them) into the
+    BitList w: the initial state, then each token's renormalization word
+    and its raw bits."""
+    freq, inv = inverse_tables([flat_histogram(a) for a in alphabets])
+    tk, cl = np.asarray(tk, np.int64), np.asarray(cl, np.int64)
+    state, words, has = rans_encode_lanes(tk[None], cl[None], np.array([len(tk)]), freq, inv)
+    w.write(int(state[0]), 32)
+    w.extend(np.stack([words[0], raw], 1), np.stack([np.where(has[0], 16, 0), nraw], 1))
+
+
+def bitlist_bits(w) -> np.ndarray:
+    """The bits of a BitList, a uint8 array of 0/1, LSB first."""
+    nbits = int(sum(int(n.sum()) for n in w.nbits))
+    return np.unpackbits(np.frombuffer(w.finish(), np.uint8), bitorder="little")[:nbits]
+
+
 def write_ans_flat_histograms(w, cmap, alphabets, uint_cfgs, lz77=False):
     """Histograms bundle: simple context map `cmap`, ANS at log_alpha 6,
-    per-cluster HybridUint configs and flat distributions. With lz77 the
-    bundle enables LZ77 with min_symbol 224, which no token reaches: the
-    stream decodes the same, but the lane decoder does not take it."""
+    per-cluster HybridUint configs and flat distributions. With lz77=True
+    the bundle enables LZ77 with min_symbol 224, which no token reaches:
+    the stream decodes the same, but the lane decoder does not take it.
+    lz77 may instead be (min_symbol, min_length, length HybridUint config)
+    for an LZ77 that the tokens use; `cmap` then ends with the distance
+    context's cluster."""
     w.write(1 if lz77 else 0, 1)
-    if lz77:
+    if lz77 is True:
         w.write(0, 2)  # min_symbol 224
         w.write(0, 2)  # min_length 3
         w.write(8, 4)  # length HybridUint at log_alpha 8: split_exponent 8
         cmap = list(cmap) + [0]  # the distance context
+    elif lz77:
+        min_symbol, min_length, (se, msb, lsb) = lz77
+        assert 8 <= min_symbol < 8 + (1 << 15) and 3 <= min_length <= 4
+        w.write(3, 2)
+        w.write(min_symbol - 8, 15)
+        w.write(min_length - 3, 2)
+        w.write(se, 4)  # the length config, at log_alpha 8
+        if se != 8:
+            w.write(msb, _ceil_log2(se + 1))
+            w.write(lsb, _ceil_log2(se - msb + 1))
     if len(cmap) > 1:
         bits = _ceil_log2(max(cmap) + 1)
         w.write(1, 1)  # simple context map
@@ -405,18 +450,22 @@ def _place_transforms(rng, bw, bh, rects, mixed: bool):
     return tmap, lists, band_step
 
 
-def _lf_group_section(rng, leaves, rect, types, cfl_zero, hs=(0, 0, 0), vs=(0, 0, 0)):
+def _lf_group_section(rng, leaves, rect, types, cfl_zero, hs=(0, 0, 0), vs=(0, 0, 0),
+                      lf_coefficients=True):
+    """One LF group's section: its LF coefficients (not in a frame that
+    reads an LF frame: lf_coefficients=False), then its HF metadata."""
     ox, oy, w, h = rect
     sec = BitList()
-    sec.write(0, 2)  # extra_precision
-    sec.write(1, 1)  # GroupHeader: use_global_tree
-    sec.write(1, 1)  # default weighted-predictor header
-    sec.write(0, 2)  # no transforms
-    # modular order [Y, X, B], each channel at its own (subsampled) size
-    for key, c in (("lf_y", 1), ("lf_x", 0), ("lf_b", 2)):
-        _, _, base, mul = leaves[key]
-        vals = base + mul * _residual(rng.integers(0, 4, (h >> vs[c], w >> hs[c])))
-        _modular_bits(sec, leaves, key, vals)
+    if lf_coefficients:
+        sec.write(0, 2)  # extra_precision
+        sec.write(1, 1)  # GroupHeader: use_global_tree
+        sec.write(1, 1)  # default weighted-predictor header
+        sec.write(0, 2)  # no transforms
+        # modular order [Y, X, B], each channel at its own (subsampled) size
+        for key, c in (("lf_y", 1), ("lf_x", 0), ("lf_b", 2)):
+            _, _, base, mul = leaves[key]
+            vals = base + mul * _residual(rng.integers(0, 4, (h >> vs[c], w >> hs[c])))
+            _modular_bits(sec, leaves, key, vals)
     count = len(types)
     sec.write(count - 1, _ceil_log2(w * h))
     sec.write(1, 1)
@@ -539,17 +588,18 @@ def _ac_tokens(rng, tmap, g, gxn, density, max_run=12, hs=(0, 0, 0), vs=(0, 0, 0
     return tok_val, tok_ctx, dest, val
 
 
-def ac_context_map():
-    """cluster of each AC context (the padded tail maps to cluster 0)."""
+def ac_context_map(pass_idx: int = 0):
+    """cluster of each AC context of pass `pass_idx` (the padded tail maps
+    to cluster 0): each pass has histograms of its own."""
     ctx = np.arange(NUM_AC_CONTEXTS)
-    return np.concatenate([(ctx * 7 + ctx // 5) % 3, np.zeros(CTX_PAD, np.int64)])
+    return np.concatenate([(ctx * 7 + ctx // 5 + pass_idx) % 3, np.zeros(CTX_PAD, np.int64)])
 
 
-def _ac_sections(tok_vals, tok_ctxs, tails=None):
-    """rANS-encode every group's token list at once (one lane a group).
-    tails: None, or a BitList a group whose bits follow its AC tokens
-    (its modular HF stream)."""
-    cmap = ac_context_map()
+def _ac_sections(tok_vals, tok_ctxs, tails=None, pass_idx=0):
+    """rANS-encode every group's token list at once (one lane a group),
+    with the histograms of pass `pass_idx`. tails: None, or a BitList a
+    group whose bits follow its AC tokens (its modular HF stream)."""
+    cmap = ac_context_map(pass_idx)
     hists = [flat_histogram(a) for a in AC_ALPHABETS]
     freq, inv = inverse_tables(hists)
     G = len(tok_vals)
@@ -599,8 +649,53 @@ def chroma_shifts(subsampling):
     return (tuple(mh - _H_SHIFT[u] for u in ju), tuple(mv - _V_SHIFT[u] for u in ju))
 
 
+USE_LF_FRAME = 0x20
+ENABLE_SPLINES = 0x10
+
+
+def pass_shift(num_passes: int, pass_idx: int) -> int:
+    """The coefficient shift the writer gives pass `pass_idx`: the earlier
+    passes code coarser coefficients (num_passes - 1 - pass_idx), the last
+    none."""
+    return num_passes - 1 - pass_idx
+
+
+def write_passes(w, num_passes: int):
+    """The frame header's passes field (ref frame_header.rs Passes): for
+    more than one pass, one downsampling step (2x, ending with pass 0)
+    and each earlier pass's shift (pass_shift)."""
+    u32(w, (("val", 1), ("val", 2), ("val", 3), ("bitsoff", 3, 4)), num_passes)
+    if num_passes == 1:
+        return
+    u32(w, (("val", 0), ("val", 1), ("val", 2), ("bitsoff", 1, 3)), 1)  # num_ds
+    for p in range(num_passes - 1):
+        w.write(pass_shift(num_passes, p), 2)
+    u32(w, (("val", 1), ("val", 2), ("val", 4), ("val", 8)), 2)  # downsample
+    u32(w, (("val", 0), ("val", 1), ("val", 2), ("bits", 3)), 0)  # last_pass
+
+
+def write_colour_encoding(w, icc) -> None:
+    """ImageMetadata's colour encoding: all_default (sRGB), or, with an
+    ICC profile (`icc`, from test_torch_icc_streams.encode_icc), want_icc
+    on an RGB colour space; the profile's bits follow the metadata."""
+    if icc is None:
+        w.write(1, 1)  # colour encoding all_default (sRGB)
+        return
+    w.write(0, 1)  # not all_default
+    w.write(1, 1)  # want_icc
+    w.write(0, 2)  # colour space RGB
+
+
+def write_bits(w, bits) -> None:
+    """Append a 0/1 bit array to the BW writer w."""
+    bits = np.asarray(bits, np.int64)
+    for i in range(0, len(bits), 24):
+        chunk = bits[i : i + 24]
+        w.write(int((chunk << np.arange(len(chunk))).sum()), len(chunk))
+
+
 def _headers(width, height, sections, upsampling=1, noise=False, subsampling=None, num_ec=0,
-             filters=True):
+             filters=True, num_passes=1, lf_frame=False, splines=False, icc=None):
     ycbcr = subsampling is not None
     w = BW()
     w.write(0xFF, 8)
@@ -618,28 +713,33 @@ def _headers(width, height, sections, upsampling=1, noise=False, subsampling=Non
     for _ in range(num_ec):
         w.write(1, 1)  # ExtraChannelInfo all_default: 8-bit straight alpha
     w.write(0 if ycbcr else 1, 1)  # xyb_encoded
-    w.write(1, 1)  # colour encoding all_default (sRGB)
+    write_colour_encoding(w, icc)
     w.write(0, 2)  # extensions
     w.write(1, 1)  # CustomTransformData all_default
+    if icc is not None:
+        write_bits(w, icc)
     w.pad_to_byte()
     w.write(0, 1)  # FrameHeader all_default = 0
     w.write(0, 2)  # REGULAR
     w.write(0, 1)  # VarDCT
-    # flags: noise; a YCbCr frame (a recompressed JPEG) skips the adaptive
-    # LF smoothing, which a subsampled frame must
-    u64(w, (1 if noise else 0) | (SKIP_ADAPTIVE_LF_SMOOTHING if ycbcr else 0))
+    # flags: noise, splines, an LF frame; a YCbCr frame (a recompressed
+    # JPEG) skips the adaptive LF smoothing, which a subsampled frame must
+    u64(w, (1 if noise else 0) | (ENABLE_SPLINES if splines else 0)
+        | (USE_LF_FRAME if lf_frame else 0) | (SKIP_ADAPTIVE_LF_SMOOTHING if ycbcr else 0))
     if ycbcr:
         w.write(1, 1)  # do_ycbcr
-        for u in JPEG_UPSAMPLING[subsampling]:
-            w.write(u, 2)
-    ups = (("val", 1), ("val", 2), ("val", 4), ("val", 8))
-    u32(w, ups, upsampling)
-    for _ in range(num_ec):
-        u32(w, ups, upsampling)  # ec_upsampling
+        if not lf_frame:
+            for u in JPEG_UPSAMPLING[subsampling]:
+                w.write(u, 2)
+    if not lf_frame:  # a frame that reads an LF frame codes no upsampling
+        ups = (("val", 1), ("val", 2), ("val", 4), ("val", 8))
+        u32(w, ups, upsampling)
+        for _ in range(num_ec):
+            u32(w, ups, upsampling)  # ec_upsampling
     if not ycbcr:
         w.write(3, 3)  # x_qm_scale
         w.write(2, 3)  # b_qm_scale
-    u32(w, (("val", 1), ("val", 2), ("val", 3), ("bitsoff", 3, 4)), 1)  # one pass
+    write_passes(w, num_passes)
     w.write(0, 1)  # no crop
     for _ in range(1 + num_ec):  # colour, then each extra channel
         u32(w, (("val", 0), ("val", 1), ("val", 2), ("bitsoff", 2, 3)), 0)  # REPLACE
@@ -665,7 +765,8 @@ def _headers(width, height, sections, upsampling=1, noise=False, subsampling=Non
 def encode_xyb_vardct(width: int, height: int, seed: int = 0, transforms: str = "mixed",
                       density: float = 0.35, cfl_zero: bool = False, lz77: bool = False,
                       max_run: int = 12, upsampling: int = 1, noise=None, subsampling=None,
-                      filters: bool = True, num_ec: int = 0):
+                      filters: bool = True, num_ec: int = 0, passes: int = 1,
+                      lf_frame: bool = False, splines=None, icc=None):
     """(codestream, coeffs): an XYB VarDCT frame of more than one group,
     coded at width x height, and the dense (G * 3 * 256 * 256,) int32
     quantized AC coefficients it encodes. transforms: "mixed" (DCT16x16 on
@@ -684,7 +785,20 @@ def encode_xyb_vardct(width: int, height: int, seed: int = 0, transforms: str = 
     only. filters=False writes gaborish off and no EPF. num_ec=1 adds an
     8-bit straight alpha channel (0, 64, 128 or 192), coded in each group's
     modular HF stream right after its AC tokens; the result is then
-    (codestream, coeffs, alpha) with alpha the (height, width) int32 plane."""
+    (codestream, coeffs, alpha) with alpha the (height, width) int32 plane.
+
+    passes: 1, 2 or 3 AC passes (write_passes): each group codes one HF
+    section a pass, in TOC order pass by pass, each pass with its own
+    histograms (ac_context_map(pass)) and content; coeffs is the sum of
+    each pass's coefficients shifted left by pass_shift, what the decoder
+    adds up. With alpha the alpha is coded in the last pass's sections,
+    the pass whose downsampling bracket holds full-resolution channels.
+    lf_frame=True writes a frame that takes its LF from an LF frame
+    (USE_LF_FRAME): its LF group sections carry the HF metadata alone.
+    splines: None, or a list of test_torch_spline_streams.SplineSpec,
+    coded in LfGlobal (ENABLE_SPLINES). icc: None, or the bytes of an ICC
+    profile, embedded after the image header
+    (test_torch_icc_streams.encode_icc)."""
     if width <= GROUP_DIM and height <= GROUP_DIM:
         raise ValueError("the writer lays out multi-group frames only")
     if transforms not in ("mixed", "dct8"):
@@ -697,6 +811,10 @@ def encode_xyb_vardct(width: int, height: int, seed: int = 0, transforms: str = 
         raise ValueError("chroma-subsampled frames take DCT8 only")
     if num_ec not in (0, 1) or (num_ec and upsampling != 1):
         raise ValueError("the writer writes at most one extra channel, not upsampled")
+    if passes not in (1, 2, 3):
+        raise ValueError("the writer writes 1, 2 or 3 passes")
+    if lf_frame and (upsampling != 1 or subsampling not in (None, "444")):
+        raise ValueError("a frame that reads an LF frame codes no upsampling or subsampling")
     ycbcr = subsampling is not None
     hs, vs = chroma_shifts(subsampling)
     rng = np.random.default_rng(seed)
@@ -705,6 +823,11 @@ def encode_xyb_vardct(width: int, height: int, seed: int = 0, transforms: str = 
     tmap, type_lists, band_step = _place_transforms(rng, bw, bh, rects, transforms == "mixed")
 
     lg = BitList()
+    if splines is not None:  # after the patches, before the noise
+        from test_torch_spline_streams import encode_splines
+
+        bits = encode_splines(splines)
+        lg.extend(bits, np.ones(len(bits), np.int64))
     for v in noise or ():
         lg.write(int(v), 10)  # the noise LUT comes first in LfGlobal
     lg.write(1, 1)  # LfQuantFactors all_default
@@ -735,22 +858,25 @@ def encode_xyb_vardct(width: int, height: int, seed: int = 0, transforms: str = 
         lg.write(1, 1)  # default weighted-predictor header
         lg.write(0, 2)  # no transforms
     lf_sections = [
-        _lf_group_section(rng, leaves, rect, types, cfl_zero or ycbcr, hs, vs)[0]
+        _lf_group_section(rng, leaves, rect, types, cfl_zero or ycbcr, hs, vs, not lf_frame)[0]
         for rect, types in zip(rects, type_lists)
     ]
     hg = BitList()
     hg.write(1, 1)  # default dequant matrices
     hg.write(0, _ceil_log2(gxn * gyn))  # one histogram
-    hg.write(2, 2)  # natural coefficient orders
-    write_ans_flat_histograms(hg, ac_context_map()[:NUM_AC_CONTEXTS].tolist(), AC_ALPHABETS,
-                              AC_UINT, lz77=lz77)
+    for p in range(passes):
+        hg.write(2, 2)  # natural coefficient orders
+        write_ans_flat_histograms(hg, ac_context_map(p)[:NUM_AC_CONTEXTS].tolist(),
+                                  AC_ALPHABETS, AC_UINT, lz77=lz77)
     coeffs = np.zeros(gxn * gyn * GROUP_STRIDE, np.int32)
-    tok_vals, tok_ctxs = [], []
-    for g in range(gxn * gyn):
-        v, c, dest, val = _ac_tokens(rng, tmap, g, gxn, density, max_run, hs, vs)
-        tok_vals.append(v)
-        tok_ctxs.append(c)
-        coeffs[dest] = val
+    tok_vals = [[] for _ in range(passes)]
+    tok_ctxs = [[] for _ in range(passes)]
+    for p in range(passes):
+        for g in range(gxn * gyn):
+            v, c, dest, val = _ac_tokens(rng, tmap, g, gxn, density, max_run, hs, vs)
+            tok_vals[p].append(v)
+            tok_ctxs[p].append(c)
+            coeffs[dest] += (val << pass_shift(passes, p)).astype(np.int32)
     tails = alpha = None
     if num_ec:
         alpha = (128 + 64 * _residual(rng.integers(0, 4, (height, width)))).astype(np.int32)
@@ -763,10 +889,17 @@ def encode_xyb_vardct(width: int, height: int, seed: int = 0, transforms: str = 
             t.write(0, 2)  # no transforms
             _modular_bits(t, leaves, "alpha", alpha[y0 : y0 + GROUP_DIM, x0 : x0 + GROUP_DIM])
             tails.append(t)
-    sections = ([lg.finish()] + lf_sections + [hg.finish()]
-                + _ac_sections(tok_vals, tok_ctxs, tails))
+    hf_sections = []
+    for p in range(passes):
+        hf_sections += _ac_sections(tok_vals[p], tok_ctxs[p],
+                                    tails if p == passes - 1 else None, p)
+    sections = [lg.finish()] + lf_sections + [hg.finish()] + hf_sections
+    if icc is not None:
+        from test_torch_icc_streams import encode_icc
+
+        icc = encode_icc(icc)
     head = _headers(width, height, sections, upsampling, noise is not None, subsampling, num_ec,
-                    filters)
+                    filters, passes, lf_frame, splines is not None, icc)
     if num_ec:
         return head + b"".join(sections), coeffs, alpha
     return head + b"".join(sections), coeffs
