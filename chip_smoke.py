@@ -30,7 +30,7 @@ a non-zero exit:
              K3 against plain decode_ac_sections, bit for bit (coefficients
              and ok flags), on a 1024x1024 writer stream (16 lanes), on a
              copy with one section corrupted (that lane alone reports not
-             ok), on a stream of 20 KB sections (the stream ring restaged
+             ok; the plain version of the 1024x1024 cases on the host), on a stream of 20 KB sections (the stream ring restaged
              over real bytes; plain version on the host), on random lanes
              (tests/test_torch_vardct_streams.py::random_lanes, three
              seeds, and one of 160 clusters whose tables stay in global
@@ -116,7 +116,23 @@ a non-zero exit:
              AC; f32 <= 1e-4, u8 <= 1 LSB). Then the spline stage's card
              time beside its bytes bound, with the segment and splatted
              pixel counts, and the LF adoption's card time.
-9. profile - a u8 decode of each stream (Modular, VarDCT, the upsampled
+9. streaming - the streaming decoder (api/decoder.py:JxlDecoder) and
+             the CLI on the card: (a) progressive_4k fed 4 KiB at a time
+             (FULL_FRAME), u8 and f32, bit for bit decode_image's, K3 and
+             K1 once each for the main frame, with the wall and the
+             process() calls; (b) the same stream 64 KiB at a time under
+             EAGER with a flush_pixels() at every FRAME_PROGRESSION: each
+             flush's wall, K3's lanes at each launch, the LF preview's
+             shape, the first flush after the LF frame; every flush within
+             f32 1e-4 of the port's CPU JxlDecoder's (host AC) at the same
+             bytes, and the final frame bit for bit (a)'s; (c) the 8-frame
+             VarDCT animation of the frames phase in three jxlp boxes: a
+             frame scan, a seek to visible frame 5 (decode_image's frame
+             5), then the whole file a byte at a time through its first 4
+             KiB (every frame and duration decode_image's); (d) python -m
+             jxl_tpu_torch.cli in a subprocess on the 4K VarDCT stream: its
+             PNG equal to decode_image's u8 frame, and --speedtest's MP/s.
+10. profile - a u8 decode of each stream (Modular, VarDCT, the upsampled
              VarDCT with noise) under torch.profiler: device time by
              operation and the card's idle share. It runs right after the
              build, and no other phase opens a profiler session.
@@ -660,26 +676,33 @@ def phase_k3(data4k):
     shapes, and on the 270 lanes of the 4K stream in two passes, held
     against the writer's coefficients (its plain version would take
     minutes)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
     import numpy as np
     import torch
 
-    from jxl_tpu_torch.ops import ans_lanes as AL
     from jxl_tpu_torch.ops import device_ac
     from jxl_tpu_torch.vardct.device_group import LANE_KEYWORDS
     from test_torch_vardct_streams import encode_xyb_vardct, long_section_stream, random_lanes
 
     dev = torch.device("cuda")
+    # the plain version of the 1024x1024 and long-section cases runs on the
+    # host, where its lockstep steps (a few small ops each) take a third of
+    # the card's time, in worker processes beside the card's cases; the 4K
+    # case's plain version runs on the card (plain_ms)
+    host = torch.device("cpu")
     small, small_coeffs = encode_xyb_vardct(1024, 1024, seed=8, density=0.2)
     # (name, lane inputs, the writer's coefficients, expected ok flags,
     # tables packed on the host, the plain version's device)
     inputs = _lane_inputs(small)
-    cases = [("1024x1024", inputs, small_coeffs, "all", True, dev)]
+    cases = [("1024x1024", inputs, small_coeffs, "all", True, host)]
     # corrupt lane 5's section in place of the bytes after its header
     end = inputs["lane_end_bits"][5] // 8
     start = inputs["start_bits"][5] // 8 + 40
     corrupt = dict(inputs, streams=inputs["streams"].copy())
     corrupt["streams"][5, start : min(end, start + 12)] ^= 0x5A
-    cases.append(("1024x1024_corrupt_lane5", corrupt, None, "lane5", True, dev))
+    cases.append(("1024x1024_corrupt_lane5", corrupt, None, "lane5", True, host))
     # 20 KB sections: the kernel restages its 8 KB stream ring over real
     # bytes; the plain version's ~30k lockstep steps run faster on the host
     long_data, long_coeffs = long_section_stream()
@@ -689,8 +712,7 @@ def phase_k3(data4k):
         NC=len(long_inp["context_map"]))["regions"]["stream"]
     sections = (long_inp["lane_end_bits"] - long_inp["start_bits"]) // 8
     check(sections.min() > 2 * ring_bytes, f"long sections of {sections.tolist()} bytes")
-    cases.append(("512x256_long_sections", long_inp, long_coeffs, "all", True,
-                  torch.device("cpu")))
+    cases.append(("512x256_long_sections", long_inp, long_coeffs, "all", True, host))
     for seed in (31, 32, 33):
         cases.append((f"random_lanes_seed{seed}", random_lanes(seed), None, None, False, dev))
     many = random_lanes(34, log_alpha=6, clusters=160)
@@ -699,13 +721,52 @@ def phase_k3(data4k):
           "the 160-cluster lanes must plan their tables in global memory")
     cases.append(("random_lanes_160_clusters_global_tables", many, None, None, False, dev))
     two, two_coeffs = encode_xyb_vardct(1024, 1024, seed=8, density=0.2, passes=2)
-    cases.append(("1024x1024_two_pass", _lane_inputs(two), two_coeffs, "all", True, dev))
+    cases.append(("1024x1024_two_pass", _lane_inputs(two), two_coeffs, "all", True, host))
     cases.append(("3840x2160", _lane_inputs(data4k), None, "all", True, dev))
     four, four_coeffs = encode_xyb_vardct(WIDTH, HEIGHT, seed=7, passes=2)
     cases.append(("3840x2160_two_pass", _lane_inputs(four), four_coeffs, "all", True, None))
+    pool = ProcessPoolExecutor(max_workers=4, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        host_plain = {
+            name: pool.submit(_plain_ac_sections,
+                              [np.ascontiguousarray(v) for k, v in inp.items()
+                               if k not in LANE_KEYWORDS],
+                              {k: inp[k] for k in LANE_KEYWORDS})
+            for name, inp, *_, plain_dev in cases if plain_dev == host}
+        return _k3_cases(cases, host_plain, host, dev)
+    finally:
+        pool.shutdown(cancel_futures=True)
+
+
+def _plain_ac_sections(arrays, kw):
+    """decode_ac_sections' plain version on the host, in a worker process:
+    (coefficients, ok flags, seconds). arrays: its positional numpy inputs;
+    kw: its keywords."""
+    import torch
+
+    from jxl_tpu_torch.ops import device_ac
+
+    torch.set_num_threads(2)
+    t0 = time.perf_counter()
+    coeffs, ok = device_ac.decode_ac_sections_reference(*map(torch.from_numpy, arrays), **kw)
+    return coeffs.numpy(), ok.numpy(), time.perf_counter() - t0
+
+
+def _k3_cases(cases, host_plain, host, dev) -> dict:
+    """phase_k3's cases, each against its plain version (host_plain:
+    {case: future of _plain_ac_sections} for those on the host)."""
+    import numpy as np
+    import torch
+
+    from jxl_tpu_torch.ops import ans_lanes as AL
+    from jxl_tpu_torch.ops import device_ac
+    from jxl_tpu_torch.vardct.device_group import LANE_KEYWORDS
+
     worst = 0
     main = two_pass = None
-    for name, inp, coeffs, expect, packed, plain_dev in cases:
+    # the card's cases first, while the workers run the host's plain versions
+    for name, inp, coeffs, expect, packed, plain_dev in sorted(cases,
+                                                               key=lambda c: c[5] == host):
         arrays = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
                   for k, v in inp.items() if k not in LANE_KEYWORDS}
         kw = {k: inp[k] for k in LANE_KEYWORDS}
@@ -720,13 +781,18 @@ def phase_k3(data4k):
                "lanes": len(ok), "lanes_not_ok": np.nonzero(~ok)[0].tolist(),
                "nonzero_coefficients": int(torch.count_nonzero(got_c)),
                "tables_packed_on_host": packed}
-        if plain_dev is not None:
+        if plain_dev == host:
+            want_c, want_ok, plain_s = (torch.from_numpy(x) if i < 2 else x
+                                        for i, x in enumerate(host_plain[name].result()))
+            want_c, want_ok = want_c.to(dev), want_ok.to(dev)
+        elif plain_dev is not None:
             t0 = time.perf_counter()
             want_c, want_ok = device_ac.decode_ac_sections_reference(
                 *(x.to(plain_dev) for x in arrays.values()), **kw)
             torch.cuda.synchronize()
             plain_s = time.perf_counter() - t0
             want_c, want_ok = want_c.to(dev), want_ok.to(dev)
+        if plain_dev is not None:
             err = int((got_c.long() - want_c.long()).abs().max())
             same = torch.equal(got_c, want_c) and torch.equal(got_ok, want_ok)
             rec.update(bit_exact=same, max_abs_diff=err, plain_device=plain_dev.type,
@@ -1379,9 +1445,9 @@ def _instrument_tool_steps(records, lanes):
         return pipeline.Stage(stage.name, _timed_call(records, "splines", stage.fn),
                               stage.border, stage.shift, stage.channels)
 
-    def run_lanes(inputs, device):
+    def run_lanes(inputs, device, out=None):
         lanes.append(int(inputs["start_bits"].shape[0]))
-        return real_run_lanes(inputs, device)
+        return real_run_lanes(inputs, device, out=out)
 
     pipeline.splines_stage = splines_stage
     Frame._adopt_lf_frame = _timed_call(records, "adopt_lf_frame", real_adopt)
@@ -1532,6 +1598,273 @@ def phase_tools(streams) -> dict:
     return launches
 
 
+def _read_png(path):
+    """An 8-bit PNG of filter-0 rows (as jxl_tpu_torch/cli.py writes
+    them) as an (h, w, c) uint8 array."""
+    import zlib
+
+    import numpy as np
+
+    b = open(path, "rb").read()
+    pos, idat, ihdr = 8, b"", None
+    while pos < len(b):
+        n = int.from_bytes(b[pos : pos + 4], "big")
+        tag, payload = b[pos + 4 : pos + 8], b[pos + 8 : pos + 8 + n]
+        if tag == b"IHDR":
+            ihdr = payload
+        elif tag == b"IDAT":
+            idat += payload
+        pos += 12 + n
+    w, h = int.from_bytes(ihdr[:4], "big"), int.from_bytes(ihdr[4:8], "big")
+    check(ihdr[8] == 8, "the PNG is not 8-bit")
+    c = {0: 1, 4: 2, 2: 3, 6: 4}[ihdr[9]]
+    return np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, -1)[:, 1:].reshape(h, w, c)
+
+
+def _feed(dec, data, chunks, on_event=None) -> int:
+    """Drive a JxlDecoder to COMPLETE, feeding `data` in the pieces
+    `chunks` yields (sizes); on_event(event, bytes fed) sees every other
+    event. Returns the number of process() calls."""
+    from jxl_tpu_torch.api.decoder import Event
+
+    pos, calls = 0, 0
+    sizes = iter(chunks)
+    while True:
+        ev = dec.process()
+        calls += 1
+        if ev is Event.COMPLETE:
+            return calls
+        if ev is Event.NEED_MORE_INPUT:
+            if pos >= len(data):
+                dec.end_input()
+                continue
+            n = next(sizes)
+            dec.feed(data[pos : pos + n])
+            pos += n
+        elif on_event is not None:
+            on_event(ev, pos)
+
+
+# the streaming phase's input pieces: (a) and (b), and (c) after its
+# first 4 KiB a byte at a time
+STREAM_CHUNK_FULL = 4096
+STREAM_CHUNK_FLUSH = 65536
+
+
+def phase_streaming(progressive, anim, vdata) -> dict:
+    """The streaming decoder (api/decoder.py) and the CLI on the card.
+    (a) progressive_4k fed 4 KiB at a time, FULL_FRAME, u8 and f32: equal
+    to decode_image bit for bit, with its wall, process() calls and K3 and
+    K1 launches (1 and 1 for the main frame). (b) the same stream 64 KiB
+    at a time, EAGER, a flush at every FRAME_PROGRESSION: each flush's
+    wall and K3's lanes at each launch, the LF preview, the first flush
+    after the LF frame; every flush within f32 1e-4 of the port's CPU
+    JxlDecoder's (host AC) at the same bytes, the final frame equal to
+    (a)'s. (c) the 8-frame VarDCT animation in three jxlp boxes: a frame
+    scan, a seek to visible frame 5, then a decode fed a byte at a time
+    through its first 4 KiB: frames and durations equal to decode_image's.
+    (d) python -m jxl_tpu_torch.cli in a subprocess on the 4K VarDCT
+    stream: its PNG equal to decode_image's u8 frame, and --speedtest."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import jxl_tpu_torch
+    from jxl_tpu_torch.api.decoder import Event, JxlDecoder, JxlDecoderOptions, ProgressiveMode
+    from jxl_tpu_torch.ops import ans_lanes as AL
+    from jxl_tpu_torch.ops import device_ac
+    from jxl_tpu_torch.ops import epf_gab as K
+    from jxl_tpu_torch.vardct import device_group
+    from test_torch_frame_streams import jxlp_container
+
+    def counts():
+        return {"decode_ac_sections": device_ac.decode_ac_sections.launches,
+                "epf_gab": K.epf_gab.launches}
+
+    out = {}
+    # (a) the main path: counts from 0 around the two streaming decodes
+    K.epf_gab.launches = 0
+    device_ac.decode_ac_sections.launches = 0
+    AL.ans_decode_batch.launches = 0
+    full = {}
+    for fmt in ("u8", "f32"):
+        dec = JxlDecoder(JxlDecoderOptions(pixel_format=fmt))
+        per_frame = []
+        before = counts()
+
+        def on_event(ev, pos, per_frame=per_frame):
+            if ev is Event.FRAME_DONE:
+                now = counts()
+                per_frame.append({k: now[k] - before[k] for k in now})
+                before.update(now)
+
+        t0 = time.perf_counter()
+        calls = _feed(dec, progressive, iter(lambda: STREAM_CHUNK_FULL, None), on_event)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        full[fmt] = dec.frames
+        emit({"phase": "streaming", "part": "a", "format": fmt, "chunk": STREAM_CHUNK_FULL,
+              "bytes": len(progressive), "seconds": wall, "process_calls": calls,
+              "launches_per_frame": per_frame})
+        check(len(dec.frames) == 1, f"(a) {fmt}: {len(dec.frames)} frames")
+        check(per_frame[-1] == {"decode_ac_sections": 1, "epf_gab": 1},
+              f"(a) {fmt}: the main frame launched {per_frame[-1]}, not K3 once and K1 once")
+    launches = counts()
+    launches["ans_decode_batch"] = AL.ans_decode_batch.launches
+    for fmt in ("u8", "f32"):
+        t0 = time.perf_counter()
+        ref = jxl_tpu_torch.decode_image(progressive, pixel_format=fmt)
+        torch.cuda.synchronize()
+        same = torch.equal(full[fmt][0], ref.frames[0])
+        emit({"phase": "streaming", "part": "a", "format": fmt,
+              "decode_image_seconds": time.perf_counter() - t0, "bit_equal_to_decode_image": same})
+        check(same, f"(a) {fmt}: the streaming decode differs from decode_image")
+    out["launches"] = launches
+
+    # (b) progressive flushes on the card, then the CPU decoder at the same bytes
+    lanes = []
+    real_run_lanes = device_group.run_lanes
+
+    def run_lanes(inputs, device, out=None):
+        lanes.append(int(inputs["start_bits"].shape[0]))
+        return real_run_lanes(inputs, device, out=out)
+
+    def flushed(device):
+        dec = JxlDecoder(JxlDecoderOptions(progressive_mode=ProgressiveMode.EAGER), device=device)
+        flushes = []
+        marks = {}
+
+        def on_event(ev, pos):
+            if ev is Event.FRAME_DONE and "lf_done" not in marks:
+                marks["lf_done"] = time.perf_counter()
+            if ev is not Event.FRAME_PROGRESSION:
+                return
+            n_lanes = len(lanes)
+            t0 = time.perf_counter()
+            fl = dec.flush_pixels()
+            if device == "cuda":
+                torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            flushes.append({"bytes": pos, "seconds": t1 - t0,
+                            "shape": None if fl is None else list(fl.shape),
+                            "pixels": None if fl is None else fl.cpu().numpy()})
+            if "lf_done" in marks and "first" not in marks and fl is not None:
+                marks["first"] = (t1 - marks["lf_done"], t1 - t0)
+            flushes[-1]["k3_lanes"] = lanes[n_lanes:]
+
+        _feed(dec, progressive, iter(lambda: STREAM_CHUNK_FLUSH, None), on_event)
+        return dec, flushes, marks
+
+    device_group.run_lanes = run_lanes
+    K.epf_gab.launches = 0
+    device_ac.decode_ac_sections.launches = 0
+    try:
+        dec, card, marks = flushed("cuda")
+    finally:
+        device_group.run_lanes = real_run_lanes
+    out["flush_launches"] = counts()
+    card_lanes = list(lanes)
+    check(out["flush_launches"]["decode_ac_sections"] == len(card_lanes),
+          f"(b) K3 launched {out['flush_launches']} times over {card_lanes} lanes")
+    check(torch.equal(dec.frames[0], full["f32"][0]),
+          "(b) the final frame after the flushes differs from (a)'s")
+    main = dec.frame.header
+    n_lanes = main.num_groups * main.passes.num_passes
+    pv = dec.lf_preview()
+    fh = dec.file_header
+    check(pv is not None and tuple(pv.shape) == (-(-fh.ysize // 8), -(-fh.xsize // 8), 3),
+          "(b) no 1/8 LF preview")
+    os.environ["JXL_TPU_AC"] = "host"
+    try:
+        t0 = time.perf_counter()
+        _, cpu, _ = flushed("cpu")
+        cpu_s = time.perf_counter() - t0
+    finally:
+        os.environ.pop("JXL_TPU_AC", None)
+    check([f["bytes"] for f in card] == [f["bytes"] for f in cpu],
+          "(b) the card and the CPU flushed at different bytes")
+    diffs = []
+    for a, b in zip(card, cpu):
+        check((a["pixels"] is None) == (b["pixels"] is None), "(b) a flush rendered on one side")
+        if a["pixels"] is not None:
+            check(a["pixels"].shape == b["pixels"].shape, "(b) flush shapes differ")
+            diffs.append(float(np.abs(a["pixels"].astype(np.float64) - b["pixels"]).max()))
+    check(diffs and max(diffs) <= 1e-4, f"(b) a flush differs from the CPU's: {diffs}")
+    check(sum(card_lanes) == n_lanes, f"(b) K3 ran {card_lanes} lanes, not {n_lanes} in all")
+    out["flushes"] = len(card)
+    out["flush_seconds"] = [f["seconds"] for f in card]
+    out["k3_lanes_per_launch"] = card_lanes
+    emit({"phase": "streaming", "part": "b", "chunk": STREAM_CHUNK_FLUSH, "flushes": len(card),
+          "flush_seconds": out["flush_seconds"], "flush_bytes": [f["bytes"] for f in card],
+          "flush_shapes": [f["shape"] for f in card],
+          "k3_lanes_per_flush": [f["k3_lanes"] for f in card],
+          "k3_lanes_per_launch": card_lanes, "launches": out["flush_launches"],
+          "lf_preview_shape": list(pv.shape),
+          "first_flush_after_lf_frame_s": marks.get("first", (None,))[0],
+          "first_flush_after_lf_frame_flush_s": marks.get("first", (None, None))[1],
+          "vs_cpu_max_abs_diff": diffs, "limit": 1e-4, "cpu_flushed_decode_s": cpu_s,
+          "final_frame_equals_a": True})
+
+    # (c) the animation in three jxlp boxes: scan, seek, byte-at-a-time
+    want = jxl_tpu_torch.decode_image(anim)
+    scan = JxlDecoder(JxlDecoderOptions(scan_frames_only=True))
+    _feed(scan, anim, iter(lambda: 65536, None))
+    offs = [f.codestream_offset for f in scan.scanned_frames]
+    wrapped = jxlp_container(anim, [offs[2], offs[5]])
+    dec = JxlDecoder(JxlDecoderOptions(scan_frames_only=True))
+    _feed(dec, wrapped, iter(lambda: 65536, None))
+    check(len(dec.scanned_frames) == 8, f"(c) the scan found {len(dec.scanned_frames)} frames")
+    target = dec.scanned_frames[5].seek_target
+    t0 = time.perf_counter()
+    dec.start_new_frame(target)
+    while dec.process() is not Event.COMPLETE:
+        pass
+    torch.cuda.synchronize()
+    seek_s = time.perf_counter() - t0
+    check(torch.equal(dec.frames[0], want.frames[5]), "(c) the seek to frame 5 differs")
+    dec = JxlDecoder()
+    sizes = (1 if i < 4096 else STREAM_CHUNK_FLUSH for i in range(len(wrapped)))
+    t0 = time.perf_counter()
+    calls = _feed(dec, wrapped, sizes)
+    torch.cuda.synchronize()
+    byte_s = time.perf_counter() - t0
+    same = (len(dec.frames) == 8 and dec.durations == want.durations
+            and all(torch.equal(a, b) for a, b in zip(dec.frames, want.frames)))
+    check(same, "(c) the jxlp-boxed animation differs from decode_image")
+    emit({"phase": "streaming", "part": "c", "jxlp_boxes": 3, "scanned_frames": len(offs),
+          "seek_target": target.__dict__, "seek_seconds": seek_s, "seek_equals_frame_5": True,
+          "byte_at_a_time_first_bytes": 4096, "process_calls": calls, "seconds": byte_s,
+          "frames_equal": same, "durations_ms": dec.durations})
+
+    # (d) the CLI in a subprocess, with this process's environment
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "vardct_4k.jxl")
+        png = os.path.join(tmp, "vardct_4k.png")
+        with open(src, "wb") as f:
+            f.write(vdata)
+        here = os.path.dirname(os.path.abspath(__file__))
+        runs = {}
+        for key, args in (("png", [src, png]), ("speedtest", [src, "--speedtest", "--num_reps",
+                                                              "3"])):
+            t0 = time.perf_counter()
+            r = subprocess.run([sys.executable, "-m", "jxl_tpu_torch.cli", *args], cwd=here,
+                               capture_output=True, text=True, timeout=300)
+            runs[key] = (time.perf_counter() - t0, r.stdout.strip())
+            check(r.returncode == 0, f"(d) the CLI {key} run failed: {r.stderr[-2000:]}")
+        got = _read_png(png)
+    ref = jxl_tpu_torch.decode_image(vdata, pixel_format="u8").frames[0].cpu().numpy()
+    same = got.shape == ref.shape and np.array_equal(got, ref)
+    check(same, "(d) the CLI's PNG differs from decode_image's u8 frame")
+    mp_line = runs["speedtest"][1].splitlines()[-1]
+    check("MP/s" in mp_line, f"(d) no MP/s line: {mp_line}")
+    emit({"phase": "streaming", "part": "d", "cli_png_seconds": runs["png"][0],
+          "cli_png_equals_decode_image_u8": same, "cli_speedtest_seconds": runs["speedtest"][0],
+          "speedtest": mp_line})
+    out["cli_speedtest"] = mp_line
+    return out
+
+
 def phase_profile(data, stream: str, expect: str) -> None:
     """One u8 decode under torch.profiler: device time by operation, and
     the share of the decode's wall time the card was busy. A trace that
@@ -1650,6 +1983,7 @@ def main() -> int:
     layout_launches = run("layouts", phase_layouts, lstreams)
     frame_launches = run("frames", phase_frames, mstreams)
     tool_launches = run("tools", phase_tools, tstreams)
+    streaming = run("streaming", phase_streaming, tstreams[0][1], mstreams[0][1], vdata)
     emit({"phase": "timing", "seconds": phase_s, "total_s": time.perf_counter() - start})
     null_reason = "no single torch call computes a rANS decode"
     emit({"kernels": [
@@ -1660,6 +1994,8 @@ def main() -> int:
          "launches_layouts_path": layout_launches["epf_gab"],
          "launches_frames_path": frame_launches["epf_gab"],
          "launches_tools_path": tool_launches["epf_gab"],
+         "launches_streaming_path": streaming["launches"]["epf_gab"],
+         "launches_streaming_flush_path": streaming["flush_launches"]["epf_gab"],
          "max_abs_err": max_err, "ms": k["kernel_ms"], "call_ms": k["call_ms"],
          "plain_ms": k["plain_ms"],
          "bound_ms": k["bound_ms"], "bound_by": k["bound_by"], "library_ms": None,
@@ -1670,7 +2006,8 @@ def main() -> int:
         {"name": "ans_decode_batch", "route": "cuda", "source": "jxl_tpu_torch/csrc/ans_lanes.cu",
          "replaces": "jxl_tpu/ops/pallas_ans.py:105", "launches": k2["launches"],
          "launches_note": "its own path, the batch decode entry point; no decode path "
-                          "calls K2",
+                          "calls K2 (streaming path: "
+                          f"{streaming['launches']['ans_decode_batch']})",
          "max_abs_err": k2["max_abs_err"], "ms": k2["kernel_ms"], "call_ms": k2["call_ms"],
          "plain_ms": k2["plain_ms"], "ns_per_step": k2["ns_per_step"],
          "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"], "library_ms": None,
@@ -1683,6 +2020,9 @@ def main() -> int:
          "launches_layouts_path": layout_launches["decode_ac_sections"],
          "launches_frames_path": frame_launches["decode_ac_sections"],
          "launches_tools_path": tool_launches["decode_ac_sections"],
+         "launches_streaming_path": streaming["launches"]["decode_ac_sections"],
+         "launches_streaming_flush_path": streaming["flush_launches"]["decode_ac_sections"],
+         "k3_lanes_per_launch_streaming_flushes": streaming["k3_lanes_per_launch"],
          "max_abs_err": k3["max_abs_err"], "ms": k3["kernel_ms"], "call_ms": k3["call_ms"],
          "plain_ms": k3["plain_ms"], "ns_per_step": k3["ns_per_step"],
          "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"], "library_ms": None,

@@ -139,12 +139,16 @@ class Frame:
 
     # -- LfGlobal ----------------------------------------------------------------
 
-    def decode_lf_global(self, br: BitReader) -> None:
+    def decode_lf_global(self, br: BitReader, allow_partial: bool = False) -> None:
         """ref frame/decode.rs:314-434: the patches dictionary (read
         against the reference slots' shapes), the splines, the noise
         parameters, then the tables and the global Modular image; the
         splines' draw cache is built once the colour correlation is known
-        (ref jxl_tpu/api/frame.py:171-174, 231-233)."""
+        (ref jxl_tpu/api/frame.py:171-174, 231-233). With allow_partial
+        (the progressive flush of an LfGlobal section whose bytes have not
+        all arrived), the section-0 Modular channels decode as far as the
+        bytes go and the finished ones are kept
+        (modular_global.early_render_ok says whether they render)."""
         header = self.header
         is_vardct = header.encoding == Encoding.VARDCT
         state = LfGlobalState()
@@ -199,7 +203,7 @@ class Frame:
             self.modular_color_channels,
             br,
         )
-        state.modular_global.read_section0(header, state.tree, br)
+        state.modular_global.read_section0(header, state.tree, br, allow_partial=allow_partial)
         self.lf_global = state
 
     # -- LF / HF groups ------------------------------------------------------------
@@ -354,17 +358,23 @@ class Frame:
         page-locked when the render runs on the card, so its upload needs
         no staging copy and no wait. jobs: [(group, [(pass, BitReader)])]
         in group order."""
-        from ..vardct.group import GROUP_DIM, try_decode_hf_groups
+        from ..vardct.group import try_decode_hf_groups
 
-        n = self.header.num_groups * 3 * GROUP_DIM * GROUP_DIM
-        if torch.device(device).type == "cuda":
-            pool = torch.zeros(n, dtype=torch.int32, pin_memory=True).numpy()
-        else:
-            pool = np.zeros(n, np.int32)
+        pool = self._host_ac_pool(device)
         if try_decode_hf_groups(self, [(g, readers[0][1]) for g, readers in jobs], pool):
             return
         self.host_ac_flat = pool
         self._decode_hf_groups_parallel(jobs)
+
+    def _host_ac_pool(self, device) -> np.ndarray:
+        """A zeroed dense (G * 3 * 256 * 256,) int32 coefficient pool for
+        the host AC decoder, page-locked when the render runs on the card."""
+        from ..vardct.group import GROUP_DIM
+
+        n = self.header.num_groups * 3 * GROUP_DIM * GROUP_DIM
+        if torch.device(device).type == "cuda":
+            return torch.zeros(n, dtype=torch.int32, pin_memory=True).numpy()
+        return np.zeros(n, np.int32)
 
     def _decode_hf_groups_parallel(self, jobs) -> None:
         """Fan HF-group section decoding out over a host thread pool (the
@@ -384,6 +394,143 @@ class Frame:
             futs = [ex.submit(self.decode_hf_group, g, r) for g, r in jobs]
             for f in futs:
                 f.result()
+
+    # -- incremental section decode (the streaming decoder) ---------------------------------
+    #
+    # Sections decode as their bytes arrive, in dependency order (ref
+    # codestream_parser/frame_info.rs:551-604; jxl_tpu/api/frame.py:330-440):
+    # LfGlobal, the LF groups, HfGlobal, finalize_lf, then each group's
+    # passes in pass order. A frame that takes the lane decoder queues each
+    # complete (group, pass) section on the host and launches K3 over the
+    # queue only when pixels are needed (launch_pending_lanes: at the end
+    # of the frame, or at a progressive flush), so a streaming decode
+    # without a flush launches it once, as decode_image does. Host-route
+    # frames decode group by group as their sections arrive.
+
+    def begin_sections(self, device="cuda") -> None:
+        """Start an incremental decode whose AC and render run on `device`."""
+        ends = np.cumsum(self.toc.entries).tolist()
+        self._stored_end = ends  # byte end of each stored section, from the TOC's end
+        self._sec_decoded = [False] * len(self.toc.entries)
+        self._lf_finalized = False
+        self._passes_done = [0] * self.header.num_groups
+        self._transforms_done = False
+        self.device = torch.device(device)
+        self.ac_route = None  # "lanes" or "host", chosen after HfGlobal
+        self.pending_lanes = {}  # {(group, pass): BitReader} not yet launched
+
+    def _section_end(self, logical: int) -> int:
+        stored = self.toc.permutation[logical] if self.toc.permuted else logical
+        return self._stored_end[stored]
+
+    def _section_reader(self, logical: int, codestream, toc_end: int) -> BitReader:
+        stored = self.toc.permutation[logical] if self.toc.permuted else logical
+        start = self._stored_end[stored] - self.toc.entries[stored]
+        return BitReader(bytes(codestream[toc_end + start : toc_end + self._stored_end[stored]]))
+
+    def _choose_ac_route(self) -> None:
+        """The AC routing of _decode_vardct_sections: the lane decoder for
+        an eligible frame unless JXL_TPU_AC=host, else the host decoder
+        group by group into host_ac_flat."""
+        import os
+
+        from ..vardct.device_group import eligible_for_device_ac
+
+        if self.header.encoding != Encoding.VARDCT:
+            return
+        host = os.environ.get("JXL_TPU_AC", "auto") == "host"
+        if not host and eligible_for_device_ac(self):
+            self.ac_route = "lanes"
+        else:
+            self.ac_route = "host"
+            self.host_ac_flat = self._host_ac_pool(self.device)
+
+    def launch_pending_lanes(self) -> int:
+        """Launch the lane decoder (K3 on the card) once over the queued
+        sections, adding their coefficients into device_ac_flat; returns
+        the number of lanes launched (0 launches nothing)."""
+        if not self.pending_lanes:
+            return 0
+        from ..utils import trace
+        from ..vardct.device_group import decode_ac_sections_device
+
+        lanes, self.pending_lanes = self.pending_lanes, {}
+        with trace.span("frame.k3_launch"):
+            decode_ac_sections_device(self, lanes, self.device)
+        trace.metrics.add("k3_lanes", len(lanes))
+        return len(lanes)
+
+    def process_sections_incremental(self, codestream, toc_end: int, avail: int) -> int | None:
+        """Decode every section whose bytes have arrived (`avail` bytes of
+        `codestream`, the frame's sections starting at byte `toc_end`).
+        Returns None once the frame is decoded, else the absolute byte
+        position the next section needs. A frame of one section decodes
+        through decode_all_sections once its bytes are all there."""
+        header = self.header
+        rel_avail = avail - toc_end
+        if header.num_toc_entries == 1:
+            if rel_avail < self._stored_end[0]:
+                return toc_end + self._stored_end[0]
+            if not self._sec_decoded[0]:
+                self.decode_all_sections(self._section_reader(0, codestream, toc_end),
+                                         self.device)
+                self._sec_decoded[0] = True
+                self._lf_finalized = self._transforms_done = True
+                self._passes_done = [header.passes.num_passes] * header.num_groups
+            return None
+
+        def ready(logical):
+            return not self._sec_decoded[logical] and rel_avail >= self._section_end(logical)
+
+        def take(logical):
+            self._sec_decoded[logical] = True
+            return self._section_reader(logical, codestream, toc_end)
+
+        i_lfg = self.section_index("lf_global")
+        if self.lf_global is None:
+            if not ready(i_lfg):
+                return toc_end + self._section_end(i_lfg)
+            self.decode_lf_global(take(i_lfg))
+        for g in range(header.num_lf_groups):
+            if ready(self.section_index("lf", group=g)):
+                self.decode_lf_group(g, take(self.section_index("lf", group=g)))
+        i_hfg = self.section_index("hf_global")
+        if ready(i_hfg):
+            self.decode_hf_global(take(i_hfg))
+        if not self._lf_finalized and all(
+                self._sec_decoded[self.section_index("lf", group=g)]
+                for g in range(header.num_lf_groups)) and self._sec_decoded[i_hfg]:
+            self.finalize_lf()
+            self._choose_ac_route()
+            self._lf_finalized = True
+
+        if self._lf_finalized:
+            jobs = []
+            for g in range(header.num_groups):
+                readers = []
+                p = self._passes_done[g]
+                while p < header.passes.num_passes and ready(
+                        self.section_index("hf", group=g, pass_idx=p)):
+                    readers.append((p, take(self.section_index("hf", group=g, pass_idx=p))))
+                    p += 1
+                if not readers:
+                    continue
+                self._passes_done[g] = p
+                if self.ac_route == "lanes":
+                    self.pending_lanes.update({(g, q): br for q, br in readers})
+                else:
+                    jobs.append((g, readers))
+            if jobs:
+                self._decode_hf_groups_parallel(jobs)
+
+        if all(self._sec_decoded):
+            self.launch_pending_lanes()
+            if not self._transforms_done:
+                self.lf_global.modular_global.run_transforms()
+                self._transforms_done = True
+            return None
+        need = min(self._section_end(i) for i, d in enumerate(self._sec_decoded) if not d)
+        return toc_end + max(need, rel_avail + 1)
 
     # -- outputs ---------------------------------------------------------------------------
 

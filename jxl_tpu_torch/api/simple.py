@@ -28,6 +28,7 @@ from ..io.container import extract_codestream_ex
 from ..io.headers import FileHeader
 from ..io.headers.frame import FrameHeader, FrameType, Toc
 from ..render.pipeline import check_frame as _check_frame
+from ..utils import trace
 from .frame import Frame
 from .state import DecoderState
 
@@ -97,10 +98,61 @@ def parse_frame(br: BitReader, file_header: FileHeader, decoder_state=None,
     return Frame(frame_header, toc, file_header, decoder_state)
 
 
-def _duration_ms(header, meta) -> float:
+def duration_ms(header, meta) -> float:
+    """A frame's duration in ms; 0.0 without an animation header."""
     if meta.animation is None:
         return 0.0
     return header.duration * 1000.0 * meta.animation.tps_denominator / meta.animation.tps_numerator
+
+
+def finish_frame(frame, state, device, pixel_format: str = "f32", options=None, timings=None):
+    """The per-frame work after a frame's sections are decoded, the same
+    for decode_image and the streaming decoder (api/decoder.py): render
+    every stage on `device` (render/simple.py:render_frame_channels), keep
+    an LF frame's planes in its LF slot, keep a reference frame's planes
+    in its slot before or after the colour transform as its header asks,
+    run the colour transform, blend a cropped or blended frame onto the
+    canvas (else crop to the image), and, for a visible frame, mix in the
+    spot colours and premultiply (as `options` asks: render_spot_colors,
+    premultiply_output; None keeps the defaults), convert to
+    `pixel_format` and orient (unless options.apply_orientation is False)
+    (ref jxl_tpu/api/simple.py:137-224, jxl_tpu/api/decoder.py:726-803).
+    Returns the visible frame, an (H, W, C) tensor on `device`, or None
+    for a frame that is not shown."""
+    from ..render.simple import (apply_orientation, apply_spot_and_premultiply,
+                                 blend_and_extend, color_transform, render_frame_channels)
+    from ..render.stages import core as st
+
+    header = frame.header
+    fh = frame.file_header
+    with trace.span("frame.render"):
+        planes, color_done, converted = render_frame_channels(
+            frame, device, pixel_format, timings)
+    if header.lf_level != 0:
+        state.save_lf_frame(header.lf_level, planes)
+    if header.frame_type == FrameType.LF_FRAME:
+        # an LF frame is neither shown nor referenced, and never the last:
+        # jxl_tpu's colour transform and crop of it go unused
+        return None
+    if header.can_be_referenced and header.save_before_ct:
+        state.save_reference(header.save_as_reference, planes, True)
+    if header.frame_type != FrameType.REFERENCE_ONLY and not color_done:
+        planes = color_transform(frame, planes)
+    if header.needs_blending():
+        canvas = blend_and_extend(frame, planes)
+    else:
+        canvas = [p[: fh.ysize, : fh.xsize] for p in planes]
+    if header.can_be_referenced and not header.save_before_ct:
+        state.save_reference(header.save_as_reference, canvas, False)
+    if not header.is_visible:
+        return None
+    canvas = apply_spot_and_premultiply(frame, canvas, options)
+    if pixel_format != "f32" and not converted:
+        canvas = [st.convert_output(p, pixel_format, channel=i) for i, p in enumerate(canvas)]
+    arr = torch.stack(canvas, dim=-1)
+    if options is None or options.apply_orientation:
+        arr = apply_orientation(arr, fh.image_metadata.orientation)
+    return arr
 
 
 def decode_image(
@@ -140,11 +192,7 @@ def decode_image(
             "decode_image: no CUDA device is available; pass device='cpu' "
             "to render on the host"
         )
-    from ..render.simple import (apply_orientation, apply_spot_and_premultiply,
-                                 blend_and_extend, color_transform, render_frame_channels)
-    from ..render.stages import core as st
-
-    t0 = time.perf_counter()
+    t0 = t_start = time.perf_counter()
     codestream, ooo_ranges = extract_codestream_ex(data)
     br = BitReader(codestream)
     fh = FileHeader.read(br)
@@ -176,38 +224,20 @@ def decode_image(
         frame = parse_frame(br, fh, state)
         header = frame.header
         _check_frame(header)
-        frame.decode_all_sections(br, device)
+        with trace.span("decode_image.sections"):
+            frame.decode_all_sections(br, device)
         host_s += time.perf_counter() - t0
 
-        planes, color_done, converted = render_frame_channels(
-            frame, device, pixel_format, out.timings)
-        if header.lf_level != 0:
-            state.save_lf_frame(header.lf_level, planes)
-        if header.frame_type == FrameType.LF_FRAME:
-            # an LF frame is neither shown nor referenced, and never the
-            # last: jxl_tpu's colour transform and crop of it go unused
-            continue
-        if header.can_be_referenced and header.save_before_ct:
-            state.save_reference(header.save_as_reference, planes, True)
-        if header.frame_type != FrameType.REFERENCE_ONLY and not color_done:
-            planes = color_transform(frame, planes)
-        if header.needs_blending():
-            canvas = blend_and_extend(frame, planes)
-        else:
-            canvas = [p[: fh.ysize, : fh.xsize] for p in planes]
-        if header.can_be_referenced and not header.save_before_ct:
-            state.save_reference(header.save_as_reference, canvas, False)
-        if header.is_visible:
-            canvas = apply_spot_and_premultiply(frame, canvas)
-            if pixel_format != "f32" and not converted:
-                canvas = [st.convert_output(p, pixel_format, channel=i)
-                          for i, p in enumerate(canvas)]
-            arr = torch.stack(canvas, dim=-1)
-            out.frames.append(apply_orientation(arr, meta.orientation))
-            out.durations.append(_duration_ms(header, meta))
+        arr = finish_frame(frame, state, device, pixel_format, timings=out.timings)
+        if arr is not None:
+            out.frames.append(arr)
+            out.durations.append(duration_ms(header, meta))
             if not keep_all_frames and header.is_last:
                 break
         if header.is_last:
             break
     out.timings["host_s"] = host_s
+    trace.metrics.add("megapixels_decoded",
+                      sum(f.shape[0] * f.shape[1] for f in out.frames) / 1e6)
+    trace.metrics.add("decode_seconds", time.perf_counter() - t_start)
     return out

@@ -318,7 +318,7 @@ def decode_ac_sections(streams, start_bits, lane_group, lane_ctx_off, lane_shift
                        lane_order_base, lane_coeff_base, lane_n_items, lane_end_bits,
                        items, orders, tables, uint_cfgs, context_map, *, log_bucket: int,
                        num_bctx: int, total: int, n_buckets: int, packed_buckets=None,
-                       packed_cfgs=None):
+                       packed_cfgs=None, out=None):
     """Decode every lane's AC token stream.
 
     streams (S, L) uint8, zero-padded (>= 8 bytes slack); eight (S,) int32
@@ -337,7 +337,10 @@ def decode_ac_sections(streams, start_bits, lane_group, lane_ctx_off, lane_shift
     means no range error, every item walked, final state 0x130000, and the
     cursor within the section's bytes. Raises ValueError on tables K3's
     packing cannot hold (check_table_ranges): always on the CPU, and on the
-    card when it packs them itself."""
+    card when it packs them itself. out: a (total,) int32 buffer on the
+    same device that the lanes' coefficients add into (K3's stores are
+    atomic adds, so lanes decoded in separate calls sum to the buffer one
+    call over all of them gives); it is then the coefficients returned."""
     lane_arrays = (start_bits, lane_group, lane_ctx_off, lane_shift, lane_order_base,
                    lane_coeff_base, lane_n_items, lane_end_bits)
     tabs = (items, orders, tables, uint_cfgs, context_map)
@@ -368,10 +371,16 @@ def decode_ac_sections(streams, start_bits, lane_group, lane_ctx_off, lane_shift
                                ("packed_cfgs", packed_cfgs, (C,))):
             if x.dtype != torch.int32 or x.device != streams.device or tuple(x.shape) != shape:
                 raise ValueError(f"{name} must be int32 {shape} on {streams.device}")
+    if out is not None and (out.dtype != torch.int32 or out.device != streams.device
+                            or tuple(out.shape) != (total,) or not out.is_contiguous()):
+        raise ValueError(f"out must be a contiguous ({total},) int32 tensor on {streams.device}")
     kw = dict(log_bucket=log_bucket, num_bctx=num_bctx, total=total, n_buckets=n_buckets)
     if streams.device.type == "cpu":
         check_table_ranges(tables.numpy(), uint_cfgs.numpy(), context_map.numpy())
-        return decode_ac_sections_reference(streams, *lane_arrays, *tabs, **kw)
+        coeffs, ok = decode_ac_sections_reference(streams, *lane_arrays, *tabs, **kw)
+        if out is None:
+            return coeffs, ok
+        return out.add_(coeffs), ok
     if streams.device.type != "cuda":
         raise ValueError(f"decode_ac_sections runs on cpu or cuda, not {streams.device}")
     if packed_buckets is None:
@@ -390,7 +399,7 @@ def decode_ac_sections(streams, start_bits, lane_group, lane_ctx_off, lane_shift
         raise ValueError("decode_ac_sections takes contiguous tensors")
     plan = ac_smem_plan(C=C, NB=n_buckets, num_bctx=num_bctx, NC=context_map.numel())
     lib = load()
-    coeffs = torch.zeros(total, dtype=torch.int32, device=streams.device)
+    coeffs = torch.zeros(total, dtype=torch.int32, device=streams.device) if out is None else out
     ok = torch.empty(S, dtype=torch.uint8, device=streams.device)
     with torch.cuda.device(streams.device):
         stream = torch.cuda.current_stream(streams.device).cuda_stream

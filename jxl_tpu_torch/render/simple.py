@@ -99,27 +99,38 @@ def frame_planes(frame, device) -> torch.Tensor:
     return torch.stack(planes)
 
 
-def vardct_planes(frame, device) -> list:
+def vardct_planes(frame, device, no_ac_groups=()) -> list:
     """A VarDCT frame's three planes (XYB, or Cb, Y, Cr) on `device`, each
     (bh*8 >> vshift, bw*8 >> hshift): the whole frame's size unless the
     frame is chroma-subsampled. From the lane decoder's coefficients
     (already there) or the host decoder's (one dense upload); the lane
     flags are checked after the render is queued (ref
     render/simple.py:108-115, api/frame.py:_finish_device_render,
-    :509-513)."""
+    :509-513). The groups of `no_ac_groups` (a progressive flush's groups
+    with no AC pass yet) take the LF image upsampled 8x instead
+    (vardct/lf.py:upsample_lf_groups); before any AC has been decoded the
+    coefficients are zeros."""
     from ..vardct.device_frame import (render_vardct_frame_device,
                                        render_vardct_frame_device_subsampled)
     from ..vardct.device_group import check_device_ac_ok
+    from ..vardct.group import GROUP_DIM
 
     flat = frame.device_ac_flat
-    if flat is None:
+    if flat is None and frame.host_ac_flat is not None:
         flat = st.to_device(frame.host_ac_flat, device)
+    elif flat is None:
+        flat = torch.zeros(frame.header.num_groups * 3 * GROUP_DIM * GROUP_DIM,
+                           dtype=torch.int32, device=device)
     flat = flat.to(device)
     if frame.header.is444:
         planes = list(render_vardct_frame_device(frame, flat).unbind(0))
     else:
         planes = render_vardct_frame_device_subsampled(frame, flat)
     check_device_ac_ok(frame)
+    if no_ac_groups:
+        from ..vardct.lf import upsample_lf_groups
+
+        planes = upsample_lf_groups(frame, planes, no_ac_groups)
     return planes
 
 
@@ -137,7 +148,8 @@ def _extra_channel_planes(frame, device) -> list:
     ]
 
 
-def render_frame_channels(frame, device, out_format: str = "f32", timings=None):
+def render_frame_channels(frame, device, out_format: str = "f32", timings=None,
+                          no_ac_groups=()):
     """All stages of one frame on `device` (ref jxl_tpu/render/simple.py:
     render_frame_channels_ex, :153-204): (planes, color_done, converted),
     planes a list of 3 + extra channels tensors at the frame's upsampled
@@ -148,7 +160,8 @@ def render_frame_channels(frame, device, out_format: str = "f32", timings=None):
     has no extra channels: every other frame stays float32, and the
     caller converts the canvas after blending, so that the dither pattern
     sits at the image's (0, 0). timings, a dict, gets "noise_field_s", the host seconds of the
-    noise field, when the frame has noise."""
+    noise field, when the frame has noise. no_ac_groups: the VarDCT groups
+    a progressive flush renders from the upsampled LF (vardct_planes)."""
     from ..io.headers.frame import Encoding, FrameType
     from .pipeline import build_render_pipeline, color_transform_stage, convert_output_stage
     from .span_exec import run_span
@@ -157,7 +170,7 @@ def render_frame_channels(frame, device, out_format: str = "f32", timings=None):
     num_ec = len(frame.file_header.image_metadata.extra_channel_info)
     stages = build_render_pipeline(frame)
     if header.encoding == Encoding.VARDCT:
-        chans = vardct_planes(frame, device)
+        chans = vardct_planes(frame, device, no_ac_groups)
     else:
         chans = list(frame_planes(frame, device).unbind(0))
     if num_ec:

@@ -12,6 +12,7 @@ bit.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..io.headers.frame import Encoding
 from .group import GROUP_DIM, _BlockList, _build_pass_items, _ceil_log2
@@ -54,21 +55,22 @@ def _group_items(frame, bl, bctx):
     return out
 
 
-def lane_inputs(frame, group_readers: dict) -> dict:
-    """The numpy inputs of decode_ac_sections for every (group, pass)
-    section: {"streams", eight lane arrays, "items", "orders", "tables",
-    "uint_cfgs", "context_map", and the keywords log_bucket, num_bctx,
-    total, n_buckets}. group_readers: {(group, pass): BitReader}; each
-    reader's histogram index is read here."""
+def lane_tables(frame) -> dict:
+    """The frame's pass-independent inputs of decode_ac_sections, built
+    once and kept on the frame (a streaming decode launches the lanes of
+    the sections that have arrived, in more than one call): "items",
+    "orders", "tables", "uint_cfgs", "context_map", the keywords
+    log_bucket, num_bctx, total, n_buckets, and the per-pass and per-group
+    bases the lanes read ("pass_order_base", "ctx_base", "n_items")."""
+    cached = getattr(frame, "_lane_tables", None)
+    if cached is not None:
+        return cached
     from .. import native
-    from ..errors import InvalidHistogramIndex
 
     header = frame.header
     hf_global = frame.hf_global
     bctx = frame.lf_global.block_context_map
-    num_passes = header.passes.num_passes
     num_groups = header.num_groups
-    num_histo_bits = _ceil_log2(hf_global.num_histograms)
 
     # orders: one concatenated array over (pass, used order keys)
     blists = [_BlockList(frame, g) for g in range(num_groups)]
@@ -109,38 +111,61 @@ def lane_inputs(frame, group_readers: dict) -> dict:
     items = np.zeros((num_groups, i_max, 10), dtype=np.int32)
     for g, it in enumerate(g_items):
         items[g, : len(it)] = it
+    frame._lane_tables = dict(
+        items=items, orders=orders, tables=tables, uint_cfgs=uint_cfgs,
+        context_map=context_map, log_bucket=int(packs[0]["log_bucket"]),
+        num_bctx=bctx.num_contexts, total=num_groups * 3 * GROUP_DIM * GROUP_DIM,
+        n_buckets=int(packs[0]["table_size"]), pass_order_base=pass_order_base,
+        ctx_base=ctx_base, n_items=[len(it) for it in g_items],
+    )
+    return frame._lane_tables
 
-    S = num_groups * num_passes
+
+def lane_inputs(frame, group_readers: dict) -> dict:
+    """The numpy inputs of decode_ac_sections for the (group, pass)
+    sections of `group_readers`, {(group, pass): BitReader}, one lane each
+    in (group, pass) order: {"streams", eight lane arrays, "items",
+    "orders", "tables", "uint_cfgs", "context_map", and the keywords
+    log_bucket, num_bctx, total, n_buckets}. Each reader's histogram index
+    is read here. The tables cover the whole frame (lane_tables), so the
+    lanes of any subset of sections land where one call over all of them
+    puts them."""
+    from ..errors import InvalidHistogramIndex
+
+    header = frame.header
+    hf_global = frame.hf_global
+    bctx = frame.lf_global.block_context_map
+    num_histo_bits = _ceil_log2(hf_global.num_histograms)
+    tabs = lane_tables(frame)
+
+    keys = sorted(group_readers)
+    S = len(keys)
     lanes = {name: np.zeros(S, np.int32) for name in (
         "start_bits", "lane_group", "lane_ctx_off", "lane_shift", "lane_order_base",
         "lane_coeff_base", "lane_n_items", "lane_end_bits")}
     datas = []
-    li = 0
-    for g in range(num_groups):
-        for p in range(num_passes):
-            br = group_readers[(g, p)]
-            hist_idx = br.read(num_histo_bits)
-            if hist_idx >= hf_global.num_histograms:
-                raise InvalidHistogramIndex("invalid histogram index")
-            lanes["lane_group"][li] = g
-            lanes["lane_ctx_off"][li] = hist_idx * bctx.num_ac_contexts + ctx_base[p]
-            lanes["lane_shift"][li] = header.passes.shift[p] if p < len(header.passes.shift) else 0
-            lanes["lane_order_base"][li] = pass_order_base[p]
-            lanes["lane_coeff_base"][li] = g * 3 * GROUP_DIM * GROUP_DIM
-            lanes["lane_n_items"][li] = len(g_items[g])
-            lanes["lane_end_bits"][li] = len(br.data) * 8
-            lanes["start_bits"][li] = br.pos
-            datas.append(bytes(br.data))
-            li += 1
+    for li, (g, p) in enumerate(keys):
+        br = group_readers[(g, p)]
+        hist_idx = br.read(num_histo_bits)
+        if hist_idx >= hf_global.num_histograms:
+            raise InvalidHistogramIndex("invalid histogram index")
+        lanes["lane_group"][li] = g
+        lanes["lane_ctx_off"][li] = hist_idx * bctx.num_ac_contexts + tabs["ctx_base"][p]
+        lanes["lane_shift"][li] = header.passes.shift[p] if p < len(header.passes.shift) else 0
+        lanes["lane_order_base"][li] = tabs["pass_order_base"][p]
+        lanes["lane_coeff_base"][li] = g * 3 * GROUP_DIM * GROUP_DIM
+        lanes["lane_n_items"][li] = tabs["n_items"][g]
+        lanes["lane_end_bits"][li] = len(br.data) * 8
+        lanes["start_bits"][li] = br.pos
+        datas.append(bytes(br.data))
     l_max = _next_pow2(max(len(d) for d in datas) + 8, 64)
     streams = np.zeros((S, l_max), dtype=np.uint8)
     for i, d in enumerate(datas):
         streams[i, : len(d)] = np.frombuffer(d, dtype=np.uint8)
     return dict(
-        streams=streams, **lanes, items=items, orders=orders, tables=tables,
-        uint_cfgs=uint_cfgs, context_map=context_map,
-        log_bucket=int(packs[0]["log_bucket"]), num_bctx=bctx.num_contexts,
-        total=num_groups * 3 * GROUP_DIM * GROUP_DIM, n_buckets=int(packs[0]["table_size"]),
+        streams=streams, **lanes,
+        **{k: tabs[k] for k in ("items", "orders", "tables", "uint_cfgs", "context_map")},
+        **{k: tabs[k] for k in LANE_KEYWORDS},
     )
 
 
@@ -148,9 +173,11 @@ def lane_inputs(frame, group_readers: dict) -> dict:
 LANE_KEYWORDS = ("log_bucket", "num_bctx", "total", "n_buckets")
 
 
-def run_lanes(inputs: dict, device):
+def run_lanes(inputs: dict, device, out=None):
     """decode_ac_sections on `device` with the numpy `inputs` of
-    lane_inputs(): (coeffs (total,) int32, ok (S,) bool) tensors there.
+    lane_inputs(): (coeffs (total,) int32, ok (S,) bool) tensors there;
+    with `out`, a (total,) int32 tensor there, the coefficients add into
+    it.
     The tables are checked and packed here, on the host, and go up with
     the other arrays (pack_tables raises ValueError on tables K3 cannot
     take), all in one render/stages/core.py:to_device_all: pinned, one
@@ -163,17 +190,20 @@ def run_lanes(inputs: dict, device):
     *up, packed_buckets, packed_cfgs = to_device_all(
         [inputs[k] for k in names] + [buckets, cfgs], device)
     return decode_ac_sections(**dict(zip(names, up)), **{k: inputs[k] for k in LANE_KEYWORDS},
-                              packed_buckets=packed_buckets, packed_cfgs=packed_cfgs)
+                              packed_buckets=packed_buckets, packed_cfgs=packed_cfgs, out=out)
 
 
 def decode_ac_sections_device(frame, group_readers: dict, device) -> None:
-    """Decode every (group, pass) AC section of an eligible frame on
-    `device`. The coefficient buffer stays there as frame.device_ac_flat,
-    the per-lane flags as frame.device_ac_ok (check_device_ac_ok reads
-    them)."""
-    coeffs, ok = run_lanes(lane_inputs(frame, group_readers), device)
+    """Decode the (group, pass) AC sections of `group_readers` of an
+    eligible frame on `device`, in one launch. The coefficients add into
+    the frame's one buffer, frame.device_ac_flat, which stays there (the
+    first launch makes it): a streaming decode that launches the sections
+    as they arrive, in several calls, ends with the buffer one call over
+    every section gives, bit for bit. The per-lane flags join
+    frame.device_ac_ok until check_device_ac_ok reads them."""
+    coeffs, ok = run_lanes(lane_inputs(frame, group_readers), device, out=frame.device_ac_flat)
     frame.device_ac_flat = coeffs
-    frame.device_ac_ok = ok
+    frame.device_ac_ok = ok if frame.device_ac_ok is None else torch.cat([frame.device_ac_ok, ok])
 
 
 def check_device_ac_ok(frame) -> None:

@@ -8,8 +8,8 @@ The LF group section decodes in one native call where the stream allows
 it, else through the modular decoder; numeric parts are numpy on the
 host. A frame that reads an LF frame codes no LF coefficients
 (try_decode_lf_group declines it; api/frame.py adopts the LF frame's
-planes). The LF upsampling of the progressive flush is outside this
-package's slice.
+planes). upsample_lf_groups fills the groups a progressive flush has no
+AC for yet, on the render's device.
 """
 
 from __future__ import annotations
@@ -273,3 +273,43 @@ def adaptive_lf_smoothing(frame) -> None:
         f(np.float32(_W_CORNER)), f(np.float32(_W_SIDE)),
         f(np.float32(_W_CENTER)),
     )
+
+
+def upsample_lf_groups(frame, planes: list, groups) -> list:
+    """The progressive flush's pixels of the VarDCT groups in `groups`,
+    which have no AC pass yet: a 5x5 Upsample8x of the LF image (ref
+    frame/decode.rs:58-156 upsample_lf_group; jxl_tpu/vardct/lf.py:328),
+    whose borders come from the neighbouring LF groups and are mirrored
+    only at the image's edges. That is the whole LF plane upsampled once,
+    with the mirror padding of render/stages/core.py:upsample, and kept at
+    those groups' pixels: one pass a channel for every such group, on the
+    planes' device. planes: the render's three VarDCT planes (XYB, or Cb,
+    Y, Cr each at its own size); returns new planes, `planes` unchanged.
+    The LF is the frame's own (lf_image) or the adopted LF frame
+    (lf_device)."""
+    import torch
+
+    from ..render.stages import core as st
+
+    header = frame.header
+    dev = planes[0].device
+    if frame.lf_device is not None:
+        lf = frame.lf_device.to(dev)
+    else:
+        lf = st.to_device(np.stack(frame.lf_image).astype(np.float32), dev)
+    kern = st.build_upsample_kernels(frame.file_header.transform_data.weights8, 8)
+    bw, bh = header.size_blocks()
+    out = []
+    for c in range(3):
+        hs, vs = header.hshift(c), header.vshift(c)
+        lfw, lfh = (bw + (1 << hs) - 1) >> hs, (bh + (1 << vs) - 1) >> vs
+        mask = np.zeros((lfh, lfw), dtype=bool)
+        for g in groups:
+            (gx0, gy0), (gw, gh) = header.block_group_rect(g)
+            x0, y0 = gx0 >> hs, gy0 >> vs
+            mask[y0 : (gy0 + gh + (1 << vs) - 1) >> vs, x0 : (gx0 + gw + (1 << hs) - 1) >> hs] = True
+        hc, wc = planes[c].shape
+        px = st.to_device(mask, dev).repeat_interleave(8, 0).repeat_interleave(8, 1)[:hc, :wc]
+        up = st.upsample(lf[c, :lfh, :lfw].contiguous(), kern, 8)[:hc, :wc]
+        out.append(torch.where(px, up, planes[c]))
+    return out

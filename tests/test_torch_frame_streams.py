@@ -487,6 +487,29 @@ def lf_frame_stream(width=320, height=200, levels=1, passes=1, seed=5, density=0
     return encode_frames(width, height, frames)
 
 
+CONTAINER_SIGNATURE = bytes([0, 0, 0, 0x0C, 0x4A, 0x58, 0x4C, 0x20, 0x0D, 0x0A, 0x87, 0x0A])
+
+
+def box(kind: bytes, payload: bytes) -> bytes:
+    """An ISOBMFF box with a 32-bit size."""
+    return (8 + len(payload)).to_bytes(4, "big") + kind + payload
+
+
+def jxlp_container(codestream: bytes, cuts, order=None) -> bytes:
+    """`codestream` in a JPEG XL container: the signature, an ftyp box,
+    then jxlp boxes holding the codestream cut at the byte offsets `cuts`,
+    part i indexed i (the last with the high bit set), placed in the file
+    in `order` (default: index order)."""
+    bounds = [0, *cuts, len(codestream)]
+    parts = [codestream[a:b] for a, b in zip(bounds, bounds[1:])]
+    last = len(parts) - 1
+    boxes = [box(b"jxlp", (i | (0x80000000 if i == last else 0)).to_bytes(4, "big") + p)
+             for i, p in enumerate(parts)]
+    order = range(len(parts)) if order is None else order
+    return (CONTAINER_SIGNATURE + box(b"ftyp", b"jxl \0\0\0\0jxl ")
+            + b"".join(boxes[i] for i in order))
+
+
 # -- the JAX package reads the streams back -------------------------------------
 
 
