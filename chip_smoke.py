@@ -14,7 +14,9 @@ a non-zero exit:
              for all six stage sets (gaborish on/off x epf_iters 1-3, each
              timed beside its bound), at 1920x1080 (the upsampled VarDCT
              frame's coded size, gaborish + EPF 2 steps: timed, and equal
-             to its plain version) and at ragged sizes down to 1x1, 2x3
+             to its plain version), at 272x3840 (a 4K band's slab of the
+             banded phase: timed, and equal to its plain version) and at
+             ragged sizes down to 1x1, 2x3
              and 3x4097, with 1/sigma that includes passthrough pixels; max
              abs difference <= 1e-5, and <= 1e-6 more than 8 px from the
              edge.
@@ -37,9 +39,11 @@ a non-zero exit:
              memory), on a two-pass 1024x1024 stream (two lanes a group,
              each pass's coefficients added into the same buffer), and on
              the 3840x2160 stream's 135 lanes, timed with its time per
-             step of the longest lane; then on the 270 lanes of the same
-             stream in two passes, timed and held against the writer's
-             coefficients. Writer streams go in
+             step of the longest lane; on the 15 lanes of its group row 1
+             into a band-sized buffer, as the banded decode launches it
+             (timed; plain version on the host); then on the 270 lanes of
+             the same stream in two passes, timed and held against the
+             writer's coefficients. Writer streams go in
              with their tables packed on the host, as the decode passes
              them; random lanes without, so the wrapper packs them.
              Kernel times ("ms") are the kernel's mean device time over
@@ -132,7 +136,26 @@ a non-zero exit:
              KiB (every frame and duration decode_image's); (d) python -m
              jxl_tpu_torch.cli in a subprocess on the 4K VarDCT stream: its
              PNG equal to decode_image's u8 frame, and --speedtest's MP/s.
-10. profile - a u8 decode of each stream (Modular, VarDCT, the upsampled
+10. banded - the banded decode (api/banded.py, api/overlap.py): (a)
+             decode_image of the 4K VarDCT stream by the band route
+             (JXL_TPU_OVERLAP=1) and the whole-frame route (=0), u8 and
+             f32, 5 reps each: walls, host_s, peak card memory, K1 and K3
+             launches a decode (9 and 9 on the band route, 1 and 1
+             whole), the routes against each other, and the band route
+             once under torch.cuda.set_sync_debug_mode("error") but for
+             its one lane-flag check after the last band; (b)
+             decode_banded of a 7680x4320 VarDCT stream (17 bands) into
+             a pinned host array, against decode_image of the same bytes,
+             with walls and peak card memory: decode_banded's peak must
+             be at most a quarter of decode_image's and within 1.25x of
+             its own at 7680x1088; (c) decode_banded of a 4K Modular
+             frame with alpha, a 1080p VarDCT frame with noise,
+             progressive_4k (LF frame whole, two passes in bands), the
+             4K patches frame and a 4K frame of the DCT32 to DCT256
+             transforms against decode_image. Band and frame
+             agree bit for bit, or f32 within 1e-5 and u8 within 1 LSB
+             (a differing cuBLAS algorithm for a band's batch).
+11. profile - a u8 decode of each stream (Modular, VarDCT, the upsampled
              VarDCT with noise) under torch.profiler: device time by
              operation and the card's idle share. It runs right after the
              build, and no other phase opens a profiler session.
@@ -157,6 +180,8 @@ FP32_OPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
 # SM a clock on Hopper)
 INT32_OPS_PER_S = FP32_OPS_PER_S / 2
 WIDTH, HEIGHT = 3840, 2160
+# rows of K1's slab for a band of one group row: 8 halo rows each side
+BAND_SLAB_ROWS = 8 + 256 + 8
 # integer operations a token, as the kernels' source counts them: K2's
 # rANS step (table lookup, state update, renorm read); K3 adds the
 # context selection, HybridUint and the coefficient store
@@ -338,6 +363,9 @@ def phase_kernels():
     # the upsampled VarDCT frame of the features phase runs K1 at its coded size
     half = (HEIGHT // 2, WIDTH // 2)
     cases.append((half, True, 2))
+    # a band of the banded phase: the 8-row tail, 256 rows, the 8-row head
+    slab = (BAND_SLAB_ROWS, WIDTH)
+    cases.append((slab, True, 2))
     cases += [((777, 1001), True, 3), ((777, 1001), False, 2), ((33, 65), True, 3),
               ((45, 67), True, 3), ((5, 7), True, 3), ((1, 1), True, 2), ((1, 1), True, 3),
               ((2, 3), True, 2), ((2, 3), False, 3), ((3, 4097), True, 2),
@@ -356,8 +384,9 @@ def phase_kernels():
         inner = float(d[:, 8:-8, 8:-8].max()) if h > 16 and w > 16 else 0.0
         rec = {"name": "epf_gab", "shape": [3, h, w], "gab": gab, "epf_iters": iters,
                "launches": launches, "max_abs_diff": err, "max_abs_diff_inner": inner}
-        if (h, w) in ((HEIGHT, WIDTH), half):
-            # every stage set at 4K, and the main one at 1920x1080: time it
+        if (h, w) in ((HEIGHT, WIDTH), half, slab):
+            # every stage set at 4K, and the main one at 1920x1080 and on a
+            # 4K band's slab: time it
             # beside its bound, with the geometry of its tile
             # (csrc/kernel_geometry.h; the bytes a pixel are that geometry's
             # model of the traffic, not a reading)
@@ -375,7 +404,8 @@ def phase_kernels():
         check(launches == 1 and err <= 1e-5 and inner <= 1e-6,
               f"epf_gab disagrees with its plain version at {h}x{w} gab={gab} "
               f"iters={iters}: {err} (inner {inner})")
-        check((h, w) != half or err == 0.0, f"epf_gab at {h}x{w} is {err} from its plain version")
+        check((h, w) not in (half, slab) or err == 0.0,
+              f"epf_gab at {h}x{w} is {err} from its plain version")
         results.append(rec)
     for i, ms in device_times(timed).items():
         r = results[i]
@@ -392,7 +422,8 @@ def phase_kernels():
          **{k: r[k] for k in ("kernel_ms", "call_ms", "plain_ms", "bound_ms", "bound_by")}}
         for r in four_k]
     half_rec = next(r for r in results if "kernel_ms" in r and r["shape"][1:] == list(half))
-    return main_rec, half_rec, max(r["max_abs_diff"] for r in results)
+    slab_rec = next(r for r in results if "kernel_ms" in r and r["shape"][1:] == list(slab))
+    return main_rec, half_rec, slab_rec, max(r["max_abs_diff"] for r in results)
 
 
 def phase_decode(data):
@@ -602,7 +633,10 @@ def _vardct_frame(data, device, host_ac: bool = False):
     return frame
 
 
-def _lane_inputs(data):
+def _lane_inputs(data, band_row=None):
+    """K3's inputs for every (group, pass) section of a VarDCT stream, or,
+    with band_row, for those of one group row into a band-sized buffer, as
+    the banded decode launches it."""
     from jxl_tpu_torch.api.simple import parse_frame
     from jxl_tpu_torch.io.bit_reader import BitReader
     from jxl_tpu_torch.io.headers import FileHeader
@@ -617,10 +651,15 @@ def _lane_inputs(data):
     for g in range(frame.header.num_lf_groups):
         frame.decode_lf_group(g, sections[frame.section_index("lf", group=g)])
     frame.decode_hf_global(sections[frame.section_index("hf_global")])
+    if band_row is None:
+        groups, band = range(frame.header.num_groups), None
+    else:
+        from jxl_tpu_torch.vardct.device_band import band_groups
+
+        groups = band = band_groups(frame, band_row)
     readers = {(g, p): sections[frame.section_index("hf", group=g, pass_idx=p)]
-               for g in range(frame.header.num_groups)
-               for p in range(frame.header.passes.num_passes)}
-    return device_group.lane_inputs(frame, readers)
+               for g in groups for p in range(frame.header.passes.num_passes)}
+    return device_group.lane_inputs(frame, readers, band=band)
 
 
 def ac_tokens_per_lane(inputs, coeffs):
@@ -723,9 +762,13 @@ def phase_k3(data4k):
     two, two_coeffs = encode_xyb_vardct(1024, 1024, seed=8, density=0.2, passes=2)
     cases.append(("1024x1024_two_pass", _lane_inputs(two), two_coeffs, "all", True, host))
     cases.append(("3840x2160", _lane_inputs(data4k), None, "all", True, dev))
+    # one group row's lanes into a band-sized buffer, as the banded decode
+    # launches K3
+    cases.append(("3840x2160_band_row1", _lane_inputs(data4k, band_row=1), None, "all", True,
+                  host))
     four, four_coeffs = encode_xyb_vardct(WIDTH, HEIGHT, seed=7, passes=2)
     cases.append(("3840x2160_two_pass", _lane_inputs(four), four_coeffs, "all", True, None))
-    pool = ProcessPoolExecutor(max_workers=4, mp_context=multiprocessing.get_context("spawn"))
+    pool = ProcessPoolExecutor(max_workers=5, mp_context=multiprocessing.get_context("spawn"))
     try:
         host_plain = {
             name: pool.submit(_plain_ac_sections,
@@ -752,6 +795,20 @@ def _plain_ac_sections(arrays, kw):
     return coeffs.numpy(), ok.numpy(), time.perf_counter() - t0
 
 
+def _k3_bound(inp, tokens, lanes) -> tuple:
+    """(bound_ms, bound_by) of K3 on lane inputs `inp`: the bytes of each
+    section, the items walked, orders, tables, context map and lane arrays
+    in, the dense buffer and flags out, against its integer operations a
+    token of this run's data."""
+    nbytes = (int(inp["lane_end_bits"].sum()) // 8
+              + int(inp["lane_n_items"].sum()) * 40 + inp["orders"].nbytes
+              + inp["tables"].nbytes + inp["uint_cfgs"].nbytes
+              + inp["context_map"].nbytes + 8 * 4 * lanes + inp["total"] * 4 + lanes)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = sum(tokens) * K3_OPS_PER_TOKEN / INT32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
 def _k3_cases(cases, host_plain, host, dev) -> dict:
     """phase_k3's cases, each against its plain version (host_plain:
     {case: future of _plain_ac_sections} for those on the host)."""
@@ -763,7 +820,7 @@ def _k3_cases(cases, host_plain, host, dev) -> dict:
     from jxl_tpu_torch.vardct.device_group import LANE_KEYWORDS
 
     worst = 0
-    main = two_pass = None
+    main = two_pass = band = None
     # the card's cases first, while the workers run the host's plain versions
     for name, inp, coeffs, expect, packed, plain_dev in sorted(cases,
                                                                key=lambda c: c[5] == host):
@@ -831,26 +888,31 @@ def _k3_cases(cases, host_plain, host, dev) -> dict:
                                      reps=10, warmup=2)
             rec["plain_ms"] = plain_s * 1e3  # one call; the plain version is no yardstick
             tokens = ac_tokens_per_lane(inp, got_c.cpu().numpy())
-            # bytes: each section's bytes, the items walked, orders, tables,
-            # context map, lane arrays in; the dense buffer and flags out
-            nbytes = (int(inp["lane_end_bits"].sum()) // 8
-                      + int(inp["lane_n_items"].sum()) * 40 + inp["orders"].nbytes
-                      + inp["tables"].nbytes + inp["uint_cfgs"].nbytes
-                      + inp["context_map"].nbytes + 8 * 4 * len(ok)
-                      + inp["total"] * 4 + len(ok))
-            t_bytes = nbytes / HBM_BYTES_PER_S
-            t_ops = sum(tokens) * K3_OPS_PER_TOKEN / INT32_OPS_PER_S
-            rec["bound_ms"] = max(t_bytes, t_ops) * 1e3
-            rec["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+            rec["bound_ms"], rec["bound_by"] = _k3_bound(inp, tokens, len(ok))
             rec["tokens"] = sum(tokens)
             rec["longest_lane_tokens"] = max(tokens)
             rec["ns_per_step"] = rec["kernel_ms"] * 1e6 / max(tokens)
             rec["serial_chain_note"] = ("the real limit is the longest lane's serial chain "
                                         "of dependent token steps, not bytes or operations")
             main = rec
+        if name == "3840x2160_band_row1":
+            tokens = ac_tokens_per_lane(inp, got_c.cpu().numpy())
+            rec["kernel_ms"] = device_times(
+                [(0, lambda: device_ac.decode_ac_sections(**arrays, **kw, **packs),
+                  AL.load(), "ac_sections_launch")], reps=5)[0]
+            rec["call_ms"] = time_ms(lambda: device_ac.decode_ac_sections(**arrays, **kw, **packs),
+                                     reps=10, warmup=2)
+            rec["bound_ms"], rec["bound_by"] = _k3_bound(inp, tokens, len(ok))
+            rec["tokens"] = sum(tokens)
+            rec["longest_lane_tokens"] = max(tokens)
+            band = {k: rec[k] for k in ("lanes", "kernel_ms", "call_ms", "bound_ms", "bound_by",
+                                        "max_abs_diff", "plain_device", "plain_s", "tokens",
+                                        "longest_lane_tokens")}
+            band["buffer_coefficients"] = inp["total"]
         emit(rec)
     main["max_abs_err"] = worst
     main["two_pass_3840x2160"] = two_pass
+    main["band_row1_3840x2160"] = band
     return main
 
 
@@ -1865,6 +1927,301 @@ def phase_streaming(progressive, anim, vdata) -> dict:
     return out
 
 
+def _diff_report(a, b) -> dict:
+    """How two equal-shape output tensors differ: bit for bit or not, the
+    max abs difference and the count of samples that differ."""
+    import torch
+
+    same = bool(torch.equal(a, b))
+    d = (a.double() - b.double()).abs()
+    return {"bit_for_bit": same, "max_abs_diff": float(d.max()),
+            "samples_differ": int((d != 0).sum())}
+
+
+def _check_same(rep: dict, fmt: str, what: str) -> None:
+    """Bit for bit, or within the stated bound of a differing cuBLAS
+    algorithm choice (f32 <= 1e-5; u8 <= 1 LSB)."""
+    limit = 1.0 if fmt == "u8" else 1e-5
+    check(rep["max_abs_diff"] <= limit, f"{what} {fmt}: {rep}")
+
+
+def banded_streams(fstreams, tstreams, mstreams):
+    """[(name, codestream, (width, height), channels out, K3 and K1
+    launches of decode_banded)] of the banded phase's other band types:
+    the features phase's 3840x2160 Modular frame with alpha (no K3), a
+    1920x1080 XYB VarDCT frame with photon noise (no upsampling), the
+    tools phase's progressive_4k (an LF frame decoded whole, then a
+    two-pass VarDCT frame in bands), the frames phase's 4K patches frame
+    (a REFERENCE_ONLY atlas decoded whole, then its patches band by band)
+    and a 3840x2160 XYB VarDCT frame of the DCT32 to DCT256 transforms
+    (transforms="large": a band's batch of each is not the frame's)."""
+    import numpy as np
+
+    from test_torch_vardct_streams import encode_xyb_vardct
+
+    half = (WIDTH // 2, HEIGHT // 2)
+    full = (WIDTH, HEIGHT)
+    lut = np.random.default_rng(7).integers(64, 512, 8).tolist()
+    pick = {name: data for name, data, *_ in fstreams + tstreams + mstreams}
+    return [
+        ("modular_alpha_4k", pick["modular_alpha"], full, 4,
+         {"decode_ac_sections": 0, "epf_gab": 9}),
+        ("vardct_noise_1080p", encode_xyb_vardct(*half, seed=15, noise=lut)[0], half, 3,
+         {"decode_ac_sections": 5, "epf_gab": 5}),
+        ("progressive_4k", pick["progressive_4k"], full, 3,
+         {"decode_ac_sections": 9, "epf_gab": 9}),
+        ("patches_4k", pick["patches_4k"], full, 3, {"decode_ac_sections": 9, "epf_gab": 9}),
+        ("vardct_large_4k", encode_xyb_vardct(*full, seed=19, transforms="large")[0], full, 3,
+         {"decode_ac_sections": 9, "epf_gab": 9}),
+    ]
+
+
+def _band_route_breakdown(data) -> dict:
+    """One u8 decode_image of `data` by the band route with its host steps
+    timed on the host clock (the card runs behind them): the LfGlobal, LF
+    groups and HfGlobal; each band's AC step (lane planning and K3's
+    launch); each band's VarDCT render queued; each band's filters,
+    colour and conversion queued; the one wait for the lane flags after
+    the last band (the card's backlog); then the wall, synchronised."""
+    import torch
+
+    import jxl_tpu_torch
+    from jxl_tpu_torch.api import banded, overlap
+    from jxl_tpu_torch.vardct import device_band
+
+    acc = {}
+
+    def timed(name, fn):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                acc[name] = acc.get(name, 0.0) + time.perf_counter() - t0
+        return call
+
+    real = (banded.decode_lf_sections, banded.BandSource._vardct_coeffs,
+            device_band.BandRenderer.render, overlap.dispatch_band_filters,
+            banded.BandSource.check)
+    banded.decode_lf_sections = timed("lf_sections_s", real[0])
+    banded.BandSource._vardct_coeffs = timed("ac_steps_s", real[1])
+    device_band.BandRenderer.render = timed("render_queue_s", real[2])
+    overlap.dispatch_band_filters = timed("filters_queue_s", real[3])
+    banded.BandSource.check = timed("final_wait_s", real[4])
+    os.environ["JXL_TPU_OVERLAP"] = "1"
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        jxl_tpu_torch.decode_image(data, pixel_format="u8")
+        torch.cuda.synchronize()
+        acc["wall_s"] = time.perf_counter() - t0
+    finally:
+        os.environ.pop("JXL_TPU_OVERLAP", None)
+        (banded.decode_lf_sections, banded.BandSource._vardct_coeffs,
+         device_band.BandRenderer.render, overlap.dispatch_band_filters,
+         banded.BandSource.check) = real
+    return acc
+
+
+def phase_banded(vdata, streams) -> dict:
+    """The banded decode on the card. (a) decode_image of the 4K VarDCT
+    stream by both routes (JXL_TPU_OVERLAP=1, the band route, and =0, the
+    whole frame), u8 and f32, 5 reps each: wall, host_s, K1 and K3
+    launches a decode (9 and 9 on the band route, one band a group row;
+    1 and 1 whole), peak card memory, and the routes against each other;
+    then the band route once under torch.cuda.set_sync_debug_mode("error")
+    but for its one flag check after the last band. (b) decode_banded of a
+    7680x4320 VarDCT stream (17 bands) into a sink that copies each band
+    into one pinned host array, against decode_image of the same bytes,
+    with both walls and peak card memories, and decode_banded's peak at
+    7680x1088 (5 bands): the working set follows the width, not the
+    height. (c) decode_banded of the other band types (banded_streams)
+    against decode_image. Band and frame agree bit for bit or within the
+    bound of _check_same. Also the band route's host steps
+    (_band_route_breakdown) and both routes of decode_image at 8K. Returns
+    the launches of each band path."""
+    import numpy as np
+    import torch
+
+    import jxl_tpu_torch
+    from jxl_tpu_torch.api import banded
+    from jxl_tpu_torch.ops import ans_lanes as AL
+    from jxl_tpu_torch.ops import device_ac
+    from jxl_tpu_torch.ops import epf_gab as K
+    from test_torch_vardct_streams import encode_xyb_vardct
+
+    def counts():
+        return {"decode_ac_sections": device_ac.decode_ac_sections.launches,
+                "epf_gab": K.epf_gab.launches}
+
+    def reset():
+        K.epf_gab.launches = 0
+        device_ac.decode_ac_sections.launches = 0
+
+    def measured(fn):
+        """fn() synchronised: (result, wall s, peak card bytes above what
+        was allocated before it)."""
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, torch.cuda.max_memory_allocated() - base
+
+    out = {}
+    AL.ans_decode_batch.launches = 0
+    # (a) both routes of decode_image
+    mp = WIDTH * HEIGHT / 1e6
+    frames = {}
+    route_launches = {}
+    for route in ("1", "0"):
+        os.environ["JXL_TPU_OVERLAP"] = route
+        try:
+            for fmt in ("u8", "f32"):
+                for rep in range(5):
+                    reset()
+                    img, wall, peak = measured(
+                        lambda: jxl_tpu_torch.decode_image(vdata, pixel_format=fmt))
+                    c = counts()
+                    frames[(route, fmt)] = img.frames[0]
+                    route_launches.setdefault(route, c)
+                    emit({"phase": "banded", "step": "routes", "band_route": route == "1",
+                          "format": fmt, "rep": rep, "seconds": wall, "mp_per_s": mp / wall,
+                          "host_parse_entropy_s": img.timings["host_s"],
+                          "peak_card_bytes": peak, "launches": c})
+                    want = ({"decode_ac_sections": 9, "epf_gab": 9} if route == "1"
+                            else {"decode_ac_sections": 1, "epf_gab": 1})
+                    check(c == want, f"route {route}: launches {c}, expected {want}")
+        finally:
+            os.environ.pop("JXL_TPU_OVERLAP", None)
+    for fmt in ("u8", "f32"):
+        rep = _diff_report(frames[("1", fmt)], frames[("0", fmt)])
+        emit({"phase": "banded", "step": "routes", "format": fmt, "band_vs_whole": rep})
+        _check_same(rep, fmt, "band route against the whole-frame route")
+    # the band loop queues without a host sync: only the flag check after
+    # the last band (BandSource.check) may wait for the card
+    real_check = banded.BandSource.check
+
+    def check_outside(self):
+        torch.cuda.set_sync_debug_mode("default")
+        try:
+            real_check(self)
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+
+    os.environ["JXL_TPU_OVERLAP"] = "1"
+    banded.BandSource.check = check_outside
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        img = jxl_tpu_torch.decode_image(vdata, pixel_format="u8")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        banded.BandSource.check = real_check
+        os.environ.pop("JXL_TPU_OVERLAP", None)
+    check(torch.equal(img.frames[0], frames[("1", "u8")]), "the sync-checked decode differs")
+    emit({"phase": "banded", "step": "routes", "sync_debug_error_mode": "no sync in the band loop"})
+    out["band_route"] = route_launches["1"]
+    emit({"phase": "banded", "step": "band_route_host_breakdown",
+          **_band_route_breakdown(vdata)})
+
+    # (b) decode_banded at 8K against decode_image of the same bytes
+    t0 = time.perf_counter()
+    big = encode_xyb_vardct(2 * WIDTH, 2 * HEIGHT, seed=17)[0]
+    short = encode_xyb_vardct(2 * WIDTH, 1088, seed=18)[0]
+    emit({"phase": "banded", "step": "write_8k", "bytes": len(big), "bytes_7680x1088": len(short),
+          "seconds": time.perf_counter() - t0})
+
+    def banded_into(data, host):
+        info = {}
+
+        def sink(y0, band):
+            host[y0 : y0 + band.shape[0]].copy_(band, non_blocking=True)
+
+        info.update(jxl_tpu_torch.decode_banded(data, sink))
+        return info
+
+    host = torch.empty((2 * HEIGHT, 2 * WIDTH, 3), dtype=torch.float32, pin_memory=True)
+    small = torch.empty((1088, 2 * WIDTH, 3), dtype=torch.float32, pin_memory=True)
+    banded_into(short, small)  # warm
+    runs = []
+    for rep in range(2):
+        reset()
+        info, wall, peak = measured(lambda: banded_into(big, host))
+        c = counts()
+        runs.append(peak)
+        emit({"phase": "banded", "step": "decode_banded_8k", "rep": rep, "seconds": wall,
+              "mp_per_s": 4 * mp / wall, "peak_card_bytes": peak, "bands": info["bands"],
+              "launches": c})
+        check(info["bands"] == 17 and c == {"decode_ac_sections": 17, "epf_gab": 17},
+              f"decode_banded at 8K: {info}, launches {c}")
+    out["decode_banded_8k"] = c
+    banded_peak = min(runs)
+    whole_peaks = []
+    for rep in range(2):
+        img, wall, peak = measured(lambda: jxl_tpu_torch.decode_image(big))
+        whole_peaks.append(peak)
+        emit({"phase": "banded", "step": "decode_image_8k", "rep": rep, "seconds": wall,
+              "mp_per_s": 4 * mp / wall, "peak_card_bytes": peak,
+              "host_parse_entropy_s": img.timings["host_s"]})
+    rep = _diff_report(host.to("cuda"), img.frames[0])
+    emit({"phase": "banded", "step": "decode_banded_8k", "vs_decode_image": rep})
+    _check_same(rep, "f32", "decode_banded at 8K against decode_image")
+    os.environ["JXL_TPU_OVERLAP"] = "1"
+    try:
+        for rep in range(2):
+            reset()
+            band_img, wall, peak = measured(lambda: jxl_tpu_torch.decode_image(big))
+            c = counts()
+            emit({"phase": "banded", "step": "band_route_8k", "rep": rep, "seconds": wall,
+                  "mp_per_s": 4 * mp / wall, "peak_card_bytes": peak, "launches": c,
+                  "host_parse_entropy_s": band_img.timings["host_s"]})
+            check(c == {"decode_ac_sections": 17, "epf_gab": 17},
+                  f"the band route at 8K: launches {c}")
+    finally:
+        os.environ.pop("JXL_TPU_OVERLAP", None)
+    rep = _diff_report(band_img.frames[0], img.frames[0])
+    emit({"phase": "banded", "step": "band_route_8k", "vs_decode_image": rep})
+    _check_same(rep, "f32", "the band route at 8K against the whole-frame route")
+    del img, band_img
+    _, wall, short_peak = measured(lambda: banded_into(short, small))
+    emit({"phase": "banded", "step": "decode_banded_7680x1088", "seconds": wall,
+          "peak_card_bytes": short_peak})
+    ratio = banded_peak / min(whole_peaks)
+    growth = banded_peak / short_peak
+    emit({"phase": "banded", "step": "peaks", "decode_banded_8k": banded_peak,
+          "decode_image_8k": min(whole_peaks), "decode_banded_7680x1088": short_peak,
+          "banded_over_whole": ratio, "8k_over_1088": growth})
+    check(ratio <= 0.25, f"decode_banded's peak is {ratio:.3f} of decode_image's")
+    check(growth <= 1.25, f"decode_banded's peak grows {growth:.3f}x from 1088 to 4320 rows")
+    del host, small
+
+    # (c) the other band types
+    per_stream = {}
+    for name, data, (w, h), channels, expect in streams:
+        got = []
+        reset()
+        info, wall, peak = measured(lambda: jxl_tpu_torch.decode_banded(
+            data, lambda y0, band: got.append(band)))
+        c = counts()
+        img, wall_whole, peak_whole = measured(lambda: jxl_tpu_torch.decode_image(data))
+        band = torch.cat(got)
+        check(tuple(band.shape) == (h, w, channels), f"{name}: bad shape {tuple(band.shape)}")
+        check(bool(torch.isfinite(band).all()), f"{name}: non-finite output")
+        rep = _diff_report(band, img.frames[0])
+        per_stream[name] = c
+        emit({"phase": "banded", "step": "band_types", "stream": name, "bands": info["bands"],
+              "seconds": wall, "peak_card_bytes": peak, "decode_image_seconds": wall_whole,
+              "decode_image_peak_card_bytes": peak_whole, "launches": c, "expected": expect,
+              "vs_decode_image": rep})
+        check(c == expect, f"{name}: launches {c}, expected {expect}")
+        _check_same(rep, "f32", f"{name} decode_banded against decode_image")
+    out["decode_banded_types"] = per_stream
+    out["ans_decode_batch"] = AL.ans_decode_batch.launches
+    return out
+
+
 def phase_profile(data, stream: str, expect: str) -> None:
     """One u8 decode under torch.profiler: device time by operation, and
     the share of the decode's wall time the card was busy. A trace that
@@ -1972,7 +2329,7 @@ def main() -> int:
     run("profile", phase_profile, fstreams[0][1], "vardct_up2_noise", "epf_gab_kernel")
     run("profile", phase_profile, data, "modular", "epf_gab_kernel")
     run("profile", phase_profile, vdata, "vardct", "ac_sections_kernel")
-    k, k_half, max_err = run("kernels", phase_kernels)
+    k, k_half, k_slab, max_err = run("kernels", phase_kernels)
     k2 = run("k2", phase_k2)
     k3 = run("k3", phase_k3, vdata)
     modular_launches = run("decode", phase_decode, data)
@@ -1984,6 +2341,8 @@ def main() -> int:
     frame_launches = run("frames", phase_frames, mstreams)
     tool_launches = run("tools", phase_tools, tstreams)
     streaming = run("streaming", phase_streaming, tstreams[0][1], mstreams[0][1], vdata)
+    bstreams = run("banded", banded_streams, fstreams, tstreams, mstreams)
+    band_launches = run("banded", phase_banded, vdata, bstreams)
     emit({"phase": "timing", "seconds": phase_s, "total_s": time.perf_counter() - start})
     null_reason = "no single torch call computes a rANS decode"
     emit({"kernels": [
@@ -1996,18 +2355,26 @@ def main() -> int:
          "launches_tools_path": tool_launches["epf_gab"],
          "launches_streaming_path": streaming["launches"]["epf_gab"],
          "launches_streaming_flush_path": streaming["flush_launches"]["epf_gab"],
+         "launches_band_route_path": band_launches["band_route"]["epf_gab"],
+         "launches_decode_banded_8k_path": band_launches["decode_banded_8k"]["epf_gab"],
+         "launches_decode_banded_types_path": {
+             k: v["epf_gab"] for k, v in band_launches["decode_banded_types"].items()},
          "max_abs_err": max_err, "ms": k["kernel_ms"], "call_ms": k["call_ms"],
          "plain_ms": k["plain_ms"],
          "bound_ms": k["bound_ms"], "bound_by": k["bound_by"], "library_ms": None,
          "library_note": "no single torch call computes gaborish+EPF",
          "stage_sets": k["stage_sets"],
          "at_1920x1080": {key: k_half[key] for key in ("kernel_ms", "call_ms", "plain_ms",
-                                                      "bound_ms", "bound_by", "max_abs_diff")}},
+                                                      "bound_ms", "bound_by", "max_abs_diff")},
+         f"band_slab_{BAND_SLAB_ROWS}x{WIDTH}": {
+             key: k_slab[key] for key in ("kernel_ms", "call_ms", "plain_ms", "bound_ms",
+                                          "bound_by", "max_abs_diff")}},
         {"name": "ans_decode_batch", "route": "cuda", "source": "jxl_tpu_torch/csrc/ans_lanes.cu",
          "replaces": "jxl_tpu/ops/pallas_ans.py:105", "launches": k2["launches"],
          "launches_note": "its own path, the batch decode entry point; no decode path "
                           "calls K2 (streaming path: "
-                          f"{streaming['launches']['ans_decode_batch']})",
+                          f"{streaming['launches']['ans_decode_batch']}; banded paths: "
+                          f"{band_launches['ans_decode_batch']})",
          "max_abs_err": k2["max_abs_err"], "ms": k2["kernel_ms"], "call_ms": k2["call_ms"],
          "plain_ms": k2["plain_ms"], "ns_per_step": k2["ns_per_step"],
          "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"], "library_ms": None,
@@ -2022,11 +2389,17 @@ def main() -> int:
          "launches_tools_path": tool_launches["decode_ac_sections"],
          "launches_streaming_path": streaming["launches"]["decode_ac_sections"],
          "launches_streaming_flush_path": streaming["flush_launches"]["decode_ac_sections"],
+         "launches_band_route_path": band_launches["band_route"]["decode_ac_sections"],
+         "launches_decode_banded_8k_path":
+             band_launches["decode_banded_8k"]["decode_ac_sections"],
+         "launches_decode_banded_types_path": {
+             k: v["decode_ac_sections"] for k, v in band_launches["decode_banded_types"].items()},
          "k3_lanes_per_launch_streaming_flushes": streaming["k3_lanes_per_launch"],
          "max_abs_err": k3["max_abs_err"], "ms": k3["kernel_ms"], "call_ms": k3["call_ms"],
          "plain_ms": k3["plain_ms"], "ns_per_step": k3["ns_per_step"],
          "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"], "library_ms": None,
-         "library_note": null_reason, "two_pass_3840x2160": k3["two_pass_3840x2160"]},
+         "library_note": null_reason, "two_pass_3840x2160": k3["two_pass_3840x2160"],
+         "band_row1_3840x2160": k3["band_row1_3840x2160"]},
     ]})
     print(smi_line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,7 +10,11 @@ decode_image decodes whole files: Modular and VarDCT frames (one pass or
 several), animations, cropped and blended frames, reference frames and
 patches, splines, LF frames and embedded ICC profiles, with every frame's
 render on the caller's device; chroma-subsampled Modular frames raise
-NotSupported.
+NotSupported. Its band route (JXL_TPU_OVERLAP) decodes a plain 4:4:4
+VarDCT frame one group row at a time, the host's parse of a band
+overlapping the card's work on the one before. decode_banded decodes the
+last frame one group row at a time into the caller's sink, holding O(band)
+on the card.
 """
 
 import torch
@@ -19,7 +23,8 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
+from .api.banded import decode_banded  # noqa: E402
 from .api.simple import DecodedImage, decode_image  # noqa: E402
 from .errors import NotSupported  # noqa: E402
 
-__all__ = ["DecodedImage", "NotSupported", "decode_image"]
+__all__ = ["DecodedImage", "NotSupported", "decode_banded", "decode_image"]

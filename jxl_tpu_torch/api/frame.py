@@ -84,6 +84,22 @@ class LfGlobalState:
     noise: object = None  # features/noise.py Noise, when the frame has noise
 
 
+def run_parallel(fn, items) -> None:
+    """fn over items on a host thread pool (the native decoders release the
+    GIL); every result is read, so the first error raises."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+
+    n_workers = min(len(items), os.cpu_count() or 1)
+    if n_workers < 2:
+        for it in items:
+            fn(it)
+        return
+    with ThreadPoolExecutor(max_workers=n_workers) as ex:
+        for f in [ex.submit(fn, it) for it in items]:
+            f.result()
+
+
 class Frame:
     """One frame's decode state."""
 
@@ -139,7 +155,8 @@ class Frame:
 
     # -- LfGlobal ----------------------------------------------------------------
 
-    def decode_lf_global(self, br: BitReader, allow_partial: bool = False) -> None:
+    def decode_lf_global(self, br: BitReader, allow_partial: bool = False,
+                         allocate_modular: bool = True) -> None:
         """ref frame/decode.rs:314-434: the patches dictionary (read
         against the reference slots' shapes), the splines, the noise
         parameters, then the tables and the global Modular image; the
@@ -148,7 +165,12 @@ class Frame:
         (the progressive flush of an LfGlobal section whose bytes have not
         all arrived), the section-0 Modular channels decode as far as the
         bytes go and the finished ones are kept
-        (modular_global.early_render_ok says whether they render)."""
+        (modular_global.early_render_ok says whether they render). With
+        allocate_modular=False the global Modular image gets no
+        whole-frame planes but those of the global section's channels
+        (FullModularImage.read(allocate=False)): the banded decode
+        (api/banded.py) decodes each group row's channels into band
+        buffers of its own."""
         header = self.header
         is_vardct = header.encoding == Encoding.VARDCT
         state = LfGlobalState()
@@ -202,7 +224,17 @@ class Frame:
             self.file_header.image_metadata,
             self.modular_color_channels,
             br,
+            allocate=allocate_modular,
         )
+        if not allocate_modular:
+            # the global section's own channels (palettes, small channels)
+            # are read here, so they get their planes
+            from ..modular.channel import ModularChannel
+
+            mg = state.modular_global
+            for b in mg.section_buffer_indices[0] if mg.buffer_infos else ():
+                info = mg.buffer_infos[b]
+                mg.storage[b] = ModularChannel(info.size, info.shift, info.bit_depth_bits)
         state.modular_global.read_section0(header, state.tree, br, allow_partial=allow_partial)
         self.lf_global = state
 
@@ -319,9 +351,7 @@ class Frame:
         jxl_tpu/api/frame.py:_try_device_ac without its TPU-measured gates:
         an eligible frame takes the lane decoder on either device, unless
         JXL_TPU_AC=host sends it to the native host decoder."""
-        import os
-
-        from ..vardct.device_group import decode_ac_sections_device, eligible_for_device_ac
+        from ..vardct.device_group import decode_ac_sections_device
 
         header = self.header
         single = header.num_toc_entries == 1
@@ -332,8 +362,7 @@ class Frame:
             self.decode_lf_group(g, sec if single else sections[self.section_index("lf", group=g)])
         self.decode_hf_global(sec if single else sections[self.section_index("hf_global")])
         self.finalize_lf()
-        host = os.environ.get("JXL_TPU_AC", "auto") == "host"
-        if not single and not host and eligible_for_device_ac(self):
+        if not single and self.takes_lanes():
             readers = {
                 (g, p): sections[self.section_index("hf", group=g, pass_idx=p)]
                 for g in range(header.num_groups)
@@ -382,18 +411,17 @@ class Frame:
         Per-group entropy runs in C++ with the GIL released, and groups
         write disjoint rects, so sections decode concurrently; pass order
         within a group is preserved inside each job."""
-        import os
-        from concurrent.futures import ThreadPoolExecutor
+        run_parallel(lambda job: self.decode_hf_group(*job), jobs)
 
-        n_workers = min(len(jobs), os.cpu_count() or 1)
-        if n_workers < 2:
-            for g, readers in jobs:
-                self.decode_hf_group(g, readers)
-            return
-        with ThreadPoolExecutor(max_workers=n_workers) as ex:
-            futs = [ex.submit(self.decode_hf_group, g, r) for g, r in jobs]
-            for f in futs:
-                f.result()
+    def takes_lanes(self) -> bool:
+        """Whether the frame's AC takes the lane decoder (K3 on the card):
+        an eligible VarDCT frame, unless JXL_TPU_AC=host sends it to the
+        native host decoder."""
+        import os
+
+        from ..vardct.device_group import eligible_for_device_ac
+
+        return os.environ.get("JXL_TPU_AC", "auto") != "host" and eligible_for_device_ac(self)
 
     # -- incremental section decode (the streaming decoder) ---------------------------------
     #
@@ -432,14 +460,9 @@ class Frame:
         """The AC routing of _decode_vardct_sections: the lane decoder for
         an eligible frame unless JXL_TPU_AC=host, else the host decoder
         group by group into host_ac_flat."""
-        import os
-
-        from ..vardct.device_group import eligible_for_device_ac
-
         if self.header.encoding != Encoding.VARDCT:
             return
-        host = os.environ.get("JXL_TPU_AC", "auto") == "host"
-        if not host and eligible_for_device_ac(self):
+        if self.takes_lanes():
             self.ac_route = "lanes"
         else:
             self.ac_route = "host"

@@ -28,7 +28,9 @@ from ..io.container import extract_codestream_ex
 from ..io.headers import FileHeader
 from ..io.headers.frame import FrameHeader, FrameType, Toc
 from ..render.pipeline import check_frame as _check_frame
+from ..render.simple import apply_orientation
 from ..utils import trace
+from . import overlap
 from .frame import Frame
 from .state import DecoderState
 
@@ -119,8 +121,8 @@ def finish_frame(frame, state, device, pixel_format: str = "f32", options=None, 
     (ref jxl_tpu/api/simple.py:137-224, jxl_tpu/api/decoder.py:726-803).
     Returns the visible frame, an (H, W, C) tensor on `device`, or None
     for a frame that is not shown."""
-    from ..render.simple import (apply_orientation, apply_spot_and_premultiply,
-                                 blend_and_extend, color_transform, render_frame_channels)
+    from ..render.simple import (apply_spot_and_premultiply, blend_and_extend,
+                                 color_transform, render_frame_channels)
     from ..render.stages import core as st
 
     header = frame.header
@@ -183,7 +185,11 @@ def decode_image(
     card); set JXL_TPU_AC=host to decode them with the native host decoder
     instead. A chroma-subsampled Modular frame raises NotSupported with
     the reason. DecodedImage.timings["host_s"] sums the host parse and
-    entropy decode of every frame."""
+    entropy decode of every frame. JXL_TPU_OVERLAP=1 decodes an eligible
+    last frame (4:4:4 VarDCT without features, api/overlap.py) band by
+    band, the host's parse of a band overlapping the card's work on the
+    one before; 0 and auto (the default) never, as the band route has
+    not yet beaten the whole frame on the card."""
     if pixel_format not in PIXEL_FORMATS:
         raise ValueError(f"unknown pixel format {pixel_format!r}")
     device = torch.device(device)
@@ -224,6 +230,16 @@ def decode_image(
         frame = parse_frame(br, fh, state)
         header = frame.header
         _check_frame(header)
+        if overlap.eligible(frame) and overlap.enabled():
+            # the band route (api/overlap.py): the host parses band k+1
+            # while the card renders band k; the last frame, so the loop ends
+            host_s += time.perf_counter() - t0
+            with trace.span("decode_image.band_route"):
+                arr, band_host_s = overlap.decode(frame, br, pixel_format, device)
+            host_s += band_host_s
+            out.frames.append(apply_orientation(arr, meta.orientation))
+            out.durations.append(duration_ms(header, meta))
+            break
         with trace.span("decode_image.sections"):
             frame.decode_all_sections(br, device)
         host_s += time.perf_counter() - t0

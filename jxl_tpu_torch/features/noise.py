@@ -92,15 +92,88 @@ def generate_noise_field(frame, pin_memory: bool = False) -> torch.Tensor:
     for an asynchronous upload."""
     from .. import native
 
+    hu, wu, *geo = _field_geometry(frame)
+    field = torch.empty((3, hu, wu), dtype=torch.float32, pin_memory=pin_memory)
+    native.noise_field_native(field.numpy(), *geo)
+    return field
+
+
+def _field_geometry(frame) -> tuple:
+    """(hu, wu, upsampling, group_dim, gx_count, gy_count, vfi, nfi) of the
+    frame's noise field."""
     header = frame.header
     wu, hu = header.size_upsampled()
     gx_count, gy_count = header.size_groups()
     vfi = frame.decoder_state.visible_frame_index if frame.decoder_state else 1
     nfi = frame.decoder_state.nonvisible_frame_index if frame.decoder_state else 0
-    field = torch.empty((3, hu, wu), dtype=torch.float32, pin_memory=pin_memory)
-    native.noise_field_native(field.numpy(), header.upsampling, header.group_dim,
-                              gx_count, gy_count, vfi, nfi)
+    return hu, wu, header.upsampling, header.group_dim, gx_count, gy_count, vfi, nfi
+
+
+def generate_noise_field_rows(frame, y_lo: int, y_hi: int, pin_memory: bool = False):
+    """Rows [y_lo, y_hi) (clipped to the field) of the whole-image noise
+    field, a (3, rows, wu) float32 tensor on the host, bit for bit the same
+    rows of generate_noise_field (ref jxl_tpu/features/noise.py:163). The
+    generator is seeded a subregion, so only the subregions that meet the
+    rows run, and the draws of a subregion's rows before y_lo are made and
+    dropped (native filters.cc jxl_noise_field_rows). The banded decode
+    (api/banded.py) takes a band and the convolution's 2-row margin."""
+    from .. import native
+
+    hu, wu, *geo = _field_geometry(frame)
+    y_lo, y_hi = max(0, y_lo), min(hu, y_hi)
+    field = torch.empty((3, max(y_hi - y_lo, 0), wu), dtype=torch.float32,
+                        pin_memory=pin_memory)
+    native.noise_field_rows_native(field.numpy(), hu, wu, *geo, y_lo, y_hi)
     return field
+
+
+def generate_noise_field_rows_reference(frame, y_lo: int, y_hi: int) -> np.ndarray:
+    """The plain version of generate_noise_field_rows: the Python loop of
+    jxl_tpu/features/noise.py:185-274 over Xorshift128Plus, (3, rows, wu)
+    float32 numpy."""
+    hu, wu, up, group_dim, gx_count, gy_count, vfi, nfi = _field_geometry(frame)
+    y_lo, y_hi = max(0, y_lo), min(hu, y_hi)
+    bufs = np.zeros((3, max(y_hi - y_lo, 0), wu), dtype=np.float32)
+    per_batch = 16
+    for gy in range(gy_count):
+        gby0 = gy * up * group_dim
+        gby1 = min((gy + 1) * up * group_dim, hu)
+        if gby1 <= y_lo or gby0 >= y_hi:
+            continue
+        for gx in range(gx_count):
+            bx0 = gx * up * group_dim
+            buf_xsize = min((gx + 1) * up * group_dim, wu) - bx0
+            for iy in range(up):
+                for ix in range(up):
+                    sx0, sy0 = ix * group_dim, iy * group_dim
+                    sub_xsize = min((ix + 1) * group_dim, buf_xsize) - sx0
+                    sub_ysize = min((iy + 1) * group_dim, gby1 - gby0) - sy0
+                    if sub_xsize <= 0 or sub_ysize <= 0:
+                        continue
+                    abs0 = gby0 + sy0
+                    if abs0 >= y_hi or abs0 + sub_ysize <= y_lo:
+                        continue
+                    rng = Xorshift128Plus(vfi, nfi, (gx * up + ix) * group_dim,
+                                          (gy * up + iy) * group_dim)
+                    nbatch = -(-(sub_xsize + 2) // per_batch)
+                    for c in range(3):
+                        for y in range(sub_ysize):
+                            abs_y = abs0 + y
+                            if abs_y >= y_hi and c == 2:
+                                break
+                            want = y_lo <= abs_y < y_hi
+                            for b in range(nbatch):
+                                bits64 = rng.fill()
+                                take = min(per_batch, sub_xsize - b * per_batch)
+                                if not want or take <= 0:
+                                    continue
+                                u32 = np.empty(16, dtype=np.uint32)
+                                u32[0::2] = (bits64 & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+                                u32[1::2] = (bits64 >> np.uint64(32)).astype(np.uint32)
+                                xoff = bx0 + sx0 + b * per_batch
+                                bufs[c, abs_y - y_lo, xoff : xoff + take] = bits_to_float(
+                                    u32[:take])
+    return bufs
 
 
 def convolve_noise(plane):

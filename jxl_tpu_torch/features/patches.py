@@ -6,7 +6,8 @@ jxl/src/features/patches.rs). The dictionary is host metadata: reading it
 looks only at the reference slots' shapes, never at their pixels, which
 stay on the decode's device. The patches are applied by
 render/pipeline.py:patches_stage, at coded resolution onto the 3 + num_ec
-channel planes, from reference frames saved before the colour transform.
+channel planes, from reference frames saved before the colour transform;
+PatchesDictionary.apply_rows is its plain version, patch by patch.
 """
 
 from __future__ import annotations
@@ -156,3 +157,31 @@ class PatchesDictionary:
             ref_positions.append(RefPosition(reference, x0, y0, rw, rh))
         reader.check_final_state(histograms, br)
         return PatchesDictionary(positions, blendings, ref_positions, stride)
+
+    # -- application (plain version) ------------------------------------------
+
+    def apply_rows(self, planes, row0: int, extra_channel_info, reference_frames) -> None:
+        """Apply every patch, in dictionary order, onto `planes` (3 +
+        num_ec float32 tensors covering rows [row0, row0 + rows) of the
+        frame), in place (ref jxl_tpu/features/patches.py:159). Blending is
+        per pixel, so each patch clipped to the rows gives the whole
+        frame's result row for row. The plain version of
+        render/pipeline.py:patches_stage."""
+        from .blending import perform_blending
+
+        row1 = row0 + planes[0].shape[0]
+        stride = self.blendings_stride
+        for pi, pos in enumerate(self.positions):
+            rp = self.ref_positions[pos.ref_pos_idx]
+            y0, y1 = max(pos.y, row0), min(pos.y + rp.ysize, row1)
+            if y1 <= y0:
+                continue
+            ry0 = rp.y0 + (y0 - pos.y)
+            ref = reference_frames[rp.reference]["frame"]
+            fg = [p[ry0 : ry0 + (y1 - y0), rp.x0 : rp.x0 + rp.xsize] for p in ref]
+            bg = [p[y0 - row0 : y1 - row0, pos.x : pos.x + rp.xsize] for p in planes]
+            out = perform_blending(bg, fg, self.blendings[pi * stride],
+                                   self.blendings[pi * stride + 1 : (pi + 1) * stride],
+                                   extra_channel_info)
+            for p, o in zip(bg, out):
+                p.copy_(o)

@@ -125,6 +125,11 @@ def get_lib():
                 [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 2 + [ctypes.c_int] * 4
                 + [ctypes.c_uint32] * 2
             )
+            lib.jxl_noise_field_rows.restype = None
+            lib.jxl_noise_field_rows.argtypes = (
+                [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 2 + [ctypes.c_int] * 4
+                + [ctypes.c_uint32] * 2 + [ctypes.c_int64] * 2
+            )
             _lib = lib
     return _lib
 
@@ -1220,6 +1225,29 @@ def noise_field_native(field, up, group_dim, gx_count, gy_count, vfi, nfi) -> No
         ctypes.c_int(int(up)), ctypes.c_int(int(group_dim)),
         ctypes.c_int(int(gx_count)), ctypes.c_int(int(gy_count)),
         ctypes.c_uint32(int(vfi)), ctypes.c_uint32(int(nfi)),
+    )
+
+
+def noise_field_rows_native(field, hu, wu, up, group_dim, gx_count, gy_count, vfi, nfi,
+                            y_lo, y_hi) -> None:
+    """Fill field, a C-contiguous (3, y_hi - y_lo, wu) float32 array, with
+    rows [y_lo, y_hi) of the (3, hu, wu) per-group xorshift128+ noise field
+    (filters.cc jxl_noise_field_rows): bit for bit the same rows of the
+    field noise_field_native makes."""
+    if field.dtype != np.float32 or field.shape != (3, y_hi - y_lo, wu):
+        raise ValueError(f"noise rows must be (3, {y_hi - y_lo}, {wu}) float32")
+    if not field.flags.c_contiguous:
+        raise ValueError("noise rows must be C-contiguous")
+    if not 0 <= y_lo <= y_hi <= hu:
+        raise ValueError(f"rows [{y_lo}, {y_hi}) outside the field's {hu}")
+    get_lib().jxl_noise_field_rows(
+        _ptr(field[0], ctypes.c_float), _ptr(field[1], ctypes.c_float),
+        _ptr(field[2], ctypes.c_float),
+        ctypes.c_int64(hu), ctypes.c_int64(wu),
+        ctypes.c_int(int(up)), ctypes.c_int(int(group_dim)),
+        ctypes.c_int(int(gx_count)), ctypes.c_int(int(gy_count)),
+        ctypes.c_uint32(int(vfi)), ctypes.c_uint32(int(nfi)),
+        ctypes.c_int64(int(y_lo)), ctypes.c_int64(int(y_hi)),
     )
 
 

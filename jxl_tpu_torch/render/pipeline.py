@@ -186,29 +186,34 @@ def patch_layers(rects, h: int, w: int) -> np.ndarray:
     return layers
 
 
-def patch_plan(frame, h: int, w: int):
+def patch_plan(frame, h: int, w: int, row0: int = 0, rows: int | None = None):
     """Host plan of the frame's patches on (h, w) planes, from the
     dictionary and the reference slots' shapes alone: (table, groups).
     table is (P, 5) int64, one row a patch: the flat index of its first
     pixel in the planes and in its slot's planes, its width, the index of
     its first pixel among its group's and its pixel count. groups: the
     PatchGroup list, in layer order. Each patch is clipped to the planes
-    and to its slot."""
+    and to its slot, then to the row window [row0, row0 + rows) (the
+    whole planes by default): the table then indexes (rows, w) planes
+    that hold those rows, as a band of the banded decode does."""
     pd = frame.lf_global.patches
     refs = frame.decoder_state.reference_frames if frame.decoder_state else [None] * 4
     stride = pd.blendings_stride
-    rows = []  # y, x, ry, rx, ph, pw, slot, dictionary index
+    rows = h - row0 if rows is None else rows
+    found = []  # y (in the window), x, ry, rx, ph, pw, slot, dictionary index
     for pi, pos in enumerate(pd.positions):
         rp = pd.ref_positions[pos.ref_pos_idx]
         ref_h, ref_w = refs[rp.reference]["frame"][0].shape
-        ph = min(rp.ysize, h - pos.y, ref_h - rp.y0)
+        y1 = pos.y + min(rp.ysize, h - pos.y, ref_h - rp.y0)
         pw = min(rp.xsize, w - pos.x, ref_w - rp.x0)
-        if ph > 0 and pw > 0:
-            rows.append((pos.y, pos.x, rp.y0, rp.x0, ph, pw, rp.reference, pi))
-    if not rows:
+        y0, y1 = max(pos.y, row0), min(y1, row0 + rows)
+        if y1 > y0 and pw > 0:
+            found.append((y0 - row0, pos.x, rp.y0 + y0 - pos.y, rp.x0, y1 - y0, pw,
+                          rp.reference, pi))
+    if not found:
         return np.zeros((0, 5), np.int64), []
-    r = np.array(rows, np.int64)
-    layers = patch_layers(r[:, [0, 1, 4, 5]], h, w)
+    r = np.array(found, np.int64)
+    layers = patch_layers(r[:, [0, 1, 4, 5]], rows, w)
     descs = [tuple(pd.blendings[pi * stride : (pi + 1) * stride]) for pi in r[:, 7].tolist()]
     desc_ids = {d: i for i, d in enumerate(dict.fromkeys(descs))}
     key = np.array([desc_ids[d] for d in descs], np.int64)
@@ -230,7 +235,7 @@ def patch_plan(frame, h: int, w: int):
     return table, groups
 
 
-def patches_stage(frame) -> Stage:
+def patches_stage(frame, row0: int = 0, rows: int | None = None) -> Stage:
     """PatchesStage (ref stages/patches.rs; jxl_tpu/render/pipeline.py:551
     with its _patch_plan/_dense_patch_layers design, as gathers): the
     host plans the dictionary once (patch_plan); the plan's table goes up
@@ -239,13 +244,17 @@ def patches_stage(frame) -> Stage:
     foreground from the slot's tensor and the background from the planes,
     blends them with features/blending.py and scatters the result back.
     Patches of one layer cover disjoint pixels, and the layers run in
-    order. Nothing goes back to the host."""
+    order. Nothing goes back to the host. With a row window, the stage
+    takes planes of rows [row0, row0 + rows) of the frame (a band of the
+    banded decode) and applies each patch clipped to them;
+    PatchesDictionary.apply_rows is the plain version."""
     from ..features.blending import perform_blending
 
     eci = frame.file_header.image_metadata.extra_channel_info
     num_c = 3 + len(eci)
     wc, hc = frame.header.size()
-    table, groups = patch_plan(frame, hc, wc)
+    rows = hc - row0 if rows is None else rows
+    table, groups = patch_plan(frame, hc, wc, row0, rows)
     refs = frame.decoder_state.reference_frames if frame.decoder_state else [None] * 4
 
     def fn(chans, ctx):
@@ -273,7 +282,7 @@ def patches_stage(frame) -> Stage:
             out = perform_blending(list(bg.unbind(0)), list(fg.unbind(0)), g.blending[0],
                                    g.blending[1:], eci)
             img[:, dst] = torch.stack(out)
-        img = img.reshape(num_c, hc, wc)
+        img = img.reshape(num_c, rows, wc)
         return list(img.unbind(0)) + list(chans[num_c:])
 
     return Stage("patches", fn, channels=tuple(range(num_c)))
@@ -286,11 +295,13 @@ def patches_stage(frame) -> Stage:
 SPLAT_CHUNK_PIXELS = 1 << 22
 
 
-def spline_plan(table, h: int, w: int):
-    """Host plan of the spline splat on (h, w) planes, from the (S, 8)
-    float32 segment table (features/splines.py): (rows, boxes, chunks).
-    rows is the table's segments whose box meets the planes; boxes is
-    (n, 5) int64, a row a segment: x0, y0, box width, pixel count and the
+def spline_plan(table, h: int, w: int, row0: int = 0):
+    """Host plan of the spline splat on (h, w) planes that hold rows
+    [row0, row0 + h) of the frame (all of it by default; a band of the
+    banded decode), from the (S, 8) float32 segment table
+    (features/splines.py): (rows, boxes, chunks). rows is the table's
+    segments whose box meets the planes; boxes is (n, 5) int64, a row a
+    segment: x0, y0 (the frame's row), box width, pixel count and the
     index of its first pixel within its chunk; chunks is a list of (first
     segment, end segment, pixels), in segment order, each of at most
     SPLAT_CHUNK_PIXELS pixels unless one segment alone is larger. A box is
@@ -299,8 +310,8 @@ def spline_plan(table, h: int, w: int):
     cx, cy, md = table[:, 0], table[:, 1], table[:, 2]
     x0 = np.maximum(np.rint(cx - md).astype(np.int64), 0)
     x1 = np.minimum(np.rint(cx + md).astype(np.int64) + 1, w)
-    y0 = np.maximum(np.rint(cy - md).astype(np.int64), 0)
-    y1 = np.minimum(np.rint(cy + md).astype(np.int64) + 1, h)
+    y0 = np.maximum(np.rint(cy - md).astype(np.int64), row0)
+    y1 = np.minimum(np.rint(cy + md).astype(np.int64) + 1, row0 + h)
     keep = (x1 > x0) & (y1 > y0)
     rows = table[keep]
     bw = (x1 - x0)[keep]
@@ -317,7 +328,7 @@ def spline_plan(table, h: int, w: int):
     return rows, boxes, chunks
 
 
-def splines_stage(frame) -> Stage:
+def splines_stage(frame, row0: int = 0, rows: int | None = None) -> Stage:
     """SplinesStage (ref stages/splines.rs; placed as
     jxl_tpu/render/pipeline.py:701-713 places it, after the patches): the
     host plans the segment table once (spline_plan), the table and the
@@ -330,11 +341,14 @@ def splines_stage(frame) -> Stage:
     (jxl_spline_splat, the plain host version), but index_add_ does not
     add a pixel's segments in table order (on the card its atomic adds
     take any order), so a pixel may differ from the native splat by float
-    rounding: the tests hold it within 1e-5."""
+    rounding: the tests hold it within 1e-5. With a row window the stage
+    takes planes of rows [row0, row0 + rows) of the frame, as
+    patches_stage does; Splines.draw_rows is the plain version."""
     from ..features.splines import fast_erf
 
     wc, hc = frame.header.size()
-    rows, boxes, chunks = spline_plan(frame.lf_global.splines.table, hc, wc)
+    hc = hc - row0 if rows is None else rows
+    segs, boxes, chunks = spline_plan(frame.lf_global.splines.table, hc, wc, row0)
 
     def fn(chans, ctx):
         from .stages.core import to_device_all
@@ -342,7 +356,7 @@ def splines_stage(frame) -> Stage:
         if not chunks:
             return list(chans)
         dev = chans[0].device
-        tab, box = to_device_all([rows, boxes], dev)
+        tab, box = to_device_all([segs, boxes], dev)
         planes = [p.reshape(-1) for p in chans[:3]]
         for a, b, pixels in chunks:
             t, bx = tab[a:b], box[a:b]
@@ -360,7 +374,7 @@ def splines_stage(frame) -> Stage:
             f = (fast_erf((dist * 0.5 + 0.35355338) * inv_sigma)
                  - fast_erf((dist * 0.5 - 0.35355338) * inv_sigma))
             brush = s[:, 4] * f * f
-            idx = y * wc + x
+            idx = (y - row0) * wc + x
             for c in range(3):
                 planes[c].index_add_(0, idx, s[:, 5 + c] * brush)
         return [p.reshape(hc, wc) for p in planes] + list(chans[3:])

@@ -79,22 +79,25 @@ def _modular_to_f32(plane, bit_depth):
 def frame_planes(frame, device) -> torch.Tensor:
     """The frame's three colour planes as (3, H, W) float32 on `device`, in
     XYB / YCbCr / RGB as coded (ref render/simple.py:116-131)."""
-    meta = frame.file_header.image_metadata
     mg = frame.lf_global.modular_global
+    return modular_color_planes(
+        frame, [st.to_device(mg.output_channel(c), device) for c in range(frame.color_channels)])
 
-    def channel(c):
-        return st.to_device(mg.output_channel(c), device)
 
+def modular_color_planes(frame, channels) -> torch.Tensor:
+    """(3, H, W) float32 colour planes from a Modular frame's decoded int32
+    colour channels (tensors, as coded): XYB scaled by the LF quant
+    factors, else each converted at the image's bit depth, a grey channel
+    three times. The banded decode passes a band's rows."""
+    meta = frame.file_header.image_metadata
     if meta.xyb_encoded:
         # modular XYB order is [Y, X, B]; B has Y added (ref convert.rs:278)
         sx_f, sy_f, sb_f = frame.lf_global.lf_quant.quant_factors
-        iy = channel(0).to(torch.float32)
-        ix = channel(1).to(torch.float32)
-        ib = channel(2).to(torch.float32)
+        iy, ix, ib = (c.to(torch.float32) for c in channels[:3])
         planes = [ix * st.f32(sx_f), iy * st.f32(sy_f), (ib + iy) * st.f32(sb_f)]
     else:
-        planes = [_modular_to_f32(channel(c), meta.bit_depth) for c in range(frame.color_channels)]
-        if frame.color_channels == 1:
+        planes = [_modular_to_f32(c, meta.bit_depth) for c in channels]
+        if len(planes) == 1:
             planes = [planes[0], planes[0], planes[0]]
     return torch.stack(planes)
 

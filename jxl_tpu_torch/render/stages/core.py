@@ -334,11 +334,15 @@ def f32_to_f16(plane):
     return plane.clamp(-lim, lim).to(torch.float16)
 
 
-def convert_output(plane, fmt: str, channel: int = 0, bit_depth: int | None = None):
+def convert_output(plane, fmt: str, channel: int = 0, bit_depth: int | None = None,
+                   pos=(0, 0)):
+    """The plane in output format `fmt`. pos: the (x, y) of the plane's
+    first sample in the image, where the u8 dither tile starts (a band of
+    the banded decode gives its first row)."""
     if fmt == "f32":
         return plane
     if fmt == "u8":
-        return f32_to_u8(plane, bit_depth or 8, channel)
+        return f32_to_u8(plane, bit_depth or 8, channel, pos)
     if fmt == "u16":
         return f32_to_u16(plane, bit_depth or 16)
     if fmt == "f16":

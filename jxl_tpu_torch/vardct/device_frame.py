@@ -37,11 +37,13 @@ def eligible(frame) -> bool:
     return bool((frame.hf_meta["transform"] >= 128).any())
 
 
-def _frame_blocks(frame, group_ids: list) -> dict:
+def _frame_blocks(frame, group_ids: list, by0: int = 0) -> dict:
     """{tid: (gbx, gby, group index, coefficient offset)} int32 arrays over
-    the whole frame. Offsets follow raster placement order within each
-    group, as vardct/group.py:_BlockList.offs (and so both AC decoders)
-    lay coefficients out."""
+    the groups `group_ids` (the group index is the position in that list,
+    the slot of the coefficient buffer; gby counts from block row by0).
+    Offsets follow raster placement order within each group, as
+    vardct/group.py:_BlockList.offs (and so both AC decoders) lay
+    coefficients out."""
     header = frame.header
     tmap = frame.hf_meta["transform"]
     by_tid: dict[int, list] = {}
@@ -57,7 +59,7 @@ def _frame_blocks(frame, group_ids: list) -> dict:
             sel = tids == t
             rec = by_tid.setdefault(t, [[], [], [], []])
             rec[0].append(xs[sel] + gx0)
-            rec[1].append(ys[sel] + gy0)
+            rec[1].append(ys[sel] + gy0 - by0)
             rec[2].append(np.full(int(sel.sum()), gi, dtype=np.int64))
             rec[3].append(offs[sel])
     return {
@@ -78,32 +80,38 @@ def _constants(frame) -> tuple:
         ccp.base_correlation_b))
 
 
-def _frame_tables(frame) -> list:
+def _frame_tables(frame, by0: int = 0, by1: int | None = None) -> list:
     """The host tables every render uploads: raw quant (bh, bw) int32,
-    ytox and ytob tiles float32, quant biases (4,)."""
+    ytox and ytob tiles float32, quant biases (4,); with block rows
+    [by0, by1) (by0 a multiple of the colour tile's 8 blocks), those rows
+    of raw quant and the colour tile rows that cover them."""
     bw, bh = frame.header.size_blocks()
-    th = -(-bh // COLOR_TILE_DIM_IN_BLOCKS)
+    by1 = bh if by1 is None else by1
+    ty0 = by0 // COLOR_TILE_DIM_IN_BLOCKS
+    ty1 = -(-by1 // COLOR_TILE_DIM_IN_BLOCKS)
     tw = -(-bw // COLOR_TILE_DIM_IN_BLOCKS)
     hf = frame.hf_meta
     biases = frame.file_header.transform_data.opsin_inverse_matrix.quant_biases
     return [
-        np.asarray(hf["raw_quant"], np.int32),
-        np.asarray(hf["ytox"][:th, :tw], np.float32),
-        np.asarray(hf["ytob"][:th, :tw], np.float32),
+        np.asarray(hf["raw_quant"][by0:by1], np.int32),
+        np.asarray(hf["ytox"][ty0:ty1, :tw], np.float32),
+        np.asarray(hf["ytob"][ty0:ty1, :tw], np.float32),
         np.asarray(biases, np.float32),
     ]
 
 
-def _upload(frame, extra: list, dev) -> list:
-    """[LF (3, bh, bw), raw quant, ytox, ytob, biases, *extra] on dev: the
-    host arrays in one render/stages/core.py:to_device_all. The LF is the
+def _upload(frame, extra: list, dev, by0: int = 0, by1: int | None = None) -> list:
+    """[LF (3, by1 - by0, bw), raw quant, ytox, ytob, biases, *extra] on
+    dev, block rows [by0, by1) (the whole frame by default): the host
+    arrays in one render/stages/core.py:to_device_all. The LF is the
     frame's own (lf_image, from its LF coefficients) or, for a frame that
     reads an LF frame, the adopted planes, already on the device
     (api/frame.py:_adopt_lf_frame)."""
+    tables = _frame_tables(frame, by0, by1)
     if frame.lf_device is not None:
-        return [frame.lf_device.to(dev)] + to_device_all(_frame_tables(frame) + extra, dev)
-    lf = np.stack(frame.lf_image).astype(np.float32)
-    return to_device_all([lf] + _frame_tables(frame) + extra, dev)
+        return [frame.lf_device[:, by0:by1].to(dev)] + to_device_all(tables + extra, dev)
+    lf = np.stack([p[by0:by1] for p in frame.lf_image]).astype(np.float32)
+    return to_device_all([lf] + tables + extra, dev)
 
 
 def _matrices(frame, t: int, nc: int) -> np.ndarray:
@@ -136,23 +144,41 @@ def render_vardct_frame_device(frame, flat) -> torch.Tensor:
     """(3, bh*8, bw*8) float32 planes in XYB on flat's device, from the
     dense (G * 3 * GD * GD,) int32 coefficient buffer `flat` of every
     group in order."""
+    bh = frame.header.size_blocks()[1]
+    return render_block_rows(frame, flat, list(range(frame.header.num_groups)), 0, bh)
+
+
+def render_block_rows(frame, flat, group_ids: list, by0: int, by1: int,
+                      matrices=None) -> torch.Tensor:
+    """(3, (by1 - by0)*8, bw*8) float32 planes in XYB on flat's device:
+    block rows [by0, by1) of a 4:4:4 frame, which the groups `group_ids`
+    cover exactly, from `flat`, the dense (len(group_ids) * 3 * GD * GD,)
+    int32 coefficient buffer of those groups in that order. The whole
+    frame is every group over every block row; a band of the banded
+    decode (vardct/device_band.py) is one group row, and its pixels are
+    the frame's in those rows: the same per-block gathers, dequant, CfL
+    and inverse transforms. by0 is a multiple of 8 (the colour tiles).
+    matrices: {tid: (3, nc) float32} dequant weights already made (a
+    band renderer keeps them across bands), else made here."""
     header = frame.header
     if not header.is444:
         raise ValueError("a chroma-subsampled frame renders through "
                          "render_vardct_frame_device_subsampled")
     dev = flat.device
     x_dm, b_dm, igs, cf, bcx, bcb = _constants(frame)
-    bw, bh = header.size_blocks()
+    bw = header.size_blocks()[0]
+    nbh = by1 - by0
     W = bw * BLOCK_DIM
-    blocks = _frame_blocks(frame, list(range(header.num_groups)))
+    blocks = _frame_blocks(frame, group_ids, by0)
     types = sorted(blocks)
     host = []
     for t in types:
         host += [a.astype(np.int64) for a in blocks[t]]
-        host.append(_matrices(frame, t, covered_blocks_x(t) * covered_blocks_y(t) * BLOCK_SIZE))
-    lf, rq, ytox, ytob, b_c, *per_type = _upload(frame, host, dev)
+        nc = covered_blocks_x(t) * covered_blocks_y(t) * BLOCK_SIZE
+        host.append(matrices[t] if matrices is not None else _matrices(frame, t, nc))
+    lf, rq, ytox, ytob, b_c, *per_type = _upload(frame, host, dev, by0, by1)
     lf_flat = lf.reshape(3, -1)
-    planes = torch.zeros((3, bh * BLOCK_DIM * W), dtype=torch.float32, device=dev)
+    planes = torch.zeros((3, nbh * BLOCK_DIM * W), dtype=torch.float32, device=dev)
     stride_c = GROUP_DIM * GROUP_DIM
     for k, t in enumerate(types):
         gbx, gby, gi, off, mats = per_type[5 * k : 5 * k + 5]
@@ -182,7 +208,7 @@ def render_vardct_frame_device(frame, flat) -> torch.Tensor:
             lf_tiles = lf_flat[c][lf_idx].reshape(n, cy, cx)
             pix = transform_to_pixels_batch(t, lf_tiles, dq[:, c].contiguous())
             planes[c, pidx] = pix.reshape(-1)
-    return planes.reshape(3, bh * BLOCK_DIM, W)
+    return planes.reshape(3, nbh * BLOCK_DIM, W)
 
 
 def render_vardct_frame_device_subsampled(frame, flat) -> list:

@@ -121,7 +121,7 @@ def lane_tables(frame) -> dict:
     return frame._lane_tables
 
 
-def lane_inputs(frame, group_readers: dict) -> dict:
+def lane_inputs(frame, group_readers: dict, band=None) -> dict:
     """The numpy inputs of decode_ac_sections for the (group, pass)
     sections of `group_readers`, {(group, pass): BitReader}, one lane each
     in (group, pass) order: {"streams", eight lane arrays, "items",
@@ -129,7 +129,14 @@ def lane_inputs(frame, group_readers: dict) -> dict:
     log_bucket, num_bctx, total, n_buckets}. Each reader's histogram index
     is read here. The tables cover the whole frame (lane_tables), so the
     lanes of any subset of sections land where one call over all of them
-    puts them."""
+    puts them.
+
+    band: a range of consecutive groups (a group row of the banded
+    decode) that holds every group of `group_readers`. The lanes then
+    decode into a band-sized buffer, the band's groups in order (total =
+    len(band) * 3 * GD * GD): lane_group and the coefficient bases count
+    from the band's first group, and "items" holds only the band's rows,
+    so the card holds O(band) for them."""
     from ..errors import InvalidHistogramIndex
 
     header = frame.header
@@ -137,6 +144,9 @@ def lane_inputs(frame, group_readers: dict) -> dict:
     bctx = frame.lf_global.block_context_map
     num_histo_bits = _ceil_log2(hf_global.num_histograms)
     tabs = lane_tables(frame)
+    g0 = 0 if band is None else band[0]
+    items = tabs["items"] if band is None else tabs["items"][band[0] : band[-1] + 1]
+    total = tabs["total"] if band is None else len(band) * 3 * GROUP_DIM * GROUP_DIM
 
     keys = sorted(group_readers)
     S = len(keys)
@@ -149,11 +159,11 @@ def lane_inputs(frame, group_readers: dict) -> dict:
         hist_idx = br.read(num_histo_bits)
         if hist_idx >= hf_global.num_histograms:
             raise InvalidHistogramIndex("invalid histogram index")
-        lanes["lane_group"][li] = g
+        lanes["lane_group"][li] = g - g0
         lanes["lane_ctx_off"][li] = hist_idx * bctx.num_ac_contexts + tabs["ctx_base"][p]
         lanes["lane_shift"][li] = header.passes.shift[p] if p < len(header.passes.shift) else 0
         lanes["lane_order_base"][li] = tabs["pass_order_base"][p]
-        lanes["lane_coeff_base"][li] = g * 3 * GROUP_DIM * GROUP_DIM
+        lanes["lane_coeff_base"][li] = (g - g0) * 3 * GROUP_DIM * GROUP_DIM
         lanes["lane_n_items"][li] = tabs["n_items"][g]
         lanes["lane_end_bits"][li] = len(br.data) * 8
         lanes["start_bits"][li] = br.pos
@@ -163,9 +173,9 @@ def lane_inputs(frame, group_readers: dict) -> dict:
     for i, d in enumerate(datas):
         streams[i, : len(d)] = np.frombuffer(d, dtype=np.uint8)
     return dict(
-        streams=streams, **lanes,
-        **{k: tabs[k] for k in ("items", "orders", "tables", "uint_cfgs", "context_map")},
-        **{k: tabs[k] for k in LANE_KEYWORDS},
+        streams=streams, **lanes, items=np.ascontiguousarray(items),
+        **{k: tabs[k] for k in ("orders", "tables", "uint_cfgs", "context_map")},
+        **{k: tabs[k] for k in LANE_KEYWORDS if k != "total"}, total=total,
     )
 
 

@@ -5,6 +5,17 @@ The torch counterpart of jxl_tpu/vardct/transforms_batch.py: the math of
 transforms.py (the per-block numpy oracle) over a leading batch axis, as
 float32 matrix products. TF32 stays off (the package sets it at import),
 so the products keep full float32 on the card.
+
+A block's result must not depend on how many blocks share the call: the
+banded decode (vardct/device_band.py) renders a group row's blocks where
+the whole-frame render takes the frame's, and both must give the same
+pixels. cuBLAS picks its kernel by the product's shape, and a band's 8x8
+products then rounded an ulp or two apart from the frame's (measured on
+the H100, PERF.md). So transform_to_pixels_batch runs the blocks in
+chunks of a fixed count a type, CHUNK_PIXELS pixels or one block, and on
+the card pads the last chunk with zero blocks: every product of a type
+has one shape, whatever the batch. The chunks also bound the products'
+temporaries.
 """
 
 from __future__ import annotations
@@ -18,6 +29,8 @@ from .transform_map import HfTransformType as T
 from .transforms import coeff_storage_shape, dct_matrix, dct_scales, idct_matrix, pixel_shape
 
 _AFV_BASIS = np.array(AFV4X4BASIS, dtype=np.float32).reshape(16, 16)
+# pixels a chunk of transform_to_pixels_batch: 4 MB of float32 a product
+CHUNK_PIXELS = 1 << 20
 _CONST: dict = {}
 
 
@@ -92,7 +105,26 @@ def transform_to_pixels_batch(t: int, lf, coeffs):
     """Batched inverse transform for one type.
 
     lf: (N, cy, cx) float32; coeffs: (N, num_coeffs) float32 (dequantized),
-    both on one device. Returns (N, rows, cols) pixels on that device."""
+    both on one device. Returns (N, rows, cols) pixels on that device,
+    each block's the same whatever N (module docstring)."""
+    n = coeffs.shape[0]
+    rows, cols = pixel_shape(t)
+    size = max(1, CHUNK_PIXELS // (rows * cols))
+    pad = coeffs.device.type == "cuda"
+    if n == size or (n < size and not pad):
+        return _transform_chunk(t, lf, coeffs)
+    out = torch.empty((n, rows, cols), dtype=torch.float32, device=coeffs.device)
+    for i in range(0, n, size):
+        m = min(size, n - i)
+        lf_c, co_c = lf[i : i + m], coeffs[i : i + m]
+        if m < size and pad:
+            lf_c = torch.nn.functional.pad(lf_c, (0, 0, 0, 0, 0, size - m))
+            co_c = torch.nn.functional.pad(co_c, (0, 0, 0, size - m))
+        out[i : i + m] = _transform_chunk(t, lf_c, co_c)[:m]
+    return out
+
+
+def _transform_chunk(t: int, lf, coeffs):
     n = coeffs.shape[0]
     rows, cols = pixel_shape(t)
 

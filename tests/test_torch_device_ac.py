@@ -57,7 +57,8 @@ def _both(inputs):
 
 
 @pytest.mark.parametrize("size,transforms,seed", [((520, 136), "mixed", 21),
-                                                   ((300, 200), "dct8", 22)])
+                                                   ((300, 200), "dct8", 22),
+                                                   ((264, 1040), "large", 23)])
 def test_plain_lanes_match_jxl_tpu_on_writer_streams(size, transforms, seed):
     data, coeffs = encode_xyb_vardct(*size, seed=seed, transforms=transforms, density=0.15)
     frame, readers = _port_frame_and_readers(data)

@@ -26,6 +26,8 @@ STREAMS = {
     "mixed_520x136": lambda: encode_xyb_vardct(520, 136, seed=41, density=0.15),
     "dct8_300x200": lambda: encode_xyb_vardct(300, 200, seed=42, transforms="dct8",
                                               density=0.15),
+    "large_520x1040": lambda: encode_xyb_vardct(520, 1040, seed=43, transforms="large",
+                                                density=0.15),
 }
 _CACHE = {}
 

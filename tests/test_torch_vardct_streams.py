@@ -52,6 +52,13 @@ TREE_UINT = (4, 0, 0)
 DCT16 = 4
 # 1x1 types beside DCT8 (0), two per band of the coefficient list
 BAND_TYPES = ((2, 3), (1, 12), (13, 14), (15, 16), (17, 2))
+# transforms="large": each strip of one group row of an LF group takes one
+# family, at most four types (a leaf's simple prefix code): the DCT16 fill
+# with two 1x1 types, then the 32, 64, 128 and 256 px transforms, each as
+# (square, half as wide, half as tall), beside DCT8 for the cells where no
+# larger block fits
+LARGE_FAMILIES = ((0, 4, 2, 3), (0, 5, 10, 11), (0, 18, 19, 20), (0, 21, 22, 23),
+                  (0, 24, 25, 26))
 MAX_COEFF = 20
 
 _FREQ_CTX = np.array(
@@ -323,17 +330,42 @@ def _leaf_sets():
     sets = {k: S0 for k in ("lf_y", "lf_x", "lf_b", "cfl", "quant", "epf_lo", "epf_hi", "alpha")}
     for b, extra in enumerate(BAND_TYPES):
         sets[f"band{b}"] = tuple(sorted(_signed_token((0, DCT16) + extra).tolist()))
+    for f, fam in enumerate(LARGE_FAMILIES):
+        sets[f"family{f}"] = tuple(sorted(_signed_token(fam).tolist()))
     return sets
 
 
+def _strip_types(num_lf_groups: int, strips: list):
+    """The transform types' subtree of transforms="large": a split on the
+    stream id a LF group (the HF metadata of LF group l is stream 1 + 2 *
+    num_lf_groups + l), then on the list index (property 3) a strip, each
+    strip's leaf its family's. strips: per LF group, [(first list index,
+    family)] in order."""
+    def chain(bands, k):
+        leaf = _leaf(f"family{bands[k][1]}", 0, 0)
+        if k == len(bands) - 1:
+            return leaf
+        return _split(3, bands[k + 1][0] - 1, chain(bands, k + 1), leaf)
+
+    node = chain(strips[-1], 0)
+    for lf in range(num_lf_groups - 2, -1, -1):
+        node = _split(1, 1 + 2 * num_lf_groups + lf, node, chain(strips[lf], 0))
+    return node
+
+
 def build_tree(num_lf_groups: int, band_step: int, lf_y_offset: int = 256,
-               first_hf_stream: int | None = None):
+               first_hf_stream: int | None = None, strips=None):
     """The global tree. With first_hf_stream (the modular stream id of
     group 0's HF section), every HF group stream, where the alpha channel
-    is coded, takes one more leaf: 0, 64, 128 or 192."""
-    types = _leaf("band0", 0, 0)
-    for b in range(1, len(BAND_TYPES)):
-        types = _split(3, b * band_step - 1, _leaf(f"band{b}", 0, 0), types)
+    is coded, takes one more leaf: 0, 64, 128 or 192. strips: the strips
+    of transforms="large" (_strip_types), else the types are coded by
+    band of the list index (BAND_TYPES)."""
+    if strips is not None:
+        types = _strip_types(num_lf_groups, strips)
+    else:
+        types = _leaf("band0", 0, 0)
+        for b in range(1, len(BAND_TYPES)):
+            types = _split(3, b * band_step - 1, _leaf(f"band{b}", 0, 0), types)
     meta = _split(0, 1,
                   _split(0, 2,
                          _split(3, 31, _leaf("epf_hi", 6, 0), _leaf("epf_lo", 2, 0)),
@@ -413,6 +445,59 @@ def _lf_rects(bw, bh, lgx, lgy):
             for y in range(lgy) for x in range(lgx)]
 
 
+def _place_large(rng, bw, bh, rects):
+    """transforms="large": (transform map, per LF group the types of its
+    coefficient list in raster order, per LF group its strips [(first
+    list index, family)]). Strip k of LF group l, its block rows [32k, 32k
+    + 32), takes family (4 - k - l) % 5 of LARGE_FAMILIES, so its origins
+    are consecutive in the list and each strip is one leaf of the tree.
+    Family 0 is the DCT16 fill with DCT8, DCT2X2 and DCT4X4; family f > 0
+    tiles the strip with cells of s = 2 << f blocks, each a square, two
+    halves side by side or two halves one above the other, in turn from a
+    random start, and DCT8 blocks where a cell would leave its LF group or
+    the frame."""
+    tmap = np.full((bh, bw), 128, dtype=np.uint8)
+    lists, strips = [], []
+    for li, (ox, oy, w, h) in enumerate(rects):
+        sub = tmap[oy : oy + h, ox : ox + w]
+        fams = []
+        for k, y0 in enumerate(range(0, h, GD_BLOCKS)):
+            f = (4 - k - li) % len(LARGE_FAMILIES)
+            fams.append(f)
+            rows = min(GD_BLOCKS, h - y0)
+            if f == 0:
+                cells = [(y, x, 2) for y in range(y0, y0 + rows - 1, 2) for x in range(0, w - 1, 2)]
+                pick = rng.random(len(cells)) < 0.15
+            else:
+                s = 2 << f
+                cells = [(y, x, s) for y in range(y0, y0 + rows - s + 1, s)
+                         for x in range(0, w - s + 1, s)]
+                pick = (np.arange(len(cells)) + rng.integers(0, 3)) % 3 + 1
+            for (y, x, s), r in zip(cells, pick):
+                if f == 0:
+                    if r:
+                        sub[y : y + 2, x : x + 2] = 4
+                        sub[y, x] = 4 | 128
+                    continue
+                sq, tall, wide = LARGE_FAMILIES[f][1:]
+                parts = {1: [(sq, 0, 0, s, s)], 2: [(tall, 0, 0, s, s // 2),
+                                                    (tall, 0, s // 2, s, s // 2)],
+                         3: [(wide, 0, 0, s // 2, s), (wide, s // 2, 0, s // 2, s)]}[int(r)]
+                for t, dy, dx, ch, cw in parts:
+                    sub[y + dy : y + dy + ch, x + dx : x + dx + cw] = t
+                    sub[y + dy, x + dx] = t | 128
+            if f == 0:  # the fill's 1x1 blocks: DCT8, DCT2X2 or DCT4X4
+                band = sub[y0 : y0 + rows]
+                one = band == 128
+                band[one] = np.array([128, 2 | 128, 3 | 128], np.uint8)[
+                    rng.integers(0, 3, int(one.sum()))]
+        oys, oxs = np.nonzero(sub >= 128)
+        types = (sub[oys, oxs] & 127).astype(np.int64)
+        lists.append(types)
+        strips.append([(int(np.searchsorted(oys, k * GD_BLOCKS)), f) for k, f in enumerate(fams)])
+    return tmap, lists, strips
+
+
 def _place_transforms(rng, bw, bh, rects, mixed: bool):
     """Transform map (origin cells carry | 128) and, per LF group, the
     types of its coefficient list in raster order."""
@@ -451,9 +536,10 @@ def _place_transforms(rng, bw, bh, rects, mixed: bool):
 
 
 def _lf_group_section(rng, leaves, rect, types, cfl_zero, hs=(0, 0, 0), vs=(0, 0, 0),
-                      lf_coefficients=True):
+                      lf_coefficients=True, strips=None):
     """One LF group's section: its LF coefficients (not in a frame that
-    reads an LF frame: lf_coefficients=False), then its HF metadata."""
+    reads an LF frame: lf_coefficients=False), then its HF metadata.
+    strips: the LF group's strips of transforms="large"."""
     ox, oy, w, h = rect
     sec = BitList()
     if lf_coefficients:
@@ -475,8 +561,14 @@ def _lf_group_section(rng, leaves, rect, types, cfl_zero, hs=(0, 0, 0), vs=(0, 0
     for _ in range(2):  # ytox, ytob
         vals = np.zeros((ch, cw), np.int64) if cfl_zero else _residual(rng.integers(0, 4, (ch, cw)))
         _modular_bits(sec, leaves, "cfl", vals)
-    # transform image row 0: types, by band of the list index
-    for b in range(len(BAND_TYPES)):
+    # transform image row 0: types, by band of the list index (or by
+    # strip, `strips`, for transforms="large")
+    if strips is not None:
+        ends = [lo for lo, _ in strips[1:]] + [count]
+        for (lo, f), hi in zip(strips, ends):
+            if lo < hi:
+                _modular_bits(sec, leaves, f"family{f}", types[lo:hi])
+    for b in range(len(BAND_TYPES) if strips is None else 0):
         step = leaves["_band_step"]
         lo = b * step
         hi = count if b == len(BAND_TYPES) - 1 else min(count, (b + 1) * step)
@@ -770,7 +862,10 @@ def encode_xyb_vardct(width: int, height: int, seed: int = 0, transforms: str = 
     """(codestream, coeffs): an XYB VarDCT frame of more than one group,
     coded at width x height, and the dense (G * 3 * 256 * 256,) int32
     quantized AC coefficients it encodes. transforms: "mixed" (DCT16x16 on
-    aligned 2x2 positions and every 1x1 type) or "dct8"; density: the share
+    aligned 2x2 positions and every 1x1 type), "dct8", or "large" (strips
+    of one group row, each of DCT16 and two 1x1 types, or of the DCT32,
+    DCT64, DCT128 or DCT256 transforms in all three of their shapes:
+    _place_large); density: the share
     of (block, channel) items that carry coefficients, each 1 to max_run
     coefficient positions (a higher max_run writes longer sections); lz77:
     enable (unused) LZ77 in the AC histograms, which makes the frame one for
@@ -801,7 +896,7 @@ def encode_xyb_vardct(width: int, height: int, seed: int = 0, transforms: str = 
     (test_torch_icc_streams.encode_icc)."""
     if width <= GROUP_DIM and height <= GROUP_DIM:
         raise ValueError("the writer lays out multi-group frames only")
-    if transforms not in ("mixed", "dct8"):
+    if transforms not in ("mixed", "dct8", "large"):
         raise ValueError(f"unknown transforms {transforms!r}")
     if noise is not None and (len(noise) != 8 or not all(0 <= v < 1024 for v in noise)):
         raise ValueError("noise is 8 integers 0-1023")
@@ -820,7 +915,12 @@ def encode_xyb_vardct(width: int, height: int, seed: int = 0, transforms: str = 
     rng = np.random.default_rng(seed)
     bw, bh, gxn, gyn, lgx, lgy = _frame_layout(width, height, max(hs), max(vs))
     rects = _lf_rects(bw, bh, lgx, lgy)
-    tmap, type_lists, band_step = _place_transforms(rng, bw, bh, rects, transforms == "mixed")
+    if transforms == "large":
+        tmap, type_lists, strips = _place_large(rng, bw, bh, rects)
+        band_step = 1
+    else:
+        tmap, type_lists, band_step = _place_transforms(rng, bw, bh, rects, transforms == "mixed")
+        strips = None
 
     lg = BitList()
     if splines is not None:  # after the patches, before the noise
@@ -848,7 +948,8 @@ def encode_xyb_vardct(width: int, height: int, seed: int = 0, transforms: str = 
     # the modular stream id of group 0's HF section (pass 0)
     first_hf = 1 + 3 * len(rects) + 17 if num_ec else None
     # YCbCr: Y's LF about 0, as the zero-centred Y of a JPEG
-    leaves = write_tree(lg, build_tree(len(rects), band_step, 0 if ycbcr else 256, first_hf))
+    leaves = write_tree(lg, build_tree(len(rects), band_step, 0 if ycbcr else 256, first_hf,
+                                       strips))
     leaves["_band_step"] = band_step
     if num_ec:
         # the global modular image (the alpha channel alone): its
@@ -858,8 +959,9 @@ def encode_xyb_vardct(width: int, height: int, seed: int = 0, transforms: str = 
         lg.write(1, 1)  # default weighted-predictor header
         lg.write(0, 2)  # no transforms
     lf_sections = [
-        _lf_group_section(rng, leaves, rect, types, cfl_zero or ycbcr, hs, vs, not lf_frame)[0]
-        for rect, types in zip(rects, type_lists)
+        _lf_group_section(rng, leaves, rect, types, cfl_zero or ycbcr, hs, vs, not lf_frame,
+                          None if strips is None else strips[i])[0]
+        for i, (rect, types) in enumerate(zip(rects, type_lists))
     ]
     hg = BitList()
     hg.write(1, 1)  # default dequant matrices
@@ -993,7 +1095,7 @@ def random_lanes(seed, S=6, G=3, I=48, log_alpha=5, clusters=3):
 
 
 @pytest.mark.parametrize("size,transforms", [((520, 300), "mixed"), ((600, 520), "dct8"),
-                                              ((300, 1030), "mixed")])
+                                              ((300, 1030), "mixed"), ((776, 1290), "large")])
 def test_jxl_tpu_decodes_writer_coefficients(size, transforms):
     from test_device_ac import _decode_frame_coeffs
 
@@ -1015,6 +1117,18 @@ def test_writer_covers_every_1x1_type_and_dct16():
     assert len(np.unique(frame.hf_meta["raw_quant"])) == 4
     rf = frame.header.restoration_filter
     assert rf.gab and rf.epf_iters == 2
+
+
+def test_large_writer_covers_every_transform_from_dct32_up():
+    """transforms="large" codes every square and rectangular transform of
+    32 to 256 pixels, DCT16 and its fill, each strip's origins in one run
+    of the list."""
+    from jxl_tpu.api.simple import decode_first_frame
+
+    data, _ = encode_xyb_vardct(776, 1290, seed=5, transforms="large")
+    tmap = np.asarray(decode_first_frame(data).frame.hf_meta["transform"])
+    types = set(np.unique(tmap[tmap >= 128] & 127).tolist())
+    assert types == {0, 2, 3, 4, 5, 10, 11} | set(range(18, 27))
 
 
 # sha256 of the writer's bytes before it had the upsampling and noise
