@@ -7,9 +7,9 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a), nvcc and
 g++. Phases, each printing JSON lines, and any failure ends the run with
 a non-zero exit:
 
-1. build   - nvcc builds csrc/epf_gab.cu (K1) and csrc/ans_lanes.cu (K2,
-             K3), and g++ the host decoder library, all in parallel, from
-             the checkout.
+1. build   - nvcc builds csrc/epf_gab.cu (K1), csrc/ans_lanes.cu (K2,
+             K3) and csrc/lossless_lanes.cu (K4), and g++ the host decoder
+             library, all in parallel, from the checkout.
 2. kernels - K1 against its plain torch version on the card, at 3840x2160
              for all six stage sets (gaborish on/off x epf_iters 1-3, each
              timed beside its bound), at 1920x1080 (the upsampled VarDCT
@@ -74,14 +74,17 @@ a non-zero exit:
              it, and its device time from CUDA events with the step
              queued behind a spin.
 6. layouts - decode_image on the card of the two VarDCT frame layouts of
-             recompressed JPEGs and lossy images with alpha: (a) a 3840x2160
+             recompressed JPEGs and lossy images with alpha, and of a
+             chroma-subsampled Modular frame: (a) a 3840x2160
              YCbCr 4:2:0 frame, DCT8 only, no filters (K3, the subsampled
              render, the chroma upsampling); (b) a 1920x1080 YCbCr 4:2:0
              frame with gaborish + EPF (K3, the chroma upsampling, then
              K1); (c) a 3840x2160 XYB frame with an 8-bit alpha in each
              group's modular HF stream (the host AC decode group by group,
-             then K1); u8 and f32, 3 reps each, with each stream's K1 and
-             K3 launches (K3 must rise on (a) and (b), K1 on (b) and (c)),
+             then K1); (d) a 3840x2160 YCbCr 4:2:0 Modular frame with
+             gaborish + EPF (the chroma upsampling, then K1); u8 and f32, 3
+             reps each, with each stream's K1 and K3 launches (K3 must rise
+             on (a) and (b), K1 on (b), (c) and (d), K3 not on (d)),
              K3's buffer of (a) bit for bit against the writer's and the
              host decoder's, and each decode held against the port's CPU
              decode (host AC; f32 <= 1e-4, u8 <= 1 LSB). Then (a)'s render
@@ -153,9 +156,20 @@ a non-zero exit:
              progressive_4k (LF frame whole, two passes in bands), the
              4K patches frame and a 4K frame of the DCT32 to DCT256
              transforms against decode_image. Band and frame
-             agree bit for bit, or f32 within 1e-5 and u8 within 1 LSB
-             (a differing cuBLAS algorithm for a band's batch).
-11. profile - a u8 decode of each stream (Modular, VarDCT, the upsampled
+             agree bit for bit.
+11. lossless - the lossless Modular lanes (phase_lossless): a 3840x2160
+             lane stream (Gradient leaves for two channels, West for the
+             third; 270 gradient and 135 West lanes) decoded with
+             JXL_TPU_DEV_LOSSLESS=1 and =0, u8 and f32, 5 reps each: walls,
+             host_s, peak card memory, K4 and cumsum launches, bytes up and
+             back; the routes bit for bit; a 520x300 lane stream's channels
+             against the writer's planes; K4 against its plain version bit
+             for bit (the decode's batches, the frame's 270 lanes, a
+             2048x2048 lane, the overflow gate's edge and past it), timed
+             beside its bytes and chain bounds, the plain version and the
+             native host loop on the same lanes; the auto rule the walls
+             support.
+12. profile - a u8 decode of each stream (Modular, VarDCT, the upsampled
              VarDCT with noise) under torch.profiler: device time by
              operation and the card's idle share. It runs right after the
              build, and no other phase opens a profiler session.
@@ -304,6 +318,7 @@ def phase_build():
     from jxl_tpu_torch import native
     from jxl_tpu_torch.ops import ans_lanes as AL
     from jxl_tpu_torch.ops import epf_gab as K
+    from jxl_tpu_torch.ops import lossless_lanes as LL
 
     errors = []
     secs = {}
@@ -319,6 +334,7 @@ def phase_build():
     threads = [
         threading.Thread(target=run, args=("nvcc_epf_gab", K.load)),
         threading.Thread(target=run, args=("nvcc_ans_lanes", AL.load)),
+        threading.Thread(target=run, args=("nvcc_lossless_lanes", LL.load)),
         threading.Thread(target=run, args=("gxx_host_decoder", native.get_lib)),
     ]
     t0 = time.perf_counter()
@@ -327,7 +343,8 @@ def phase_build():
     for t in threads:
         t.join()
     check(not errors, "build failed: " + "; ".join(errors))
-    ptxas = [r for mod in (K, AL) for r in ptxas_report((mod.build_info or {}).get("log", ""))]
+    ptxas = [r for mod in (K, AL, LL)
+             for r in ptxas_report((mod.build_info or {}).get("log", ""))]
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "parts": secs,
           "ptxas": ptxas})
 
@@ -1159,15 +1176,20 @@ def layout_streams():
     coefficients or None)] of the layouts phase: (a) the 3840x2160 YCbCr
     4:2:0 frame of a recompressed JPEG (DCT8, no filters), (b) a 1920x1080
     YCbCr 4:2:0 frame with the default filters, (c) a 3840x2160 XYB frame
-    with an 8-bit alpha and the default filters."""
+    with an 8-bit alpha and the default filters, (d) a 3840x2160 YCbCr
+    4:2:0 Modular frame with the default filters
+    (tests/test_torch_streams.py:encode_ycbcr_modular)."""
+    from test_torch_streams import encode_ycbcr_modular
     from test_torch_vardct_streams import encode_xyb_vardct, encode_ycbcr_vardct
 
     a, a_coeffs = encode_ycbcr_vardct(WIDTH, HEIGHT, seed=7, filters=False)
     b, _ = encode_ycbcr_vardct(WIDTH // 2, HEIGHT // 2, seed=8)
     c, _, _ = encode_xyb_vardct(WIDTH, HEIGHT, seed=9, num_ec=1)
+    d, _ = encode_ycbcr_modular(WIDTH, HEIGHT, seed=10, subsampling="420")
     return [("ycbcr420_jpeg", a, (WIDTH, HEIGHT), 3, a_coeffs),
             ("ycbcr420_filtered", b, (WIDTH // 2, HEIGHT // 2), 3, None),
-            ("xyb_alpha", c, (WIDTH, HEIGHT), 4, None)]
+            ("xyb_alpha", c, (WIDTH, HEIGHT), 4, None),
+            ("modular_ycbcr420", d, (WIDTH, HEIGHT), 3, None)]
 
 
 def phase_layouts(streams) -> dict:
@@ -1210,11 +1232,12 @@ def phase_layouts(streams) -> dict:
                 "decode_ac_sections": device_ac.decode_ac_sections.launches,
                 "ans_decode_batch": AL.ans_decode_batch.launches, "per_stream": per_stream}
     emit({"phase": "layouts", "launches": launches})
-    (a, a_data, _, _, a_coeffs), (b, *_), (c, *_) = streams
+    (a, a_data, _, _, a_coeffs), (b, *_), (c, *_), (d, *_) = streams
     check(per_stream[a]["decode_ac_sections"] > 0 and per_stream[b]["decode_ac_sections"] > 0,
           "the YCbCr 4:2:0 decodes did not launch K3")
-    check(per_stream[b]["epf_gab"] > 0 and per_stream[c]["epf_gab"] > 0,
-          "the filtered layout decodes did not launch epf_gab")
+    check(per_stream[b]["epf_gab"] > 0 and per_stream[c]["epf_gab"] > 0
+          and per_stream[d]["epf_gab"] > 0, "the filtered layout decodes did not launch epf_gab")
+    check(per_stream[d]["decode_ac_sections"] == 0, "the Modular frame launched K3")
 
     lanes = _vardct_frame(a_data, "cuda")
     torch.cuda.synchronize()
@@ -1939,10 +1962,9 @@ def _diff_report(a, b) -> dict:
 
 
 def _check_same(rep: dict, fmt: str, what: str) -> None:
-    """Bit for bit, or within the stated bound of a differing cuBLAS
-    algorithm choice (f32 <= 1e-5; u8 <= 1 LSB)."""
-    limit = 1.0 if fmt == "u8" else 1e-5
-    check(rep["max_abs_diff"] <= limit, f"{what} {fmt}: {rep}")
+    """Bit for bit: a band runs the frame's own per-pixel math on products
+    of one shape a type (_diff_report's figures go into the message)."""
+    check(rep["bit_for_bit"], f"{what} {fmt} not bit for bit: {rep}")
 
 
 def banded_streams(fstreams, tstreams, mstreams):
@@ -2036,8 +2058,8 @@ def phase_banded(vdata, streams) -> dict:
     with both walls and peak card memories, and decode_banded's peak at
     7680x1088 (5 bands): the working set follows the width, not the
     height. (c) decode_banded of the other band types (banded_streams)
-    against decode_image. Band and frame agree bit for bit or within the
-    bound of _check_same. Also the band route's host steps
+    against decode_image. Band and frame agree bit for bit
+    (_check_same). Also the band route's host steps
     (_band_route_breakdown) and both routes of decode_image at 8K. Returns
     the launches of each band path."""
     import numpy as np
@@ -2222,6 +2244,260 @@ def phase_banded(vdata, streams) -> dict:
     return out
 
 
+def lossless_stream():
+    """The lossless phase's 3840x2160 lane stream
+    (tests/test_torch_streams.py, predictors=): Gradient leaves for Y and X,
+    West for B, offset 0 and multiplier 1, default filters; 135 groups, so
+    270 gradient lanes and 135 West lanes."""
+    from test_torch_streams import GRADIENT, WEST, encode_xyb_modular
+
+    return encode_xyb_modular(WIDTH, HEIGHT, seed=21, predictors=(GRADIENT, GRADIENT, WEST),
+                              oracle=False)[0]
+
+
+# dependent integer operations on a gradient sample's chain (compare,
+# select, add, the next diagonal's load) and cycles each (Hopper's int32
+# latency), at the SM clock SPIN_CYCLES_PER_S
+K4_CHAIN_OPS = 4
+K4_CYCLES_PER_OP = 4
+# integer operations a gradient sample, as csrc/lossless_lanes.cu counts
+# them: index, load, min, max, two compares, selects, add, two stores
+K4_OPS_PER_SAMPLE = 12
+
+
+def _k4_bounds(dims, wire_bytes: int) -> dict:
+    """bound_ms (the larger of the bytes, each residual read once and each
+    sample written once, over HBM_BYTES_PER_S, and the integer operations
+    over INT32_OPS_PER_S) and chain_bound_ms (the longest lane's h + w - 1
+    dependent diagonals at K4_CHAIN_OPS dependent operations a diagonal)."""
+    n = sum(h * w for h, w in dims)
+    t_bytes = n * (wire_bytes + 4) / HBM_BYTES_PER_S
+    t_ops = n * K4_OPS_PER_SAMPLE / INT32_OPS_PER_S
+    d = max(h + w - 1 for h, w in dims)
+    return {"samples": n, "diagonals": d, "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "chain_bound_ms": d * K4_CHAIN_OPS * K4_CYCLES_PER_OP / SPIN_CYCLES_PER_S * 1e3}
+
+
+def phase_lossless(data) -> dict:
+    """The lossless Modular lanes (modular/device_lossless.py) on the card.
+    (a) decode_image of the 4K lane stream with JXL_TPU_DEV_LOSSLESS=1 and
+    =0, u8 and f32, 5 reps each in turns: walls, host_s, peak card memory,
+    K4, cumsum and K1 launches a decode, the bytes uploaded and copied back
+    (trace metrics), the host seconds of the lanes' steps (trace spans);
+    the two routes bit for bit. (b) a 520x300 lane stream with the
+    writer's planes: the lanes' channels equal them. (c) K4
+    against gradient_wavefront_plain on the card, bit for bit: each batch
+    the 4K decode launched, the frame's 270 gradient lanes in one launch,
+    a 2048x2048 lane, lanes at the overflow gate's edge (64x64 and
+    2048x2048) and one past it (a wrap). (d) K4's device time on the
+    frame's lanes (device_times) beside its bounds, its wrapper call, its
+    plain version, the native host reconstruction of the same lanes, and
+    the cumsum lanes' card time. (e) the auto rule these walls support.
+    Returns K4's numbers and launches."""
+    import numpy as np
+    import torch
+
+    import jxl_tpu_torch
+    from jxl_tpu_torch import native
+    from jxl_tpu_torch.modular import device_lossless as DL
+    from jxl_tpu_torch.ops import epf_gab as K
+    from jxl_tpu_torch.ops import lossless_lanes as LL
+    from jxl_tpu_torch.utils import trace
+
+    mp = WIDTH * HEIGHT / 1e6
+    k4 = LL.gradient_wavefront
+    dispatch = DL.BatchContext._dispatch
+    captured = []  # (predictor, [residual arrays as packed]) of one decode
+
+    def capture(ctx, pred, pend):
+        captured.append((pred, [v.copy() for v, _ in sorted(pend, key=lambda p: p[0].shape)]))
+        return dispatch(ctx, pred, pend)
+
+    # (a) both routes, in turns
+    runs, outs = [], {}
+    trace.enable()
+    k4.launches = 0
+    K.epf_gab.launches = 0
+    try:
+        for rep in range(5):
+            for fmt in ("u8", "f32"):
+                for mode in ("1", "0"):
+                    os.environ["JXL_TPU_DEV_LOSSLESS"] = mode
+                    trace.reset()
+                    first = rep == 0 and fmt == "u8" and mode == "1"
+                    if first:  # the residuals of one decode's dispatches, for (c) and (d)
+                        DL.BatchContext._dispatch = capture
+                    k4_before, k1_before = k4.launches, K.epf_gab.launches
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    base = torch.cuda.memory_allocated()
+                    t0 = time.perf_counter()
+                    try:
+                        img = jxl_tpu_torch.decode_image(data, pixel_format=fmt)
+                        torch.cuda.synchronize()
+                    finally:
+                        DL.BatchContext._dispatch = dispatch
+                    wall = time.perf_counter() - t0
+                    m = trace.metrics
+                    rec = {"phase": "lossless", "lanes": mode, "format": fmt, "rep": rep,
+                           "megapixels": mp, "seconds": wall, "mp_per_s": mp / wall,
+                           "host_s": img.timings["host_s"],
+                           "peak_card_mb": (torch.cuda.max_memory_allocated() - base) / 1e6,
+                           "k4_launches": k4.launches - k4_before,
+                           "epf_gab_launches": K.epf_gab.launches - k1_before,
+                           "cumsum_calls": int(m.get("lossless_cumsum_calls")),
+                           "device_lanes": int(m.get("lossless_device_lanes")),
+                           "host_lanes": int(m.get("lossless_host_lanes")),
+                           "upload_bytes": int(m.get("lossless_upload_bytes")),
+                           "download_bytes": int(m.get("lossless_download_bytes")),
+                           # host seconds of the lanes' steps, summed over
+                           # the section decode's worker threads
+                           "lane_steps_s": {k: v for k, v in trace.host_seconds().items()
+                                            if k.startswith("lossless.")}}
+                    emit(rec)
+                    runs.append(rec)
+                    outs.setdefault((fmt, mode), img.frames[0])
+    finally:
+        trace.enable(False)
+        os.environ.pop("JXL_TPU_DEV_LOSSLESS", None)
+    launches = {"gradient_wavefront": k4.launches, "epf_gab": K.epf_gab.launches}
+    lane_runs = [r for r in runs if r["lanes"] == "1"]
+    host_runs = [r for r in runs if r["lanes"] == "0"]
+    check(all(r["k4_launches"] > 0 and r["cumsum_calls"] > 0 and r["device_lanes"] == 405
+              for r in lane_runs), "the lanes decode did not launch K4 and the cumsums "
+          "over the frame's 405 lanes")
+    check(all(r["k4_launches"] == 0 and r["device_lanes"] == 0 for r in host_runs),
+          "the host decode took the lanes")
+    check(all(r["epf_gab_launches"] == 1 for r in runs), "the lossless decodes did not launch K1")
+    for fmt in ("u8", "f32"):
+        a, b = outs[(fmt, "1")], outs[(fmt, "0")]
+        check(tuple(a.shape) == (HEIGHT, WIDTH, 3) and a.device.type == "cuda",
+              f"bad lossless frame {tuple(a.shape)} on {a.device}")
+        check(bool(torch.isfinite(a.float()).all()), "non-finite output")
+        rep = _diff_report(a, b)
+        emit({"phase": "lossless", "format": fmt, "lanes_against_host": rep})
+        check(rep["bit_for_bit"], f"the lanes decode {fmt} differs from the host decode: {rep}")
+
+    # (b) a small lane stream's channels against the writer's planes
+    from jxl_tpu_torch.api.simple import parse_frame
+    from jxl_tpu_torch.io.bit_reader import BitReader
+    from jxl_tpu_torch.io.headers import FileHeader
+    from test_torch_streams import GRADIENT, NORTH, WEST, encode_xyb_modular
+
+    small, planes = encode_xyb_modular(520, 300, seed=22, predictors=(GRADIENT, WEST, NORTH))
+    os.environ["JXL_TPU_DEV_LOSSLESS"] = "1"
+    try:
+        br = BitReader(small)
+        fh = FileHeader.read(br)
+        br.jump_to_byte_boundary()
+        frame = parse_frame(br, fh)
+        before = k4.launches
+        frame.decode_all_sections(br, "cuda")
+        same = all(np.array_equal(frame.modular_channel(c), planes[c]) for c in range(3))
+    finally:
+        os.environ.pop("JXL_TPU_DEV_LOSSLESS", None)
+    emit({"phase": "lossless", "stream": "520x300", "channels_equal_writer": same,
+          "k4_launches": k4.launches - before})
+    check(same and k4.launches > before, "the 520x300 lane stream's channels differ from the "
+          "writer's planes, or K4 did not run")
+
+    # (c) K4 against its plain version, on the decode's batches packed as
+    # the dispatches pack them (int16: the stream's residuals fit)
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(23)
+
+    def packed(lanes):
+        return (torch.from_numpy(np.concatenate([x.reshape(-1) for x in lanes]).astype(np.int16)),
+                [x.shape for x in lanes])
+
+    batches = [packed(lanes) for pred, lanes in captured if pred == DL._PRED_GRADIENT]
+    west = [lanes for pred, lanes in captured if pred == DL._PRED_WEST]
+    check(len(batches) == lane_runs[0]["k4_launches"] and west,
+          f"captured {len(batches)} K4 batches and {len(west)} West dispatches")
+    frame_res, frame_dims = packed([x for pred, lanes in captured
+                                    if pred == DL._PRED_GRADIENT for x in lanes])
+    lim64 = (1 << 31) // (3 * (64 + 64 - 1)) - 1
+    lim2k = (1 << 31) // (3 * (2048 + 2048 - 1)) - 1
+    cases = [(f"decode_batch_{i}", r, dims) for i, (r, dims) in enumerate(batches)]
+    cases += [
+        ("frame_270_lanes", frame_res, frame_dims),
+        ("lane_2048", torch.from_numpy(rng.integers(-255, 256, 2048 * 2048).astype(np.int16)),
+         [(2048, 2048)]),
+        ("gate_edge_64", torch.from_numpy(rng.choice([-lim64, lim64], 64 * 64).astype(np.int32)),
+         [(64, 64)]),
+        ("gate_edge_2048",
+         torch.from_numpy(rng.choice([-lim2k, lim2k], 2048 * 2048).astype(np.int32)),
+         [(2048, 2048)]),
+        ("past_gate_256", torch.from_numpy(rng.integers(-(1 << 26), 1 << 26, 256 * 256)
+                                           .astype(np.int32)), [(256, 256)]),
+    ]
+    check(len(frame_dims) == 270, f"the 4K decode gave K4 {len(frame_dims)} lanes, not 270")
+    max_err = 0
+    for name, res, dims in cases:
+        res = res.to(dev)
+        got = LL.gradient_wavefront(res, dims)
+        want = LL.gradient_wavefront_plain(res, dims)
+        torch.cuda.synchronize()
+        err = int((got.long() - want.long()).abs().max())
+        max_err = max(max_err, err)
+        emit({"phase": "lossless", "k4_case": name, "lanes": len(dims),
+              "dtype": str(res.dtype).split(".")[-1], "bit_for_bit": bool(torch.equal(got, want)),
+              "max_abs_diff": err})
+        check(torch.equal(got, want), f"K4 differs from its plain version on {name}")
+
+    # (d) times: K4 on the frame's lanes, its wrapper, the plain version,
+    # the native host loop on the same lanes, the cumsum lanes
+    fres = frame_res.to(dev)
+    fn = lambda: LL.gradient_wavefront(fres, frame_dims)  # noqa: E731
+    timed = device_times([("frame", fn, LL.load(), "gradient_wavefront_launch")]
+                         + [(f"batch_{i}", lambda r=r.to(dev), d=d: LL.gradient_wavefront(r, d),
+                             LL.load(), "gradient_wavefront_launch")
+                            for i, (r, d) in enumerate(batches)])
+    call_ms = time_ms(fn)
+    plain_ms = time_ms(lambda: LL.gradient_wavefront_plain(fres, frame_dims), reps=3, warmup=1)
+    host = frame_res.to(torch.int32).numpy()
+    host_ms = []
+    for _ in range(3):
+        pos, lanes = 0, []
+        for h, w in frame_dims:
+            lanes.append(host[pos : pos + h * w].reshape(h, w).copy())
+            pos += h * w
+        t0 = time.perf_counter()
+        for x in lanes:
+            native.gradient_reconstruct(x)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+    # the West lanes as the dispatch runs them: one cumsum a shape
+    shapes = {}
+    for lanes in west:
+        for x in lanes:
+            shapes.setdefault(x.shape, []).append(x)
+    cumsum_in = [torch.from_numpy(np.stack(xs).astype(np.int16)).to(dev) for xs in shapes.values()]
+    cumsum_ms = sum(time_ms(lambda r=r: LL.cumsum_west(r), reps=5) for r in cumsum_in)
+    bounds = _k4_bounds(frame_dims, frame_res.element_size())
+    k4_rec = {"ms": timed["frame"], "call_ms": call_ms, "plain_ms": plain_ms,
+              "host_native_ms": sorted(host_ms)[1],
+              "ms_decode_batches": sum(timed[f"batch_{i}"] for i in range(len(batches))),
+              "decode_batches": [len(d) for _, d in batches],
+              "cumsum_west_ms": cumsum_ms, "cumsum_west_calls": len(cumsum_in),
+              **bounds, "max_abs_err": max_err}
+    k4_rec["share_of_bound"] = k4_rec["bound_ms"] / k4_rec["ms"]
+    k4_rec["share_of_chain_bound"] = k4_rec["chain_bound_ms"] / k4_rec["ms"]
+    emit({"phase": "lossless", "k4": k4_rec})
+
+    # (e) the auto rule the walls support
+    med = {}
+    for mode in ("1", "0"):
+        for fmt in ("u8", "f32"):
+            ws = sorted(r["seconds"] for r in runs if r["lanes"] == mode and r["format"] == fmt)
+            med[(mode, fmt)] = ws[len(ws) // 2]
+    lanes_win = all(med[("1", f)] < med[("0", f)] for f in ("u8", "f32"))
+    emit({"phase": "lossless", "median_s": {f"lanes={m} {f}": v for (m, f), v in med.items()},
+          "lanes_win_at_4k": lanes_win, "auto_takes_the_lanes": DL.enabled("cuda")})
+    per_decode = [r["k4_launches"] for r in lane_runs]
+    return {"k4": k4_rec, "launches": launches, "k4_launches_per_decode": per_decode[0]}
+
+
 def phase_profile(data, stream: str, expect: str) -> None:
     """One u8 decode under torch.profiler: device time by operation, and
     the share of the decode's wall time the card was busy. A trace that
@@ -2323,6 +2599,10 @@ def main() -> int:
     emit({"phase": "tools", "step": "write_streams",
           "bytes": {name: len(d) for name, d, *_ in tstreams},
           "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    ldata = lossless_stream()
+    emit({"phase": "lossless", "step": "write_stream", "bytes": len(ldata),
+          "seconds": time.perf_counter() - t0})
     phase_s["write_streams"] = time.perf_counter() - start - phase_s["build"]
     # the only profiler sessions of the process: CUPTI has dropped events
     # in sessions after the first few
@@ -2343,6 +2623,7 @@ def main() -> int:
     streaming = run("streaming", phase_streaming, tstreams[0][1], mstreams[0][1], vdata)
     bstreams = run("banded", banded_streams, fstreams, tstreams, mstreams)
     band_launches = run("banded", phase_banded, vdata, bstreams)
+    lossless = run("lossless", phase_lossless, ldata)
     emit({"phase": "timing", "seconds": phase_s, "total_s": time.perf_counter() - start})
     null_reason = "no single torch call computes a rANS decode"
     emit({"kernels": [
@@ -2359,6 +2640,7 @@ def main() -> int:
          "launches_decode_banded_8k_path": band_launches["decode_banded_8k"]["epf_gab"],
          "launches_decode_banded_types_path": {
              k: v["epf_gab"] for k, v in band_launches["decode_banded_types"].items()},
+         "launches_lossless_path": lossless["launches"]["epf_gab"],
          "max_abs_err": max_err, "ms": k["kernel_ms"], "call_ms": k["call_ms"],
          "plain_ms": k["plain_ms"],
          "bound_ms": k["bound_ms"], "bound_by": k["bound_by"], "library_ms": None,
@@ -2400,6 +2682,21 @@ def main() -> int:
          "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"], "library_ms": None,
          "library_note": null_reason, "two_pass_3840x2160": k3["two_pass_3840x2160"],
          "band_row1_3840x2160": k3["band_row1_3840x2160"]},
+        {"name": "gradient_wavefront", "route": "cuda",
+         "source": "jxl_tpu_torch/csrc/lossless_lanes.cu",
+         "replaces": "jxl_tpu/modular/device_lossless.py:122",
+         "launches": lossless["launches"]["gradient_wavefront"],
+         "launches_note": "the lossless phase's ten JXL_TPU_DEV_LOSSLESS=1 decodes of the 4K "
+                          f"lane stream, {lossless['k4_launches_per_decode']} a decode; none "
+                          "on the other phases' streams, whose leaves are not channel-static",
+         "max_abs_err": lossless["k4"]["max_abs_err"], "ms": lossless["k4"]["ms"],
+         "call_ms": lossless["k4"]["call_ms"], "plain_ms": lossless["k4"]["plain_ms"],
+         "bound_ms": lossless["k4"]["bound_ms"], "bound_by": lossless["k4"]["bound_by"],
+         "chain_bound_ms": lossless["k4"]["chain_bound_ms"],
+         "host_native_ms": lossless["k4"]["host_native_ms"], "library_ms": None,
+         "library_note": "no single torch call computes the clamped-gradient recurrence",
+         "lanes": 270, "samples": lossless["k4"]["samples"],
+         "ms_decode_batches": lossless["k4"]["ms_decode_batches"]},
     ]})
     print(smi_line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

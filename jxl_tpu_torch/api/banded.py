@@ -20,8 +20,9 @@ decode_image's own per-frame work (api/simple.py:finish_frame), into the
 decoder state's slots, as the reference's low-memory pipeline keeps its
 reference frames in the frame store. The last frame streams in bands if
 it is eligible: a REGULAR frame, no upsampling, no blending or crop, not
-referenced, not an LF frame; a Modular frame of one pass with three
-colour channels and no global transform (a squeeze couples distant rows);
+referenced, not an LF frame; a 4:4:4 Modular frame (a chroma-subsampled
+one raises NotSupported) of one pass with three colour channels and no
+global transform (a squeeze couples distant rows);
 a VarDCT frame 4:4:4 whose global Modular transforms, if any, are
 zero-predictor palettes without deltas on a group-gridded index channel
 (a per-pixel lookup), whatever its count of extra channels (the JAX
@@ -61,9 +62,11 @@ def eligible_header(frame) -> bool:
         return False
     if h.num_toc_entries == 1:
         return False  # a frame of one section is small by definition
+    if not h.is444:
+        return False  # the band source holds 4:4:4 Modular channels only
     if h.encoding == Encoding.MODULAR:
         return h.passes.num_passes == 1 and frame.color_channels == 3
-    return h.is444
+    return True
 
 
 def _palette_band_ok(mg, step) -> bool:
@@ -204,7 +207,7 @@ class BandSource:
             dec), list(range(self.gx_count)))
         outs = self._outputs(dec)
         col = st.to_device(np.stack([outs[c] for c in range(3)]), self.device)
-        return modular_color_planes(frame, col.unbind(0)), self._ec_planes(outs)
+        return torch.stack(modular_color_planes(frame, col.unbind(0))), self._ec_planes(outs)
 
     def _vardct_coeffs(self, gy: int, groups: list):
         """The band's dense coefficient buffer on the device and its band
@@ -341,7 +344,7 @@ def decode_banded(data: bytes, emit, pixel_format: str = "f32", device="cuda") -
     emitted once the lane flags of its coefficients and of the next band's
     (its halo) have been read: a corrupt lane raises before its rows
     leave."""
-    from ..render.pipeline import check_frame, patches_stage, sigma_source, splines_stage
+    from ..render.pipeline import patches_stage, sigma_source, splines_stage
 
     if pixel_format not in PIXEL_FORMATS:
         raise ValueError(f"unknown pixel format {pixel_format!r}")
@@ -351,7 +354,6 @@ def decode_banded(data: bytes, emit, pixel_format: str = "f32", device="cuda") -
                            "device='cpu' to decode on the host")
     codestream, br, frame = _leading_frames(data, device)
     header = frame.header
-    check_frame(header)
     if not eligible_header(frame):
         raise NotSupported("stream not eligible for banded decode")
     toc_end = br.pos // 8

@@ -431,7 +431,6 @@ class JxlDecoder:
         return Event.IMAGE_INFO
 
     def _frame_header(self) -> Event | None:
-        from ..render.pipeline import check_frame
         from .simple import parse_frame
 
         br = self._reader()
@@ -477,7 +476,6 @@ class JxlDecoder:
                 self.stage = "done"
                 return Event.COMPLETE
             return Event.FRAME_START
-        check_frame(header)
         self.frame.begin_sections(self.device)
         self._progress_marker = (0, 0)
         self._lf_flush_len = 0

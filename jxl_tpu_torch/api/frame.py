@@ -87,6 +87,7 @@ class LfGlobalState:
 def run_parallel(fn, items) -> None:
     """fn over items on a host thread pool (the native decoders release the
     GIL); every result is read, so the first error raises."""
+    import contextvars
     import os
     from concurrent.futures import ThreadPoolExecutor
 
@@ -95,8 +96,10 @@ def run_parallel(fn, items) -> None:
         for it in items:
             fn(it)
         return
+    # each item runs in a copy of the caller's context, so that the
+    # workers see its lossless BatchContext (modular/device_lossless.py)
     with ThreadPoolExecutor(max_workers=n_workers) as ex:
-        for f in [ex.submit(fn, it) for it in items]:
+        for f in [ex.submit(contextvars.copy_context().run, fn, it) for it in items]:
             f.result()
 
 
@@ -315,11 +318,27 @@ class Frame:
         """Decode every section. A VarDCT frame's AC coefficients are
         decoded on `device` (the lane decoder; the card unless the caller
         asks for the CPU) unless JXL_TPU_AC=host or the stream needs the
-        host decoder."""
+        host decoder. A Modular frame's channel-static streams go to the
+        lossless lanes on `device` when device_lossless.enabled says so:
+        they are flushed back into the channels before the transforms
+        (ref jxl_tpu/api/frame.py:523-544)."""
+        from ..modular import device_lossless
+
         header = self.header
         if header.encoding == Encoding.VARDCT:
             self._decode_vardct_sections(br, torch.device(device))
-        elif header.num_toc_entries == 1:
+        else:
+            lanes = (device_lossless.BatchContext(device)
+                     if device_lossless.enabled(device) else None)
+            with device_lossless.activate(lanes):
+                self._decode_modular_sections(br)
+            if lanes is not None:
+                lanes.flush()
+        self.lf_global.modular_global.run_transforms()
+
+    def _decode_modular_sections(self, br: BitReader) -> None:
+        header = self.header
+        if header.num_toc_entries == 1:
             sec = self.split_sections(br)[0]
             self.decode_lf_global(sec)
             for g in range(header.num_lf_groups):
@@ -344,7 +363,6 @@ class Frame:
                 for g in range(header.num_groups)
             ]
             self._decode_hf_groups_parallel(jobs)
-        self.lf_global.modular_global.run_transforms()
 
     def _decode_vardct_sections(self, br: BitReader, device) -> None:
         """ref frame/decode.rs section order; the AC routing of

@@ -27,7 +27,6 @@ from ..io.bit_reader import BitReader
 from ..io.container import extract_codestream_ex
 from ..io.headers import FileHeader
 from ..io.headers.frame import FrameHeader, FrameType, Toc
-from ..render.pipeline import check_frame as _check_frame
 from ..render.simple import apply_orientation
 from ..utils import trace
 from . import overlap
@@ -183,9 +182,11 @@ def decode_image(
     explicitly to render with the plain torch versions on the host. A
     VarDCT frame's AC coefficients are decoded there too (kernel K3 on the
     card); set JXL_TPU_AC=host to decode them with the native host decoder
-    instead. A chroma-subsampled Modular frame raises NotSupported with
-    the reason. DecodedImage.timings["host_s"] sums the host parse and
-    entropy decode of every frame. JXL_TPU_OVERLAP=1 decodes an eligible
+    instead. JXL_TPU_DEV_LOSSLESS=1 reconstructs a Modular frame's
+    channel-static streams on `device` (the lossless lanes,
+    modular/device_lossless.py); 0 and auto (the default) on the host.
+    DecodedImage.timings["host_s"] sums the host parse and entropy decode
+    of every frame. JXL_TPU_OVERLAP=1 decodes an eligible
     last frame (4:4:4 VarDCT without features, api/overlap.py) band by
     band, the host's parse of a band overlapping the card's work on the
     one before; 0 and auto (the default) never, as the band route has
@@ -229,7 +230,6 @@ def decode_image(
                 raise InvalidBox("frame starts in out-of-order jxlp box")
         frame = parse_frame(br, fh, state)
         header = frame.header
-        _check_frame(header)
         if overlap.eligible(frame) and overlap.enabled():
             # the band route (api/overlap.py): the host parses band k+1
             # while the card renders band k; the last frame, so the loop ends

@@ -230,6 +230,16 @@ def decode_modular_subbitstream(
 
     image_width = max((b.data.shape[1] for b in local_buffers), default=0)
 
+    # a channel-static stream goes to the lossless lanes when a whole-frame
+    # decode activated a BatchContext (modular/device_lossless.py)
+    from . import device_lossless
+
+    if device_lossless.maybe_submit(
+        local_buffers, tree, header, transform_steps, br,
+        stream_id, image_width, partial_out,
+    ):
+        return
+
     from .. import native
 
     if not native.decode_modular_native(

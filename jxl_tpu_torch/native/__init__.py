@@ -120,6 +120,7 @@ def get_lib():
                 getattr(lib, name).restype = ctypes.c_int
             lib.jxl_rct.restype = None
             lib.jxl_spline_splat.restype = None
+            lib.jxl_gradient_reconstruct.restype = None
             lib.jxl_noise_field.restype = None
             lib.jxl_noise_field.argtypes = (
                 [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 2 + [ctypes.c_int] * 4
@@ -1296,4 +1297,26 @@ def spline_splat_native(planes, table) -> None:
         _ptr(planes[2], ctypes.c_float),
         ctypes.c_int64(h), ctypes.c_int64(w), ctypes.c_int64(w),
         _ptr(table, ctypes.c_float), ctypes.c_int64(len(table)),
+    )
+
+
+def gradient_reconstruct(arr: np.ndarray) -> None:
+    """In-place clamped-gradient reconstruction of a channel of raw
+    residuals (modular_decode.cc jxl_gradient_reconstruct): row 0 a West
+    chain, column 0 a North chain, every other sample the clamped gradient
+    of its left, top and top-left neighbours plus its residual. The host
+    lane of modular/device_lossless.py for a channel over its overflow
+    gate, and the plain host version its tests hold the lanes against.
+    `arr` is an int32 (h, w) array whose rows are contiguous (a view of a
+    larger plane is fine)."""
+    if arr.dtype != np.int32 or arr.ndim != 2 or (arr.shape[1] > 1 and arr.strides[1] != 4):
+        raise ValueError("gradient_reconstruct takes an int32 (h, w) array with contiguous rows")
+    h, w = arr.shape
+    if h == 0 or w == 0:
+        return
+    if arr.strides[0] % 4:
+        raise ValueError("row stride must be a whole number of int32 samples")
+    get_lib().jxl_gradient_reconstruct(
+        _ptr(arr, ctypes.c_int32), ctypes.c_int64(h), ctypes.c_int64(w),
+        ctypes.c_int64(arr.strides[0] // 4),
     )

@@ -12,8 +12,7 @@ a run of them as one launch of the gaborish + EPF kernel
 rectangles of a reference slot onto the planes with gathers and scatters
 built on the device from a host plan of the dictionary; the spline stage
 splats the splines' segment table there, each segment's box expanded on
-the device. Chroma-subsampled Modular frames are not in this package's
-slice: check_frame raises NotSupported for them.
+the device.
 """
 
 from __future__ import annotations
@@ -23,8 +22,6 @@ from typing import Callable
 
 import numpy as np
 import torch
-
-from ..errors import NotSupported
 
 
 @dataclass(frozen=True)
@@ -406,29 +403,16 @@ def convert_output_stage(fmt: str, channels) -> Stage:
     return Stage(f"convert_{fmt}", fn, channels=tuple(channels))
 
 
-def check_frame(header) -> None:
-    """Raise NotSupported for a frame outside this package's slice: a
-    chroma-subsampled Modular frame (no writer of this package's tests
-    codes YCbCr Modular frames). decode_image calls it before any section
-    is read, build_render_pipeline again."""
-    from ..io.headers.frame import Encoding
-
-    if not header.is444 and header.encoding != Encoding.VARDCT:
-        raise NotSupported("chroma-subsampled Modular frames are not in this package's slice")
-
-
 def build_render_pipeline(frame):
     """Per-frame stage assembly in reference order (ref
     frame/render.rs:506-885): chroma upsample (per channel, its
     horizontal steps, then its vertical ones) -> visible crop -> gaborish
     -> EPF0/1/2 -> early EC upsample -> patches -> splines -> upsample ->
     upsampled crop -> noise. The colour transform and output conversion
-    are appended by the caller. Raises NotSupported for a
-    chroma-subsampled Modular frame (check_frame)."""
+    are appended by the caller."""
     header = frame.header
     meta = frame.file_header.image_metadata
     num_ec = len(meta.extra_channel_info)
-    check_frame(header)
 
     stages = []
     for c in range(3):

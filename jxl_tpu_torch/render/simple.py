@@ -76,19 +76,20 @@ def _modular_to_f32(plane, bit_depth):
     return plane.to(torch.float32) * st.f32(1.0 / ((1 << bits) - 1))
 
 
-def frame_planes(frame, device) -> torch.Tensor:
-    """The frame's three colour planes as (3, H, W) float32 on `device`, in
-    XYB / YCbCr / RGB as coded (ref render/simple.py:116-131)."""
+def frame_planes(frame, device) -> list:
+    """The frame's three colour planes, float32 on `device`, in XYB / YCbCr
+    / RGB as coded (ref render/simple.py:116-131): each at its channel's
+    size, the frame's unless it is chroma-subsampled."""
     mg = frame.lf_global.modular_global
     return modular_color_planes(
         frame, [st.to_device(mg.output_channel(c), device) for c in range(frame.color_channels)])
 
 
-def modular_color_planes(frame, channels) -> torch.Tensor:
-    """(3, H, W) float32 colour planes from a Modular frame's decoded int32
-    colour channels (tensors, as coded): XYB scaled by the LF quant
-    factors, else each converted at the image's bit depth, a grey channel
-    three times. The banded decode passes a band's rows."""
+def modular_color_planes(frame, channels) -> list:
+    """Three float32 colour planes from a Modular frame's decoded int32
+    colour channels (tensors, as coded, each at its own size): XYB scaled
+    by the LF quant factors, else each converted at the image's bit depth,
+    a grey channel three times. The banded decode passes a band's rows."""
     meta = frame.file_header.image_metadata
     if meta.xyb_encoded:
         # modular XYB order is [Y, X, B]; B has Y added (ref convert.rs:278)
@@ -99,7 +100,7 @@ def modular_color_planes(frame, channels) -> torch.Tensor:
         planes = [_modular_to_f32(c, meta.bit_depth) for c in channels]
         if len(planes) == 1:
             planes = [planes[0], planes[0], planes[0]]
-    return torch.stack(planes)
+    return planes
 
 
 def vardct_planes(frame, device, no_ac_groups=()) -> list:
@@ -175,7 +176,7 @@ def render_frame_channels(frame, device, out_format: str = "f32", timings=None,
     if header.encoding == Encoding.VARDCT:
         chans = vardct_planes(frame, device, no_ac_groups)
     else:
-        chans = list(frame_planes(frame, device).unbind(0))
+        chans = frame_planes(frame, device)
     if num_ec:
         chans += _extra_channel_planes(frame, device)
     ctx = {"frame": frame}

@@ -137,6 +137,12 @@ def device_trace(log_dir: str):
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
+def host_seconds() -> dict:
+    """{span name: host seconds} summed since the last reset (spans on
+    worker threads add up)."""
+    return dict(_times)
+
+
 def device_ms() -> dict:
     """{span name: card milliseconds summed over its calls}, from the CUDA
     events recorded with enable(device_events=True); waits for the card."""

@@ -11,11 +11,14 @@ banded decode (vardct/device_band.py) renders a group row's blocks where
 the whole-frame render takes the frame's, and both must give the same
 pixels. cuBLAS picks its kernel by the product's shape, and a band's 8x8
 products then rounded an ulp or two apart from the frame's (measured on
-the H100, PERF.md). So transform_to_pixels_batch runs the blocks in
-chunks of a fixed count a type, CHUNK_PIXELS pixels or one block, and on
-the card pads the last chunk with zero blocks: every product of a type
-has one shape, whatever the batch. The chunks also bound the products'
-temporaries.
+the H100, PERF.md). The CPU's batched products do the same: a call of
+one to three blocks of nine types (DCT8X32, DCT16X32, DCT32X64, AFV0-3
+among them) rounds apart from the same blocks in a larger call. So
+transform_to_pixels_batch runs the blocks in chunks of a fixed count a
+type, CHUNK_PIXELS pixels on the card and CPU_CHUNK_PIXELS on the CPU
+(or one block), and pads the last chunk with zero blocks: every product
+of a type has one shape on a device, whatever the batch. The chunks also
+bound the products' temporaries.
 """
 
 from __future__ import annotations
@@ -30,7 +33,10 @@ from .transforms import coeff_storage_shape, dct_matrix, dct_scales, idct_matrix
 
 _AFV_BASIS = np.array(AFV4X4BASIS, dtype=np.float32).reshape(16, 16)
 # pixels a chunk of transform_to_pixels_batch: 4 MB of float32 a product
+# on the card; on the CPU, where a small frame's every type pays one
+# padded chunk, 64 KB
 CHUNK_PIXELS = 1 << 20
+CPU_CHUNK_PIXELS = 1 << 14
 _CONST: dict = {}
 
 
@@ -109,15 +115,15 @@ def transform_to_pixels_batch(t: int, lf, coeffs):
     each block's the same whatever N (module docstring)."""
     n = coeffs.shape[0]
     rows, cols = pixel_shape(t)
-    size = max(1, CHUNK_PIXELS // (rows * cols))
-    pad = coeffs.device.type == "cuda"
-    if n == size or (n < size and not pad):
+    chunk = CHUNK_PIXELS if coeffs.device.type == "cuda" else CPU_CHUNK_PIXELS
+    size = max(1, chunk // (rows * cols))
+    if n == size:
         return _transform_chunk(t, lf, coeffs)
     out = torch.empty((n, rows, cols), dtype=torch.float32, device=coeffs.device)
     for i in range(0, n, size):
         m = min(size, n - i)
         lf_c, co_c = lf[i : i + m], coeffs[i : i + m]
-        if m < size and pad:
+        if m < size:
             lf_c = torch.nn.functional.pad(lf_c, (0, 0, 0, 0, 0, size - m))
             co_c = torch.nn.functional.pad(co_c, (0, 0, 0, size - m))
         out[i : i + m] = _transform_chunk(t, lf_c, co_c)[:m]

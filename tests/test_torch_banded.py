@@ -32,7 +32,7 @@ from jxl_tpu_torch.errors import NotSupported
 from test_torch_frame_streams import anim_vardct_stream, patches_stream
 from test_torch_render_stages import NOISE_LUT
 from test_torch_spline_streams import splines_stream
-from test_torch_streams import encode_xyb_modular
+from test_torch_streams import encode_xyb_modular, encode_ycbcr_modular
 from test_torch_vardct_streams import encode_xyb_vardct, encode_ycbcr_vardct
 
 STREAMS = {
@@ -46,6 +46,10 @@ STREAMS = {
     # a group row each of DCT256, DCT128, DCT64, DCT32 and the DCT16 fill
     "vardct_large": lambda: encode_xyb_vardct(520, 1040, seed=10, density=0.1,
                                               transforms="large")[0],
+    # group row 0 holds one AFV0 block, row 1 holds 131: a band's
+    # transform call of one block against the frame's of 132
+    "vardct_lone_afv": lambda: encode_xyb_vardct(520, 520, seed=11, density=0.5, max_run=30,
+                                                 lone=14)[0],
     "splines": lambda: splines_stream(520, 520, 8, seed=8, density=0.1)[0],
     "patches": lambda: patches_stream(520, 520, (320, 64), 120, 30, seed=7),
 }
@@ -311,6 +315,9 @@ NOT_BANDED = {
     "vardct_upsampled": lambda mp: encode_xyb_vardct(264, 264, seed=12, density=0.05,
                                                      upsampling=2)[0],
     "vardct_420": lambda mp: encode_ycbcr_vardct(264, 264, seed=13, density=0.05)[0],
+    # decode_image takes it (test_torch_modular_subsampled.py); the band
+    # source holds 4:4:4 Modular channels only
+    "modular_420": lambda mp: encode_ycbcr_modular(520, 264, seed=16, filters=False)[0],
     "animation": lambda mp: anim_vardct_stream(320, 200, (288, 96), num_frames=3, seed=14),
     "vardct_palette_no_ec": lambda mp: (_with_palette_step(mp),
                                         encode_xyb_vardct(264, 264, seed=15, density=0.05)[0])[1],

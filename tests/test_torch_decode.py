@@ -119,7 +119,8 @@ def test_parsed_state_matches_jxl_tpu(name):
 def test_streams_outside_the_slice_raise(make, reason, monkeypatch):
     """The streams that earlier slices refused decode now, as jxl_tpu
     decodes them (f32 within 1e-4); none is left outside on this list
-    (test_torch_features.py holds the chroma-subsampled Modular refusal)."""
+    (the last one refused, a chroma-subsampled Modular frame:
+    test_torch_modular_subsampled.py)."""
     data = make()
     monkeypatch.setenv("JXL_TPU_AC", "host")
     got = jxl_tpu_torch.decode_image(data, device="cpu").frames

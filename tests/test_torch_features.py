@@ -129,56 +129,80 @@ def _header(data):
     ("lf_frame", "LF frames"),
     ("splines", "splines"),
 ])
-def test_frames_outside_the_slice_raise(what, reason):
+def test_frames_outside_the_slice_raise(what, reason, monkeypatch):
     """Frames that read an LF frame and frames with splines, which earlier
-    slices refused here, pass the frame check now (their decodes:
-    test_torch_progressive.py, test_torch_splines.py); the check still
-    refuses a chroma-subsampled Modular frame."""
-    from jxl_tpu_torch.api.simple import _check_frame
+    slices refused, decode now (test_torch_progressive.py,
+    test_torch_splines.py), and so does a chroma-subsampled Modular frame,
+    the last one the frame check refused (test_torch_modular_subsampled.py):
+    the check is gone, and such a frame's render pipeline, with either
+    flag, upsamples its subsampled channels before anything else."""
+    from jxl_tpu_torch.api import simple
+    from jxl_tpu_torch.features.splines import Splines
     from jxl_tpu_torch.io.headers.frame import Flags
+    from jxl_tpu_torch.render import pipeline
+    from test_torch_render_stages import port_frame
 
-    header = _header(_stream("vardct_up2_noise"))
-    header.flags |= Flags.USE_LF_FRAME if what == "lf_frame" else Flags.ENABLE_SPLINES
-    _check_frame(header)
-    modular = _header(_stream("modular_alpha_late_up2"))
-    modular.jpeg_upsampling = [1, 0, 0]
-    with pytest.raises(jxl_tpu_torch.NotSupported, match="chroma-subsampled Modular"):
-        _check_frame(modular)
+    assert not hasattr(simple, "_check_frame") and not hasattr(pipeline, "check_frame")
+    frame = port_frame(_stream("modular_alpha_late_up2"), monkeypatch)
+    frame.header.jpeg_upsampling = [1, 0, 0]  # channels 1 and 2 at half size
+    frame.header.maxhs = frame.header.maxvs = 1
+    frame.header.flags |= Flags.USE_LF_FRAME if what == "lf_frame" else Flags.ENABLE_SPLINES
+    frame.lf_global.splines = Splines()
+    names = [s.name for s in pipeline.build_render_pipeline(frame)]
+    assert names[:4] == ["chroma_upsample_h[1]", "chroma_upsample_v[1]",
+                         "chroma_upsample_h[2]", "chroma_upsample_v[2]"], reason
+    assert ("splines" in names) == (what == "splines")
 
 
 def test_patches_pass_the_frame_check():
-    """Frames with patches, which earlier slices refused here, pass the
-    check (their decodes: test_torch_frames.py)."""
-    from jxl_tpu_torch.api.simple import _check_frame
+    """Frames with patches, which earlier slices refused, decode (their
+    decodes: test_torch_frames.py); no frame check is left to pass, and
+    the header reads the flag."""
+    from jxl_tpu_torch.api import simple
     from jxl_tpu_torch.io.headers.frame import Flags
 
+    assert not hasattr(simple, "_check_frame")
     header = _header(_stream("vardct_up2_noise"))
     header.flags |= Flags.ENABLE_PATCHES
-    _check_frame(header)
+    assert header.has_patches
 
 
 @pytest.mark.parametrize("what", ["chroma", "vardct_ec"])
 def test_vardct_layouts_pass_the_frame_check(what):
     """Chroma-subsampled VarDCT frames and VarDCT frames with extra
-    channels, which earlier slices refused here, pass the check (their
-    decodes: test_torch_layouts.py)."""
-    from jxl_tpu_torch.api.simple import _check_frame
+    channels, which earlier slices refused, decode (test_torch_layouts.py);
+    no frame check is left, and decode_banded's header rule takes such a
+    VarDCT frame with extra channels but no chroma-subsampled one."""
+    from jxl_tpu_torch.api import banded, simple
+    from jxl_tpu_torch.api.simple import parse_frame
+    from jxl_tpu_torch.io.bit_reader import BitReader
+    from jxl_tpu_torch.io.headers import FileHeader
 
-    header = _header(_stream("vardct_up2_noise"))
+    assert not hasattr(simple, "_check_frame")
+    br = BitReader(_stream("vardct_up2_noise"))
+    fh = FileHeader.read(br)
+    br.jump_to_byte_boundary()
+    frame = parse_frame(br, fh)
+    frame.header.upsampling = 1
+    assert banded.eligible_header(frame)
     if what == "chroma":
-        header.jpeg_upsampling = [1, 0, 0]
-        assert not header.is444
+        frame.header.jpeg_upsampling = [1, 0, 0]
+        assert not frame.header.is444
+        assert not banded.eligible_header(frame)
     else:
-        header.num_extra_channels = 1
-    _check_frame(header)
+        frame.header.num_extra_channels = 1
+        assert banded.eligible_header(frame)
 
 
 @pytest.mark.parametrize("what,reason", [
     ("splines", "splines"), ("chroma", "chroma-subsampled Modular frames")])
 def test_render_pipeline_refuses_what_it_lacks(what, reason, monkeypatch):
-    """A chroma-subsampled Modular frame is refused with its reason; a
-    frame with splines, which earlier slices refused here, gets the spline
-    stage after the filters and before the upsampling, as in jxl_tpu."""
+    """A chroma-subsampled Modular frame, which earlier slices refused here,
+    gets jxl_tpu's stage list: its chroma upsampling first; a frame with
+    splines gets the spline stage after the filters and before the
+    upsampling, as in jxl_tpu."""
+    from jxl_tpu.api.simple import decode_first_frame
+    from jxl_tpu.render.pipeline import build_render_pipeline as ref_pipeline
     from jxl_tpu_torch.features.splines import Splines
     from jxl_tpu_torch.io.headers.frame import Flags
     from jxl_tpu_torch.render.pipeline import build_render_pipeline
@@ -186,9 +210,14 @@ def test_render_pipeline_refuses_what_it_lacks(what, reason, monkeypatch):
 
     frame = port_frame(_stream("modular_alpha_late_up2"), monkeypatch)
     if what == "chroma":
-        frame.header.jpeg_upsampling = [1, 0, 0]
-        with pytest.raises(jxl_tpu_torch.NotSupported, match=reason):
-            build_render_pipeline(frame)
+        ref = decode_first_frame(_stream("modular_alpha_late_up2")).frame
+        for h in (frame.header, ref.header):
+            h.jpeg_upsampling = [1, 0, 0]  # channels 1 and 2 at half size
+            h.maxhs = h.maxvs = 1
+        got = [s.name for s in build_render_pipeline(frame)]
+        want = [s.name for s in ref_pipeline(ref)[0]]
+        assert got[:4] == want[:4] == ["chroma_upsample_h[1]", "chroma_upsample_v[1]",
+                                       "chroma_upsample_h[2]", "chroma_upsample_v[2]"], reason
         return
     frame.header.flags |= Flags.ENABLE_SPLINES
     frame.lf_global.splines = Splines()

@@ -253,28 +253,34 @@ def test_lz77_ac_histograms_take_the_host_decoder(monkeypatch):
 
 def test_chroma_subsampled_vardct_passes_the_frame_check():
     """A chroma-subsampled VarDCT header is in the slice now (its decodes
-    are held against jxl_tpu in test_torch_layouts.py)."""
-    from jxl_tpu_torch.api.simple import _check_frame
+    are held against jxl_tpu in test_torch_layouts.py): its render
+    pipeline upsamples the shifted channels first, and no frame check is
+    left to refuse anything."""
+    from jxl_tpu_torch.api import simple
+    from jxl_tpu_torch.render.pipeline import build_render_pipeline
 
+    assert not hasattr(simple, "_check_frame")
     data, _ = _stream("dct8_300x200")
-    header = _port_frame(data).header
-    header.jpeg_upsampling = [1, 0, 0]  # 4:2:0-style chroma shifts
-    assert not header.is444
-    _check_frame(header)
+    frame = _port_frame(data)
+    frame.header.jpeg_upsampling = [1, 0, 0]  # 4:2:0-style chroma shifts
+    frame.header.maxhs = frame.header.maxvs = 1
+    assert not frame.header.is444
+    names = [s.name for s in build_render_pipeline(frame)]
+    assert names[:4] == ["chroma_upsample_h[1]", "chroma_upsample_v[1]",
+                         "chroma_upsample_h[2]", "chroma_upsample_v[2]"]
 
 
 def test_lf_frame_vardct_raises(monkeypatch):
     """A VarDCT frame that reads an LF frame, which earlier slices refused:
     it passes the frame check and, behind its LF frame, decodes as
     jxl_tpu decodes it (f32 within 1e-4)."""
-    from jxl_tpu_torch.api.simple import _check_frame
     from jxl_tpu_torch.io.headers.frame import Flags
     from test_torch_frame_streams import lf_frame_stream
 
     data, _ = _stream("dct8_300x200")
     header = _port_frame(data).header
     header.flags |= Flags.USE_LF_FRAME
-    _check_frame(header)
+    assert header.flags & Flags.USE_LF_FRAME
     stream = lf_frame_stream(300, 200, seed=43, density=0.1)
     monkeypatch.setenv("JXL_TPU_AC", "host")
     got = jxl_tpu_torch.decode_image(stream, device="cpu").frames[0].numpy()

@@ -498,9 +498,11 @@ def _place_large(rng, bw, bh, rects):
     return tmap, lists, strips
 
 
-def _place_transforms(rng, bw, bh, rects, mixed: bool):
+def _place_transforms(rng, bw, bh, rects, mixed: bool, lone=None):
     """Transform map (origin cells carry | 128) and, per LF group, the
-    types of its coefficient list in raster order."""
+    types of its coefficient list in raster order. lone: a 1x1 type of
+    BAND_TYPES that the first group row holding it keeps one block of (its
+    other blocks there become DCT8), while later group rows keep theirs."""
     tmap = np.full((bh, bw), 128, dtype=np.uint8)
     if mixed:
         ys, xs = np.meshgrid(np.arange(0, bh - 1, 2), np.arange(0, bw - 1, 2), indexing="ij")
@@ -532,7 +534,28 @@ def _place_transforms(rng, bw, bh, rects, mixed: bool):
             types[one] = np.where(choice[one] == 0, 0, extra[one])
             sub[oys[one], oxs[one]] = (types[one] | 128).astype(np.uint8)
         lists.append(types)
+    if lone is not None:
+        _keep_one(tmap, lists, rects, lone)
     return tmap, lists, band_step
+
+
+def _keep_one(tmap, lists, rects, t):
+    """Leave one block of type `t` in the first group row that holds one,
+    the others there DCT8 (which every band's leaf codes)."""
+    rows = []
+    for li, (ox, oy, w, h) in enumerate(rects):
+        sub = tmap[oy : oy + h, ox : ox + w]
+        oys, oxs = np.nonzero(sub >= 128)
+        hit = np.nonzero(lists[li] == t)[0]
+        rows += [((oy + oys[i]) // GD_BLOCKS, li, i, oys[i], oxs[i]) for i in hit]
+    if not rows:
+        raise ValueError(f"no block of type {t} to keep one of")
+    first = min(r[0] for r in rows)
+    row = sorted(r for r in rows if r[0] == first)
+    for _, li, i, y, x in row[1:]:
+        ox, oy = rects[li][:2]
+        lists[li][i] = 0
+        tmap[oy + y, ox + x] = 128
 
 
 def _lf_group_section(rng, leaves, rect, types, cfl_zero, hs=(0, 0, 0), vs=(0, 0, 0),
@@ -858,7 +881,7 @@ def encode_xyb_vardct(width: int, height: int, seed: int = 0, transforms: str = 
                       density: float = 0.35, cfl_zero: bool = False, lz77: bool = False,
                       max_run: int = 12, upsampling: int = 1, noise=None, subsampling=None,
                       filters: bool = True, num_ec: int = 0, passes: int = 1,
-                      lf_frame: bool = False, splines=None, icc=None):
+                      lf_frame: bool = False, splines=None, icc=None, lone=None):
     """(codestream, coeffs): an XYB VarDCT frame of more than one group,
     coded at width x height, and the dense (G * 3 * 256 * 256,) int32
     quantized AC coefficients it encodes. transforms: "mixed" (DCT16x16 on
@@ -893,7 +916,9 @@ def encode_xyb_vardct(width: int, height: int, seed: int = 0, transforms: str = 
     splines: None, or a list of test_torch_spline_streams.SplineSpec,
     coded in LfGlobal (ENABLE_SPLINES). icc: None, or the bytes of an ICC
     profile, embedded after the image header
-    (test_torch_icc_streams.encode_icc)."""
+    (test_torch_icc_streams.encode_icc). lone: a 1x1 type of BAND_TYPES
+    (transforms="mixed") that the first group row holding it keeps a single
+    block of, as _place_transforms says."""
     if width <= GROUP_DIM and height <= GROUP_DIM:
         raise ValueError("the writer lays out multi-group frames only")
     if transforms not in ("mixed", "dct8", "large"):
@@ -919,7 +944,8 @@ def encode_xyb_vardct(width: int, height: int, seed: int = 0, transforms: str = 
         tmap, type_lists, strips = _place_large(rng, bw, bh, rects)
         band_step = 1
     else:
-        tmap, type_lists, band_step = _place_transforms(rng, bw, bh, rects, transforms == "mixed")
+        tmap, type_lists, band_step = _place_transforms(rng, bw, bh, rects, transforms == "mixed",
+                                                        lone)
         strips = None
 
     lg = BitList()
