@@ -169,7 +169,28 @@ a non-zero exit:
              beside its bytes and chain bounds, the plain version and the
              native host loop on the same lanes; the auto rule the walls
              support.
-12. profile - a u8 decode of each stream (Modular, VarDCT, the upsampled
+12. sharded - the multi-process decode on torch.distributed
+             (parallel/sharded_render.py, parallel/multihost.py, the lanes
+             split of modular/device_lossless.py): world 1 in this process
+             on NCCL, then worlds 2 and 4 as spawned processes sharing the
+             one card over gloo (halos and gathers staged through
+             page-locked host buffers), each running, 3 reps each:
+             decode_sharded of the 4K VarDCT stream (each rank K3 over its
+             own groups' lanes, its tile's render, the halo exchange, K1,
+             colour; 1x1, 1x2 and 2x2 grids), of the 7680x4320 panorama
+             (worlds 1 and 4), sharded_filters_and_color and
+             sharded_render of seeded 3840x2160 planes (row shards), the
+             split of the lossless phase's 270 gradient (K4) and 135 West
+             lanes, and decode_animation_multihost of an 8-frame 1920x1080
+             VarDCT animation of standalone REPLACE frames (crops at
+             negative offsets among them); u8 and f32. Every rank's
+             output is held bit for bit against world 1's and its
+             one-process counterpart (decode_image, run_filters' K1 then
+             colour, render_block, the lanes in one call), with the walls,
+             the exchange's bytes and seconds, K1/K3/K4 launches and the
+             peak card memory of each rank. Then two NCCL ranks on the one
+             card: NCCL refuses them, and the message is recorded.
+13. profile - a u8 decode of each stream (Modular, VarDCT, the upsampled
              VarDCT with noise) under torch.profiler: device time by
              operation and the card's idle share. It runs right after the
              build, and no other phase opens a profiler session.
@@ -889,11 +910,13 @@ def _k3_cases(cases, host_plain, host, dev) -> dict:
                   AL.load(), "ac_sections_launch")], reps=5)[0]
             rec["call_ms"] = time_ms(lambda: device_ac.decode_ac_sections(**arrays, **kw, **packs),
                                      reps=10, warmup=2)
+            rec["bound_ms"], rec["bound_by"] = _k3_bound(inp, tokens, len(ok))
             rec["tokens"] = sum(tokens)
             rec["longest_lane_tokens"] = max(tokens)
             rec["ns_per_step"] = rec["kernel_ms"] * 1e6 / max(tokens)
-            two_pass = {k: rec[k] for k in ("lanes", "kernel_ms", "call_ms", "tokens",
-                                            "longest_lane_tokens", "ns_per_step")}
+            two_pass = {k: rec[k] for k in ("lanes", "kernel_ms", "call_ms", "bound_ms",
+                                            "bound_by", "tokens", "longest_lane_tokens",
+                                            "ns_per_step")}
         if name == "3840x2160":
             plan = device_ac.ac_smem_plan(C=inp["tables"].shape[0], NB=inp["n_buckets"],
                                           num_bctx=inp["num_bctx"], NC=len(inp["context_map"]))
@@ -2022,11 +2045,11 @@ def _band_route_breakdown(data) -> dict:
                 acc[name] = acc.get(name, 0.0) + time.perf_counter() - t0
         return call
 
-    real = (banded.decode_lf_sections, banded.BandSource._vardct_coeffs,
+    real = (banded.decode_lf_sections, banded.BandSource.coefficients,
             device_band.BandRenderer.render, overlap.dispatch_band_filters,
             banded.BandSource.check)
     banded.decode_lf_sections = timed("lf_sections_s", real[0])
-    banded.BandSource._vardct_coeffs = timed("ac_steps_s", real[1])
+    banded.BandSource.coefficients = timed("ac_steps_s", real[1])
     device_band.BandRenderer.render = timed("render_queue_s", real[2])
     overlap.dispatch_band_filters = timed("filters_queue_s", real[3])
     banded.BandSource.check = timed("final_wait_s", real[4])
@@ -2039,7 +2062,7 @@ def _band_route_breakdown(data) -> dict:
         acc["wall_s"] = time.perf_counter() - t0
     finally:
         os.environ.pop("JXL_TPU_OVERLAP", None)
-        (banded.decode_lf_sections, banded.BandSource._vardct_coeffs,
+        (banded.decode_lf_sections, banded.BandSource.coefficients,
          device_band.BandRenderer.render, overlap.dispatch_band_filters,
          banded.BandSource.check) = real
     return acc
@@ -2495,7 +2518,350 @@ def phase_lossless(data) -> dict:
     emit({"phase": "lossless", "median_s": {f"lanes={m} {f}": v for (m, f), v in med.items()},
           "lanes_win_at_4k": lanes_win, "auto_takes_the_lanes": DL.enabled("cuda")})
     per_decode = [r["k4_launches"] for r in lane_runs]
-    return {"k4": k4_rec, "launches": launches, "k4_launches_per_decode": per_decode[0]}
+    # the frame's lanes as the decode packed them, for the sharded phase
+    west_lanes = [x for lanes in west for x in sorted(lanes, key=lambda x: x.shape)]
+    frame_lanes = {
+        "gradient": (DL._PRED_GRADIENT, frame_res.numpy(), [tuple(d) for d in frame_dims]),
+        "west": (DL._PRED_WEST, np.concatenate([x.reshape(-1) for x in west_lanes])
+                 .astype(np.int16), [x.shape for x in west_lanes])}
+    return {"k4": k4_rec, "launches": launches, "k4_launches_per_decode": per_decode[0],
+            "frame_lanes": frame_lanes}
+
+
+# -- the sharded phase: multi-process decode on torch.distributed -------------
+
+SHARD_REPS = 3
+SHARD_SEED = 31
+
+
+def sharded_streams(vdata, lossless_lanes) -> dict:
+    """The sharded phase's inputs, made once in the parent and passed to
+    every rank: the 4K VarDCT stream (135 groups), the 7680x4320 panorama
+    of the banded phase (510 groups), an 8-frame 1920x1080 XYB VarDCT
+    animation whose frames stand alone (a full frame, then 960x544 crops
+    across the canvas, one at a negative x0 and one at a negative y0,
+    every frame REPLACE, none saved), and the lossless phase's 270
+    gradient and 135 West lanes (packed as the decode packs them)."""
+    from test_torch_frame_streams import anim_crop_replace_stream
+    from test_torch_vardct_streams import encode_xyb_vardct
+
+    return {
+        "vardct_4k": vdata,
+        "vardct_8k": encode_xyb_vardct(7680, 4320, seed=17)[0],
+        "anim_1080p": anim_crop_replace_stream(WIDTH // 2, HEIGHT // 2, (960, 544), num_frames=8,
+                                               seed=7),
+        "lanes": lossless_lanes,
+        "planes_hw": (HEIGHT, WIDTH),
+    }
+
+
+def _shard_planes(seed: int, h: int, w: int):
+    """Seeded XYB-range planes (3, h, w), their 1/sigma blocks (with
+    passthrough blocks) and the blocks expanded to one value a pixel: the
+    filters' and the synthetic render's input (4K), made alike on every
+    rank."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    planes = np.stack([rng.uniform(-0.02, 0.02, (h, w)), rng.uniform(0.0, 0.8, (h, w)),
+                       rng.uniform(0.0, 0.8, (h, w))]).astype(np.float32)
+    sigma = rng.uniform(0.05, 0.6, (h // 8, w // 8)).astype(np.float32)
+    sigma[::7, ::5] = 0.0
+    return planes, sigma, np.repeat(np.repeat(sigma, 8, 0), 8, 1)
+
+
+def _sync(dev) -> None:
+    """Wait for the card (nothing to wait for on the CPU, where the phase
+    is rehearsed)."""
+    import torch
+
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _frame_header_of(data):
+    """The port's parsed frame of a one-frame stream, headers only."""
+    from jxl_tpu_torch.api.simple import parse_frame
+    from jxl_tpu_torch.io.bit_reader import BitReader
+    from jxl_tpu_torch.io.headers import FileHeader
+
+    br = BitReader(data)
+    fh = FileHeader.read(br)
+    br.jump_to_byte_boundary()
+    return parse_frame(br, fh)
+
+
+def _shard_cases(world, inp) -> list:
+    """[(case, function of no arguments returning this rank's whole
+    output)] of the sharded phase on `world`'s ranks: each output is the
+    whole image (frames, samples) every rank ends with."""
+    import torch
+
+    from jxl_tpu_torch.modular.device_lossless import split_lanes
+    from jxl_tpu_torch.ops.device_render import RenderParams
+    from jxl_tpu_torch.parallel import multihost
+    from jxl_tpu_torch.parallel import sharded_render as SR
+
+    g1, g2 = SR.make_grid(world), SR.make_grid_2d(world)
+    dev = world.device
+    rows, cols = inp["planes_hw"]
+    planes, sigma, sigma_px = _shard_planes(SHARD_SEED, rows, cols)
+    a, b = SR.row_spans(rows, g1.ny)[g1.sy]
+    p = torch.from_numpy(planes[:, a:b]).to(dev)
+    s_px = torch.from_numpy(sigma_px[a:b]).to(dev)
+    s_blk = torch.from_numpy(sigma[a // 8 : -(-b // 8)]).to(dev)
+    frame = _frame_header_of(inp["vardct_4k"])
+    cases = []
+    for fmt in ("u8", "f32"):
+        cases.append((f"vardct_4k_{fmt}", lambda fmt=fmt: SR.decode_sharded(
+            inp["vardct_4k"], g2, fmt)))
+    if world.size in (1, 4):
+        for fmt in ("u8", "f32"):
+            cases.append((f"vardct_8k_{fmt}", lambda fmt=fmt: SR.decode_sharded(
+                inp["vardct_8k"], g2, fmt)))
+    for fmt in ("u8", "f32"):
+        cases.append((f"filters_4k_{fmt}", lambda fmt=fmt: SR.gather_rows(
+            g1, SR.sharded_filters_and_color(g1, frame, p, s_px, rows, fmt))))
+    cases.append(("render_4k", lambda: SR.gather_rows(
+        g1, SR.sharded_render(g1, RenderParams(), p, s_blk, rows))))
+    for name, (pred, res, dims) in inp["lanes"].items():
+        r = torch.from_numpy(res)
+        cases.append((f"lanes_{name}", lambda pred=pred, r=r, dims=dims: split_lanes(
+            world, pred, r, dims)))
+    for fmt in ("u8", "f32"):
+        cases.append((f"anim_1080p_{fmt}", lambda fmt=fmt: torch.stack(
+            multihost.decode_animation_multihost(inp["anim_1080p"], world, fmt))))
+    return cases
+
+
+def shard_references(inp, refdir, dev="cuda") -> dict:
+    """Each case's one-process counterpart on the card, saved under
+    refdir/one: decode_image's frame or frames, run_filters' K1 then the
+    colour and the conversion, render_block of the whole image, the lanes
+    in one reconstruct_lanes. Returns {case: seconds of one call}."""
+    import torch
+
+    import jxl_tpu_torch
+    from jxl_tpu_torch.modular.device_lossless import reconstruct_lanes
+    from jxl_tpu_torch.ops.device_render import RenderParams, render_block
+    from jxl_tpu_torch.render.device_band_filters import color_and_convert
+    from jxl_tpu_torch.render.device_filters import filter_planes
+
+    dev = torch.device(dev)
+    planes, sigma, sigma_px = _shard_planes(SHARD_SEED, *inp["planes_hw"])
+    p, s_px = torch.from_numpy(planes).to(dev), torch.from_numpy(sigma_px).to(dev)
+    frame = _frame_header_of(inp["vardct_4k"])
+    jobs = []
+    for fmt in ("u8", "f32"):
+        for size in ("4k", "8k"):
+            jobs.append((f"vardct_{size}_{fmt}", lambda size=size, fmt=fmt: jxl_tpu_torch.
+                         decode_image(inp[f"vardct_{size}"], pixel_format=fmt,
+                                      device=dev).frames[0]))
+        jobs.append((f"filters_4k_{fmt}", lambda fmt=fmt: torch.stack(color_and_convert(
+            frame, filter_planes(frame, p, s_px).unbind(0), 0, fmt))))
+        jobs.append((f"anim_1080p_{fmt}", lambda fmt=fmt: torch.stack(jxl_tpu_torch.decode_image(
+            inp["anim_1080p"], pixel_format=fmt, device=dev).frames)))
+    jobs.append(("render_4k", lambda: render_block(p, torch.from_numpy(sigma).to(dev),
+                                                   RenderParams())))
+    for name, (pred, res, dims) in inp["lanes"].items():
+        jobs.append((f"lanes_{name}", lambda pred=pred, res=res, dims=dims: reconstruct_lanes(
+            pred, torch.from_numpy(res).to(dev), dims)))
+    os.makedirs(os.path.join(refdir, "one"), exist_ok=True)
+    secs = {}
+    for name, fn in jobs:
+        _sync(dev)
+        t0 = time.perf_counter()
+        out = fn()
+        _sync(dev)
+        secs[name] = time.perf_counter() - t0
+        torch.save(out.cpu(), os.path.join(refdir, "one", f"{name}.pt"))
+        del out
+    return secs
+
+
+def _shard_rank(world, inp, refdir, reps) -> dict:
+    """One rank of a sharded world on the card: every case of _shard_cases
+    `reps` times, each rep after a barrier, with its wall (ending in a
+    synchronise), the exchange's bytes and seconds, K1, K3 and K4
+    launches and the peak card memory above what the rank held before;
+    then the last rep's output against the one-process counterpart and,
+    but in world 1, world 1's output (refdir/one, refdir/world1: bit for
+    bit, max abs difference), and a hash of it. World 1 saves its outputs
+    under refdir/world1."""
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+
+    from jxl_tpu_torch.ops import device_ac, epf_gab, lossless_lanes
+
+    kernels = {"epf_gab": epf_gab.epf_gab, "decode_ac_sections": device_ac.decode_ac_sections,
+               "gradient_wavefront": lossless_lanes.gradient_wavefront}
+    for k in kernels.values():
+        k.launches = 0
+    dev = world.device
+    card = dev.type == "cuda"
+    out = {"rank": world.rank, "size": world.size, "backend": world.backend,
+           "device": str(dev), "staged_through_host": world.staged, "cases": {}}
+    for name, fn in _shard_cases(world, inp):
+        reps_out, res = [], None
+        for _ in range(reps):
+            dist.barrier()
+            before = {k: f.launches for k, f in kernels.items()}
+            world.exchange_bytes, world.exchange_s = 0, 0.0
+            _sync(dev)
+            if card:
+                torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated() if card else 0
+            t0 = time.perf_counter()
+            res = fn()
+            _sync(dev)
+            reps_out.append({
+                "seconds": time.perf_counter() - t0,
+                "exchange_bytes": world.exchange_bytes, "exchange_s": world.exchange_s,
+                "peak_card_mb": (torch.cuda.max_memory_allocated() - base) / 1e6 if card else None,
+                "launches": {k: f.launches - before[k] for k, f in kernels.items()}})
+        rec = {"reps": reps_out,
+               "sha256": hashlib.sha256(res.cpu().numpy().tobytes()).hexdigest()[:16],
+               "shape": list(res.shape), "dtype": str(res.dtype).split(".")[-1]}
+        for ref in ("one", "world1"):
+            path = os.path.join(refdir, ref, f"{name}.pt")
+            if world.size > 1 or ref == "one":
+                want = torch.load(path).to(world.device)
+                rec[f"against_{ref}"] = _diff_report(res, want) if res.shape == want.shape \
+                    else {"bit_for_bit": False, "shape": list(want.shape)}
+                del want
+        if world.size == 1:
+            os.makedirs(os.path.join(refdir, "world1"), exist_ok=True)
+            torch.save(res.cpu(), os.path.join(refdir, "world1", f"{name}.pt"))
+        out["cases"][name] = rec
+        del res
+        if card:
+            torch.cuda.empty_cache()
+    out["launches"] = {k: f.launches for k, f in kernels.items()}
+    return out
+
+
+def _nccl_two_ranks(world) -> str:
+    """A two-rank all_gather (the NCCL probe's rank function)."""
+    import torch
+
+    return str(world.all_gather(torch.ones(4, device=world.device))[1].sum().item())
+
+
+def _nccl_probe() -> dict:
+    """Two NCCL ranks of one communicator on the one card: NCCL refuses
+    them (a duplicate GPU); the message is what the phase records."""
+    import tempfile
+
+    from jxl_tpu_torch import parallel as P
+
+    probe = {"world_size": 2, "backend": "nccl", "device": "cuda:0 for both ranks"}
+    debug = os.environ.get("NCCL_DEBUG")
+    os.environ["NCCL_DEBUG"] = "WARN"  # NCCL then keeps the reason for "Last error"
+    with tempfile.TemporaryDirectory() as d:
+        try:
+            probe["result"] = P.run_local_world(_nccl_two_ranks, 2, os.path.join(d, "store"),
+                                                backend="nccl", device="cuda", timeout=120)
+            probe["refused"] = False
+        except RuntimeError as e:
+            lines = [ln.strip() for ln in str(e).splitlines() if ln.strip()]
+            first = next((i for i, ln in enumerate(lines) if "DistBackendError" in ln
+                          or "NCCL error" in ln), max(len(lines) - 4, 0))
+            probe["refused"] = True
+            probe["message"] = lines[first : first + 4]
+        finally:
+            if debug is None:
+                os.environ.pop("NCCL_DEBUG")
+            else:
+                os.environ["NCCL_DEBUG"] = debug
+    return probe
+
+
+def phase_sharded(inp, device="cuda") -> dict:
+    """The multi-process decode (parallel/sharded_render.py, the lanes
+    split of modular/device_lossless.py, parallel/multihost.py) on the
+    card: world 1 in this process on NCCL, then worlds 2 and 4 as spawned
+    processes sharing the one card over gloo (each message staged through
+    a page-locked host buffer), every world running every case of
+    _shard_cases (the 8K frame on worlds 1 and 4) SHARD_REPS times; each
+    case's output on every rank against its one-process counterpart and
+    world 1's, bit for bit, with walls (the slowest rank a rep), exchange
+    bytes and seconds, K1, K3 and K4 launches and the peak card memory a
+    rank. Then two NCCL ranks on the one card, whose refusal is recorded.
+    Returns the launches on the sharded path (every rank, every rep)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from jxl_tpu_torch import parallel as P
+
+    card = torch.device(device).type == "cuda"
+    one_backend = "nccl" if card else "gloo"
+    refdir = tempfile.mkdtemp(prefix="jxl_sharded_")
+    worlds = {}
+    try:
+        ref_s = shard_references(inp, refdir, device)
+        emit({"phase": "sharded", "step": "one_process_references", "seconds": ref_s})
+        if card:
+            torch.cuda.empty_cache()
+        world = P.init_distributed("file://" + os.path.join(refdir, "store1"), 1, 0,
+                                   backend=one_backend, device=device)
+        try:
+            worlds[1] = [_shard_rank(world, inp, refdir, SHARD_REPS)]
+        finally:
+            torch.distributed.destroy_process_group()
+        if card:
+            torch.cuda.empty_cache()
+        for n in (2, 4):
+            t0 = time.perf_counter()
+            worlds[n] = P.run_local_world(_shard_rank, n, os.path.join(refdir, f"store{n}"),
+                                          (inp, refdir, SHARD_REPS), backend="gloo",
+                                          device=device, timeout=600)
+            emit({"phase": "sharded", "step": f"world_{n}", "seconds": time.perf_counter() - t0})
+    finally:
+        shutil.rmtree(refdir, ignore_errors=True)
+    if card:
+        emit({"phase": "sharded", "nccl_two_ranks_one_card": _nccl_probe()})
+    totals = {"epf_gab": 0, "decode_ac_sections": 0, "gradient_wavefront": 0}
+    for n, ranks in worlds.items():
+        for name in ranks[0]["cases"]:
+            recs = [r["cases"][name] for r in ranks]
+            walls = sorted(max(r["reps"][i]["seconds"] for r in recs) for i in range(SHARD_REPS))
+            rec = {"phase": "sharded", "world": n, "case": name,
+                   "backend": ranks[0]["backend"], "staged_through_host": ranks[0][
+                       "staged_through_host"],
+                   "wall_s_median": walls[len(walls) // 2], "wall_s": walls,
+                   "ranks_hold_the_same_output": len({r["sha256"] for r in recs}) == 1,
+                   "shape": recs[0]["shape"], "dtype": recs[0]["dtype"],
+                   "per_rank": [{
+                       "rank": r["rank"],
+                       "exchange_bytes": c["reps"][-1]["exchange_bytes"],
+                       "exchange_s": [x["exchange_s"] for x in c["reps"]],
+                       "peak_card_mb": max((x["peak_card_mb"] or 0) for x in c["reps"]),
+                       "launches": c["reps"][-1]["launches"]}
+                       for r, c in zip(ranks, recs)]}
+            for ref in ("one", "world1"):
+                if f"against_{ref}" in recs[0]:
+                    rec[f"against_{ref}"] = [c[f"against_{ref}"] for c in recs]
+            emit(rec)
+            check(rec["ranks_hold_the_same_output"], f"world {n} {name}: ranks differ")
+            for ref in ("one", "world1"):
+                for rep in rec.get(f"against_{ref}", []):
+                    check(rep["bit_for_bit"], f"world {n} {name} differs from {ref}: {rep}")
+        for r in ranks:
+            check(r["backend"] == (one_backend if n == 1 else "gloo"),
+                  f"world {n} ran {r['backend']}")
+            for k in totals:
+                totals[k] += r["launches"][k]
+        lanes = [r["cases"]["lanes_gradient"]["reps"][-1]["launches"]["gradient_wavefront"]
+                 for r in ranks]
+        frames = [r["cases"]["vardct_4k_u8"]["reps"][-1]["launches"] for r in ranks]
+        check(all(x == 1 for x in lanes), f"world {n}: K4 launches a rank {lanes}")
+        check(all(f["epf_gab"] == 1 and f["decode_ac_sections"] == 1 for f in frames),
+              f"world {n}: K1/K3 launches a rank of the 4K frame {frames}")
+    return totals
 
 
 def phase_profile(data, stream: str, expect: str) -> None:
@@ -2624,6 +2990,8 @@ def main() -> int:
     bstreams = run("banded", banded_streams, fstreams, tstreams, mstreams)
     band_launches = run("banded", phase_banded, vdata, bstreams)
     lossless = run("lossless", phase_lossless, ldata)
+    sinputs = run("sharded", sharded_streams, vdata, lossless["frame_lanes"])
+    sharded = run("sharded", phase_sharded, sinputs)
     emit({"phase": "timing", "seconds": phase_s, "total_s": time.perf_counter() - start})
     null_reason = "no single torch call computes a rANS decode"
     emit({"kernels": [
@@ -2641,6 +3009,7 @@ def main() -> int:
          "launches_decode_banded_types_path": {
              k: v["epf_gab"] for k, v in band_launches["decode_banded_types"].items()},
          "launches_lossless_path": lossless["launches"]["epf_gab"],
+         "launches_sharded_path": sharded["epf_gab"],
          "max_abs_err": max_err, "ms": k["kernel_ms"], "call_ms": k["call_ms"],
          "plain_ms": k["plain_ms"],
          "bound_ms": k["bound_ms"], "bound_by": k["bound_by"], "library_ms": None,
@@ -2656,7 +3025,8 @@ def main() -> int:
          "launches_note": "its own path, the batch decode entry point; no decode path "
                           "calls K2 (streaming path: "
                           f"{streaming['launches']['ans_decode_batch']}; banded paths: "
-                          f"{band_launches['ans_decode_batch']})",
+                          f"{band_launches['ans_decode_batch']}; sharded path: 0, no "
+                          "sharded function calls it)",
          "max_abs_err": k2["max_abs_err"], "ms": k2["kernel_ms"], "call_ms": k2["call_ms"],
          "plain_ms": k2["plain_ms"], "ns_per_step": k2["ns_per_step"],
          "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"], "library_ms": None,
@@ -2676,6 +3046,7 @@ def main() -> int:
              band_launches["decode_banded_8k"]["decode_ac_sections"],
          "launches_decode_banded_types_path": {
              k: v["decode_ac_sections"] for k, v in band_launches["decode_banded_types"].items()},
+         "launches_sharded_path": sharded["decode_ac_sections"],
          "k3_lanes_per_launch_streaming_flushes": streaming["k3_lanes_per_launch"],
          "max_abs_err": k3["max_abs_err"], "ms": k3["kernel_ms"], "call_ms": k3["call_ms"],
          "plain_ms": k3["plain_ms"], "ns_per_step": k3["ns_per_step"],
@@ -2686,6 +3057,7 @@ def main() -> int:
          "source": "jxl_tpu_torch/csrc/lossless_lanes.cu",
          "replaces": "jxl_tpu/modular/device_lossless.py:122",
          "launches": lossless["launches"]["gradient_wavefront"],
+         "launches_sharded_path": sharded["gradient_wavefront"],
          "launches_note": "the lossless phase's ten JXL_TPU_DEV_LOSSLESS=1 decodes of the 4K "
                           f"lane stream, {lossless['k4_launches_per_decode']} a decode; none "
                           "on the other phases' streams, whose leaves are not channel-static",

@@ -164,8 +164,7 @@ class BandSource:
 
     def _band_buffers(self, gy: int) -> dict:
         mg = self.frame.lf_global.modular_global
-        rows = self.rows(gy)
-        return {b: np.zeros((rows, mg.buffer_infos[b].size[0]), np.int32)
+        return {b: np.zeros((self.rows(gy), mg.buffer_infos[b].size[0]), np.int32)
                 for p in range(self.frame.header.passes.num_passes)
                 for b in (mg.section_buffer_indices[2 + p] if mg.section_buffer_indices else ())}
 
@@ -209,9 +208,11 @@ class BandSource:
         col = st.to_device(np.stack([outs[c] for c in range(3)]), self.device)
         return torch.stack(modular_color_planes(frame, col.unbind(0))), self._ec_planes(outs)
 
-    def _vardct_coeffs(self, gy: int, groups: list):
-        """The band's dense coefficient buffer on the device and its band
-        buffers of modular HF channels."""
+    def coefficients(self, groups: list, gy: int | None = None):
+        """The dense coefficient buffer of `groups` on the device (slot i
+        group groups[i]) and, for the band of group row gy, its band
+        buffers of modular HF channels (a frame without them needs no
+        gy: the sharded decode's rectangles of groups)."""
         from ..vardct.device_group import lane_inputs, run_lanes
         from ..vardct.group import GROUP_DIM, decode_vardct_group
 
@@ -244,7 +245,7 @@ class BandSource:
             return out
         from ..vardct.device_band import band_groups
 
-        coeffs, dec = self._vardct_coeffs(gy, band_groups(self.frame, gy))
+        coeffs, dec = self.coefficients(band_groups(self.frame, gy), gy)
         self.host_s += time.perf_counter() - t0
         planes = self.renderer.render(gy, coeffs)[:, : self.rows(gy), : self.wv]
         return planes, self._ec_planes(self._outputs(dec)) if dec else []

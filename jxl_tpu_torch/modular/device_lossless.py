@@ -165,7 +165,6 @@ class BatchContext:
     def _dispatch(self, pred: int, pend) -> None:
         """Pack one bucket's residuals back to back, lanes of one shape
         together, upload them and queue their reconstruction."""
-        from ..ops import lossless_lanes as LL
         from ..utils import trace
 
         with trace.span("lossless.dispatch"):
@@ -183,16 +182,10 @@ class BatchContext:
                 pos += v.size
             res = host.to(self.device, non_blocking=True) if card else host
             self.upload_bytes += host.numel() * host.element_size()
-            if pred == _PRED_GRADIENT:
-                out = LL.gradient_wavefront(res, [v.shape for v, _ in pend])
-            else:
-                lane = LL.cumsum_west if pred == _PRED_WEST else LL.cumsum_north
-                out = torch.empty(n, dtype=torch.int32, device=self.device)
-                for (h, w), same in itertools.groupby(targets, key=lambda t: t[0].shape):
-                    same = list(same)
-                    a, z = same[0][1], same[0][1] + len(same) * h * w
-                    out[a:z] = lane(res[a:z].view(len(same), h, w)).view(-1)
-                    self.cumsum_calls += 1
+            dims = [v.shape for v, _ in pend]
+            out = reconstruct_lanes(pred, res, dims)
+            if pred != _PRED_GRADIENT:
+                self.cumsum_calls += len({tuple(d) for d in dims})
             self._inflight.append((out, targets))
             self.lanes_device += len(pend)
 
@@ -236,6 +229,49 @@ class BatchContext:
                             ("lossless_cumsum_calls", self.cumsum_calls)):
             if value:
                 trace.metrics.add(name, value)
+
+
+def reconstruct_lanes(pred: int, res: torch.Tensor, dims) -> torch.Tensor:
+    """The samples of lanes of one predictor on res's device: `res` (N,)
+    int16 or int32 holds the lanes' residuals back to back, each
+    row-major, lanes of one shape next to each other, and `dims` their (h,
+    w). Gradient lanes go to K4 (ops/lossless_lanes.py:gradient_wavefront)
+    in one launch; West and North lanes to one cumsum a shape. Returns
+    (N,) int32 in the same layout."""
+    from ..ops import lossless_lanes as LL
+
+    if pred == _PRED_GRADIENT:
+        return LL.gradient_wavefront(res, dims)
+    lane = LL.cumsum_west if pred == _PRED_WEST else LL.cumsum_north
+    out = torch.empty(res.numel(), dtype=torch.int32, device=res.device)
+    pos = 0
+    for (h, w), same in itertools.groupby(map(tuple, dims)):
+        k = len(list(same))
+        out[pos : pos + k * h * w] = lane(res[pos : pos + k * h * w].view(k, h, w)).view(-1)
+        pos += k * h * w
+    return out
+
+
+def split_lanes(world, pred: int, res: torch.Tensor, dims) -> torch.Tensor:
+    """reconstruct_lanes with the lanes split across the ranks of `world`
+    (parallel/__init__.py): jxl_tpu's _program(..., mesh=) shards its
+    lanes over devices, and every lane is independent, so no halo. Rank r
+    takes the r-th of `world.size` runs of consecutive lanes of about
+    equal counts, reconstructs them on its device, and the samples of all
+    ranks are gathered in order: every rank returns the (N,) int32 samples
+    of every lane, those of one rank's reconstruct_lanes bit for bit.
+    `res` and `dims` are the whole set, the same on every rank; each rank
+    reads only its share of `res`."""
+    dims = [tuple(d) for d in dims]
+    sizes = [h * w for h, w in dims]
+    cuts = [len(dims) * r // world.size for r in range(world.size + 1)]
+    a, z = cuts[world.rank], cuts[world.rank + 1]
+    lo, hi = sum(sizes[:a]), sum(sizes[:z])
+    if z > a:
+        mine = reconstruct_lanes(pred, res[lo:hi].to(world.device), dims[a:z])
+    else:
+        mine = torch.zeros(0, dtype=torch.int32, device=world.device)
+    return torch.cat(world.all_gather(mine))
 
 
 def _reconstruct_host(data: np.ndarray, pred: int) -> None:

@@ -41,17 +41,18 @@ def filter_band(frame, tail, cur, head, y0: int, sigma):
     return out[:, top : top + cur.shape[1]]
 
 
-def color_and_convert(frame, chans, y0: int, pixel_format: str) -> list:
+def color_and_convert(frame, chans, y0: int, pixel_format: str, x0: int = 0) -> list:
     """The colour transform of the first three of `chans` (float32 band
     planes, then the extra channels), the spot colours mixed in, then each
-    channel in `pixel_format`, its dither tile placed at the band's row
-    y0 (render/simple.py:color_transform, apply_spot_and_premultiply;
+    channel in `pixel_format`, its dither tile placed at the planes' first
+    pixel (x0, y0) in the image: a band's row, or a sharded tile's corner
+    (render/simple.py:color_transform, apply_spot_and_premultiply;
     render/stages/core.py:convert_output)."""
     from .simple import apply_spot_and_premultiply, color_transform
 
     chans = color_transform(frame, list(chans))
     chans = apply_spot_and_premultiply(frame, chans)
-    return [st.convert_output(p, pixel_format, channel=i, pos=(0, y0))
+    return [st.convert_output(p, pixel_format, channel=i, pos=(x0, y0))
             for i, p in enumerate(chans)]
 
 

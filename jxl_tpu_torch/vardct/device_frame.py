@@ -149,17 +149,20 @@ def render_vardct_frame_device(frame, flat) -> torch.Tensor:
 
 
 def render_block_rows(frame, flat, group_ids: list, by0: int, by1: int,
-                      matrices=None) -> torch.Tensor:
-    """(3, (by1 - by0)*8, bw*8) float32 planes in XYB on flat's device:
-    block rows [by0, by1) of a 4:4:4 frame, which the groups `group_ids`
-    cover exactly, from `flat`, the dense (len(group_ids) * 3 * GD * GD,)
-    int32 coefficient buffer of those groups in that order. The whole
-    frame is every group over every block row; a band of the banded
-    decode (vardct/device_band.py) is one group row, and its pixels are
-    the frame's in those rows: the same per-block gathers, dequant, CfL
-    and inverse transforms. by0 is a multiple of 8 (the colour tiles).
-    matrices: {tid: (3, nc) float32} dequant weights already made (a
-    band renderer keeps them across bands), else made here."""
+                      matrices=None, bx0: int = 0, bx1: int | None = None) -> torch.Tensor:
+    """(3, (by1 - by0)*8, (bx1 - bx0)*8) float32 planes in XYB on flat's
+    device: block rows [by0, by1) and columns [bx0, bx1) (every column by
+    default) of a 4:4:4 frame, which the groups `group_ids` cover exactly,
+    from `flat`, the dense (len(group_ids) * 3 * GD * GD,) int32
+    coefficient buffer of those groups in that order. The whole frame is
+    every group over every block row; a band of the banded decode
+    (vardct/device_band.py) is one group row, and a rank's tile of the
+    sharded decode (parallel/sharded_render.py) a rectangle of groups:
+    their pixels are the frame's there, from the same per-block gathers,
+    dequant, CfL and inverse transforms. by0 is a multiple of 8 (the
+    colour tiles). matrices: {tid: (3, nc) float32} dequant weights
+    already made (a band renderer keeps them across bands), else made
+    here."""
     header = frame.header
     if not header.is444:
         raise ValueError("a chroma-subsampled frame renders through "
@@ -167,8 +170,9 @@ def render_block_rows(frame, flat, group_ids: list, by0: int, by1: int,
     dev = flat.device
     x_dm, b_dm, igs, cf, bcx, bcb = _constants(frame)
     bw = header.size_blocks()[0]
+    bx1 = bw if bx1 is None else bx1
     nbh = by1 - by0
-    W = bw * BLOCK_DIM
+    W = (bx1 - bx0) * BLOCK_DIM
     blocks = _frame_blocks(frame, group_ids, by0)
     types = sorted(blocks)
     host = []
@@ -203,7 +207,8 @@ def render_block_rows(frame, flat, group_ids: list, by0: int, by1: int,
         py = torch.arange(cy * BLOCK_DIM, device=dev)
         px = torch.arange(cx * BLOCK_DIM, device=dev)
         pidx = ((gby[:, None, None] * BLOCK_DIM + py[None, :, None]) * W
-                + gbx[:, None, None] * BLOCK_DIM + px[None, None, :]).reshape(-1)
+                + ((gbx - bx0) if bx0 else gbx)[:, None, None] * BLOCK_DIM
+                + px[None, None, :]).reshape(-1)
         for c in (1, 0, 2):
             lf_tiles = lf_flat[c][lf_idx].reshape(n, cy, cx)
             pix = transform_to_pixels_batch(t, lf_tiles, dq[:, c].contiguous())

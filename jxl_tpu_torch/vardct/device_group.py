@@ -131,12 +131,12 @@ def lane_inputs(frame, group_readers: dict, band=None) -> dict:
     lanes of any subset of sections land where one call over all of them
     puts them.
 
-    band: a range of consecutive groups (a group row of the banded
-    decode) that holds every group of `group_readers`. The lanes then
-    decode into a band-sized buffer, the band's groups in order (total =
-    len(band) * 3 * GD * GD): lane_group and the coefficient bases count
-    from the band's first group, and "items" holds only the band's rows,
-    so the card holds O(band) for them."""
+    band: a list of groups (a group row of the banded decode, or a
+    rank's rectangle of groups in the sharded decode) that holds every
+    group of `group_readers`. The lanes then decode into a band-sized
+    buffer, slot i for group band[i] (total = len(band) * 3 * GD * GD):
+    lane_group and the coefficient bases count slots, and "items" holds
+    only the band's rows, so the card holds O(band) for them."""
     from ..errors import InvalidHistogramIndex
 
     header = frame.header
@@ -144,8 +144,8 @@ def lane_inputs(frame, group_readers: dict, band=None) -> dict:
     bctx = frame.lf_global.block_context_map
     num_histo_bits = _ceil_log2(hf_global.num_histograms)
     tabs = lane_tables(frame)
-    g0 = 0 if band is None else band[0]
-    items = tabs["items"] if band is None else tabs["items"][band[0] : band[-1] + 1]
+    slot = None if band is None else {g: i for i, g in enumerate(band)}
+    items = tabs["items"] if band is None else tabs["items"][list(band)]
     total = tabs["total"] if band is None else len(band) * 3 * GROUP_DIM * GROUP_DIM
 
     keys = sorted(group_readers)
@@ -159,11 +159,12 @@ def lane_inputs(frame, group_readers: dict, band=None) -> dict:
         hist_idx = br.read(num_histo_bits)
         if hist_idx >= hf_global.num_histograms:
             raise InvalidHistogramIndex("invalid histogram index")
-        lanes["lane_group"][li] = g - g0
+        gs = g if slot is None else slot[g]
+        lanes["lane_group"][li] = gs
         lanes["lane_ctx_off"][li] = hist_idx * bctx.num_ac_contexts + tabs["ctx_base"][p]
         lanes["lane_shift"][li] = header.passes.shift[p] if p < len(header.passes.shift) else 0
         lanes["lane_order_base"][li] = tabs["pass_order_base"][p]
-        lanes["lane_coeff_base"][li] = (g - g0) * 3 * GROUP_DIM * GROUP_DIM
+        lanes["lane_coeff_base"][li] = gs * 3 * GROUP_DIM * GROUP_DIM
         lanes["lane_n_items"][li] = tabs["n_items"][g]
         lanes["lane_end_bits"][li] = len(br.data) * 8
         lanes["start_bits"][li] = br.pos

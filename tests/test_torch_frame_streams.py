@@ -458,6 +458,24 @@ def anim_replace_stream(width, height, num_frames=5, seed=0) -> bytes:
     return encode_frames(width, height, frames, animation=(100, 1))
 
 
+def anim_crop_replace_stream(width, height, crop, num_frames=8, seed=0,
+                             density=0.2) -> bytes:
+    """An XYB VarDCT animation whose frames stand alone, as a GIF's
+    frames do once disposed: frame 0 full, the others crop-sized (crop =
+    (width, height)) at crop_offsets (a negative x0, one past the right
+    edge, a negative y0, ...), every frame REPLACE over the empty slot 0,
+    none saved; default filters. jxl_tpu's multihost decode takes it."""
+    cw, ch = crop
+    frames = [FrameSpec(_vardct(width, height, seed, density), "vardct", duration=TICKS)]
+    offs = crop_offsets(width, height, cw, ch)
+    for k in range(1, num_frames):
+        x0, y0 = offs[(k - 1) % len(offs)]
+        frames.append(FrameSpec(_vardct(cw, ch, seed + k, density), "vardct",
+                                crop=(x0, y0, cw, ch), duration=TICKS,
+                                is_last=k == num_frames - 1))
+    return encode_frames(width, height, frames, animation=(100, 1))
+
+
 def lf_frame_stream(width=320, height=200, levels=1, passes=1, seed=5, density=0.2,
                     lz77=False) -> bytes:
     """A progressive still image as cjxl -p --progressive_dc writes it: an
