@@ -191,9 +191,24 @@ a non-zero exit:
              peak card memory of each rank. Then two NCCL ranks on the one
              card: NCCL refuses them, and the message is recorded.
 13. profile - a u8 decode of each stream (Modular, VarDCT, the upsampled
-             VarDCT with noise) under torch.profiler: device time by
-             operation and the card's idle share. It runs right after the
-             build, and no other phase opens a profiler session.
+             VarDCT with noise, and the batched route on anim48_512)
+             under torch.profiler: device time by operation and the
+             card's idle share. It runs right after the build, and no
+             other phase opens a profiler session.
+14. batched_anim - the batched animation route (render/batch_anim.py,
+             render/anim_fold.py) on anim48_512 (48 REPLACE frames of
+             512x512, 4 groups each), anim48_256 (48 single-section
+             256x256 frames, the fold's case) and crop16_512 (16 frames,
+             15 of them 448x320 crops at offsets across the canvas,
+             negative ones among them), each by JXL_TPU_BATCH_ANIM=off
+             (the per-frame loop), 1 (the batched render, K3 once) and 0
+             (the fold where it takes the stream): the routes bit for bit
+             in u8 and f32; u8 walls (median of 5 after a warm-up),
+             host_s, K3 (and its lanes) and K1 launches a decode, peak
+             card memory; the fold's coefficients, LF and HF metadata
+             against K3's batched sections on anim48_256; K3 over
+             anim48_512's 192 merged lanes against its plain version (on
+             the host), timed beside one frame's 4 lanes.
 
 Then one line with every kernel's numbers, the card's name and power
 limit, and as the last line {"ok": true, "device": {...}}. Prints no
@@ -2899,6 +2914,278 @@ def phase_profile(data, stream: str, expect: str) -> None:
           "top_device_ops": [{"op": k[:80], "ms": us / 1e3, "calls": n} for k, us, n in ops[:10]]})
 
 
+def batched_anim_streams():
+    """[(name, codestream, (width, height), frames, expected launches a
+    decode by route)] of the batched_anim phase
+    (tests/test_torch_frame_streams.py): anim48_512, 48 full REPLACE
+    frames at batchable's 512x512 limit (4 groups a frame, 7 TOC entries,
+    so the fold declines it); anim48_256, 48 single-section 256x256 frames
+    (the fold's case); crop16_512, 16 frames of which 15 are 448x320
+    crops at offsets across the canvas, negative ones among them. Routes:
+    JXL_TPU_BATCH_ANIM "off" (the per-frame loop: K3 a multi-section
+    frame, none for a single-section one, whose AC it decodes on the
+    host), "1" (the batched render, K3 once over every frame's lanes) and
+    "0" (the fold where it takes the stream, else as "1"); K1 once a
+    frame on every route."""
+    from test_torch_frame_streams import anim_crop_replace_stream, anim_replace_stream
+
+    def launches(k3_off, k3_1, k3_0, n):
+        return {r: {"decode_ac_sections": k3, "epf_gab": n}
+                for r, k3 in (("off", k3_off), ("1", k3_1), ("0", k3_0))}
+
+    return [
+        ("anim48_512", anim_replace_stream(512, 512, 48, seed=31), (512, 512), 48,
+         launches(48, 1, 1, 48)),
+        ("anim48_256", anim_replace_stream(256, 256, 48, seed=32), (256, 256), 48,
+         launches(0, 1, 0, 48)),
+        ("crop16_512", anim_crop_replace_stream(512, 512, (448, 320), 16, seed=33),
+         (512, 512), 16, launches(16, 1, 1, 16)),
+    ]
+
+
+def _batched_lane_inputs(data, frames=None):
+    """K3's inputs over every frame's lanes of an animation, merged into
+    one launch as render/batch_anim.py:decode_sections launches them (or
+    over the first `frames` frames)."""
+    from jxl_tpu_torch.api.frame import Frame
+    from jxl_tpu_torch.api.simple import scan_frames
+    from jxl_tpu_torch.io.bit_reader import BitReader
+    from jxl_tpu_torch.io.headers import FileHeader
+    from jxl_tpu_torch.vardct import device_group
+
+    br = BitReader(data)
+    fh = FileHeader.read(br)
+    br.jump_to_byte_boundary()
+    recs = scan_frames(data, br.pos, fh)[:frames]
+    parts, slot = [], 0
+    for header, toc, pos in recs:
+        frame = Frame(header, toc, fh, None)
+        br.pos = pos
+        parts.append((device_group.lane_inputs(frame, frame.decode_vardct_head(br)), slot))
+        slot += header.num_groups
+    return device_group.merge_lane_inputs(parts, slot)
+
+
+def _k3_at(inp, dev):
+    """K3 over lane inputs `inp` on the card with its tables packed on the
+    host, as run_lanes passes them: (coefficients, ok, device ms, call ms,
+    the shared-memory plan)."""
+    import numpy as np
+    import torch
+
+    from jxl_tpu_torch.ops import ans_lanes as AL
+    from jxl_tpu_torch.ops import device_ac
+    from jxl_tpu_torch.vardct.device_group import LANE_KEYWORDS
+
+    arrays = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+              for k, v in inp.items() if k not in LANE_KEYWORDS}
+    kw = {k: inp[k] for k in LANE_KEYWORDS}
+    b, c = device_ac.pack_tables(inp["tables"], inp["uint_cfgs"], inp["context_map"])
+    packs = dict(packed_buckets=torch.from_numpy(b).to(dev),
+                 packed_cfgs=torch.from_numpy(c).to(dev))
+
+    def call():
+        return device_ac.decode_ac_sections(**arrays, **kw, **packs)
+
+    coeffs, ok = call()
+    plan = device_ac.ac_smem_plan(C=inp["tables"].shape[0], NB=inp["n_buckets"],
+                                  num_bctx=inp["num_bctx"], NC=len(inp["context_map"]))
+    plan = {k: plan[k] for k in ("tab_shared", "ctx_slice", "smem_bytes")}
+    if dev.type != "cuda":
+        return coeffs, ok, None, None, plan
+    ms = device_times([(0, call, AL.load(), "ac_sections_launch")], reps=5)[0]
+    call_ms = time_ms(call, reps=10, warmup=2)
+    return coeffs, ok, ms, call_ms, plan
+
+
+def _peak_mb(fn, dev):
+    """(fn(), peak card memory above what was allocated before, MB; None
+    off the card)."""
+    import torch
+
+    if dev.type != "cuda":
+        return fn(), None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (torch.cuda.max_memory_allocated() - base) / 1e6
+
+
+def phase_batched_anim(streams, device="cuda") -> dict:
+    """The batched animation route (render/batch_anim.py,
+    render/anim_fold.py) against the per-frame loop on each stream of
+    batched_anim_streams: the gate (routes "1" and "0" equal "off" bit
+    for bit in u8 and f32, durations too); u8 walls (median of 5 after a
+    warm-up) with host_s, the launches of K3 (with its lanes) and K1 a
+    decode, the peak card memory, and the warm-up decode's trace spans
+    (host seconds, and the card's time from CUDA events around each:
+    the batched route's tables, transforms, filters and colour/output);
+    K3 over anim48_512's 192 merged lanes against its plain version (on
+    the host, in a worker) bit for bit and timed beside one frame's 4
+    lanes; on anim48_256 the fold's
+    coefficients, LF and HF metadata against the batched sections' (K3's
+    buffer) bit for bit. Returns the launches of the main route ("0", the
+    default) summed over the streams, and the K3 record. Rehearse it on
+    the CPU with device="cpu", small streams and launches of 0 expected
+    (the plain versions count none); its times are then no measurement."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import numpy as np
+    import torch
+
+    import jxl_tpu_torch
+    from jxl_tpu_torch.api.simple import BATCH_ANIM_DEFAULT, scan_frames
+    from jxl_tpu_torch.io.bit_reader import BitReader
+    from jxl_tpu_torch.io.headers import FileHeader
+    from jxl_tpu_torch.ops import device_ac
+    from jxl_tpu_torch.ops import epf_gab as K
+    from jxl_tpu_torch.render.anim_fold import try_anim_fold
+    from jxl_tpu_torch.render.batch_anim import decode_sections, fold_coefficients
+    from jxl_tpu_torch.utils import trace
+    from jxl_tpu_torch.vardct import device_group
+    from jxl_tpu_torch.vardct.device_group import LANE_KEYWORDS, check_lane_flags
+
+    dev = torch.device(device)
+    merged = _batched_lane_inputs(streams[0][1])
+    one = _batched_lane_inputs(streams[0][1], frames=1)
+    pool = ProcessPoolExecutor(max_workers=1, mp_context=multiprocessing.get_context("spawn"))
+    plain = pool.submit(_plain_ac_sections,
+                        [np.ascontiguousarray(v) for k, v in merged.items()
+                         if k not in LANE_KEYWORDS], {k: merged[k] for k in LANE_KEYWORDS})
+    lanes_seen = []
+    real_k3 = device_ac.decode_ac_sections
+    real_run_lanes = device_group.run_lanes
+
+    def counted(inputs, *a, **kw):  # every decode's K3 launch goes through run_lanes
+        lanes_seen.append(int(inputs["streams"].shape[0]))
+        return real_run_lanes(inputs, *a, **kw)
+
+    main_launches = {"decode_ac_sections": 0, "epf_gab": 0}
+    summary = {}
+    old_mode = os.environ.pop("JXL_TPU_BATCH_ANIM", None)
+    device_group.run_lanes = counted
+    try:
+        for name, data, (w, h), nframes, expect in streams:
+            outs, rec = {}, {}
+            for route in ("off", "1", "0"):
+                os.environ["JXL_TPU_BATCH_ANIM"] = route
+                k1, k3 = K.epf_gab.launches, real_k3.launches
+                del lanes_seen[:]
+                trace.enable(device_events=dev.type == "cuda")
+                trace.reset()
+                img, peak = _peak_mb(lambda: jxl_tpu_torch.decode_image(
+                    data, pixel_format="u8", device=dev), dev)
+                counters = {k: v for k, v in trace.metrics.counters.items()
+                            if k.startswith(("batch_anim", "anim_fold"))}
+                spans = {k: {"host_s": v} for k, v in trace.host_seconds().items()}
+                for k, v in trace.device_ms().items():
+                    spans[k]["device_span_ms"] = v
+                trace.enable(False)
+                launches = {"decode_ac_sections": real_k3.launches - k3,
+                            "epf_gab": K.epf_gab.launches - k1}
+                lanes = list(lanes_seen)
+                walls, hosts = [], []
+                for _ in range(5):
+                    t0 = time.perf_counter()
+                    img = jxl_tpu_torch.decode_image(data, pixel_format="u8", device=dev)
+                    _sync(dev)
+                    walls.append(time.perf_counter() - t0)
+                    hosts.append(img.timings["host_s"])
+                f32 = jxl_tpu_torch.decode_image(data, pixel_format="f32", device=dev)
+                outs[route] = (img, f32)
+                rec[route] = {"wall_s_median": float(np.median(walls)), "walls_s": walls,
+                              "host_s_median": float(np.median(hosts)),
+                              "mp_per_s": w * h * nframes / 1e6 / float(np.median(walls)),
+                              "launches": launches, "k3_lanes_per_launch": lanes,
+                              "peak_mb": peak, "trace": counters, "spans": spans}
+                check(launches == expect[route],
+                      f"{name} route {route}: launches {launches}, expected {expect[route]}")
+                check(len(img.frames) == nframes and tuple(img.frames[0].shape) == (h, w, 3),
+                      f"{name} route {route}: {len(img.frames)} frames of "
+                      f"{tuple(img.frames[0].shape)}")
+                if route == BATCH_ANIM_DEFAULT:
+                    for k in main_launches:
+                        main_launches[k] += launches[k]
+            ref_u8, ref_f32 = outs["off"]
+            for route in ("1", "0"):
+                u8, f32 = outs[route]
+                same = (u8.durations == ref_u8.durations and f32.durations == ref_f32.durations
+                        and all(torch.equal(a, b) for a, b in zip(u8.frames, ref_u8.frames))
+                        and all(torch.equal(a, b) for a, b in zip(f32.frames, ref_f32.frames)))
+                diff = max(float((a - b).abs().max())
+                           for a, b in zip(f32.frames, ref_f32.frames))
+                rec[route]["bit_exact_vs_per_frame_loop"] = same
+                rec[route]["f32_max_abs_diff_vs_per_frame_loop"] = diff
+                check(same, f"{name}: route {route} differs from the per-frame loop ({diff})")
+            check(all(np.isfinite(f.cpu().numpy()).all() for f in ref_f32.frames),
+                  f"{name}: non-finite output")
+            if name == "anim48_256":
+                check(rec["0"]["trace"].get("batch_anim_route.fold") == 1,
+                      "the fold did not take anim48_256")
+            del outs
+            emit({"phase": "batched_anim", "stream": name, "frames": nframes,
+                  "routes": rec})
+            summary[name] = {r: {k: rec[r][k] for k in ("wall_s_median", "host_s_median",
+                                                        "launches", "peak_mb")}
+                             for r in rec}
+    finally:
+        device_group.run_lanes = real_run_lanes
+        os.environ.pop("JXL_TPU_BATCH_ANIM", None)
+        if old_mode is not None:
+            os.environ["JXL_TPU_BATCH_ANIM"] = old_mode
+
+    # the fold against K3's batched sections on the fold's stream
+    data = streams[1][1]
+    br = BitReader(data)
+    fh = FileHeader.read(br)
+    br.jump_to_byte_boundary()
+    recs = scan_frames(data, br.pos, fh)
+    folded = try_anim_fold(fh, data, recs, None, dev)
+    check(folded is not None, "the fold declined anim48_256")
+    flat_fold, _ = fold_coefficients(folded, dev)
+    frames, flat, _, oks = decode_sections(fh, data, recs, None, dev)
+    check_lane_flags(oks)
+    same_coeffs = torch.equal(flat_fold, flat)
+    same_lf = all(np.array_equal(a, b) for fa, fb in zip(folded, frames)
+                  for a, b in zip(fa.lf_image, fb.lf_image))
+    same_meta = all(np.array_equal(fa.hf_meta[k], fb.hf_meta[k])
+                    for fa, fb in zip(folded, frames)
+                    for k in ("transform", "raw_quant", "quant_lf", "epf", "ytox", "ytob"))
+    emit({"phase": "batched_anim", "stream": "anim48_256", "fold_vs_k3_sections": {
+        "coefficients_bit_exact": same_coeffs, "lf_bit_exact": same_lf,
+        "hf_metadata_bit_exact": same_meta}})
+    check(same_coeffs and same_lf and same_meta,
+          "the fold's coefficients, LF or HF metadata differ from the sections'")
+
+    # K3 at the batched route's shape against its plain version
+    got_c, got_ok, ms, call_ms, plan = _k3_at(merged, dev)
+    _, _, ms_one, call_one, _ = _k3_at(one, dev) if dev.type == "cuda" else (0, 0, 0, 0, 0)
+    want_c, want_ok, plain_s = plain.result()
+    pool.shutdown()
+    same = (np.array_equal(got_c.cpu().numpy(), want_c)
+            and np.array_equal(got_ok.cpu().numpy(), want_ok))
+    err = int(np.abs(got_c.cpu().numpy().astype(np.int64) - want_c).max())
+    check(same and bool(want_ok.all()),
+          "K3 over the merged lanes disagrees with its plain version")
+    tokens = ac_tokens_per_lane(merged, want_c)
+    bound_ms, bound_by = _k3_bound(merged, tokens, len(want_ok))
+    k3 = {"lanes": len(want_ok), "frames": streams[0][3], "clusters": merged["tables"].shape[0],
+          "smem_plan": plan, "kernel_ms": ms, "call_ms": call_ms, "bound_ms": bound_ms,
+          "bound_by": bound_by, "plain_host_s": plain_s, "max_abs_diff": err,
+          "tokens": sum(tokens), "longest_lane_tokens": max(tokens),
+          "ns_per_step": ms * 1e6 / max(tokens) if ms else None,
+          "one_frame_lanes": one["streams"].shape[0],
+          "one_frame_kernel_ms": ms_one, "one_frame_call_ms": call_one}
+    emit({"phase": "batched_anim", "name": "decode_ac_sections", "case": "anim48_512_merged",
+          **k3})
+    emit({"phase": "batched_anim", "summary": summary, "main_route": BATCH_ANIM_DEFAULT,
+          "launches_main_route": main_launches})
+    return {"launches": main_launches, "k3": k3}
+
+
 def main() -> int:
     import torch
 
@@ -2966,6 +3253,11 @@ def main() -> int:
           "bytes": {name: len(d) for name, d, *_ in tstreams},
           "seconds": time.perf_counter() - t0})
     t0 = time.perf_counter()
+    astreams = batched_anim_streams()
+    emit({"phase": "batched_anim", "step": "write_streams",
+          "bytes": {name: len(d) for name, d, *_ in astreams},
+          "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
     ldata = lossless_stream()
     emit({"phase": "lossless", "step": "write_stream", "bytes": len(ldata),
           "seconds": time.perf_counter() - t0})
@@ -2975,6 +3267,7 @@ def main() -> int:
     run("profile", phase_profile, fstreams[0][1], "vardct_up2_noise", "epf_gab_kernel")
     run("profile", phase_profile, data, "modular", "epf_gab_kernel")
     run("profile", phase_profile, vdata, "vardct", "ac_sections_kernel")
+    run("profile", phase_profile, astreams[0][1], "anim48_512_batched", "ac_sections_kernel")
     k, k_half, k_slab, max_err = run("kernels", phase_kernels)
     k2 = run("k2", phase_k2)
     k3 = run("k3", phase_k3, vdata)
@@ -2992,6 +3285,7 @@ def main() -> int:
     lossless = run("lossless", phase_lossless, ldata)
     sinputs = run("sharded", sharded_streams, vdata, lossless["frame_lanes"])
     sharded = run("sharded", phase_sharded, sinputs)
+    batched = run("batched_anim", phase_batched_anim, astreams)
     emit({"phase": "timing", "seconds": phase_s, "total_s": time.perf_counter() - start})
     null_reason = "no single torch call computes a rANS decode"
     emit({"kernels": [
@@ -3010,6 +3304,7 @@ def main() -> int:
              k: v["epf_gab"] for k, v in band_launches["decode_banded_types"].items()},
          "launches_lossless_path": lossless["launches"]["epf_gab"],
          "launches_sharded_path": sharded["epf_gab"],
+         "launches_batched_anim_path": batched["launches"]["epf_gab"],
          "max_abs_err": max_err, "ms": k["kernel_ms"], "call_ms": k["call_ms"],
          "plain_ms": k["plain_ms"],
          "bound_ms": k["bound_ms"], "bound_by": k["bound_by"], "library_ms": None,
@@ -3047,6 +3342,8 @@ def main() -> int:
          "launches_decode_banded_types_path": {
              k: v["decode_ac_sections"] for k, v in band_launches["decode_banded_types"].items()},
          "launches_sharded_path": sharded["decode_ac_sections"],
+         "launches_batched_anim_path": batched["launches"]["decode_ac_sections"],
+         "batched_anim_512_merged": batched["k3"],
          "k3_lanes_per_launch_streaming_flushes": streaming["k3_lanes_per_launch"],
          "max_abs_err": k3["max_abs_err"], "ms": k3["kernel_ms"], "call_ms": k3["call_ms"],
          "plain_ms": k3["plain_ms"], "ns_per_step": k3["ns_per_step"],

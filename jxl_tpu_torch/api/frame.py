@@ -367,10 +367,22 @@ class Frame:
     def _decode_vardct_sections(self, br: BitReader, device) -> None:
         """ref frame/decode.rs section order; the AC routing of
         jxl_tpu/api/frame.py:_try_device_ac without its TPU-measured gates:
-        an eligible frame takes the lane decoder on either device, unless
-        JXL_TPU_AC=host sends it to the native host decoder."""
+        an eligible frame of more than one section takes the lane decoder
+        on either device, unless JXL_TPU_AC=host sends it to the native
+        host decoder."""
         from ..vardct.device_group import decode_ac_sections_device
 
+        readers = self.decode_vardct_head(br)
+        if self.header.num_toc_entries != 1 and self.takes_lanes():
+            decode_ac_sections_device(self, readers, device)
+            return
+        self.decode_vardct_ac_on_host(self.hf_jobs(readers), device)
+
+    def decode_vardct_head(self, br: BitReader) -> dict:
+        """A VarDCT frame's sections up to its AC: LfGlobal, the LF groups,
+        HfGlobal and the LF smoothing. Returns the HF section readers,
+        {(group, pass): BitReader}; a frame of one section has one, the
+        section's own reader at the bit after HfGlobal."""
         header = self.header
         single = header.num_toc_entries == 1
         sections = self.split_sections(br)
@@ -380,20 +392,15 @@ class Frame:
             self.decode_lf_group(g, sec if single else sections[self.section_index("lf", group=g)])
         self.decode_hf_global(sec if single else sections[self.section_index("hf_global")])
         self.finalize_lf()
-        if not single and self.takes_lanes():
-            readers = {
-                (g, p): sections[self.section_index("hf", group=g, pass_idx=p)]
-                for g in range(header.num_groups)
-                for p in range(header.passes.num_passes)
-            }
-            decode_ac_sections_device(self, readers, device)
-            return
-        self.decode_vardct_ac_on_host(
-            [(g, [(p, sec if single else sections[self.section_index("hf", group=g, pass_idx=p)])
-                  for p in range(header.passes.num_passes)])
-             for g in range(header.num_groups)], device)
+        return {(g, p): sec if single else sections[self.section_index("hf", group=g, pass_idx=p)]
+                for g in range(header.num_groups) for p in range(header.passes.num_passes)}
 
-    def decode_vardct_ac_on_host(self, jobs, device) -> None:
+    def hf_jobs(self, readers: dict) -> list:
+        """decode_vardct_ac_on_host's jobs from decode_vardct_head's readers."""
+        return [(g, [(p, readers[(g, p)]) for p in range(self.header.passes.num_passes)])
+                for g in range(self.header.num_groups)]
+
+    def decode_vardct_ac_on_host(self, jobs, device, pool=None) -> None:
         """A VarDCT frame's AC on the host, into host_ac_flat: a
         single-pass frame without modular HF channels in one native call
         for the whole frame; any other frame (more than one pass, or
@@ -404,10 +411,12 @@ class Frame:
         pool, and a group's passes add into its slot). The pool is
         page-locked when the render runs on the card, so its upload needs
         no staging copy and no wait. jobs: [(group, [(pass, BitReader)])]
-        in group order."""
+        in group order. pool: the zeroed (G * 3 * 256 * 256,) int32 buffer
+        to decode into (a view of a larger pool shared by several frames),
+        else one made here."""
         from ..vardct.group import try_decode_hf_groups
 
-        pool = self._host_ac_pool(device)
+        pool = self._host_ac_pool(device) if pool is None else pool
         if try_decode_hf_groups(self, [(g, readers[0][1]) for g, readers in jobs], pool):
             return
         self.host_ac_flat = pool

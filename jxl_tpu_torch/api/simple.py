@@ -8,21 +8,28 @@ without photon noise, extra channels, patches or splines; reference
 frames and LF frames in the decoder state's slots, VarDCT frames that
 take their LF from an LF frame, cropped and blended frames composited
 onto the canvas, animations with their durations, a preview skipped.
-Chroma-subsampled Modular frames are not in this package's slice, nor the
-JAX package's batched animation routes (the per-frame loop gives their
-result). Host parse and entropy decode run in numpy and C++ (native/); a
-VarDCT frame's AC coefficients are decoded on the caller's device
-(api/frame.py), and the render, the slots and the canvases stay there.
+An animation that render/batch_anim.py:batchable admits (small REPLACE
+VarDCT frames, as jxl_tpu's batched route takes them) decodes on the
+batched route unless JXL_TPU_BATCH_ANIM=off: K3 once over every frame's
+AC lanes, each transform type once over every frame's blocks, K1 once a
+frame, the colour transform and output conversion once (or, for
+single-section frames, the whole-animation fold of render/anim_fold.py
+decodes the sections and the AC in one C++ call); its frames equal the
+per-frame loop's bit for bit. Host parse and entropy decode run in numpy
+and C++ (native/); a VarDCT frame's AC coefficients are decoded on the
+caller's device (api/frame.py), and the render, the slots and the
+canvases stay there.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from dataclasses import dataclass, field as dfield
 
 import torch
 
-from ..errors import InvalidBox
+from ..errors import InvalidBox, JxlError
 from ..io.bit_reader import BitReader
 from ..io.container import extract_codestream_ex
 from ..io.headers import FileHeader
@@ -34,6 +41,16 @@ from .frame import Frame
 from .state import DecoderState
 
 PIXEL_FORMATS = ("f32", "u8", "u16", "f16")
+# JXL_TPU_BATCH_ANIM: "0" the fold where it takes the stream, then the
+# batched render; "1" the batched render without the fold; "off" the
+# per-frame loop
+BATCH_ANIM_MODES = ("0", "1", "off")
+BATCH_ANIM_DEFAULT = "0"
+# groups (256x256 each) the batched route holds at once: its coefficient
+# buffer, plane stack and canvases grow with them (958 MB of card memory at
+# the peak for 48 frames of 512x512, 192 groups, on the H100; PERF.md), so
+# a longer animation goes through in consecutive batches of whole frames
+BATCH_ANIM_GROUPS = 256
 
 
 @dataclass
@@ -156,6 +173,97 @@ def finish_frame(frame, state, device, pixel_format: str = "f32", options=None, 
     return arr
 
 
+def scan_frames(codestream, start_bits: int, fh, ooo_ranges=()) -> list:
+    """[(FrameHeader, Toc, first section bit)] of every frame from
+    `start_bits` to the last, headers and TOCs only, read once per decode
+    (jxl_tpu keeps such scans in a process-wide cache of mutable headers;
+    here each decode reads its own). A frame that starts in an
+    out-of-order jxlp box (`ooo_ranges`, byte ranges) raises InvalidBox,
+    as the per-frame loop does."""
+    br = BitReader(codestream)
+    br.pos = start_bits
+    recs = []
+    while True:
+        br.jump_to_byte_boundary()
+        if any(lo <= br.pos // 8 < hi for lo, hi in ooo_ranges):
+            raise InvalidBox("frame starts in out-of-order jxlp box")
+        header = FrameHeader.read(br, fh)
+        toc = Toc.read(br, header.num_toc_entries)
+        br.jump_to_byte_boundary()
+        recs.append((header, toc, br.pos))
+        br.skip_bits(toc.total_size * 8)
+        if header.is_last:
+            return recs
+
+
+def _try_batched_animation(fh, codestream, start_bits: int, ooo_ranges, icc_profile,
+                           pixel_format: str, device, timings: dict):
+    """The batched route for an animation batchable admits (counterpart
+    of jxl_tpu/api/simple.py:_try_batched_animation, :233-377): the frames'
+    headers are scanned once, their sections decode (the fold of
+    render/anim_fold.py where JXL_TPU_BATCH_ANIM is "0" and it takes the
+    stream, else render/batch_anim.py:decode_sections, K3 once over every
+    frame's lanes), and render_frames_batched renders and composes every
+    frame on `device`, BATCH_ANIM_GROUPS groups' worth of frames at a time
+    (one K3 launch and one render a batch). Returns (frames, durations),
+    the frames (H, W, C) tensors, oriented; or None, for the per-frame
+    loop, when
+    JXL_TPU_BATCH_ANIM=off, when the headers do not read (the loop then
+    raises where they fail) or when batchable declines. timings["host_s"]
+    gets every frame's parse."""
+    from ..render.anim_fold import try_anim_fold
+    from ..render.batch_anim import (batchable, decode_sections, fold_coefficients,
+                                     render_frames_batched)
+    from ..vardct.device_group import check_lane_flags
+
+    mode = os.environ.get("JXL_TPU_BATCH_ANIM", BATCH_ANIM_DEFAULT)
+    if mode not in BATCH_ANIM_MODES:
+        raise ValueError(f"JXL_TPU_BATCH_ANIM must be one of {BATCH_ANIM_MODES}, not {mode!r}")
+    if mode == "off" or fh.image_metadata.animation is None:
+        return None
+    t0 = time.perf_counter()
+    try:
+        recs = scan_frames(codestream, start_bits, fh, ooo_ranges)
+    except InvalidBox:
+        raise
+    except JxlError:
+        return None
+    # the batched render colours every frame as frame 0 (one pass over the
+    # stack), so frames that differ in YCbCr take the loop
+    if not batchable(fh, recs) or len({h.do_ycbcr for h, _, _ in recs}) > 1:
+        return None
+    batches, groups = [[]], 0
+    for rec in recs:
+        if batches[-1] and groups + rec[0].num_groups > BATCH_ANIM_GROUPS:
+            batches.append([])
+            groups = 0
+        batches[-1].append(rec)
+        groups += rec[0].num_groups
+    meta = fh.image_metadata
+    out_frames, durations = [], []
+    for batch in batches:
+        with trace.span("batch_anim.sections"):
+            frames = (try_anim_fold(fh, codestream, batch, icc_profile, device)
+                      if mode == "0" else None)
+            if frames is not None:
+                trace.metrics.add("batch_anim_route.fold", 1)
+                flat, slots = fold_coefficients(frames, device)
+                oks = []
+            else:
+                trace.metrics.add("batch_anim_route.sections", 1)
+                frames, flat, slots, oks = decode_sections(fh, codestream, batch, icc_profile,
+                                                           device)
+        timings["host_s"] = timings.get("host_s", 0.0) + time.perf_counter() - t0
+        with trace.span("batch_anim.render"):
+            out = render_frames_batched(frames, flat, slots, pixel_format, device)
+        check_lane_flags(oks)
+        t0 = time.perf_counter()
+        trace.metrics.add("batch_anim_frames", len(frames))
+        out_frames += [apply_orientation(out[f], meta.orientation) for f in range(len(frames))]
+        durations += [duration_ms(fr.header, meta) for fr in frames]
+    return out_frames, durations
+
+
 def decode_image(
     data: bytes, *, keep_all_frames: bool = True, pixel_format: str = "f32", device="cuda"
 ) -> DecodedImage:
@@ -190,7 +298,11 @@ def decode_image(
     last frame (4:4:4 VarDCT without features, api/overlap.py) band by
     band, the host's parse of a band overlapping the card's work on the
     one before; 0 and auto (the default) never, as the band route has
-    not yet beaten the whole frame on the card."""
+    not yet beaten the whole frame on the card. JXL_TPU_BATCH_ANIM
+    chooses the route of an animation render/batch_anim.py:batchable
+    admits: "0" (the default) the whole-animation fold where it takes the
+    stream, then the batched render; "1" the batched render without the
+    fold; "off" the per-frame loop (module docstring)."""
     if pixel_format not in PIXEL_FORMATS:
         raise ValueError(f"unknown pixel format {pixel_format!r}")
     device = torch.device(device)
@@ -219,6 +331,15 @@ def decode_image(
         br.skip_bits(pframe.toc.total_size * 8)
     out = DecodedImage(fh, [], icc_profile, [], {})
     host_s = time.perf_counter() - t0
+    batched = _try_batched_animation(fh, codestream, br.pos, ooo_ranges, icc_profile,
+                                     pixel_format, device, out.timings)
+    if batched is not None:
+        out.frames, out.durations = batched
+        out.timings["host_s"] += host_s
+        trace.metrics.add("megapixels_decoded",
+                          sum(f.shape[0] * f.shape[1] for f in out.frames) / 1e6)
+        trace.metrics.add("decode_seconds", time.perf_counter() - t_start)
+        return out
     while True:
         t0 = time.perf_counter()
         br.jump_to_byte_boundary()

@@ -1320,3 +1320,109 @@ def gradient_reconstruct(arr: np.ndarray) -> None:
         _ptr(arr, ctypes.c_int32), ctypes.c_int64(h), ctypes.c_int64(w),
         ctypes.c_int64(arr.strides[0] // 4),
     )
+
+
+def fold_span_hit(prev: bytes, prev_key: int, cur: bytes, cur_key: int) -> bool:
+    """The animation fold's span-cache decision (modular_decode.cc
+    FoldSpanHit through jxl_fold_span_hit) on two equal-length spans: true
+    when a frame whose table-section bits are `cur`, decoded under
+    `cur_key` (HfGlobal's block-context count), may reuse the decode of
+    `prev` under `prev_key`."""
+    if len(prev) != len(cur):
+        raise ValueError("fold_span_hit compares spans of one length")
+    a = np.frombuffer(bytes(prev) or b"\0", np.uint8)
+    b = np.frombuffer(bytes(cur) or b"\0", np.uint8)
+    fn = get_lib().jxl_fold_span_hit
+    fn.restype = ctypes.c_int
+    return bool(fn(_ptr(a, ctypes.c_uint8), ctypes.c_int(prev_key), _ptr(b, ctypes.c_uint8),
+                   ctypes.c_int(cur_key), ctypes.c_uint64(len(prev))))
+
+
+def anim_decode_frames_native(
+    br, sec_bit_pos, sec_byte_end, bw, bh, tcw, tch, fbw, fbh, hshift3,
+    vshift3, is444, smooth_flags, chan_counts, chan_tmpl_off, chan_template,
+    chan_frame_elems, tree_size_limit, def_bctx_cmap, invalid_transform,
+    has_modular: bool, span_cache: bool = True,
+):
+    """The whole-animation fold (modular_decode.cc jxl_anim_decode_frames;
+    the counterpart of jxl_tpu/native/__init__.py:anim_decode_frames_native):
+    every frame's LfGlobal tables, global Modular group header (none when
+    has_modular is false: the global image has no channels), section-0
+    channels, LF group with its HF metadata (and the adaptive LF smoothing),
+    HfGlobal and its one HF group's AC, for F single-section frames, in one
+    native call. Returns a dict of (F, ...) arrays ("scal", "dbl", "gh",
+    "lf" (3, F, bh, bw), "qlf", "tmap", "rq", "epf", "ytox", "ytob",
+    "hfinfo", "pool" (F, 3, 65536) int32 coefficients, "blocks" (F, 1024,
+    4) [bx, by, tid, offset], "blk_counts", "chan"), or None when a frame's
+    stream is of a shape the fold does not take (then trace counts
+    "anim_fold_fallback"). Every array is allocated here, for this call:
+    nothing is shared between calls or threads. span_cache=False decodes
+    every frame's table sections in full (the caches' test reference).
+    Ref: frame/decode.rs:314-583, frame/group.rs:384-618."""
+    from ..utils import trace
+    from ..vardct.group import _CBX_ARR, _CBY_ARR, _SHAPE_ARR
+
+    lib = get_lib()
+    F = len(sec_bit_pos)
+    nat, nat_off = _natural_orders_concat()
+    out = {
+        "scal": np.zeros((F, 24), np.int32),
+        "dbl": np.zeros((F, 8), np.float64),
+        "lfthr": np.zeros((F, 48), np.int32),
+        "qfthr": np.zeros((F, 16), np.int32),
+        "bctxmap": np.zeros((F, 2496), np.uint8),
+        "gh": np.zeros((F, 96), np.int32),
+        "lf": np.zeros((3, F, bh, bw), np.float32),
+        "qlf": np.zeros((F, bh, bw), np.uint8),
+        "tmap": np.full((F, bh, bw), invalid_transform, np.uint8),
+        "rq": np.zeros((F, bh, bw), np.int32),
+        "epf": np.zeros((F, bh, bw), np.uint8),
+        "ytox": np.zeros((F, tch, tcw), np.int8),
+        "ytob": np.zeros((F, tch, tcw), np.int8),
+        "hfinfo": np.zeros((F, 2), np.int32),
+        "pool": np.zeros((F, 3, 65536), np.int32),
+        "blocks": np.zeros((F, 1024, 4), np.int32),
+        "blk_counts": np.zeros(F, np.int32),
+        "chan": np.zeros((F, max(chan_frame_elems, 1)), np.int32),
+    }
+    err = np.full(2, -2, np.int32)
+    stage_ns = np.zeros(8, np.int64)
+    data = _databuf(br)
+
+    def i32(a):
+        return _ptr(np.ascontiguousarray(a, dtype=np.int32), ctypes.c_int32)
+
+    ret = lib.jxl_anim_decode_frames(
+        data, ctypes.c_uint64(len(data)), ctypes.c_int(F),
+        _ptr(np.ascontiguousarray(sec_bit_pos, dtype=np.uint64), ctypes.c_uint64),
+        _ptr(np.ascontiguousarray(sec_byte_end, dtype=np.uint64), ctypes.c_uint64),
+        ctypes.c_int(bw), ctypes.c_int(bh), ctypes.c_int(tcw), ctypes.c_int(tch),
+        i32(fbw), i32(fbh), i32(hshift3), i32(vshift3), ctypes.c_int(is444),
+        _ptr(np.ascontiguousarray(smooth_flags, dtype=np.uint8), ctypes.c_uint8),
+        i32(chan_counts),
+        _ptr(np.ascontiguousarray(chan_tmpl_off, dtype=np.int64), ctypes.c_int64),
+        _ptr(np.ascontiguousarray(chan_template, dtype=np.int64), ctypes.c_int64),
+        ctypes.c_int64(chan_frame_elems), _ptr(out["chan"], ctypes.c_int32),
+        ctypes.c_int64(tree_size_limit),
+        _ptr(nat, ctypes.c_int32), _ptr(nat_off, ctypes.c_int32),
+        _ptr(_CBX_ARR, ctypes.c_int32), _ptr(_CBY_ARR, ctypes.c_int32),
+        _ptr(_SHAPE_ARR, ctypes.c_int32),
+        ctypes.c_int(invalid_transform),
+        _ptr(np.ascontiguousarray(def_bctx_cmap, dtype=np.uint8), ctypes.c_uint8),
+        ctypes.c_int(15), ctypes.c_int(int(has_modular)), ctypes.c_int(int(span_cache)),
+        _ptr(out["scal"], ctypes.c_int32), _ptr(out["dbl"], ctypes.c_double),
+        _ptr(out["lfthr"], ctypes.c_int32), _ptr(out["qfthr"], ctypes.c_int32),
+        _ptr(out["bctxmap"], ctypes.c_uint8), _ptr(out["gh"], ctypes.c_int32),
+        _ptr(out["lf"], ctypes.c_float), _ptr(out["qlf"], ctypes.c_uint8),
+        _ptr(out["tmap"], ctypes.c_uint8), _ptr(out["rq"], ctypes.c_int32),
+        _ptr(out["epf"], ctypes.c_uint8),
+        _ptr(out["ytox"], ctypes.c_int8), _ptr(out["ytob"], ctypes.c_int8),
+        _ptr(out["hfinfo"], ctypes.c_int32), _ptr(out["pool"], ctypes.c_int32),
+        _ptr(out["blocks"], ctypes.c_int32), _ptr(out["blk_counts"], ctypes.c_int32),
+        _ptr(err, ctypes.c_int32), _ptr(stage_ns, ctypes.c_int64),
+    )
+    if ret != 0:
+        trace.metrics.add("anim_fold_fallback", 1)
+        return None
+    trace.metrics.add("anim_fold_span_hits", int(stage_ns[6]))
+    return out

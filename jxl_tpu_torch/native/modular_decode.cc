@@ -3578,7 +3578,27 @@ static int ParseGroupHeaderFull(BitReader& br, GroupHeaderFull* gh) {
   return 0;
 }
 
+// Whether the animation fold may reuse the previous frame's decode of a
+// table section: the next bits at this frame's section start equal the
+// cached span, and the decode's one input besides the bits, its key (the
+// block-context count for HfGlobal, whose histograms cover num_bctx * 495
+// contexts; 0 for the LfGlobal tables), equals the cached one.
+bool FoldSpanHit(const std::vector<uint8_t>& prev, int prev_key,
+                 const std::vector<uint8_t>& cur, int cur_key) {
+  return prev_key == cur_key && cur == prev;
+}
+
 }  // namespace
+
+// The fold's span-cache decision on two hand-built spans (its test hook):
+// 1 when a frame whose bits at `cur` (len bytes) were decoded under
+// cur_key may reuse the decode of `prev` under prev_key.
+extern "C" int jxl_fold_span_hit(const uint8_t* prev, int prev_key,
+                                 const uint8_t* cur, int cur_key,
+                                 uint64_t len) {
+  std::vector<uint8_t> a(prev, prev + len), b(cur, cur + len);
+  return FoldSpanHit(a, prev_key, b, cur_key) ? 1 : 0;
+}
 
 extern "C" int jxl_anim_decode_frames(
     const uint8_t* data, uint64_t full_size, int num_frames,
@@ -3603,6 +3623,11 @@ extern "C" int jxl_anim_decode_frames(
     int invalid_transform,
     // default block-context map (used when the stream picks the default)
     const uint8_t* def_bctx_cmap, int def_num_bctx,
+    // 0 when the frames' global Modular image has no channels (a VarDCT
+    // frame without extra channels): LfGlobal then codes no GroupHeader
+    int has_modular,
+    // 0 turns both bit-span caches off (every frame decodes in full)
+    int span_cache,
     // outputs (per frame slabs)
     int32_t* scal_out,      // (F, 24)
     double* dbl_out,        // (F, 8)
@@ -3668,6 +3693,10 @@ extern "C" int jxl_anim_decode_frames(
   };
   std::vector<uint8_t> span0_prev, span0_cur, span4_prev, span4_cur;
   uint64_t span0_len = 0, span4_len = 0;
+  // the block-context count the cached HfGlobal span was decoded with:
+  // its histograms are read for num_bctx * 495 contexts, so equal bits
+  // decode alike only under an equal count (FoldSpanHit)
+  int span4_bctx = -1;
   const int64_t plane = (int64_t)bw * bh;
   const int64_t tile_plane = (int64_t)tcw * tch;
   const int gdb = 32;  // group_dim 256 / 8
@@ -3706,8 +3735,9 @@ extern "C" int jxl_anim_decode_frames(
     // ---- stage 0: LfGlobal table sequence --------------------------
     err_out[1] = 0;
     int ret = 0;
-    if (f > 0 && span0_len > 0 && extract_bits(pos, span0_len, span0_cur) &&
-        span0_cur == span0_prev) {
+    if (span_cache && f > 0 && span0_len > 0 &&
+        extract_bits(pos, span0_len, span0_cur) &&
+        FoldSpanHit(span0_prev, 0, span0_cur, 0)) {
       // identical bit span -> identical decode; scratch (trees, tables)
       // already holds this state, copy the previous frame's output rows
       std::memcpy(scal, scal_out + (int64_t)(f - 1) * 24, 24 * sizeof(int32_t));
@@ -3762,19 +3792,23 @@ extern "C" int jxl_anim_decode_frames(
     const int t_lzdist = t_meta[0] ? t_cmap[t_nctx - 1] : 0;
 
     // ---- stage 1: GlobalModular group header -----------------------
+    // (none without channels: the row stays zero, as the caller packs an
+    // absent header)
     err_out[1] = 1;
-    BitReader br{data, fsize, pos};
     GroupHeaderFull gh;
-    if (ParseGroupHeaderFull(br, &gh) != 0 || br.Overrun())
-      return br.Overrun() ? 2 : 30;
-    if (!gh.use_global_tree) return 30;
-    pos = br.pos;
-    int32_t* gho = gh_out + (int64_t)f * 96;
-    gho[0] = 1;
-    gho[1] = gh.num_transforms;
-    gho[2] = gh.packed_len;
-    std::memcpy(gho + 3, gh.wp, 12 * sizeof(int32_t));
-    std::memcpy(gho + 15, gh.packed, gh.packed_len * sizeof(int32_t));
+    if (has_modular) {
+      BitReader br{data, fsize, pos};
+      if (ParseGroupHeaderFull(br, &gh) != 0 || br.Overrun())
+        return br.Overrun() ? 2 : 30;
+      if (!gh.use_global_tree) return 30;
+      pos = br.pos;
+      int32_t* gho = gh_out + (int64_t)f * 96;
+      gho[0] = 1;
+      gho[1] = gh.num_transforms;
+      gho[2] = gh.packed_len;
+      std::memcpy(gho + 3, gh.wp, 12 * sizeof(int32_t));
+      std::memcpy(gho + 15, gh.packed, gh.packed_len * sizeof(int32_t));
+    }
     clk.lap(1);
 
     // ---- stage 2: section-0 modular channels -----------------------
@@ -3854,8 +3888,9 @@ extern "C" int jxl_anim_decode_frames(
     const int num_bctx = scal[2] ? def_num_bctx : scal[9];
     const int num_ac_contexts = num_bctx * (37 + 458);
     int32_t* info = hfinfo_out + (int64_t)f * 2;
-    if (f > 0 && span4_len > 0 && extract_bits(pos, span4_len, span4_cur) &&
-        span4_cur == span4_prev) {
+    if (span_cache && f > 0 && span4_len > 0 &&
+        extract_bits(pos, span4_len, span4_cur) &&
+        FoldSpanHit(span4_prev, span4_bctx, span4_cur, num_bctx)) {
       // identical span -> identical histograms, orders, and mixed
       // order buffer (all loop-carried scratch); copy the info row
       std::memcpy(info, hfinfo_out + (int64_t)(f - 1) * 2, 2 * sizeof(int32_t));
@@ -3903,6 +3938,7 @@ extern "C" int jxl_anim_decode_frames(
       }
     }
     span4_len = pos - pos4;
+    span4_bctx = num_bctx;
     extract_bits(pos4, span4_len, span4_prev);
     }
     clk.lap(4);

@@ -307,8 +307,9 @@ def dither_table() -> np.ndarray:
 def f32_to_u8(plane, bit_depth: int = 8, channel: int = 0, pos=(0, 0)):
     """ConvertF32ToU8: scale, blue-noise dither, clamp, round
     (ref stages/convert.rs:549-607). torch.round rounds half to even, as
-    np.round does."""
-    h, w = plane.shape
+    np.round does. A stack of planes (..., h, w) takes the same dither
+    tile on each."""
+    h, w = plane.shape[-2:]
     dev = plane.device
     maxv = f32((1 << bit_depth) - 1)
     tab = to_device(dither_table().reshape(-1), dev)

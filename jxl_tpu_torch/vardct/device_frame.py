@@ -37,35 +37,45 @@ def eligible(frame) -> bool:
     return bool((frame.hf_meta["transform"] >= 128).any())
 
 
-def _frame_blocks(frame, group_ids: list, by0: int = 0) -> dict:
-    """{tid: (gbx, gby, group index, coefficient offset)} int32 arrays over
-    the groups `group_ids` (the group index is the position in that list,
-    the slot of the coefficient buffer; gby counts from block row by0).
-    Offsets follow raster placement order within each group, as
-    vardct/group.py:_BlockList.offs (and so both AC decoders) lay
-    coefficients out."""
+_BLOCK_COEFFS = np.array([covered_blocks_x(t) * covered_blocks_y(t) for t in range(27)],
+                         dtype=np.int64) * BLOCK_SIZE
+
+
+def placed_blocks(frame, group_ids: list, by0: int = 0) -> tuple:
+    """(tid, gbx, gby, group index, coefficient offset) int64 arrays of
+    every block placed in the groups `group_ids` (the group index is the
+    position in that list, the slot of the coefficient buffer; gby counts
+    from block row by0), the groups in list order and each group's blocks
+    in raster order. Offsets follow raster placement order within each
+    group, as vardct/group.py:_BlockList.offs (and so both AC decoders)
+    lay coefficients out."""
     header = frame.header
-    tmap = frame.hf_meta["transform"]
-    by_tid: dict[int, list] = {}
-    for gi, g in enumerate(group_ids):
-        (gx0, gy0), (gw, gh) = header.block_group_rect(g)
-        sub = tmap[gy0 : gy0 + gh, gx0 : gx0 + gw]
-        ys, xs = np.nonzero(sub >= 128)  # raster order
-        tids = (sub[ys, xs] & 127).astype(np.int32)
-        sizes = np.array([covered_blocks_x(t) * covered_blocks_y(t) for t in range(27)],
-                         dtype=np.int64)[tids] * BLOCK_SIZE
-        offs = np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(np.int64)
-        for t in np.unique(tids).tolist():
-            sel = tids == t
-            rec = by_tid.setdefault(t, [[], [], [], []])
-            rec[0].append(xs[sel] + gx0)
-            rec[1].append(ys[sel] + gy0 - by0)
-            rec[2].append(np.full(int(sel.sum()), gi, dtype=np.int64))
-            rec[3].append(offs[sel])
-    return {
-        t: tuple(np.concatenate(parts).astype(np.int32) for parts in rec)
-        for t, rec in by_tid.items()
-    }
+    tmap = np.asarray(frame.hf_meta["transform"])
+    gdb = header.group_dim // BLOCK_DIM
+    gx_count, gy_count = header.size_groups()
+    ys, xs = np.nonzero(tmap >= 128)
+    slot = np.full(gx_count * gy_count, -1, np.int64)
+    slot[list(group_ids)] = np.arange(len(group_ids))
+    gi = slot[(ys // gdb) * gx_count + xs // gdb]
+    keep = gi >= 0
+    ys, xs, gi = ys[keep], xs[keep], gi[keep]
+    order = np.lexsort((xs, ys, gi))  # by group, then raster within it
+    ys, xs, gi = ys[order], xs[order], gi[order]
+    tids = (tmap[ys, xs] & 127).astype(np.int64)
+    sizes = _BLOCK_COEFFS[tids]
+    offs = np.cumsum(sizes) - sizes
+    # the offset restarts at each group's first block
+    first = np.r_[True, gi[1:] != gi[:-1]] if len(gi) else np.zeros(0, bool)
+    offs -= offs[np.maximum.accumulate(np.where(first, np.arange(len(gi)), 0))]
+    return tids, xs.astype(np.int64), ys.astype(np.int64) - by0, gi, offs
+
+
+def _frame_blocks(frame, group_ids: list, by0: int = 0) -> dict:
+    """placed_blocks by type: {tid: (gbx, gby, group index, coefficient
+    offset)} int32 arrays."""
+    tids, *cols = placed_blocks(frame, group_ids, by0)
+    return {t: tuple(a[tids == t].astype(np.int32) for a in cols)
+            for t in np.unique(tids).tolist()}
 
 
 def _constants(frame) -> tuple:
@@ -140,6 +150,62 @@ def _cfl_factors(gbx, gby, ytox, ytob, cf, bcx, bcb) -> tuple:
     return bcx + ytox[ty, tx] / cf, bcb + ytob[ty, tx] / cf
 
 
+def frame_factors(frame) -> np.ndarray:
+    """(6, 1) float32: the frame's x_dm, b_dm, 1/global_scale, colour
+    factor and base correlations x and b, one column (block_factors)."""
+    return np.array(_constants(frame), np.float32).reshape(6, 1)
+
+
+def block_factors(rq_b, ytox_b, ytob_b, k) -> tuple:
+    """(scales (n, 3), x_cc (n,), b_cc (n,)): the blocks' dequant scales
+    and chroma-from-luma factors from their raw quant (float32), their
+    colour tiles' ytox and ytob (float32) and k, the (6, 1) frame_factors
+    of their frame or a (6, n) gather of several frames' columns. Every
+    operand is a tensor, so a block's factors are the same elementwise
+    operations whichever frames share the call: the batched animation
+    render (render/batch_anim.py) gives each frame's blocks the factors
+    render_block_rows gives them."""
+    x_dm, b_dm, igs, cf, bcx, bcb = k.unbind(0)
+    scaled_y = igs / rq_b
+    scales = torch.stack([scaled_y * x_dm, scaled_y, scaled_y * b_dm], dim=1)
+    return scales, bcx + ytox_b / cf, bcb + ytob_b / cf
+
+
+def render_type(t: int, flat, lf_flat, planes, base, lf0, lf_stride: int, pix0, W: int,
+                factors: tuple, b_c, mats) -> None:
+    """Dequant, CfL and the inverse transform of n blocks of type t, their
+    pixels written into `planes` ((3, P) float32). base (n,): each block's
+    first coefficient in `flat` (its group slot * 3 * GD * GD + offset);
+    lf0 (n,): its first LF sample in each row of lf_flat ((3, L)), whose
+    tile rows are lf_stride apart; pix0 (n,): its first pixel in each row
+    of planes, whose pixel rows are W apart; factors: block_factors();
+    b_c: the quant biases (4,); mats: the dequant weights, (1, 3, nc) or
+    one row a block."""
+    dev = flat.device
+    n = base.shape[0]
+    cx, cy = covered_blocks_x(t), covered_blocks_y(t)
+    nc = cx * cy * BLOCK_SIZE
+    stride_c = GROUP_DIM * GROUP_DIM
+    scales, x_cc, b_cc = factors
+    gidx = (base[:, None, None] + torch.arange(3, device=dev)[None, :, None] * stride_c
+            + torch.arange(nc, device=dev)[None, None, :])
+    qb = flat[gidx.reshape(-1)].reshape(n, 3, nc)
+    dq = _dequant(qb, b_c[:3][None, :, None], b_c[3], mats, scales[:, :, None])
+    # X and B get Y's dequantized value times their correlation
+    dq[:, 0] += x_cc[:, None] * dq[:, 1]
+    dq[:, 2] += b_cc[:, None] * dq[:, 1]
+    iy = torch.arange(cy, device=dev)
+    ix = torch.arange(cx, device=dev)
+    lf_idx = (lf0[:, None, None] + iy[None, :, None] * lf_stride + ix[None, None, :]).reshape(-1)
+    py = torch.arange(cy * BLOCK_DIM, device=dev)
+    px = torch.arange(cx * BLOCK_DIM, device=dev)
+    pidx = (pix0[:, None, None] + py[None, :, None] * W + px[None, None, :]).reshape(-1)
+    for c in (1, 0, 2):
+        lf_tiles = lf_flat[c][lf_idx].reshape(n, cy, cx)
+        pix = transform_to_pixels_batch(t, lf_tiles, dq[:, c].contiguous())
+        planes[c, pidx] = pix.reshape(-1)
+
+
 def render_vardct_frame_device(frame, flat) -> torch.Tensor:
     """(3, bh*8, bw*8) float32 planes in XYB on flat's device, from the
     dense (G * 3 * GD * GD,) int32 coefficient buffer `flat` of every
@@ -159,60 +225,36 @@ def render_block_rows(frame, flat, group_ids: list, by0: int, by1: int,
     (vardct/device_band.py) is one group row, and a rank's tile of the
     sharded decode (parallel/sharded_render.py) a rectangle of groups:
     their pixels are the frame's there, from the same per-block gathers,
-    dequant, CfL and inverse transforms. by0 is a multiple of 8 (the
-    colour tiles). matrices: {tid: (3, nc) float32} dequant weights
-    already made (a band renderer keeps them across bands), else made
-    here."""
+    dequant, CfL and inverse transforms (render_type). by0 is a multiple
+    of 8 (the colour tiles). matrices: {tid: (3, nc) float32} dequant
+    weights already made (a band renderer keeps them across bands), else
+    made here."""
     header = frame.header
     if not header.is444:
         raise ValueError("a chroma-subsampled frame renders through "
                          "render_vardct_frame_device_subsampled")
     dev = flat.device
-    x_dm, b_dm, igs, cf, bcx, bcb = _constants(frame)
     bw = header.size_blocks()[0]
     bx1 = bw if bx1 is None else bx1
     nbh = by1 - by0
     W = (bx1 - bx0) * BLOCK_DIM
     blocks = _frame_blocks(frame, group_ids, by0)
     types = sorted(blocks)
-    host = []
+    host = [frame_factors(frame)]
     for t in types:
         host += [a.astype(np.int64) for a in blocks[t]]
         nc = covered_blocks_x(t) * covered_blocks_y(t) * BLOCK_SIZE
         host.append(matrices[t] if matrices is not None else _matrices(frame, t, nc))
-    lf, rq, ytox, ytob, b_c, *per_type = _upload(frame, host, dev, by0, by1)
+    lf, rq, ytox, ytob, b_c, k, *per_type = _upload(frame, host, dev, by0, by1)
     lf_flat = lf.reshape(3, -1)
     planes = torch.zeros((3, nbh * BLOCK_DIM * W), dtype=torch.float32, device=dev)
-    stride_c = GROUP_DIM * GROUP_DIM
-    for k, t in enumerate(types):
-        gbx, gby, gi, off, mats = per_type[5 * k : 5 * k + 5]
-        n = gbx.shape[0]
-        cx, cy = covered_blocks_x(t), covered_blocks_y(t)
-        nc = cx * cy * BLOCK_SIZE
-        base = gi * _GROUP_STRIDE + off
-        gidx = (base[:, None, None] + torch.arange(3, device=dev)[None, :, None] * stride_c
-                + torch.arange(nc, device=dev)[None, None, :])
-        qb = flat[gidx.reshape(-1)].reshape(n, 3, nc)
-        scaled_y = igs / rq[gby, gbx].to(torch.float32)
-        x_cc, b_cc = _cfl_factors(gbx, gby, ytox, ytob, cf, bcx, bcb)
-        scales = torch.stack([scaled_y * x_dm, scaled_y, scaled_y * b_dm], dim=1)
-        dq = _dequant(qb, b_c[:3][None, :, None], b_c[3], mats[None], scales[:, :, None])
-        # X and B get Y's dequantized value times their correlation
-        dq[:, 0] += x_cc[:, None] * dq[:, 1]
-        dq[:, 2] += b_cc[:, None] * dq[:, 1]
-        iy = torch.arange(cy, device=dev)
-        ix = torch.arange(cx, device=dev)
-        lf_idx = ((gby[:, None, None] + iy[None, :, None]) * bw
-                  + gbx[:, None, None] + ix[None, None, :]).reshape(-1)
-        py = torch.arange(cy * BLOCK_DIM, device=dev)
-        px = torch.arange(cx * BLOCK_DIM, device=dev)
-        pidx = ((gby[:, None, None] * BLOCK_DIM + py[None, :, None]) * W
-                + ((gbx - bx0) if bx0 else gbx)[:, None, None] * BLOCK_DIM
-                + px[None, None, :]).reshape(-1)
-        for c in (1, 0, 2):
-            lf_tiles = lf_flat[c][lf_idx].reshape(n, cy, cx)
-            pix = transform_to_pixels_batch(t, lf_tiles, dq[:, c].contiguous())
-            planes[c, pidx] = pix.reshape(-1)
+    for i, t in enumerate(types):
+        gbx, gby, gi, off, mats = per_type[5 * i : 5 * i + 5]
+        tx = gbx // COLOR_TILE_DIM_IN_BLOCKS
+        ty = gby // COLOR_TILE_DIM_IN_BLOCKS
+        factors = block_factors(rq[gby, gbx].to(torch.float32), ytox[ty, tx], ytob[ty, tx], k)
+        render_type(t, flat, lf_flat, planes, gi * _GROUP_STRIDE + off, gby * bw + gbx, bw,
+                    gby * (BLOCK_DIM * W) + (gbx - bx0) * BLOCK_DIM, W, factors, b_c, mats[None])
     return planes.reshape(3, nbh * BLOCK_DIM, W)
 
 

@@ -204,6 +204,71 @@ def run_lanes(inputs: dict, device, out=None):
                               packed_buckets=packed_buckets, packed_cfgs=packed_cfgs, out=out)
 
 
+def merge_lane_inputs(parts: list, total_slots: int) -> dict:
+    """One launch's inputs over the lanes of several frames: parts is
+    [(lane_inputs() of a frame, slot0)], each frame's group g landing in
+    slot slot0 + g of a (total_slots * 3 * GD * GD,) buffer. Each frame
+    keeps its own tables: its item rows, orders, clusters and context map
+    are stacked after the frames before it, and its lanes' row, order,
+    context and coefficient bases move with them. The frames must share
+    the keywords log_bucket, n_buckets and num_bctx (ValueError else)."""
+    kw = {k: parts[0][0][k] for k in LANE_KEYWORDS if k != "total"}
+    if any(inp[k] != v for inp, _ in parts for k, v in kw.items()):
+        raise ValueError("merged lanes need one log_bucket, n_buckets and num_bctx")
+    i_max = max(inp["items"].shape[1] for inp, _ in parts)
+    l_max = max(inp["streams"].shape[1] for inp, _ in parts)
+    merged = {k: [] for k in parts[0][0] if k not in LANE_KEYWORDS}
+    rows = ords = clusters = ctx = 0
+    for inp, slot0 in parts:
+        shift = {"lane_group": rows, "lane_ctx_off": ctx, "lane_order_base": ords,
+                 "lane_coeff_base": slot0 * 3 * GROUP_DIM * GROUP_DIM, "context_map": clusters}
+        for k, parts_k in merged.items():
+            v = inp[k] + shift[k] if k in shift else inp[k]
+            if k == "streams":
+                v = np.pad(v, ((0, 0), (0, l_max - v.shape[1])))
+            elif k == "items":
+                v = np.pad(v, ((0, 0), (0, i_max - v.shape[1]), (0, 0)))
+            parts_k.append(v)
+        rows += inp["items"].shape[0]
+        ords += len(inp["orders"])
+        clusters += inp["tables"].shape[0]
+        ctx += len(inp["context_map"])
+    out = {k: np.concatenate(v) for k, v in merged.items()}
+    return dict(out, **kw, total=total_slots * 3 * GROUP_DIM * GROUP_DIM)
+
+
+def decode_ac_frames(jobs: list, total_slots: int, device, out=None):
+    """The AC of several frames' sections in one lane launch (K3 on the
+    card) a distinct (log_bucket, n_buckets, num_bctx): jobs is [(frame,
+    {(group, pass): BitReader}, slot0)], frame f's group g decoding into
+    slot slot0 + g of the (total_slots * 3 * GD * GD,) int32 buffer on
+    `device` (`out`, whose coefficients the lanes add to, or zeros).
+    Returns (buffer, the lanes' ok flags, one (S,) bool tensor a launch),
+    without reading the flags: check_lane_flags reads them."""
+    by_key: dict = {}
+    for frame, readers, slot0 in jobs:
+        inp = lane_inputs(frame, readers)
+        key = tuple(inp[k] for k in LANE_KEYWORDS if k != "total")
+        by_key.setdefault(key, []).append((inp, slot0))
+    oks = []
+    for parts in by_key.values():
+        out, ok = run_lanes(merge_lane_inputs(parts, total_slots), device, out=out)
+        oks.append(ok)
+    return out, oks
+
+
+def check_lane_flags(oks: list) -> None:
+    """Read lane flags (a sync point) and raise on corrupt lanes."""
+    from ..errors import NativeDecodeError
+
+    if not oks:
+        return
+    flags = torch.cat(oks).cpu().numpy()
+    if not flags.all():
+        bad = np.nonzero(~flags)[0].tolist()
+        raise NativeDecodeError(f"lane AC decode failed for sections {bad}")
+
+
 def decode_ac_sections_device(frame, group_readers: dict, device) -> None:
     """Decode the (group, pass) AC sections of `group_readers` of an
     eligible frame on `device`, in one launch. The coefficients add into
@@ -219,13 +284,8 @@ def decode_ac_sections_device(frame, group_readers: dict, device) -> None:
 
 def check_device_ac_ok(frame) -> None:
     """Read the lane flags (a sync point) and raise on corrupt lanes."""
-    from ..errors import NativeDecodeError
-
     ok = getattr(frame, "device_ac_ok", None)
     if ok is None:
         return
     frame.device_ac_ok = None
-    flags = ok.cpu().numpy()
-    if not flags.all():
-        bad = np.nonzero(~flags)[0].tolist()
-        raise NativeDecodeError(f"lane AC decode failed for sections {bad}")
+    check_lane_flags([ok])

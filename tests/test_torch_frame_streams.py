@@ -25,7 +25,9 @@ The streams:
   the colour transform in slot 0, then an XYB VarDCT frame whose
   dictionary places 16x32 glyphs from it (a screen of text);
 - `anim_replace_stream`: a small VarDCT animation of REPLACE frames and
-  durations alone, the kind jxl_tpu's batched animation route takes.
+  durations alone, the kind jxl_tpu's batched animation route takes (of
+  single-section frames up to 256x256, which its animation fold takes;
+  with an alpha channel or not).
 Any of them may start with a preview frame.
 
 This module imports neither jax nor jxl_tpu at the top: chip_smoke.py
@@ -449,13 +451,20 @@ def patches_stream(width, height, atlas, num_patches, num_glyphs, seed=0, mode=P
                          preview=_preview_spec(True, 0) if preview else None)
 
 
-def anim_replace_stream(width, height, num_frames=5, seed=0) -> bytes:
+def anim_replace_stream(width, height, num_frames=5, seed=0, num_ec=0, density=0.2) -> bytes:
     """A small XYB VarDCT animation of full REPLACE frames, each shown for
     TICKS + its index ticks: no frame is referenced, so jxl_tpu's batched
-    animation route takes it."""
-    frames = [FrameSpec(_vardct(width, height, seed + k), "vardct", duration=TICKS + k,
+    animation route takes it. A frame of at most 256x256 is one section
+    (one TOC entry), the frames the whole-animation fold takes. num_ec=1
+    adds an 8-bit straight alpha to every frame, replaced as the colour."""
+    def sections(k):
+        return frame_sections(encode_xyb_vardct(width, height, seed=seed + k, density=density,
+                                                num_ec=num_ec)[0])
+
+    frames = [FrameSpec(sections(k), "vardct", duration=TICKS + k,
+                        ec_blend=((REPLACE, 0, False, 0),) * num_ec,
                         is_last=k == num_frames - 1) for k in range(num_frames)]
-    return encode_frames(width, height, frames, animation=(100, 1))
+    return encode_frames(width, height, frames, num_ec=num_ec, animation=(100, 1))
 
 
 def anim_crop_replace_stream(width, height, crop, num_frames=8, seed=0,
@@ -662,4 +671,20 @@ def test_jxl_tpu_reads_the_replace_animation_on_both_routes(monkeypatch):
     assert a.durations == b.durations == [10.0 * (TICKS + k) for k in range(5)]
     for x, y in zip(a.frames, b.frames):
         assert x.shape == (200, 320, 3)
+        assert np.abs(x.astype(int) - y.astype(int)).max() <= 1
+
+
+@pytest.mark.parametrize("size, num_ec", [((192, 128), 0), ((256, 256), 0), ((192, 128), 1)])
+def test_jxl_tpu_reads_the_single_section_animation(size, num_ec, monkeypatch):
+    """Frames of at most 256x256 are one section each (one TOC entry), the
+    frames jxl_tpu's animation fold takes; its per-frame loop and its
+    default batched route read them alike."""
+    data = anim_replace_stream(*size, 4, seed=12, num_ec=num_ec)
+    monkeypatch.setenv("JXL_TPU_BATCH_ANIM", "off")
+    a = _ref_decode(data, pixel_format="u8")
+    monkeypatch.delenv("JXL_TPU_BATCH_ANIM")
+    b = _ref_decode(data, pixel_format="u8")
+    assert a.durations == b.durations == [10.0 * (TICKS + k) for k in range(4)]
+    for x, y in zip(a.frames, b.frames):
+        assert x.shape == (size[1], size[0], 3 + num_ec)
         assert np.abs(x.astype(int) - y.astype(int)).max() <= 1

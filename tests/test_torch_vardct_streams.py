@@ -354,12 +354,13 @@ def _strip_types(num_lf_groups: int, strips: list):
 
 
 def build_tree(num_lf_groups: int, band_step: int, lf_y_offset: int = 256,
-               first_hf_stream: int | None = None, strips=None):
+               first_hf_stream: int | None = None, strips=None, global_alpha: bool = False):
     """The global tree. With first_hf_stream (the modular stream id of
     group 0's HF section), every HF group stream, where the alpha channel
-    is coded, takes one more leaf: 0, 64, 128 or 192. strips: the strips
-    of transforms="large" (_strip_types), else the types are coded by
-    band of the list index (BAND_TYPES)."""
+    is coded, takes one more leaf: 0, 64, 128 or 192; with global_alpha
+    the global stream (id 0) takes it, where a single-group frame codes
+    its alpha. strips: the strips of transforms="large" (_strip_types),
+    else the types are coded by band of the list index (BAND_TYPES)."""
     if strips is not None:
         types = _strip_types(num_lf_groups, strips)
     else:
@@ -376,6 +377,8 @@ def build_tree(num_lf_groups: int, band_step: int, lf_y_offset: int = 256,
     tree = _split(1, num_lf_groups, meta, lf)
     if first_hf_stream is not None:
         tree = _split(1, first_hf_stream - 1, _leaf("alpha", 128, 6), tree)
+    if global_alpha:
+        tree = _split(1, 0, tree, _leaf("alpha", 128, 6))
     return tree
 
 
@@ -559,10 +562,11 @@ def _keep_one(tmap, lists, rects, t):
 
 
 def _lf_group_section(rng, leaves, rect, types, cfl_zero, hs=(0, 0, 0), vs=(0, 0, 0),
-                      lf_coefficients=True, strips=None):
+                      lf_coefficients=True, strips=None, bits=False):
     """One LF group's section: its LF coefficients (not in a frame that
     reads an LF frame: lf_coefficients=False), then its HF metadata.
-    strips: the LF group's strips of transforms="large"."""
+    strips: the LF group's strips of transforms="large". bits=True returns
+    the section's BitList, not its bytes (a single-section frame)."""
     ox, oy, w, h = rect
     sec = BitList()
     if lf_coefficients:
@@ -608,7 +612,7 @@ def _lf_group_section(rng, leaves, rect, types, cfl_zero, hs=(0, 0, 0), vs=(0, 0
     tok = _signed_token(e - np.where(hi_px, off_hi, off_lo))
     sec.extend(np.where(hi_px, code_hi[tok], code_lo[tok]),
                np.where(hi_px, nb_hi[tok], nb_lo[tok]))
-    return sec.finish(), quants + 1, epf
+    return sec if bits else sec.finish(), quants + 1, epf
 
 
 def _ac_tokens(rng, tmap, g, gxn, density, max_run=12, hs=(0, 0, 0), vs=(0, 0, 0)):
@@ -710,10 +714,11 @@ def ac_context_map(pass_idx: int = 0):
     return np.concatenate([(ctx * 7 + ctx // 5 + pass_idx) % 3, np.zeros(CTX_PAD, np.int64)])
 
 
-def _ac_sections(tok_vals, tok_ctxs, tails=None, pass_idx=0):
+def _ac_sections(tok_vals, tok_ctxs, tails=None, pass_idx=0, bits=False):
     """rANS-encode every group's token list at once (one lane a group),
     with the histograms of pass `pass_idx`. tails: None, or a BitList a
-    group whose bits follow its AC tokens (its modular HF stream)."""
+    group whose bits follow its AC tokens (its modular HF stream).
+    bits=True returns each group's BitList, not its bytes."""
     cmap = ac_context_map(pass_idx)
     hists = [flat_histogram(a) for a in AC_ALPHABETS]
     freq, inv = inverse_tables(hists)
@@ -744,7 +749,7 @@ def _ac_sections(tok_vals, tok_ctxs, tails=None, pass_idx=0):
         if tails is not None:
             w.vals += tails[g].vals
             w.nbits += tails[g].nbits
-        out.append(w.finish())
+        out.append(w if bits else w.finish())
     return out
 
 
@@ -882,8 +887,8 @@ def encode_xyb_vardct(width: int, height: int, seed: int = 0, transforms: str = 
                       max_run: int = 12, upsampling: int = 1, noise=None, subsampling=None,
                       filters: bool = True, num_ec: int = 0, passes: int = 1,
                       lf_frame: bool = False, splines=None, icc=None, lone=None):
-    """(codestream, coeffs): an XYB VarDCT frame of more than one group,
-    coded at width x height, and the dense (G * 3 * 256 * 256,) int32
+    """(codestream, coeffs): an XYB VarDCT frame coded at width x height,
+    and the dense (G * 3 * 256 * 256,) int32
     quantized AC coefficients it encodes. transforms: "mixed" (DCT16x16 on
     aligned 2x2 positions and every 1x1 type), "dct8", or "large" (strips
     of one group row, each of DCT16 and two 1x1 types, or of the DCT32,
@@ -918,9 +923,16 @@ def encode_xyb_vardct(width: int, height: int, seed: int = 0, transforms: str = 
     profile, embedded after the image header
     (test_torch_icc_streams.encode_icc). lone: a 1x1 type of BAND_TYPES
     (transforms="mixed") that the first group row holding it keeps a single
-    block of, as _place_transforms says."""
-    if width <= GROUP_DIM and height <= GROUP_DIM:
-        raise ValueError("the writer lays out multi-group frames only")
+    block of, as _place_transforms says.
+
+    A frame of one group (at most 256x256) is written in one section, as
+    its TOC of one entry says (one pass, its own LF): LfGlobal, the LF
+    group, HfGlobal and the HF group back to back, with an alpha channel
+    coded in LfGlobal's global Modular stream."""
+    single = width <= GROUP_DIM and height <= GROUP_DIM
+    if single and (passes != 1 or lf_frame):
+        raise ValueError("the writer lays out a single-group frame in one section: one pass, "
+                         "its own LF")
     if transforms not in ("mixed", "dct8", "large"):
         raise ValueError(f"unknown transforms {transforms!r}")
     if noise is not None and (len(noise) != 8 or not all(0 <= v < 1024 for v in noise)):
@@ -971,22 +983,24 @@ def encode_xyb_vardct(width: int, height: int, seed: int = 0, transforms: str = 
     else:
         lg.write(1, 1)  # default CfL
     lg.write(1, 1)  # global tree
-    # the modular stream id of group 0's HF section (pass 0)
-    first_hf = 1 + 3 * len(rects) + 17 if num_ec else None
+    # the modular stream id of group 0's HF section (pass 0); a
+    # single-group frame codes its alpha in the global stream instead
+    first_hf = 1 + 3 * len(rects) + 17 if num_ec and not single else None
     # YCbCr: Y's LF about 0, as the zero-centred Y of a JPEG
     leaves = write_tree(lg, build_tree(len(rects), band_step, 0 if ycbcr else 256, first_hf,
-                                       strips))
+                                       strips, global_alpha=bool(num_ec) and single))
     leaves["_band_step"] = band_step
     if num_ec:
         # the global modular image (the alpha channel alone): its
-        # GroupHeader; the channel is larger than a group, so section 0 is
-        # empty and each group codes its part
+        # GroupHeader; a channel larger than a group leaves section 0
+        # empty and each group codes its part, a single group's alpha is
+        # coded here (below, once drawn)
         lg.write(1, 1)  # use_global_tree
         lg.write(1, 1)  # default weighted-predictor header
         lg.write(0, 2)  # no transforms
     lf_sections = [
         _lf_group_section(rng, leaves, rect, types, cfl_zero or ycbcr, hs, vs, not lf_frame,
-                          None if strips is None else strips[i])[0]
+                          None if strips is None else strips[i], bits=single)[0]
         for i, (rect, types) in enumerate(zip(rects, type_lists))
     ]
     hg = BitList()
@@ -1008,6 +1022,9 @@ def encode_xyb_vardct(width: int, height: int, seed: int = 0, transforms: str = 
     tails = alpha = None
     if num_ec:
         alpha = (128 + 64 * _residual(rng.integers(0, 4, (height, width)))).astype(np.int32)
+    if num_ec and single:
+        _modular_bits(lg, leaves, "alpha", alpha)
+    elif num_ec:
         tails = []
         for g in range(gxn * gyn):
             x0, y0 = (g % gxn) * GROUP_DIM, (g // gxn) * GROUP_DIM
@@ -1020,8 +1037,17 @@ def encode_xyb_vardct(width: int, height: int, seed: int = 0, transforms: str = 
     hf_sections = []
     for p in range(passes):
         hf_sections += _ac_sections(tok_vals[p], tok_ctxs[p],
-                                    tails if p == passes - 1 else None, p)
-    sections = [lg.finish()] + lf_sections + [hg.finish()] + hf_sections
+                                    tails if p == passes - 1 else None, p, bits=single)
+    if single:
+        # one TOC entry: LfGlobal, the LF group, HfGlobal and the HF group
+        # read in turn from one bit reader, with no padding between them
+        one = BitList()
+        for part in [lg] + lf_sections + [hg] + hf_sections:
+            one.vals += part.vals
+            one.nbits += part.nbits
+        sections = [one.finish()]
+    else:
+        sections = [lg.finish()] + lf_sections + [hg.finish()] + hf_sections
     if icc is not None:
         from test_torch_icc_streams import encode_icc
 
@@ -1245,3 +1271,30 @@ def test_jxl_tpu_decodes_writer_alpha():
 def test_ycbcr_writer_refuses_big_blocks_when_subsampled():
     with pytest.raises(ValueError, match="DCT8 only"):
         encode_xyb_vardct(520, 300, subsampling="420")
+
+
+@pytest.mark.parametrize("num_ec", [0, 1])
+def test_jxl_tpu_decodes_single_section_writer(num_ec):
+    """A frame of one group is one section (one TOC entry): jxl_tpu's
+    Frame.split_sections gives that one reader, and its section decode
+    (LfGlobal, the LF group, HfGlobal, the HF group, read in turn from it)
+    returns the writer's coefficients and alpha plane."""
+    from jxl_tpu.io.bit_reader import BitReader
+    from jxl_tpu.io.headers import FileHeader
+    from jxl_tpu.io.headers.frame import FrameHeader, Toc
+    from jxl_tpu.render.anim_fold import _decode_one_frame_deferred
+
+    out = encode_xyb_vardct(200, 136, seed=53, density=0.2, num_ec=num_ec)
+    data, coeffs = out[0], out[1]
+    br = BitReader(data)
+    fh = FileHeader.read(br)
+    header = FrameHeader.read(br, fh)
+    toc = Toc.read(br, header.num_toc_entries)
+    br.jump_to_byte_boundary()
+    assert header.num_toc_entries == 1 and toc.entries[0] == len(data) - br.pos // 8
+    frame = _decode_one_frame_deferred(fh, data, (header, toc, br.pos), None)
+    assert len(frame.split_sections(BitReader(data[br.pos // 8 :]))) == 1
+    np.testing.assert_array_equal(frame.hf_global.hf_coefficients[0].reshape(-1), coeffs)
+    assert np.count_nonzero(coeffs) > 100
+    if num_ec:
+        np.testing.assert_array_equal(frame.lf_global.modular_global.output_channel(3), out[2])
