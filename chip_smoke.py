@@ -165,10 +165,12 @@ a non-zero exit:
              back; the routes bit for bit; a 520x300 lane stream's channels
              against the writer's planes; K4 against its plain version bit
              for bit (the decode's batches, the frame's 270 lanes, a
-             2048x2048 lane, the overflow gate's edge and past it), timed
-             beside its bytes and chain bounds, the plain version and the
-             native host loop on the same lanes; the auto rule the walls
-             support.
+             2048x2048 lane, the overflow gate's edge and past it, the
+             edge sets of strips, widths and odd offsets), timed on the
+             frame's lanes and each decode batch beside its bytes and
+             chain bounds, with its wrapper call (no sync), its launch
+             geometry and occupancy, the plain version and the native host
+             loop on the same lanes; the auto rule the walls support.
 12. sharded - the multi-process decode on torch.distributed
              (parallel/sharded_render.py, parallel/multihost.py, the lanes
              split of modular/device_lossless.py): world 1 in this process
@@ -2303,6 +2305,21 @@ K4_CYCLES_PER_OP = 4
 K4_OPS_PER_SAMPLE = 12
 
 
+# K4's edge cases, as tests/test_torch_device_lossless.py's K4_EDGE_SETS:
+# heights about a strip (32 rows), widths of 1, 2 and 2048, a lane taller
+# than a block's eight strips; each set but the last after a 1x1 lane, so
+# that its lanes start at odd offsets of the packed buffer (K4's scalar path)
+K4_EDGE_SETS = {
+    "h_w1": [(1, 1), (1, 1), (31, 1), (32, 1), (33, 1), (257, 1)],
+    "h_w2": [(1, 1), (1, 2), (31, 2), (32, 2), (33, 2), (257, 2)],
+    "h_w2048": [(1, 1), (1, 2048), (31, 2048), (32, 2048), (33, 2048), (257, 2048)],
+    "tall_2048x64": [(1, 1), (2048, 64)],
+    "mixed": [(1, 1), (3, 5), (33, 31), (31, 33), (1, 7), (257, 40), (32, 32)],
+    # every lane's rows on 16 bytes (widths of 8, sizes of 8): K4's vector path
+    "aligned": [(33, 64), (31, 32), (257, 40), (1, 8), (17, 8), (32, 2048), (2048, 64)],
+}
+
+
 def _k4_bounds(dims, wire_bytes: int) -> dict:
     """bound_ms (the larger of the bytes, each residual read once and each
     sample written once, over HBM_BYTES_PER_S, and the integer operations
@@ -2328,10 +2345,13 @@ def phase_lossless(data) -> dict:
     against gradient_wavefront_plain on the card, bit for bit: each batch
     the 4K decode launched, the frame's 270 gradient lanes in one launch,
     a 2048x2048 lane, lanes at the overflow gate's edge (64x64 and
-    2048x2048) and one past it (a wrap). (d) K4's device time on the
-    frame's lanes (device_times) beside its bounds, its wrapper call, its
-    plain version, the native host reconstruction of the same lanes, and
-    the cumsum lanes' card time. (e) the auto rule these walls support.
+    2048x2048) and one past it (a wrap), and K4_EDGE_SETS in int16, int32,
+    at the gate's edge and past it. (d) K4's device time on the frame's
+    lanes and on each batch of the decode (device_times) beside its bounds, its
+    wrapper call (once under set_sync_debug_mode("error")), its launch
+    geometry, its plain version, the native host reconstruction of the
+    same lanes, and the cumsum lanes' card time. (e) the auto rule these
+    walls support.
     Returns K4's numbers and launches."""
     import numpy as np
     import torch
@@ -2470,6 +2490,18 @@ def phase_lossless(data) -> dict:
         ("past_gate_256", torch.from_numpy(rng.integers(-(1 << 26), 1 << 26, 256 * 256)
                                            .astype(np.int32)), [(256, 256)]),
     ]
+    for name, dims in K4_EDGE_SETS.items():
+        n = sum(h * w for h, w in dims)
+        lim = (1 << 31) // (3 * max(h + w - 1 for h, w in dims)) - 1
+        cases += [
+            (f"edge_{name}_int16", torch.from_numpy(rng.integers(-2000, 2000, n).astype(np.int16)),
+             dims),
+            (f"edge_{name}_int32",
+             torch.from_numpy(rng.integers(-(1 << 20), 1 << 20, n).astype(np.int32)), dims),
+            (f"edge_{name}_gate", torch.from_numpy(rng.choice([-lim, lim], n).astype(np.int32)),
+             dims),
+            (f"edge_{name}_wrap",
+             torch.from_numpy(rng.integers(-(1 << 30), 1 << 30, n).astype(np.int32)), dims)]
     check(len(frame_dims) == 270, f"the 4K decode gave K4 {len(frame_dims)} lanes, not 270")
     max_err = 0
     for name, res, dims in cases:
@@ -2493,7 +2525,30 @@ def phase_lossless(data) -> dict:
                              LL.load(), "gradient_wavefront_launch")
                             for i, (r, d) in enumerate(batches)])
     call_ms = time_ms(fn)
+    # the wrapper queues its launch without a wait: no sync in a call
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
     plain_ms = time_ms(lambda: LL.gradient_wavefront_plain(fres, frame_dims), reps=3, warmup=1)
+    # the launch's geometry, as the card has it
+    k4_plan = LL.plan(frame_res.element_size(), max(w for _, w in frame_dims))
+    check(all(k4_plan[k] == v for k, v in LL.GEOMETRY.items()),
+          f"K4's plan {k4_plan} differs from ops/lossless_lanes.py's GEOMETRY {LL.GEOMETRY}")
+    emit({"phase": "lossless", "k4_plan": k4_plan})
+    batch_recs = []
+    for i, (r, d) in enumerate(batches):
+        rd = r.to(dev)
+        b = _k4_bounds(d, r.element_size())
+        rec = {"lanes": len(d), "ms": timed[f"batch_{i}"],
+               "call_ms": time_ms(lambda rd=rd, d=d: LL.gradient_wavefront(rd, d)),
+               "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+               "chain_bound_ms": b["chain_bound_ms"]}
+        rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+        rec["share_of_chain_bound"] = rec["chain_bound_ms"] / rec["ms"]
+        batch_recs.append(rec)
     host = frame_res.to(torch.int32).numpy()
     host_ms = []
     for _ in range(3):
@@ -2516,7 +2571,8 @@ def phase_lossless(data) -> dict:
     k4_rec = {"ms": timed["frame"], "call_ms": call_ms, "plain_ms": plain_ms,
               "host_native_ms": sorted(host_ms)[1],
               "ms_decode_batches": sum(timed[f"batch_{i}"] for i in range(len(batches))),
-              "decode_batches": [len(d) for _, d in batches],
+              "decode_batches": [len(d) for _, d in batches], "batches": batch_recs,
+              "plan": k4_plan,
               "cumsum_west_ms": cumsum_ms, "cumsum_west_calls": len(cumsum_in),
               **bounds, "max_abs_err": max_err}
     k4_rec["share_of_bound"] = k4_rec["bound_ms"] / k4_rec["ms"]

@@ -24,16 +24,23 @@ launches K4 for a CUDA tensor, or raises; it never falls back.
 from __future__ import annotations
 
 import ctypes
+import itertools
 import threading
 
 import numpy as np
 import torch
 
-from ..render.stages import core
 from . import _nvcc
 
-# the widest lane K4 takes: three rows of int32 in 48 KB of shared memory
+# the widest lane K4 takes: its eight edge rings of a row each, with the
+# warps' tiles, in the 227 KB of shared memory a block may use
 MAX_W = 4096
+# K4's geometry, as csrc/lossless_lanes.cu's constants (chip_smoke.py holds
+# the card's plan to them): warps a block (a lane), rows a strip (a warp),
+# columns a staged tile, steps between two hand-offs, tile row pitch in words
+GEOMETRY = {"warps": 8, "strip_rows": 32, "chunk_cols": 32, "handoff_cols": 16, "pitch": 66}
+# lanes a launch: their (h, w) travel as kernel parameters
+LAUNCH_LANES = 480
 
 _lock = threading.Lock()
 _lib = None
@@ -59,6 +66,13 @@ def load():
             ctypes.c_void_p, ctypes.c_void_p,
         ]
         lib.gradient_wavefront_launch.restype = ctypes.c_int
+        lib.gradient_wavefront_plan.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        lib.gradient_wavefront_plan.restype = ctypes.c_int
+        lib.gradient_wavefront_max_lanes.restype = ctypes.c_int
+        if lib.gradient_wavefront_max_lanes() != LAUNCH_LANES:
+            raise RuntimeError("csrc/lossless_lanes.cu takes "
+                               f"{lib.gradient_wavefront_max_lanes()} lanes a launch, "
+                               f"not LAUNCH_LANES = {LAUNCH_LANES}")
         lib.gradient_wavefront_error_string.argtypes = [ctypes.c_int]
         lib.gradient_wavefront_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -120,15 +134,28 @@ def wavefront_plain(r: torch.Tensor) -> torch.Tensor:
     return torch.gather(out, 1, idx[None].expand(L, H, W))
 
 
-def _lane_table(dims, n: int) -> np.ndarray:
-    """(L, 3) int64 (offset, h, w) of lanes of `dims` packed back to back
-    in a flat buffer of n samples; raises on dims that do not tile it."""
-    dims = np.asarray(dims, dtype=np.int64).reshape(-1, 2)
+def _checked_dims(dims, n: int) -> tuple:
+    """((L, 2) int64 (h, w), (L,) sizes) of lanes of `dims` packed back to
+    back in a flat buffer of n samples; raises on dims that do not tile it.
+    A list of (h, w) pairs is read with np.fromiter, about half the time of
+    np.asarray (the wrapper's host time on a decode's batch)."""
+    try:
+        dims = np.fromiter(itertools.chain.from_iterable(dims), np.int64)
+    except TypeError:  # already flat, or an array
+        dims = np.asarray(dims, dtype=np.int64)
+    dims = dims.reshape(-1, 2)
     if len(dims) == 0 or (dims < 1).any():
         raise ValueError("gradient_wavefront takes one or more lanes of at least 1x1")
     sizes = dims[:, 0] * dims[:, 1]
     if int(sizes.sum()) != n:
         raise ValueError(f"lanes of {int(sizes.sum())} samples in a buffer of {n}")
+    return dims, sizes
+
+
+def _lane_table(dims, n: int) -> np.ndarray:
+    """(L, 3) int64 (offset, h, w) of lanes of `dims` packed back to back
+    in a flat buffer of n samples; raises on dims that do not tile it."""
+    dims, sizes = _checked_dims(dims, n)
     offsets = np.concatenate([[0], np.cumsum(sizes)[:-1]])
     return np.ascontiguousarray(np.column_stack([offsets, dims]))
 
@@ -151,31 +178,56 @@ def gradient_wavefront(res: torch.Tensor, dims) -> torch.Tensor:
     """Reconstruct lanes of Gradient-predictor residuals: `res` (N,) int16
     or int32 holds the lanes back to back, each row-major, and `dims`
     (host integers, (L, 2)) their (h, w). Returns (N,) int32 samples in the
-    same layout."""
+    same layout. On the card the lanes' (h, w) go to K4 as kernel
+    parameters, LAUNCH_LANES lanes a launch: a call uploads nothing and
+    does not wait."""
     if res.dtype not in (torch.int16, torch.int32) or res.dim() != 1:
         raise TypeError("gradient_wavefront takes a flat int16 or int32 tensor")
-    table = _lane_table(dims, res.numel())
+    dims, sizes = _checked_dims(dims, res.numel())
     if res.device.type == "cpu":
         return gradient_wavefront_plain(res, dims)
     if res.device.type != "cuda":
         raise ValueError(f"gradient_wavefront runs on cpu or cuda, not {res.device}")
-    max_w = int(table[:, 2].max())
+    max_w = int(dims[:, 1].max())
     if max_w > MAX_W:
         raise ValueError(f"gradient_wavefront takes lanes at most {MAX_W} wide, not {max_w}")
+    max_h = int(dims[:, 0].max())
+    if max_h >= 1 << 31:
+        raise ValueError(f"gradient_wavefront takes lanes under 2^31 tall, not {max_h}")
     if not res.is_contiguous():
         raise ValueError("gradient_wavefront takes a contiguous tensor")
     lib = load()
-    lanes = core.to_device(table, res.device)
+    hw = dims.astype(np.int32)
     out = torch.empty(res.numel(), dtype=torch.int32, device=res.device)
+    esz = res.element_size()
     with torch.cuda.device(res.device):
         stream = torch.cuda.current_stream(res.device).cuda_stream
-        err = lib.gradient_wavefront_launch(res.data_ptr(), res.element_size(), lanes.data_ptr(),
-                                            len(table), max_w, out.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError("gradient_wavefront kernel launch failed: "
-                           f"{lib.gradient_wavefront_error_string(err).decode()}")
-    gradient_wavefront.launches += 1
+        pos = 0
+        for a in range(0, len(hw), LAUNCH_LANES):
+            part = hw[a : a + LAUNCH_LANES]
+            err = lib.gradient_wavefront_launch(
+                res.data_ptr() + pos * esz, esz, part.ctypes.data, len(part),
+                int(part[:, 1].max()), out.data_ptr() + pos * 4, stream)
+            if err != 0:
+                raise RuntimeError("gradient_wavefront kernel launch failed: "
+                                   f"{lib.gradient_wavefront_error_string(err).decode()}")
+            gradient_wavefront.launches += 1
+            pos += int(sizes[a : a + LAUNCH_LANES].sum())
     return out
 
 
 gradient_wavefront.launches = 0
+
+
+def plan(res_bytes: int, max_w: int) -> dict:
+    """K4's launch geometry on the card for lanes at most max_w wide:
+    GEOMETRY's numbers as the kernel has them, its shared bytes a block and
+    the blocks an SM holds (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    lib = load()
+    keys = (*GEOMETRY, "smem_bytes", "blocks_per_sm")
+    out = (ctypes.c_int * len(keys))()
+    err = lib.gradient_wavefront_plan(res_bytes, max_w, out)
+    if err != 0:
+        raise RuntimeError("gradient_wavefront_plan failed: "
+                           f"{lib.gradient_wavefront_error_string(err).decode()}")
+    return dict(zip(keys, list(out)))

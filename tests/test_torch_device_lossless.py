@@ -9,7 +9,9 @@ Tolerance: bit for bit everywhere but the rendered pixels, which go
 through the colour path (f32 within 1e-4, u8 within 1 LSB, as the port's
 other Modular decode tests state). The corpus-free cases mirror
 tests/test_device_lossless.py:51-121. K4 itself runs only on the card:
-test_k4_matches_plain_version skips here (chip_smoke.py holds it there).
+test_k4_matches_plain_version skips here (chip_smoke.py holds it there);
+on the CPU, _k4_model replays the kernel's schedule (its tile words, edge
+rings and flags, warps interleaved at random) against the native loop.
 """
 
 import numpy as np
@@ -204,17 +206,185 @@ def card():
     return torch.device("cuda")
 
 
+# K4's edge cases, as chip_smoke.py's lossless phase (c) has them: heights
+# about a strip (32 rows), widths of 1, 2 and 2048, a lane taller than a
+# block's eight strips; each set but the last after a 1x1 lane, so that its
+# lanes start at odd offsets of the packed buffer (K4's scalar path)
+K4_EDGE_SETS = {
+    "h_w1": [(1, 1), (1, 1), (31, 1), (32, 1), (33, 1), (257, 1)],
+    "h_w2": [(1, 1), (1, 2), (31, 2), (32, 2), (33, 2), (257, 2)],
+    "h_w2048": [(1, 1), (1, 2048), (31, 2048), (32, 2048), (33, 2048), (257, 2048)],
+    "tall_2048x64": [(1, 1), (2048, 64)],
+    "mixed": [(1, 1), (3, 5), (33, 31), (31, 33), (1, 7), (257, 40), (32, 32)],
+    # every lane's rows on 16 bytes (widths of 8, sizes of 8): K4's vector path
+    "aligned": [(33, 64), (31, 32), (257, 40), (1, 8), (17, 8), (32, 2048), (2048, 64)],
+}
+
+
+def _k4_edge_case(name, wire, seed):
+    """(flat residuals, dims) of an edge set: int16 or int32 at random,
+    "gate": int32 at the overflow gate's edge of its largest lane, or
+    "wrap": int32 past it (sums wrap)."""
+    dims = K4_EDGE_SETS[name]
+    rng = np.random.default_rng(seed)
+    n = sum(h * w for h, w in dims)
+    if wire == "gate":
+        lim = (1 << 31) // (3 * max(h + w - 1 for h, w in dims)) - 1
+        return rng.choice([-lim, lim], n).astype(np.int32), dims
+    if wire == "wrap":
+        return rng.integers(-(1 << 30), 1 << 30, n).astype(np.int32), dims
+    hi = 2000 if wire == "int16" else 1 << 20
+    return rng.integers(-hi, hi, n).astype(wire), dims
+
+
+def _wrap(x):
+    return ((x + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)
+
+
+def _k4_model(res, h, w, rng=None):
+    """csrc/lossless_lanes.cu's block on one (h, w) lane, on the CPU: the
+    same tile words (row k holds column x at (x + k) mod 64, pitch 66), the
+    same staging, write-back, edge rings and flags, each warp's 32 lanes as
+    numpy vectors. Warps run as generators that yield where the kernel
+    waits or publishes; `rng` interleaves them at random (None: in turn).
+    Raises on a deadlock."""
+    g = LL.GEOMETRY
+    NW, R, C, HF, P = g["warps"], g["strip_rows"], g["chunk_cols"], g["handoff_cols"], g["pitch"]
+    span = 2 * C  # a tile row's columns: two chunks
+    nstrips, nch = -(-h // R), -(-w // C)
+    tiles = np.zeros((NW, R * P), np.int64)
+    rings = np.zeros((NW, nch * C), np.int64)
+    ready = [0] * NW
+    r = np.asarray(res, np.int64).reshape(-1)
+    v = np.zeros(h * w, np.int64)
+    lane = np.arange(R)
+
+    def strip(warp, q):
+        y0, rows = q * R, min(R, h - q * R)
+        up_i, dn_i = (q + NW - 1) % NW, q % NW
+        up_base, dn_base = (q - 1) // NW * w, q // NW * w
+        feeds = q + 1 < nstrips
+        tile = tiles[warp]
+
+        def load(i, col):
+            ok = (i < rows) & (col < w)
+            return np.where(ok, r[(y0 + min(i, rows - 1)) * w + np.minimum(col, w - 1)], 0)
+
+        def word(y, col):  # tile word of row y, column col
+            return y * P + ((col + y) & (span - 1))
+
+        tile[lane[:, None] * P + np.arange(C)[None, :]] = 0
+        for i in range(HF):
+            tile[word(i, lane)] = load(i, lane)
+        l = tp = val = np.zeros(R, np.int64)
+        seen = 0
+        for c in range(nch + 1):
+            for half in range(2):
+                s0 = c * C + half * HF
+                g0 = HF if half == 0 else 0
+                dcol = ((c - 2) if half == 0 else (c - 1)) * C + lane
+                scol = (c if half == 0 else c + 1) * C + lane
+                drain = (dcol >= 0) & (dcol < w)
+                stage = scol[0] < nch * C
+                n = rows - g0
+                if q == 0 or s0 >= w:
+                    e = np.zeros(HF, np.int64)
+                else:
+                    need = up_base + min(s0 + HF, w)
+                    while seen < need:
+                        seen = ready[up_i]
+                        if seen < need:
+                            yield "wait"
+                    e = rings[up_i, s0 : s0 + HF].copy()
+                pf = [load(g0 + i, scol) if stage and i < n else 0 for i in range(HF)]
+                o = [tile[word(g0 + i, dcol)] for i in range(HF)]
+                at = lane * P + (s0 & (span - 1))
+                for u in range(HF):
+                    t = np.roll(val, 1)
+                    t[0] = e[u]
+                    # the kernel's branch-free form: l + t + r - median(l, tl, t)
+                    m = np.maximum(np.minimum(l, tp), np.minimum(np.maximum(l, tp), t))
+                    val = _wrap(l + tile[at + u] + t - m)
+                    tile[at + u] = val
+                    tp, l = t, val
+                    if u < n:
+                        v[((y0 + g0 + u) * w + dcol)[drain]] = o[u][drain]
+                yield "steps"
+                if feeds:
+                    x = s0 - (R - 1) + lane[:HF]
+                    ok = (x >= 0) & (x < w)
+                    rings[dn_i, x[ok]] = tile[(R - 1) * P + (s0 & (span - 1)) + lane[:HF][ok]]
+                    ready[dn_i] = dn_base + min(max(s0 + HF - (R - 1), 0), w)
+                    yield "published"
+                if stage:
+                    for i in range(HF):
+                        tile[word(g0 + i, scol)] = pf[i]
+        dcol = (nch - 1) * C + lane
+        ok = dcol < w
+        for i in range(HF, min(R, rows)):
+            v[((y0 + i) * w + dcol)[ok]] = tile[word(i, dcol)][ok]
+
+    def warp_run(warp):
+        for q in range(warp, nstrips, NW):
+            yield from strip(warp, q)
+
+    live = {i: warp_run(i) for i in range(NW)}
+    stalled = 0
+    while live:
+        keys = sorted(live)
+        k = keys[rng.integers(len(keys))] if rng is not None else keys[stalled % len(keys)]
+        try:
+            what = next(live[k])
+        except StopIteration:
+            del live[k]
+            stalled = 0
+            continue
+        stalled = stalled + 1 if what == "wait" else 0
+        if stalled > 50 * NW:
+            raise RuntimeError(f"the K4 schedule deadlocked on a {h}x{w} lane")
+    return _wrap(v).astype(np.int32).reshape(h, w)
+
+
+@pytest.mark.parametrize("wire", ["int16", "int32", "gate", "wrap"])
+@pytest.mark.parametrize("name", list(K4_EDGE_SETS))
+def test_k4_schedule_matches_native(name, wire):
+    """The kernel's schedule on every lane of an edge set equals the native
+    loop, warps in turn for int16 and at random for the others."""
+    res, dims = _k4_edge_case(name, wire, seed=len(name))
+    rng = None if wire == "int16" else np.random.default_rng(len(name) * 7 + len(wire))
+    pos = 0
+    for h, w in dims:
+        lane = res[pos : pos + h * w].astype(np.int32).reshape(h, w)
+        np.testing.assert_array_equal(_k4_model(lane, h, w, rng), _native_gradient(lane))
+        pos += h * w
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_k4_schedule_any_interleaving(seed):
+    """Two rounds of strips (300 rows on eight warps) under four random
+    interleavings of the warps: the edge rings need no back-pressure."""
+    rng = np.random.default_rng(seed)
+    res = rng.integers(-5000, 5000, size=(300, 70), dtype=np.int32)
+    np.testing.assert_array_equal(_k4_model(res, 300, 70, rng), _native_gradient(res))
+
+
 @pytest.mark.cuda
-def test_k4_matches_plain_version(card):
-    rng = np.random.default_rng(5)
-    dims = [(256, 256), (112, 256), (7, 3), (1, 1), (2048, 64)]
-    for wire in (np.int16, np.int32):
-        flat = np.concatenate([rng.integers(-2000, 2000, size=d).reshape(-1) for d in dims])
-        res = torch.from_numpy(flat.astype(wire)).to(card)
-        before = LL.gradient_wavefront.launches
-        got = LL.gradient_wavefront(res, dims)
-        assert LL.gradient_wavefront.launches == before + 1
-        assert torch.equal(got, LL.gradient_wavefront_plain(res, dims))
+@pytest.mark.parametrize("wire", ["int16", "int32", "gate", "wrap"])
+@pytest.mark.parametrize("name", list(K4_EDGE_SETS) + ["decode_shapes"])
+def test_k4_matches_plain_version(card, name, wire):
+    if name == "decode_shapes":  # the 4K decode's lane shapes and a tall lane
+        rng = np.random.default_rng(5)
+        dims = [(256, 256), (112, 256), (7, 3), (1, 1), (2048, 64)]
+        hi = {"int16": 2000, "wrap": 1 << 30}.get(wire, 1 << 20)
+        n = sum(h * w for h, w in dims)
+        res = rng.integers(-hi, hi, n).astype(np.int32 if wire != "int16" else np.int16)
+    else:
+        res, dims = _k4_edge_case(name, wire, seed=len(name))
+    res = torch.from_numpy(res).to(card)
+    before = LL.gradient_wavefront.launches
+    got = LL.gradient_wavefront(res, dims)
+    assert LL.gradient_wavefront.launches == before + 1
+    assert torch.equal(got, LL.gradient_wavefront_plain(res, dims))
 
 
 # -- whole decodes -----------------------------------------------------------------
