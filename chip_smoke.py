@@ -211,6 +211,17 @@ a non-zero exit:
              against K3's batched sections on anim48_256; K3 over
              anim48_512's 192 merged lanes against its plain version (on
              the host), timed beside one frame's 4 lanes.
+15. host_route - the host render route (utils/devhealth.py,
+             JXL_TPU_DEVICE) against the card route on VarDCT stills of
+             256x256, 512x512, 1920x1080 and 3840x2160, Modular stills of
+             512x512 and 3840x2160 and the three animations of
+             batched_anim: each by JXL_TPU_DEVICE=on and =off, u8 and f32
+             walls and host_s (medians of 5), K1 and K3 launches (none on
+             the host route) and peak card memory of a warm-up decode; the
+             routes within u8 1 LSB and f32 1e-4 of each other; the card
+             probe's economics (first round trip, launch latency, HtoD and
+             DtoH MB/s), the cutoffs this run's walls settle beside the
+             committed ones, and the route and u8 wall of auto.
 
 Then one line with every kernel's numbers, the card's name and power
 limit, and as the last line {"ok": true, "device": {...}}. Prints no
@@ -3122,6 +3133,11 @@ def phase_batched_anim(streams, device="cuda") -> dict:
     main_launches = {"decode_ac_sections": 0, "epf_gab": 0}
     summary = {}
     old_mode = os.environ.pop("JXL_TPU_BATCH_ANIM", None)
+    # the card routes: auto sends the per-frame loop's small VarDCT frames
+    # to the host route (utils/devhealth.py), which the batched routes do
+    # not equal bit for bit; the host_route phase measures that route
+    old_device = os.environ.get("JXL_TPU_DEVICE")
+    os.environ["JXL_TPU_DEVICE"] = "on"
     device_group.run_lanes = counted
     try:
         for name, data, (w, h), nframes, expect in streams:
@@ -3192,6 +3208,9 @@ def phase_batched_anim(streams, device="cuda") -> dict:
         os.environ.pop("JXL_TPU_BATCH_ANIM", None)
         if old_mode is not None:
             os.environ["JXL_TPU_BATCH_ANIM"] = old_mode
+        os.environ.pop("JXL_TPU_DEVICE", None)
+        if old_device is not None:
+            os.environ["JXL_TPU_DEVICE"] = old_device
 
     # the fold against K3's batched sections on the fold's stream
     data = streams[1][1]
@@ -3240,6 +3259,184 @@ def phase_batched_anim(streams, device="cuda") -> dict:
     emit({"phase": "batched_anim", "summary": summary, "main_route": BATCH_ANIM_DEFAULT,
           "launches_main_route": main_launches})
     return {"launches": main_launches, "k3": k3}
+
+
+def host_route_streams(vdata, mdata, astreams):
+    """[(name, codestream, size class, (width, height), frames)] of the
+    host_route phase: the VarDCT stills 256x256 and 512x512 (thumbnails
+    and stickers, where the card route pays its per-frame queueing),
+    1920x1080 and the 4K stream of the vardct phase; the Modular stills
+    512x512 and the 4K stream of the decode phase; the three animations of
+    the batched_anim phase."""
+    from test_torch_streams import encode_xyb_modular
+    from test_torch_vardct_streams import encode_xyb_vardct
+
+    out = [(f"vardct_{w}x{h}", encode_xyb_vardct(w, h, seed=seed)[0], "vardct", (w, h), 1)
+           for w, h, seed in ((256, 256, 41), (512, 512, 42), (1920, 1080, 43))]
+    out.append((f"vardct_{WIDTH}x{HEIGHT}", vdata, "vardct", (WIDTH, HEIGHT), 1))
+    out.append(("modular_512x512", encode_xyb_modular(512, 512, seed=44)[0], "modular",
+                (512, 512), 1))
+    out.append((f"modular_{WIDTH}x{HEIGHT}", mdata, "modular", (WIDTH, HEIGHT), 1))
+    out += [(name, data, "animation", wh, n) for name, data, wh, n, _ in astreams]
+    return out
+
+
+def _frame_pixels(data) -> int:
+    """The pixels of the largest frame of a stream (width times height of
+    its frame headers)."""
+    from jxl_tpu_torch.api.simple import scan_frames
+    from jxl_tpu_torch.io.bit_reader import BitReader
+    from jxl_tpu_torch.io.headers import FileHeader
+
+    br = BitReader(data)
+    fh = FileHeader.read(br)
+    br.jump_to_byte_boundary()
+    return max(h.size()[0] * h.size()[1] for h, _, _ in scan_frames(data, br.pos, fh))
+
+
+def settle_cutoffs(records) -> dict:
+    """The auto rule's cutoffs from the walls of one run (PERF.md section
+    5): within each size class, in order of frame pixels, the host route
+    takes the sizes up to the first stream on which it did not beat the
+    card route in both u8 and f32; the cutoff sits one pixel above the
+    largest such frame, so below the smallest on which it lost (0: the
+    card everywhere). Sizes past the first loss are not extrapolated."""
+    out = {}
+    for cls in ("vardct", "modular", "animation"):
+        rows = sorted((r["frame_pixels"], r["host_wins"]) for r in records if r["class"] == cls)
+        cutoff = 0
+        for px, won in rows:
+            if not won:
+                break
+            cutoff = px + 1
+        out[cls] = cutoff
+    return out
+
+
+def phase_host_route(streams, device="cuda") -> dict:
+    """The host render route (JXL_TPU_DEVICE, utils/devhealth.py) against
+    the card route on each stream of host_route_streams: (a) decode_image
+    with JXL_TPU_DEVICE=on and =off, a warm-up u8 decode (its K1 and K3
+    launches and peak card memory), then u8 and f32 walls and host_s,
+    medians of 5; (b) the gate, host route against card route, u8 at most
+    1 LSB and f32 at most 1e-4 over every frame; (c) the probe's
+    economics and the cutoffs this run's walls settle (settle_cutoffs)
+    beside the committed ones; (d) the route auto took for each stream
+    and its u8 wall, median of 5. The host route must launch neither
+    kernel and return frames on the card. Returns the K1 and K3 launches
+    of the card route and of the host route summed over the streams, and
+    the economics and cutoffs."""
+    import numpy as np
+    import torch
+
+    import jxl_tpu_torch
+    from jxl_tpu_torch.api.simple import scan_frames
+    from jxl_tpu_torch.io.bit_reader import BitReader
+    from jxl_tpu_torch.io.headers import FileHeader
+    from jxl_tpu_torch.ops import device_ac
+    from jxl_tpu_torch.ops import epf_gab as K
+    from jxl_tpu_torch.utils import devhealth
+
+    dev = torch.device(device)
+    eco = devhealth.start_probe(dev) if dev.type == "cuda" else None
+    emit({"phase": "host_route", "probe": eco})
+    totals = {r: {"decode_ac_sections": 0, "epf_gab": 0} for r in ("on", "off")}
+    records = []
+    old = os.environ.pop("JXL_TPU_DEVICE", None)
+
+    def timed(data, fmt, reps=5):
+        walls, hosts, img = [], [], None
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            img = jxl_tpu_torch.decode_image(data, pixel_format=fmt, device=dev)
+            _sync(dev)
+            walls.append(time.perf_counter() - t0)
+            hosts.append(img.timings["host_s"])
+        return img, walls, hosts
+
+    try:
+        for name, data, cls, (w, h), nframes in streams:
+            rec = {"stream": name, "class": cls, "frame_pixels": _frame_pixels(data),
+                   "frames": nframes}
+            outs = {}
+            for route in ("on", "off"):
+                os.environ["JXL_TPU_DEVICE"] = route
+                k1, k3 = K.epf_gab.launches, device_ac.decode_ac_sections.launches
+                _, peak = _peak_mb(lambda: jxl_tpu_torch.decode_image(
+                    data, pixel_format="u8", device=dev), dev)
+                launches = {"decode_ac_sections": device_ac.decode_ac_sections.launches - k3,
+                            "epf_gab": K.epf_gab.launches - k1}
+                u8, walls8, hosts8 = timed(data, "u8")
+                f32, walls32, hosts32 = timed(data, "f32")
+                outs[route] = (u8, f32)
+                every = {"decode_ac_sections": device_ac.decode_ac_sections.launches - k3,
+                         "epf_gab": K.epf_gab.launches - k1}
+                for k in launches:
+                    totals[route][k] += launches[k]
+                rec[route] = {"u8_wall_s_median": float(np.median(walls8)), "u8_walls_s": walls8,
+                              "f32_wall_s_median": float(np.median(walls32)),
+                              "f32_walls_s": walls32,
+                              "u8_host_s_median": float(np.median(hosts8)),
+                              "f32_host_s_median": float(np.median(hosts32)),
+                              "launches_warmup_u8": launches,
+                              "launches_all_11_decodes": every, "peak_mb_u8": peak}
+                check(len(u8.frames) == nframes and tuple(u8.frames[0].shape) == (h, w, 3),
+                      f"{name} route {route}: {len(u8.frames)} frames of "
+                      f"{tuple(u8.frames[0].shape)}")
+                check(all(f.device.type == dev.type for f in u8.frames + f32.frames),
+                      f"{name} route {route}: frames off the decode's device")
+            check(rec["off"]["launches_all_11_decodes"] == {"decode_ac_sections": 0, "epf_gab": 0},
+                  f"{name}: the host route launched a kernel: "
+                  f"{rec['off']['launches_all_11_decodes']}")
+            check(dev.type != "cuda" or rec["on"]["launches_warmup_u8"]["epf_gab"] == nframes,
+                  f"{name}: the card route launched K1 {rec['on']['launches_warmup_u8']}")
+            u8d = max(float((a.int() - b.int()).abs().max())
+                      for a, b in zip(outs["on"][0].frames, outs["off"][0].frames))
+            f32d = max(float((a - b).abs().max())
+                       for a, b in zip(outs["on"][1].frames, outs["off"][1].frames))
+            rec["gate"] = {"u8_max_abs_diff": u8d, "u8_limit": 1,
+                           "f32_max_abs_diff": f32d, "f32_limit": 1e-4}
+            check(all(np.isfinite(f.cpu().numpy()).all() for f in outs["off"][1].frames),
+                  f"{name}: non-finite output on the host route")
+            check(u8d <= 1 and f32d <= 1e-4,
+                  f"{name}: the host route differs from the card route (u8 {u8d}, f32 {f32d})")
+            rec["host_wins"] = (rec["off"]["u8_wall_s_median"] < rec["on"]["u8_wall_s_median"]
+                                and rec["off"]["f32_wall_s_median"]
+                                < rec["on"]["f32_wall_s_median"])
+            del outs
+            os.environ["JXL_TPU_DEVICE"] = "auto"
+            br = BitReader(data)
+            fh = FileHeader.read(br)
+            br.jump_to_byte_boundary()
+            headers = [hd for hd, _, _ in scan_frames(data, br.pos, fh)]
+            # the router's answer as decode_image asks it (a batched
+            # animation takes the host only under "off")
+            auto_host = (cls != "animation" and devhealth.host_route(
+                headers[0], dev, still=devhealth.is_still(fh, headers[0], first=True)))
+            _, walls, _ = timed(data, "u8")
+            rec["auto"] = {"route": "host" if auto_host else "card",
+                           "u8_wall_s_median": float(np.median(walls)), "u8_walls_s": walls}
+            emit({"phase": "host_route", **rec})
+            records.append(rec)
+    finally:
+        os.environ.pop("JXL_TPU_DEVICE", None)
+        if old is not None:
+            os.environ["JXL_TPU_DEVICE"] = old
+    settled = settle_cutoffs(records)
+    # auto sends only VarDCT stills to the host: 0, the card, for the others
+    committed = {"vardct": devhealth.HOST_CUTOFF_VARDCT, "modular": 0, "animation": 0}
+    summary = {r["stream"]: {"on_u8": r["on"]["u8_wall_s_median"],
+                             "off_u8": r["off"]["u8_wall_s_median"],
+                             "on_f32": r["on"]["f32_wall_s_median"],
+                             "off_f32": r["off"]["f32_wall_s_median"],
+                             "auto_u8": r["auto"]["u8_wall_s_median"],
+                             "auto_route": r["auto"]["route"], "host_wins": r["host_wins"]}
+               for r in records}
+    emit({"phase": "host_route", "summary": summary, "probe": eco,
+          "cutoffs_this_run": settled, "cutoffs_committed": committed,
+          "launches": totals})
+    return {"launches": totals, "probe": eco, "cutoffs_this_run": settled,
+            "cutoffs_committed": committed}
 
 
 def main() -> int:
@@ -3342,6 +3539,8 @@ def main() -> int:
     sinputs = run("sharded", sharded_streams, vdata, lossless["frame_lanes"])
     sharded = run("sharded", phase_sharded, sinputs)
     batched = run("batched_anim", phase_batched_anim, astreams)
+    hstreams = run("host_route", host_route_streams, vdata, data, astreams)
+    host_route = run("host_route", phase_host_route, hstreams)
     emit({"phase": "timing", "seconds": phase_s, "total_s": time.perf_counter() - start})
     null_reason = "no single torch call computes a rANS decode"
     emit({"kernels": [
@@ -3361,6 +3560,8 @@ def main() -> int:
          "launches_lossless_path": lossless["launches"]["epf_gab"],
          "launches_sharded_path": sharded["epf_gab"],
          "launches_batched_anim_path": batched["launches"]["epf_gab"],
+         "launches_host_route_phase_card_route": host_route["launches"]["on"]["epf_gab"],
+         "launches_host_route_phase_host_route": host_route["launches"]["off"]["epf_gab"],
          "max_abs_err": max_err, "ms": k["kernel_ms"], "call_ms": k["call_ms"],
          "plain_ms": k["plain_ms"],
          "bound_ms": k["bound_ms"], "bound_by": k["bound_by"], "library_ms": None,
@@ -3399,6 +3600,10 @@ def main() -> int:
              k: v["decode_ac_sections"] for k, v in band_launches["decode_banded_types"].items()},
          "launches_sharded_path": sharded["decode_ac_sections"],
          "launches_batched_anim_path": batched["launches"]["decode_ac_sections"],
+         "launches_host_route_phase_card_route":
+             host_route["launches"]["on"]["decode_ac_sections"],
+         "launches_host_route_phase_host_route":
+             host_route["launches"]["off"]["decode_ac_sections"],
          "batched_anim_512_merged": batched["k3"],
          "k3_lanes_per_launch_streaming_flushes": streaming["k3_lanes_per_launch"],
          "max_abs_err": k3["max_abs_err"], "ms": k3["kernel_ms"], "call_ms": k3["call_ms"],

@@ -476,6 +476,9 @@ class JxlDecoder:
                 self.stage = "done"
                 return Event.COMPLETE
             return Event.FRAME_START
+        from ..utils import devhealth
+
+        frame.render_host = devhealth.host_route(header, self.device)
         self.frame.begin_sections(self.device)
         self._progress_marker = (0, 0)
         self._lf_flush_len = 0
@@ -551,7 +554,7 @@ class JxlDecoder:
             # 279 maybe_preview_lf_frame), for callers to show before any
             # section of the main frame arrives
             pv = color_transform(frame, list(self.state.lf_frames[0].clone().unbind(0)))
-            self._lf_preview = torch.stack(pv, dim=-1)
+            self._lf_preview = torch.stack(pv, dim=-1).to(self.device)
         if arr is None:
             return
         if self._skip_visible > 0:

@@ -129,6 +129,10 @@ class Frame:
         self.device_ac_flat = None
         self.device_ac_ok = None
         self.host_ac_flat = None
+        # the host render route (utils/devhealth.py:host_route): the frame's
+        # AC decodes on the host and render/simple.py renders it with the
+        # native C++; set by decode_image's loop and JxlDecoder
+        self.render_host = False
 
     @property
     def modular_color_channels(self) -> int:
@@ -376,7 +380,8 @@ class Frame:
         if self.header.num_toc_entries != 1 and self.takes_lanes():
             decode_ac_sections_device(self, readers, device)
             return
-        self.decode_vardct_ac_on_host(self.hf_jobs(readers), device)
+        self.decode_vardct_ac_on_host(self.hf_jobs(readers),
+                                      torch.device("cpu") if self.render_host else device)
 
     def decode_vardct_head(self, br: BitReader) -> dict:
         """A VarDCT frame's sections up to its AC: LfGlobal, the LF groups,
@@ -443,12 +448,13 @@ class Frame:
     def takes_lanes(self) -> bool:
         """Whether the frame's AC takes the lane decoder (K3 on the card):
         an eligible VarDCT frame, unless JXL_TPU_AC=host sends it to the
-        native host decoder."""
+        native host decoder or the frame is on the host render route."""
         import os
 
         from ..vardct.device_group import eligible_for_device_ac
 
-        return os.environ.get("JXL_TPU_AC", "auto") != "host" and eligible_for_device_ac(self)
+        return (not self.render_host and os.environ.get("JXL_TPU_AC", "auto") != "host"
+                and eligible_for_device_ac(self))
 
     # -- incremental section decode (the streaming decoder) ---------------------------------
     #
@@ -493,7 +499,8 @@ class Frame:
             self.ac_route = "lanes"
         else:
             self.ac_route = "host"
-            self.host_ac_flat = self._host_ac_pool(self.device)
+            self.host_ac_flat = self._host_ac_pool(
+                torch.device("cpu") if self.render_host else self.device)
 
     def launch_pending_lanes(self) -> int:
         """Launch the lane decoder (K3 on the card) once over the queued

@@ -69,7 +69,10 @@ def enabled() -> bool:
     "0" and "auto" (the default) never: on the H100 the band route was
     slower than the whole-frame route at every size measured (PERF.md),
     so no size rule exists yet, and the reference's TPU-tunnel cost model
-    does not apply."""
+    does not apply. The card probe (utils/devhealth.py) is not consulted:
+    jxl_tpu routes here by device_fast and device_wins
+    (jxl_tpu/api/overlap.py:75-97), which on a card on the bus would take
+    this route, and the card's own measurement found it losing."""
     mode = os.environ.get("JXL_TPU_OVERLAP", "auto")
     if mode not in ("0", "1", "auto"):
         raise ValueError(f"JXL_TPU_OVERLAP must be 0, 1 or auto, not {mode!r}")

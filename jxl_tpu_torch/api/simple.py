@@ -27,6 +27,7 @@ import os
 import time
 from dataclasses import dataclass, field as dfield
 
+import numpy as np
 import torch
 
 from ..errors import InvalidBox, JxlError
@@ -35,7 +36,7 @@ from ..io.container import extract_codestream_ex
 from ..io.headers import FileHeader
 from ..io.headers.frame import FrameHeader, FrameType, Toc
 from ..render.simple import apply_orientation
-from ..utils import trace
+from ..utils import devhealth, trace
 from . import overlap
 from .frame import Frame
 from .state import DecoderState
@@ -51,6 +52,17 @@ BATCH_ANIM_DEFAULT = "0"
 # the peak for 48 frames of 512x512, 192 groups, on the H100; PERF.md), so
 # a longer animation goes through in consecutive batches of whole frames
 BATCH_ANIM_GROUPS = 256
+
+
+@dataclass
+class DecodedFrame:
+    """decode_first_frame's result: the decoded Frame and its raw Modular
+    channel planes, int32 tensors on the decode's device (the colour
+    channels of a Modular frame, then the extra channels; a VarDCT frame's
+    extra channels alone)."""
+
+    frame: Frame
+    channels: list
 
 
 @dataclass
@@ -136,16 +148,24 @@ def finish_frame(frame, state, device, pixel_format: str = "f32", options=None, 
     `pixel_format` and orient (unless options.apply_orientation is False)
     (ref jxl_tpu/api/simple.py:137-224, jxl_tpu/api/decoder.py:726-803).
     Returns the visible frame, an (H, W, C) tensor on `device`, or None
-    for a frame that is not shown."""
+    for a frame that is not shown. A frame on the host render route
+    (frame.render_host) that no reference slot keeps and that blends with
+    nothing is finished on the host as well and goes to `device` once,
+    the whole oriented frame in one copy (an LF frame's planes stay on the
+    host, for the host-routed frames that adopt them); any other
+    host-routed frame's planes go there in one copy after the render, for
+    the slots and the canvas."""
     from ..render.simple import (apply_spot_and_premultiply, blend_and_extend,
                                  color_transform, render_frame_channels)
     from ..render.stages import core as st
 
     header = frame.header
     fh = frame.file_header
+    on_host = (frame.render_host and not header.can_be_referenced
+               and not header.needs_blending())
     with trace.span("frame.render"):
         planes, color_done, converted = render_frame_channels(
-            frame, device, pixel_format, timings)
+            frame, torch.device("cpu") if on_host else device, pixel_format, timings)
     if header.lf_level != 0:
         state.save_lf_frame(header.lf_level, planes)
     if header.frame_type == FrameType.LF_FRAME:
@@ -166,11 +186,21 @@ def finish_frame(frame, state, device, pixel_format: str = "f32", options=None, 
         return None
     canvas = apply_spot_and_premultiply(frame, canvas, options)
     if pixel_format != "f32" and not converted:
-        canvas = [st.convert_output(p, pixel_format, channel=i) for i, p in enumerate(canvas)]
-    arr = torch.stack(canvas, dim=-1)
+        canvas = [st.convert_output(p, pixel_format, channel=i, native=on_host)
+                  for i, p in enumerate(canvas)]
+    arr = _interleave_host(canvas) if on_host else torch.stack(canvas, dim=-1)
     if options is None or options.apply_orientation:
         arr = apply_orientation(arr, fh.image_metadata.orientation)
-    return arr
+    return arr.contiguous().to(device) if on_host else arr
+
+
+def _interleave_host(planes):
+    """CPU planes into one (h, w, c) tensor: the native one-pass interleave
+    where it takes the dtype, else torch.stack."""
+    from .. import native
+
+    arr = native.interleave_native(planes)
+    return torch.from_numpy(arr) if arr is not None else torch.stack(planes, dim=-1)
 
 
 def scan_frames(codestream, start_bits: int, fh, ooo_ranges=()) -> list:
@@ -213,7 +243,7 @@ def _try_batched_animation(fh, codestream, start_bits: int, ooo_ranges, icc_prof
     gets every frame's parse."""
     from ..render.anim_fold import try_anim_fold
     from ..render.batch_anim import (batchable, decode_sections, fold_coefficients,
-                                     render_frames_batched)
+                                     render_frames_batched, render_frames_batched_host)
     from ..vardct.device_group import check_lane_flags
 
     mode = os.environ.get("JXL_TPU_BATCH_ANIM", BATCH_ANIM_DEFAULT)
@@ -232,6 +262,10 @@ def _try_batched_animation(fh, codestream, start_bits: int, ooo_ranges, icc_prof
     # stack), so frames that differ in YCbCr take the loop
     if not batchable(fh, recs) or len({h.do_ycbcr for h, _, _ in recs}) > 1:
         return None
+    # the host render route (JXL_TPU_DEVICE=off, utils/devhealth.py): the
+    # sections' AC on the host (or the fold's host coefficients),
+    # render_frames_batched_host, the frames to `device` in one copy a batch
+    host = devhealth.mode() == "off"
     batches, groups = [[]], 0
     for rec in recs:
         if batches[-1] and groups + rec[0].num_groups > BATCH_ANIM_GROUPS:
@@ -243,19 +277,24 @@ def _try_batched_animation(fh, codestream, start_bits: int, ooo_ranges, icc_prof
     out_frames, durations = [], []
     for batch in batches:
         with trace.span("batch_anim.sections"):
-            frames = (try_anim_fold(fh, codestream, batch, icc_profile, device)
+            frames = (try_anim_fold(fh, codestream, batch, icc_profile,
+                                    "cpu" if host else device)
                       if mode == "0" else None)
             if frames is not None:
                 trace.metrics.add("batch_anim_route.fold", 1)
-                flat, slots = fold_coefficients(frames, device)
+                flat, slots = fold_coefficients(frames, "cpu" if host else device)
                 oks = []
             else:
                 trace.metrics.add("batch_anim_route.sections", 1)
                 frames, flat, slots, oks = decode_sections(fh, codestream, batch, icc_profile,
-                                                           device)
+                                                           device, host=host)
         timings["host_s"] = timings.get("host_s", 0.0) + time.perf_counter() - t0
         with trace.span("batch_anim.render"):
-            out = render_frames_batched(frames, flat, slots, pixel_format, device)
+            if host:
+                trace.metrics.add("batch_anim_route.host", 1)
+                out = render_frames_batched_host(frames, flat, slots, pixel_format).to(device)
+            else:
+                out = render_frames_batched(frames, flat, slots, pixel_format, device)
         check_lane_flags(oks)
         t0 = time.perf_counter()
         trace.metrics.add("batch_anim_frames", len(frames))
@@ -302,7 +341,12 @@ def decode_image(
     chooses the route of an animation render/batch_anim.py:batchable
     admits: "0" (the default) the whole-animation fold where it takes the
     stream, then the batched render; "1" the batched render without the
-    fold; "off" the per-frame loop (module docstring)."""
+    fold; "off" the per-frame loop (module docstring). JXL_TPU_DEVICE
+    chooses where a frame renders (utils/devhealth.py): "on" on `device`;
+    "off" by the host render route, the native C++ on the host, the
+    finished frame then moved to `device` in one copy; "auto" (the
+    default) by the host route for a small VarDCT still on the card, else
+    on `device`."""
     if pixel_format not in PIXEL_FORMATS:
         raise ValueError(f"unknown pixel format {pixel_format!r}")
     device = torch.device(device)
@@ -340,6 +384,7 @@ def decode_image(
                           sum(f.shape[0] * f.shape[1] for f in out.frames) / 1e6)
         trace.metrics.add("decode_seconds", time.perf_counter() - t_start)
         return out
+    frames_seen = 0
     while True:
         t0 = time.perf_counter()
         br.jump_to_byte_boundary()
@@ -361,6 +406,9 @@ def decode_image(
             out.frames.append(apply_orientation(arr, meta.orientation))
             out.durations.append(duration_ms(header, meta))
             break
+        frame.render_host = devhealth.host_route(
+            header, device, still=devhealth.is_still(fh, header, first=not frames_seen))
+        frames_seen += 1
         with trace.span("decode_image.sections"):
             frame.decode_all_sections(br, device)
         host_s += time.perf_counter() - t0
@@ -378,3 +426,36 @@ def decode_image(
                       sum(f.shape[0] * f.shape[1] for f in out.frames) / 1e6)
     trace.metrics.add("decode_seconds", time.perf_counter() - t_start)
     return out
+
+
+def decode_first_frame(data: bytes, device="cuda") -> DecodedFrame:
+    """The headers and the first frame of a .jxl file, decoded (ref
+    jxl_tpu/api/simple.py:380-409): the embedded ICC profile read (kept as
+    frame.icc_profile), a preview skipped, the first frame's sections
+    decoded on `device` ("cuda" by default: a VarDCT frame's AC by K3
+    there; "cpu" for the plain versions), and its raw Modular channel
+    planes returned as int32 tensors on `device`, for bit-exact checks and
+    for render/simple.py:render_frame."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "decode_first_frame: no CUDA device is available; pass device='cpu'")
+    br = BitReader(extract_codestream_ex(data)[0])
+    fh = FileHeader.read(br)
+    icc_profile = None
+    if fh.image_metadata.color_encoding.want_icc:
+        from ..icc.decode import read_icc
+
+        icc_profile = read_icc(br)
+    state = DecoderState(fh)
+    if fh.image_metadata.preview is not None:
+        pframe = parse_frame(br, fh, None, preview=True)
+        br.jump_to_byte_boundary()
+        br.skip_bits(pframe.toc.total_size * 8)
+    frame = parse_frame(br, fh, state)
+    frame.icc_profile = icc_profile
+    frame.decode_all_sections(br, device)
+    idx = list(range(frame.modular_color_channels))
+    idx += [3 + i for i in range(len(fh.image_metadata.extra_channel_info))]
+    return DecodedFrame(frame, [torch.from_numpy(np.ascontiguousarray(frame.modular_channel(c)))
+                                .to(device) for c in idx])

@@ -319,5 +319,9 @@ def enabled(device) -> bool:
     chip_smoke.py's lossless phase decodes a 4K lane stream both ways on
     the H100, and the lanes' host steps (the amax scan, the packing, the
     write-back) cost more than the native loop's prediction (PERF.md §5).
-    A later measurement that shows them winning gives auto its rule."""
+    A later measurement that shows them winning gives auto its rule. The
+    card probe (utils/devhealth.py) is not consulted: jxl_tpu routes here
+    by device_fast and device_wins (jxl_tpu/modular/device_lossless.py:
+    355-363), which on a card on the bus would take the lanes, and the
+    card's own measurement found them losing."""
     return os.environ.get("JXL_TPU_DEV_LOSSLESS", "auto") == "1"

@@ -131,6 +131,7 @@ def get_lib():
                 [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 2 + [ctypes.c_int] * 4
                 + [ctypes.c_uint32] * 2 + [ctypes.c_int64] * 2
             )
+            _bind_host_route(lib)
             _lib = lib
     return _lib
 
@@ -1425,4 +1426,372 @@ def anim_decode_frames_native(
         trace.metrics.add("anim_fold_fallback", 1)
         return None
     trace.metrics.add("anim_fold_span_hits", int(stage_ns[6]))
+    return out
+
+
+# -- the host render route's C++ (filters.cc, colors.cc, hostops.cc and
+# jxl_dct8_fused / jxl_dither_u8 / jxl_scatter_blocks of modular_decode.cc)
+#
+# Counterparts of jxl_tpu/native/__init__.py:1134-1680, bit for bit on the
+# same arrays: the sources are the same and so are their g++ flags. Each
+# wrapper takes numpy arrays or CPU tensors (through .numpy(), no copy);
+# one that declines a layout returns None (or False), and the caller then
+# runs the plain torch stage on the host. A CUDA tensor raises.
+
+_P = ctypes.c_void_p
+_I64 = ctypes.c_int64
+_INT = ctypes.c_int
+_F = ctypes.c_float
+
+_HOST_ROUTE_SIGNATURES = {
+    "jxl_filter_chain_strided": (None, [_P] * 3 + [_INT, _INT, _I64, _P, _INT, _P, _INT, _P]
+                                 + [_F] * 3),
+    "jxl_filter_chain_multi": (None, [_P] * 3 + [_INT, _P, _P, _P, _I64, _P, _P, _P, _INT, _P]
+                               + [_F] * 3),
+    "jxl_xyb_srgb_u8": (None, [_P] * 4 + [_I64, _I64, _P, _P, _F, _P, _INT, _F, _P]),
+    "jxl_xyb_tf_f32": (None, [_P] * 3 + [_I64, _I64, _P, _P, _F, _INT, _F]),
+    "jxl_dequant_cfl": (None, [_P] * 4 + [_I64, _INT] + [_P] * 6),
+    "jxl_dct8_fused": (_INT, [_P] * 4 + [_I64] + [_P] * 10 + [_I64, _P, _P, _P, _I64]),
+    "jxl_dither_u8": (None, [_P, _I64, _I64, _I64, _P, _INT, _INT, _F, _P, _I64, _I64]),
+    "jxl_scatter_blocks": (None, [_P, _I64, _P, _I64, _I64, _I64, _P, _P]),
+    "jxl_interleave_f32": (None, [_P, _P, _INT, _I64, _I64, _P]),
+    "jxl_interleave_u8": (None, [_P, _P, _INT, _I64, _I64, _P]),
+    "jxl_interleave_u16": (None, [_P, _P, _INT, _I64, _I64, _P]),
+    "jxl_i32_to_f32_scaled": (None, [_P, _I64, _I64, _I64, _F, _P, _I64]),
+    "jxl_i32_scaled_interleave": (None, [_P, _P, _INT, _I64, _I64, _F, _P]),
+}
+
+
+def _bind_host_route(lib) -> None:
+    for name, (res, args) in _HOST_ROUTE_SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.restype = res
+        fn.argtypes = args
+
+
+def _host(a):
+    """`a` as a numpy array: a CPU tensor's own memory (no copy), a numpy
+    array as it is. A CUDA tensor raises: these run on the host."""
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        if a.device.type != "cpu":
+            raise ValueError(f"the host route's C++ takes host arrays, not a {a.device} tensor")
+        return a.detach().numpy()
+    return a
+
+
+def filter_chain_native(planes, inv_sigma_px, gab_weights, epf_iters, rf,
+                        sigma_is_block=False, in_place=False):
+    """Gaborish + EPF over three (h, w) float32 planes (filters.cc
+    jxl_filter_chain_strided; jxl_tpu/native/__init__.py:1294).
+
+    inv_sigma_px: the (h, w) stored 1/sigma, or with sigma_is_block the
+    (ceil(h/8), ceil(w/8)) per-block values, expanded in the kernel (None
+    without EPF); gab_weights: [w1, w2] a channel (6 values) or None;
+    epf_iters: 0-3 (step 0 iff >= 3, step 1 iff >= 1, step 2 iff >= 2);
+    rf: the restoration filter's channel scales and sigma multipliers.
+    With in_place the planes (row views on one stride are fine) are
+    filtered where they lie and returned; else contiguous copies are
+    filtered and returned. Returns None for planes under 8x8 (the mirror
+    needs 3 samples each side) or, in place, for planes that are not
+    writable float32 rows on one stride. Semantics: render/stages/core.py
+    gaborish and epf_step_px at (0, 0)."""
+    planes = [_host(p) for p in planes]
+    h, w = planes[0].shape
+    if h < 8 or w < 8:
+        return None
+    if in_place:
+        stride = planes[0].strides[0] // 4
+        if any(not isinstance(p, np.ndarray) or p.dtype != np.float32 or p.strides[1] != 4
+               or p.strides[0] != stride * 4 or not p.flags.writeable or p.shape != (h, w)
+               for p in planes):
+            return None
+        ps = list(planes)
+    else:
+        stride = w
+        ps = []
+        for p in planes:
+            q = np.ascontiguousarray(p, dtype=np.float32)
+            ps.append(p.copy() if q is p else q)
+    sigp = None
+    if inv_sigma_px is not None:
+        sig = _host(inv_sigma_px)
+        if sigma_is_block:
+            sig = sig[: -(-h // 8), : -(-w // 8)]
+        sig = np.ascontiguousarray(sig, dtype=np.float32)
+        sigp = _ptr(sig, ctypes.c_float)
+    gwp = None
+    if gab_weights is not None:
+        gwp = _ptr(np.asarray(gab_weights, dtype=np.float32).reshape(6), ctypes.c_float)
+    cs = np.asarray(rf.epf_channel_scale, dtype=np.float32)
+    get_lib().jxl_filter_chain_strided(
+        _ptr(ps[0], ctypes.c_float), _ptr(ps[1], ctypes.c_float), _ptr(ps[2], ctypes.c_float),
+        h, w, stride, sigp, int(bool(sigma_is_block)), gwp, int(epf_iters),
+        _ptr(cs, ctypes.c_float), float(rf.epf_pass0_sigma_scale),
+        float(rf.epf_pass2_sigma_scale), float(rf.epf_border_sad_mul),
+    )
+    return ps
+
+
+def filter_chain_multi_native(stacked, offsets, hs, ws, stride, sigma_flat, sigma_offs,
+                              gab_weights, epf_iters, rf) -> bool:
+    """filter_chain_native once a frame over a stacked animation, in place
+    (filters.cc jxl_filter_chain_multi; jxl_tpu/native/__init__.py:1368):
+    stacked is (3, ...) C-contiguous float32, frame i's planes start at
+    element offsets[i] of each channel and are (hs[i], ws[i]) on row
+    stride `stride`; sigma_flat holds each frame's raveled (ceil(h/8),
+    ceil(w/8)) 1/sigma from sigma_offs[i] (None without EPF). Returns
+    False when the stack is not C-contiguous float32 or a frame is under
+    8x8."""
+    stacked = _host(stacked)
+    if (stacked.dtype != np.float32 or not stacked.flags.c_contiguous
+            or not stacked.flags.writeable):
+        return False
+    n = len(offsets)
+    if n == 0:
+        return True
+    hs_a = np.ascontiguousarray(hs, dtype=np.int32)
+    ws_a = np.ascontiguousarray(ws, dtype=np.int32)
+    if int(hs_a.min()) < 8 or int(ws_a.min()) < 8:
+        return False
+    offs = np.ascontiguousarray(offsets, dtype=np.int64)
+    sigp = soffp = None
+    if sigma_flat is not None:
+        sigp = _ptr(np.ascontiguousarray(_host(sigma_flat), dtype=np.float32), ctypes.c_float)
+        soffp = _ptr(np.ascontiguousarray(sigma_offs, dtype=np.int64), ctypes.c_int64)
+    gwp = None
+    if gab_weights is not None:
+        gwp = _ptr(np.asarray(gab_weights, dtype=np.float32).reshape(6), ctypes.c_float)
+    cs = np.asarray(rf.epf_channel_scale, dtype=np.float32)
+    get_lib().jxl_filter_chain_multi(
+        _ptr(stacked[0], ctypes.c_float), _ptr(stacked[1], ctypes.c_float),
+        _ptr(stacked[2], ctypes.c_float), n, _ptr(offs, ctypes.c_int64),
+        _ptr(hs_a, ctypes.c_int32), _ptr(ws_a, ctypes.c_int32), int(stride), sigp, soffp,
+        gwp, int(epf_iters), _ptr(cs, ctypes.c_float), float(rf.epf_pass0_sigma_scale),
+        float(rf.epf_pass2_sigma_scale), float(rf.epf_border_sad_mul),
+    )
+    return True
+
+
+def xyb_srgb_u8_native(planes, mat, biases, intensity_target, dither, tf_kind=0, tf_p0=0.0):
+    """XYB -> linear -> display TF -> dithered u8, interleaved, in one pass
+    (colors.cc jxl_xyb_srgb_u8; jxl_tpu/native/__init__.py:1457): three
+    (h, w) float32 planes (row views pass by their stride), the 9 values of
+    the (maybe primaries-adapted) inverse opsin matrix, the 3 opsin
+    biases, the 32x32 dither table; tf_kind 0 sRGB, 1 PQ (tf_p0 =
+    intensity / 10000), 2 BT.709, 3 gamma (tf_p0 = g), 4 linear. Returns
+    the (h, w, 3) uint8 array, the dither at (0, 0)."""
+    ps = []
+    for p in planes[:3]:
+        p = _host(p)
+        ps.append(p if p.dtype == np.float32 and p.strides[1] == 4
+                  else np.ascontiguousarray(p, dtype=np.float32))
+    h, w = ps[0].shape
+    strides = np.array([p.strides[0] // 4 for p in ps], dtype=np.int64)
+    m = np.ascontiguousarray(mat, dtype=np.float32).reshape(9)
+    b = np.ascontiguousarray(biases, dtype=np.float32).reshape(3)
+    d = np.ascontiguousarray(dither, dtype=np.float32).reshape(1024)
+    out = np.empty((h, w, 3), dtype=np.uint8)
+    get_lib().jxl_xyb_srgb_u8(
+        _ptr(ps[0], ctypes.c_float), _ptr(ps[1], ctypes.c_float), _ptr(ps[2], ctypes.c_float),
+        _ptr(strides, ctypes.c_int64), h, w, _ptr(m, ctypes.c_float),
+        _ptr(b, ctypes.c_float), 255.0 / float(intensity_target), _ptr(d, ctypes.c_float),
+        int(tf_kind), float(tf_p0), _ptr(out, ctypes.c_uint8),
+    )
+    return out
+
+
+def xyb_tf_f32_native(planes, mat, biases, intensity_target, tf_kind, tf_p0) -> bool:
+    """XYB -> linear -> display TF on three C-contiguous (h, w) float32
+    planes in place (colors.cc jxl_xyb_tf_f32;
+    jxl_tpu/native/__init__.py:1496): the caller owns the planes. Returns
+    False for planes that are not writable C-contiguous float32."""
+    ps = [_host(p) for p in planes[:3]]
+    h, w = ps[0].shape
+    if any(p.dtype != np.float32 or not p.flags.c_contiguous or not p.flags.writeable
+           or p.shape != (h, w) for p in ps):
+        return False
+    m = np.ascontiguousarray(mat, dtype=np.float32).reshape(9)
+    b = np.ascontiguousarray(biases, dtype=np.float32).reshape(3)
+    get_lib().jxl_xyb_tf_f32(
+        _ptr(ps[0], ctypes.c_float), _ptr(ps[1], ctypes.c_float), _ptr(ps[2], ctypes.c_float),
+        h, w, _ptr(m, ctypes.c_float), _ptr(b, ctypes.c_float),
+        255.0 / float(intensity_target), int(tf_kind), float(tf_p0),
+    )
+    return True
+
+
+def dequant_cfl_native(coeffs3, offs, nc, mats, scales, xcc, bcc, biases):
+    """Gather, quant bias, dequant and chroma from luma of n blocks in one
+    pass (colors.cc jxl_dequant_cfl; jxl_tpu/native/__init__.py:1416):
+    coeffs3, three 1-D int32 channel views (or a (3, total) array) that
+    offs (n,) indexes; mats (3, nc) float32; scales (n, 3); xcc, bcc (n,);
+    biases (4,). Returns the (n, 3, nc) float32 coefficients."""
+    if isinstance(coeffs3, (list, tuple)):
+        c = [np.ascontiguousarray(_host(x), dtype=np.int32) for x in coeffs3]
+    else:
+        a = np.ascontiguousarray(_host(coeffs3), dtype=np.int32)
+        c = [a[0], a[1], a[2]]
+    n = len(offs)
+    offs64 = np.ascontiguousarray(_host(offs), dtype=np.int64)
+    out = np.empty((n, 3, nc), dtype=np.float32)
+    get_lib().jxl_dequant_cfl(
+        _ptr(c[0], ctypes.c_int32), _ptr(c[1], ctypes.c_int32), _ptr(c[2], ctypes.c_int32),
+        _ptr(offs64, ctypes.c_int64), n, int(nc),
+        _ptr(np.ascontiguousarray(_host(mats), np.float32), ctypes.c_float),
+        _ptr(np.ascontiguousarray(_host(scales), np.float32), ctypes.c_float),
+        _ptr(np.ascontiguousarray(_host(xcc), np.float32), ctypes.c_float),
+        _ptr(np.ascontiguousarray(_host(bcc), np.float32), ctypes.c_float),
+        _ptr(np.ascontiguousarray(_host(biases), np.float32), ctypes.c_float),
+        _ptr(out, ctypes.c_float),
+    )
+    return out
+
+
+def dct8_fused_native(coeffs3, offs, scales, xcc, bcc, mats, biases, lf3, idct8,
+                      out_planes, gbx, gby, fidx=None, frame_stride=0) -> bool:
+    """Dequant, CfL, the 8x8 IDCT and the scatter of n 4:4:4 DCT8 blocks in
+    one pass (modular_decode.cc jxl_dct8_fused;
+    jxl_tpu/native/__init__.py:1134): coeffs3, three int32 channel views
+    that offs (n,) int64 indexes; scales (n, 3); xcc, bcc (n,); mats (3,
+    64); biases (4,); lf3 (3, n) the blocks' LF; idct8 the (8, 8) 1-D
+    synthesis matrix; out_planes three C-contiguous float32 planes of one
+    width, block (gbx, gby) written at row gby*8, column gbx*8; with fidx,
+    each block's planes start fidx[i] * frame_stride floats in (a stacked
+    animation). Returns False when an output plane is not writable
+    C-contiguous float32."""
+    outs = [_host(p) for p in out_planes[:3]]
+    if any(p.dtype != np.float32 or not p.flags.c_contiguous or not p.flags.writeable
+           for p in outs):
+        return False
+    n = len(offs)
+    if n == 0:
+        return True
+    c = [np.ascontiguousarray(_host(x), dtype=np.int32) for x in coeffs3[:3]]
+
+    def f32(a):
+        return _ptr(np.ascontiguousarray(_host(a), dtype=np.float32), ctypes.c_float)
+
+    def i32(a):
+        return _ptr(np.ascontiguousarray(_host(a), dtype=np.int32), ctypes.c_int32)
+
+    get_lib().jxl_dct8_fused(
+        _ptr(c[0], ctypes.c_int32), _ptr(c[1], ctypes.c_int32), _ptr(c[2], ctypes.c_int32),
+        _ptr(np.ascontiguousarray(_host(offs), dtype=np.int64), ctypes.c_int64), n,
+        f32(scales), f32(xcc), f32(bcc), f32(mats), f32(biases), f32(lf3), f32(idct8),
+        _ptr(outs[0], ctypes.c_float), _ptr(outs[1], ctypes.c_float),
+        _ptr(outs[2], ctypes.c_float), int(frame_stride),
+        i32(fidx) if fidx is not None else None, i32(gbx), i32(gby), outs[0].shape[-1],
+    )
+    return True
+
+
+def dither_u8_native(plane, dither, yoff: int, xoff: int, maxv: float):
+    """Dithered float32 -> uint8 of one (h, w) plane (modular_decode.cc
+    jxl_dither_u8; jxl_tpu/native/__init__.py:1169): scale by maxv, add
+    the 32x32 table at ((y + yoff) % 32, (x + xoff) % 32), clamp, round
+    half to even. Returns the (h, w) uint8 array, or None for a plane that
+    is not float32 with contiguous rows."""
+    plane = _host(plane)
+    if plane.dtype != np.float32 or plane.ndim != 2 or plane.strides[1] != 4:
+        return None
+    h, w = plane.shape
+    d = np.ascontiguousarray(dither, dtype=np.float32)
+    out = np.empty((h, w), dtype=np.uint8)
+    get_lib().jxl_dither_u8(
+        _ptr(plane, ctypes.c_float), h, w, plane.strides[0] // 4, _ptr(d, ctypes.c_float),
+        int(yoff), int(xoff), float(maxv), _ptr(out, ctypes.c_uint8), w, 1,
+    )
+    return out
+
+
+def scatter_blocks_native(outp, pix, bx, by) -> bool:
+    """(n, ph, pw) float32 pixel blocks into the C-contiguous float32 plane
+    `outp`, block i at row by[i]*8, column bx[i]*8 (modular_decode.cc
+    jxl_scatter_blocks; jxl_tpu/native/__init__.py:1190). Returns False
+    when the plane or the blocks are not float32 or the plane is not
+    C-contiguous."""
+    outp, pix = _host(outp), _host(pix)
+    if outp.dtype != np.float32 or not outp.flags.c_contiguous or pix.dtype != np.float32:
+        return False
+    pixc = np.ascontiguousarray(pix)
+    n, ph, pw = pixc.shape
+    get_lib().jxl_scatter_blocks(
+        _ptr(outp, ctypes.c_float), outp.shape[1], _ptr(pixc, ctypes.c_float), n, ph, pw,
+        _ptr(np.ascontiguousarray(_host(bx), dtype=np.int32), ctypes.c_int32),
+        _ptr(np.ascontiguousarray(_host(by), dtype=np.int32), ctypes.c_int32),
+    )
+    return True
+
+
+def _plane_ptrs(planes, elem):
+    ptrs = (ctypes.c_void_p * len(planes))()
+    strides = np.empty(len(planes), dtype=np.int64)
+    for i, p in enumerate(planes):
+        ptrs[i] = p.ctypes.data
+        strides[i] = p.strides[0] // elem
+    return ptrs, strides
+
+
+def interleave_native(planes):
+    """n (h, w) planes of one dtype (float32, uint8 or uint16; rows
+    contiguous) interleaved into (h, w, n) in one pass (hostops.cc
+    jxl_interleave_*; jxl_tpu/native/__init__.py:1628). None for another
+    dtype, planes of different shapes or dtypes, or strided columns."""
+    if not planes:
+        return None
+    planes = [_host(p) for p in planes]
+    dt = planes[0].dtype
+    lib = get_lib()
+    fn = {np.dtype(np.float32): lib.jxl_interleave_f32, np.dtype(np.uint8): lib.jxl_interleave_u8,
+          np.dtype(np.uint16): lib.jxl_interleave_u16}.get(dt)
+    if fn is None:
+        return None
+    h, w = planes[0].shape
+    if any(p.shape != (h, w) or p.dtype != dt or (w > 1 and p.strides[1] != dt.itemsize)
+           for p in planes):
+        return None
+    ptrs, strides = _plane_ptrs(planes, dt.itemsize)
+    out = np.empty((h, w, len(planes)), dtype=dt)
+    fn(ptrs, _ptr(strides, ctypes.c_int64), len(planes), w, h, _ptr(out, None))
+    return out
+
+
+def i32_to_f32_scaled_native(plane, scale: float):
+    """An int32 (h, w) plane times float32 `scale` as float32, one multiply
+    a sample (hostops.cc jxl_i32_to_f32_scaled;
+    jxl_tpu/native/__init__.py:1651; ConvertModularToF32's integer
+    path). None for another dtype or strided columns."""
+    plane = _host(plane)
+    if plane.dtype != np.int32 or plane.ndim != 2 or (plane.shape[1] > 1
+                                                      and plane.strides[1] != 4):
+        return None
+    h, w = plane.shape
+    out = np.empty((h, w), dtype=np.float32)
+    get_lib().jxl_i32_to_f32_scaled(
+        _ptr(plane, ctypes.c_int32), plane.strides[0] // 4, w, h, float(scale),
+        _ptr(out, ctypes.c_float), w,
+    )
+    return out
+
+
+def i32_scaled_interleave_native(planes, scale: float):
+    """n int32 (h, w) planes -> (h, w, n) float32 times `scale`, one pass
+    (hostops.cc jxl_i32_scaled_interleave;
+    jxl_tpu/native/__init__.py:1666). None for planes of different shapes,
+    another dtype or strided columns."""
+    if not planes:
+        return None
+    planes = [_host(p) for p in planes]
+    h, w = planes[0].shape
+    if any(p.shape != (h, w) or p.dtype != np.int32 or (w > 1 and p.strides[1] != 4)
+           for p in planes):
+        return None
+    ptrs, strides = _plane_ptrs(planes, 4)
+    out = np.empty((h, w, len(planes)), dtype=np.float32)
+    get_lib().jxl_i32_scaled_interleave(
+        ptrs, _ptr(strides, ctypes.c_int64), len(planes), w, h, float(scale),
+        _ptr(out, ctypes.c_float),
+    )
     return out

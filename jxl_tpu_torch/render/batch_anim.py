@@ -107,7 +107,7 @@ def _rf_fingerprint(rf):
     )
 
 
-def decode_sections(fh, codestream, recs, icc_profile, device):
+def decode_sections(fh, codestream, recs, icc_profile, device, host: bool = False):
     """Every frame's sections, on the host, into one coefficient buffer
     on `device`: (frames, flat, slots, oks). The frames the lane decoder
     takes (a single-section frame too: its reader after HfGlobal) queue
@@ -115,7 +115,10 @@ def decode_sections(fh, codestream, recs, icc_profile, device):
     extra channel coded after each group's AC, JXL_TPU_AC=host) decode
     their AC natively into their slots of one host pool, which goes up
     first and which the lanes add into. recs: [(FrameHeader, Toc, first
-    section bit)]. oks: the lane flags, unread (check_lane_flags)."""
+    section bit)]. oks: the lane flags, unread (check_lane_flags). host
+    (the host render route): every frame's AC decodes natively into the
+    host pool, which is returned as flat, a numpy array, and nothing goes
+    to the device."""
     from ..api.frame import Frame
     from ..api.state import DecoderState
     from ..io.bit_reader import BitReader
@@ -134,18 +137,21 @@ def decode_sections(fh, codestream, recs, icc_profile, device):
             state.nonvisible_frame_index += 1
         frame = Frame(header, toc, fh, state)
         frame.icc_profile = icc_profile
+        frame.render_host = host
         br.pos = pos
         readers = frame.decode_vardct_head(br)
         if frame.takes_lanes():
             lane_jobs.append((frame, readers, slot0))
         else:
             if pool is None:
-                pool = _host_pool(total_slots, device)
+                pool = _host_pool(total_slots, "cpu" if host else device)
             frame.decode_vardct_ac_on_host(
                 frame.hf_jobs(readers), device,
                 pool[slot0 * _STRIDE : (slot0 + header.num_groups) * _STRIDE])
         frame.lf_global.modular_global.run_transforms()
         frames.append(frame)
+    if host:
+        return frames, pool, slots, []
     flat = None if pool is None else st.to_device(pool, device)
     oks = []
     if lane_jobs:
@@ -313,3 +319,105 @@ def render_frames_batched(frames, flat, slots, out_format: str, device) -> torch
                                                            ix0 - x0 : ix1 - x0]
         return torch.stack([st.convert_output(canvas[c], out_format, channel=c)
                             for c in range(C)], dim=-1)
+
+
+def render_frames_batched_host(frames, flat, slots, out_format: str) -> torch.Tensor:
+    """render_frames_batched by the host render route (ref
+    jxl_tpu/render/batch_anim.py:render_frames_batched_host, :381-779):
+    the same (F, H, W, 3 + extra channels) result, a CPU tensor, each frame
+    placed on its own canvas as blend_and_extend places it (jxl_tpu clamps
+    a frame at a negative offset to the canvas edge instead: ROADMAP.md
+    section 3). flat: the coefficients, numpy or a CPU tensor, frame f's
+    group g in slot slots[f] + g.
+
+    Each transform type runs once over every (frame, group)
+    (vardct/group.py:render_blocks_host) into a stack of the frames'
+    planes, the frames at rows a multiple of 32 apart, so a pass over the
+    stack dithers each frame as from its own (0, 0). The filters run a
+    frame each in one jxl_filter_chain_multi call (each mirrored at its
+    own edges), the colour transform once over the stack (with u8 output
+    and every frame its whole canvas, the colour and the dither in one
+    jxl_xyb_srgb_u8 pass)."""
+    from .. import native
+    from ..vardct.group import render_blocks_host
+    from .device_filters import _gab_key, filter_planes
+    from .simple import _modular_to_f32_host, color_convert_u8_native, color_transform_host
+
+    f0 = frames[0]
+    fh = f0.file_header
+    meta = fh.image_metadata
+    F = len(frames)
+    dims = [fr.header.size_blocks() for fr in frames]
+    Hp, Wp = max(d[1] for d in dims) * 8, max(d[0] for d in dims) * 8
+    Hs = -(-Hp // 32) * 32  # the stack's rows a frame: the dither's period
+    sizes = [fr.header.size() for fr in frames]  # (w, h) a frame
+    rf = f0.header.restoration_filter
+
+    with trace.span("batch_anim.transforms"):
+        stacked = np.zeros((3, F * Hs, Wp), np.float32)
+        types = render_blocks_host(frames, flat, slots, [stacked[0], stacked[1], stacked[2]],
+                                   Hs)
+    trace.metrics.add("batch_anim_types", types)
+
+    if rf.gab or int(rf.epf_iters) > 0:
+        with trace.span("batch_anim.filters"):
+            gab = _gab_key(rf)
+            gw = None if gab is None else [v for pair in gab for v in pair]
+            big = [f for f, (w, h) in enumerate(sizes) if w >= 8 and h >= 8]
+            sig_parts, sig_offs, pos = [], [], 0
+            if int(rf.epf_iters) > 0:
+                for f in big:
+                    w, h = sizes[f]
+                    sig = st.compute_sigma_image(frames[f])[: -(-h // 8), : -(-w // 8)]
+                    sig_parts.append(np.ascontiguousarray(sig, np.float32).reshape(-1))
+                    sig_offs.append(pos)
+                    pos += sig_parts[-1].size
+            native.filter_chain_multi_native(
+                stacked, [f * Hs * Wp for f in big], [sizes[f][1] for f in big],
+                [sizes[f][0] for f in big], Wp,
+                np.concatenate(sig_parts) if sig_parts else None, sig_offs or None,
+                gw, int(rf.epf_iters), rf)
+            for f in sorted(set(range(F)) - set(big)):
+                # under 8x8 the native chain declines: the plain version
+                w, h = sizes[f]
+                view = torch.from_numpy(stacked[:, f * Hs : f * Hs + h, :w])
+                sig = st.compute_sigma_image(frames[f]) if int(rf.epf_iters) > 0 else None
+                inv = (torch.from_numpy(sig).repeat_interleave(8, 0).repeat_interleave(8, 1)
+                       [:h, :w] if sig is not None else torch.zeros((h, w)))
+                view[...] = filter_planes(frames[f], view.contiguous(), inv.contiguous())
+
+    with trace.span("batch_anim.colour_output"):
+        img_w, img_h = fh.xsize, fh.ysize
+        num_ec = len(meta.extra_channel_info)
+        full = all((fr.header.x0, fr.header.y0, *sizes[f]) == (0, 0, img_w, img_h)
+                   for f, fr in enumerate(frames))
+        if out_format == "u8" and full and not num_ec:
+            u8 = color_convert_u8_native(f0, [stacked[0], stacked[1], stacked[2]])
+            if u8 is not None:
+                return torch.from_numpy(
+                    np.ascontiguousarray(u8.reshape(F, Hs, Wp, 3)[:, :img_h, :img_w]))
+        chans = color_transform_host(f0, [torch.from_numpy(stacked[c]) for c in range(3)])
+        planes = torch.stack(chans).reshape(3, F, Hs, Wp)
+        C = 3 + num_ec
+        canvas = torch.zeros((C, F, img_h, img_w), dtype=torch.float32)
+        for f, fr in enumerate(frames):
+            # the frame rect, whose x0 and y0 may be negative, cut to the
+            # image (render/simple.py:blend_and_extend)
+            w, h = sizes[f]
+            x0, y0 = fr.header.x0, fr.header.y0
+            ix0, iy0 = max(x0, 0), max(y0, 0)
+            ix1, iy1 = min(x0 + w, img_w), min(y0 + h, img_h)
+            if ix1 <= ix0 or iy1 <= iy0:
+                continue
+            fy, fx = slice(iy0 - y0, iy1 - y0), slice(ix0 - x0, ix1 - x0)
+            canvas[:3, f, iy0:iy1, ix0:ix1] = planes[:, f, fy, fx]
+            mg = fr.lf_global.modular_global
+            for i, info in enumerate(meta.extra_channel_info):
+                ec = _modular_to_f32_host(np.asarray(mg.output_channel(3 + i))[:h, :w],
+                                          info.bit_depth)
+                canvas[3 + i, f, iy0:iy1, ix0:ix1] = ec[fy, fx]
+        if out_format == "f32":
+            return canvas.permute(1, 2, 3, 0).contiguous()
+        return torch.stack([torch.stack([st.convert_output(canvas[c, f], out_format, channel=c,
+                                                           native=True) for c in range(C)],
+                                        dim=-1) for f in range(F)])

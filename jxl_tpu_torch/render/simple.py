@@ -11,12 +11,22 @@ upsampling, noise, colour transform, output conversion) run by
 render/span_exec.py, and the blend of a cropped or blended frame onto
 the image canvas (blend_and_extend). Host planes go to the card through
 render/stages/core.py:to_device (pinned, without a wait).
+
+A frame on the host render route (frame.render_host, set by
+utils/devhealth.py:host_route) renders instead by
+render_frame_channels_host, jxl_tpu's host branches of
+render_frame_channels_ex (:143-255): the planes made on the host
+(vardct/group.py:render_vardct_frame_host, the Modular conversion through
+the native scale), the stages run by render/span_exec.py:run_stages_host
+(the native filter chain), and the colour transform and output
+conversion in the native C++ (colors.cc), on CPU tensors.
 """
 
 from __future__ import annotations
 
 import time
 
+import numpy as np
 import torch
 
 from ..color import tf as tfmod
@@ -152,6 +162,114 @@ def _extra_channel_planes(frame, device) -> list:
     ]
 
 
+def _modular_to_f32_host(plane, bit_depth):
+    """_modular_to_f32 of a host int32 plane (numpy) on the host route: an
+    integer sample scaled through the native one-pass multiply (ref
+    jxl_tpu/render/simple.py:80-86), a float sample reinterpreted by the
+    torch version on the CPU. Returns a CPU tensor."""
+    from .. import native
+
+    if not bit_depth.floating_point_sample:
+        scale = float(np.float32(1.0 / ((1 << bit_depth.bits_per_sample) - 1)))
+        out = native.i32_to_f32_scaled_native(plane, scale)
+        if out is not None:
+            return torch.from_numpy(out)
+    return _modular_to_f32(torch.from_numpy(np.ascontiguousarray(plane)), bit_depth)
+
+
+def _modular_planes_host(frame) -> list:
+    """A Modular frame's colour planes and extra channels as float32 CPU
+    tensors, each its own buffer (the host stages filter them in place)."""
+    meta = frame.file_header.image_metadata
+    mg = frame.lf_global.modular_global
+    if meta.xyb_encoded:
+        planes = modular_color_planes(
+            frame, [torch.from_numpy(np.asarray(mg.output_channel(c))) for c in range(3)])
+    else:
+        planes = [_modular_to_f32_host(mg.output_channel(c), meta.bit_depth)
+                  for c in range(frame.color_channels)]
+        if len(planes) == 1:
+            planes = [planes[0], planes[0].clone(), planes[0].clone()]
+    return planes + _extra_channels_host(frame)
+
+
+def _extra_channels_host(frame) -> list:
+    """The frame's extra channels as float32 CPU tensors, each at its own
+    bit depth (_extra_channel_planes on the host route)."""
+    mg = frame.lf_global.modular_global
+    return [_modular_to_f32_host(mg.output_channel(3 + i), info.bit_depth)
+            for i, info in enumerate(frame.file_header.image_metadata.extra_channel_info)]
+
+
+def render_frame_channels_host(frame, out_format: str = "f32", timings=None,
+                               no_ac_groups=()):
+    """render_frame_channels by the host render route (module docstring):
+    (planes, color_done, converted), planes CPU tensors, with the same
+    stages, colour and output rules. A VarDCT frame renders from its host
+    coefficients (host_ac_flat), the groups of `no_ac_groups` from the
+    upsampled LF; u8 output of an XYB frame whose transfer curve the
+    native colour code knows comes interleaved from one pass
+    (color_convert_u8_native), else the colour transform runs in place
+    (color_transform_host) and the output conversion dithers natively."""
+    from ..io.headers.frame import Encoding, FrameType
+    from .pipeline import build_render_pipeline
+    from .span_exec import run_stages_host
+
+    header = frame.header
+    num_ec = len(frame.file_header.image_metadata.extra_channel_info)
+    stages = build_render_pipeline(frame)
+    if header.encoding == Encoding.VARDCT:
+        from ..vardct.group import render_vardct_frame_host
+
+        chans = [torch.from_numpy(p) for p in render_vardct_frame_host(frame)]
+        if no_ac_groups:
+            from ..vardct.lf import upsample_lf_groups
+
+            chans = upsample_lf_groups(frame, chans, no_ac_groups)
+        chans += _extra_channels_host(frame)
+    else:
+        chans = _modular_planes_host(frame)
+    ctx = {"frame": frame}
+    if header.has_noise:
+        from ..features.noise import generate_noise_field
+
+        t0 = time.perf_counter()
+        ctx["noise_field"] = generate_noise_field(frame)
+        if timings is not None:
+            timings["noise_field_s"] = timings.get("noise_field_s", 0.0) + time.perf_counter() - t0
+    color_done = not (header.frame_type == FrameType.REFERENCE_ONLY
+                      or (header.can_be_referenced and header.save_before_ct)
+                      or header.lf_level != 0)
+    fmt = out_format
+    if header.needs_blending() or header.can_be_referenced or num_ec:
+        fmt = "f32"
+    chans = run_stages_host(stages, chans, ctx)
+    converted = False
+    if color_done and fmt == "u8":
+        u8 = color_convert_u8_native(frame, chans)
+        if u8 is not None:
+            chans = list(torch.from_numpy(u8).unbind(-1)) + chans[3:]
+            converted = True
+    if color_done and not converted:
+        chans = color_transform_host(frame, chans)
+        if fmt != "f32":
+            chans[:3] = [st.convert_output(p, fmt, channel=c, native=True)
+                         for c, p in enumerate(chans[:3])]
+            converted = True
+    return chans, color_done, converted
+
+
+def planes_to(planes, device) -> list:
+    """Host planes on `device`: the same list on the CPU, else one copy
+    (the planes of one shape and dtype stacked on the host first)."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return list(planes)
+    if len({(tuple(p.shape), p.dtype) for p in planes}) == 1:
+        return list(torch.stack(planes).to(device).unbind(0))
+    return [p.to(device) for p in planes]
+
+
 def render_frame_channels(frame, device, out_format: str = "f32", timings=None,
                           no_ac_groups=()):
     """All stages of one frame on `device` (ref jxl_tpu/render/simple.py:
@@ -170,6 +288,10 @@ def render_frame_channels(frame, device, out_format: str = "f32", timings=None,
     from .pipeline import build_render_pipeline, color_transform_stage, convert_output_stage
     from .span_exec import run_span
 
+    if frame.render_host:
+        planes, color_done, converted = render_frame_channels_host(
+            frame, out_format, timings, no_ac_groups)
+        return planes_to(planes, device), color_done, converted
     header = frame.header
     num_ec = len(frame.file_header.image_metadata.extra_channel_info)
     stages = build_render_pipeline(frame)
@@ -318,6 +440,79 @@ def color_transform(frame, planes):
         r, g, b = ycbcr_to_rgb(planes[1], planes[0], planes[2])
         planes[:3] = [r, g, b]
     return planes
+
+
+def _native_tf_kind(info):
+    """(tf_kind, tf_p0) of the native colour code (colors.cc) for an
+    OutputColorInfo, or None for a curve it does not know (HLG's
+    cross-channel OOTF) (ref jxl_tpu/render/simple.py:289)."""
+    kind, val = info.tf
+    if kind == "gamma":
+        return 3, float(val)
+    return {TransferFunction.SRGB: (0, 0.0),
+            TransferFunction.PQ: (1, float(info.intensity_target) / 10000.0),
+            TransferFunction.BT709: (2, 0.0), TransferFunction.DCI: (3, 1.0 / 2.6),
+            TransferFunction.LINEAR: (4, 0.0)}.get(val)
+
+
+def color_convert_u8_native(frame, planes):
+    """XYB -> display -> dithered u8 of an XYB frame's three host planes in
+    one native pass (colors.cc jxl_xyb_srgb_u8; ref
+    jxl_tpu/render/simple.py:260-288): an (h, w, 3) uint8 numpy array, the
+    dither at the planes' (0, 0); None for a frame that is not XYB or is
+    YCbCr, or whose transfer curve the native code does not know."""
+    meta = frame.file_header.image_metadata
+    if not meta.xyb_encoded or frame.header.do_ycbcr:
+        return None
+    from .. import native
+    from ..color.output import output_color_info
+
+    info = output_color_info(frame.file_header)
+    nk = _native_tf_kind(info)
+    if nk is None:
+        return None
+    return native.xyb_srgb_u8_native(
+        planes[:3], info.matrix,
+        frame.file_header.transform_data.opsin_inverse_matrix.opsin_biases,
+        info.intensity_target, st.dither_table(), nk[0], nk[1])
+
+
+def color_transform_host(frame, planes):
+    """color_transform on host planes that the caller owns: an XYB frame
+    whose transfer curve the native code knows in place through
+    jxl_xyb_tf_f32 (ref jxl_tpu/render/simple.py:308-363; a plane that is
+    a strided view is copied first), any other frame by the torch version
+    on the CPU."""
+    meta = frame.file_header.image_metadata
+    if meta.xyb_encoded:
+        from .. import native
+        from ..color.output import output_color_info
+
+        info = output_color_info(frame.file_header)
+        nk = _native_tf_kind(info)
+        if nk is not None:
+            ps = [np.ascontiguousarray(p.numpy(), dtype=np.float32) for p in planes[:3]]
+            if native.xyb_tf_f32_native(
+                    ps, info.matrix,
+                    frame.file_header.transform_data.opsin_inverse_matrix.opsin_biases,
+                    info.intensity_target, nk[0], nk[1]):
+                planes[:3] = [torch.from_numpy(p) for p in ps]
+                return planes
+    return color_transform(frame, planes)
+
+
+def render_frame(frame) -> torch.Tensor:
+    """A decoded frame rendered alone by the host route, to (h, w, c)
+    display floats on the CPU: its stages, the colour transform, no
+    orientation and no blending (ref jxl_tpu/render/simple.py:465,
+    kept there for tests and simple files)."""
+    from .. import native
+
+    planes, color_done, _ = render_frame_channels_host(frame)
+    if not color_done:
+        planes = color_transform_host(frame, planes)
+    arr = native.interleave_native([p.contiguous() for p in planes])
+    return torch.from_numpy(arr) if arr is not None else torch.stack(planes, dim=-1)
 
 
 def apply_orientation(arr, orientation):

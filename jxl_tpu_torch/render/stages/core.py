@@ -304,14 +304,24 @@ def dither_table() -> np.ndarray:
     return _DITHER
 
 
-def f32_to_u8(plane, bit_depth: int = 8, channel: int = 0, pos=(0, 0)):
+def f32_to_u8(plane, bit_depth: int = 8, channel: int = 0, pos=(0, 0), native: bool = False):
     """ConvertF32ToU8: scale, blue-noise dither, clamp, round
     (ref stages/convert.rs:549-607). torch.round rounds half to even, as
     np.round does. A stack of planes (..., h, w) takes the same dither
-    tile on each."""
+    tile on each. native (the host render route): a 2-D float32 plane on
+    the CPU goes through the native one-pass dither
+    (native/__init__.py:dither_u8_native, ref jxl_tpu/render/stages/
+    core.py:262-285), the same values."""
     h, w = plane.shape[-2:]
     dev = plane.device
     maxv = f32((1 << bit_depth) - 1)
+    if native and dev.type == "cpu" and plane.ndim == 2 and plane.dtype == torch.float32:
+        from ... import native as nat
+
+        out = nat.dither_u8_native(plane, dither_table(), (pos[1] + 13 * channel) % 32,
+                                   (pos[0] + 23 * channel) % 32, maxv)
+        if out is not None:
+            return torch.from_numpy(out)
     tab = to_device(dither_table().reshape(-1), dev)
     ys = (torch.arange(h, device=dev) + (pos[1] + 13 * channel)) % 32
     xs = (torch.arange(w, device=dev) + (pos[0] + 23 * channel)) % 32
@@ -336,14 +346,14 @@ def f32_to_f16(plane):
 
 
 def convert_output(plane, fmt: str, channel: int = 0, bit_depth: int | None = None,
-                   pos=(0, 0)):
+                   pos=(0, 0), native: bool = False):
     """The plane in output format `fmt`. pos: the (x, y) of the plane's
     first sample in the image, where the u8 dither tile starts (a band of
-    the banded decode gives its first row)."""
+    the banded decode gives its first row). native: f32_to_u8's."""
     if fmt == "f32":
         return plane
     if fmt == "u8":
-        return f32_to_u8(plane, bit_depth or 8, channel, pos)
+        return f32_to_u8(plane, bit_depth or 8, channel, pos, native)
     if fmt == "u16":
         return f32_to_u16(plane, bit_depth or 16)
     if fmt == "f16":

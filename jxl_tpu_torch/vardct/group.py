@@ -2,12 +2,16 @@
 quant bias, the native whole-frame AC decode, and the per-group AC decode
 of frames whose groups also carry modular HF channels.
 
-Capability reference: jxl/src/frame/group.rs; the counterpart of the parts
-of jxl_tpu/vardct/group.py that this package's VarDCT path runs. The host
-numeric render of that module does not come across: the port renders
-VarDCT frames through vardct/device_frame.py on either device. Nor does
-its pure-Python AC decoder (_decode_pass_oracle): the port's native
-library raises when it cannot be built, so nothing would call it.
+Capability reference: jxl/src/frame/group.rs; the counterpart of
+jxl_tpu/vardct/group.py. A frame on the caller's device renders through
+vardct/device_frame.py; a frame on the host render route
+(utils/devhealth.py) through render_vardct_frame_host here: the dequant,
+chroma from luma and inverse transforms of every group at once, bucketed
+by transform type, in the native C++ (jxl_dct8_fused for 4:4:4 DCT8
+blocks, jxl_dequant_cfl for the others) and the port's transforms_batch.py
+on CPU tensors. jxl_tpu's pure-Python AC decoder (_decode_pass_oracle)
+does not come across: the port's native library raises when it cannot be
+built, so nothing would call it.
 """
 
 from __future__ import annotations
@@ -249,3 +253,213 @@ def decode_vardct_group(frame, group: int, pass_readers: list, coeffs: np.ndarra
             br, native.pack_entropy(pstate.histograms), pass_items, orders, coeffs, shift,
             bctx.num_contexts, np.zeros(max(pos, 1), dtype=np.int32), nz_dims,
         )
+
+
+# -- the host render ----------------------------------------------------------
+
+
+def ensure_pixel_buffers(frame) -> list:
+    """frame.vardct_pixels, three zeroed float32 planes (bh*8 >> vshift(c),
+    bw*8 >> hshift(c)), made at the first call (ref
+    jxl_tpu/vardct/group.py:44)."""
+    if getattr(frame, "vardct_pixels", None) is None:
+        bw, bh = frame.header.size_blocks()
+        frame.vardct_pixels = [
+            np.zeros(((bh * BLOCK_DIM) >> frame.header.vshift(c),
+                      (bw * BLOCK_DIM) >> frame.header.hshift(c)), dtype=np.float32)
+            for c in range(3)
+        ]
+    return frame.vardct_pixels
+
+
+def _scatter_blocks(outp, pix, bx, by) -> None:
+    """(n, ph, pw) float32 pixel blocks into the plane `outp` at rows by*8,
+    columns bx*8 (ref jxl_tpu/vardct/group.py:288): the native row copy, or
+    one fancy-index assignment where it declines (blocks never overlap)."""
+    from .. import native
+
+    pix = np.asarray(pix, dtype=np.float32)
+    if native.scatter_blocks_native(outp, pix, bx, by):
+        return
+    n, ph, pw = pix.shape
+    rows = by[:, None, None] * BLOCK_DIM + np.arange(ph)[None, :, None]
+    cols = bx[:, None, None] * BLOCK_DIM + np.arange(pw)[None, None, :]
+    outp[rows, cols] = pix
+
+
+def render_vardct_frame_host(frame, flat=None) -> list:
+    """The frame's three planes (XYB, or Cb, Y, Cr at their own sizes), as
+    float32 numpy arrays the caller owns, rendered on the host (ref
+    jxl_tpu/vardct/group.py:render_vardct_frame_host, :489): every block
+    of every group at once (render_blocks_host). flat: the dense (G * 3 *
+    GD * GD,) int32 coefficients of every group in order;
+    frame.host_ac_flat by default, zeros before any AC."""
+    if flat is None:
+        flat = frame.host_ac_flat
+    if flat is None:
+        flat = np.zeros(frame.header.num_groups * 3 * GROUP_DIM * GROUP_DIM, np.int32)
+    planes = ensure_pixel_buffers(frame)
+    frame.vardct_pixels = None  # the next render starts from zeros
+    render_blocks_host([frame], flat, [0], planes, planes[1].shape[0])
+    return planes
+
+
+def _host_lf(frame) -> list:
+    """The frame's LF planes as float32 numpy: its own (lf_image) or the
+    adopted LF frame's (lf_device), which a frame on the host route holds
+    on the host (api/simple.py:finish_frame keeps a host-routed LF frame's
+    planes there); a CUDA tensor raises."""
+    if frame.lf_device is not None:
+        return list(frame.lf_device.numpy())
+    return [np.asarray(p, dtype=np.float32) for p in frame.lf_image]
+
+
+def render_blocks_host(frames, flat, slots, planes, rows_apart: int) -> int:
+    """Dequant + CfL + inverse transform of every block of every group of
+    `frames`, one transform type at a time over all of them (ref
+    jxl_tpu/vardct/group.py:_render_group, :556-735, and the transforms
+    of jxl_tpu/render/batch_anim.py:render_frames_batched_host), into
+    `planes`, three float32 planes in which frame f's rows start at f *
+    rows_apart (a multiple of 8; one frame for a still, an animation's
+    stack for render/batch_anim.py). flat: the dense int32 coefficients,
+    numpy or a CPU tensor, frame f's group g at slot slots[f] + g. A
+    chroma-subsampled frame renders alone, each channel at its own grid.
+    4:4:4 DCT8 blocks go through jxl_dct8_fused in one pass; every other
+    type through jxl_dequant_cfl, then transforms_batch.py's inverse
+    transform on CPU tensors, all three channels in one call for a 4:4:4
+    single-block type. Returns the number of transform types."""
+    import torch
+
+    from .. import native
+    from .cfl import COLOR_TILE_DIM_IN_BLOCKS
+    from .device_frame import placed_blocks
+    from .transforms import idct_matrix
+    from .transforms_batch import transform_to_pixels_batch
+
+    header = frames[0].header
+    is444 = header.is444
+    assert is444 or len(frames) == 1, "a chroma-subsampled frame renders alone"
+    hshift = [header.hshift(c) for c in range(3)]
+    vshift = [header.vshift(c) for c in range(3)]
+    flat = np.ascontiguousarray(flat.numpy() if isinstance(flat, torch.Tensor) else flat,
+                                dtype=np.int32).reshape(-1)
+    biases = np.asarray(frames[0].file_header.transform_data.opsin_inverse_matrix.quant_biases,
+                        dtype=np.float32)
+    dqm = frames[0].hf_global.dequant_matrices
+    F = len(frames)
+    dims = [fr.header.size_blocks() for fr in frames]
+    cbw, cbh = max(d[0] for d in dims), max(d[1] for d in dims)
+    tch, tcw = -(-cbh // COLOR_TILE_DIM_IN_BLOCKS), -(-cbw // COLOR_TILE_DIM_IN_BLOCKS)
+    # the frames' tables, padded to the largest frame: LF (each channel at
+    # its own grid), raw quant, CfL tiles; a frame's inverse global scale,
+    # x and b dequant scales, colour factor and base correlations x, b
+    lf = np.zeros((3, F, cbh, cbw), np.float32)
+    rq = np.ones((F, cbh, cbw), np.int32)
+    yx = np.zeros((F, tch, tcw), np.float32)
+    yb = np.zeros((F, tch, tcw), np.float32)
+    k = np.zeros((6, F), np.float32)
+    parts = []
+    stride = 3 * GROUP_DIM * GROUP_DIM
+    for f, fr in enumerate(frames):
+        bw, bh = dims[f]
+        hf = fr.hf_meta
+        for c, p in enumerate(_host_lf(fr)[:3]):
+            ph, pw = min(p.shape[0], cbh), min(p.shape[1], cbw)
+            lf[c, f, :ph, :pw] = p[:ph, :pw]
+        rq[f, :bh, :bw] = hf["raw_quant"][:bh, :bw]
+        th, tw = hf["ytox"].shape
+        yx[f, :th, :tw] = hf["ytox"]
+        yb[f, :th, :tw] = hf["ytob"]
+        ccp = fr.lf_global.color_correlation_params
+        k[:, f] = (fr.lf_global.quant_params.inv_global_scale,
+                   (1.0 / 1.25) ** (fr.header.x_qm_scale - 2.0),
+                   (1.0 / 1.25) ** (fr.header.b_qm_scale - 2.0), ccp.color_factor,
+                   ccp.base_correlation_x, ccp.base_correlation_b)
+        tid, gbx, gby, gi, off = placed_blocks(fr, list(range(fr.header.num_groups)))
+        parts.append((tid, gbx, gby, (gi + slots[f]) * stride + off, np.full(len(tid), f)))
+    all_tid, all_gbx, all_gby, all_base, all_f = map(np.concatenate, zip(*parts))
+    igs, xdm, bdm, cf, bcx, bcb = (row[all_f] for row in k)
+    sy = igs / rq[all_f, all_gby, all_gbx].astype(np.float32)
+    all_scl = np.stack([sy * xdm, sy, sy * bdm], axis=1)
+    ty, tx = all_gby // COLOR_TILE_DIM_IN_BLOCKS, all_gbx // COLOR_TILE_DIM_IN_BLOCKS
+    all_xcc = bcx + yx[all_f, ty, tx] / cf
+    all_bcc = bcb + yb[all_f, ty, tx] / cf
+    coeffs = [flat, flat[GROUP_DIM * GROUP_DIM:], flat[2 * GROUP_DIM * GROUP_DIM:]]
+    idct8 = np.ascontiguousarray(idct_matrix(8), dtype=np.float32)
+    row0 = all_f * (rows_apart // BLOCK_DIM)  # a frame's first block row in the planes
+
+    def blocks_of(outp, pix, bx, by):
+        ph, pw = pix.shape[1:]
+        oh, ow = outp.shape
+        if ph == pw == BLOCK_DIM and oh % BLOCK_DIM == 0 and ow % BLOCK_DIM == 0:
+            outp.reshape(oh // BLOCK_DIM, BLOCK_DIM, ow // BLOCK_DIM, BLOCK_DIM)[
+                by, :, bx, :] = pix
+        else:
+            _scatter_blocks(outp, pix, bx, by)
+
+    types = np.unique(all_tid).tolist()
+    for t in types:
+        m = all_tid == t
+        fidx, bx, by, offs = all_f[m], all_gbx[m], all_gby[m], all_base[m].astype(np.int64)
+        scl, xcc, bcc, r0 = all_scl[m], all_xcc[m], all_bcc[m], row0[m]
+        cx, cy = covered_blocks_x(t), covered_blocks_y(t)
+        nc = cx * cy * BLOCK_SIZE
+        n = len(bx)
+        mats = np.ascontiguousarray(dqm.matrix3(t, nc), dtype=np.float32)
+        if is444 and t == 0 and native.dct8_fused_native(
+                coeffs, offs, scl, xcc, bcc, mats, biases, lf[:, fidx, by, bx], idct8,
+                planes, bx, r0 + by):
+            continue
+        dq = native.dequant_cfl_native(coeffs, offs, nc, mats, scl, xcc, bcc, biases)
+        if is444 and cx == 1 and cy == 1:
+            # the three channels in one call
+            pix3 = transform_to_pixels_batch(
+                t, torch.from_numpy(np.ascontiguousarray(
+                    lf[:, fidx, by, bx].T).reshape(3 * n, 1, 1)),
+                torch.from_numpy(dq.reshape(3 * n, nc)), padded=False).numpy()
+            pix3 = pix3.reshape(n, 3, *pix3.shape[1:])
+            for c in range(3):
+                blocks_of(planes[c], pix3[:, c], bx, r0 + by)
+            continue
+        iy, ix = np.arange(cy), np.arange(cx)
+        for c in (1, 0, 2):
+            if is444:
+                sel = np.arange(n)
+                lfx, lfy = bx, by
+            else:
+                # a channel decodes only at the blocks aligned to its grid
+                hs, vs = hshift[c], vshift[c]
+                sel = np.nonzero((((bx >> hs) << hs) == bx) & (((by >> vs) << vs) == by))[0]
+                if len(sel) == 0:
+                    continue
+                lfx, lfy = bx[sel] >> hs, by[sel] >> vs
+            tiles = lf[c, fidx[sel, None, None], lfy[:, None, None] + iy[None, :, None],
+                       lfx[:, None, None] + ix[None, None, :]]
+            pix = transform_to_pixels_batch(
+                t, torch.from_numpy(np.ascontiguousarray(tiles)),
+                torch.from_numpy(np.ascontiguousarray(dq[sel, c])), padded=False).numpy()
+            if is444 or _inside(planes[c], lfx, lfy, pix.shape[1:]):
+                blocks_of(planes[c], pix, lfx, r0[sel] + lfy)
+            else:
+                _scatter_dropping(planes[c], pix, lfx, lfy)
+    return len(types)
+
+
+def _inside(plane, bx, by, shape) -> bool:
+    """Whether every block of `shape` (ph, pw) at (bx*8, by*8) lies inside
+    the plane."""
+    oh, ow = plane.shape
+    return bool(len(bx) == 0 or (bx.max() * BLOCK_DIM + shape[1] <= ow
+                                 and by.max() * BLOCK_DIM + shape[0] <= oh))
+
+
+def _scatter_dropping(plane, pix, bx, by) -> None:
+    """Blocks into a chroma plane, the pixels past its edge dropped (the
+    reference's mode "drop"; vardct/device_frame.py's spare slot)."""
+    n, ph, pw = pix.shape
+    oh, ow = plane.shape
+    rows = by[:, None, None] * BLOCK_DIM + np.arange(ph)[None, :, None]
+    cols = bx[:, None, None] * BLOCK_DIM + np.arange(pw)[None, None, :]
+    rows, cols = np.broadcast_arrays(rows, cols)
+    keep = (rows < oh) & (cols < ow)
+    plane[rows[keep], cols[keep]] = pix[keep]

@@ -37,6 +37,8 @@ _AFV_BASIS = np.array(AFV4X4BASIS, dtype=np.float32).reshape(16, 16)
 # padded chunk, 64 KB
 CHUNK_PIXELS = 1 << 20
 CPU_CHUNK_PIXELS = 1 << 14
+# the host render route's chunks (padded=False): 1 MB of float32 a product
+HOST_CHUNK_PIXELS = 1 << 18
 _CONST: dict = {}
 
 
@@ -107,23 +109,29 @@ def _with_dc(c, dc):
     return c
 
 
-def transform_to_pixels_batch(t: int, lf, coeffs):
+def transform_to_pixels_batch(t: int, lf, coeffs, padded: bool = True):
     """Batched inverse transform for one type.
 
     lf: (N, cy, cx) float32; coeffs: (N, num_coeffs) float32 (dequantized),
     both on one device. Returns (N, rows, cols) pixels on that device,
-    each block's the same whatever N (module docstring)."""
+    each block's the same whatever N (module docstring). padded=False (the
+    host render route, whose pixels no other render must equal bit for
+    bit): chunks of HOST_CHUNK_PIXELS, the last one not padded, so a type
+    of a few blocks costs a few blocks' work."""
     n = coeffs.shape[0]
     rows, cols = pixel_shape(t)
-    chunk = CHUNK_PIXELS if coeffs.device.type == "cuda" else CPU_CHUNK_PIXELS
+    if not padded:
+        chunk = HOST_CHUNK_PIXELS
+    else:
+        chunk = CHUNK_PIXELS if coeffs.device.type == "cuda" else CPU_CHUNK_PIXELS
     size = max(1, chunk // (rows * cols))
-    if n == size:
+    if n == size or (not padded and n <= size):
         return _transform_chunk(t, lf, coeffs)
     out = torch.empty((n, rows, cols), dtype=torch.float32, device=coeffs.device)
     for i in range(0, n, size):
         m = min(size, n - i)
         lf_c, co_c = lf[i : i + m], coeffs[i : i + m]
-        if m < size:
+        if m < size and padded:
             lf_c = torch.nn.functional.pad(lf_c, (0, 0, 0, 0, 0, size - m))
             co_c = torch.nn.functional.pad(co_c, (0, 0, 0, size - m))
         out[i : i + m] = _transform_chunk(t, lf_c, co_c)[:m]

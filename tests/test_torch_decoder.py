@@ -500,10 +500,15 @@ def cuda_device():
 
 @pytest.mark.cuda
 def test_streaming_on_the_card_matches_the_cpu(cuda_device, monkeypatch):
-    """On the card, with K3 on the lane route: the streaming frame equals
+    """On the card, with K3 on the lane route (JXL_TPU_DEVICE=on, so no
+    frame takes the host render route): the streaming frame equals
     decode_image's bit for bit, and each flush is within f32 1e-4 of the
     CPU decoder's at the same bytes."""
+    from jxl_tpu_torch.ops import device_ac
+
     monkeypatch.delenv("JXL_TPU_AC")
+    monkeypatch.setenv("JXL_TPU_DEVICE", "on")
+    k3 = device_ac.decode_ac_sections.launches
     data = stream("lf_frame")
     d = P.JxlDecoder(P.JxlDecoderOptions(progressive_mode=P.ProgressiveMode.EAGER))
     flushes = []
@@ -518,7 +523,9 @@ def test_streaming_on_the_card_matches_the_cpu(cuda_device, monkeypatch):
         elif ev is P.Event.FRAME_PROGRESSION:
             f = d.flush_pixels()
             flushes.append((pos, None if f is None else f.cpu().numpy()))
+    k3_stream = device_ac.decode_ac_sections.launches - k3
     assert torch.equal(d.frames[0], jxl_tpu_torch.decode_image(data).frames[0])
+    assert k3_stream > 0 and device_ac.decode_ac_sections.launches - k3 > k3_stream
     monkeypatch.setenv("JXL_TPU_AC", "host")
     _, _, cpu = run(P, data, 500, flush="progression", progressive_mode=P.ProgressiveMode.EAGER)
     assert [p for p, _ in flushes] == [p for p, _ in cpu]
