@@ -221,7 +221,35 @@ a non-zero exit:
              routes within u8 1 LSB and f32 1e-4 of each other; the card
              probe's economics (first round trip, launch latency, HtoD and
              DtoH MB/s), the cutoffs this run's walls settle beside the
-             committed ones, and the route and u8 wall of auto.
+             committed ones, and the route and u8 wall of auto; a
+             512x384 still whose patches read a reference slot, which
+             the host route reads from the card under
+             JXL_TPU_DEVICE=off.
+16. tables - a real encoder's VarDCT coding tables (custom dequant
+             matrices of every mode, coded coefficient orders, a
+             block-context map over 16 block contexts, four AC
+             histogram sets over 64 clusters at log alphabet size 8,
+             custom LF quantization; tests/test_torch_vardct_streams.py)
+             on tables_4k (3840x2160 XYB), tables_2pass_4k (the same in
+             two passes, its orders prefix-coded: the Python HfGlobal
+             with the native permutation read), tables_jpeg_4k (a
+             3840x2160 YCbCr 4:2:0 recompressed JPEG: RAW quant table,
+             coded orders), tables_512 (a 512x512 XYB still, the host
+             route under auto) and tables_anim48_512 (48 frames of two
+             alternating dequant sets: the batched route, the fold
+             declining): every stream once through decode_image with the
+             counts zeroed just before (K1 and K3 launches, peak card
+             memory), then u8 and f32 walls and host_s (medians of 5,
+             beside the default-tables 4K stream), each against the
+             port's CPU decode (host AC; f32 <= 1e-4, u8 <= 1 LSB); the
+             4K streams' coefficients from K3 on the card and from the
+             host AC decoder equal the writer's, and K3 on their first
+             four lanes equals its plain version (on the host); K3 on
+             tables_4k timed beside its bound with its shared-memory plan
+             (tables in global memory); tables_4k by decode_banded and by
+             JxlDecoder in 64 KiB pieces equal to decode_image bit for
+             bit; HfGlobal's host time with the native permutation read
+             against the Python loop it replaced.
 
 Then one line with every kernel's numbers, the card's name and power
 limit, and as the last line {"ok": true, "device": {...}}. Prints no
@@ -3267,7 +3295,10 @@ def host_route_streams(vdata, mdata, astreams):
     and stickers, where the card route pays its per-frame queueing),
     1920x1080 and the 4K stream of the vardct phase; the Modular stills
     512x512 and the 4K stream of the decode phase; the three animations of
-    the batched_anim phase."""
+    the batched_anim phase; a 512x384 still whose 120 patches read a
+    reference slot (under JXL_TPU_DEVICE=off the slot is held on the card
+    while the frame renders on the host)."""
+    from test_torch_frame_streams import patches_stream
     from test_torch_streams import encode_xyb_modular
     from test_torch_vardct_streams import encode_xyb_vardct
 
@@ -3278,6 +3309,8 @@ def host_route_streams(vdata, mdata, astreams):
                 (512, 512), 1))
     out.append((f"modular_{WIDTH}x{HEIGHT}", mdata, "modular", (WIDTH, HEIGHT), 1))
     out += [(name, data, "animation", wh, n) for name, data, wh, n, _ in astreams]
+    out.append(("patches_512x384", patches_stream(512, 384, (320, 64), 120, 30, seed=45),
+                "patches", (512, 384), 1))
     return out
 
 
@@ -3439,6 +3472,304 @@ def phase_host_route(streams, device="cuda") -> dict:
             "cutoffs_committed": committed}
 
 
+TABLES_LF_QUANT = (1 / 2048, 1 / 1024, 1 / 128)
+TABLES_KW = dict(dequant="mixed", orders=True, bctx="custom", histograms=4, clusters=64,
+                 log_alpha=8, lf_quant=TABLES_LF_QUANT)
+
+
+def tables_streams(width=WIDTH, height=HEIGHT, small=512, frames=48, **kw):
+    """[(name, codestream, the writer's coefficients or None, (width,
+    height), frames)] of the tables phase (the streams a real encoder's
+    tables make; the sizes are the phase's, smaller and with more writer
+    options `kw`, a lower density say, for a rehearsal on the CPU)."""
+    from test_torch_frame_streams import anim_replace_stream
+    from test_torch_vardct_streams import encode_xyb_vardct, encode_ycbcr_vardct
+
+    tab = dict(TABLES_KW, **kw)
+    out = []
+    for name, make in (
+            ("tables_4k", lambda: encode_xyb_vardct(width, height, seed=51, **tab)),
+            ("tables_2pass_4k", lambda: encode_xyb_vardct(width, height, seed=51, passes=2,
+                                                          order_codes="prefix", **tab)),
+            ("tables_jpeg_4k", lambda: encode_ycbcr_vardct(width, height, seed=52,
+                                                           subsampling="420", dequant="raw",
+                                                           orders=True, **kw)),
+            ("tables_512", lambda: encode_xyb_vardct(small, small, seed=56, **tab))):
+        data, coeffs = make()
+        size = (small, small) if name == "tables_512" else (width, height)
+        out.append((name, data, coeffs, size, 1))
+    anim = anim_replace_stream(small, small, frames, seed=53, frame_kw=lambda k: {
+        "dequant": "mixed", "tables_seed": 53 + k % 2}, **kw)
+    out.append(("tables_anim48_512", anim, None, (small, small), frames))
+    return out
+
+
+def _hf_global_seconds(data, plain: bool, reps: int = 5) -> float:
+    """Best of `reps` host seconds of the frame's HfGlobal section read,
+    its coefficient orders by the native permutation read or, with plain,
+    by the Python loop it replaced (vardct/coeff_order.py)."""
+    from jxl_tpu_torch.api.simple import parse_frame
+    from jxl_tpu_torch.io.bit_reader import BitReader
+    from jxl_tpu_torch.io.headers import FileHeader
+    from jxl_tpu_torch.vardct import coeff_order, hf_global
+
+    br = BitReader(data)
+    fh = FileHeader.read(br)
+    br.jump_to_byte_boundary()
+    frame = parse_frame(br, fh)
+    sections = frame.split_sections(br)
+    frame.decode_lf_global(sections[frame.section_index("lf_global")])
+    for g in range(frame.header.num_lf_groups):
+        frame.decode_lf_group(g, sections[frame.section_index("lf", group=g)])
+    sec = sections[frame.section_index("hf_global")]
+    start = sec.pos
+    real = hf_global.decode_coeff_orders
+    hf_global.decode_coeff_orders = (coeff_order.decode_coeff_orders_plain if plain
+                                     else coeff_order.decode_coeff_orders)
+    try:
+        best = float("inf")
+        for _ in range(reps):
+            sec.pos = start
+            t0 = time.perf_counter()
+            frame.decode_hf_global(sec)
+            best = min(best, time.perf_counter() - t0)
+    finally:
+        hf_global.decode_coeff_orders = real
+    return best
+
+
+def phase_tables(streams, vdata, device="cuda") -> dict:
+    """The tables phase (module docstring, 16) on tables_streams' streams,
+    beside `vdata`, the default-tables 4K stream. Returns the K1 and K3
+    launches of the main-path run and K3's record on tables_4k."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from jxl_tpu_torch.vardct.device_group import LANE_KEYWORDS
+
+    dev = torch.device(device)
+    by_name = {name: (data, coeffs, wh, n) for name, data, coeffs, wh, n in streams}
+    lane_streams = ("tables_4k", "tables_2pass_4k", "tables_jpeg_4k")
+    old_route = os.environ.pop("JXL_TPU_DEVICE", None)  # auto, the default
+    # K3's plain version on the first four lanes of each 4K stream, on the
+    # host in worker processes, queued once the walls are taken
+    subsets = {}
+    for name in lane_streams:
+        inp = _lane_inputs(by_name[name][0])
+        lane_keys = [k for k in inp if k in ("streams", "start_bits") or k.startswith("lane_")]
+        subsets[name] = (inp, dict(inp, **{k: inp[k][:4] for k in lane_keys}))
+    pool = ProcessPoolExecutor(max_workers=3, mp_context=multiprocessing.get_context("spawn"))
+
+    def queue_plain():
+        return {name: pool.submit(_plain_ac_sections,
+                                  [np.ascontiguousarray(v) for k, v in sub.items()
+                                   if k not in LANE_KEYWORDS],
+                                  {k: sub[k] for k in LANE_KEYWORDS})
+                for name, (_, sub) in subsets.items()}
+
+    try:
+        out = _tables_cases(streams, by_name, vdata, subsets, queue_plain, dev)
+    finally:
+        pool.shutdown(cancel_futures=True)
+        os.environ.pop("JXL_TPU_DEVICE", None)
+        if old_route is not None:
+            os.environ["JXL_TPU_DEVICE"] = old_route
+    return out
+
+
+def _tables_cases(streams, by_name, vdata, subsets, queue_plain, dev) -> dict:
+    """phase_tables' steps (a)-(f); queue_plain() queues K3's plain
+    versions on the host ({stream: future of _plain_ac_sections on its
+    four lanes}) once the walls are taken, so that no worker shares the
+    host's cores with a timed decode."""
+    import itertools
+
+    import numpy as np
+    import torch
+
+    import jxl_tpu_torch
+    from jxl_tpu_torch.api.decoder import JxlDecoder, JxlDecoderOptions
+    from jxl_tpu_torch.ops import ans_lanes as AL
+    from jxl_tpu_torch.ops import device_ac
+    from jxl_tpu_torch.ops import epf_gab as K
+    from jxl_tpu_torch.utils import trace
+    from jxl_tpu_torch.vardct.device_group import LANE_KEYWORDS
+
+    card = dev.type == "cuda"
+
+    def decode(data, fmt):
+        return jxl_tpu_torch.decode_image(data, pixel_format=fmt, device=dev)
+
+    # (a) the main path: each stream once, the counts zeroed just before
+    K.epf_gab.launches = 0
+    device_ac.decode_ac_sections.launches = 0
+    AL.ans_decode_batch.launches = 0
+    per = {}
+    trace.enable()
+    try:
+        for name, data, _, _, _ in streams:
+            k1, k3 = K.epf_gab.launches, device_ac.decode_ac_sections.launches
+            trace.reset()
+            _, peak = _peak_mb(lambda: decode(data, "u8"), dev)
+            per[name] = {"epf_gab": K.epf_gab.launches - k1,
+                         "decode_ac_sections": device_ac.decode_ac_sections.launches - k3,
+                         "peak_mb_u8": peak,
+                         "anim_fold_fallback": trace.metrics.get("anim_fold_fallback")}
+    finally:
+        trace.enable(False)
+    launches = {"epf_gab": K.epf_gab.launches,
+                "decode_ac_sections": device_ac.decode_ac_sections.launches,
+                "ans_decode_batch": AL.ans_decode_batch.launches}
+    emit({"phase": "tables", "launches": launches, "per_stream": per})
+    if card:
+        for name in ("tables_4k", "tables_2pass_4k", "tables_jpeg_4k"):
+            check(per[name]["decode_ac_sections"] == 1 and per[name]["epf_gab"] == 1,
+                  f"{name}: K3 and K1 must launch once: {per[name]}")
+        check(per["tables_512"]["decode_ac_sections"] == 0 and per["tables_512"]["epf_gab"] == 0,
+              f"tables_512 must take the host route under auto: {per['tables_512']}")
+        n = by_name["tables_anim48_512"][3]
+        check(per["tables_anim48_512"]["epf_gab"] == n
+              and per["tables_anim48_512"]["decode_ac_sections"] >= 1,
+              f"tables_anim48_512: K1 once a frame, K3 at least once: {per['tables_anim48_512']}")
+    check((per["tables_anim48_512"]["anim_fold_fallback"] or 0) >= 1,
+          "the fold must decline the animation of custom dequant tables")
+
+    # (b) walls and host_s, medians of 5, beside the default-tables 4K
+    # stream
+    walls = {}
+    timed = [(name, data, n) for name, data, _, _, n in streams]
+    timed.append(("default_tables_4k", vdata, 1))
+    routes = {name: ("auto",) for name, *_ in timed}
+    routes["tables_512"] = ("auto", "on")
+    recs = []
+    for name, data, nframes in timed:
+        for route in routes[name]:
+            os.environ["JXL_TPU_DEVICE"] = route
+            rec = {"stream": name, "route": route}
+            outs = {}
+            for fmt in ("u8", "f32"):
+                ws, hs = [], []
+                for _ in range(5):
+                    t0 = time.perf_counter()
+                    img = decode(data, fmt)
+                    _sync(dev)
+                    ws.append(time.perf_counter() - t0)
+                    hs.append(img.timings["host_s"])
+                outs[fmt] = img.frames
+                rec[f"{fmt}_wall_s_median"] = float(np.median(ws))
+                rec[f"{fmt}_walls_s"] = ws
+                rec[f"{fmt}_host_s_median"] = float(np.median(hs))
+                check(len(img.frames) == nframes and all(f.device.type == dev.type
+                                                          for f in img.frames),
+                      f"{name}: {len(img.frames)} frames, or frames off the decode's device")
+            os.environ.pop("JXL_TPU_DEVICE")
+            walls[f"{name}_{route}"] = {k: rec[k] for k in rec if k.endswith("_median")}
+            recs.append((name, data, rec, {f: [x.cpu() for x in o] for f, o in outs.items()}))
+    plain = queue_plain()
+    # (c) each stream against the port's CPU decode (host AC)
+    os.environ["JXL_TPU_AC"] = "host"
+    try:
+        for name, data, rec, outs in recs:
+            if name == "default_tables_4k":
+                emit({"phase": "tables", **rec})
+                continue
+            for fmt, limit in (("u8", 1.0), ("f32", 1e-4)):
+                ref = jxl_tpu_torch.decode_image(data, pixel_format=fmt, device="cpu").frames
+                diff = max(float((a.double() - b.double()).abs().max())
+                           for a, b in zip(outs[fmt], ref))
+                rec[f"{fmt}_vs_cpu_max_abs_diff"] = diff
+                check(all(np.isfinite(f.numpy()).all() for f in outs[fmt]),
+                      f"{name}: non-finite output")
+                check(diff <= limit, f"{name} {rec['route']} {fmt}: {diff} from the CPU decode")
+            emit({"phase": "tables", **rec})
+    finally:
+        os.environ.pop("JXL_TPU_AC", None)
+    del recs
+
+    # (d) the 4K streams' coefficients: K3 on the card and the host AC
+    # decoder against the writer's; K3 on four lanes against its plain version
+    coeff_checks = {}
+    for name, (inp, sub) in subsets.items():
+        data, coeffs = by_name[name][:2]
+        frame = _vardct_frame(data, dev)
+        _sync(dev)
+        k3 = frame.device_ac_flat.cpu().numpy()
+        host = _vardct_frame(data, "cpu", host_ac=True).host_ac_flat
+        arrays = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                  for k, v in sub.items() if k not in LANE_KEYWORDS}
+        kw = {k: sub[k] for k in LANE_KEYWORDS}
+        got_c, got_ok = device_ac.decode_ac_sections(**arrays, **kw)
+        want_c, want_ok, plain_s = plain[name].result()
+        rec = {"k3_equals_writer": bool(np.array_equal(k3, coeffs)),
+               "host_ac_equals_writer": bool(np.array_equal(host, coeffs)),
+               "k3_4_lanes_equal_plain": bool(np.array_equal(got_c.cpu().numpy(), want_c)
+                                              and np.array_equal(got_ok.cpu().numpy(), want_ok)),
+               "plain_4_lanes_s": plain_s, "lanes": int(inp["streams"].shape[0]),
+               "nonzero_coefficients": int(np.count_nonzero(coeffs))}
+        coeff_checks[name] = rec
+        emit({"phase": "tables", "stream": name, **rec})
+        check(rec["k3_equals_writer"] and rec["host_ac_equals_writer"],
+              f"{name}: coefficients differ from the writer's")
+        check(rec["k3_4_lanes_equal_plain"], f"{name}: K3 differs from its plain version")
+
+    # K3 on tables_4k's lanes, as the decode launches it: time, bound, plan
+    inp = subsets["tables_4k"][0]
+    arrays = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+              for k, v in inp.items() if k not in LANE_KEYWORDS}
+    kw = {k: inp[k] for k in LANE_KEYWORDS}
+    b, c = device_ac.pack_tables(inp["tables"], inp["uint_cfgs"], inp["context_map"])
+    packs = dict(packed_buckets=torch.from_numpy(b).to(dev), packed_cfgs=torch.from_numpy(c).to(dev))
+    got_c, _ = device_ac.decode_ac_sections(**arrays, **kw, **packs)
+    plan = device_ac.ac_smem_plan(C=inp["tables"].shape[0], NB=inp["n_buckets"],
+                                  num_bctx=inp["num_bctx"], NC=len(inp["context_map"]))
+    tokens = ac_tokens_per_lane(inp, got_c.cpu().numpy())
+    k3 = {"lanes": int(inp["streams"].shape[0]), "clusters": int(inp["tables"].shape[0]),
+          "n_buckets": int(inp["n_buckets"]), "num_bctx": int(inp["num_bctx"]),
+          "context_map_entries": len(inp["context_map"]),
+          "tab_shared": plan["tab_shared"], "ctx_slice": plan["ctx_slice"],
+          "smem_bytes": plan["smem_bytes"], "tokens": sum(tokens),
+          "longest_lane_tokens": max(tokens)}
+    k3["bound_ms"], k3["bound_by"] = _k3_bound(inp, tokens, k3["lanes"])
+    check(not plan["tab_shared"] and plan["ctx_slice"] == 16 * 495 + 16,
+          f"tables_4k: K3's plan {plan}")
+    if card:
+        k3["kernel_ms"] = device_times(
+            [(0, lambda: device_ac.decode_ac_sections(**arrays, **kw, **packs),
+              AL.load(), "ac_sections_launch")], reps=5)[0]
+        k3["call_ms"] = time_ms(lambda: device_ac.decode_ac_sections(**arrays, **kw, **packs),
+                                reps=10, warmup=2)
+        k3["ns_per_step"] = k3["kernel_ms"] * 1e6 / max(tokens)
+        k3["plain_ms_4_lanes_host"] = coeff_checks["tables_4k"]["plain_4_lanes_s"] * 1e3
+    emit({"phase": "tables", "k3_tables_3840x2160": k3})
+
+    # (e) tables_4k by decode_banded and by JxlDecoder in 64 KiB pieces
+    data = by_name["tables_4k"][0]
+    whole = decode(data, "u8").frames[0]
+    rows = []
+    jxl_tpu_torch.decode_banded(data, lambda y0, band: rows.append(band.clone()),
+                                pixel_format="u8", device=dev)
+    banded_same = bool(torch.equal(torch.cat(rows).to(whole.device), whole))
+    dec = JxlDecoder(JxlDecoderOptions(pixel_format="u8"), device=dev)
+    _feed(dec, data, itertools.repeat(STREAM_CHUNK_FLUSH))
+    streaming_same = len(dec.frames) == 1 and bool(torch.equal(dec.frames[0], whole))
+    emit({"phase": "tables", "stream": "tables_4k", "decode_banded_equal": banded_same,
+          "bands": len(rows), "jxl_decoder_64k_equal": streaming_same})
+    check(banded_same, "tables_4k: decode_banded differs from decode_image")
+    check(streaming_same, "tables_4k: JxlDecoder differs from decode_image")
+
+    # (f) HfGlobal's host seconds: the native permutation read against the
+    # Python loop it replaced
+    hfg = {name: {"native_s": _hf_global_seconds(by_name[name][0], False),
+                  "plain_s": _hf_global_seconds(by_name[name][0], True)}
+           for name in ("tables_4k", "tables_2pass_4k")}
+    emit({"phase": "tables", "hf_global_seconds": hfg})
+    return {"launches": launches, "per_stream": per, "walls": walls, "k3": k3,
+            "coefficients": coeff_checks, "hf_global_s": hfg}
+
+
 def main() -> int:
     import torch
 
@@ -3511,6 +3842,11 @@ def main() -> int:
           "bytes": {name: len(d) for name, d, *_ in astreams},
           "seconds": time.perf_counter() - t0})
     t0 = time.perf_counter()
+    tabstreams = tables_streams()
+    emit({"phase": "tables", "step": "write_streams",
+          "bytes": {name: len(d) for name, d, *_ in tabstreams},
+          "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
     ldata = lossless_stream()
     emit({"phase": "lossless", "step": "write_stream", "bytes": len(ldata),
           "seconds": time.perf_counter() - t0})
@@ -3541,6 +3877,7 @@ def main() -> int:
     batched = run("batched_anim", phase_batched_anim, astreams)
     hstreams = run("host_route", host_route_streams, vdata, data, astreams)
     host_route = run("host_route", phase_host_route, hstreams)
+    tables = run("tables", phase_tables, tabstreams, vdata)
     emit({"phase": "timing", "seconds": phase_s, "total_s": time.perf_counter() - start})
     null_reason = "no single torch call computes a rANS decode"
     emit({"kernels": [
@@ -3562,6 +3899,7 @@ def main() -> int:
          "launches_batched_anim_path": batched["launches"]["epf_gab"],
          "launches_host_route_phase_card_route": host_route["launches"]["on"]["epf_gab"],
          "launches_host_route_phase_host_route": host_route["launches"]["off"]["epf_gab"],
+         "launches_tables_path": tables["launches"]["epf_gab"],
          "max_abs_err": max_err, "ms": k["kernel_ms"], "call_ms": k["call_ms"],
          "plain_ms": k["plain_ms"],
          "bound_ms": k["bound_ms"], "bound_by": k["bound_by"], "library_ms": None,
@@ -3604,6 +3942,8 @@ def main() -> int:
              host_route["launches"]["on"]["decode_ac_sections"],
          "launches_host_route_phase_host_route":
              host_route["launches"]["off"]["decode_ac_sections"],
+         "launches_tables_path": tables["launches"]["decode_ac_sections"],
+         "tables_3840x2160": tables["k3"],
          "batched_anim_512_merged": batched["k3"],
          "k3_lanes_per_launch_streaming_flushes": streaming["k3_lanes_per_launch"],
          "max_abs_err": k3["max_abs_err"], "ms": k3["kernel_ms"], "call_ms": k3["call_ms"],

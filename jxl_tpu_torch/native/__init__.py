@@ -116,9 +116,12 @@ def get_lib():
                 "jxl_decode_modular", "jxl_read_unsigned_run",
                 "jxl_decode_lf_global_tables", "jxl_decode_histograms",
                 "jxl_decode_tree", "jxl_apply_lehmer", "jxl_decode_icc",
+                "jxl_read_permutations",
             ):
                 getattr(lib, name).restype = ctypes.c_int
             lib.jxl_rct.restype = None
+            lib.jxl_squeeze_chain.restype = None
+            lib.jxl_squeeze_chain.argtypes = [ctypes.c_int, ctypes.c_void_p]
             lib.jxl_spline_splat.restype = None
             lib.jxl_gradient_reconstruct.restype = None
             lib.jxl_noise_field.restype = None
@@ -559,6 +562,46 @@ def decode_tree_native(histograms, br, size_limit: int):
     return nodes[: count.value], int(max_prop.value)
 
 
+def read_permutations_native(histograms, br, sizes, skips, check_final: bool):
+    """The Lehmer codes of len(sizes) permutations that share one entropy
+    decoder (modular_decode.cc jxl_read_permutations; the counterpart of
+    jxl_tpu/native/__init__.py:read_permutations_native): permutation p of
+    sizes[p] entries, identity on its first skips[p], codes its end and
+    then that many Lehmer values, each in the context of the one before.
+    Returns a list of uint32 arrays, the coded values of each permutation
+    (its tail past them is 0), and moves br past them; with check_final
+    the decoder's final state is checked too. Raises OutOfBounds on a
+    stream that ends early, InvalidPermutation on an end past sizes[p] -
+    skips[p] and NativeDecodeError on any other fault."""
+    lib = get_lib()
+    from ..errors import InvalidPermutation, NativeDecodeError, OutOfBounds
+
+    ent = pack_entropy(histograms)
+    data = _databuf(br)
+    sz = np.asarray(sizes, dtype=np.uint32)
+    sk = np.asarray(skips, dtype=np.uint32)
+    cap = max(int(sz.sum()), 1)
+    lehmer = np.zeros(cap, dtype=np.uint32)
+    ends = np.zeros(len(sz), dtype=np.int64)
+    bit_pos = ctypes.c_uint64(br.pos)
+    ret = lib.jxl_read_permutations(
+        data, ctypes.c_uint64(len(data)), ctypes.byref(bit_pos),
+        *_entropy_args(ent),
+        ctypes.c_int(len(sz)), _ptr(sz, ctypes.c_uint32), _ptr(sk, ctypes.c_uint32),
+        _ptr(lehmer, ctypes.c_uint32), ctypes.c_int64(cap), _ptr(ends, ctypes.c_int64),
+        ctypes.c_int(1 if check_final else 0),
+    )
+    if ret == 2:
+        raise OutOfBounds(1)
+    if ret == 3:
+        raise InvalidPermutation("invalid permutation size")
+    if ret != 0:
+        raise NativeDecodeError(f"native permutation decode failed (code {ret})")
+    br.pos = bit_pos.value
+    bounds = np.concatenate([[0], np.cumsum(ends)])
+    return [lehmer[bounds[p] : bounds[p + 1]] for p in range(len(sz))]
+
+
 def read_unsigned_run(histograms, br, ctx: int, count: int,
                       check_final: bool = False, dist_multiplier: int = 0):
     """Decode `count` clustered unsigned values at a fixed context natively
@@ -985,6 +1028,23 @@ def apply_lehmer(code, n: int):
     if ret != 0:
         raise InvalidPermutation("invalid Lehmer code value")
     return out
+
+
+def squeeze_chain_raw(recs) -> None:
+    """One jxl_squeeze_chain call over (n, 11) int64 records, each an
+    inverse squeeze step (horizontal flag, then the average channel's,
+    the residual channel's and the output's absolute address and
+    geometry), applied in order: the whole-animation fold runs every
+    frame's inverse squeezes through it (render/anim_fold.py; the
+    counterpart of jxl_tpu/native/__init__.py:squeeze_chain_raw, which
+    returns False when its library is missing, where this one raises
+    NativeBuildError as every binding here does). The caller keeps the
+    buffers alive for the call."""
+    lib = get_lib()
+    recs = np.ascontiguousarray(recs, dtype=np.int64)
+    if recs.ndim != 2 or recs.shape[1] != 11:
+        raise ValueError(f"squeeze records are (n, 11), not {recs.shape}")
+    lib.jxl_squeeze_chain(len(recs), recs.ctypes.data)
 
 
 def rct_native(ins, outs, op: int, perm: int) -> bool:

@@ -18,7 +18,10 @@ the fold does not take (local trees, Modular LF or HF streams, per-frame
 changes of the group header, custom dequant matrices) makes it decline:
 try_anim_fold returns None, trace counts "anim_fold_fallback", and the
 caller decodes the frames section by section. JXL_TPU_ANIM_FOLD=0 turns
-the fold off.
+the fold off. When every frame's Modular plan is squeezes alone (an alpha
+channel's squeeze pyramid), one native call runs all frames' inverse
+squeezes in the fold's arena (squeeze_arena), and the shims skip their
+own.
 
 Unlike jxl_tpu, the fold's buffers are allocated for each call
 (native.anim_decode_frames_native: no process-wide arena), and the
@@ -79,17 +82,19 @@ def _pack_group_header(gh) -> np.ndarray | None:
 class _FoldModular:
     """The global Modular image of one folded frame, over its row of the
     fold's channel arena: every buffer of the frame's plan has a fixed
-    offset there, where the fold wrote the coded channels. The inverse
-    transforms run on ModularChannel copies of those views, once."""
+    offset there, where the fold wrote the coded channels. When every
+    frame's plan is squeezes alone, squeeze_arena has run them all in the
+    arena (pre_applied) and the outputs are views of it; otherwise the
+    inverse transforms run on ModularChannel copies of those views, once."""
 
-    def __init__(self, plan, chan_row, offsets):
+    def __init__(self, plan, chan_row, offsets, pre_applied=False):
         self.buffer_infos = plan.buffer_infos
         self.transform_steps = plan.transform_steps
         self.section_buffer_indices = plan.section_buffer_indices
         self._chan_row = chan_row
         self._offsets = offsets
         self.storage = None
-        self.transforms_applied = not plan.transform_steps
+        self.transforms_applied = pre_applied or not plan.transform_steps
 
     def _buffer_view(self, buf: int) -> np.ndarray:
         w, h = self.buffer_infos[buf].size
@@ -117,6 +122,67 @@ class _FoldModular:
                 return self.storage[buf].data if self.storage is not None else \
                     self._buffer_view(buf)
         raise KeyError(f"no output channel {output_idx}")
+
+
+def _squeeze_records(plan, offsets) -> np.ndarray:
+    """(n, 11) int64 jxl_squeeze_chain records of `plan`'s inverse squeeze
+    steps, in the order they run, over one frame's arena row: each step's
+    buffers as byte offsets into the row (the caller adds the row's
+    address), then their geometry, as modular/transforms.py's
+    _squeeze_chain_native lays them out. Steps with an empty output are
+    left out, as apply_hsqueeze and apply_vsqueeze skip them."""
+    rows = []
+    infos = plan.buffer_infos
+    for step in reversed(plan.transform_steps):
+        wo, ho = infos[step.buf_out].size
+        if wo == 0 or ho == 0:
+            continue
+        wa, ha = infos[step.buf_in[0]].size
+        wr, hr = infos[step.buf_in[1]].size
+        pa, pr, po = (int(offsets[b]) * 4 for b in (*step.buf_in, step.buf_out))
+        sa, sr = (wa if wa * ha else 0), (wr if wr * hr else 0)
+        if step.horizontal:
+            rows.append((1, pa, sa, pr, sr, po, wo, ho, wa, wr, wo))
+        else:
+            rows.append((0, pa, sa, pr, sr, po, wo, wo, ha, hr, ho))
+    return np.asarray(rows, dtype=np.int64).reshape(-1, 11)
+
+
+def squeeze_arena(plans, offsets_all, chan) -> bool:
+    """Run every frame's inverse squeezes in the fold's (F, elems) int32
+    channel arena `chan` in one native call (native.squeeze_chain_raw; as
+    jxl_tpu/render/anim_fold.py:355-411): frame 0's records tiled with
+    each frame's row address when every frame has the same steps, buffers
+    and offsets, else each frame's records in turn. Returns False, and
+    touches nothing, unless every frame's plan is squeezes alone and one
+    has a step; the shims then run their transforms themselves."""
+    from .. import native
+    from ..modular.transforms import SqueezeStep
+
+    if not all(isinstance(st, SqueezeStep) for mg in plans for st in mg.transform_steps):
+        return False
+    if not any(mg.transform_steps for mg in plans):
+        return False
+    base, row = chan.ctypes.data, chan.strides[0]
+    shared = all(mg.transform_steps == plans[0].transform_steps
+                 and mg.buffer_infos == plans[0].buffer_infos
+                 and np.array_equal(offsets_all[f], offsets_all[0])
+                 for f, mg in enumerate(plans))
+    if shared:
+        r0 = _squeeze_records(plans[0], offsets_all[0])
+        recs = np.tile(r0, (len(plans), 1))
+        at = base + np.repeat(np.arange(len(plans), dtype=np.int64) * row, len(r0))
+    else:
+        parts = [_squeeze_records(mg, offsets_all[f]) for f, mg in enumerate(plans)]
+        recs = np.concatenate(parts)
+        at = base + np.repeat(np.arange(len(plans), dtype=np.int64) * row,
+                              [len(p) for p in parts])
+    for col in (1, 3, 5):
+        recs[:, col] += at
+    if len(recs):
+        native.squeeze_chain_raw(recs)
+    trace.metrics.add("anim_fold_squeeze_steps", len(recs))
+    return True
 
 
 class _FoldLfGlobal:
@@ -326,6 +392,7 @@ def try_anim_fold(fh, codestream, recs, icc_profile, device="cuda", span_cache: 
     def view(slab, f, hh, ww):
         return slab[f].reshape(-1)[: hh * ww].reshape(hh, ww)
 
+    pre_applied = squeeze_arena(plans, offsets_all, out["chan"])
     frames = []
     for f, (header, toc, _pos) in enumerate(recs):
         w, h = fdims[f]
@@ -335,7 +402,7 @@ def try_anim_fold(fh, codestream, recs, icc_profile, device="cuda", span_cache: 
         lg.quant_params = QuantizerParams(int(scal[0]), int(scal[1]))
         lg.color_correlation_params = ColorCorrelationParams(
             int(scal[10]), float(dbl[3]), float(dbl[4]), int(scal[11]), int(scal[12]))
-        lg.modular_global = _FoldModular(plans[f], out["chan"][f], offsets_all[f])
+        lg.modular_global = _FoldModular(plans[f], out["chan"][f], offsets_all[f], pre_applied)
         hg = _FoldHfGlobal()
         hg.dequant_matrices = f0.hf_global.dequant_matrices
         fr = _FoldFrame()

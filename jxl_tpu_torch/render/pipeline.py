@@ -244,7 +244,10 @@ def patches_stage(frame, row0: int = 0, rows: int | None = None) -> Stage:
     order. Nothing goes back to the host. With a row window, the stage
     takes planes of rows [row0, row0 + rows) of the frame (a band of the
     banded decode) and applies each patch clipped to them;
-    PatchesDictionary.apply_rows is the plain version."""
+    PatchesDictionary.apply_rows is the plain version. Each reference
+    slot the plan reads moves to the planes' device once a stage (a frame
+    on the host route reads slots that the card holds under
+    JXL_TPU_DEVICE=off); a slot already there is used as it is."""
     from ..features.blending import perform_blending
 
     eci = frame.file_header.image_metadata.extra_channel_info
@@ -253,6 +256,7 @@ def patches_stage(frame, row0: int = 0, rows: int | None = None) -> Stage:
     rows = hc - row0 if rows is None else rows
     table, groups = patch_plan(frame, hc, wc, row0, rows)
     refs = frame.decoder_state.reference_frames if frame.decoder_state else [None] * 4
+    slots = {}  # (device, slot) -> the slot's planes on that device
 
     def fn(chans, ctx):
         from .stages.core import to_device
@@ -260,6 +264,9 @@ def patches_stage(frame, row0: int = 0, rows: int | None = None) -> Stage:
         if not groups:
             return list(chans)
         dev = chans[0].device
+        for g in groups:
+            if (dev, g.slot) not in slots:
+                slots[dev, g.slot] = refs[g.slot]["frame"].to(dev)
         tab = to_device(table, dev)
         img = torch.stack(chans[:num_c]).reshape(num_c, -1)
         for g in groups:
@@ -271,7 +278,7 @@ def patches_stage(frame, row0: int = 0, rows: int | None = None) -> Stage:
             w_p = t[pid, 2]
             ly = torch.div(local, w_p, rounding_mode="floor")
             lx = local - ly * w_p
-            ref = refs[g.slot]["frame"]
+            ref = slots[dev, g.slot]
             dst = t[pid, 0] + ly * wc + lx
             src = t[pid, 1] + ly * ref.shape[2] + lx
             fg = ref.reshape(ref.shape[0], -1)[:num_c, src]

@@ -19,7 +19,10 @@ JXL_TPU_DEVICE picks the route, with jxl_tpu's name and values:
   route. A still (is_still) is the file's one frame, of the kind
   chip_smoke.py's host_route phase measured: no animation, a regular
   frame of one pass, neither an LF frame nor using one, neither blended
-  nor referenced.
+  nor referenced, XYB colour with no chroma subsampling, no upsampling,
+  no noise or splines and no extra channels. An upsampled, noisy,
+  splined, YCbCr or extra-channel still stays on the card: the phase
+  never measured the host's torch stages for those on the CPU.
 
 The cutoff comes from chip_smoke.py's host_route phase on the H100
 (PERF.md section 5): the host route beat the card route on the VarDCT
@@ -193,10 +196,15 @@ def is_still(fh, header, first: bool) -> bool:
     (module docstring)."""
     from ..io.headers.frame import FrameType
 
-    return (first and fh.image_metadata.animation is None and header.is_last
+    meta = fh.image_metadata
+    return (first and meta.animation is None and header.is_last
             and header.frame_type == FrameType.REGULAR and header.lf_level == 0
             and not header.has_lf_frame and header.passes.num_passes == 1
-            and not header.can_be_referenced and not header.needs_blending())
+            and not header.can_be_referenced and not header.needs_blending()
+            and header.upsampling == 1 and all(u == 1 for u in header.ec_upsampling)
+            and not header.has_noise and not header.has_splines
+            and not meta.extra_channel_info and meta.xyb_encoded
+            and not header.do_ycbcr and header.is444)
 
 
 def host_route(header, device, still: bool = False) -> bool:

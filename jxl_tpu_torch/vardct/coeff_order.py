@@ -105,28 +105,57 @@ class CoeffOrders:
         return natural_order_array(TRANSFORM_TYPE_LUT[idx // 3])
 
 
+def _coded_orders(used_orders: int) -> list:
+    """[(order index, transform type)] of the orders `used_orders` codes."""
+    return [(o, t) for o, t in enumerate(TRANSFORM_TYPE_LUT) if (used_orders >> o) & 1]
+
+
 def decode_coeff_orders(used_orders: int, br: BitReader) -> "CoeffOrders":
-    """Per (order, channel) scan permutations. ref coeff_order.rs:123-149."""
+    """Per (order, channel) scan permutations (ref coeff_order.rs:123-149;
+    jxl_tpu/vardct/coeff_order.py:108): the permutation histograms, then
+    every coded permutation's Lehmer code in one native call
+    (native.read_permutations_native), each applied to its tail by
+    native.apply_lehmer. decode_coeff_orders_plain is the same read in
+    Python, symbol by symbol."""
+    import numpy as np
+
+    from .. import native
+
+    if used_orders == 0:
+        return CoeffOrders({})
+    histograms = Histograms.decode(NUM_PERMUTATION_CONTEXTS, br, allow_lz77=True)
+    coded = _coded_orders(used_orders)
+    blocks = [covered_blocks_x(t) * covered_blocks_y(t) for _, t in coded for _ in range(3)]
+    sizes = [nb * BLOCK_SIZE for nb in blocks]
+    codes = native.read_permutations_native(histograms, br, sizes, blocks, True)
+    coded_perms: dict = {}
+    for i, code in enumerate(codes):
+        if not len(code):
+            continue  # the natural order
+        ord_idx, t = coded[i // 3]
+        nb = blocks[i]
+        tail = native.apply_lehmer(code, sizes[i] - nb)
+        order = np.concatenate([np.arange(nb, dtype=np.int32), tail + np.int32(nb)])
+        coded_perms[3 * ord_idx + i % 3] = natural_order_array(t)[order]
+    return CoeffOrders(coded_perms)
+
+
+def decode_coeff_orders_plain(used_orders: int, br: BitReader) -> "CoeffOrders":
+    """decode_coeff_orders read symbol by symbol in Python
+    (io/headers/permutation.py:decode_permutation), the plain version the
+    tests hold the native read to."""
     import numpy as np
 
     if used_orders == 0:
         return CoeffOrders({})
     coded_perms: dict = {}
     histograms = Histograms.decode(NUM_PERMUTATION_CONTEXTS, br, allow_lz77=True)
-
-    coded = [
-        (ord_idx, t)
-        for ord_idx, t in enumerate(TRANSFORM_TYPE_LUT)
-        if (used_orders >> ord_idx) & 1
-    ]
     reader = SymbolReader(histograms, br)
-    for ord_idx, t in coded:
+    for ord_idx, t in _coded_orders(used_orders):
         num_blocks = covered_blocks_x(t) * covered_blocks_y(t)
         size = num_blocks * BLOCK_SIZE
         for c in range(3):
             perm = decode_permutation(size, num_blocks, histograms, br, reader)
-            idx = 3 * ord_idx + c
-            base = natural_order_array(t)
-            coded_perms[idx] = base[np.asarray(perm, dtype=np.int32)]
+            coded_perms[3 * ord_idx + c] = natural_order_array(t)[np.asarray(perm, np.int32)]
     reader.check_final_state(histograms, br)
     return CoeffOrders(coded_perms)

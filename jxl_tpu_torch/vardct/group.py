@@ -327,7 +327,10 @@ def render_blocks_host(frames, flat, slots, planes, rows_apart: int) -> int:
     4:4:4 DCT8 blocks go through jxl_dct8_fused in one pass; every other
     type through jxl_dequant_cfl, then transforms_batch.py's inverse
     transform on CPU tensors, all three channels in one call for a 4:4:4
-    single-block type. Returns the number of transform types."""
+    single-block type. Frames that code the same dequant tables share one
+    call a type; a frame with tables of its own (an animation's frames
+    may each code theirs) takes calls of its own with its matrices.
+    Returns the number of transform types."""
     import torch
 
     from .. import native
@@ -345,8 +348,12 @@ def render_blocks_host(frames, flat, slots, planes, rows_apart: int) -> int:
                                 dtype=np.int32).reshape(-1)
     biases = np.asarray(frames[0].file_header.transform_data.opsin_inverse_matrix.quant_biases,
                         dtype=np.float32)
-    dqm = frames[0].hf_global.dequant_matrices
+    dqms = [fr.hf_global.dequant_matrices for fr in frames]
     F = len(frames)
+    # each frame's matrix set: the first frame whose tables equal its own
+    mset = np.array([next(j for j in range(f + 1) if dqms[j] is dqms[f] or all(
+        a is b or np.array_equal(a, b) for a, b in zip(dqms[j].tables, dqms[f].tables)))
+        for f in range(F)])
     dims = [fr.header.size_blocks() for fr in frames]
     cbw, cbh = max(d[0] for d in dims), max(d[1] for d in dims)
     tch, tcw = -(-cbh // COLOR_TILE_DIM_IN_BLOCKS), -(-cbw // COLOR_TILE_DIM_IN_BLOCKS)
@@ -397,15 +404,15 @@ def render_blocks_host(frames, flat, slots, planes, rows_apart: int) -> int:
         else:
             _scatter_blocks(outp, pix, bx, by)
 
-    types = np.unique(all_tid).tolist()
-    for t in types:
-        m = all_tid == t
+    all_set = mset[all_f]
+    for t, s in sorted(set(zip(all_tid.tolist(), all_set.tolist()))):
+        m = (all_tid == t) & (all_set == s)
         fidx, bx, by, offs = all_f[m], all_gbx[m], all_gby[m], all_base[m].astype(np.int64)
         scl, xcc, bcc, r0 = all_scl[m], all_xcc[m], all_bcc[m], row0[m]
         cx, cy = covered_blocks_x(t), covered_blocks_y(t)
         nc = cx * cy * BLOCK_SIZE
         n = len(bx)
-        mats = np.ascontiguousarray(dqm.matrix3(t, nc), dtype=np.float32)
+        mats = np.ascontiguousarray(dqms[s].matrix3(t, nc), dtype=np.float32)
         if is444 and t == 0 and native.dct8_fused_native(
                 coeffs, offs, scl, xcc, bcc, mats, biases, lf[:, fidx, by, bx], idct8,
                 planes, bx, r0 + by):
@@ -442,7 +449,7 @@ def render_blocks_host(frames, flat, slots, planes, rows_apart: int) -> int:
                 blocks_of(planes[c], pix, lfx, r0[sel] + lfy)
             else:
                 _scatter_dropping(planes[c], pix, lfx, lfy)
-    return len(types)
+    return len(np.unique(all_tid))
 
 
 def _inside(plane, bx, by, shape) -> bool:

@@ -11,10 +11,14 @@ decoded through the port's per-frame section path, bit for bit; a forced
 disagreement on frame 0 (its oracle) raises; the C++ bit-span caches
 change nothing (span_cache=False decodes every frame in full); the
 HfGlobal cache keys on the block-context count as well as the bits (a
-hand-built pair of spans through the binding: the writer codes the
-default block-context map only, so no stream holds two frames with equal
-HfGlobal bits and unequal counts); _pack_group_header packs a header as
-jxl_tpu's does.
+hand-built pair of spans through the binding: no writer stream holds two
+frames with equal HfGlobal bits and unequal counts); _pack_group_header
+packs a header as
+jxl_tpu's does. On the stream whose alpha is coded after two squeezes,
+the fold runs every frame's inverse squeezes in one native call
+(anim_fold.squeeze_arena, native.squeeze_chain_raw): the frames' alpha
+equals the per-frame squeezes and jxl_tpu's fold bit for bit, with the
+records tiled from frame 0 or laid out frame by frame.
 """
 
 import numpy as np
@@ -29,6 +33,8 @@ from test_torch_frame_streams import anim_replace_stream
 FOLD_STREAMS = {
     "single_192x128": lambda: anim_replace_stream(192, 128, 4, seed=3),
     "alpha_192x128": lambda: anim_replace_stream(192, 128, 4, seed=5, num_ec=1),
+    "squeezed_alpha_192x128": lambda: anim_replace_stream(192, 128, 4, seed=7, num_ec=1,
+                                                          squeeze=True),
 }
 
 
@@ -141,6 +147,86 @@ def test_fold_matches_jxl_tpu_fold(folded):
         used = bw * bh * 64
         assert np.array_equal(shim.coeffs.reshape(3, -1)[:, :used],
                               r.hf_global.hf_coefficients[0].reshape(3, -1)[:, :used])
+
+
+def test_fold_squeeze_chain_equals_per_frame_squeezes(folded):
+    """Every frame's squeezes ran in the arena before the shims were made
+    (two steps a frame, one native call): each shim's alpha is a view of
+    the arena equal to the per-frame decode's and to jxl_tpu's fold."""
+    from jxl_tpu.io.bit_reader import BitReader
+    from jxl_tpu.io.headers import FileHeader
+    from jxl_tpu.render.anim_fold import try_anim_fold as ref_fold
+
+    data, fh, recs, _, frames = folded["squeezed_alpha_192x128"]
+    trace.enable()
+    trace.reset()
+    try:
+        shims = anim_fold.try_anim_fold(fh, data, recs, None, "cpu")
+        assert trace.metrics.get("anim_fold_squeeze_steps") == 2 * len(recs)
+    finally:
+        trace.enable(False)
+    ref_fh = FileHeader.read(BitReader(data))
+    ref = ref_fold(ref_fh, data, _ref_recs(data, ref_fh), None)
+    assert ref is not None
+    for shim, frame, r in zip(shims, frames, ref):
+        mg = shim.lf_global.modular_global
+        assert mg.transforms_applied and mg.storage is None and len(mg.transform_steps) == 2
+        got = mg.output_channel(3)
+        assert mg.storage is None  # no per-frame rerun
+        np.testing.assert_array_equal(got, frame.lf_global.modular_global.output_channel(3))
+        np.testing.assert_array_equal(got, r.lf_global.modular_global.output_channel(3))
+
+
+def _ref_recs(data, fh):
+    from jxl_tpu.io.bit_reader import BitReader
+    from jxl_tpu.io.headers.frame import FrameHeader, Toc
+
+    br = BitReader(data)
+    type(fh).read(br)
+    recs = []
+    while True:
+        br.jump_to_byte_boundary()
+        header = FrameHeader.read(br, fh)
+        toc = Toc.read(br, header.num_toc_entries)
+        br.jump_to_byte_boundary()
+        recs.append((header, toc, br.pos))
+        br.skip_bits(toc.total_size * 8)
+        if header.is_last:
+            return recs
+
+
+def test_squeeze_arena_lays_out_records_frame_by_frame(folded):
+    """Frames whose buffers sit at different arena offsets take the
+    concatenated records: each frame's squeezes then equal
+    inverse_apply_steps on copies of its channels."""
+    from jxl_tpu_torch.modular.channel import ModularChannel
+    from jxl_tpu_torch.modular.transforms import inverse_apply_steps
+
+    *_, frames = folded["squeezed_alpha_192x128"]
+    plans = [f.lf_global.modular_global for f in frames[:2]]
+    rng = np.random.default_rng(11)
+    sizes = [info.size[0] * info.size[1] for info in plans[0].buffer_infos]
+    offsets = [np.concatenate([[0], np.cumsum(sizes)[:-1]]) + shift for shift in (0, 37)]
+    chan = np.zeros((2, sum(sizes) + 37), np.int32)
+    want = []
+    for f, mg in enumerate(plans):
+        storage = []
+        for buf, info in enumerate(mg.buffer_infos):
+            w, h = info.size
+            vals = rng.integers(-300, 300, (h, w)).astype(np.int32)
+            chan[f, offsets[f][buf] : offsets[f][buf] + w * h] = vals.reshape(-1)
+            storage.append(ModularChannel(info.size, info.shift, info.bit_depth_bits,
+                                          data=vals.copy()))
+        inverse_apply_steps(mg.transform_steps, storage)
+        want.append(storage)
+    assert anim_fold.squeeze_arena(plans, offsets, chan)
+    for f, mg in enumerate(plans):
+        for buf, info in enumerate(mg.buffer_infos):
+            if info.output_channel_idx is None:
+                continue
+            w, h = info.size
+            got = chan[f, offsets[f][buf] : offsets[f][buf] + w * h].reshape(h, w)
+            np.testing.assert_array_equal(got, want[f][buf].data)
 
 
 def _perturb(part):

@@ -451,15 +451,19 @@ def patches_stream(width, height, atlas, num_patches, num_glyphs, seed=0, mode=P
                          preview=_preview_spec(True, 0) if preview else None)
 
 
-def anim_replace_stream(width, height, num_frames=5, seed=0, num_ec=0, density=0.2) -> bytes:
+def anim_replace_stream(width, height, num_frames=5, seed=0, num_ec=0, density=0.2,
+                        frame_kw=None, **kw) -> bytes:
     """A small XYB VarDCT animation of full REPLACE frames, each shown for
     TICKS + its index ticks: no frame is referenced, so jxl_tpu's batched
     animation route takes it. A frame of at most 256x256 is one section
     (one TOC entry), the frames the whole-animation fold takes. num_ec=1
-    adds an 8-bit straight alpha to every frame, replaced as the colour."""
+    adds an 8-bit straight alpha to every frame, replaced as the colour.
+    kw: encode_xyb_vardct options for every frame; frame_kw(k): more of
+    them for frame k (two sets of dequant tables by turns, for one)."""
     def sections(k):
+        more = dict(kw, **(frame_kw(k) if frame_kw else {}))
         return frame_sections(encode_xyb_vardct(width, height, seed=seed + k, density=density,
-                                                num_ec=num_ec)[0])
+                                                num_ec=num_ec, **more)[0])
 
     frames = [FrameSpec(sections(k), "vardct", duration=TICKS + k,
                         ec_blend=((REPLACE, 0, False, 0),) * num_ec,

@@ -421,7 +421,7 @@ def test_auto_cutoffs_and_latency(env, monkeypatch):
 
 @pytest.mark.parametrize("name,first,want", [
     ("vardct_256", True, True), ("vardct_256", False, False), ("modular_512", True, True),
-    ("anim_replace5", True, False), ("anim_crop8", True, False), ("ycbcr_420", True, True),
+    ("anim_replace5", True, False), ("anim_crop8", True, False), ("ycbcr_420", True, False),
     ("lf_frame_two_pass", True, False), ("alpha_two_pass", True, False),
 ])
 def test_is_still(name, first, want):
@@ -433,6 +433,47 @@ def test_is_still(name, first, want):
     br = BitReader(_stream(name))
     fh = FileHeader.read(br)
     assert devhealth.is_still(fh, _header(name)[-1], first=first) is want
+
+
+UNMEASURED_STILLS = {
+    "upsampled_8x": lambda: encode_xyb_vardct(256, 256, seed=61, density=0.05, upsampling=8),
+    "noise": lambda: encode_xyb_vardct(256, 256, seed=62, density=0.05, noise=NOISE_LUT),
+    "splines": lambda: encode_xyb_vardct(256, 256, seed=63, density=0.05,
+                                         splines=[_spline()]),
+    "alpha": lambda: encode_xyb_vardct(256, 256, seed=64, density=0.05, num_ec=1),
+    "ycbcr_444": lambda: encode_ycbcr_vardct(256, 256, seed=65, subsampling="444",
+                                             density=0.05),
+    "ycbcr_420": lambda: encode_ycbcr_vardct(256, 256, seed=66, subsampling="420",
+                                             density=0.05),
+}
+
+
+def _spline():
+    from test_torch_spline_streams import SplineSpec
+
+    return SplineSpec([(20, 30), (120, 80), (200, 40)], [[10] * 32, [20] * 32, [5] * 32],
+                      [4] * 32)
+
+
+@pytest.mark.parametrize("kind", list(UNMEASURED_STILLS))
+def test_is_still_refuses_unmeasured_kinds(kind, env):
+    """A single 256x256 VarDCT frame of a kind the host_route phase never
+    measured (upsampled, noise, splines, an extra channel, YCbCr with or
+    without chroma subsampling) is no still, so auto keeps it on the card
+    although its coded size is under the cutoff."""
+    from jxl_tpu_torch.api.simple import scan_frames
+    from jxl_tpu_torch.io.bit_reader import BitReader
+    from jxl_tpu_torch.io.headers import FileHeader
+
+    data = UNMEASURED_STILLS[kind]()[0]
+    br = BitReader(data)
+    fh = FileHeader.read(br)
+    br.jump_to_byte_boundary()
+    (header,) = [h for h, _, _ in scan_frames(data, br.pos, fh)]
+    env(JXL_TPU_DEVICE="auto")
+    still = devhealth.is_still(fh, header, first=True)
+    assert not still
+    assert not devhealth.host_route(header, "cuda", still=still)
 
 
 @pytest.fixture
@@ -532,8 +573,9 @@ def test_host_route_on_the_card(env):
         assert all(f.device.type == "cuda" for f in img.frames)
         return device_ac.decode_ac_sections.launches - k3, epf_gab.epf_gab.launches - k1
 
-    # off: every frame on the host, an LF frame's planes too
-    for name in ("vardct_520x300", "anim_replace5", "lf_frame_two_pass"):
+    # off: every frame on the host, an LF frame's planes too, and a frame
+    # whose patches read a slot that the card holds
+    for name in ("vardct_520x300", "anim_replace5", "lf_frame_two_pass", "patches"):
         assert k3_k1_launches("off", name) == (0, 0), name
     # auto: a small still on the host, an animation and a frame with an
     # LF frame on the card

@@ -104,6 +104,27 @@ def test_k3_plan_of_many_clusters_leaves_the_tables_in_global_memory():
     assert plan["regions"]["tables"] == 0
 
 
+def test_k3_plan_of_a_real_encoders_tables():
+    """A writer stream with an encoder's tables (chip_smoke.py's tables
+    phase at 4K): 16 block contexts, four histogram sets picked by group,
+    64 clusters of 256 buckets. The packed tables (64 x 256 x 8 bytes,
+    128 KiB) exceed the block budget, so they stay in global memory; the
+    lane's context slice is one set's 16 * 495 + 16 contexts, and each
+    lane starts at its group's set."""
+    data, _ = encode_xyb_vardct(1040, 520, seed=51, density=0.05, dequant="mixed", orders=True,
+                                bctx="custom", histograms=4, clusters=64, log_alpha=8,
+                                lf_quant=(1 / 2048, 1 / 1024, 1 / 128))
+    inputs = _port_lane_inputs(data)
+    plan = _plan_of(inputs)
+    _check_plan(plan)
+    assert inputs["tables"].shape == (64, 5, 256) and inputs["num_bctx"] == 16
+    assert len(inputs["context_map"]) == 4 * 16 * 495
+    assert not plan["tab_shared"] and plan["regions"]["tables"] == 0
+    assert plan["ctx_slice"] == 16 * 495 + 16
+    groups = inputs["lane_group"]
+    np.testing.assert_array_equal(inputs["lane_ctx_off"], (groups % 4) * 16 * 495)
+
+
 @pytest.mark.parametrize("case", ["stacked_passes", "huge_tables", "tiny"])
 def test_k3_plan_stays_within_shared_memory(case):
     kw = dict(C=3, NB=64, num_bctx=15, NC=7425)

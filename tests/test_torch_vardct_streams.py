@@ -25,6 +25,13 @@ the context model. Each group's tokens are rANS-encoded from the final
 state 0x130000, vectorized across groups with numpy; alias tables come
 from jxl_tpu_torch.entropy.ans.AnsHistogram.
 
+Those are the defaults. The options of encode_xyb_vardct code a real
+encoder's tables in their place: custom and RAW dequant matrices, coded
+coefficient orders, a custom block-context map over 16 block contexts,
+several AC histogram sets over more clusters at another log alphabet
+size, and custom LF quantization (write_dequant_matrices,
+write_coeff_orders, BlockContextSpec, AcCoding).
+
 This module imports neither jax nor jxl_tpu at the top: chip_smoke.py
 imports the writer. The tests below import the JAX package inside each
 test.
@@ -139,16 +146,17 @@ def hybrid_encode(v, cfg):
             np.where(small, 0, nbits))
 
 
-def flat_histogram(alphabet: int):
+def flat_histogram(alphabet: int, log_alpha: int = LOG_ALPHA):
     """The port's AnsHistogram of a flat distribution over `alphabet`
-    symbols at log_alpha_size 6, as the decoder builds it."""
+    symbols at log_alpha_size `log_alpha` (5 to 8), as the decoder builds
+    it."""
     from jxl_tpu_torch.entropy.ans import SUM_PROBS, AnsHistogram
 
-    table = 1 << LOG_ALPHA
+    table = 1 << log_alpha
     base, rem = divmod(SUM_PROBS, alphabet)
     h = AnsHistogram.__new__(AnsHistogram)
     h.dist = [base + (1 if i < rem else 0) for i in range(alphabet)] + [0] * (table - alphabet)
-    h.log_bucket_size = 12 - LOG_ALPHA
+    h.log_bucket_size = 12 - log_alpha
     h.bucket_mask = (1 << h.log_bucket_size) - 1
     h.single_symbol = None
     h._build_alias_map(table, 1 << h.log_bucket_size)
@@ -156,8 +164,9 @@ def flat_histogram(alphabet: int):
 
 
 def inverse_tables(hists):
-    """(freq (C, 64), inv (C, 64, max_freq)): inv[c, sym, off] is the
-    12-bit slot the alias table maps to (sym, off)."""
+    """(freq (C, T), inv (C, T, max_freq)) over tables of T symbols:
+    inv[c, sym, off] is the 12-bit slot the alias table maps to (sym,
+    off)."""
     freq = np.array([h.dist for h in hists], dtype=np.int64)
     inv = np.zeros((len(hists), freq.shape[1], int(freq.max())), dtype=np.int64)
     idx = np.arange(1 << 12)
@@ -206,12 +215,12 @@ def hybrid_tokens(vals, clusters, uint_cfgs, alphabets):
     return tk, raw, nraw
 
 
-def write_rans_stream(w, tk, cl, raw, nraw, alphabets):
+def write_rans_stream(w, tk, cl, raw, nraw, alphabets, log_alpha=LOG_ALPHA):
     """One rANS stream of tokens `tk` in clusters `cl` (flat histograms
     over `alphabets`, as write_ans_flat_histograms writes them) into the
     BitList w: the initial state, then each token's renormalization word
     and its raw bits."""
-    freq, inv = inverse_tables([flat_histogram(a) for a in alphabets])
+    freq, inv = inverse_tables([flat_histogram(a, log_alpha) for a in alphabets])
     tk, cl = np.asarray(tk, np.int64), np.asarray(cl, np.int64)
     state, words, has = rans_encode_lanes(tk[None], cl[None], np.array([len(tk)]), freq, inv)
     w.write(int(state[0]), 32)
@@ -224,9 +233,29 @@ def bitlist_bits(w) -> np.ndarray:
     return np.unpackbits(np.frombuffer(w.finish(), np.uint8), bitorder="little")[:nbits]
 
 
-def write_ans_flat_histograms(w, cmap, alphabets, uint_cfgs, lz77=False):
-    """Histograms bundle: simple context map `cmap`, ANS at log_alpha 6,
-    per-cluster HybridUint configs and flat distributions. With lz77=True
+def write_context_map(w, cmap) -> None:
+    """A context map: the simple form (at most 3 bits an entry) when its
+    clusters fit, else entropy-coded without move-to-front, its entries
+    coded with HybridUint (4, 1, 0) in one flat 64-symbol rANS cluster."""
+    bits = _ceil_log2(max(cmap) + 1)
+    if bits <= 3:
+        w.write(1, 1)  # simple context map
+        w.write(bits, 2)
+        if bits:
+            w.extend(np.asarray(cmap), np.full(len(cmap), bits))
+        return
+    w.write(0, 1)  # not simple
+    w.write(0, 1)  # no move-to-front
+    cfg = (4, 1, 0)
+    write_ans_flat_histograms(w, [0], [64], [cfg])
+    tk, raw, nraw = hybrid_encode(np.asarray(cmap), cfg)
+    write_rans_stream(w, tk, np.zeros(len(tk), np.int64), raw, nraw, [64])
+
+
+def write_ans_flat_histograms(w, cmap, alphabets, uint_cfgs, lz77=False, log_alpha=LOG_ALPHA):
+    """Histograms bundle: context map `cmap` (write_context_map), ANS at
+    `log_alpha` (5 to 8), per-cluster HybridUint configs and flat
+    distributions. With lz77=True
     the bundle enables LZ77 with min_symbol 224, which no token reaches:
     the stream decodes the same, but the lane decoder does not take it.
     lz77 may instead be (min_symbol, min_length, length HybridUint config)
@@ -249,16 +278,12 @@ def write_ans_flat_histograms(w, cmap, alphabets, uint_cfgs, lz77=False):
             w.write(msb, _ceil_log2(se + 1))
             w.write(lsb, _ceil_log2(se - msb + 1))
     if len(cmap) > 1:
-        bits = _ceil_log2(max(cmap) + 1)
-        w.write(1, 1)  # simple context map
-        w.write(bits, 2)
-        if bits:
-            w.extend(np.asarray(cmap), np.full(len(cmap), bits))
+        write_context_map(w, cmap)
     w.write(0, 1)  # ANS
-    w.write(LOG_ALPHA - 5, 2)
+    w.write(log_alpha - 5, 2)
     for se, msb, lsb in uint_cfgs:
-        w.write(se, _ceil_log2(LOG_ALPHA + 1))
-        if se != LOG_ALPHA:
+        w.write(se, _ceil_log2(log_alpha + 1))
+        if se != log_alpha:
             w.write(msb, _ceil_log2(se + 1))
             w.write(lsb, _ceil_log2(se - msb + 1))
     for a in alphabets:
@@ -324,10 +349,15 @@ def _leaf(key, offset, mul_log):
 
 
 S0 = (0, 1, 2, 3)  # residuals 0, -1, 1, -2
+# RAW dequant table leaves: (offset, log2 multiplier), and the last row of
+# qt_lo (a JPEG table's coarser steps are its higher frequencies)
+QT_LEAVES = {"qt_lo": (12, 1), "qt_hi": (40, 3)}
+QT_SPLIT_ROW = 3
 
 
 def _leaf_sets():
-    sets = {k: S0 for k in ("lf_y", "lf_x", "lf_b", "cfl", "quant", "epf_lo", "epf_hi", "alpha")}
+    sets = {k: S0 for k in ("lf_y", "lf_x", "lf_b", "cfl", "quant", "epf_lo", "epf_hi", "alpha",
+                            "qt_lo", "qt_hi")}
     for b, extra in enumerate(BAND_TYPES):
         sets[f"band{b}"] = tuple(sorted(_signed_token((0, DCT16) + extra).tolist()))
     for f, fam in enumerate(LARGE_FAMILIES):
@@ -354,13 +384,17 @@ def _strip_types(num_lf_groups: int, strips: list):
 
 
 def build_tree(num_lf_groups: int, band_step: int, lf_y_offset: int = 256,
-               first_hf_stream: int | None = None, strips=None, global_alpha: bool = False):
+               first_hf_stream: int | None = None, strips=None, global_alpha: bool = False,
+               qtables: bool = False):
     """The global tree. With first_hf_stream (the modular stream id of
     group 0's HF section), every HF group stream, where the alpha channel
     is coded, takes one more leaf: 0, 64, 128 or 192; with global_alpha
     the global stream (id 0) takes it, where a single-group frame codes
     its alpha. strips: the strips of transforms="large" (_strip_types),
-    else the types are coded by band of the list index (BAND_TYPES)."""
+    else the types are coded by band of the list index (BAND_TYPES).
+    qtables: the streams of RAW dequant tables (ids past 3 *
+    num_lf_groups) take two leaves by row, 8-14 in rows 0-3 and 24-48
+    below (QT_LEAVES)."""
     if strips is not None:
         types = _strip_types(num_lf_groups, strips)
     else:
@@ -375,6 +409,10 @@ def build_tree(num_lf_groups: int, band_step: int, lf_y_offset: int = 256,
     lf = _split(0, 0, _split(0, 1, _leaf("lf_b", 0, 2), _leaf("lf_x", 0, 3)),
                 _leaf("lf_y", lf_y_offset, 4))
     tree = _split(1, num_lf_groups, meta, lf)
+    if qtables:
+        qt = _split(2, QT_SPLIT_ROW, _leaf("qt_hi", *QT_LEAVES["qt_hi"]),
+                    _leaf("qt_lo", *QT_LEAVES["qt_lo"]))
+        tree = _split(1, 3 * num_lf_groups, qt, tree)
     if first_hf_stream is not None:
         tree = _split(1, first_hf_stream - 1, _leaf("alpha", 128, 6), tree)
     if global_alpha:
@@ -562,11 +600,13 @@ def _keep_one(tmap, lists, rects, t):
 
 
 def _lf_group_section(rng, leaves, rect, types, cfl_zero, hs=(0, 0, 0), vs=(0, 0, 0),
-                      lf_coefficients=True, strips=None, bits=False):
+                      lf_coefficients=True, strips=None, bits=False, record=None):
     """One LF group's section: its LF coefficients (not in a frame that
     reads an LF frame: lf_coefficients=False), then its HF metadata.
     strips: the LF group's strips of transforms="large". bits=True returns
-    the section's BitList, not its bytes (a single-section frame)."""
+    the section's BitList, not its bytes (a single-section frame). record:
+    a dict that receives the quantized LF planes by channel (0 X, 1 Y,
+    2 B), each at its own size."""
     ox, oy, w, h = rect
     sec = BitList()
     if lf_coefficients:
@@ -579,6 +619,8 @@ def _lf_group_section(rng, leaves, rect, types, cfl_zero, hs=(0, 0, 0), vs=(0, 0
             _, _, base, mul = leaves[key]
             vals = base + mul * _residual(rng.integers(0, 4, (h >> vs[c], w >> hs[c])))
             _modular_bits(sec, leaves, key, vals)
+            if record is not None:
+                record[c] = vals
     count = len(types)
     sec.write(count - 1, _ceil_log2(w * h))
     sec.write(1, 1)
@@ -615,11 +657,15 @@ def _lf_group_section(rng, leaves, rect, types, cfl_zero, hs=(0, 0, 0), vs=(0, 0
     return sec if bits else sec.finish(), quants + 1, epf
 
 
-def _ac_tokens(rng, tmap, g, gxn, density, max_run=12, hs=(0, 0, 0), vs=(0, 0, 0)):
+def _ac_tokens(rng, tmap, g, gxn, density, max_run=12, hs=(0, 0, 0), vs=(0, 0, 0),
+               orders=None, bctx=None):
     """One group's AC content: (item arrays, token values, contexts, and
     the (coefficient index, value) pairs it encodes). With chroma shifts
     hs/vs a channel has items only at the blocks aligned to its grid, and
-    its nonzeros are predicted on that grid."""
+    its nonzeros are predicted on that grid. orders: {(shape, channel):
+    coded order} of the pass (write_coeff_orders), natural elsewhere.
+    bctx: a custom block-context map (BlockContextSpec), else the
+    default."""
     from jxl_tpu_torch.vardct.block_context import BlockContextMap
     from jxl_tpu_torch.vardct.coeff_order import TRANSFORM_TYPE_LUT, natural_order_array
     from jxl_tpu_torch.vardct.transform_map import block_shape_id, covered_blocks_x, covered_blocks_y
@@ -636,6 +682,7 @@ def _ac_tokens(rng, tmap, g, gxn, density, max_run=12, hs=(0, 0, 0), vs=(0, 0, 0
     ncs = nbs * 64
     offs = np.concatenate([[0], np.cumsum(ncs)[:-1]])
     bmap = np.asarray(BlockContextMap.default().context_map)
+    num_bctx = NUM_BCTX if bctx is None else bctx.num_contexts
     # items: per block, channels 1, 0, 2
     chan = np.tile(np.array([1, 0, 2]), len(tids))
     rep = lambda a: np.repeat(a, 3)  # noqa: E731
@@ -647,7 +694,10 @@ def _ac_tokens(rng, tmap, g, gxn, density, max_run=12, hs=(0, 0, 0), vs=(0, 0, 0
     chan, bx, by, tid, cx, cy, nb, nc, off, shape, sbx, sby = (
         a[aligned] for a in (chan, bx, by, tid, cx, cy, nb, nc, off, shape, sbx, sby))
     cidx = np.where(chan < 2, chan ^ 1, 2)
-    bctx = bmap[cidx * 13 + shape]
+    if bctx is None:
+        bctx = bmap[cidx * 13 + shape]
+    else:
+        bctx = bctx.block_context(cidx, shape, gy0 + by, gx0 + bx)
     M = len(chan)
     L = np.where(rng.random(M) < density, rng.integers(1, max_run + 1, M), 0)
     L = np.minimum(L, nc - nb)
@@ -672,7 +722,7 @@ def _ac_tokens(rng, tmap, g, gxn, density, max_run=12, hs=(0, 0, 0), vs=(0, 0, 0
     pred = np.where(sbx == 0, np.where(sby == 0, 32, up),
                     np.where(sby == 0, left, (up + left + 1) // 2))
     nzctx = np.where(pred < 8, pred, np.where(pred < 64, 4 + pred // 2, 36))
-    ctx_nz = nzctx * NUM_BCTX + bctx
+    ctx_nz = nzctx * num_bctx + bctx
     # coefficient-token contexts
     lnb = np.log2(nb).astype(np.int64)[item_of_c]
     before = np.concatenate([[0], np.cumsum(isnz)])  # nonzeros before token t
@@ -683,7 +733,7 @@ def _ac_tokens(rng, tmap, g, gxn, density, max_run=12, hs=(0, 0, 0), vs=(0, 0, 0
     prev_init = np.where(nz > (nc >> 4), 0, 1)
     prev_tok = np.concatenate([[0], isnz[:-1]]) if len(j) else isnz
     prev = np.where(j == 0, prev_init[item_of_c], prev_tok)
-    ctx_c = NUM_BCTX * 37 + 458 * bctx[item_of_c] + (_NUM_NZ_CTX[nzl] + _FREQ_CTX[kn]) * 2 + prev
+    ctx_c = num_bctx * 37 + 458 * bctx[item_of_c] + (_NUM_NZ_CTX[nzl] + _FREQ_CTX[kn]) * 2 + prev
     # token stream: per item the nonzeros count, then its coefficients
     ntok = 1 + L
     tstart = np.cumsum(ntok) - ntok
@@ -695,34 +745,70 @@ def _ac_tokens(rng, tmap, g, gxn, density, max_run=12, hs=(0, 0, 0), vs=(0, 0, 0
     tok_val[cpos] = _signed_token(val)
     tok_ctx[cpos] = ctx_c
     # dense coefficients
-    orders = {}
-    for s in np.unique(shape).tolist():
-        orders[s] = natural_order_array(TRANSFORM_TYPE_LUT[s]).astype(np.int64)
     shape_c = shape[item_of_c]
+    chan_c = chan[item_of_c]
     slot = np.zeros(len(k), np.int64)
-    for s, order in orders.items():
+    for s in np.unique(shape).tolist():
+        natural = natural_order_array(TRANSFORM_TYPE_LUT[s]).astype(np.int64)
         m = shape_c == s
-        slot[m] = order[k[m]]
+        if orders is None:
+            slot[m] = natural[k[m]]
+            continue
+        for c in range(3):
+            mc = m & (chan_c == c)
+            slot[mc] = orders.get((s, c), natural)[k[mc]]
     dest = g * GROUP_STRIDE + chan[item_of_c] * GROUP_DIM * GROUP_DIM + off[item_of_c] + slot
     return tok_val, tok_ctx, dest, val
 
 
-def ac_context_map(pass_idx: int = 0):
+def ac_context_map(pass_idx: int = 0, num_contexts: int = NUM_AC_CONTEXTS, clusters: int = 3):
     """cluster of each AC context of pass `pass_idx` (the padded tail maps
-    to cluster 0): each pass has histograms of its own."""
-    ctx = np.arange(NUM_AC_CONTEXTS)
-    return np.concatenate([(ctx * 7 + ctx // 5 + pass_idx) % 3, np.zeros(CTX_PAD, np.int64)])
+    to cluster 0): each pass has histograms of its own. num_contexts: the
+    AC contexts of every histogram set together."""
+    ctx = np.arange(num_contexts)
+    return np.concatenate([(ctx * 7 + ctx // 5 + pass_idx) % clusters,
+                           np.zeros(CTX_PAD, np.int64)])
 
 
-def _ac_sections(tok_vals, tok_ctxs, tails=None, pass_idx=0, bits=False):
+class AcCoding:
+    """How the writer codes AC tokens: `sets` histogram sets (HF group g
+    takes set g % sets), each over num_bctx * 495 contexts, mapped onto
+    `clusters` flat rANS clusters at log alphabet size `log_alpha`,
+    cluster i with alphabet AC_ALPHABETS[i % 3] and HybridUint config
+    AC_UINT[i % 3]. The defaults are the frame's one set over the default
+    block-context map and three clusters at log_alpha 6."""
+
+    def __init__(self, num_bctx=NUM_BCTX, sets=1, clusters=3, log_alpha=LOG_ALPHA):
+        self.num_ac = num_bctx * (37 + 458)
+        self.sets, self.clusters, self.log_alpha = sets, clusters, log_alpha
+        self.alphabets = [AC_ALPHABETS[i % 3] for i in range(clusters)]
+        self.uint_cfgs = [AC_UINT[i % 3] for i in range(clusters)]
+
+    def context_map(self, pass_idx: int):
+        """The padded cluster map of pass `pass_idx` over every set."""
+        cmap = ac_context_map(pass_idx, self.sets * self.num_ac, self.clusters)
+        if len(np.unique(cmap)) != self.clusters:
+            raise ValueError(f"{self.clusters} clusters leave holes in the context map")
+        return cmap
+
+    def write_histograms(self, w, pass_idx: int, lz77=False) -> None:
+        write_ans_flat_histograms(w, self.context_map(pass_idx)[: self.sets * self.num_ac].tolist(),
+                                  self.alphabets, self.uint_cfgs, lz77=lz77,
+                                  log_alpha=self.log_alpha)
+
+
+def _ac_sections(tok_vals, tok_ctxs, tails=None, pass_idx=0, bits=False, coding=None):
     """rANS-encode every group's token list at once (one lane a group),
-    with the histograms of pass `pass_idx`. tails: None, or a BitList a
-    group whose bits follow its AC tokens (its modular HF stream).
+    with the histograms of pass `pass_idx` (AcCoding `coding`; group g
+    codes its histogram set, g % sets, first). tails: None, or a BitList
+    a group whose bits follow its AC tokens (its modular HF stream).
     bits=True returns each group's BitList, not its bytes."""
-    cmap = ac_context_map(pass_idx)
-    hists = [flat_histogram(a) for a in AC_ALPHABETS]
+    coding = AcCoding() if coding is None else coding
+    cmap = coding.context_map(pass_idx)
+    hists = [flat_histogram(a, coding.log_alpha) for a in coding.alphabets]
     freq, inv = inverse_tables(hists)
     G = len(tok_vals)
+    hist_bits = _ceil_log2(coding.sets)
     lengths = np.array([len(t) for t in tok_vals])
     T = max(int(lengths.max()), 1)
     tok = np.zeros((G, T), np.int64)
@@ -730,12 +816,12 @@ def _ac_sections(tok_vals, tok_ctxs, tails=None, pass_idx=0, bits=False):
     raw = np.zeros((G, T), np.int64)
     nraw = np.zeros((G, T), np.int64)
     for g, (v, c) in enumerate(zip(tok_vals, tok_ctxs)):
-        clus = cmap[c]
+        clus = cmap[c + (g % coding.sets) * coding.num_ac]
         cl[g, : len(v)] = clus
-        for ci, cfg in enumerate(AC_UINT):
+        for ci, cfg in enumerate(coding.uint_cfgs):
             m = clus == ci
             t, r, n = hybrid_encode(v[m], cfg)
-            assert (t < AC_ALPHABETS[ci]).all()
+            assert (t < coding.alphabets[ci]).all()
             idx = np.nonzero(m)[0]
             tok[g, idx], raw[g, idx], nraw[g, idx] = t, r, n
     state, words, has = rans_encode_lanes(tok, cl, lengths, freq, inv)
@@ -743,6 +829,8 @@ def _ac_sections(tok_vals, tok_ctxs, tails=None, pass_idx=0, bits=False):
     for g in range(G):
         n = lengths[g]
         w = BitList()
+        if hist_bits:
+            w.write(g % coding.sets, hist_bits)
         w.write(int(state[g]), 32)
         w.extend(np.stack([words[g, :n], raw[g, :n]], 1),
                  np.stack([np.where(has[g, :n], 16, 0), nraw[g, :n]], 1))
@@ -812,6 +900,281 @@ def write_bits(w, bits) -> None:
     for i in range(0, len(bits), 24):
         chunk = bits[i : i + 24]
         w.write(int((chunk << np.arange(len(chunk))).sum()), len(chunk))
+
+
+# -- a real encoder's coding tables (dequant matrices, coefficient orders,
+# block-context map, LF quantization) -----------------------------------------
+
+
+def write_f16(w, v: float) -> None:
+    """An F16 header field: `v` as an IEEE half, which must hold it
+    finite and, unless v is 0, nonzero."""
+    h = np.float16(v)
+    if not np.isfinite(h) or (h == 0) != (v == 0):
+        raise ValueError(f"{v} is no finite nonzero half")
+    w.write(int(h.view(np.uint16)), 16)
+
+
+class BlockContextSpec:
+    """A custom block-context map as an encoder writes one: LF thresholds
+    on each channel (X, Y, B: 2, 2 and 3 LF buckets of the quantized LF
+    values, num_lf_contexts 12), QF thresholds 6 and 9 on the raw quant
+    field (3 buckets) and a seeded context map over 16 block contexts,
+    every one of them used. qf_idx and lf_idx are the frame's (bh, bw)
+    bucket maps, filled by encode_xyb_vardct from the LF groups as the
+    decoder computes them (vardct/lf.py)."""
+
+    num_contexts = 16
+
+    def __init__(self, rng, lf_y_offset: int):
+        self.lf_thresholds = ([-1], [lf_y_offset - 1], [-5, 1])
+        self.qf_thresholds = [6, 9]
+        self.nq1 = len(self.qf_thresholds) + 1
+        self.nlf = int(np.prod([len(t) + 1 for t in self.lf_thresholds]))
+        size = 3 * 13 * self.nlf * self.nq1
+        cmap = rng.integers(0, self.num_contexts, size)
+        cmap[rng.permutation(size)[: self.num_contexts]] = np.arange(self.num_contexts)
+        self.context_map = cmap
+        self.qf_idx = self.lf_idx = None
+
+    def write(self, w) -> None:
+        w.write(0, 1)  # not the default map
+        for thr in self.lf_thresholds:
+            w.write(len(thr), 4)
+            for t in thr:
+                u = int(_signed_token(t))
+                for sel, (nbits, off) in enumerate(((4, 0), (8, 16), (16, 272), (32, 65808))):
+                    if u - off < (1 << nbits):
+                        w.write(sel, 2)
+                        w.write(u - off, nbits)
+                        break
+        w.write(len(self.qf_thresholds), 4)
+        for t in self.qf_thresholds:
+            v = t - 1
+            for sel, (nbits, off) in enumerate(((2, 0), (3, 4), (5, 12), (8, 44))):
+                if v - off < (1 << nbits):
+                    w.write(sel, 2)
+                    w.write(v - off, nbits)
+                    break
+        write_context_map(w, self.context_map.tolist())
+
+    def fill_maps(self, bw, bh, rects, lf_planes, raw_quants, tmap, hs, vs):
+        """qf_idx and lf_idx from each LF group's quantized LF planes
+        (lf_planes[i][c]) and raw quant values in list order."""
+        self.qf_idx = np.zeros((bh, bw), np.int64)
+        self.lf_idx = np.zeros((bh, bw), np.int64)
+        for (ox, oy, w, h), planes, rq in zip(rects, lf_planes, raw_quants):
+            sub = tmap[oy : oy + h, ox : ox + w]
+            oys, oxs = np.nonzero(sub >= 128)
+            self.qf_idx[oy + oys, ox + oxs] = (
+                np.asarray(rq)[:, None] > np.array(self.qf_thresholds)[None, :]).sum(1)
+            ys, xs = np.arange(h), np.arange(w)
+
+            def bucket(c):
+                up = planes[c][np.ix_(ys >> vs[c], xs >> hs[c])]
+                return sum((up > t).astype(np.int64) for t in self.lf_thresholds[c])
+
+            idx = bucket(0) * (len(self.lf_thresholds[2]) + 1) + bucket(2)
+            idx = idx * (len(self.lf_thresholds[1]) + 1) + bucket(1)
+            self.lf_idx[oy : oy + h, ox : ox + w] = idx
+
+    def block_context(self, cidx, shape, by, bx):
+        """The block context of items (channel index, shape, block)."""
+        midx = ((cidx * 13 + shape) * self.nq1 + self.qf_idx[by, bx]) * self.nlf
+        return self.context_map[midx + self.lf_idx[by, bx]]
+
+
+# the dequant encodings each option writes: {table kind: mode}; kinds
+# absent keep the library table (mode 0). Modes 1-5 are parametric forms
+# of one kind each (identity, DCT2, DCT4, DCT4x8, AFV), 6 the distance
+# bands of any DCT kind, 7 a RAW table (as a recompressed JPEG codes its
+# quant tables) coded in a Modular stream of the global tree
+DEQUANT_MODES = {
+    "raw": {0: 7},
+    "params": {0: 6, 1: 1, 2: 2, 3: 3, 4: 6, 9: 4, 10: 5},
+    "mixed": {0: 7, 1: 1, 2: 2, 3: 3, 4: 6, 5: 7, 6: 6, 9: 4, 10: 5, 11: 6},
+}
+RAW_DENOMINATOR = 2.0 ** -12
+# the quantizer's global scale beside custom LfQuantFactors
+TABLES_GLOBAL_SCALE = 3072
+
+
+def _dct_params_for(kind: int):
+    """The library's distance bands of DCT table kind `kind`."""
+    from jxl_tpu_torch.vardct import quant_weights as qw
+
+    return {0: qw._D["dct"], 4: qw._D["dct16x16"], 5: qw._D["dct32x32"],
+            6: qw._D["dct8x16"], 7: qw._D["dct8x32"], 8: qw._D["dct16x32"],
+            11: qw._scaled(qw._BIG, 0.9), 12: qw._scaled(qw._BIG_RECT, 0.65),
+            13: qw._scaled(qw._BIG, 1.8), 14: qw._scaled(qw._BIG_RECT, 1.3),
+            15: qw._scaled(qw._BIG, 3.6), 16: qw._scaled(qw._BIG_RECT, 2.6)}[kind]
+
+
+def _write_dct_params(w, rng, rows) -> None:
+    """DctParams: the band count, then each channel's bands, the first
+    scaled by 1/64; the library's bands, each channel's first times a
+    seeded 0.8-1.25 and the others moved by up to 0.1."""
+    w.write(len(rows[0]) - 1, 4)
+    for row in rows:
+        write_f16(w, row[0] * rng.uniform(0.8, 1.25) / 64.0)
+        for v in row[1:]:
+            write_f16(w, v + rng.uniform(-0.1, 0.1) if v else 0.0)
+
+
+def write_dequant_matrices(w, option: str, rng, leaves) -> None:
+    """HfGlobal's DequantMatrices, not all default: each table kind's mode
+    (DEQUANT_MODES[option]) and its seeded parameters, the library's
+    scaled by 0.8-1.25; a RAW table's entries from the tree's qt leaves
+    (`leaves`, write_tree's) over a denominator of 2^-12."""
+    from jxl_tpu_torch.vardct import quant_weights as qw
+
+    w.write(0, 1)  # not all default
+    modes = DEQUANT_MODES[option]
+    for kind in range(qw.NUM_QUANT_TABLES):
+        mode = modes.get(kind, 0)
+        w.write(mode, 3)
+
+        def scaled(rows, by=64.0):
+            for row in rows:
+                f = rng.uniform(0.8, 1.25)
+                for v in row:
+                    write_f16(w, v * f / by)
+
+        if mode == 1:
+            scaled(qw._IDENTITY_W)
+        elif mode == 2:
+            scaled(qw._DCT2_W)
+        elif mode == 3:
+            scaled([[1.0, 1.0]] * 3, 1.0)
+            _write_dct_params(w, rng, qw._D["dct4x4"])
+        elif mode == 4:
+            scaled([[1.0]] * 3, 1.0)
+            _write_dct_params(w, rng, qw._D["dct4x8"])
+        elif mode == 5:
+            for row in qw._AFV_W:
+                f = rng.uniform(0.8, 1.25)
+                for v in row[:6]:
+                    write_f16(w, v * f / 64.0)
+                for v in row[6:]:
+                    write_f16(w, v)
+            _write_dct_params(w, rng, qw._D["dct4x8"])
+            _write_dct_params(w, rng, qw._D["dct4x4"])
+        elif mode == 6:
+            _write_dct_params(w, rng, _dct_params_for(kind))
+        elif mode == 7:
+            write_f16(w, RAW_DENOMINATOR)
+            w.write(1, 1)  # GroupHeader: use_global_tree
+            w.write(1, 1)  # default weighted-predictor header
+            w.write(0, 2)  # no transforms
+            width, height = 8 * qw.REQUIRED_SIZE_X[kind], 8 * qw.REQUIRED_SIZE_Y[kind]
+            for _ in range(3):
+                for y in range(height):
+                    key = "qt_hi" if y > QT_SPLIT_ROW else "qt_lo"
+                    _, _, off, mul = leaves[key]
+                    _modular_bits(w, leaves, key,
+                                  off + mul * _residual(rng.integers(0, 4, width)))
+
+
+def _ctx_of(x: int) -> int:
+    """A permutation token's context: ceil(log2(x + 1)), at most 7."""
+    return min(_ceil_log2(x + 1), 7)
+
+
+def apply_lehmer_tail(code, n: int) -> np.ndarray:
+    """The permutation of range(n) a Lehmer code gives (the decoder's
+    i-th smallest unused index; 0 past the code's end)."""
+    rest = list(range(n))
+    head = [rest.pop(int(v)) for v in code]
+    return np.asarray(head + rest, np.int64)
+
+
+# prefix-coded permutations: the Lehmer values' and the ends' tokens
+# (== values, Brotli-simple codes of four symbols)
+PREFIX_LEHMER = (0, 1, 2, 3)
+PREFIX_ENDS = (0, 3, 5, 12)
+
+
+def write_coeff_orders(w, rng, shapes, prefix: bool = False) -> dict:
+    """One pass's coded coefficient orders: selector 3 and the used-orders
+    mask (the frame's shapes `shapes` and one larger order no block uses),
+    the permutation histograms over 8 contexts (two flat rANS clusters,
+    HybridUint (4, 1, 0); with prefix=True two Brotli-simple prefix codes
+    over PREFIX_ENDS and PREFIX_LEHMER, which the native HfGlobal read
+    leaves to the Python path), then each used order's three seeded
+    Lehmer-coded permutations: an end (0 keeps the natural order) and up
+    to 40 values, each at most 20. Returns {(shape, channel): the dense
+    order the decoder builds}."""
+    from jxl_tpu_torch.vardct.coeff_order import TRANSFORM_TYPE_LUT, natural_order_array
+    from jxl_tpu_torch.vardct.transform_map import covered_blocks_x, covered_blocks_y
+
+    shapes = sorted(set(int(x) for x in shapes))
+    extra = [o for o in range(3, 13) if o not in shapes]
+    mask = sum(1 << o for o in shapes) | (1 << int(rng.choice(extra)) if extra else 0)
+    w.write(3, 2)
+    w.write(mask, 13)
+    toks, orders = [], {}  # toks: (context, value)
+    for o in range(13):
+        if not (mask >> o) & 1:
+            continue
+        t = TRANSFORM_TYPE_LUT[o]
+        nb = covered_blocks_x(t) * covered_blocks_y(t)
+        size = nb * 64
+        n = size - nb
+        for c in range(3):
+            if prefix:
+                end = int(rng.choice(PREFIX_ENDS))
+                code = rng.choice(PREFIX_LEHMER, end)
+            else:
+                end = 0 if rng.random() < 0.15 else int(rng.integers(1, 41))
+                code = rng.integers(0, 21, end)
+            code = np.minimum(code, n - 1 - np.arange(end))
+            toks.append((_ctx_of(size), end))
+            prev = 0
+            for v in code.tolist():
+                toks.append((_ctx_of(prev), v))
+                prev = v
+            tail = apply_lehmer_tail(code, n)
+            orders[o, c] = natural_order_array(t).astype(np.int64)[
+                np.concatenate([np.arange(nb), tail + nb])]
+    cmap = [0] * 7 + [1]  # the ends' context, 7, apart
+    ctx = np.array([c for c, _ in toks], np.int64)
+    vals = np.array([v for _, v in toks], np.int64)
+    cl = np.asarray(cmap)[ctx]
+    if prefix:
+        sets = [PREFIX_LEHMER, PREFIX_ENDS]
+        write_prefix_clusters(w, cmap, sets)
+        luts = [_code_lut(st) for st in sets]
+        for v, k in zip(vals.tolist(), cl.tolist()):
+            code, nbits = luts[k]
+            assert nbits[v] > 0 or len(sets[k]) == 1, (v, k)
+            w.write(int(code[v]), int(nbits[v]))
+    else:
+        cfgs = [(4, 1, 0), (4, 1, 0)]
+        write_ans_flat_histograms(w, cmap, [64, 64], cfgs)
+        tk, raw, nraw = hybrid_tokens(vals, cl, cfgs, [64, 64])
+        write_rans_stream(w, tk, cl, raw, nraw, [64, 64])
+    return orders
+
+
+def write_squeezed_alpha(w, leaves, rng, width: int, height: int) -> None:
+    """A single-group frame's alpha coded after two in-place squeezes,
+    horizontal then vertical (the global stream's GroupHeader, then the
+    channels the squeezes leave: the average, the vertical residual and
+    the horizontal residual, each from the alpha leaf)."""
+    w.write(1, 1)  # use_global_tree
+    w.write(1, 1)  # default weighted-predictor header
+    u32(w, (("val", 0), ("val", 1), ("bitsoff", 4, 2), ("bitsoff", 8, 18)), 1)
+    w.write(2, 2)  # SQUEEZE
+    u32(w, (("val", 0), ("bitsoff", 4, 1), ("bitsoff", 6, 9), ("bitsoff", 8, 41)), 2)
+    for horizontal in (1, 0):
+        w.write(horizontal, 1)
+        w.write(1, 1)  # in place
+        u32(w, (("bits", 3), ("bitsoff", 6, 8), ("bitsoff", 10, 72), ("bitsoff", 13, 1096)), 0)
+        u32(w, (("val", 1), ("val", 2), ("val", 3), ("bitsoff", 4, 4)), 1)
+    hw = -(-width // 2)
+    for ch, cw in ((-(-height // 2), hw), (height // 2, hw), (height, width // 2)):
+        _, _, off, mul = leaves["alpha"]
+        _modular_bits(w, leaves, "alpha", off + mul * _residual(rng.integers(0, 4, (ch, cw))))
 
 
 def _headers(width, height, sections, upsampling=1, noise=False, subsampling=None, num_ec=0,
@@ -886,7 +1249,11 @@ def encode_xyb_vardct(width: int, height: int, seed: int = 0, transforms: str = 
                       density: float = 0.35, cfl_zero: bool = False, lz77: bool = False,
                       max_run: int = 12, upsampling: int = 1, noise=None, subsampling=None,
                       filters: bool = True, num_ec: int = 0, passes: int = 1,
-                      lf_frame: bool = False, splines=None, icc=None, lone=None):
+                      lf_frame: bool = False, splines=None, icc=None, lone=None,
+                      dequant=None, orders: bool = False, order_codes: str = "ans",
+                      bctx=None, histograms: int = 1, clusters: int = 3,
+                      log_alpha: int = LOG_ALPHA, lf_quant=None, squeeze: bool = False,
+                      tables_seed=None):
     """(codestream, coeffs): an XYB VarDCT frame coded at width x height,
     and the dense (G * 3 * 256 * 256,) int32
     quantized AC coefficients it encodes. transforms: "mixed" (DCT16x16 on
@@ -928,7 +1295,23 @@ def encode_xyb_vardct(width: int, height: int, seed: int = 0, transforms: str = 
     A frame of one group (at most 256x256) is written in one section, as
     its TOC of one entry says (one pass, its own LF): LfGlobal, the LF
     group, HfGlobal and the HF group back to back, with an alpha channel
-    coded in LfGlobal's global Modular stream."""
+    coded in LfGlobal's global Modular stream; squeeze=True codes that
+    alpha after two squeezes (write_squeezed_alpha), and the third value
+    returned is then None.
+
+    A real encoder's coding tables, each seeded by `tables_seed` (the
+    frame's seed by default); with every default the writer writes the
+    bytes it wrote before them. dequant: None (the library's matrices), or
+    "raw", "params" or "mixed" (DEQUANT_MODES, write_dequant_matrices).
+    orders: code each pass's coefficient orders (write_coeff_orders), the
+    permutation histograms rANS-coded, or prefix-coded with
+    order_codes="prefix". bctx="custom": a BlockContextSpec over 16 block
+    contexts, every token's context computed from it as the decoder does.
+    histograms: the AC histogram sets, HF group g coding set g % histograms;
+    clusters: the AC clusters (AcCoding); log_alpha: their log alphabet
+    size, 5 to 8. lf_quant: None, or the three LfQuantFactors (each a
+    multiple of 2^-7 that a half holds after the factor 128), with a
+    global scale of TABLES_GLOBAL_SCALE in place of 4096."""
     single = width <= GROUP_DIM and height <= GROUP_DIM
     if single and (passes != 1 or lf_frame):
         raise ValueError("the writer lays out a single-group frame in one section: one pass, "
@@ -947,9 +1330,20 @@ def encode_xyb_vardct(width: int, height: int, seed: int = 0, transforms: str = 
         raise ValueError("the writer writes 1, 2 or 3 passes")
     if lf_frame and (upsampling != 1 or subsampling not in (None, "444")):
         raise ValueError("a frame that reads an LF frame codes no upsampling or subsampling")
+    if dequant not in (None, *DEQUANT_MODES) or bctx not in (None, "custom"):
+        raise ValueError(f"unknown dequant {dequant!r} or bctx {bctx!r}")
+    if order_codes not in ("ans", "prefix") or not 5 <= log_alpha <= 8:
+        raise ValueError(f"order_codes {order_codes!r}, log_alpha {log_alpha}")
+    if squeeze and not (num_ec and single):
+        raise ValueError("squeeze codes a single-group frame's alpha")
     ycbcr = subsampling is not None
     hs, vs = chroma_shifts(subsampling)
     rng = np.random.default_rng(seed)
+    ts = seed if tables_seed is None else tables_seed
+    bspec = (BlockContextSpec(np.random.default_rng([ts, 3]), 0 if ycbcr else 256)
+             if bctx else None)
+    coding = AcCoding(NUM_BCTX if bspec is None else bspec.num_contexts, histograms, clusters,
+                      log_alpha)
     bw, bh, gxn, gyn, lgx, lgy = _frame_layout(width, height, max(hs), max(vs))
     rects = _lf_rects(bw, bh, lgx, lgy)
     if transforms == "large":
@@ -968,11 +1362,19 @@ def encode_xyb_vardct(width: int, height: int, seed: int = 0, transforms: str = 
         lg.extend(bits, np.ones(len(bits), np.int64))
     for v in noise or ():
         lg.write(int(v), 10)  # the noise LUT comes first in LfGlobal
-    lg.write(1, 1)  # LfQuantFactors all_default
+    if lf_quant is None:
+        lg.write(1, 1)  # LfQuantFactors all_default
+    else:
+        lg.write(0, 1)
+        for v in lf_quant:
+            write_f16(lg, v * 128.0)
     lg.write(1, 2)  # global_scale: 2049 + 11 bits
-    lg.write(4096 - 2049, 11)
+    lg.write((4096 if lf_quant is None else TABLES_GLOBAL_SCALE) - 2049, 11)
     lg.write(0, 2)  # quant_lf = 16
-    lg.write(1, 1)  # default block context map
+    if bspec is None:
+        lg.write(1, 1)  # default block context map
+    else:
+        bspec.write(lg)
     if ycbcr:
         lg.write(0, 1)  # CfL: not default
         lg.write(0, 2)  # colour factor 84
@@ -988,9 +1390,10 @@ def encode_xyb_vardct(width: int, height: int, seed: int = 0, transforms: str = 
     first_hf = 1 + 3 * len(rects) + 17 if num_ec and not single else None
     # YCbCr: Y's LF about 0, as the zero-centred Y of a JPEG
     leaves = write_tree(lg, build_tree(len(rects), band_step, 0 if ycbcr else 256, first_hf,
-                                       strips, global_alpha=bool(num_ec) and single))
+                                       strips, global_alpha=bool(num_ec) and single,
+                                       qtables=dequant in ("raw", "mixed")))
     leaves["_band_step"] = band_step
-    if num_ec:
+    if num_ec and not squeeze:
         # the global modular image (the alpha channel alone): its
         # GroupHeader; a channel larger than a group leaves section 0
         # empty and each group codes its part, a single group's alpha is
@@ -998,31 +1401,57 @@ def encode_xyb_vardct(width: int, height: int, seed: int = 0, transforms: str = 
         lg.write(1, 1)  # use_global_tree
         lg.write(1, 1)  # default weighted-predictor header
         lg.write(0, 2)  # no transforms
-    lf_sections = [
+    elif squeeze:
+        write_squeezed_alpha(lg, leaves, np.random.default_rng([seed, 4]), width, height)
+    records = [{} for _ in rects]
+    lf_parts = [
         _lf_group_section(rng, leaves, rect, types, cfl_zero or ycbcr, hs, vs, not lf_frame,
-                          None if strips is None else strips[i], bits=single)[0]
+                          None if strips is None else strips[i], bits=single,
+                          record=records[i])
         for i, (rect, types) in enumerate(zip(rects, type_lists))
     ]
+    lf_sections = [part[0] for part in lf_parts]
+    if bspec is not None:
+        if lf_frame:
+            raise ValueError("a custom block-context map needs the frame's own LF")
+        bspec.fill_maps(bw, bh, rects, records, [part[1] for part in lf_parts], tmap, hs, vs)
     hg = BitList()
-    hg.write(1, 1)  # default dequant matrices
-    hg.write(0, _ceil_log2(gxn * gyn))  # one histogram
+    if dequant is None:
+        hg.write(1, 1)  # default dequant matrices
+    else:
+        write_dequant_matrices(hg, dequant, np.random.default_rng([ts, 1]), leaves)
+    hg.write(histograms - 1, _ceil_log2(gxn * gyn))
+    if histograms > gxn * gyn:
+        raise ValueError(f"{histograms} histogram sets in {gxn * gyn} groups")
+    from jxl_tpu_torch.vardct.transform_map import block_shape_id
+
+    shapes = np.unique([block_shape_id(int(t)) for t in np.unique(tmap[tmap >= 128] & 127)])
+    order_rng = np.random.default_rng([ts, 2])
+    pass_orders = []
     for p in range(passes):
-        hg.write(2, 2)  # natural coefficient orders
-        write_ans_flat_histograms(hg, ac_context_map(p)[:NUM_AC_CONTEXTS].tolist(),
-                                  AC_ALPHABETS, AC_UINT, lz77=lz77)
+        if orders:
+            pass_orders.append(write_coeff_orders(hg, order_rng, shapes,
+                                                  prefix=order_codes == "prefix"))
+        else:
+            hg.write(2, 2)  # natural coefficient orders
+            pass_orders.append(None)
+        coding.write_histograms(hg, p, lz77=lz77)
     coeffs = np.zeros(gxn * gyn * GROUP_STRIDE, np.int32)
     tok_vals = [[] for _ in range(passes)]
     tok_ctxs = [[] for _ in range(passes)]
     for p in range(passes):
         for g in range(gxn * gyn):
-            v, c, dest, val = _ac_tokens(rng, tmap, g, gxn, density, max_run, hs, vs)
+            v, c, dest, val = _ac_tokens(rng, tmap, g, gxn, density, max_run, hs, vs,
+                                         pass_orders[p], bspec)
             tok_vals[p].append(v)
             tok_ctxs[p].append(c)
             coeffs[dest] += (val << pass_shift(passes, p)).astype(np.int32)
     tails = alpha = None
     if num_ec:
         alpha = (128 + 64 * _residual(rng.integers(0, 4, (height, width)))).astype(np.int32)
-    if num_ec and single:
+    if squeeze:
+        alpha = None
+    elif num_ec and single:
         _modular_bits(lg, leaves, "alpha", alpha)
     elif num_ec:
         tails = []
@@ -1037,7 +1466,8 @@ def encode_xyb_vardct(width: int, height: int, seed: int = 0, transforms: str = 
     hf_sections = []
     for p in range(passes):
         hf_sections += _ac_sections(tok_vals[p], tok_ctxs[p],
-                                    tails if p == passes - 1 else None, p, bits=single)
+                                    tails if p == passes - 1 else None, p, bits=single,
+                                    coding=coding)
     if single:
         # one TOC entry: LfGlobal, the LF group, HfGlobal and the HF group
         # read in turn from one bit reader, with no padding between them
