@@ -34,6 +34,7 @@ from ..io.headers import ColorSpace, FileHeader
 from ..io.headers.frame import Encoding, FrameHeader, Toc
 from ..modular.image import FullModularImage
 from ..modular.tree import Tree
+from ..utils import trace
 
 # LF quantization defaults (ref quant_weights.rs LF_QUANT)
 LF_QUANT = (1.0 / 4096.0, 1.0 / 512.0, 1.0 / 256.0)
@@ -344,18 +345,22 @@ class Frame:
         header = self.header
         if header.num_toc_entries == 1:
             sec = self.split_sections(br)[0]
-            self.decode_lf_global(sec)
-            for g in range(header.num_lf_groups):
-                self.decode_lf_group(g, sec)
+            with trace.span("frame.lf_global"):
+                self.decode_lf_global(sec)
+            with trace.span("frame.lf_groups"):
+                for g in range(header.num_lf_groups):
+                    self.decode_lf_group(g, sec)
             for g in range(header.num_groups):
                 self.decode_hf_group(
                     g, [(p, sec) for p in range(header.passes.num_passes)]
                 )
         else:
             sections = self.split_sections(br)
-            self.decode_lf_global(sections[self.section_index("lf_global")])
-            for g in range(header.num_lf_groups):
-                self.decode_lf_group(g, sections[self.section_index("lf", group=g)])
+            with trace.span("frame.lf_global"):
+                self.decode_lf_global(sections[self.section_index("lf_global")])
+            with trace.span("frame.lf_groups"):
+                for g in range(header.num_lf_groups):
+                    self.decode_lf_group(g, sections[self.section_index("lf", group=g)])
             jobs = [
                 (
                     g,
@@ -392,11 +397,15 @@ class Frame:
         single = header.num_toc_entries == 1
         sections = self.split_sections(br)
         sec = sections[0]
-        self.decode_lf_global(sec if single else sections[self.section_index("lf_global")])
-        for g in range(header.num_lf_groups):
-            self.decode_lf_group(g, sec if single else sections[self.section_index("lf", group=g)])
-        self.decode_hf_global(sec if single else sections[self.section_index("hf_global")])
-        self.finalize_lf()
+        with trace.span("frame.lf_global"):
+            self.decode_lf_global(sec if single else sections[self.section_index("lf_global")])
+        with trace.span("frame.lf_groups"):
+            for g in range(header.num_lf_groups):
+                self.decode_lf_group(g, sec if single
+                                     else sections[self.section_index("lf", group=g)])
+        with trace.span("frame.hf_global"):
+            self.decode_hf_global(sec if single else sections[self.section_index("hf_global")])
+            self.finalize_lf()
         return {(g, p): sec if single else sections[self.section_index("hf", group=g, pass_idx=p)]
                 for g in range(header.num_groups) for p in range(header.passes.num_passes)}
 
@@ -508,13 +517,10 @@ class Frame:
         the number of lanes launched (0 launches nothing)."""
         if not self.pending_lanes:
             return 0
-        from ..utils import trace
         from ..vardct.device_group import decode_ac_sections_device
 
         lanes, self.pending_lanes = self.pending_lanes, {}
-        with trace.span("frame.k3_launch"):
-            decode_ac_sections_device(self, lanes, self.device)
-        trace.metrics.add("k3_lanes", len(lanes))
+        decode_ac_sections_device(self, lanes, self.device)
         return len(lanes)
 
     def process_sections_incremental(self, codestream, toc_end: int, avail: int) -> int | None:

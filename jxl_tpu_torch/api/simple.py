@@ -355,24 +355,42 @@ def decode_image(
             "decode_image: no CUDA device is available; pass device='cpu' "
             "to render on the host"
         )
-    t0 = t_start = time.perf_counter()
-    codestream, ooo_ranges = extract_codestream_ex(data)
-    br = BitReader(codestream)
-    fh = FileHeader.read(br)
-    meta = fh.image_metadata
-    icc_profile = None
-    if meta.color_encoding.want_icc:
-        # right after the file header, before the preview (ref
-        # jxl_tpu/api/simple.py:106-110)
-        from ..icc.decode import read_icc
+    t_start = time.perf_counter()
+    with trace.span("decode_image"):
+        out = _decode_frames(data, keep_all_frames, pixel_format, device)
+    if trace.enabled():
+        # the traced rate is the card's: wait for the queued render first
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        trace.metrics.add("megapixels_decoded",
+                          sum(f.shape[0] * f.shape[1] for f in out.frames) / 1e6)
+        trace.metrics.add("decode_seconds", time.perf_counter() - t_start)
+    return out
 
-        icc_profile = read_icc(br)
+
+def _decode_frames(data: bytes, keep_all_frames: bool, pixel_format: str,
+                   device: torch.device) -> DecodedImage:
+    """decode_image's body: the headers, then the batched animation route
+    or every frame in order."""
+    t0 = time.perf_counter()
+    with trace.span("decode_image.headers"):
+        codestream, ooo_ranges = extract_codestream_ex(data)
+        br = BitReader(codestream)
+        fh = FileHeader.read(br)
+        meta = fh.image_metadata
+        icc_profile = None
+        if meta.color_encoding.want_icc:
+            # right after the file header, before the preview (ref
+            # jxl_tpu/api/simple.py:106-110)
+            from ..icc.decode import read_icc
+
+            icc_profile = read_icc(br)
+        if meta.preview is not None:
+            # skip the preview frame by its TOC size
+            pframe = parse_frame(br, fh, None, preview=True)
+            br.jump_to_byte_boundary()
+            br.skip_bits(pframe.toc.total_size * 8)
     state = DecoderState(fh)
-    if meta.preview is not None:
-        # skip the preview frame by its TOC size
-        pframe = parse_frame(br, fh, None, preview=True)
-        br.jump_to_byte_boundary()
-        br.skip_bits(pframe.toc.total_size * 8)
     out = DecodedImage(fh, [], icc_profile, [], {})
     host_s = time.perf_counter() - t0
     batched = _try_batched_animation(fh, codestream, br.pos, ooo_ranges, icc_profile,
@@ -380,21 +398,19 @@ def decode_image(
     if batched is not None:
         out.frames, out.durations = batched
         out.timings["host_s"] += host_s
-        trace.metrics.add("megapixels_decoded",
-                          sum(f.shape[0] * f.shape[1] for f in out.frames) / 1e6)
-        trace.metrics.add("decode_seconds", time.perf_counter() - t_start)
         return out
     frames_seen = 0
     while True:
         t0 = time.perf_counter()
-        br.jump_to_byte_boundary()
-        start_byte = br.pos // 8
-        for lo, hi in ooo_ranges:
-            if lo <= start_byte < hi:
-                # ref tests/api.rs:36-44: a frame must start in a box that
-                # is a valid checkpoint (physically in logical order)
-                raise InvalidBox("frame starts in out-of-order jxlp box")
-        frame = parse_frame(br, fh, state)
+        with trace.span("decode_image.headers"):
+            br.jump_to_byte_boundary()
+            start_byte = br.pos // 8
+            for lo, hi in ooo_ranges:
+                if lo <= start_byte < hi:
+                    # ref tests/api.rs:36-44: a frame must start in a box
+                    # that is a valid checkpoint (physically in logical order)
+                    raise InvalidBox("frame starts in out-of-order jxlp box")
+            frame = parse_frame(br, fh, state)
         header = frame.header
         if overlap.eligible(frame) and overlap.enabled():
             # the band route (api/overlap.py): the host parses band k+1
@@ -422,9 +438,6 @@ def decode_image(
         if header.is_last:
             break
     out.timings["host_s"] = host_s
-    trace.metrics.add("megapixels_decoded",
-                      sum(f.shape[0] * f.shape[1] for f in out.frames) / 1e6)
-    trace.metrics.add("decode_seconds", time.perf_counter() - t_start)
     return out
 
 

@@ -222,9 +222,8 @@ def _decode_one_frame_deferred(fh, codestream, rec, icc_profile, device):
     return frame
 
 
-def _decline(reason: str):
+def _decline():
     trace.metrics.add("anim_fold_fallback", 1)
-    trace.metrics.add(f"anim_fold_fallback.{reason}", 1)
     return None
 
 
@@ -290,7 +289,7 @@ def try_anim_fold(fh, codestream, recs, icc_profile, device="cuda", span_cache: 
     if os.environ.get("JXL_TPU_ANIM_FOLD", "1") == "0":
         return None
     if not eligible(recs):
-        return _decline("shape")
+        return _decline()
     from .. import native
     from ..api.frame import QuantizerParams
     from ..modular.image import FullModularImage
@@ -302,16 +301,16 @@ def try_anim_fold(fh, codestream, recs, icc_profile, device="cuda", span_cache: 
     f0 = _decode_one_frame_deferred(fh, codestream, recs[0], icc_profile, device)
     lg0 = f0.lf_global
     if lg0.tree is None:
-        return _decline("no_global_tree")
+        return _decline()
     mg0 = lg0.modular_global
     gh0 = getattr(mg0, "global_header", None) if mg0.buffer_infos else None
     if gh0 is not None and not gh0.use_global_tree:
-        return _decline("local_tree")
+        return _decline()
     if any(s for s in mg0.section_buffer_indices[1:]):
-        return _decline("modular_lf_hf_streams")
+        return _decline()
     gh0_packed = _pack_group_header(gh0) if gh0 is not None else np.zeros(96, np.int32)
     if gh0_packed is None:
-        return _decline("long_group_header")
+        return _decline()
 
     # each frame's Modular plan (a squeeze plan depends on the frame's
     # size); frame 0's group header is assumed for all and checked after
@@ -325,7 +324,7 @@ def try_anim_fold(fh, codestream, recs, icc_profile, device="cuda", span_cache: 
     chan_frame_elems = n_rows = 0
     for f, mg in enumerate(plans):
         if any(s for s in mg.section_buffer_indices[1:]):
-            return _decline("modular_lf_hf_streams")
+            return _decline()
         offsets = np.zeros(max(len(mg.buffer_infos), 1), np.int64)
         off = 0
         for buf, info in enumerate(mg.buffer_infos):
@@ -382,7 +381,7 @@ def try_anim_fold(fh, codestream, recs, icc_profile, device="cuda", span_cache: 
     if not (out["gh"] == out["gh"][0]).all():
         # a later frame's group header is not frame 0's, whose plans the
         # fold decoded every frame's channels with
-        return _decline("group_header_changes")
+        return _decline()
     bad = _oracle_mismatches(f0, out, fdims, tdims)
     if bad:
         trace.metrics.add("anim_fold_oracle_mismatch", 1)

@@ -282,7 +282,6 @@ def render_frames_batched(frames, flat, slots, out_format: str, device) -> torch
             render_type(t, flat, lf_flat, planes, base, lf0, cbw, pix0, Wp,
                         block_factors(rq_b, yx_b, yb_b, k), b_c, mats)
         planes = planes.reshape(3, F, Hp, Wp)
-    trace.metrics.add("batch_anim_types", len(types))
 
     if rf.gab or int(rf.epf_iters) > 0:
         with trace.span("batch_anim.filters"):
@@ -355,9 +354,7 @@ def render_frames_batched_host(frames, flat, slots, out_format: str) -> torch.Te
 
     with trace.span("batch_anim.transforms"):
         stacked = np.zeros((3, F * Hs, Wp), np.float32)
-        types = render_blocks_host(frames, flat, slots, [stacked[0], stacked[1], stacked[2]],
-                                   Hs)
-    trace.metrics.add("batch_anim_types", types)
+        render_blocks_host(frames, flat, slots, [stacked[0], stacked[1], stacked[2]], Hs)
 
     if rf.gab or int(rf.epf_iters) > 0:
         with trace.span("batch_anim.filters"):

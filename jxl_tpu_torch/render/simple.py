@@ -33,6 +33,7 @@ from ..color import tf as tfmod
 from ..color.xyb import xyb_to_linear, ycbcr_to_rgb
 from ..errors import NotSupported
 from ..io.headers import TransferFunction
+from ..utils import trace
 from .stages import core as st
 
 
@@ -140,7 +141,8 @@ def vardct_planes(frame, device, no_ac_groups=()) -> list:
         planes = list(render_vardct_frame_device(frame, flat).unbind(0))
     else:
         planes = render_vardct_frame_device_subsampled(frame, flat)
-    check_device_ac_ok(frame)
+    with trace.span("render.ac_wait"):
+        check_device_ac_ok(frame)
     if no_ac_groups:
         from ..vardct.lf import upsample_lf_groups
 
@@ -289,9 +291,10 @@ def render_frame_channels(frame, device, out_format: str = "f32", timings=None,
     from .span_exec import run_span
 
     if frame.render_host:
-        planes, color_done, converted = render_frame_channels_host(
-            frame, out_format, timings, no_ac_groups)
-        return planes_to(planes, device), color_done, converted
+        with trace.span("render.host_route"):
+            planes, color_done, converted = render_frame_channels_host(
+                frame, out_format, timings, no_ac_groups)
+            return planes_to(planes, device), color_done, converted
     header = frame.header
     num_ec = len(frame.file_header.image_metadata.extra_channel_info)
     stages = build_render_pipeline(frame)
@@ -323,7 +326,8 @@ def render_frame_channels(frame, device, out_format: str = "f32", timings=None,
         tail.append(color_transform_stage(frame))
         if fmt != "f32":
             tail.append(convert_output_stage(fmt, (0, 1, 2)))
-    chans = run_span(stages + tail, chans, ctx)
+    with trace.span("render.stages"):
+        chans = run_span(stages + tail, chans, ctx)
     return chans, color_done, color_done and fmt != "f32"
 
 

@@ -3,18 +3,46 @@
 Counterpart of jxl_tpu/utils/trace.py (capability reference: the
 reference's optional `tracing` integration, util/tracing_wrappers.rs:8-26,
 whose spans are no-ops when it is off; the CLI enables a subscriber,
-jxl_cli/src/main.rs:99-106):
+jxl_cli/src/main.rs:99-106).
 
-- `span(name)` and `@instrument` add a stage's host seconds to a global
-  registry when tracing is on, and are no-ops otherwise. With
-  `enable(device_events=True)` (the CLI's --print_timings) a span also
-  records CUDA events on the current stream around its body, and
+`span(name)` and `@instrument` mark a phase of the decode. A span does
+one of three things:
+
+- off (neither `enable()` nor a collecting torch.profiler): nothing but
+  one flag read and one check of the profiler's state; it records no
+  event and never waits for the card;
+- a torch.profiler session is collecting (the CLI's --profile_dir, a
+  benchmark's traced run): a host range under the span's name on the
+  profiler's timeline, on the clock of the card's activity. The range is
+  recorded at function scope, not as a user annotation, so the profiler
+  derives no device event from it and the card's timeline holds only the
+  card's own work. Where the installed torch lacks the fast range class,
+  a span gives the profiler nothing;
+- tracing is on (`JXL_TPU_TRACE=1` in the environment, or `enable()`):
+  the span's host seconds and calls add to a registry that `report()`
+  prints; with `enable(device_events=True)` (the CLI's --print_timings)
+  it also records CUDA events on the current stream around its body, and
   report() adds each stage's card milliseconds from them.
-- tracing is on with `JXL_TPU_TRACE=1` in the environment, or `enable()`.
-- `metrics` counts what the decode did (megapixels, K3 lanes).
-- `device_trace(dir)` is a torch.profiler session around a block that
-  writes a Chrome trace into `dir` (it takes the JAX profiler's place).
-- `report()` renders the stage totals and the MP/s.
+
+The spans of a decode, by owner module (README's table names each one):
+
+- api/simple.py: `decode_image` (the whole call), `decode_image.headers`
+  (container, file header, ICC, preview skip; each frame's header and
+  TOC), `decode_image.sections`, `frame.render`;
+- api/frame.py: `frame.lf_global`, `frame.lf_groups` (all LF groups of a
+  frame), `frame.hf_global` (HfGlobal and the LF smoothing);
+- vardct/device_group.py: `frame.lane_plan` (the lanes' host tables),
+  `frame.k3_launch` (packing, upload and the K3 launch);
+- render/simple.py: `render.host_route` (a frame rendered on the host),
+  `render.ac_wait` (the host blocked on the lane flags, so on the card),
+  `render.stages` (K1, colour and output queued);
+- vardct/device_frame.py: `render.blocks` (the block tables on the host),
+  `render.transforms` (their upload and the transforms queued).
+
+`metrics` counts what the decode did (megapixels, K3 lanes), only while
+tracing is on. `device_trace(dir)` is a torch.profiler session around a
+block that writes a Chrome trace into `dir` (it takes the JAX profiler's
+place).
 """
 
 from __future__ import annotations
@@ -25,8 +53,16 @@ import os
 import time
 from collections import defaultdict
 
+from torch.autograd import _profiler_enabled
+
+try:
+    from torch._C._profiler import _RecordFunctionFast
+except ImportError:  # an older torch: spans give the profiler nothing
+    _RecordFunctionFast = None
+
 _enabled = os.environ.get("JXL_TPU_TRACE", "0") not in ("", "0")
 _device_events = False
+_OFF = contextlib.nullcontext()
 
 _times: dict[str, float] = defaultdict(float)
 _counts: dict[str, int] = defaultdict(int)
@@ -83,24 +119,36 @@ def _event_pair():
     return (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
 
 
-@contextlib.contextmanager
+def _profiler_range(name: str):
+    """The span's host range on a collecting profiler's timeline."""
+    if _RecordFunctionFast is None or not _profiler_enabled():
+        return _OFF
+    return _RecordFunctionFast(name)
+
+
 def span(name: str):
-    """Timed span; about free when tracing is off."""
-    if not _enabled:
-        yield
-        return
+    """A phase of the decode, as a context manager: about free when
+    tracing is off and no profiler is collecting (module docstring)."""
+    if _enabled:
+        return _timed(name)
+    return _profiler_range(name)
+
+
+@contextlib.contextmanager
+def _timed(name: str):
     ev = _event_pair()
-    if ev is not None:
-        ev[0].record()
-    t0 = time.perf_counter()
-    try:
-        yield
-    finally:
-        _times[name] += time.perf_counter() - t0
-        _counts[name] += 1
+    with _profiler_range(name):
         if ev is not None:
-            ev[1].record()
-            _events[name].append(ev)
+            ev[0].record()
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            _times[name] += time.perf_counter() - t0
+            _counts[name] += 1
+            if ev is not None:
+                ev[1].record()
+                _events[name].append(ev)
 
 
 def instrument(fn=None, *, name: str | None = None):
@@ -111,8 +159,6 @@ def instrument(fn=None, *, name: str | None = None):
 
         @functools.wraps(f)
         def wrapper(*a, **kw):
-            if not _enabled:
-                return f(*a, **kw)
             with span(label):
                 return f(*a, **kw)
 
@@ -124,7 +170,8 @@ def instrument(fn=None, *, name: str | None = None):
 @contextlib.contextmanager
 def device_trace(log_dir: str):
     """A torch.profiler session (host and, where there is a card, CUDA
-    activity) around a block; writes `log_dir`/trace.json, a Chrome trace."""
+    activity) around a block; writes `log_dir`/trace.json, a Chrome trace
+    in which the decode's spans mark its phases."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 

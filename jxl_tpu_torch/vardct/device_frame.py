@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ..render.stages.core import to_device_all
+from ..utils import trace
 from .group import BLOCK_SIZE, GROUP_DIM
 from .transform_map import covered_blocks_x, covered_blocks_y
 from .transforms_batch import transform_to_pixels_batch
@@ -238,23 +239,27 @@ def render_block_rows(frame, flat, group_ids: list, by0: int, by1: int,
     bx1 = bw if bx1 is None else bx1
     nbh = by1 - by0
     W = (bx1 - bx0) * BLOCK_DIM
-    blocks = _frame_blocks(frame, group_ids, by0)
-    types = sorted(blocks)
-    host = [frame_factors(frame)]
-    for t in types:
-        host += [a.astype(np.int64) for a in blocks[t]]
-        nc = covered_blocks_x(t) * covered_blocks_y(t) * BLOCK_SIZE
-        host.append(matrices[t] if matrices is not None else _matrices(frame, t, nc))
-    lf, rq, ytox, ytob, b_c, k, *per_type = _upload(frame, host, dev, by0, by1)
-    lf_flat = lf.reshape(3, -1)
-    planes = torch.zeros((3, nbh * BLOCK_DIM * W), dtype=torch.float32, device=dev)
-    for i, t in enumerate(types):
-        gbx, gby, gi, off, mats = per_type[5 * i : 5 * i + 5]
-        tx = gbx // COLOR_TILE_DIM_IN_BLOCKS
-        ty = gby // COLOR_TILE_DIM_IN_BLOCKS
-        factors = block_factors(rq[gby, gbx].to(torch.float32), ytox[ty, tx], ytob[ty, tx], k)
-        render_type(t, flat, lf_flat, planes, gi * _GROUP_STRIDE + off, gby * bw + gbx, bw,
-                    gby * (BLOCK_DIM * W) + (gbx - bx0) * BLOCK_DIM, W, factors, b_c, mats[None])
+    with trace.span("render.blocks"):
+        blocks = _frame_blocks(frame, group_ids, by0)
+        types = sorted(blocks)
+        host = [frame_factors(frame)]
+        for t in types:
+            host += [a.astype(np.int64) for a in blocks[t]]
+            nc = covered_blocks_x(t) * covered_blocks_y(t) * BLOCK_SIZE
+            host.append(matrices[t] if matrices is not None else _matrices(frame, t, nc))
+    with trace.span("render.transforms"):
+        lf, rq, ytox, ytob, b_c, k, *per_type = _upload(frame, host, dev, by0, by1)
+        lf_flat = lf.reshape(3, -1)
+        planes = torch.zeros((3, nbh * BLOCK_DIM * W), dtype=torch.float32, device=dev)
+        for i, t in enumerate(types):
+            gbx, gby, gi, off, mats = per_type[5 * i : 5 * i + 5]
+            tx = gbx // COLOR_TILE_DIM_IN_BLOCKS
+            ty = gby // COLOR_TILE_DIM_IN_BLOCKS
+            factors = block_factors(rq[gby, gbx].to(torch.float32), ytox[ty, tx], ytob[ty, tx],
+                                    k)
+            render_type(t, flat, lf_flat, planes, gi * _GROUP_STRIDE + off, gby * bw + gbx, bw,
+                        gby * (BLOCK_DIM * W) + (gbx - bx0) * BLOCK_DIM, W, factors, b_c,
+                        mats[None])
     return planes.reshape(3, nbh * BLOCK_DIM, W)
 
 

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from ..io.headers.frame import Encoding
+from ..utils import trace
 from .group import GROUP_DIM, _BlockList, _build_pass_items, _ceil_log2
 
 
@@ -196,12 +197,16 @@ def run_lanes(inputs: dict, device, out=None):
     from ..ops.device_ac import decode_ac_sections, pack_tables
     from ..render.stages.core import to_device_all
 
-    buckets, cfgs = pack_tables(inputs["tables"], inputs["uint_cfgs"], inputs["context_map"])
-    names = [k for k in inputs if k not in LANE_KEYWORDS]
-    *up, packed_buckets, packed_cfgs = to_device_all(
-        [inputs[k] for k in names] + [buckets, cfgs], device)
-    return decode_ac_sections(**dict(zip(names, up)), **{k: inputs[k] for k in LANE_KEYWORDS},
-                              packed_buckets=packed_buckets, packed_cfgs=packed_cfgs, out=out)
+    trace.metrics.add("k3_lanes", len(inputs["streams"]))
+    with trace.span("frame.k3_launch"):
+        buckets, cfgs = pack_tables(inputs["tables"], inputs["uint_cfgs"], inputs["context_map"])
+        names = [k for k in inputs if k not in LANE_KEYWORDS]
+        *up, packed_buckets, packed_cfgs = to_device_all(
+            [inputs[k] for k in names] + [buckets, cfgs], device)
+        return decode_ac_sections(**dict(zip(names, up)),
+                                  **{k: inputs[k] for k in LANE_KEYWORDS},
+                                  packed_buckets=packed_buckets, packed_cfgs=packed_cfgs,
+                                  out=out)
 
 
 def merge_lane_inputs(parts: list, total_slots: int) -> dict:
@@ -246,10 +251,11 @@ def decode_ac_frames(jobs: list, total_slots: int, device, out=None):
     Returns (buffer, the lanes' ok flags, one (S,) bool tensor a launch),
     without reading the flags: check_lane_flags reads them."""
     by_key: dict = {}
-    for frame, readers, slot0 in jobs:
-        inp = lane_inputs(frame, readers)
-        key = tuple(inp[k] for k in LANE_KEYWORDS if k != "total")
-        by_key.setdefault(key, []).append((inp, slot0))
+    with trace.span("frame.lane_plan"):
+        for frame, readers, slot0 in jobs:
+            inp = lane_inputs(frame, readers)
+            key = tuple(inp[k] for k in LANE_KEYWORDS if k != "total")
+            by_key.setdefault(key, []).append((inp, slot0))
     oks = []
     for parts in by_key.values():
         out, ok = run_lanes(merge_lane_inputs(parts, total_slots), device, out=out)
@@ -277,7 +283,9 @@ def decode_ac_sections_device(frame, group_readers: dict, device) -> None:
     as they arrive, in several calls, ends with the buffer one call over
     every section gives, bit for bit. The per-lane flags join
     frame.device_ac_ok until check_device_ac_ok reads them."""
-    coeffs, ok = run_lanes(lane_inputs(frame, group_readers), device, out=frame.device_ac_flat)
+    with trace.span("frame.lane_plan"):
+        inputs = lane_inputs(frame, group_readers)
+    coeffs, ok = run_lanes(inputs, device, out=frame.device_ac_flat)
     frame.device_ac_flat = coeffs
     frame.device_ac_ok = ok if frame.device_ac_ok is None else torch.cat([frame.device_ac_ok, ok])
 

@@ -314,7 +314,7 @@ def _host_lf(frame) -> list:
     return [np.asarray(p, dtype=np.float32) for p in frame.lf_image]
 
 
-def render_blocks_host(frames, flat, slots, planes, rows_apart: int) -> int:
+def render_blocks_host(frames, flat, slots, planes, rows_apart: int) -> None:
     """Dequant + CfL + inverse transform of every block of every group of
     `frames`, one transform type at a time over all of them (ref
     jxl_tpu/vardct/group.py:_render_group, :556-735, and the transforms
@@ -329,8 +329,7 @@ def render_blocks_host(frames, flat, slots, planes, rows_apart: int) -> int:
     transform on CPU tensors, all three channels in one call for a 4:4:4
     single-block type. Frames that code the same dequant tables share one
     call a type; a frame with tables of its own (an animation's frames
-    may each code theirs) takes calls of its own with its matrices.
-    Returns the number of transform types."""
+    may each code theirs) takes calls of its own with its matrices."""
     import torch
 
     from .. import native
@@ -449,7 +448,6 @@ def render_blocks_host(frames, flat, slots, planes, rows_apart: int) -> int:
                 blocks_of(planes[c], pix, lfx, r0[sel] + lfy)
             else:
                 _scatter_dropping(planes[c], pix, lfx, lfy)
-    return len(np.unique(all_tid))
 
 
 def _inside(plane, bx, by, shape) -> bool:
