@@ -134,6 +134,13 @@ def get_lib():
                 [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 2 + [ctypes.c_int] * 4
                 + [ctypes.c_uint32] * 2 + [ctypes.c_int64] * 2
             )
+            lib.jxl_lane_items.restype = ctypes.c_int
+            lib.jxl_lane_items.argtypes = (
+                [ctypes.c_int] * 5 + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2
+                + [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3
+                + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int32]
+                + [ctypes.c_void_p] * 2 + [ctypes.c_int]
+            )
             _bind_host_route(lib)
             _lib = lib
     return _lib
@@ -1220,6 +1227,53 @@ def decode_hf_groups_native(
     if ret != 0:
         raise NativeDecodeError(f"native hf-groups decode failed (code {ret})")
     return [int(poss[i]) for i in range(n)]
+
+
+def lane_items_native(tmap, rqmap, qlfmap, gxc, num_groups, gdim_blocks, hshift3, vshift3,
+                      bctx_cmap, num_lf_contexts, qf_thr, cbx, cby, shape_lut, key_lut,
+                      chan_stride, n_items, items=None) -> int:
+    """The lane AC decoder's item table of a whole frame, in one pass over
+    its (bh, bw) transform, raw-quant and quant-LF maps (modular_decode.cc
+    jxl_lane_items): rows [c, sbx, sby, num_blocks, num_coeffs, bctx,
+    key_lut[shape * 3 + c], c * chan_stride + coefficient offset, cx, cy]
+    in token order. Without `items` the call counts each group's rows into
+    `n_items`, (num_groups,) int32; with `items`, a (num_groups, i_max, 10)
+    int32 array, it writes group g's rows into items[g, :n_items[g]] and
+    zeros the rest. Returns the largest row count; raises ValueError on
+    arrays it cannot take, NativeDecodeError on a transform id or a block
+    context index past its table."""
+    from ..errors import NativeDecodeError
+
+    bh, bw = tmap.shape
+    arrays = [("tmap", tmap, np.uint8, (bh, bw)), ("rqmap", rqmap, np.int32, (bh, bw)),
+              ("qlfmap", qlfmap, np.uint8, (bh, bw)), ("hshift3", hshift3, np.int32, (3,)),
+              ("vshift3", vshift3, np.int32, (3,)), ("bctx_cmap", bctx_cmap, np.int32, None),
+              ("qf_thr", qf_thr, np.int32, None), ("cbx", cbx, np.int32, None),
+              ("cby", cby, np.int32, cbx.shape), ("shape_lut", shape_lut, np.int32, cbx.shape),
+              ("key_lut", key_lut, np.int32, None), ("n_items", n_items, np.int32, (num_groups,))]
+    if items is not None:
+        arrays.append(("items", items, np.int32, (num_groups, items.shape[1], 10)))
+    for name, a, dtype, shape in arrays:
+        if a.dtype != dtype or not a.flags.c_contiguous or (shape is not None and a.shape != shape):
+            raise ValueError(f"{name} must be a C-contiguous {np.dtype(dtype).name} array"
+                             + (f" of shape {shape}" if shape is not None else ""))
+    if len(key_lut) < 13 * 3 or int(shape_lut.max(initial=0)) >= 13:
+        raise ValueError("key_lut must cover the 13 block shapes' 3 channels")
+    ret = get_lib().jxl_lane_items(
+        bw, bh, gxc, num_groups, gdim_blocks, _ptr(hshift3, ctypes.c_int32),
+        _ptr(vshift3, ctypes.c_int32), _ptr(tmap, ctypes.c_uint8), _ptr(rqmap, ctypes.c_int32),
+        _ptr(qlfmap, ctypes.c_uint8), _ptr(bctx_cmap, ctypes.c_int32), len(bctx_cmap),
+        num_lf_contexts, _ptr(qf_thr, ctypes.c_int32), len(qf_thr), _ptr(cbx, ctypes.c_int32),
+        _ptr(cby, ctypes.c_int32), _ptr(shape_lut, ctypes.c_int32), len(cbx),
+        _ptr(key_lut, ctypes.c_int32), chan_stride, _ptr(n_items, ctypes.c_int32),
+        None if items is None else _ptr(items, ctypes.c_int32),
+        0 if items is None else items.shape[1],
+    )
+    if ret == -1:
+        raise ValueError("a group holds more item rows than items has room for")
+    if ret < 0:
+        raise NativeDecodeError("a transform id or block context index lies past its table")
+    return ret
 
 
 def decode_vardct_ac_native(br, ent, items, orders, coeffs, shift, num_bctx, nzeros_maps,

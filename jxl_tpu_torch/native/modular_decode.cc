@@ -1714,6 +1714,101 @@ int jxl_decode_hf_groups(
   return 0;
 }
 
+// The lane AC decoder's item table of a whole frame (vardct/device_group.py
+// lane_tables): the rows jxl_decode_hf_groups builds for the host decoder,
+// in the lanes' 10-column layout [c, sbx, sby, num_blocks, num_coeffs,
+// bctx, order offset, c * chan_stride + coefficient offset, cx, cy]. A
+// group's rows are in token order: its blocks in raster order, channels
+// (1, 0, 2) a block, a subsampled channel only where the block is aligned
+// to it (ref frame/group.rs:418-446).
+//
+// Maps tmap/rqmap/qlfmap are full-frame, stride bw. bctx_cmap holds
+// cmap_len block contexts; the luts cover transform ids [0, num_tids);
+// key_lut[shape * 3 + c] is the order offset of (shape, c). With items
+// null the call counts each group's rows into n_items; else it writes
+// group g's rows into items + g * i_max * 10 and zeros the rest of the
+// group's i_max rows. Returns the largest row count; the writing call
+// returns -1 when a group holds more than i_max rows, -2 on a transform
+// id or a block context index past its table.
+int jxl_lane_items(
+    int bw, int bh, int gxc, int num_groups, int gdim_blocks,
+    const int32_t* hshift3, const int32_t* vshift3,
+    const uint8_t* tmap, const int32_t* rqmap, const uint8_t* qlfmap,
+    const int32_t* bctx_cmap, int cmap_len, int num_lf_contexts,
+    const int32_t* qf_thr, int num_qf_thr,
+    const int32_t* cbx_lut, const int32_t* cby_lut, const int32_t* shape_lut,
+    int num_tids, const int32_t* key_lut, int32_t chan_stride,
+    int32_t* n_items, int32_t* items, int i_max) {
+  static const int kChanOrder[3] = {1, 0, 2};
+  const int nq1 = num_qf_thr + 1;
+  // a channel's rows lie on the blocks aligned to its subsampling
+  int xm[3], ym[3];
+  for (int j = 0; j < 3; j++) {
+    xm[j] = (1 << hshift3[kChanOrder[j]]) - 1;
+    ym[j] = (1 << vshift3[kChanOrder[j]]) - 1;
+  }
+  int most = 0;
+  for (int g = 0; g < num_groups; g++) {
+    int gx0 = (g % gxc) * gdim_blocks, gy0 = (g / gxc) * gdim_blocks;
+    int gw = std::min(gdim_blocks, bw - gx0);
+    int gh = std::min(gdim_blocks, bh - gy0);
+    int32_t* row = items ? items + (int64_t)g * i_max * 10 : nullptr;
+    int n = 0;
+    int32_t block_off = 0;
+    for (int y = 0; y < gh; y++) {
+      const int64_t at0 = (int64_t)(gy0 + y) * bw + gx0;
+      const uint8_t* trow = tmap + at0;
+      const int yk0 = (y & ym[0]) == 0, yk1 = (y & ym[1]) == 0, yk2 = (y & ym[2]) == 0;
+      if (!row) {  // count: branch-free over the row
+        for (int x = 0; x < gw; x++)
+          n += (trow[x] >> 7) * (yk0 * ((x & xm[0]) == 0) + yk1 * ((x & xm[1]) == 0) +
+                                 yk2 * ((x & xm[2]) == 0));
+        continue;
+      }
+      for (int x = 0; x < gw; x++) {
+        uint8_t t = trow[x];
+        if (!(t & 128)) continue;
+        int tid = t & 127;
+        if (tid >= num_tids) return -2;
+        const bool keep[3] = {yk0 && (x & xm[0]) == 0, yk1 && (x & xm[1]) == 0,
+                              yk2 && (x & xm[2]) == 0};
+        if (n + keep[0] + keep[1] + keep[2] > i_max) return -1;
+        int cx = cbx_lut[tid], cy = cby_lut[tid], shape = shape_lut[tid];
+        int nb = cx * cy, nc = nb * 64;
+        int rq = rqmap[at0 + x];
+        int qlf = qlfmap[at0 + x];
+        int qf_idx = 0;
+        for (int i = 0; i < num_qf_thr; i++) qf_idx += rq > qf_thr[i];
+        for (int j = 0; j < 3; j++) {
+          if (!keep[j]) continue;
+          int c = kChanOrder[j];
+          int cidx = c < 2 ? (c ^ 1) : 2;
+          int64_t midx =
+              ((int64_t)(cidx * 13 + shape) * nq1 + qf_idx) * num_lf_contexts + qlf;
+          if (midx >= cmap_len) return -2;
+          int32_t* r = row + (int64_t)n * 10;
+          r[0] = c;
+          r[1] = x >> hshift3[c];
+          r[2] = y >> vshift3[c];
+          r[3] = nb;
+          r[4] = nc;
+          r[5] = bctx_cmap[midx];
+          r[6] = key_lut[shape * 3 + c];
+          r[7] = c * chan_stride + block_off;
+          r[8] = cx;
+          r[9] = cy;
+          n++;
+        }
+        block_off += nc;
+      }
+    }
+    if (row) std::memset(row + (int64_t)n * 10, 0, sizeof(int32_t) * 10 * (i_max - n));
+    n_items[g] = n;
+    if (n > most) most = n;
+  }
+  return most;
+}
+
 // --------------------------------------------- histogram table decode
 // Native decode of a Histograms bundle (ref entropy_coding/{decode,ans,
 // context_map}.rs; python oracle jxl_tpu/entropy/*). ANS only — prefix-

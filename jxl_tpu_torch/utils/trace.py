@@ -39,10 +39,10 @@ The spans of a decode, by owner module (README's table names each one):
 - vardct/device_frame.py: `render.blocks` (the block tables on the host),
   `render.transforms` (their upload and the transforms queued).
 
-`metrics` counts what the decode did (megapixels, K3 lanes), only while
-tracing is on. `device_trace(dir)` is a torch.profiler session around a
-block that writes a Chrome trace into `dir` (it takes the JAX profiler's
-place).
+`metrics` counts what the decode did (megapixels, K3 lanes, the frames
+whose lane tables were built), only while tracing is on.
+`device_trace(dir)` is a torch.profiler session around a block that
+writes a Chrome trace into `dir` (it takes the JAX profiler's place).
 """
 
 from __future__ import annotations

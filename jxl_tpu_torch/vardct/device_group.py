@@ -6,7 +6,8 @@ stay where they were decoded, for vardct/device_frame.py.
 The counterpart of jxl_tpu/vardct/device_group.py. Capability reference:
 jxl/src/frame/group.rs:384-618 (the decode loop); the native host decoder
 (vardct/group.py:try_decode_hf_groups) gives the same coefficients bit for
-bit.
+bit. The lanes' item table, the rows that decoder builds a group, comes
+from one native pass over the frame's maps (native.lane_items_native).
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ import torch
 
 from ..io.headers.frame import Encoding
 from ..utils import trace
-from .group import GROUP_DIM, _BlockList, _build_pass_items, _ceil_log2
+from .group import _CBX_ARR, _CBY_ARR, _SHAPE_ARR, BLOCK_DIM, GROUP_DIM, _ceil_log2
 
 
 def _next_pow2(n: int, floor: int = 1) -> int:
@@ -43,19 +44,6 @@ def eligible_for_device_ac(frame) -> bool:
     return len(geo) == 1
 
 
-def _group_items(frame, bl, bctx):
-    """(n, 10) int32 pass-independent item table of one group, in
-    bitstream token order: c, sbx, sby, num_blocks, num_coeffs, bctx,
-    order_key, coeffs_off, cx, cy. order_key is shape_id*3+c, rewritten
-    to an offset into the shared orders array by the caller."""
-    items11, flat_keys, _ = _build_pass_items(frame, bl, bctx)
-    out = np.zeros((len(items11), 10), dtype=np.int32)
-    out[:, 0:6] = items11[:, 0:6]
-    out[:, 6] = flat_keys
-    out[:, 7:10] = items11[:, 8:11]
-    return out
-
-
 def lane_tables(frame) -> dict:
     """The frame's pass-independent inputs of decode_ac_sections, built
     once and kept on the frame (a streaming decode launches the lanes of
@@ -73,11 +61,14 @@ def lane_tables(frame) -> dict:
     bctx = frame.lf_global.block_context_map
     num_groups = header.num_groups
 
-    # orders: one concatenated array over (pass, used order keys)
-    blists = [_BlockList(frame, g) for g in range(num_groups)]
-    used_keys = sorted({
-        int(sid) * 3 + c for bl in blists for sid in np.unique(bl.shape_ids) for c in range(3)
-    })
+    bw, bh = header.size_blocks()
+    hf = frame.hf_meta
+    tmap = np.ascontiguousarray(hf["transform"][:bh, :bw])
+    # orders: one concatenated array over (pass, used order keys); the
+    # transform ids in use from one count over the map
+    tids = np.flatnonzero(np.bincount(tmap.ravel(), minlength=256)[128:])
+    shapes = np.unique(_SHAPE_ARR[tids])
+    used_keys = [int(s) * 3 + c for s in shapes for c in range(3)]
     order_parts = []
     pass_order_base = []
     key_lut = np.zeros(40, dtype=np.int32)
@@ -103,21 +94,29 @@ def lane_tables(frame) -> dict:
         pk["context_map"].astype(np.int32) + np.int32(cluster_base[p]) for p, pk in enumerate(packs)
     ])
 
-    g_items = []
-    for bl in blists:
-        it = _group_items(frame, bl, bctx)
-        it[:, 6] = key_lut[it[:, 6]]
-        g_items.append(it)
-    i_max = _next_pow2(max((len(it) for it in g_items), default=1), 16)
-    items = np.zeros((num_groups, i_max, 10), dtype=np.int32)
-    for g, it in enumerate(g_items):
-        items[g, : len(it)] = it
+    # the item table: one native pass counts each group's rows, a second
+    # writes them and zeros the padding
+    map_args = (
+        tmap, np.ascontiguousarray(hf["raw_quant"][:bh, :bw], dtype=np.int32),
+        np.ascontiguousarray(hf["quant_lf"][:bh, :bw], dtype=np.uint8),
+        header.size_groups()[0], num_groups, header.group_dim // BLOCK_DIM,
+        np.array([header.hshift(c) for c in range(3)], dtype=np.int32),
+        np.array([header.vshift(c) for c in range(3)], dtype=np.int32),
+        np.asarray(bctx.context_map, dtype=np.int32), bctx.num_lf_contexts,
+        np.asarray(bctx.qf_thresholds, dtype=np.int32), _CBX_ARR, _CBY_ARR, _SHAPE_ARR,
+        key_lut, GROUP_DIM * GROUP_DIM,
+    )
+    n_items = np.zeros(num_groups, dtype=np.int32)
+    i_max = _next_pow2(native.lane_items_native(*map_args, n_items), 16)
+    items = np.empty((num_groups, i_max, 10), dtype=np.int32)
+    native.lane_items_native(*map_args, n_items, items)
+    trace.metrics.add("lane_tables_built")
     frame._lane_tables = dict(
         items=items, orders=orders, tables=tables, uint_cfgs=uint_cfgs,
         context_map=context_map, log_bucket=int(packs[0]["log_bucket"]),
         num_bctx=bctx.num_contexts, total=num_groups * 3 * GROUP_DIM * GROUP_DIM,
         n_buckets=int(packs[0]["table_size"]), pass_order_base=pass_order_base,
-        ctx_base=ctx_base, n_items=[len(it) for it in g_items],
+        ctx_base=ctx_base, n_items=n_items,
     )
     return frame._lane_tables
 

@@ -2,8 +2,10 @@
 against jxl_tpu's XLA version (jxl_tpu/ops/device_ac.py) on the same
 numpy inputs: coefficients and per-lane ok flags bit for bit, on writer
 streams, on random lanes with valid packed tables, and on a stream with a
-corrupted section. Cases stay at a few groups with sparse content: the
-plain versions run one lockstep step per token.
+corrupted section; and the lanes' item table, which one native pass over
+the frame builds, against the per-group numpy route it replaced and
+against every lane array of jxl_tpu's planner. Cases stay at a few groups
+with sparse content: the plain versions run one lockstep step per token.
 """
 
 import numpy as np
@@ -118,6 +120,107 @@ def test_lane_inputs_clip_and_pad_like_jxl_tpu():
     assert (inputs["lane_end_bits"] == [8 * len(readers[(g, 0)].data) for g in range(S)]).all()
     assert inputs["items"].shape[1] & (inputs["items"].shape[1] - 1) == 0
     assert inputs["tables"].dtype == np.int32 and inputs["tables"].shape[1] == 5
+
+
+def _numpy_lane_items(frame):
+    """The frame's item table by the per-group numpy route that the
+    native pass replaced, rebuilt from what stays in the tree: the port's
+    _BlockList and _build_pass_items a group, the order keys rewritten to
+    offsets into pass 0's orders, the rows padded to a power of two of at
+    least 16. Returns (items, n_items, orders)."""
+    from jxl_tpu_torch.vardct.group import _BlockList, _build_pass_items
+
+    bctx = frame.lf_global.block_context_map
+    blists = [_BlockList(frame, g) for g in range(frame.header.num_groups)]
+    used = sorted({int(s) * 3 + c for bl in blists for s in np.unique(bl.shape_ids)
+                   for c in range(3)})
+    key_lut = np.zeros(40, np.int32)
+    orders = []
+    pos = 0
+    for p, pstate in enumerate(frame.hf_global.passes):
+        for k in used:
+            if p == 0:
+                key_lut[k] = pos
+            orders.append(np.asarray(pstate.coeff_orders[k], np.int32))
+            pos += len(orders[-1])
+    rows = []
+    for bl in blists:
+        items11, keys, _ = _build_pass_items(frame, bl, bctx)
+        rows.append(np.concatenate([items11[:, :6], key_lut[keys][:, None], items11[:, 8:]], 1))
+    i_max = device_group._next_pow2(max(len(r) for r in rows), 16)
+    items = np.zeros((len(rows), i_max, 10), np.int32)
+    for g, r in enumerate(rows):
+        items[g, : len(r)] = r
+    return items, np.array([len(r) for r in rows]), np.concatenate(orders)
+
+
+def _jxl_tpu_lane_arrays(data, names, monkeypatch):
+    """{name: array} of the lanes jxl_tpu's planner builds over the port's
+    parse of `data`: the positional arrays (named by `names`, the port's
+    order) and keywords its decode_ac_sections_device hands the lane
+    decoder, caught before the decoder runs."""
+    import jxl_tpu.ops.device_ac as jax_device_ac
+    from jxl_tpu.vardct import device_group as jax_device_group
+
+    class Caught(Exception):
+        pass
+
+    caught = {}
+
+    def catch(*arrays, **kw):
+        caught.update(zip(names, map(np.asarray, arrays)), **kw)
+        raise Caught
+
+    monkeypatch.setattr(jax_device_ac, "decode_ac_sections", catch)
+    frame, readers = _port_frame_and_readers(data)
+    frame._device_vardct = True
+    with pytest.raises(Caught):
+        jax_device_group.decode_ac_sections_device(frame, readers)
+    return caught
+
+
+@pytest.mark.parametrize("kw", [
+    dict(width=520, height=300, transforms="mixed", seed=41),  # 4:4:4, DCT16 cells
+    dict(width=264, height=1040, transforms="large", seed=42),
+    dict(width=1000, height=700, transforms="mixed", seed=43),  # partial edge groups
+    dict(width=520, height=300, seed=44, orders=True, bctx="custom", clusters=64,
+         log_alpha=8),  # vardct_d1's tables: QF thresholds, a custom block-context map
+    dict(width=520, height=300, seed=45, passes=2),
+    dict(width=520, height=300, transforms="dct8", seed=46, subsampling="420"),
+    dict(width=520, height=300, transforms="dct8", seed=47, subsampling="422"),
+], ids=["mixed_444", "large", "edges_1000x700", "vardct_d1_tables", "two_pass", "ycbcr_420",
+        "ycbcr_422"])
+def test_native_item_table_matches_numpy_route_and_jxl_tpu(kw, monkeypatch):
+    """The item table of lane_tables' one native pass over the frame, bit
+    for bit and shape for shape: against the per-group numpy route it
+    replaced, against jxl_tpu's planner (every lane array), and through
+    lane_inputs(band=) on the last group row."""
+    data, _ = encode_xyb_vardct(density=0.05, **kw)
+    frame, readers = _port_frame_and_readers(data)
+    tabs = device_group.lane_tables(frame)
+    items, n_items, orders = _numpy_lane_items(frame)
+    assert tabs["items"].shape == items.shape and tabs["items"].dtype == np.int32
+    np.testing.assert_array_equal(tabs["items"], items)
+    np.testing.assert_array_equal(tabs["n_items"], n_items)
+    np.testing.assert_array_equal(tabs["orders"], orders)
+
+    inputs = device_group.lane_inputs(frame, readers)
+    names = [k for k in inputs if k not in device_group.LANE_KEYWORDS]
+    ref = _jxl_tpu_lane_arrays(data, names, monkeypatch)
+    assert set(ref) == set(inputs)
+    for k, v in inputs.items():
+        assert np.shape(v) == np.shape(ref[k]), k
+        np.testing.assert_array_equal(v, ref[k], err_msg=k)
+
+    gx = frame.header.size_groups()[0]
+    band = list(range(frame.header.num_groups - gx, frame.header.num_groups))
+    frame, readers = _port_frame_and_readers(data)
+    band_inputs = device_group.lane_inputs(
+        frame, {k: r for k, r in readers.items() if k[0] in band}, band=band)
+    assert band_inputs["items"].shape == (len(band),) + items.shape[1:]
+    np.testing.assert_array_equal(band_inputs["items"], items[band])
+    np.testing.assert_array_equal(band_inputs["lane_n_items"],
+                                  np.repeat(n_items[band], frame.header.passes.num_passes))
 
 
 @pytest.fixture

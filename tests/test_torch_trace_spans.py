@@ -12,7 +12,10 @@
 - under JXL_TPU_DEVICE=off a frame records one `render.host_route` and
   no block tables of the card's render;
 - the parse, lane-plan and K3-launch spans account for
-  timings["host_s"] within 10%.
+  timings["host_s"] within 10%;
+- under JXL_TPU_TRACE=1 the counter `lane_tables_built` counts each
+  frame whose lane tables were built: 1 on the lane route, 0 on the host
+  route, and still 1 when a streaming decode plans its lanes twice.
 """
 
 from collections import Counter
@@ -127,3 +130,52 @@ def test_host_phases_account_for_host_s(vardct_profiled):
     total = sum(e - s for n, s, e, _ in _spans(events)
                 if n in PARSE_SPANS + ("frame.lane_plan", "frame.k3_launch")) / 1e9
     assert abs(total - img.timings["host_s"]) <= 0.1 * img.timings["host_s"]
+
+
+def _stream_with_a_flush(data):
+    """A streaming decode of `data`, 300 bytes at a time, with a flush at
+    each frame progression: the flush launches the lanes of the sections
+    queued so far, the frame's end those of the rest."""
+    from jxl_tpu_torch.api import decoder as P
+
+    d = P.JxlDecoder(P.JxlDecoderOptions(progressive_mode=P.ProgressiveMode.EAGER),
+                     device="cpu")
+    pos = 0
+    for _ in range(10_000):
+        ev = d.process()
+        if ev is P.Event.COMPLETE:
+            return d
+        if ev is P.Event.NEED_MORE_INPUT:
+            if pos >= len(data):
+                d.end_input()
+                continue
+            d.feed(data[pos : pos + 300])
+            pos += 300
+        elif ev is P.Event.FRAME_PROGRESSION:
+            d.flush_pixels()
+    raise AssertionError("the streaming decode did not complete")
+
+
+@pytest.mark.parametrize("route,built,plans", [("lanes", 1, 1), ("host", 0, 0),
+                                                ("streaming", 1, 2)])
+def test_lane_tables_built_counts_each_frame_once(route, built, plans, vardct, monkeypatch):
+    data = vardct
+    if route == "host":  # the route `auto` gives a still this small on the card
+        monkeypatch.setenv("JXL_TPU_DEVICE", "off")
+    elif route == "streaming":
+        data = encode_xyb_vardct(264, 64, seed=91, density=0.03, passes=2)[0]
+    trace.enable(True)
+    trace.reset()
+    try:
+        if route == "streaming":
+            _stream_with_a_flush(data)
+        else:
+            jxl_tpu_torch.decode_image(data, pixel_format="u8", device="cpu")
+        calls = {r.split()[0]: int(r.split()[1]) for r in trace.report().splitlines()[1:]
+                 if not r.startswith(("counter ", "decode throughput"))}
+        counted = trace.metrics.get("lane_tables_built")
+    finally:
+        trace.enable(False)
+        trace.reset()
+    assert counted == built
+    assert calls.get("frame.lane_plan", 0) == plans
