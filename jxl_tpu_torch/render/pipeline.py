@@ -17,11 +17,13 @@ the device.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Callable
 
 import numpy as np
 import torch
+
+from ..utils import trace
 
 
 @dataclass(frozen=True)
@@ -102,19 +104,32 @@ def upsample_stage(frame, n: int, channels) -> Stage:
 def chroma_upsample_stage(channel: int, horizontal: bool) -> Stage:
     """HorizontalChromaUpsample / VerticalChromaUpsample (ref
     stages/chroma_upsample.rs:9,87): 2x along one axis of one channel,
-    BORDER 1 and SHIFT 1 along that axis."""
+    BORDER 1 and SHIFT 1 along that axis. Each call is a
+    `render.chroma_upsample` span and, while tracing is on, one
+    `chroma_upsample_passes`."""
     from .stages import core as st
 
     f = st.chroma_upsample_h if horizontal else st.chroma_upsample_v
 
     def fn(chans, ctx):
-        out = list(chans)
-        out[channel] = f(out[channel])
+        with trace.span("render.chroma_upsample"):
+            trace.metrics.add("chroma_upsample_passes")
+            out = list(chans)
+            out[channel] = f(out[channel])
         return out
 
     return Stage(f"chroma_upsample_{'h' if horizontal else 'v'}[{channel}]", fn,
                  border=(1, 0) if horizontal else (0, 1),
                  shift=(1, 0) if horizontal else (0, 1), channels=(channel,))
+
+
+def chroma_crop_stage(channel: int, w: int, h: int) -> Stage:
+    """A subsampled channel cut to its w x h visible samples, ceil(size /
+    2^shift), before its upsampling: past them lie the VarDCT blocks'
+    padding, which the upsampling must not read, since it replicates the
+    channel's visible edge (ISO/IEC 18181-1; jxl_tpu's pipeline reads the
+    padding)."""
+    return replace(crop_stage(w, h, (channel,)), name=f"chroma_crop[{channel}]")
 
 
 def crop_stage(w: int, h: int, channels) -> Stage:
@@ -412,8 +427,9 @@ def convert_output_stage(fmt: str, channels) -> Stage:
 
 def build_render_pipeline(frame):
     """Per-frame stage assembly in reference order (ref
-    frame/render.rs:506-885): chroma upsample (per channel, its
-    horizontal steps, then its vertical ones) -> visible crop -> gaborish
+    frame/render.rs:506-885): chroma upsample (per subsampled channel,
+    cut to its visible samples, its horizontal steps, then its vertical
+    ones) -> visible crop -> gaborish
     -> EPF0/1/2 -> early EC upsample -> patches -> splines -> upsample ->
     upsampled crop -> noise. The colour transform and output conversion
     are appended by the caller."""
@@ -421,11 +437,14 @@ def build_render_pipeline(frame):
     meta = frame.file_header.image_metadata
     num_ec = len(meta.extra_channel_info)
 
+    wc, hc = header.size()
     stages = []
     for c in range(3):
-        stages += [chroma_upsample_stage(c, True)] * header.hshift(c)
-        stages += [chroma_upsample_stage(c, False)] * header.vshift(c)
-    wc, hc = header.size()
+        hs, vs = header.hshift(c), header.vshift(c)
+        if hs or vs:
+            stages.append(chroma_crop_stage(c, -(-wc >> hs), -(-hc >> vs)))
+        stages += [chroma_upsample_stage(c, True)] * hs
+        stages += [chroma_upsample_stage(c, False)] * vs
     stages.append(crop_stage(wc, hc, (0, 1, 2)))
     rf = header.restoration_filter
     if rf.gab:

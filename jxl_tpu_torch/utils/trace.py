@@ -37,10 +37,14 @@ The spans of a decode, by owner module (README's table names each one):
   `render.ac_wait` (the host blocked on the lane flags, so on the card),
   `render.stages` (K1, colour and output queued);
 - vardct/device_frame.py: `render.blocks` (the block tables on the host),
-  `render.transforms` (their upload and the transforms queued).
+  `render.transforms` (their upload and the transforms queued), in the
+  4:4:4 render and the chroma-subsampled one;
+- render/pipeline.py: `render.chroma_upsample` (one chroma upsampling
+  pass of one channel, inside `render.stages`).
 
 `metrics` counts what the decode did (megapixels, K3 lanes, the frames
-whose lane tables were built), only while tracing is on.
+whose lane tables were built, the chroma upsampling passes), only while
+tracing is on.
 `device_trace(dir)` is a torch.profiler session around a block that
 writes a Chrome trace into `dir` (it takes the JAX profiler's place).
 """

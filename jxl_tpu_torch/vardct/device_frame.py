@@ -283,61 +283,65 @@ def render_vardct_frame_device_subsampled(frame, flat) -> list:
     x_dm, b_dm, igs, cf, bcx, bcb = _constants(frame)
     bw, bh = header.size_blocks()
     H, W = bh * BLOCK_DIM, bw * BLOCK_DIM
-    blocks = _frame_blocks(frame, list(range(header.num_groups)))
-    types = sorted(blocks)
-    for t in types:
-        if covered_blocks_x(t) != 1 or covered_blocks_y(t) != 1:
-            raise ValueError(f"transform {t} covers more than one block in a subsampled frame")
-    # every upload in one copy a dtype: the tables, each type's matrices,
-    # then each (channel, type)'s blocks aligned to the channel's grid
-    host = [_matrices(frame, t, BLOCK_SIZE) for t in types]
-    jobs = []  # (channel, type)
-    for c in range(3):
-        hs, vs = header.hshift(c), header.vshift(c)
+    with trace.span("render.blocks"):
+        blocks = _frame_blocks(frame, list(range(header.num_groups)))
+        types = sorted(blocks)
         for t in types:
-            gbx, gby, gi, off = blocks[t]
-            m = (((gbx >> hs) << hs) == gbx) & (((gby >> vs) << vs) == gby)
-            if m.any():
-                jobs.append((c, t))
-                host += [a[m].astype(np.int64) for a in (gbx, gby, gi, off)]
-    lf, rq, ytox, ytob, b_c, *rest = _upload(frame, host, dev)
-    lf_flat = lf.reshape(3, -1)
-    mats = dict(zip(types, rest))
-    job_blocks = rest[len(types):]
-    stride_c = GROUP_DIM * GROUP_DIM
-    lanes = torch.arange(BLOCK_SIZE, device=dev)
-    py = torch.arange(BLOCK_DIM, device=dev)
+            if covered_blocks_x(t) != 1 or covered_blocks_y(t) != 1:
+                raise ValueError(f"transform {t} covers more than one block in a subsampled "
+                                 "frame")
+        # every upload in one copy a dtype: the tables, each type's
+        # matrices, then each (channel, type)'s blocks aligned to the
+        # channel's grid
+        host = [_matrices(frame, t, BLOCK_SIZE) for t in types]
+        jobs = []  # (channel, type)
+        for c in range(3):
+            hs, vs = header.hshift(c), header.vshift(c)
+            for t in types:
+                gbx, gby, gi, off = blocks[t]
+                m = (((gbx >> hs) << hs) == gbx) & (((gby >> vs) << vs) == gby)
+                if m.any():
+                    jobs.append((c, t))
+                    host += [a[m].astype(np.int64) for a in (gbx, gby, gi, off)]
+    with trace.span("render.transforms"):
+        lf, rq, ytox, ytob, b_c, *rest = _upload(frame, host, dev)
+        lf_flat = lf.reshape(3, -1)
+        mats = dict(zip(types, rest))
+        job_blocks = rest[len(types):]
+        stride_c = GROUP_DIM * GROUP_DIM
+        lanes = torch.arange(BLOCK_SIZE, device=dev)
+        py = torch.arange(BLOCK_DIM, device=dev)
 
-    def dequant(qb, c, t, scale):
-        return _dequant(qb, b_c[c], b_c[3], mats[t][c][None], scale[:, None])
+        def dequant(qb, c, t, scale):
+            return _dequant(qb, b_c[c], b_c[3], mats[t][c][None], scale[:, None])
 
-    sizes = [(H >> header.vshift(c), W >> header.hshift(c)) for c in range(3)]
-    # one slot past each plane takes the pixels the reference drops
-    planes = [torch.zeros(hc * wc + 1, dtype=torch.float32, device=dev) for hc, wc in sizes]
-    for k, (c, t) in enumerate(jobs):
-        gbx, gby, gi, off = job_blocks[4 * k : 4 * k + 4]
-        hs, vs = header.hshift(c), header.vshift(c)
-        hc, wc = sizes[c]
-        base = gi * _GROUP_STRIDE + off
-        scaled_y = igs / rq[gby, gbx].to(torch.float32)
+        sizes = [(H >> header.vshift(c), W >> header.hshift(c)) for c in range(3)]
+        # one slot past each plane takes the pixels the reference drops
+        planes = [torch.zeros(hc * wc + 1, dtype=torch.float32, device=dev) for hc, wc in sizes]
+        for k, (c, t) in enumerate(jobs):
+            gbx, gby, gi, off = job_blocks[4 * k : 4 * k + 4]
+            hs, vs = header.hshift(c), header.vshift(c)
+            hc, wc = sizes[c]
+            base = gi * _GROUP_STRIDE + off
+            scaled_y = igs / rq[gby, gbx].to(torch.float32)
 
-        def gather(ch):
-            return flat[((base + ch * stride_c)[:, None] + lanes[None, :]).reshape(-1)
-                        ].reshape(-1, BLOCK_SIZE)
+            def gather(ch):
+                return flat[((base + ch * stride_c)[:, None] + lanes[None, :]).reshape(-1)
+                            ].reshape(-1, BLOCK_SIZE)
 
-        dq = dequant(gather(c), c, t, scaled_y * {0: x_dm, 1: 1.0, 2: b_dm}[c])
-        if c != 1:
-            # CfL: Y's dequantized block at the same full-resolution block
-            cc = _cfl_factors(gbx, gby, ytox, ytob, cf, bcx, bcb)[c // 2]
-            dq = dq + cc[:, None] * dequant(gather(1), 1, t, scaled_y)
-        cbx, cby = gbx >> hs, gby >> vs
-        lf_tiles = lf_flat[c][cby * bw + cbx]
-        pix = transform_to_pixels_batch(t, lf_tiles[:, None, None], dq.contiguous())
-        rows = cby[:, None, None] * BLOCK_DIM + py[None, :, None]
-        cols = cbx[:, None, None] * BLOCK_DIM + py[None, None, :]
-        # the reference drops pixels past the channel's plane (mode
-        # "drop"): here they land in the spare slot, without a boolean
-        # mask that would make the host wait for the card
-        idx = torch.where((rows < hc) & (cols < wc), rows * wc + cols, hc * wc)
-        planes[c][idx.expand_as(pix).reshape(-1)] = pix.reshape(-1)
+            dq = dequant(gather(c), c, t, scaled_y * {0: x_dm, 1: 1.0, 2: b_dm}[c])
+            if c != 1:
+                # CfL: Y's dequantized block at the same full-resolution block
+                cc = _cfl_factors(gbx, gby, ytox, ytob, cf, bcx, bcb)[c // 2]
+                dq = dq + cc[:, None] * dequant(gather(1), 1, t, scaled_y)
+            cbx, cby = gbx >> hs, gby >> vs
+            lf_tiles = lf_flat[c][cby * bw + cbx]
+            pix = transform_to_pixels_batch(t, lf_tiles[:, None, None], dq.contiguous())
+            rows = cby[:, None, None] * BLOCK_DIM + py[None, :, None]
+            cols = cbx[:, None, None] * BLOCK_DIM + py[None, None, :]
+            # the reference drops pixels past the channel's plane (mode
+            # "drop"): here they land in the spare slot, without a boolean
+            # mask that would make the host wait for the card
+            idx = torch.where((rows < hc) & (cols < wc), rows * wc + cols, hc * wc)
+            planes[c][idx.expand_as(pix).reshape(-1)] = pix.reshape(-1)
     return [p[: hc * wc].reshape(hc, wc) for p, (hc, wc) in zip(planes, sizes)]

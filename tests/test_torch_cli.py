@@ -28,6 +28,7 @@ from jxl_tpu_torch import cli as P
 from jxl_tpu_torch.utils import trace
 from test_torch_frame_streams import anim_vardct_stream, lf_frame_stream
 from test_torch_icc import PROFILES
+from test_torch_layouts import as_jxl_tpu_edges
 from test_torch_vardct_streams import encode_xyb_vardct, encode_ycbcr_vardct
 
 _CACHE = {}
@@ -231,7 +232,7 @@ def test_decode_defaults_to_the_card(jxl, tmp_path):
         P.main([jxl("vardct"), str(tmp_path / "o.png"), "--render_interval", "100"])
 
 
-def test_to_srgb_matches_jxl_tpu(jxl, tmp_path):
+def test_to_srgb_matches_jxl_tpu(jxl, tmp_path, monkeypatch):
     """A Display P3 JPEG-style frame converted to sRGB through lcms2, and
     its ICC profile written with --icc_out."""
     src = jxl("p3_jpeg")
@@ -239,7 +240,13 @@ def test_to_srgb_matches_jxl_tpu(jxl, tmp_path):
         rc, _ = cli(mod, src, str(tmp_path / f"{tag}.npy"), "--to_srgb",
                     "--icc_out", str(tmp_path / f"{tag}.icc"))
         assert rc == 0
-    a, b = np.load(tmp_path / "p.npy"), np.load(tmp_path / "r.npy")
+
+    def port_cli():
+        assert cli(P, src, str(tmp_path / "e.npy"), "--to_srgb")[0] == 0
+        return np.load(tmp_path / "e.npy")
+
+    # the port's pixels under jxl_tpu's chroma edges (test_torch_layouts)
+    a, b = as_jxl_tpu_edges(port_cli, monkeypatch), np.load(tmp_path / "r.npy")
     close(a, b, "f32")
     plain = np.load(tmp_path / "p.npy")
     assert (tmp_path / "p.icc").read_bytes() == (tmp_path / "r.icc").read_bytes()

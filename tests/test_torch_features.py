@@ -135,7 +135,8 @@ def test_frames_outside_the_slice_raise(what, reason, monkeypatch):
     test_torch_splines.py), and so does a chroma-subsampled Modular frame,
     the last one the frame check refused (test_torch_modular_subsampled.py):
     the check is gone, and such a frame's render pipeline, with either
-    flag, upsamples its subsampled channels before anything else."""
+    flag, cuts each subsampled channel to its visible samples and
+    upsamples it before anything else."""
     from jxl_tpu_torch.api import simple
     from jxl_tpu_torch.features.splines import Splines
     from jxl_tpu_torch.io.headers.frame import Flags
@@ -149,8 +150,8 @@ def test_frames_outside_the_slice_raise(what, reason, monkeypatch):
     frame.header.flags |= Flags.USE_LF_FRAME if what == "lf_frame" else Flags.ENABLE_SPLINES
     frame.lf_global.splines = Splines()
     names = [s.name for s in pipeline.build_render_pipeline(frame)]
-    assert names[:4] == ["chroma_upsample_h[1]", "chroma_upsample_v[1]",
-                         "chroma_upsample_h[2]", "chroma_upsample_v[2]"], reason
+    assert names[:6] == ["chroma_crop[1]", "chroma_upsample_h[1]", "chroma_upsample_v[1]",
+                         "chroma_crop[2]", "chroma_upsample_h[2]", "chroma_upsample_v[2]"], reason
     assert ("splines" in names) == (what == "splines")
 
 
@@ -198,7 +199,8 @@ def test_vardct_layouts_pass_the_frame_check(what):
     ("splines", "splines"), ("chroma", "chroma-subsampled Modular frames")])
 def test_render_pipeline_refuses_what_it_lacks(what, reason, monkeypatch):
     """A chroma-subsampled Modular frame, which earlier slices refused here,
-    gets jxl_tpu's stage list: its chroma upsampling first; a frame with
+    gets jxl_tpu's stage list, its chroma upsampling first, beside the
+    port's cut of each subsampled channel to its visible samples; a frame with
     splines gets the spline stage after the filters and before the
     upsampling, as in jxl_tpu."""
     from jxl_tpu.api.simple import decode_first_frame
@@ -216,6 +218,11 @@ def test_render_pipeline_refuses_what_it_lacks(what, reason, monkeypatch):
             h.maxhs = h.maxvs = 1
         got = [s.name for s in build_render_pipeline(frame)]
         want = [s.name for s in ref_pipeline(ref)[0]]
+        # the port cuts each subsampled channel to its visible samples
+        # first, which jxl_tpu does not (test_torch_layouts.py)
+        assert got[:6] == ["chroma_crop[1]", "chroma_upsample_h[1]", "chroma_upsample_v[1]",
+                           "chroma_crop[2]", "chroma_upsample_h[2]", "chroma_upsample_v[2]"]
+        got = [n for n in got if not n.startswith("chroma_crop")]
         assert got[:4] == want[:4] == ["chroma_upsample_h[1]", "chroma_upsample_v[1]",
                                        "chroma_upsample_h[2]", "chroma_upsample_v[2]"], reason
         return

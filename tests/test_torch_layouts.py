@@ -11,6 +11,15 @@ u8 and u16 at most 1, f16 at most one ulp of jxl_tpu's value). For the XYB
 frame with alpha the f16 limit is one ulp or the f32 limit, whichever is
 larger: near zero an f16 ulp is finer than the 1e-5 by which the two
 packages' XYB colour paths already differ in f32.
+
+jxl_tpu upsamples a subsampled channel over the VarDCT blocks' padding,
+where ISO/IEC 18181-1 replicates the channel's visible edge, as the port
+does (portbench/tests/test_portbench_ycbcr.py holds the port to a plain
+reference of the format). So a subsampled decode is compared with
+jxl_tpu under jxl_tpu's rule (jxl_tpu_chroma_edges), after the port's
+own output is found equal to that away from the right and bottom
+EDGE_BAND pixels (as_jxl_tpu_edges); the other test files that compare a
+subsampled decode with jxl_tpu take these two from here.
 """
 
 import numpy as np
@@ -34,6 +43,35 @@ STREAMS = {
 }
 SUBSAMPLED = ["ycbcr420", "ycbcr422_no_filters", "ycbcr440"]
 _CACHE = {}
+# where the two chroma edge rules part: the last upsampled sample and what
+# gaborish (1) and the EPF steps (3, 2, 1) spread it over
+EDGE_BAND = 8
+
+
+def jxl_tpu_chroma_edges(monkeypatch):
+    """Give the port jxl_tpu's chroma edges until `monkeypatch` undoes it:
+    its pipeline without the cut of each subsampled channel to its
+    visible samples (the chroma_crop stages)."""
+    from jxl_tpu_torch.render import pipeline
+
+    real = pipeline.build_render_pipeline
+    monkeypatch.setattr(pipeline, "build_render_pipeline", lambda frame: [
+        s for s in real(frame) if not s.name.startswith("chroma_crop")])
+
+
+def as_jxl_tpu_edges(decode, monkeypatch) -> np.ndarray:
+    """decode()'s (H, W, C) image under jxl_tpu's chroma edges, once the
+    port's own is found equal to it but in the right and bottom
+    EDGE_BAND pixels, and apart there (the rule is in force)."""
+    own = np.asarray(decode())
+    with monkeypatch.context() as m:
+        jxl_tpu_chroma_edges(m)
+        theirs = np.asarray(decode())
+    assert own.shape == theirs.shape
+    np.testing.assert_array_equal(own[:-EDGE_BAND, :-EDGE_BAND],
+                                  theirs[:-EDGE_BAND, :-EDGE_BAND])
+    assert not np.array_equal(own, theirs)
+    return theirs
 
 
 def _stream(name):
@@ -156,18 +194,24 @@ def test_decode_matches_jxl_tpu(name, fmt, monkeypatch):
     monkeypatch.setenv("JXL_TPU_AC", "host")  # the lane route: the next test
     data = _stream(name)[0]
     want = np.asarray(ref_decode(data, pixel_format=fmt).frames[0])
-    got = jxl_tpu_torch.decode_image(data, pixel_format=fmt, device="cpu").frames[0]
-    assert isinstance(got, torch.Tensor) and got.device.type == "cpu"
+
+    def decode():
+        got = jxl_tpu_torch.decode_image(data, pixel_format=fmt, device="cpu").frames[0]
+        assert isinstance(got, torch.Tensor) and got.device.type == "cpu"
+        return got.numpy()
+
+    got = as_jxl_tpu_edges(decode, monkeypatch) if name in SUBSAMPLED else decode()
     channels = 4 if name == "vardct_alpha" else 3
     assert want.shape[2] == channels
-    _check_format(got.numpy(), want, fmt, xyb=name == "vardct_alpha")
+    _check_format(got, want, fmt, xyb=name == "vardct_alpha")
 
 
 def test_subsampled_decode_through_the_lane_decoder(monkeypatch):
     monkeypatch.delenv("JXL_TPU_AC", raising=False)
     data = _stream("ycbcr420")[0]
     want = np.asarray(ref_decode(data, pixel_format="f32").frames[0])
-    got = jxl_tpu_torch.decode_image(data, device="cpu").frames[0].numpy()
+    got = as_jxl_tpu_edges(
+        lambda: jxl_tpu_torch.decode_image(data, device="cpu").frames[0].numpy(), monkeypatch)
     _check_format(got, want, "f32")
 
 

@@ -15,7 +15,13 @@
   timings["host_s"] within 10%;
 - under JXL_TPU_TRACE=1 the counter `lane_tables_built` counts each
   frame whose lane tables were built: 1 on the lane route, 0 on the host
-  route, and still 1 when a streaming decode plans its lanes twice.
+  route, and still 1 when a streaming decode plans its lanes twice;
+- a 4:2:0 YCbCr decode (a recompressed JPEG) records `render.blocks` and
+  `render.transforms` once and `render.chroma_upsample` four times (Cb and
+  Cr, each across and down) inside `frame.render`, and the counter
+  `chroma_upsample_passes` reads 4; a 4:4:4 decode records no
+  `render.chroma_upsample`; with tracing off the 4:2:0 decode opens no
+  profiler range.
 """
 
 from collections import Counter
@@ -26,7 +32,7 @@ from torch.profiler import ProfilerActivity, profile
 import jxl_tpu_torch
 from jxl_tpu_torch.utils import trace
 from test_torch_streams import encode_xyb_modular
-from test_torch_vardct_streams import encode_xyb_vardct
+from test_torch_vardct_streams import encode_xyb_vardct, encode_ycbcr_vardct
 
 # each phase span of a single-frame decode on the lane route, and its
 # count (the file's headers and the frame's header each take one
@@ -42,7 +48,7 @@ MODULAR_SPANS = {
     "frame.lf_global": 1, "frame.lf_groups": 1, "frame.render": 1, "render.stages": 1,
 }
 PARSE_SPANS = ("decode_image.headers", "frame.lf_global", "frame.lf_groups", "frame.hf_global")
-PROGRAM_SPANS = set(VARDCT_SPANS) | {"render.host_route"}
+PROGRAM_SPANS = set(VARDCT_SPANS) | {"render.host_route", "render.chroma_upsample"}
 
 
 @pytest.fixture(scope="module")
@@ -179,3 +185,47 @@ def test_lane_tables_built_counts_each_frame_once(route, built, plans, vardct, m
         trace.reset()
     assert counted == built
     assert calls.get("frame.lane_plan", 0) == plans
+
+
+@pytest.fixture(scope="module")
+def jpeg420():
+    # a recompressed JPEG's frame: YCbCr 4:2:0, DCT8, two groups across
+    return encode_ycbcr_vardct(264, 16, seed=13, density=0.002, filters=False)[0]
+
+
+def test_subsampled_render_records_its_spans(jpeg420, vardct_profiled):
+    img, events = _profiled(jpeg420)
+    assert img.frames[0].shape == (16, 264, 3)
+    spans = _spans(events)
+    counts = Counter(n for n, *_ in spans)
+    assert (counts["render.blocks"], counts["render.transforms"],
+            counts["render.chroma_upsample"]) == (1, 1, 4)
+    (render,) = [e for e in spans if e[0] == "frame.render"]
+    for n, s, e, _ in spans:
+        if n.startswith("render."):
+            assert render[1] <= s and e <= render[2], n
+    assert "render.chroma_upsample" not in {n for n, *_ in _spans(vardct_profiled[1])}
+
+
+def test_chroma_upsample_passes_counts_each_pass(jpeg420):
+    trace.enable(True)
+    trace.reset()
+    try:
+        jxl_tpu_torch.decode_image(jpeg420, pixel_format="u8", device="cpu")
+        counted = trace.metrics.get("chroma_upsample_passes")
+    finally:
+        trace.enable(False)
+        trace.reset()
+    assert counted == 4
+
+
+def test_subsampled_spans_cost_nothing_when_off(jpeg420, monkeypatch):
+    def refuse(name):
+        raise AssertionError(f"a profiler range {name!r} opened with tracing off")
+
+    monkeypatch.setattr(trace, "_RecordFunctionFast", refuse)
+    trace.enable(False)
+    trace.reset()
+    img = jxl_tpu_torch.decode_image(jpeg420, pixel_format="u8", device="cpu")
+    assert img.frames[0].shape == (16, 264, 3)
+    assert trace.host_seconds() == {} and trace.metrics.counters == {}

@@ -254,8 +254,8 @@ def test_lz77_ac_histograms_take_the_host_decoder(monkeypatch):
 def test_chroma_subsampled_vardct_passes_the_frame_check():
     """A chroma-subsampled VarDCT header is in the slice now (its decodes
     are held against jxl_tpu in test_torch_layouts.py): its render
-    pipeline upsamples the shifted channels first, and no frame check is
-    left to refuse anything."""
+    pipeline cuts each shifted channel to its visible samples and
+    upsamples it first, and no frame check is left to refuse anything."""
     from jxl_tpu_torch.api import simple
     from jxl_tpu_torch.render.pipeline import build_render_pipeline
 
@@ -266,8 +266,8 @@ def test_chroma_subsampled_vardct_passes_the_frame_check():
     frame.header.maxhs = frame.header.maxvs = 1
     assert not frame.header.is444
     names = [s.name for s in build_render_pipeline(frame)]
-    assert names[:4] == ["chroma_upsample_h[1]", "chroma_upsample_v[1]",
-                         "chroma_upsample_h[2]", "chroma_upsample_v[2]"]
+    assert names[:6] == ["chroma_crop[1]", "chroma_upsample_h[1]", "chroma_upsample_v[1]",
+                         "chroma_crop[2]", "chroma_upsample_h[2]", "chroma_upsample_v[2]"]
 
 
 def test_lf_frame_vardct_raises(monkeypatch):

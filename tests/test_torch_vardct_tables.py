@@ -29,6 +29,7 @@ import pytest
 import torch
 
 import jxl_tpu_torch
+from test_torch_layouts import as_jxl_tpu_edges
 from test_torch_vardct_streams import (BitList, BlockContextSpec, DEQUANT_MODES,
                                        encode_xyb_vardct, encode_ycbcr_vardct,
                                        write_coeff_orders)
@@ -143,7 +144,12 @@ def test_pixels_match_jxl_tpu(name, monkeypatch):
     data, _ = _stream(name)
     monkeypatch.setenv("JXL_TPU_AC", "host")
     for fmt, limit in (("f32", 1e-4), ("u8", 1.0)):
-        got = jxl_tpu_torch.decode_image(data, pixel_format=fmt, device="cpu").frames[0].numpy()
+        def decode():
+            return jxl_tpu_torch.decode_image(data, pixel_format=fmt,
+                                              device="cpu").frames[0].numpy()
+
+        # a subsampled frame under jxl_tpu's chroma edges (test_torch_layouts)
+        got = as_jxl_tpu_edges(decode, monkeypatch) if name == "jpeg_420" else decode()
         want = np.asarray(ref_decode(data, pixel_format=fmt).frames[0])
         assert got.shape == want.shape
         assert np.abs(got.astype(np.float64) - want.astype(np.float64)).max() <= limit
