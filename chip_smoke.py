@@ -396,6 +396,7 @@ def phase_build():
     from jxl_tpu_torch.ops import ans_lanes as AL
     from jxl_tpu_torch.ops import epf_gab as K
     from jxl_tpu_torch.ops import lossless_lanes as LL
+    from jxl_tpu_torch.ops import vardct_blocks as VB
 
     errors = []
     secs = {}
@@ -412,6 +413,7 @@ def phase_build():
         threading.Thread(target=run, args=("nvcc_epf_gab", K.load)),
         threading.Thread(target=run, args=("nvcc_ans_lanes", AL.load)),
         threading.Thread(target=run, args=("nvcc_lossless_lanes", LL.load)),
+        threading.Thread(target=run, args=("nvcc_vardct_blocks", VB.load)),
         threading.Thread(target=run, args=("gxx_host_decoder", native.get_lib)),
     ]
     t0 = time.perf_counter()
@@ -420,7 +422,7 @@ def phase_build():
     for t in threads:
         t.join()
     check(not errors, "build failed: " + "; ".join(errors))
-    ptxas = [r for mod in (K, AL, LL)
+    ptxas = [r for mod in (K, AL, LL, VB)
              for r in ptxas_report((mod.build_info or {}).get("log", ""))]
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "parts": secs,
           "ptxas": ptxas})
@@ -1022,12 +1024,14 @@ def phase_vardct(data, coeffs):
     from jxl_tpu_torch.ops import ans_lanes as AL
     from jxl_tpu_torch.ops import device_ac
     from jxl_tpu_torch.ops import epf_gab as K
+    from jxl_tpu_torch.ops import vardct_blocks as VB
 
     mp = WIDTH * HEIGHT / 1e6
     runs = []
     K.epf_gab.launches = 0
     device_ac.decode_ac_sections.launches = 0
     AL.ans_decode_batch.launches = 0
+    VB.vardct_blocks.launches = 0
     for fmt in ("u8", "f32"):
         for rep in range(3):
             t0 = time.perf_counter()
@@ -1041,10 +1045,13 @@ def phase_vardct(data, coeffs):
                   "host_parse_entropy_s": host, "device_s": total - host})
     launches = {"epf_gab": K.epf_gab.launches,
                 "decode_ac_sections": device_ac.decode_ac_sections.launches,
-                "ans_decode_batch": AL.ans_decode_batch.launches}
+                "ans_decode_batch": AL.ans_decode_batch.launches,
+                "vardct_blocks": VB.vardct_blocks.launches,
+                "vardct_blocks_per_decode": VB.vardct_blocks.launches / len(runs)}
     emit({"phase": "vardct", "launches": launches})
     check(launches["epf_gab"] > 0, "the VarDCT decode did not launch epf_gab")
     check(launches["decode_ac_sections"] > 0, "the VarDCT decode did not launch K3")
+    check(launches["vardct_blocks"] > 0, "the VarDCT decode did not launch K5")
 
     lanes = _vardct_frame(data, "cuda")
     torch.cuda.synchronize()
@@ -1077,6 +1084,68 @@ def phase_vardct(data, coeffs):
     finally:
         os.environ.pop("JXL_TPU_AC", None)
     return launches
+
+
+def phase_k5(data) -> dict:
+    """K5 (ops/vardct_blocks.py) over the whole 4K VarDCT frame of `data`:
+    the device time of the render's launches (one a transform type), each
+    timed with CUDA events right around its ctypes entry point behind a
+    spin on the card and summed a frame (`ms`); the event-timed render call
+    (`call_ms`, its host tables included); the plain version's render on
+    the card (`plain_ms`) and the largest difference from it; the launch
+    count; the bound by bytes: each block's 3 x nc int32 coefficients read
+    and 3 x nc float32 pixels written once."""
+    import torch
+
+    from jxl_tpu_torch.ops import vardct_blocks as VB
+    from jxl_tpu_torch.vardct import device_frame as DF
+
+    frame = _vardct_frame(data, "cuda")
+    flat = frame.device_ac_flat
+
+    def render():
+        return DF.render_vardct_frame_device(frame, flat)
+
+    got = render()
+    lib = VB.load()
+    launch = lib.vardct_blocks_launch
+    pairs = []
+    reps = 10
+
+    def timed(*args):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
+        a.record()
+        err = launch(*args)
+        b.record()
+        pairs.append((a, b))
+        return err
+
+    lib.vardct_blocks_launch = timed
+    try:
+        for _ in range(reps):
+            render()
+    finally:
+        lib.vardct_blocks_launch = launch
+    torch.cuda.synchronize()
+    ms = sum(a.elapsed_time(b) for a, b in pairs) / reps
+    call_ms = time_ms(render)
+    DF.vardct_blocks = VB.vardct_blocks_reference
+    try:
+        want = render()
+        plain_ms = time_ms(render, reps=5, warmup=1)
+    finally:
+        DF.vardct_blocks = VB.vardct_blocks
+    pixels = got[0].numel()
+    moved = 3 * pixels * (4 + 4)
+    rec = {"phase": "k5", "launches_per_frame": len(pairs) // reps, "ms": ms,
+           "call_ms": call_ms, "plain_ms": plain_ms,
+           "max_abs_diff": float((got - want).abs().max()), "bytes": moved,
+           "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+    emit(rec)
+    check(rec["max_abs_diff"] <= 1e-5, f"K5 differs from its plain version: {rec}")
+    return rec
 
 
 def feature_streams():
@@ -3862,6 +3931,7 @@ def main() -> int:
     k3 = run("k3", phase_k3, vdata)
     modular_launches = run("decode", phase_decode, data)
     vardct_launches = run("vardct", phase_vardct, vdata, vcoeffs)
+    k5 = run("k5", phase_k5, vdata)
     feature_launches = run("features", phase_features, fstreams)
     run("features_breakdown", phase_render_breakdown, fstreams[0][1], "vardct_up2_noise",
         "features_breakdown")
@@ -3967,6 +4037,16 @@ def main() -> int:
          "library_note": "no single torch call computes the clamped-gradient recurrence",
          "lanes": 270, "samples": lossless["k4"]["samples"],
          "ms_decode_batches": lossless["k4"]["ms_decode_batches"]},
+        {"name": "vardct_blocks", "route": "cuda",
+         "source": "jxl_tpu_torch/csrc/vardct_blocks.cu",
+         "replaces": "none: jxl_tpu/vardct/device_frame.py writes the stage as XLA",
+         "launches": vardct_launches["vardct_blocks_per_decode"],
+         "launches_note": "a decode_image of the 4K 4:4:4 VarDCT stream, one a transform "
+                          "type",
+         "max_abs_err": k5["max_abs_diff"], "ms": k5["ms"], "call_ms": k5["call_ms"],
+         "plain_ms": k5["plain_ms"], "bound_ms": k5["bound_ms"], "bound_by": k5["bound_by"],
+         "library_ms": None,
+         "library_note": "no single torch call computes the dequant and the inverse DCTs"},
     ]})
     print(smi_line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

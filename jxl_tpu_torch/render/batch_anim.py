@@ -13,12 +13,11 @@ count) and one queueing of the render from Python a frame. Here:
   decode_ac_frames), into one coefficient buffer on the device in which
   frame f's group g is slot slots[f] + g;
 - the dequant, CfL and inverse transforms run once a transform type over
-  the blocks of every (frame, group) (vardct/device_frame.py:render_type,
-  through transforms_batch.py's fixed-size chunks) into a (3, F, Hp, Wp)
-  plane stack. A block's pixels do not depend on which blocks share its
-  chunk, and block_factors computes its dequant scales and CfL factors
-  with the same tensor operations as the per-frame render, so the stack
-  holds each frame's planes bit for bit;
+  the blocks of every (frame, group) (ops/vardct_blocks.py:vardct_blocks,
+  K5 on the card) into a (3, F, Hp, Wp) plane stack. A block's pixels
+  depend on that block alone, and its dequant scales and CfL factors come
+  from its frame's factors by the same operations as in the per-frame
+  render, so the stack holds each frame's planes bit for bit;
 - K1 runs once a frame, on the frame's visible (h, w) planes, so it
   mirrors at the frame's own edges as in the per-frame loop (jxl_tpu
   re-gathers a mirror before every EPF step instead);
@@ -179,12 +178,15 @@ def fold_coefficients(frames, device):
 
 
 def _block_tables(frames, slots, cbh: int, cbw: int, Hp: int, Wp: int):
-    """Per transform type, the host arrays of its blocks over every
-    (frame, group): first coefficient in the buffer, first LF sample in
-    the (3, F * cbh * cbw) LF stack, first pixel in the (3, F * Hp * Wp)
-    plane stack, raw quant and colour tiles (float32), the frame's
-    factors (6, n) and the dequant weights ((1, 3, nc), or a row a block
-    when the frames' matrices differ)."""
+    """(tables, per_type): the (F * cbh * cbw,) int32 raw quant and the (F *
+    tch * tcw,) float32 ytox and ytob tables of the frames, each frame's
+    padded to the largest, and per transform type its blocks over every
+    (frame, group): [(n, 4) int64 columns (ops/vardct_blocks.py:
+    block_columns: first coefficient in the buffer, LF index in the (3, F
+    * cbh * cbw) LF stack, first pixel in the (3, F * Hp * Wp) plane
+    stack, colour tile), the frames' factors (6, n) and the dequant weights
+    ((1, 3, nc), or a row a block when the frames' matrices differ)]."""
+    from ..ops.vardct_blocks import block_columns
     from ..vardct.device_frame import (COLOR_TILE_DIM_IN_BLOCKS, _matrices, frame_factors,
                                        placed_blocks)
     from ..vardct.group import BLOCK_SIZE
@@ -192,7 +194,7 @@ def _block_tables(frames, slots, cbh: int, cbw: int, Hp: int, Wp: int):
 
     F = len(frames)
     tch, tcw = -(-cbh // COLOR_TILE_DIM_IN_BLOCKS), -(-cbw // COLOR_TILE_DIM_IN_BLOCKS)
-    rq = np.ones((F, cbh, cbw), np.float32)
+    rq = np.ones((F, cbh, cbw), np.int32)
     yx = np.zeros((F, tch, tcw), np.float32)
     yb = np.zeros((F, tch, tcw), np.float32)
     blocks = []  # (tid, gbx, gby, slot, offset, frame) a frame
@@ -206,28 +208,26 @@ def _block_tables(frames, slots, cbh: int, cbw: int, Hp: int, Wp: int):
         tid, gbx, gby, gi, off = placed_blocks(fr, list(range(fr.header.num_groups)))
         blocks.append((tid, gbx, gby, gi + slots[f], off, np.full(len(tid), f)))
     all_tid, all_gbx, all_gby, all_slot, all_off, all_f = map(np.concatenate, zip(*blocks))
+    cols = block_columns(all_tid, all_gbx, all_gby, all_slot * _STRIDE + all_off, cbw, Wp,
+                         lf0=all_f * (cbh * cbw), pix0=all_f * (Hp * Wp),
+                         tile0=all_f * (tch * tcw))
     k_all = np.concatenate([frame_factors(fr) for fr in frames], axis=1)  # (6, F)
     dqm0 = frames[0].hf_global.dequant_matrices
     same_dqm = [fr.hf_global.dequant_matrices is dqm0 or all(
         a is b or np.array_equal(a, b)
         for a, b in zip(fr.hf_global.dequant_matrices.tables, dqm0.tables)) for fr in frames]
-    out = {}
-    order = np.argsort(all_tid, kind="stable")  # each type's blocks in frame order
-    for sel in np.split(order, np.flatnonzero(np.diff(all_tid[order])) + 1) if len(order) else ():
-        t = int(all_tid[sel[0]])
-        fidx, gbx, gby, slot, off = (a[sel] for a in (all_f, all_gbx, all_gby, all_slot,
-                                                        all_off))
+    order = np.argsort(all_tid, kind="stable")  # block_columns' order within a type
+    per_type = {}
+    for t in cols:
+        fidx = all_f[order][all_tid[order] == t]  # each block's frame, in cols[t]'s order
         nc = covered_blocks_x(t) * covered_blocks_y(t) * BLOCK_SIZE
         if all(same_dqm[f] for f in np.unique(fidx).tolist()):
             w = _matrices(frames[0], t, nc)[None]
         else:
             w = np.stack([_matrices(frames[f], t, nc) for f in range(len(frames))])[fidx]
-        ty, tx = gby // COLOR_TILE_DIM_IN_BLOCKS, gbx // COLOR_TILE_DIM_IN_BLOCKS
-        out[t] = [slot * _STRIDE + off, fidx * (cbh * cbw) + gby * cbw + gbx,
-                  fidx * (Hp * Wp) + gby * (8 * Wp) + gbx * 8,
-                  rq[fidx, gby, gbx], yx[fidx, ty, tx], yb[fidx, ty, tx],
-                  np.ascontiguousarray(k_all[:, fidx]), np.ascontiguousarray(w, np.float32)]
-    return out
+        per_type[t] = [cols[t], np.ascontiguousarray(k_all[:, fidx]),
+                       np.ascontiguousarray(w, np.float32)]
+    return [rq.reshape(-1), yx.reshape(-1), yb.reshape(-1)], per_type
 
 
 def render_frames_batched(frames, flat, slots, out_format: str, device) -> torch.Tensor:
@@ -239,7 +239,7 @@ def render_frames_batched(frames, flat, slots, out_format: str, device) -> torch
     `device`, frame f's group g in slot slots[f] + g."""
     from ..render.device_filters import filter_planes
     from ..render.simple import _modular_to_f32, color_transform
-    from ..vardct.device_frame import block_factors, render_type
+    from ..ops.vardct_blocks import vardct_blocks
 
     f0 = frames[0]
     fh = f0.file_header
@@ -256,7 +256,7 @@ def render_frames_batched(frames, flat, slots, out_format: str, device) -> torch
         for f, fr in enumerate(frames):
             bw, bh = dims[f]
             lf[:, f, :bh, :bw] = np.stack([p[:bh, :bw] for p in fr.lf_image])
-        tables = _block_tables(frames, slots, cbh, cbw, Hp, Wp)
+        tables, per_type = _block_tables(frames, slots, cbh, cbw, Hp, Wp)
         sigma = np.zeros((F, cbh, cbw), np.float32)
         if int(rf.epf_iters) > 0:
             for f, fr in enumerate(frames):
@@ -268,19 +268,19 @@ def render_frames_batched(frames, flat, slots, out_format: str, device) -> torch
             for i in range(num_ec):
                 ecs[i, f, :h, :w] = fr.lf_global.modular_global.output_channel(3 + i)[:h, :w]
         biases = np.asarray(fh.transform_data.opsin_inverse_matrix.quant_biases, np.float32)
-        types = sorted(tables)
-        host = [lf, biases, sigma] + [a for t in types for a in tables[t]]
-        lf_d, b_c, sigma_d, *per_type = st.to_device_all(host + ([ecs] if num_ec else []),
-                                                         device)
-        ecs_d = per_type.pop() if num_ec else None
+        types = sorted(per_type)
+        host = [lf, biases, sigma, *tables] + [a for t in types for a in per_type[t]]
+        lf_d, b_c, sigma_d, rq_d, yx_d, yb_d, *type_d = st.to_device_all(
+            host + ([ecs] if num_ec else []), device)
+        ecs_d = type_d.pop() if num_ec else None
 
     with trace.span("batch_anim.transforms"):
         planes = torch.zeros((3, F * Hp * Wp), dtype=torch.float32, device=device)
         lf_flat = lf_d.reshape(3, -1)
         for i, t in enumerate(types):
-            base, lf0, pix0, rq_b, yx_b, yb_b, k, mats = per_type[8 * i : 8 * i + 8]
-            render_type(t, flat, lf_flat, planes, base, lf0, cbw, pix0, Wp,
-                        block_factors(rq_b, yx_b, yb_b, k), b_c, mats)
+            cols, k, mats = type_d[3 * i : 3 * i + 3]
+            vardct_blocks(t, flat, cols, lf_flat, cbw, rq_d, yx_d, yb_d, k, b_c, mats, planes,
+                          Wp)
         planes = planes.reshape(3, F, Hp, Wp)
 
     if rf.gab or int(rf.epf_iters) > 0:

@@ -43,7 +43,8 @@ The spans of a decode, by owner module (README's table names each one):
   pass of one channel, inside `render.stages`).
 
 `metrics` counts what the decode did (megapixels, K3 lanes, the frames
-whose lane tables were built, the chroma upsampling passes), only while
+whose lane tables were built, the chroma upsampling passes, K5's launches
+and blocks: `vardct_blocks_launches`, `vardct_blocks_blocks`), only while
 tracing is on.
 `device_trace(dir)` is a torch.profiler session around a block that
 writes a Chrome trace into `dir` (it takes the JAX profiler's place).

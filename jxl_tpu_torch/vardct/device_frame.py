@@ -20,6 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops.vardct_blocks import block_columns, dequant, vardct_blocks
 from ..render.stages.core import to_device_all
 from ..utils import trace
 from .group import BLOCK_SIZE, GROUP_DIM
@@ -131,17 +132,6 @@ def _matrices(frame, t: int, nc: int) -> np.ndarray:
     return np.stack([np.asarray(dqm.matrix(t, c)[:nc], np.float32) for c in range(3)])
 
 
-def _dequant(qb, bias, b3, mats, scale):
-    """Dequantized coefficients of the int32 quantized ones `qb`: the
-    quant bias (q * bias where |q| < 2, else q - b3 / q; 0 stays 0) times
-    the dequant weights `mats` times the blocks' `scale`, each broadcast
-    against qb."""
-    q = qb.to(torch.float32)
-    adj = torch.where(qb.abs() < 2, q * bias, q - b3 / torch.where(qb == 0, 1.0, q))
-    adj = torch.where(qb == 0, 0.0, adj)
-    return adj * mats * scale
-
-
 def _cfl_factors(gbx, gby, ytox, ytob, cf, bcx, bcb) -> tuple:
     """(x, b) chroma-from-luma factors of the blocks at (gbx, gby): the
     base correlation plus the block's colour tile's ytox or ytob over the
@@ -153,58 +143,23 @@ def _cfl_factors(gbx, gby, ytox, ytob, cf, bcx, bcb) -> tuple:
 
 def frame_factors(frame) -> np.ndarray:
     """(6, 1) float32: the frame's x_dm, b_dm, 1/global_scale, colour
-    factor and base correlations x and b, one column (block_factors)."""
+    factor and base correlations x and b, one column (the k of
+    ops/vardct_blocks.py:vardct_blocks)."""
     return np.array(_constants(frame), np.float32).reshape(6, 1)
 
 
-def block_factors(rq_b, ytox_b, ytob_b, k) -> tuple:
-    """(scales (n, 3), x_cc (n,), b_cc (n,)): the blocks' dequant scales
-    and chroma-from-luma factors from their raw quant (float32), their
-    colour tiles' ytox and ytob (float32) and k, the (6, 1) frame_factors
-    of their frame or a (6, n) gather of several frames' columns. Every
-    operand is a tensor, so a block's factors are the same elementwise
-    operations whichever frames share the call: the batched animation
-    render (render/batch_anim.py) gives each frame's blocks the factors
-    render_block_rows gives them."""
-    x_dm, b_dm, igs, cf, bcx, bcb = k.unbind(0)
-    scaled_y = igs / rq_b
-    scales = torch.stack([scaled_y * x_dm, scaled_y, scaled_y * b_dm], dim=1)
-    return scales, bcx + ytox_b / cf, bcb + ytob_b / cf
-
-
-def render_type(t: int, flat, lf_flat, planes, base, lf0, lf_stride: int, pix0, W: int,
-                factors: tuple, b_c, mats) -> None:
-    """Dequant, CfL and the inverse transform of n blocks of type t, their
-    pixels written into `planes` ((3, P) float32). base (n,): each block's
-    first coefficient in `flat` (its group slot * 3 * GD * GD + offset);
-    lf0 (n,): its first LF sample in each row of lf_flat ((3, L)), whose
-    tile rows are lf_stride apart; pix0 (n,): its first pixel in each row
-    of planes, whose pixel rows are W apart; factors: block_factors();
-    b_c: the quant biases (4,); mats: the dequant weights, (1, 3, nc) or
-    one row a block."""
-    dev = flat.device
-    n = base.shape[0]
-    cx, cy = covered_blocks_x(t), covered_blocks_y(t)
-    nc = cx * cy * BLOCK_SIZE
-    stride_c = GROUP_DIM * GROUP_DIM
-    scales, x_cc, b_cc = factors
-    gidx = (base[:, None, None] + torch.arange(3, device=dev)[None, :, None] * stride_c
-            + torch.arange(nc, device=dev)[None, None, :])
-    qb = flat[gidx.reshape(-1)].reshape(n, 3, nc)
-    dq = _dequant(qb, b_c[:3][None, :, None], b_c[3], mats, scales[:, :, None])
-    # X and B get Y's dequantized value times their correlation
-    dq[:, 0] += x_cc[:, None] * dq[:, 1]
-    dq[:, 2] += b_cc[:, None] * dq[:, 1]
-    iy = torch.arange(cy, device=dev)
-    ix = torch.arange(cx, device=dev)
-    lf_idx = (lf0[:, None, None] + iy[None, :, None] * lf_stride + ix[None, None, :]).reshape(-1)
-    py = torch.arange(cy * BLOCK_DIM, device=dev)
-    px = torch.arange(cx * BLOCK_DIM, device=dev)
-    pidx = (pix0[:, None, None] + py[None, :, None] * W + px[None, None, :]).reshape(-1)
-    for c in (1, 0, 2):
-        lf_tiles = lf_flat[c][lf_idx].reshape(n, cy, cx)
-        pix = transform_to_pixels_batch(t, lf_tiles, dq[:, c].contiguous())
-        planes[c, pidx] = pix.reshape(-1)
+def frame_columns(frame, group_ids: list, by0: int = 0, bx0: int = 0,
+                  bx1: int | None = None) -> dict:
+    """{tid: (n, 4) int64 columns} (ops/vardct_blocks.py:block_columns) of
+    the blocks placed in the groups `group_ids` (slot i of the coefficient
+    buffer holds group group_ids[i]), for planes of block columns [bx0,
+    bx1) and block rows from by0, and LF, raw quant and colour tile tables
+    of the frame's width from block row by0 (by0 a multiple of 8)."""
+    bw = frame.header.size_blocks()[0]
+    bx1 = bw if bx1 is None else bx1
+    tids, gbx, gby, gi, off = placed_blocks(frame, group_ids, by0)
+    return block_columns(tids, gbx, gby, gi * _GROUP_STRIDE + off, bw, (bx1 - bx0) * BLOCK_DIM,
+                         bx0)
 
 
 def render_vardct_frame_device(frame, flat) -> torch.Tensor:
@@ -225,11 +180,11 @@ def render_block_rows(frame, flat, group_ids: list, by0: int, by1: int,
     every group over every block row; a band of the banded decode
     (vardct/device_band.py) is one group row, and a rank's tile of the
     sharded decode (parallel/sharded_render.py) a rectangle of groups:
-    their pixels are the frame's there, from the same per-block gathers,
-    dequant, CfL and inverse transforms (render_type). by0 is a multiple
-    of 8 (the colour tiles). matrices: {tid: (3, nc) float32} dequant
-    weights already made (a band renderer keeps them across bands), else
-    made here."""
+    their pixels are the frame's there, from the same per-block work
+    (ops/vardct_blocks.py:vardct_blocks, a block's pixels from that block
+    alone). by0 is a multiple of 8 (the colour tiles). matrices: {tid: (3,
+    nc) float32} dequant weights already made (a band renderer keeps them
+    across bands), else made here."""
     header = frame.header
     if not header.is444:
         raise ValueError("a chroma-subsampled frame renders through "
@@ -240,26 +195,20 @@ def render_block_rows(frame, flat, group_ids: list, by0: int, by1: int,
     nbh = by1 - by0
     W = (bx1 - bx0) * BLOCK_DIM
     with trace.span("render.blocks"):
-        blocks = _frame_blocks(frame, group_ids, by0)
-        types = sorted(blocks)
+        cols = frame_columns(frame, group_ids, by0, bx0, bx1)
+        types = sorted(cols)
         host = [frame_factors(frame)]
         for t in types:
-            host += [a.astype(np.int64) for a in blocks[t]]
             nc = covered_blocks_x(t) * covered_blocks_y(t) * BLOCK_SIZE
-            host.append(matrices[t] if matrices is not None else _matrices(frame, t, nc))
+            mats = matrices[t] if matrices is not None else _matrices(frame, t, nc)
+            host += [cols[t], mats[None]]
     with trace.span("render.transforms"):
         lf, rq, ytox, ytob, b_c, k, *per_type = _upload(frame, host, dev, by0, by1)
-        lf_flat = lf.reshape(3, -1)
+        lf = lf.reshape(3, -1)
         planes = torch.zeros((3, nbh * BLOCK_DIM * W), dtype=torch.float32, device=dev)
         for i, t in enumerate(types):
-            gbx, gby, gi, off, mats = per_type[5 * i : 5 * i + 5]
-            tx = gbx // COLOR_TILE_DIM_IN_BLOCKS
-            ty = gby // COLOR_TILE_DIM_IN_BLOCKS
-            factors = block_factors(rq[gby, gbx].to(torch.float32), ytox[ty, tx], ytob[ty, tx],
-                                    k)
-            render_type(t, flat, lf_flat, planes, gi * _GROUP_STRIDE + off, gby * bw + gbx, bw,
-                        gby * (BLOCK_DIM * W) + (gbx - bx0) * BLOCK_DIM, W, factors, b_c,
-                        mats[None])
+            vardct_blocks(t, flat, per_type[2 * i], lf, bw, rq, ytox, ytob, k, b_c,
+                          per_type[2 * i + 1], planes, W)
     return planes.reshape(3, nbh * BLOCK_DIM, W)
 
 
@@ -312,8 +261,8 @@ def render_vardct_frame_device_subsampled(frame, flat) -> list:
         lanes = torch.arange(BLOCK_SIZE, device=dev)
         py = torch.arange(BLOCK_DIM, device=dev)
 
-        def dequant(qb, c, t, scale):
-            return _dequant(qb, b_c[c], b_c[3], mats[t][c][None], scale[:, None])
+        def dequant_c(qb, c, t, scale):
+            return dequant(qb, b_c[c], b_c[3], mats[t][c][None], scale[:, None])
 
         sizes = [(H >> header.vshift(c), W >> header.hshift(c)) for c in range(3)]
         # one slot past each plane takes the pixels the reference drops
@@ -329,11 +278,11 @@ def render_vardct_frame_device_subsampled(frame, flat) -> list:
                 return flat[((base + ch * stride_c)[:, None] + lanes[None, :]).reshape(-1)
                             ].reshape(-1, BLOCK_SIZE)
 
-            dq = dequant(gather(c), c, t, scaled_y * {0: x_dm, 1: 1.0, 2: b_dm}[c])
+            dq = dequant_c(gather(c), c, t, scaled_y * {0: x_dm, 1: 1.0, 2: b_dm}[c])
             if c != 1:
                 # CfL: Y's dequantized block at the same full-resolution block
                 cc = _cfl_factors(gbx, gby, ytox, ytob, cf, bcx, bcb)[c // 2]
-                dq = dq + cc[:, None] * dequant(gather(1), 1, t, scaled_y)
+                dq = dq + cc[:, None] * dequant_c(gather(1), 1, t, scaled_y)
             cbx, cby = gbx >> hs, gby >> vs
             lf_tiles = lf_flat[c][cby * bw + cbx]
             pix = transform_to_pixels_batch(t, lf_tiles[:, None, None], dq.contiguous())

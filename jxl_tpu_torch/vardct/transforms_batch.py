@@ -4,7 +4,10 @@ at a time, on the blocks' device.
 The torch counterpart of jxl_tpu/vardct/transforms_batch.py: the math of
 transforms.py (the per-block numpy oracle) over a leading batch axis, as
 float32 matrix products. TF32 stays off (the package sets it at import),
-so the products keep full float32 on the card.
+so the products keep full float32 on the card. The 4:4:4 render runs
+these only on the CPU, as K5's plain version (ops/vardct_blocks.py); the
+chroma-subsampled render runs them on either device, the host render
+route on the host.
 
 A block's result must not depend on how many blocks share the call: the
 banded decode (vardct/device_band.py) renders a group row's blocks where

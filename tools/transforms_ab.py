@@ -13,9 +13,13 @@ Imports jxl_tpu_torch from DIR, and the stream writer
 checkout decodes the same bytes: DIR2 keeps the streams, written by the
 first run and read by the later ones. Prints JSON lines:
 - "products": for each of the 27 transform types, 3000 random blocks
-  through vardct/transforms_batch.py:transform_to_pixels_batch in one call
-  and in calls of 1, 7, 256 and 1000 blocks: bit for bit or the max abs
-  difference;
+  (300 of the types of 32 blocks and more) through the decode's per-type
+  render in one call and in calls of 1, 7, 256 and 1000 blocks: bit for
+  bit or the max abs difference. The render is ops/vardct_blocks.py:
+  vardct_blocks (K5: random quantized coefficients, dequantized in the
+  call) where the checkout has it, else vardct/transforms_batch.py:
+  transform_to_pixels_batch (random dequantized coefficients), what that
+  checkout's decode runs;
 - one line a stream (a 3840x2160 and a 7680x4320 frame of the DCT32 to
   DCT256 transforms, transforms="large", and the 3840x2160 frame of
   chip_smoke.py's vardct phase): f32 decode_image by the whole-frame route
@@ -71,24 +75,60 @@ def diff(a, b) -> dict:
 
 def products() -> dict:
     """{type: diff of the blocks in one call against in calls of 1, 7, 256
-    and 1000 blocks}."""
+    and 1000 blocks}, through the checkout's per-type render."""
     import numpy as np
     import torch
 
     from jxl_tpu_torch.vardct.transform_map import covered_blocks_x, covered_blocks_y
-    from jxl_tpu_torch.vardct.transforms_batch import transform_to_pixels_batch
 
+    try:
+        from jxl_tpu_torch.ops.vardct_blocks import vardct_blocks
+    except ImportError:  # a checkout before K5
+        vardct_blocks = None
     rng = np.random.default_rng(3)
     out = {}
     for t in range(27):
         cx, cy = covered_blocks_x(t), covered_blocks_y(t)
         n = 3000 if cx * cy <= 16 else 300
-        lf = torch.from_numpy(rng.normal(0, 1, (n, cy, cx)).astype(np.float32)).cuda()
-        co = torch.from_numpy(rng.normal(0, 1, (n, cx * cy * 64)).astype(np.float32)).cuda()
-        whole = transform_to_pixels_batch(t, lf, co)
+        nc = cx * cy * 64
+        if vardct_blocks is None:
+            from jxl_tpu_torch.vardct.transforms_batch import transform_to_pixels_batch
+
+            lf = torch.from_numpy(rng.normal(0, 1, (n, cy, cx)).astype(np.float32)).cuda()
+            co = torch.from_numpy(rng.normal(0, 1, (n, nc)).astype(np.float32)).cuda()
+
+            def render(i, j):
+                return transform_to_pixels_batch(t, lf[i:j], co[i:j])
+
+            whole = render(0, n)
+        else:
+            # n blocks side by side in one row of blocks
+            W = n * cx * 8
+            cuda = {name: torch.from_numpy(np.ascontiguousarray(a)).cuda() for name, a in dict(
+                flat=rng.integers(-6, 7, n * nc + 3 * 65536).astype(np.int32),
+                cols=np.stack([np.arange(n) * nc, np.arange(n) * cx, np.arange(n) * cx * 8,
+                               np.arange(n) % 4], 1).astype(np.int64),
+                lf=rng.normal(0, 0.5, (3, cy * n * cx)).astype(np.float32),
+                rq=rng.integers(1, 60, cy * n * cx).astype(np.int32),
+                yx=rng.normal(0, 3, 4).astype(np.float32),
+                yb=rng.normal(0, 3, 4).astype(np.float32),
+                k=np.array([1.1, 0.9, 1 / 512, 84, 0, 1], np.float32).reshape(6, 1),
+                bias=np.array([-0.05, -0.06, -0.07, 0.145], np.float32),
+                mats=rng.uniform(0.01, 2.0, (1, 3, nc)).astype(np.float32)).items()}
+            planes = torch.zeros((3, cy * 8 * W), dtype=torch.float32, device="cuda")
+
+            def render(i, j):
+                vardct_blocks(t, cuda["flat"], cuda["cols"][i:j], cuda["lf"], n * cx, cuda["rq"],
+                              cuda["yx"], cuda["yb"], cuda["k"], cuda["bias"], cuda["mats"],
+                              planes, W)
+                # block b's pixels: rows of planes, columns [b * cx * 8, (b + 1) * cx * 8)
+                return planes.reshape(3, cy * 8, n, cx * 8)[:, :, i:j].clone()
+
+            whole = render(0, n).transpose(0, 2)
         worst = None
         for size in (1, 7, 256, 1000):
-            parts = torch.cat([transform_to_pixels_batch(t, lf[i : i + size], co[i : i + size])
+            parts = torch.cat([render(i, i + size) if vardct_blocks is None
+                               else render(i, i + size).transpose(0, 2)
                                for i in range(0, min(n, 3 * size), size)])
             d = diff(parts, whole[: parts.shape[0]])
             if worst is None or d["max_abs_diff"] > worst["max_abs_diff"]:
