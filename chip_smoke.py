@@ -139,14 +139,10 @@ a non-zero exit:
              KiB (every frame and duration decode_image's); (d) python -m
              jxl_tpu_torch.cli in a subprocess on the 4K VarDCT stream: its
              PNG equal to decode_image's u8 frame, and --speedtest's MP/s.
-10. banded - the banded decode (api/banded.py, api/overlap.py): (a)
-             decode_image of the 4K VarDCT stream by the band route
-             (JXL_TPU_OVERLAP=1) and the whole-frame route (=0), u8 and
-             f32, 5 reps each: walls, host_s, peak card memory, K1 and K3
-             launches a decode (9 and 9 on the band route, 1 and 1
-             whole), the routes against each other, and the band route
-             once under torch.cuda.set_sync_debug_mode("error") but for
-             its one lane-flag check after the last band; (b)
+10. banded - the banded decode (api/banded.py): (a) decode_image of
+             the 4K VarDCT stream, u8 and f32, 5 reps each: walls,
+             host_s, peak card memory, K1 and K3 launches a decode (1
+             and 1); (b)
              decode_banded of a 7680x4320 VarDCT stream (17 bands) into
              a pinned host array, against decode_image of the same bytes,
              with walls and peak card memory: decode_banded's peak must
@@ -2146,75 +2142,20 @@ def banded_streams(fstreams, tstreams, mstreams):
     ]
 
 
-def _band_route_breakdown(data) -> dict:
-    """One u8 decode_image of `data` by the band route with its host steps
-    timed on the host clock (the card runs behind them): the LfGlobal, LF
-    groups and HfGlobal; each band's AC step (lane planning and K3's
-    launch); each band's VarDCT render queued; each band's filters,
-    colour and conversion queued; the one wait for the lane flags after
-    the last band (the card's backlog); then the wall, synchronised."""
-    import torch
-
-    import jxl_tpu_torch
-    from jxl_tpu_torch.api import banded, overlap
-    from jxl_tpu_torch.vardct import device_band
-
-    acc = {}
-
-    def timed(name, fn):
-        def call(*a, **kw):
-            t0 = time.perf_counter()
-            try:
-                return fn(*a, **kw)
-            finally:
-                acc[name] = acc.get(name, 0.0) + time.perf_counter() - t0
-        return call
-
-    real = (banded.decode_lf_sections, banded.BandSource.coefficients,
-            device_band.BandRenderer.render, overlap.dispatch_band_filters,
-            banded.BandSource.check)
-    banded.decode_lf_sections = timed("lf_sections_s", real[0])
-    banded.BandSource.coefficients = timed("ac_steps_s", real[1])
-    device_band.BandRenderer.render = timed("render_queue_s", real[2])
-    overlap.dispatch_band_filters = timed("filters_queue_s", real[3])
-    banded.BandSource.check = timed("final_wait_s", real[4])
-    os.environ["JXL_TPU_OVERLAP"] = "1"
-    try:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        jxl_tpu_torch.decode_image(data, pixel_format="u8")
-        torch.cuda.synchronize()
-        acc["wall_s"] = time.perf_counter() - t0
-    finally:
-        os.environ.pop("JXL_TPU_OVERLAP", None)
-        (banded.decode_lf_sections, banded.BandSource.coefficients,
-         device_band.BandRenderer.render, overlap.dispatch_band_filters,
-         banded.BandSource.check) = real
-    return acc
-
-
 def phase_banded(vdata, streams) -> dict:
     """The banded decode on the card. (a) decode_image of the 4K VarDCT
-    stream by both routes (JXL_TPU_OVERLAP=1, the band route, and =0, the
-    whole frame), u8 and f32, 5 reps each: wall, host_s, K1 and K3
-    launches a decode (9 and 9 on the band route, one band a group row;
-    1 and 1 whole), peak card memory, and the routes against each other;
-    then the band route once under torch.cuda.set_sync_debug_mode("error")
-    but for its one flag check after the last band. (b) decode_banded of a
+    stream, u8 and f32, 5 reps each: wall, host_s, K1 and K3 launches a
+    decode (1 and 1), peak card memory. (b) decode_banded of a
     7680x4320 VarDCT stream (17 bands) into a sink that copies each band
     into one pinned host array, against decode_image of the same bytes,
     with both walls and peak card memories, and decode_banded's peak at
     7680x1088 (5 bands): the working set follows the width, not the
     height. (c) decode_banded of the other band types (banded_streams)
     against decode_image. Band and frame agree bit for bit
-    (_check_same). Also the band route's host steps
-    (_band_route_breakdown) and both routes of decode_image at 8K. Returns
-    the launches of each band path."""
-    import numpy as np
+    (_check_same). Returns the launches of each band path."""
     import torch
 
     import jxl_tpu_torch
-    from jxl_tpu_torch.api import banded
     from jxl_tpu_torch.ops import ans_lanes as AL
     from jxl_tpu_torch.ops import device_ac
     from jxl_tpu_torch.ops import epf_gab as K
@@ -2241,60 +2182,20 @@ def phase_banded(vdata, streams) -> dict:
 
     out = {}
     AL.ans_decode_batch.launches = 0
-    # (a) both routes of decode_image
+    # (a) decode_image of the 4K stream
     mp = WIDTH * HEIGHT / 1e6
-    frames = {}
-    route_launches = {}
-    for route in ("1", "0"):
-        os.environ["JXL_TPU_OVERLAP"] = route
-        try:
-            for fmt in ("u8", "f32"):
-                for rep in range(5):
-                    reset()
-                    img, wall, peak = measured(
-                        lambda: jxl_tpu_torch.decode_image(vdata, pixel_format=fmt))
-                    c = counts()
-                    frames[(route, fmt)] = img.frames[0]
-                    route_launches.setdefault(route, c)
-                    emit({"phase": "banded", "step": "routes", "band_route": route == "1",
-                          "format": fmt, "rep": rep, "seconds": wall, "mp_per_s": mp / wall,
-                          "host_parse_entropy_s": img.timings["host_s"],
-                          "peak_card_bytes": peak, "launches": c})
-                    want = ({"decode_ac_sections": 9, "epf_gab": 9} if route == "1"
-                            else {"decode_ac_sections": 1, "epf_gab": 1})
-                    check(c == want, f"route {route}: launches {c}, expected {want}")
-        finally:
-            os.environ.pop("JXL_TPU_OVERLAP", None)
     for fmt in ("u8", "f32"):
-        rep = _diff_report(frames[("1", fmt)], frames[("0", fmt)])
-        emit({"phase": "banded", "step": "routes", "format": fmt, "band_vs_whole": rep})
-        _check_same(rep, fmt, "band route against the whole-frame route")
-    # the band loop queues without a host sync: only the flag check after
-    # the last band (BandSource.check) may wait for the card
-    real_check = banded.BandSource.check
-
-    def check_outside(self):
-        torch.cuda.set_sync_debug_mode("default")
-        try:
-            real_check(self)
-        finally:
-            torch.cuda.set_sync_debug_mode("error")
-
-    os.environ["JXL_TPU_OVERLAP"] = "1"
-    banded.BandSource.check = check_outside
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        img = jxl_tpu_torch.decode_image(vdata, pixel_format="u8")
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-        banded.BandSource.check = real_check
-        os.environ.pop("JXL_TPU_OVERLAP", None)
-    check(torch.equal(img.frames[0], frames[("1", "u8")]), "the sync-checked decode differs")
-    emit({"phase": "banded", "step": "routes", "sync_debug_error_mode": "no sync in the band loop"})
-    out["band_route"] = route_launches["1"]
-    emit({"phase": "banded", "step": "band_route_host_breakdown",
-          **_band_route_breakdown(vdata)})
+        for rep in range(5):
+            reset()
+            img, wall, peak = measured(
+                lambda: jxl_tpu_torch.decode_image(vdata, pixel_format=fmt))
+            c = counts()
+            emit({"phase": "banded", "step": "decode_image_4k", "format": fmt, "rep": rep,
+                  "seconds": wall, "mp_per_s": mp / wall,
+                  "host_parse_entropy_s": img.timings["host_s"],
+                  "peak_card_bytes": peak, "launches": c})
+            want = {"decode_ac_sections": 1, "epf_gab": 1}
+            check(c == want, f"decode_image: launches {c}, expected {want}")
 
     # (b) decode_banded at 8K against decode_image of the same bytes
     t0 = time.perf_counter()
@@ -2338,23 +2239,7 @@ def phase_banded(vdata, streams) -> dict:
     rep = _diff_report(host.to("cuda"), img.frames[0])
     emit({"phase": "banded", "step": "decode_banded_8k", "vs_decode_image": rep})
     _check_same(rep, "f32", "decode_banded at 8K against decode_image")
-    os.environ["JXL_TPU_OVERLAP"] = "1"
-    try:
-        for rep in range(2):
-            reset()
-            band_img, wall, peak = measured(lambda: jxl_tpu_torch.decode_image(big))
-            c = counts()
-            emit({"phase": "banded", "step": "band_route_8k", "rep": rep, "seconds": wall,
-                  "mp_per_s": 4 * mp / wall, "peak_card_bytes": peak, "launches": c,
-                  "host_parse_entropy_s": band_img.timings["host_s"]})
-            check(c == {"decode_ac_sections": 17, "epf_gab": 17},
-                  f"the band route at 8K: launches {c}")
-    finally:
-        os.environ.pop("JXL_TPU_OVERLAP", None)
-    rep = _diff_report(band_img.frames[0], img.frames[0])
-    emit({"phase": "banded", "step": "band_route_8k", "vs_decode_image": rep})
-    _check_same(rep, "f32", "the band route at 8K against the whole-frame route")
-    del img, band_img
+    del img
     _, wall, short_peak = measured(lambda: banded_into(short, small))
     emit({"phase": "banded", "step": "decode_banded_7680x1088", "seconds": wall,
           "peak_card_bytes": short_peak})
@@ -3960,7 +3845,6 @@ def main() -> int:
          "launches_tools_path": tool_launches["epf_gab"],
          "launches_streaming_path": streaming["launches"]["epf_gab"],
          "launches_streaming_flush_path": streaming["flush_launches"]["epf_gab"],
-         "launches_band_route_path": band_launches["band_route"]["epf_gab"],
          "launches_decode_banded_8k_path": band_launches["decode_banded_8k"]["epf_gab"],
          "launches_decode_banded_types_path": {
              k: v["epf_gab"] for k, v in band_launches["decode_banded_types"].items()},
@@ -4001,7 +3885,6 @@ def main() -> int:
          "launches_tools_path": tool_launches["decode_ac_sections"],
          "launches_streaming_path": streaming["launches"]["decode_ac_sections"],
          "launches_streaming_flush_path": streaming["flush_launches"]["decode_ac_sections"],
-         "launches_band_route_path": band_launches["band_route"]["decode_ac_sections"],
          "launches_decode_banded_8k_path":
              band_launches["decode_banded_8k"]["decode_ac_sections"],
          "launches_decode_banded_types_path": {

@@ -11,11 +11,8 @@ several), animations, cropped and blended frames, reference frames and
 patches, splines, LF frames and embedded ICC profiles, with every frame's
 render on the caller's device; a lossless Modular frame's channel-static
 streams can reconstruct on the card (JXL_TPU_DEV_LOSSLESS,
-modular/device_lossless.py). Its band route (JXL_TPU_OVERLAP) decodes a plain 4:4:4
-VarDCT frame one group row at a time, the host's parse of a band
-overlapping the card's work on the one before. decode_banded decodes the
-last frame one group row at a time into the caller's sink, holding O(band)
-on the card.
+modular/device_lossless.py). decode_banded decodes the last frame one
+group row at a time into the caller's sink, holding O(band) on the card.
 """
 
 import torch

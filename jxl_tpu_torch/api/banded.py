@@ -33,8 +33,6 @@ full resolution, group-gridded. Anything else raises NotSupported.
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
@@ -107,9 +105,7 @@ class BandSource:
     visible rows. `reader(logical section index)` gives a section's
     BitReader. A VarDCT frame on the lane route launches K3 once a band
     over the band's (group, pass) lanes into a band-sized buffer; the lane
-    flags wait in `pending` until check() reads them (a sync). host_s sums
-    the host seconds of the bands' section decode (for the lane route, the
-    lane planning and K3's launch)."""
+    flags wait in `pending` until check() reads them (a sync)."""
 
     def __init__(self, frame, reader, device):
         from ..vardct.device_band import BandRenderer
@@ -126,7 +122,6 @@ class BandSource:
         self.renderer = BandRenderer(frame) if self.vardct else None
         self.pending = []
         self.launches = 0
-        self.host_s = 0.0  # seconds of the bands' AC steps on the host
 
     def rows(self, gy: int) -> int:
         return min(self.gdim, self.hv - gy * self.gdim)
@@ -238,15 +233,11 @@ class BandSource:
         return pool.to(self.device, non_blocking=True), dec
 
     def decode(self, gy: int):
-        t0 = time.perf_counter()
         if not self.vardct:
-            out = self._modular_band(gy)
-            self.host_s += time.perf_counter() - t0
-            return out
+            return self._modular_band(gy)
         from ..vardct.device_band import band_groups
 
         coeffs, dec = self.coefficients(band_groups(self.frame, gy), gy)
-        self.host_s += time.perf_counter() - t0
         planes = self.renderer.render(gy, coeffs)[:, : self.rows(gy), : self.wv]
         return planes, self._ec_planes(self._outputs(dec)) if dec else []
 
@@ -262,13 +253,13 @@ class BandSource:
 
 
 def band_slabs(source):
-    """The band loop of both banded entry points: for each group row gy
-    in order, (gy, tail, planes, head, extra channels), yielded once band
-    gy + 1 is decoded (the one-band lookahead): `planes` the band's
-    (3, rows, wv) planes, `tail` the previous band's last HALO rows and
-    `head` the next band's first HALO rows, each None at the frame's
-    edge. The caller filters and emits the band; when it reads the lane
-    flags (BandSource.check) is its own choice."""
+    """decode_banded's band loop: for each group row gy in order, (gy,
+    tail, planes, head, extra channels), yielded once band gy + 1 is
+    decoded (the one-band lookahead): `planes` the band's (3, rows, wv)
+    planes, `tail` the previous band's last HALO rows and `head` the next
+    band's first HALO rows, each None at the frame's edge. The caller
+    filters and emits the band; when it reads the lane flags
+    (BandSource.check) is its own choice."""
     prev = tail = None
     for gy in range(source.frame.header.size_groups()[1]):
         cur, ec = source.decode(gy)

@@ -37,7 +37,6 @@ from ..io.headers import FileHeader
 from ..io.headers.frame import FrameHeader, FrameType, Toc
 from ..render.simple import apply_orientation
 from ..utils import devhealth, trace
-from . import overlap
 from .frame import Frame
 from .state import DecoderState
 
@@ -333,20 +332,15 @@ def decode_image(
     channel-static streams on `device` (the lossless lanes,
     modular/device_lossless.py); 0 and auto (the default) on the host.
     DecodedImage.timings["host_s"] sums the host parse and entropy decode
-    of every frame. JXL_TPU_OVERLAP=1 decodes an eligible
-    last frame (4:4:4 VarDCT without features, api/overlap.py) band by
-    band, the host's parse of a band overlapping the card's work on the
-    one before; 0 and auto (the default) never, as the band route has
-    not yet beaten the whole frame on the card. JXL_TPU_BATCH_ANIM
-    chooses the route of an animation render/batch_anim.py:batchable
-    admits: "0" (the default) the whole-animation fold where it takes the
-    stream, then the batched render; "1" the batched render without the
-    fold; "off" the per-frame loop (module docstring). JXL_TPU_DEVICE
-    chooses where a frame renders (utils/devhealth.py): "on" on `device`;
-    "off" by the host render route, the native C++ on the host, the
-    finished frame then moved to `device` in one copy; "auto" (the
-    default) by the host route for a small VarDCT still on the card, else
-    on `device`."""
+    of every frame. JXL_TPU_BATCH_ANIM chooses the route of an animation
+    render/batch_anim.py:batchable admits: "0" (the default) the
+    whole-animation fold where it takes the stream, then the batched
+    render; "1" the batched render without the fold; "off" the per-frame
+    loop (module docstring). JXL_TPU_DEVICE chooses where a frame renders
+    (utils/devhealth.py): "on" on `device`; "off" by the host render
+    route, the native C++ on the host, the finished frame then moved to
+    `device` in one copy; "auto" (the default) by the host route for a
+    small VarDCT still on the card, else on `device`."""
     if pixel_format not in PIXEL_FORMATS:
         raise ValueError(f"unknown pixel format {pixel_format!r}")
     device = torch.device(device)
@@ -412,16 +406,6 @@ def _decode_frames(data: bytes, keep_all_frames: bool, pixel_format: str,
                     raise InvalidBox("frame starts in out-of-order jxlp box")
             frame = parse_frame(br, fh, state)
         header = frame.header
-        if overlap.eligible(frame) and overlap.enabled():
-            # the band route (api/overlap.py): the host parses band k+1
-            # while the card renders band k; the last frame, so the loop ends
-            host_s += time.perf_counter() - t0
-            with trace.span("decode_image.band_route"):
-                arr, band_host_s = overlap.decode(frame, br, pixel_format, device)
-            host_s += band_host_s
-            out.frames.append(apply_orientation(arr, meta.orientation))
-            out.durations.append(duration_ms(header, meta))
-            break
         frame.render_host = devhealth.host_route(
             header, device, still=devhealth.is_still(fh, header, first=not frames_seen))
         frames_seen += 1

@@ -742,11 +742,7 @@ def decode_modular_native(
         ctypes.c_int(len(buffers)), _ptr(chan_info, ctypes.c_int64),
         _ptr(out, ctypes.c_int32), ctypes.c_int(stream_id),
         ctypes.byref(num_decoded),
-        ctypes.c_int(
-            (1 if residuals else 0)
-            | (2 if os.environ.get("JXL_TPU_NO_GRAD_SPEC") else 0)
-            | (4 if direct else 0)
-        ),
+        ctypes.c_int((1 if residuals else 0) | (4 if direct else 0)),
     )
     if ret != 0:
         if partial_out is not None:

@@ -854,7 +854,7 @@ int jxl_decode_modular(
   // residual_mode prediction is skipped entirely and the raw signed
   // residuals are emitted — the device wavefront reconstruction
   // (modular/device_lossless.py) turns them back into pixels.
-  if ((gradient_only || residual_mode) && (flags & 2) == 0) {
+  if (gradient_only || residual_mode) {
     for (int ci = 0; ci < num_channels; ci++) {
       const ChannelDesc& cd = reinterpret_cast<const ChannelDesc*>(chan_info)[ci];
       int w = (int)cd.w, h = (int)cd.h;

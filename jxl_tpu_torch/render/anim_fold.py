@@ -17,11 +17,11 @@ and raises (jxl_tpu quietly reruns the per-frame loop instead). A stream
 the fold does not take (local trees, Modular LF or HF streams, per-frame
 changes of the group header, custom dequant matrices) makes it decline:
 try_anim_fold returns None, trace counts "anim_fold_fallback", and the
-caller decodes the frames section by section. JXL_TPU_ANIM_FOLD=0 turns
-the fold off. When every frame's Modular plan is squeezes alone (an alpha
-channel's squeeze pyramid), one native call runs all frames' inverse
-squeezes in the fold's arena (squeeze_arena), and the shims skip their
-own.
+caller decodes the frames section by section. Whether the fold is tried
+at all is the caller's choice (api/simple.py, JXL_TPU_BATCH_ANIM). When
+every frame's Modular plan is squeezes alone (an alpha channel's squeeze
+pyramid), one native call runs all frames' inverse squeezes in the fold's
+arena (squeeze_arena), and the shims skip their own.
 
 Unlike jxl_tpu, the fold's buffers are allocated for each call
 (native.anim_decode_frames_native: no process-wide arena), and the
@@ -33,8 +33,6 @@ frame/group.rs:384-618 (HF groups).
 """
 
 from __future__ import annotations
-
-import os
 
 import numpy as np
 
@@ -282,12 +280,10 @@ def _oracle_mismatches(f0, out, fdims, tdims) -> list:
 def try_anim_fold(fh, codestream, recs, icc_profile, device="cuda", span_cache: bool = True):
     """The fold over `recs` ([(FrameHeader, Toc, first section bit)] of
     every frame): a list of frame shims, sections decoded, nothing
-    rendered, or None when JXL_TPU_ANIM_FOLD=0 or the fold declines the
-    stream (trace counts "anim_fold_fallback"). Raises NativeDecodeError
-    when frame 0's fold outputs differ from its per-frame decode.
-    span_cache=False turns the C++ bit-span caches off."""
-    if os.environ.get("JXL_TPU_ANIM_FOLD", "1") == "0":
-        return None
+    rendered, or None when the fold declines the stream (trace counts
+    "anim_fold_fallback"). Raises NativeDecodeError when frame 0's fold
+    outputs differ from its per-frame decode. span_cache=False turns the
+    C++ bit-span caches off."""
     if not eligible(recs):
         return _decline()
     from .. import native

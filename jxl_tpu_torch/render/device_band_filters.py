@@ -1,9 +1,8 @@
 """A band's filters, colour transform and output conversion on its device.
 
 Counterpart of jxl_tpu/render/device_band_filters.py:dispatch_band_filters
-(:55), for the banded decode (api/banded.py) and the band route of
-decode_image (api/overlap.py). A band is one group row of the visible
-frame. Its gaborish + EPF run as one launch of kernel K1
+(:55), for the banded decode (api/banded.py). A band is one group row of
+the visible frame. Its gaborish + EPF run as one launch of kernel K1
 (render/device_filters.py:run_filters) on the slab [the 8-row tail of band
 k-1 | band k | the head of band k+1, up to 8 rows]: HALO = 8 covers the
 7-pixel support of gaborish (1) and EPF (3 + 2 + 1), the slab starts on a
@@ -55,9 +54,3 @@ def color_and_convert(frame, chans, y0: int, pixel_format: str, x0: int = 0) -> 
     return [st.convert_output(p, pixel_format, channel=i, pos=(x0, y0))
             for i, p in enumerate(chans)]
 
-
-def dispatch_band_filters(frame, tail, cur, head, y0: int, sigma, pixel_format: str):
-    """filter_band, then color_and_convert: band `cur` as a (rows, W, 3)
-    tensor in `pixel_format`, queued on its device without a wait."""
-    out = filter_band(frame, tail, cur, head, y0, sigma)
-    return torch.stack(color_and_convert(frame, out.unbind(0), y0, pixel_format), dim=-1)

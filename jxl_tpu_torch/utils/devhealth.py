@@ -44,8 +44,8 @@ A kernel that fails to build or launch raises.
 The probe (start_probe, and link_economics under "auto") and the cost
 model over it (device_ok, device_fast, device_wins) are jxl_tpu's
 functions, ported for callers that weigh the link; no router of the port
-calls them (api/overlap.py and modular/device_lossless.py keep their
-measured "auto" for the same reason). The probe runs once a process, in
+calls them (modular/device_lossless.py keeps its measured "auto" for the
+same reason). The probe runs once a process, in
 the process and synchronously, on a CUDA device: the first round trip, the
 steady-state launch-plus-sync latency (best of 5) and the HtoD and DtoH
 rates of 4 MB through page-locked buffers, timed with CUDA events and the

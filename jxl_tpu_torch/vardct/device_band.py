@@ -2,10 +2,10 @@
 
 The counterpart of jxl_tpu/vardct/device_band.py (BandRenderer :110,
 _band_blocks :65): one GROUP ROW of a 4:4:4 frame at a time, for the
-banded decode (api/banded.py) and the band route of decode_image
-(api/overlap.py). A band's pixels come from the same per-block functions
-as the whole frame's (vardct/device_frame.py:render_block_rows), so they
-are the frame's pixels in those rows. The band's coefficients are a
+banded decode (api/banded.py). A band's pixels come from the same
+per-block functions as the whole frame's
+(vardct/device_frame.py:render_block_rows), so they are the frame's
+pixels in those rows. The band's coefficients are a
 band-sized dense buffer (the band's groups in order, gx_count * 3 * GD *
 GD int32), and only the band's rows of the LF, the raw quant and the
 colour tiles go up, so the card holds O(band), not O(image). The JAX

@@ -1,8 +1,7 @@
 """The banded decode of jxl_tpu_torch on the CPU: decode_banded (the card's
-working set O(band), rows to a sink) and the band route of decode_image
-(JXL_TPU_OVERLAP=1), against jxl_tpu's decode_banded and overlap route
-and against the port's own whole-frame decode, on the seeded writers'
-streams at about 520x520 (three group rows).
+working set O(band), rows to a sink), against jxl_tpu's decode_banded and
+against the port's own whole-frame decode, on the seeded writers' streams
+at about 520x520 (three group rows).
 
 Tolerances: against jxl_tpu, u8 at most 1 LSB and f32 at most 5e-5 (the
 JAX package's own banded-against-one-shot bound, tests/test_banded.py:55;
@@ -13,8 +12,8 @@ CPU pow (the transfer function) takes its vector or its scalar path by an
 element's place in a thread's chunk, so two tensors of different sizes
 can round one sample 1 ulp apart; one thread, on widths and band heights
 that are multiples of 32, keeps every sample on the vector path. (On the
-card every element runs the same code; chip_smoke.py holds the routes
-there.) The VarDCT AC goes through the native host decoder
+card every element runs the same code; chip_smoke.py holds decode_banded
+to decode_image there.) The VarDCT AC goes through the native host decoder
 (JXL_TPU_AC=host) but in the lane-route cases: the lane decoder's plain
 version steps one token at a time in Python.
 """
@@ -25,8 +24,6 @@ import torch
 
 import jxl_tpu_torch
 from jxl_tpu.api.banded import decode_banded as ref_banded
-from jxl_tpu.api.simple import decode_image as ref_decode
-from jxl_tpu.utils import trace as ref_trace
 from jxl_tpu_torch.api import banded
 from jxl_tpu_torch.errors import NotSupported
 from test_torch_frame_streams import anim_vardct_stream, patches_stream
@@ -124,51 +121,40 @@ def test_decode_banded_matches_decode_image(name, fmt, monkeypatch, one_thread):
     np.testing.assert_array_equal(got, want)
 
 
-@pytest.mark.parametrize("fmt", ["f32", "u8"])
-def test_band_route_matches_jxl_tpu_overlap(fmt, monkeypatch, one_thread):
-    """JXL_TPU_OVERLAP=1 for both packages. jxl_tpu's try_decode falls back
-    to its whole-frame path on any non-JxlError without a word, so its
-    trace counter must show that its band route ran."""
-    monkeypatch.setenv("JXL_TPU_AC", "host")
-    monkeypatch.setenv("JXL_TPU_OVERLAP", "1")
-    data = _stream("vardct")
-    ref_trace.enable(True)
-    ref_trace.metrics.reset()
-    try:
-        want = ref_decode(data, pixel_format=fmt).frames[0]
-        assert ref_trace.metrics.get("overlap_bands") == 3
-        assert ref_trace.metrics.get("overlap_fallbacks") == 0
-    finally:
-        ref_trace.enable(False)
+@pytest.mark.parametrize("value", ["1", "yes"])
+def test_decode_image_has_one_route(value, monkeypatch):
+    """decode_image has no band route and reads no switch for one:
+    JXL_TPU_OVERLAP set changes nothing, raises nothing and records
+    neither the band route's counter nor its span."""
     from jxl_tpu_torch.utils import trace
 
+    monkeypatch.setenv("JXL_TPU_AC", "host")
+    data = _stream("vardct")
+    monkeypatch.delenv("JXL_TPU_OVERLAP", raising=False)
+    want = jxl_tpu_torch.decode_image(data, pixel_format="u8", device="cpu").frames[0]
+    monkeypatch.setenv("JXL_TPU_OVERLAP", value)
+    trace.reset()
     trace.enable(True)
-    trace.metrics.reset()
     try:
-        img = jxl_tpu_torch.decode_image(data, pixel_format=fmt, device="cpu")
-        assert trace.metrics.get("overlap_bands") == 3
+        got = jxl_tpu_torch.decode_image(data, pixel_format="u8", device="cpu").frames[0]
+        spans, counters = trace.host_seconds(), dict(trace.metrics.counters)
     finally:
         trace.enable(False)
-    got = img.frames[0].numpy()
-    assert got.shape == want.shape and got.dtype == want.dtype
-    assert _max_diff(got, want) <= (1.0 if fmt == "u8" else 5e-5)
-    assert img.timings["host_s"] > 0
-    monkeypatch.setenv("JXL_TPU_OVERLAP", "0")
-    whole = jxl_tpu_torch.decode_image(data, pixel_format=fmt, device="cpu").frames[0]
-    np.testing.assert_array_equal(got, whole.numpy())
+        trace.reset()
+    assert torch.equal(got, want)
+    assert "decode_image.sections" in spans and "decode_image.band_route" not in spans
+    assert "overlap_bands" not in counters
 
 
 def test_both_routes_on_the_lane_decoder(monkeypatch, one_thread):
     """K3's plain version over each band's lanes, into band-sized buffers:
-    the band route and decode_banded against the whole-frame route's
-    single launch over every lane, bit for bit."""
+    decode_banded against the whole-frame route's single launch over
+    every lane, bit for bit."""
     from jxl_tpu_torch.ops import device_ac
 
     monkeypatch.delenv("JXL_TPU_AC", raising=False)
     data, _ = encode_xyb_vardct(64, 264, seed=9, density=0.05)
-    monkeypatch.setenv("JXL_TPU_OVERLAP", "0")
     whole = jxl_tpu_torch.decode_image(data, device="cpu").frames[0].numpy()
-    monkeypatch.setenv("JXL_TPU_OVERLAP", "1")
     calls = []
     real = device_ac.decode_ac_sections
 
@@ -177,42 +163,10 @@ def test_both_routes_on_the_lane_decoder(monkeypatch, one_thread):
         return real(*a, **kw)
 
     monkeypatch.setattr(device_ac, "decode_ac_sections", counted)
-    band = jxl_tpu_torch.decode_image(data, device="cpu").frames[0].numpy()
-    np.testing.assert_array_equal(band, whole)
     got, info = _bands(jxl_tpu_torch.decode_banded, data, "f32", device="cpu")
     np.testing.assert_array_equal(got, whole)
     # one launch a band, each over one group row's buffer (one group here)
-    assert info["k3_launches"] == 2 and calls == [3 * 256 * 256] * 4
-
-
-def test_auto_follows_the_size_rule(monkeypatch):
-    """auto (the default) never takes the band route: it lost to the whole
-    frame on the card at every size measured, so there is no size rule
-    yet; 1 takes it for an eligible frame, 0 never."""
-    from jxl_tpu_torch.api import overlap
-
-    frame = banded._leading_frames(_stream("vardct"), "cpu")[2]
-    assert overlap.eligible(frame)
-    monkeypatch.delenv("JXL_TPU_OVERLAP", raising=False)
-    assert not overlap.enabled()
-    for mode, on in (("auto", False), ("0", False), ("1", True)):
-        monkeypatch.setenv("JXL_TPU_OVERLAP", mode)
-        assert overlap.enabled() == on
-    monkeypatch.setenv("JXL_TPU_OVERLAP", "yes")
-    with pytest.raises(ValueError):
-        overlap.enabled()
-
-
-@pytest.mark.parametrize("name", ["vardct_noise", "vardct_alpha", "modular", "splines"])
-def test_band_route_eligibility_matches_jxl_tpu(name):
-    """The port's header rule is jxl_tpu's without its tunnel rule on
-    frames under 160,000 pixels (these are 270,400)."""
-    from jxl_tpu.api import overlap as ref_overlap
-    from jxl_tpu_torch.api import overlap
-
-    data = _stream(name)
-    frame = banded._leading_frames(data, "cpu")[2]
-    assert overlap.eligible(frame) == ref_overlap.eligible(_ref_frame_header(data))
+    assert info["k3_launches"] == 2 and calls == [3 * 256 * 256] * 2
 
 
 NOISE_ROWS = [(0, 5), (250, 262), (100, 300), (254, 258), (600, 606)]
@@ -334,26 +288,6 @@ def test_not_banded_raises_not_supported(name, monkeypatch):
     assert emitted == []
 
 
-def test_band_route_error_reaches_the_caller(monkeypatch):
-    """An error in the band route raises from decode_image: the route has
-    no fallback to the whole-frame path (jxl_tpu's try_decode reruns the
-    frame on any error that is not a JxlError)."""
-    from jxl_tpu_torch.render import device_band_filters
-
-    monkeypatch.setenv("JXL_TPU_AC", "host")
-    monkeypatch.setenv("JXL_TPU_OVERLAP", "1")
-    calls = []
-
-    def broken(*a, **kw):
-        calls.append(1)
-        raise RuntimeError("band filters failed")
-
-    monkeypatch.setattr(device_band_filters, "filter_band", broken)
-    with pytest.raises(RuntimeError, match="band filters failed"):
-        jxl_tpu_torch.decode_image(_stream("vardct"), device="cpu")
-    assert calls == [1]
-
-
 def test_corrupt_band_raises_before_its_rows_leave(monkeypatch):
     from jxl_tpu_torch.errors import JxlError
 
@@ -370,12 +304,12 @@ def test_corrupt_band_raises_before_its_rows_leave(monkeypatch):
     assert emitted == [0]
 
 
-@pytest.mark.parametrize("route", ["decode_banded", "band_route"])
+@pytest.mark.parametrize("route", ["decode_banded"])
 def test_corrupt_lane_raises_on_the_lane_route(route, monkeypatch):
     """K3's plain version over each band's lanes, one section corrupted:
-    the lane flags, read after the last band by the band route and before
-    each band leaves by decode_banded (which has emitted only the band
-    whose flags and whose next band's flags it read), raise."""
+    the lane flags, read before each band leaves, raise; decode_banded has
+    emitted only the band whose flags and whose next band's flags it
+    read."""
     from jxl_tpu_torch.errors import JxlError
 
     monkeypatch.delenv("JXL_TPU_AC", raising=False)
@@ -388,13 +322,8 @@ def test_corrupt_lane_raises_on_the_lane_route(route, monkeypatch):
     data[at + 2 : at + 8] = bytes(b ^ 0x5A for b in data[at + 2 : at + 8])
     emitted = []
     with pytest.raises(JxlError, match="lane AC decode failed"):
-        if route == "decode_banded":
-            jxl_tpu_torch.decode_banded(bytes(data), lambda y0, b: emitted.append(y0),
-                                        device="cpu")
-        else:
-            monkeypatch.setenv("JXL_TPU_OVERLAP", "1")
-            jxl_tpu_torch.decode_image(bytes(data), device="cpu")
-    assert emitted == ([0] if route == "decode_banded" else [])
+        jxl_tpu_torch.decode_banded(bytes(data), lambda y0, b: emitted.append(y0), device="cpu")
+    assert emitted == [0]
 
 
 def test_entry_points_default_to_the_card():

@@ -288,11 +288,17 @@ def test_batchable_equals_jxl_tpu(name):
 # -- routing ---------------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("batch, fold, route", [("0", "1", "fold"), ("0", "0", "sections"),
-                                                ("1", "1", "sections"), ("off", "1", None)])
-def test_environment_selects_the_route(batch, fold, route, streams, monkeypatch):
+@pytest.mark.parametrize("batch, env, route", [
+    ("0", {}, "fold"),
+    # JXL_TPU_BATCH_ANIM is the one switch: the fold reads none of its own
+    ("0", {"JXL_TPU_ANIM_FOLD": "0"}, "fold"),
+    ("1", {}, "sections"),
+    ("off", {}, None),
+], ids=["0-fold", "0-fold-anim_fold_0", "1-sections", "off-loop"])
+def test_environment_selects_the_route(batch, env, route, streams, monkeypatch):
     monkeypatch.setenv("JXL_TPU_AC", "host")
-    monkeypatch.setenv("JXL_TPU_ANIM_FOLD", fold)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
     img, counters = _decode(streams["single_192x128"], batch, "u8")
     assert len(img.frames) == 4
     routes = {k.split(".")[1] for k in counters if k.startswith("batch_anim_route.")}

@@ -23,10 +23,9 @@ first run and read by the later ones. Prints JSON lines:
 - one line a stream (a 3840x2160 and a 7680x4320 frame of the DCT32 to
   DCT256 transforms, transforms="large", and the 3840x2160 frame of
   chip_smoke.py's vardct phase): f32 decode_image by the whole-frame route
-  (three walls, peak card memory above what was allocated before, host_s),
-  by the band route (JXL_TPU_OVERLAP=1) and decode_banded into a pinned
-  host array (a wall and a peak each), each against the whole frame, where
-  the checkout has them.
+  (three walls, peak card memory above what was allocated before, host_s)
+  and decode_banded into a pinned host array (a wall and a peak, against
+  the whole frame), where the checkout has it.
 The card's name and power limit come first.
 """
 
@@ -169,7 +168,6 @@ def main() -> int:
         with open(path, "rb") as f:
             data = f.read()
         rec = {"root": args.root, "stream": name, "bytes": len(data), "card": smi}
-        os.environ["JXL_TPU_OVERLAP"] = "0"
         jxl_tpu_torch.decode_image(data)  # warm: builds, caches
         walls, peaks, hosts = [], [], []
         for _ in range(REPS):
@@ -182,13 +180,6 @@ def main() -> int:
         if not hasattr(jxl_tpu_torch, "decode_banded"):  # a checkout before the banded decode
             emit(rec)
             continue
-        os.environ["JXL_TPU_OVERLAP"] = "1"
-        try:
-            img, wall, peak = measured(lambda: jxl_tpu_torch.decode_image(data))
-        finally:
-            os.environ.pop("JXL_TPU_OVERLAP", None)
-        rec["band_route"] = {"wall_s": wall, "peak_card_bytes": peak,
-                             "vs_whole": diff(img.frames[0], whole)}
         del img
         host = torch.empty(tuple(whole.shape), dtype=torch.float32, pin_memory=True)
 
