@@ -141,6 +141,12 @@ def get_lib():
                 + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int32]
                 + [ctypes.c_void_p] * 2 + [ctypes.c_int]
             )
+            lib.jxl_block_tables.restype = ctypes.c_int
+            lib.jxl_block_tables.argtypes = (
+                [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6
+                + [ctypes.c_int64] + [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_int]
+                + [ctypes.c_void_p] * 2
+            )
             _bind_host_route(lib)
             _lib = lib
     return _lib
@@ -1270,6 +1276,59 @@ def lane_items_native(tmap, rqmap, qlfmap, gxc, num_groups, gdim_blocks, hshift3
     if ret < 0:
         raise NativeDecodeError("a transform id or block context index lies past its table")
     return ret
+
+
+def block_tables_native(tmap, group_ids, num_groups, gxc, gdim_blocks, hshift3, vshift3,
+                       block_coeffs, group_stride, layout, by0=0, bx0=0, W=0):
+    """The render's block tables in one pass over the (bh, bw) uint8
+    transform map (modular_decode.cc jxl_block_tables): the blocks placed
+    in the groups `group_ids` ((n,) int32, each below num_groups; slot i
+    holds group group_ids[i]), gxc groups across of gdim_blocks blocks a
+    side. Returns (counts, out): counts (4, 27) int64, row 0 the blocks
+    of each transform type, row 1 + c those aligned to channel c's grid
+    (hshift3, vshift3: (3,) int32); out the 1-D int64 tables in `layout`
+    0 (placed blocks), 1 (4:4:4 columns a type) or 2 (subsampled jobs),
+    as the C++ lays them out. block_coeffs: (27,) int64 coefficients a
+    type. Raises ValueError on arrays it cannot take and on a negative
+    layout-1 column, NativeDecodeError on a transform id past the 27."""
+    from ..errors import NativeDecodeError
+
+    arrays = [("tmap", tmap, np.uint8, None), ("group_ids", group_ids, np.int32, None),
+              ("hshift3", hshift3, np.int32, (3,)), ("vshift3", vshift3, np.int32, (3,)),
+              ("block_coeffs", block_coeffs, np.int64, (27,))]
+    for name, a, dtype, shape in arrays:
+        if (not isinstance(a, np.ndarray) or a.dtype != dtype or not a.flags.c_contiguous
+                or (shape is not None and a.shape != shape)):
+            raise ValueError(f"{name} must be a C-contiguous {np.dtype(dtype).name} array"
+                             + (f" of shape {shape}" if shape is not None else ""))
+    if tmap.ndim != 2:
+        raise ValueError(f"tmap must be (bh, bw), got {tmap.shape}")
+    if group_ids.ndim != 1 or (group_ids.size and (
+            int(group_ids.min()) < 0 or int(group_ids.max()) >= num_groups)):
+        raise ValueError(f"group_ids must be a list of groups below {num_groups}")
+    if layout not in (0, 1, 2) or gxc <= 0 or gdim_blocks <= 0:
+        raise ValueError(f"bad layout {layout}, gxc {gxc} or gdim_blocks {gdim_blocks}")
+    # a group's first block lies on every channel's grid
+    if any(not 0 <= int(s) <= 3 or gdim_blocks % (1 << int(s)) for s in (*hshift3, *vshift3)):
+        raise ValueError(f"shifts {hshift3} {vshift3} must lie in 0..3 and divide the group")
+    bh, bw = tmap.shape
+    lib = get_lib()
+    counts = np.empty((4, 27), np.int64)
+    args = [bw, bh, _ptr(tmap, ctypes.c_uint8), _ptr(group_ids, ctypes.c_int32),
+            len(group_ids), num_groups, gxc, gdim_blocks, by0, bx0, W,
+            _ptr(hshift3, ctypes.c_int32), _ptr(vshift3, ctypes.c_int32),
+            _ptr(block_coeffs, ctypes.c_int64), group_stride, layout,
+            _ptr(counts, ctypes.c_int64)]
+    ret = lib.jxl_block_tables(*args, None)
+    if ret == 0:
+        blocks = int(counts[1:].sum() if layout == 2 else counts[0].sum())
+        out = np.empty((5 if layout == 0 else 4) * blocks, np.int64)
+        ret = lib.jxl_block_tables(*args, _ptr(out, ctypes.c_int64))
+    if ret == -1:
+        raise ValueError("a block column is negative")
+    if ret < 0:
+        raise NativeDecodeError("a transform id lies past the 27")
+    return counts, out
 
 
 def decode_vardct_ac_native(br, ent, items, orders, coeffs, shift, num_bctx, nzeros_maps,

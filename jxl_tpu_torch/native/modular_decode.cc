@@ -1809,6 +1809,153 @@ int jxl_lane_items(
   return most;
 }
 
+// The render's block tables (vardct/device_frame.py:block_tables), in one
+// pass over the (bh, bw) transform map that counts and a second that
+// fills. The blocks are those placed (tmap >= 128) in the groups
+// group_ids (slot i holds group group_ids[i]; a group listed twice keeps
+// its last slot), walked slot by slot, raster order within a group; a
+// block's coefficient offset is the sum of block_coeffs over the blocks
+// before it in its group (vardct/group.py:_BlockList.offs). gby counts
+// from block row by0.
+//
+// counts, (4, 27), is always written: row 0 holds the blocks of each
+// transform type, row 1 + c those of them aligned to channel c's grid
+// (hshift3, vshift3). With out null the call only counts; else `layout`
+// says what it writes into out:
+//  0: (5, n) rows tid, gbx, gby, slot, offset (placed_blocks);
+//  1: for each type in ascending order, (n_t, 4) rows [slot * group_stride
+//     + offset, gby * bw + gbx, gby * 8 * W + (gbx - bx0) * 8, (gby / 8) *
+//     ceil(bw / 8) + gbx / 8] (ops/vardct_blocks.py:block_columns);
+//  2: for each (channel, type), channel outer, (4, n_ct) rows gbx, gby,
+//     slot, offset of the blocks aligned to the channel's grid.
+// Returns 0; -1 when a layout-1 column is negative, -2 on a transform id
+// past the 27.
+int jxl_block_tables(
+    int bw, int bh, const uint8_t* tmap, const int32_t* group_ids, int n_ids,
+    int num_groups, int gxc, int gdim_blocks, int by0, int bx0, int64_t W,
+    const int32_t* hshift3, const int32_t* vshift3, const int64_t* block_coeffs,
+    int64_t group_stride, int layout, int64_t* counts, int64_t* out) {
+  constexpr int kTids = 27;
+  std::vector<int32_t> last(num_groups, -1);
+  for (int i = 0; i < n_ids; i++) last[group_ids[i]] = i;
+  int xm[3], ym[3];
+  for (int c = 0; c < 3; c++) {
+    xm[c] = (1 << hshift3[c]) - 1;
+    ym[c] = (1 << vshift3[c]) - 1;
+  }
+  // each listed group at its slot: fn(slot, x0, y0, x1, y1), its blocks
+  // [x0, x1) x [y0, y1)
+  auto each_group = [&](auto&& fn) -> int {
+    for (int i = 0; i < n_ids; i++) {
+      const int g = group_ids[i];
+      if (last[g] != i) continue;
+      const int x0 = (g % gxc) * gdim_blocks, y0 = (g / gxc) * gdim_blocks;
+      const int ret = fn(i, x0, y0, std::min(x0 + gdim_blocks, bw),
+                         std::min(y0 + gdim_blocks, bh));
+      if (ret) return ret;
+    }
+    return 0;
+  };
+  // the placed blocks in order, once the count has checked their
+  // transform ids: fn(tid, x, y, slot, offset)
+  auto walk = [&](auto&& fn) -> int {
+    return each_group([&](int slot, int x0, int y0, int x1, int y1) {
+      int64_t off = 0;
+      for (int y = y0; y < y1; y++) {
+        const uint8_t* trow = tmap + (int64_t)y * bw;
+        for (int x = x0; x < x1; x++) {
+          if (!(trow[x] & 128)) continue;
+          const int tid = trow[x] & 127;
+          const int ret = fn(tid, x, y, slot, off);
+          if (ret) return ret;
+          off += block_coeffs[tid];
+        }
+      }
+      return 0;
+    });
+  };
+  // the count: a histogram of the map's bytes a channel, over the blocks
+  // aligned to the channel's grid (every block for an unshifted channel;
+  // a group's first block is aligned to every grid)
+  std::vector<int64_t> hist(4 * 256, 0);
+  each_group([&](int, int x0, int y0, int x1, int y1) {
+    for (int y = y0; y < y1; y++) {
+      const uint8_t* trow = tmap + (int64_t)y * bw;
+      for (int x = x0; x < x1; x++) hist[trow[x]]++;
+      for (int c = 0; c < 3; c++) {
+        if ((xm[c] | ym[c]) == 0 || (y & ym[c])) continue;
+        int64_t* h = hist.data() + (1 + c) * 256;
+        for (int x = x0; x < x1; x += xm[c] + 1) h[trow[x]]++;
+      }
+    }
+    return 0;
+  });
+  for (int t = 128 + kTids; t < 256; t++)
+    if (hist[t]) return -2;
+  for (int c = 0; c < 4; c++) {
+    const int64_t* h = hist.data() + ((c == 0 || (xm[c - 1] | ym[c - 1]) == 0) ? 0 : c * 256);
+    for (int t = 0; t < kTids; t++) counts[c * kTids + t] = h[128 + t];
+  }
+  if (!out) return 0;
+  if (layout == 0) {
+    int64_t n = 0;
+    for (int t = 0; t < kTids; t++) n += counts[t];
+    int64_t k = 0;
+    return walk([&](int tid, int x, int y, int slot, int64_t off) {
+      out[k] = tid;
+      out[n + k] = x;
+      out[2 * n + k] = y - by0;
+      out[3 * n + k] = slot;
+      out[4 * n + k] = off;
+      k++;
+      return 0;
+    });
+  }
+  if (layout == 1) {
+    int64_t* row[kTids];
+    int64_t at = 0;
+    for (int t = 0; t < kTids; t++) {
+      row[t] = out + at;
+      at += 4 * counts[t];
+    }
+    const int64_t tw = (bw + 7) / 8;
+    return walk([&](int tid, int x, int y, int slot, int64_t off) {
+      const int64_t gby = y - by0;
+      const int64_t lf = gby * bw + x, pix = gby * 8 * W + (int64_t)(x - bx0) * 8;
+      if (lf < 0 || pix < 0) return -1;  // gby >= 0 from here on
+      int64_t* r = row[tid];
+      r[0] = slot * group_stride + off;
+      r[1] = lf;
+      r[2] = pix;
+      r[3] = (gby / 8) * tw + x / 8;
+      row[tid] = r + 4;
+      return 0;
+    });
+  }
+  // layout 2: a job's four rows start at its first block
+  int64_t* job[3][kTids];
+  int64_t n_job[3][kTids];
+  int64_t at = 0;
+  for (int c = 0; c < 3; c++)
+    for (int t = 0; t < kTids; t++) {
+      job[c][t] = out + at;
+      n_job[c][t] = counts[(1 + c) * kTids + t];
+      at += 4 * n_job[c][t];
+    }
+  return walk([&](int tid, int x, int y, int slot, int64_t off) {
+    for (int c = 0; c < 3; c++) {
+      if ((x & xm[c]) | (y & ym[c])) continue;
+      const int64_t n = n_job[c][tid];
+      int64_t* r = job[c][tid]++;
+      r[0] = x;
+      r[n] = y - by0;
+      r[2 * n] = slot;
+      r[3 * n] = off;
+    }
+    return 0;
+  });
+}
+
 // --------------------------------------------- histogram table decode
 // Native decode of a Histograms bundle (ref entropy_coding/{decode,ans,
 // context_map}.rs; python oracle jxl_tpu/entropy/*). ANS only — prefix-

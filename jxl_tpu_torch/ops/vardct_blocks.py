@@ -24,7 +24,9 @@ Each block is one row of `cols`, (n, 4) int64: its first coefficient in
 first sample of its LF tile in each row of `lf`, whose tile rows are
 `lf_stride` apart; the raw quant table `rq` shares that grid), its first
 pixel in each row of `planes` (pixel rows `W` apart) and its colour tile
-(index into `ytox` and `ytob`). block_columns builds them on the host.
+(index into `ytox` and `ytob`). The host builds them: a frame's in one
+native pass (vardct/device_frame.py:frame_columns), the batched
+animation's from per-block arrays (block_columns).
 
 `vardct_blocks` takes the plain version for tensors on the CPU and
 launches the kernel for CUDA tensors, or raises; it never falls back.

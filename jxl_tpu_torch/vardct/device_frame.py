@@ -20,7 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops.vardct_blocks import block_columns, dequant, vardct_blocks
+from ..ops.vardct_blocks import dequant, vardct_blocks
 from ..render.stages.core import to_device_all
 from ..utils import trace
 from .group import BLOCK_SIZE, GROUP_DIM
@@ -43,41 +43,36 @@ _BLOCK_COEFFS = np.array([covered_blocks_x(t) * covered_blocks_y(t) for t in ran
                          dtype=np.int64) * BLOCK_SIZE
 
 
+def block_tables(frame, group_ids: list, layout: int, by0: int = 0, bx0: int = 0,
+                 W: int = 0) -> tuple:
+    """(counts, out): the frame's block tables in `layout` from one native
+    pass over its transform map (native jxl_block_tables), the blocks
+    placed in the groups `group_ids` (slot i of the coefficient buffer
+    holds group group_ids[i]) in placement order: the groups in list
+    order, each group's blocks in raster order, their coefficient offsets
+    as vardct/group.py:_BlockList.offs (and so both AC decoders) lay them
+    out. Counted in `block_tables_built`."""
+    from .. import native
+
+    header = frame.header
+    gx_count, gy_count = header.size_groups()
+    counts, out = native.block_tables_native(
+        np.ascontiguousarray(frame.hf_meta["transform"], np.uint8),
+        np.asarray(group_ids, np.int32).reshape(-1), gx_count * gy_count, gx_count,
+        header.group_dim // BLOCK_DIM, np.array([header.hshift(c) for c in range(3)], np.int32),
+        np.array([header.vshift(c) for c in range(3)], np.int32), _BLOCK_COEFFS,
+        _GROUP_STRIDE, layout, by0, bx0, W)
+    trace.metrics.add("block_tables_built")
+    return counts, out
+
+
 def placed_blocks(frame, group_ids: list, by0: int = 0) -> tuple:
     """(tid, gbx, gby, group index, coefficient offset) int64 arrays of
     every block placed in the groups `group_ids` (the group index is the
     position in that list, the slot of the coefficient buffer; gby counts
-    from block row by0), the groups in list order and each group's blocks
-    in raster order. Offsets follow raster placement order within each
-    group, as vardct/group.py:_BlockList.offs (and so both AC decoders)
-    lay coefficients out."""
-    header = frame.header
-    tmap = np.asarray(frame.hf_meta["transform"])
-    gdb = header.group_dim // BLOCK_DIM
-    gx_count, gy_count = header.size_groups()
-    ys, xs = np.nonzero(tmap >= 128)
-    slot = np.full(gx_count * gy_count, -1, np.int64)
-    slot[list(group_ids)] = np.arange(len(group_ids))
-    gi = slot[(ys // gdb) * gx_count + xs // gdb]
-    keep = gi >= 0
-    ys, xs, gi = ys[keep], xs[keep], gi[keep]
-    order = np.lexsort((xs, ys, gi))  # by group, then raster within it
-    ys, xs, gi = ys[order], xs[order], gi[order]
-    tids = (tmap[ys, xs] & 127).astype(np.int64)
-    sizes = _BLOCK_COEFFS[tids]
-    offs = np.cumsum(sizes) - sizes
-    # the offset restarts at each group's first block
-    first = np.r_[True, gi[1:] != gi[:-1]] if len(gi) else np.zeros(0, bool)
-    offs -= offs[np.maximum.accumulate(np.where(first, np.arange(len(gi)), 0))]
-    return tids, xs.astype(np.int64), ys.astype(np.int64) - by0, gi, offs
-
-
-def _frame_blocks(frame, group_ids: list, by0: int = 0) -> dict:
-    """placed_blocks by type: {tid: (gbx, gby, group index, coefficient
-    offset)} int32 arrays."""
-    tids, *cols = placed_blocks(frame, group_ids, by0)
-    return {t: tuple(a[tids == t].astype(np.int32) for a in cols)
-            for t in np.unique(tids).tolist()}
+    from block row by0), in block_tables' order."""
+    counts, out = block_tables(frame, group_ids, 0, by0)
+    return tuple(out.reshape(5, -1))
 
 
 def _constants(frame) -> tuple:
@@ -148,6 +143,17 @@ def frame_factors(frame) -> np.ndarray:
     return np.array(_constants(frame), np.float32).reshape(6, 1)
 
 
+def _split(out, counts, rows: int, shape) -> dict:
+    """{key: view of out}: out's consecutive tables of counts[key] blocks
+    (rows int64 each), one for each nonzero count, of shape shape(n)."""
+    views, at = {}, 0
+    for key in np.flatnonzero(counts).tolist():
+        n = int(counts[key])
+        views[key] = out[at : at + rows * n].reshape(shape(n))
+        at += rows * n
+    return views
+
+
 def frame_columns(frame, group_ids: list, by0: int = 0, bx0: int = 0,
                   bx1: int | None = None) -> dict:
     """{tid: (n, 4) int64 columns} (ops/vardct_blocks.py:block_columns) of
@@ -157,9 +163,8 @@ def frame_columns(frame, group_ids: list, by0: int = 0, bx0: int = 0,
     of the frame's width from block row by0 (by0 a multiple of 8)."""
     bw = frame.header.size_blocks()[0]
     bx1 = bw if bx1 is None else bx1
-    tids, gbx, gby, gi, off = placed_blocks(frame, group_ids, by0)
-    return block_columns(tids, gbx, gby, gi * _GROUP_STRIDE + off, bw, (bx1 - bx0) * BLOCK_DIM,
-                         bx0)
+    counts, out = block_tables(frame, group_ids, 1, by0, bx0, (bx1 - bx0) * BLOCK_DIM)
+    return _split(out, counts[0], 4, lambda n: (n, 4))
 
 
 def render_vardct_frame_device(frame, flat) -> torch.Tensor:
@@ -212,6 +217,21 @@ def render_block_rows(frame, flat, group_ids: list, by0: int, by1: int,
     return planes.reshape(3, nbh * BLOCK_DIM, W)
 
 
+def subsampled_jobs(frame) -> tuple:
+    """(types, jobs) of a chroma-subsampled frame's render: the transform
+    types placed in it, ascending, and {(channel, type): (4, n) int64 rows
+    gbx, gby, group slot, coefficient offset} of the blocks of that type
+    aligned to the channel's grid, channel outer and types ascending, a
+    job with no such block left out."""
+    counts, out = block_tables(frame, list(range(frame.header.num_groups)), 2)
+    types = np.flatnonzero(counts[0]).tolist()
+    for t in types:
+        if covered_blocks_x(t) != 1 or covered_blocks_y(t) != 1:
+            raise ValueError(f"transform {t} covers more than one block in a subsampled frame")
+    rows = _split(out, counts[1:].reshape(-1), 4, lambda n: (4, n))
+    return types, {divmod(key, len(_BLOCK_COEFFS)): r for key, r in rows.items()}
+
+
 def render_vardct_frame_device_subsampled(frame, flat) -> list:
     """The chroma-subsampled render (4:2:0, 4:2:2, 4:4:0; DCT8-sized
     transforms only, as the format allows): [Cb, Y, Cr] float32 planes on
@@ -233,25 +253,13 @@ def render_vardct_frame_device_subsampled(frame, flat) -> list:
     bw, bh = header.size_blocks()
     H, W = bh * BLOCK_DIM, bw * BLOCK_DIM
     with trace.span("render.blocks"):
-        blocks = _frame_blocks(frame, list(range(header.num_groups)))
-        types = sorted(blocks)
-        for t in types:
-            if covered_blocks_x(t) != 1 or covered_blocks_y(t) != 1:
-                raise ValueError(f"transform {t} covers more than one block in a subsampled "
-                                 "frame")
+        types, job_rows = subsampled_jobs(frame)
         # every upload in one copy a dtype: the tables, each type's
-        # matrices, then each (channel, type)'s blocks aligned to the
-        # channel's grid
+        # matrices, then each job's rows
         host = [_matrices(frame, t, BLOCK_SIZE) for t in types]
-        jobs = []  # (channel, type)
-        for c in range(3):
-            hs, vs = header.hshift(c), header.vshift(c)
-            for t in types:
-                gbx, gby, gi, off = blocks[t]
-                m = (((gbx >> hs) << hs) == gbx) & (((gby >> vs) << vs) == gby)
-                if m.any():
-                    jobs.append((c, t))
-                    host += [a[m].astype(np.int64) for a in (gbx, gby, gi, off)]
+        jobs = list(job_rows)
+        for rows in job_rows.values():
+            host += list(rows)
     with trace.span("render.transforms"):
         lf, rq, ytox, ytob, b_c, *rest = _upload(frame, host, dev)
         lf_flat = lf.reshape(3, -1)

@@ -1,12 +1,16 @@
 """The 4:4:4 VarDCT block render (ops/vardct_blocks.py, K5 on the card).
 
-On the CPU: the per-type columns that the render's block tables build
-(vardct/device_frame.py:frame_columns, render/batch_anim.py:_block_tables)
+On the CPU: the render's block tables from the native pass
+(vardct/device_frame.py:block_tables: placed_blocks, frame_columns,
+subsampled_jobs) against their numpy oracle (placed_blocks_oracle) bit
+for bit, over the whole frame, bands, tiles, group lists out of order,
+subsampled frames, the host route and the batched animation; the
+per-type columns (frame_columns, render/batch_anim.py:_block_tables)
 against the formulas the render used before them (each block's first
-coefficient, LF index, first pixel, raw quant and colour tile), over the
-whole frame, a band, the tiles of a 2x2 sharded grid and several
-animation frames; the wrapper's argument checks, which raise ValueError
-before any build; the constants' layout against the kernel source's.
+coefficient, LF index, first pixel, raw quant and colour tile); what the
+pass refuses; its counter; the wrapper's argument checks, which raise
+ValueError before any build; the constants' layout against the kernel
+source's.
 
 On the card (`cuda` marker; this module imports no JAX, so it runs
 there with `python -m pytest --noconftest tests/test_torch_vardct_blocks.py
@@ -91,6 +95,57 @@ def _regions(frame) -> dict:
     return out
 
 
+def placed_blocks_oracle(frame, group_ids: list, by0: int = 0) -> tuple:
+    """The numpy construction of vardct/device_frame.py:placed_blocks, the
+    oracle of the native block tables: (tid, gbx, gby, group index,
+    coefficient offset) int64 arrays, the groups in list order and each
+    group's blocks in raster order, offsets restarting at each group."""
+    header = frame.header
+    tmap = np.asarray(frame.hf_meta["transform"])
+    gdb = header.group_dim // 8
+    gx_count, gy_count = header.size_groups()
+    ys, xs = np.nonzero(tmap >= 128)
+    slot = np.full(gx_count * gy_count, -1, np.int64)
+    slot[list(group_ids)] = np.arange(len(group_ids))
+    gi = slot[(ys // gdb) * gx_count + xs // gdb]
+    keep = gi >= 0
+    ys, xs, gi = ys[keep], xs[keep], gi[keep]
+    order = np.lexsort((xs, ys, gi))  # by group, then raster within it
+    ys, xs, gi = ys[order], xs[order], gi[order]
+    tids = (tmap[ys, xs] & 127).astype(np.int64)
+    sizes = DF._BLOCK_COEFFS[tids]
+    offs = np.cumsum(sizes) - sizes
+    first = np.r_[True, gi[1:] != gi[:-1]] if len(gi) else np.zeros(0, bool)
+    offs -= offs[np.maximum.accumulate(np.where(first, np.arange(len(gi)), 0))]
+    return tids, xs.astype(np.int64), ys.astype(np.int64) - by0, gi, offs
+
+
+def oracle_by_type(frame, group_ids: list, by0: int = 0) -> dict:
+    """placed_blocks_oracle by type: {tid: (gbx, gby, group index,
+    coefficient offset)}, each type's blocks in placement order."""
+    tids, *cols = placed_blocks_oracle(frame, group_ids, by0)
+    return {t: tuple(a[tids == t] for a in cols) for t in np.unique(tids).tolist()}
+
+
+def oracle_columns(frame, group_ids: list, by0: int, bx0: int, bx1: int) -> dict:
+    """frame_columns from the oracle's blocks and block_columns."""
+    bw = frame.header.size_blocks()[0]
+    tids, gbx, gby, gi, off = placed_blocks_oracle(frame, group_ids, by0)
+    return K.block_columns(tids, gbx, gby, gi * STRIDE + off, bw, (bx1 - bx0) * 8, bx0)
+
+
+def _assert_same(got, want):
+    """Bit for bit: the same keys in the same order, arrays of the same
+    dtype, shape and values."""
+    if isinstance(want, dict):
+        assert list(got) == list(want)
+        got, want = list(got.values()), list(want.values())
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        np.testing.assert_array_equal(a, b)
+
+
 def _assert_columns(cols, want):
     """cols: (n, 4) int64; want: the former render's arrays of those blocks."""
     assert cols.dtype == np.int64 and cols.shape == (len(want["base"]), 4)
@@ -114,11 +169,13 @@ def test_frame_columns_equal_the_former_tables(name):
         got = DF.frame_columns(frame, groups, by0, bx0, bx1)
         rq, ytox, ytob, _ = DF._frame_tables(frame, by0, by1)
         W = (bx1 - bx0) * 8
+        _assert_same(got, oracle_columns(frame, groups, by0, bx0, bx1))
+        _assert_same(DF.placed_blocks(frame, groups, by0),
+                     placed_blocks_oracle(frame, groups, by0))
         # the former render_block_rows' arithmetic, type by type
-        blocks = DF._frame_blocks(frame, groups, by0)
+        blocks = oracle_by_type(frame, groups, by0)
         assert sorted(got) == sorted(blocks), region
-        for t, arrays in blocks.items():
-            gbx, gby, gi, off = (a.astype(np.int64) for a in arrays)
+        for t, (gbx, gby, gi, off) in blocks.items():
             _assert_columns(got[t], {
                 "base": gi * STRIDE + off, "lf0": gby * bw + gbx,
                 "pix0": gby * (8 * W) + (gbx - bx0) * 8,
@@ -155,7 +212,7 @@ def test_batched_columns_equal_the_former_tables(monkeypatch):
     assert rq_t.dtype == np.int32 and rq_t.shape == (F * cbh * cbw,)
     rows = []  # the former arrays: (tid, base, lf0, pix0, rq, ytox, ytob, frame)
     for f, fr in enumerate(frames):
-        tid, gbx, gby, gi, off = DF.placed_blocks(fr, list(range(fr.header.num_groups)))
+        tid, gbx, gby, gi, off = placed_blocks_oracle(fr, list(range(fr.header.num_groups)))
         hf = fr.hf_meta
         rows.append((tid, (gi + slots[f]) * STRIDE + off, f * (cbh * cbw) + gby * cbw + gbx,
                      f * (Hp * Wp) + gby * (8 * Wp) + gbx * 8, hf["raw_quant"][gby, gbx],
@@ -205,6 +262,232 @@ def test_block_columns_hold_a_frame_past_int32():
     np.testing.assert_array_equal(got[:, 2], gby * 8 * W + gbx * 8)
     assert got[2, 2] > 1 << 31
     np.testing.assert_array_equal(got[:, 3], (gby // 8) * (bw // 8) + gbx // 8)
+
+
+def _fake_frame(tmap, group_dim: int = 256, hshift=(0, 0, 0), vshift=(0, 0, 0)):
+    """A frame with only what the block tables read: its header's sizes
+    and shifts and its (bh, bw) transform map."""
+    bh, bw = tmap.shape
+    gdb = group_dim // 8
+    gx, gy = -(-bw // gdb), -(-bh // gdb)
+    header = SimpleNamespace(
+        group_dim=group_dim, num_groups=gx * gy, size_groups=lambda: (gx, gy),
+        size_blocks=lambda: (bw, bh), hshift=lambda c: hshift[c], vshift=lambda c: vshift[c],
+        is444=not any(hshift) and not any(vshift))
+    return SimpleNamespace(header=header, hf_meta={"transform": tmap})
+
+
+def _without_group(frame, g: int):
+    """frame's transform map with group g's blocks unplaced."""
+    tmap = np.array(frame.hf_meta["transform"])
+    gdb = frame.header.group_dim // 8
+    gx = frame.header.size_groups()[0]
+    tmap[(g // gx) * gdb : (g // gx + 1) * gdb, (g % gx) * gdb : (g % gx + 1) * gdb] &= 127
+    return _fake_frame(tmap, frame.header.group_dim)
+
+
+# (groups, by0, bx0, bx1) of the 3x3 groups of mixed_520x516, or a frame
+# made from it
+_GROUP_LISTS = {
+    "reversed": lambda f: (f, list(range(9))[::-1], 0, 0, None),
+    "out_of_raster": lambda f: (f, [4, 0, 8, 2, 6, 1, 3, 5, 7], 0, 0, None),
+    "listed_twice": lambda f: (f, [0, 4, 0, 2, 1, 3, 5, 6, 7, 8], 0, 0, None),
+    "tile_out_of_order": lambda f: (f, [5, 4, 2, 1], 0, 32, 65),
+    "band_out_of_order": lambda f: (f, [5, 3, 4], 32, 0, None),
+    "no_groups": lambda f: (f, [], 0, 0, None),
+    "no_placed_blocks": lambda f: (_without_group(f, 4), [4], 32, 32, 64),
+}
+
+
+@pytest.mark.parametrize("case", list(_GROUP_LISTS))
+def test_native_tables_follow_the_group_list(case):
+    """placed_blocks and frame_columns equal the oracle bit for bit for
+    group lists out of raster order, a group listed twice (its last slot
+    holds it) and regions with no placed block."""
+    frame, groups, by0, bx0, bx1 = _GROUP_LISTS[case](_frame(_stream("mixed_520x516")))
+    bx1 = frame.header.size_blocks()[0] if bx1 is None else bx1
+    want = placed_blocks_oracle(frame, groups, by0)
+    _assert_same(DF.placed_blocks(frame, groups, by0), want)
+    _assert_same(DF.frame_columns(frame, groups, by0, bx0, bx1),
+                 oracle_columns(frame, groups, by0, bx0, bx1))
+    assert (len(want[0]) == 0) == (case in ("no_groups", "no_placed_blocks"))
+
+
+@pytest.mark.parametrize("subsampling", ["420", "422", "440"])
+def test_subsampled_jobs_equal_the_oracle(subsampling):
+    """The jobs of a chroma-subsampled render: channel outer, types
+    ascending, each job's rows gbx, gby, group slot and offset of the
+    blocks aligned to its channel's grid, as the former mask loop over
+    the oracle's blocks made them."""
+    data = encode_xyb_vardct(520, 516, seed=21, density=0.05, transforms="dct8",
+                             subsampling=subsampling)[0]
+    frame = _frame(data)
+    header = frame.header
+    assert not header.is444
+    types, jobs = DF.subsampled_jobs(frame)
+    blocks = oracle_by_type(frame, list(range(header.num_groups)))
+    want = {}
+    for c in range(3):
+        hs, vs = header.hshift(c), header.vshift(c)
+        for t in sorted(blocks):
+            gbx, gby = blocks[t][:2]
+            m = (((gbx >> hs) << hs) == gbx) & (((gby >> vs) << vs) == gby)
+            if m.any():
+                want[(c, t)] = np.stack([a[m] for a in blocks[t]])
+    assert types == sorted(blocks)
+    _assert_same(jobs, want)
+    sizes = [jobs[(c, 0)].shape[1] for c in range(3)]
+    assert sizes[0] == sizes[2] < sizes[1]  # Y at full resolution
+
+
+# decodes whose frames go through placed_blocks: (stream, environment)
+_PLACED_ROUTES = {
+    "host_still": (lambda: _stream("mixed_520x516"), {"JXL_TPU_DEVICE": "off"}),
+    "batched_animation": (lambda: anim_replace_stream(320, 200, 5, seed=8),
+                          {"JXL_TPU_BATCH_ANIM": "1", "JXL_TPU_AC": "host"}),
+    "batched_animation_host": (lambda: anim_replace_stream(320, 200, 5, seed=8),
+                               {"JXL_TPU_BATCH_ANIM": "1", "JXL_TPU_DEVICE": "off"}),
+}
+
+
+@pytest.mark.parametrize("route", list(_PLACED_ROUTES))
+def test_placed_blocks_of_the_host_route_and_the_batched_animation(route, monkeypatch):
+    """placed_blocks as the host route (vardct/group.py:render_blocks_host)
+    and the batched animation (render/batch_anim.py) call it: every call's
+    rows equal the oracle's bit for bit."""
+    stream, env = _PLACED_ROUTES[route]
+    calls = []
+    real = DF.placed_blocks
+
+    def spy(frame, group_ids, by0=0):
+        out = real(frame, group_ids, by0)
+        calls.append((frame, list(group_ids), by0, out))
+        return out
+
+    monkeypatch.setattr(DF, "placed_blocks", spy)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    jxl_tpu_torch.decode_image(stream(), pixel_format="f32", device="cpu")
+    assert len(calls) == (1 if route == "host_still" else 5)
+    for frame, groups, by0, out in calls:
+        assert groups == list(range(frame.header.num_groups))
+        _assert_same(out, placed_blocks_oracle(frame, groups, by0))
+
+
+def _with_transform(value: int):
+    def make(frame):
+        tmap = np.array(frame.hf_meta["transform"])
+        tmap[40, 40] = value
+        return _fake_frame(tmap, frame.header.group_dim)
+    return make
+
+
+def _call_native(**bad):
+    """native.block_tables_native on a 2x2-group map, with `bad` replacing
+    arguments."""
+    from jxl_tpu_torch import native
+
+    args = dict(tmap=np.full((64, 64), 128, np.uint8), group_ids=np.arange(4, dtype=np.int32),
+                num_groups=4, gxc=2, gdim_blocks=32, hshift3=np.zeros(3, np.int32),
+                vshift3=np.zeros(3, np.int32), block_coeffs=DF._BLOCK_COEFFS,
+                group_stride=STRIDE, layout=1, W=512)
+    args.update(bad)
+    return native.block_tables_native(**args)
+
+
+# each case: (what it breaks, the error it raises)
+_REFUSED = {
+    "transform_27_placed": (lambda f: DF.placed_blocks(_with_transform(128 + 27)(f), [4]),
+                            "NativeDecodeError"),
+    "transform_27_columns": (lambda f: DF.frame_columns(_with_transform(128 + 27)(f), [4], 32,
+                                                        32, 64), "NativeDecodeError"),
+    "transform_127_jobs": (lambda f: DF.block_tables(_with_transform(255)(f), [4], 2),
+                           "NativeDecodeError"),
+    "negative_column": (lambda f: DF.frame_columns(f, [0], 0, 1, 32), "ValueError"),
+    "row_above_by0": (lambda f: DF.frame_columns(f, [0], 8, 0, 65), "ValueError"),
+    "group_past_the_frame": (lambda f: DF.placed_blocks(f, [9]), "ValueError"),
+    "negative_group": (lambda f: DF.placed_blocks(f, [-1]), "ValueError"),
+    "tmap_int32": (lambda f: _call_native(tmap=np.full((64, 64), 128, np.int32)),
+                   "ValueError"),
+    "tmap_strided": (lambda f: _call_native(tmap=np.full((64, 128), 128, np.uint8)[:, ::2]),
+                     "ValueError"),
+    "group_ids_int64": (lambda f: _call_native(group_ids=np.arange(4)), "ValueError"),
+    "shifts_of_two_channels": (lambda f: _call_native(hshift3=np.zeros(2, np.int32)),
+                               "ValueError"),
+    "shift_of_4": (lambda f: _call_native(vshift3=np.array([0, 4, 0], np.int32)), "ValueError"),
+    "block_coeffs_int32": (lambda f: _call_native(block_coeffs=np.zeros(27, np.int32)),
+                           "ValueError"),
+    "layout_3": (lambda f: _call_native(layout=3), "ValueError"),
+}
+
+
+@pytest.mark.parametrize("case", list(_REFUSED))
+def test_native_tables_refuse(case):
+    """A transform id past the 27 raises NativeDecodeError; a negative
+    column (as block_columns refuses it), a group past the frame and
+    arrays the pass cannot take raise ValueError."""
+    from jxl_tpu_torch.errors import NativeDecodeError
+
+    call, error = _REFUSED[case]
+    frame = _frame(_stream("mixed_520x516"))
+    with pytest.raises({"NativeDecodeError": NativeDecodeError, "ValueError": ValueError}[error]):
+        call(frame)
+
+
+def test_native_columns_hold_a_frame_past_int32():
+    """The columns of a 4:4:4 frame of 190 x 190 groups (48640 px a side):
+    a block in slot 10,924 has its first coefficient past 2^31, the last
+    block row its first pixel; the native columns equal the oracle's."""
+    side = 190 * 32
+    tmap = np.zeros((side, side), np.uint8)
+    tmap[0, 0] = tmap[57 * 32 + 3, 94 * 32 + 17] = 128  # DCT8; group 57 * 190 + 94
+    tmap[side - 2, side - 2] = 128 + 3  # DCT16 at the last group's end
+    tmap[side - 1, 5] = 128 + 1
+    frame = _fake_frame(tmap)
+    groups = list(range(190 * 190))
+    cols = DF.frame_columns(frame, groups, 0, 0, side)
+    _assert_same(cols, oracle_columns(frame, groups, 0, 0, side))
+    assert list(cols) == [0, 1, 3]
+    assert cols[0][1, 0] == (57 * 190 + 94) * STRIDE > 1 << 31
+    assert cols[1][0, 2] == (side - 1) * 8 * side * 8 + 5 * 8 > 1 << 31
+    _assert_same(DF.placed_blocks(frame, groups), placed_blocks_oracle(frame, groups))
+
+
+def _stream_4k():
+    if "4k" not in _CACHE:
+        _CACHE["4k"] = encode_xyb_vardct(3840, 2160, seed=7)[0]
+    return _CACHE["4k"]
+
+
+@pytest.mark.parametrize("traced", [True, False])
+def test_block_tables_built_counts_each_render_call(traced, monkeypatch):
+    """block_tables_built counts one for each render of block rows of a
+    4K frame, as many as the render calls that launch K5 (the whole frame,
+    then each band of the banded decode), and none with tracing off."""
+    from jxl_tpu_torch.utils import trace
+    from jxl_tpu_torch.vardct.device_band import BandRenderer
+
+    frame = _frame(_stream_4k())
+    launches = []
+    # K5 is the card's; the count is the host's, so no block is rendered
+    monkeypatch.setattr(DF, "vardct_blocks", lambda t, *args: launches.append(t))
+    flat = torch.zeros(1, dtype=torch.int32)
+    renders = 0
+    trace.enable(traced)
+    trace.reset()
+    try:
+        DF.render_vardct_frame_device(frame, flat)
+        renders += 1
+        band = BandRenderer(frame)
+        for gy in range(frame.header.size_groups()[1]):
+            band.render(gy, flat)
+            renders += 1
+        counted = trace.metrics.get("block_tables_built")
+    finally:
+        trace.enable(False)
+        trace.reset()
+    assert renders == 10 and len(launches) > renders
+    assert counted == (renders if traced else 0)
 
 
 def _random_blocks(t: int, n: int, seed: int, device, per_block: bool = False) -> dict:
@@ -472,8 +755,10 @@ def test_counters_of_a_4k_frame_on_card(cuda_device):
         jxl_tpu_torch.decode_image(data)
         launches = trace.metrics.get("vardct_blocks_launches")
         blocks = trace.metrics.get("vardct_blocks_blocks")
+        tables = trace.metrics.get("block_tables_built")
     finally:
         trace.enable(False)
     tmap = _frame(data).hf_meta["transform"]
     assert launches == 11 == len(np.unique(tmap[tmap >= 128] & 127))
     assert blocks == int((tmap >= 128).sum())
+    assert tables == 1  # one render call, one native pass
