@@ -350,10 +350,11 @@ class Frame:
             with trace.span("frame.lf_groups"):
                 for g in range(header.num_lf_groups):
                     self.decode_lf_group(g, sec)
-            for g in range(header.num_groups):
-                self.decode_hf_group(
-                    g, [(p, sec) for p in range(header.passes.num_passes)]
-                )
+            with trace.span("frame.modular_groups"):
+                for g in range(header.num_groups):
+                    self.decode_hf_group(
+                        g, [(p, sec) for p in range(header.passes.num_passes)]
+                    )
         else:
             sections = self.split_sections(br)
             with trace.span("frame.lf_global"):
@@ -371,7 +372,8 @@ class Frame:
                 )
                 for g in range(header.num_groups)
             ]
-            self._decode_hf_groups_parallel(jobs)
+            with trace.span("frame.modular_groups"):
+                self._decode_hf_groups_parallel(jobs)
 
     def _decode_vardct_sections(self, br: BitReader, device) -> None:
         """ref frame/decode.rs section order; the AC routing of

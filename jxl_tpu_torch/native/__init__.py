@@ -20,6 +20,7 @@ import threading as _threading
 import numpy as np
 
 from ..errors import NativeBuildError
+from ..utils import trace
 
 _DIR = pathlib.Path(__file__).parent
 _BUILD_DIR = _DIR.parent / "_build"
@@ -649,6 +650,24 @@ def read_unsigned_run(histograms, br, ctx: int, count: int,
     return out
 
 
+def _runs_general_loop(tree_arr, num_props: int, residuals: bool) -> bool:
+    """Whether jxl_decode_modular decodes a sub-bitstream with this packed
+    tree in its general tree loop, and not a specialised one: mirrors its
+    gradient_only, residual-mode (chan_static) and wp_only analysis
+    (modular_decode.cc)."""
+    leaf = tree_arr[:, 0] < 0
+    pred, split_props = tree_arr[leaf, 4], tree_arr[~leaf, 0]
+    simple = (tree_arr[leaf, 5] == 0).all() and (tree_arr[leaf, 6] == 1).all()
+    chan_split = (split_props == 0).all()
+    if chan_split and simple and (pred == 5).all():
+        return False  # gradient-only: the RLE or the gradient loop
+    if residuals and chan_split and simple and np.isin(pred, (0, 1, 2, 5)).all():
+        return False  # raw residuals for the device lanes
+    wp_only = (len(split_props) > 0 and (split_props == 15).all()
+               and num_props <= 16 and np.isin(pred, (0, 6)).all())
+    return not wp_only
+
+
 def decode_modular_native(
     buffers, stream_id, header, tree, br, image_width, partial_out=None,
     residuals=False,
@@ -657,6 +676,10 @@ def decode_modular_native(
 
     Returns True on success (br.pos advanced, buffers filled); raises on
     bitstream errors. Falls back (returns False) if unavailable.
+
+    While tracing is on it counts the sub-bitstream in
+    `modular_group_streams`, and its samples in `modular_tree_samples`
+    when the general tree loop decoded them (not a specialised one).
 
     With residuals=True (caller must have checked tree.is_gradient_only),
     buffers receive the raw signed residuals instead of reconstructed
@@ -768,6 +791,10 @@ def decode_modular_native(
             h, w = b.data.shape
             b.data[...] = out[off : off + h * w].reshape(h, w)
             off += h * w
+    if trace.enabled():
+        trace.metrics.add("modular_group_streams")
+        if _runs_general_loop(tree_arr, tree.num_properties, residuals):
+            trace.metrics.add("modular_tree_samples", sum(b.data.size for b in buffers))
     return True
 
 

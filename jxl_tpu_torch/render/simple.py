@@ -90,10 +90,12 @@ def _modular_to_f32(plane, bit_depth):
 def frame_planes(frame, device) -> list:
     """The frame's three colour planes, float32 on `device`, in XYB / YCbCr
     / RGB as coded (ref render/simple.py:116-131): each at its channel's
-    size, the frame's unless it is chroma-subsampled."""
+    size, the frame's unless it is chroma-subsampled. Their upload and
+    conversion are the span render.modular_planes."""
     mg = frame.lf_global.modular_global
-    return modular_color_planes(
-        frame, [st.to_device(mg.output_channel(c), device) for c in range(frame.color_channels)])
+    with trace.span("render.modular_planes"):
+        return modular_color_planes(frame, [st.to_device(mg.output_channel(c), device)
+                                            for c in range(frame.color_channels)])
 
 
 def modular_color_planes(frame, channels) -> list:

@@ -30,10 +30,14 @@ The spans of a decode, by owner module (README's table names each one):
   (container, file header, ICC, preview skip; each frame's header and
   TOC), `decode_image.sections`, `frame.render`;
 - api/frame.py: `frame.lf_global`, `frame.lf_groups` (all LF groups of a
-  frame), `frame.hf_global` (HfGlobal and the LF smoothing);
+  frame), `frame.hf_global` (HfGlobal and the LF smoothing),
+  `frame.modular_groups` (a Modular frame's group sections: their
+  entropy decode, prediction and inverse transforms);
 - vardct/device_group.py: `frame.lane_plan` (the lanes' host tables),
   `frame.k3_launch` (packing, upload and the K3 launch);
 - render/simple.py: `render.host_route` (a frame rendered on the host),
+  `render.modular_planes` (a Modular frame's integer planes uploaded
+  and converted to float),
   `render.ac_wait` (the host blocked on the lane flags, so on the card),
   `render.stages` (K1, colour and output queued);
 - vardct/device_frame.py: `render.blocks` (the block tables on the host),
@@ -44,8 +48,10 @@ The spans of a decode, by owner module (README's table names each one):
 
 `metrics` counts what the decode did (megapixels, K3 lanes, the frames
 whose lane tables were built, the chroma upsampling passes, K5's launches
-and blocks: `vardct_blocks_launches`, `vardct_blocks_blocks`), only while
-tracing is on.
+and blocks: `vardct_blocks_launches`, `vardct_blocks_blocks`; the Modular
+sub-bitstreams the native decoder decoded, `modular_group_streams`, and
+the samples its general tree loop decoded, `modular_tree_samples`), only
+while tracing is on.
 `device_trace(dir)` is a torch.profiler session around a block that
 writes a Chrome trace into `dir` (it takes the JAX profiler's place).
 """
