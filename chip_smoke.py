@@ -392,6 +392,7 @@ def phase_build():
     from jxl_tpu_torch.ops import ans_lanes as AL
     from jxl_tpu_torch.ops import epf_gab as K
     from jxl_tpu_torch.ops import lossless_lanes as LL
+    from jxl_tpu_torch.ops import modular_lanes as ML
     from jxl_tpu_torch.ops import vardct_blocks as VB
 
     errors = []
@@ -410,6 +411,7 @@ def phase_build():
         threading.Thread(target=run, args=("nvcc_ans_lanes", AL.load)),
         threading.Thread(target=run, args=("nvcc_lossless_lanes", LL.load)),
         threading.Thread(target=run, args=("nvcc_vardct_blocks", VB.load)),
+        threading.Thread(target=run, args=("nvcc_modular_lanes", ML.load)),
         threading.Thread(target=run, args=("gxx_host_decoder", native.get_lib)),
     ]
     t0 = time.perf_counter()
@@ -418,7 +420,7 @@ def phase_build():
     for t in threads:
         t.join()
     check(not errors, "build failed: " + "; ".join(errors))
-    ptxas = [r for mod in (K, AL, LL, VB)
+    ptxas = [r for mod in (K, AL, LL, VB, ML)
              for r in ptxas_report((mod.build_info or {}).get("log", ""))]
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "parts": secs,
           "ptxas": ptxas})
@@ -1141,6 +1143,149 @@ def phase_k5(data) -> dict:
            "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
     emit(rec)
     check(rec["max_abs_diff"] <= 1e-5, f"K5 differs from its plain version: {rec}")
+    return rec
+
+
+def modular_d0_stream(seed: int = 3_125_000_101) -> bytes:
+    """A 3840x2160 lossless master of the modular_d0 configuration, from
+    the benchmark's frozen writer (portbench/writers/rgb_lossless.py)."""
+    from portbench.writers.rgb_lossless import encode_rgb_lossless
+
+    return encode_rgb_lossless(WIDTH, HEIGHT, seed)[0]
+
+
+def k6_tree_streams(width: int = WIDTH, height: int = HEIGHT) -> list:
+    """[(name, codestream)] of 3840x2160 frames whose trees K6 walks past
+    its unrolled levels, from tests/test_torch_modular_lanes.py's encoder:
+    "deep_tree" (a chain of 15 splits a channel over properties 1-15, all
+    14 predictors, WP with its own header) and "wide_tree" (a full tree of
+    2047 nodes a channel, from device memory; RCT permutation 13)."""
+    from test_torch_modular_lanes import encode_lane_stream
+
+    return [("deep_tree", encode_lane_stream(width, height, 23)),
+            ("wide_tree", encode_lane_stream(width, height, 29, tree="wide", rct=13, wp=None))]
+
+
+def phase_k6(data) -> dict:
+    """K6 (ops/modular_lanes.py) over the group streams of the 4K
+    modular_d0 frame `data`: the launch's device time, CUDA events right
+    around its ctypes entry point behind a spin (`ms`); the event-timed
+    wrapper call (`call_ms`: the uploads, the launch and the status read);
+    the host's lane plan (`plan_ms`); the plain version on the host
+    (`plain_ms`: the native loop lane by lane on one thread) and K6 held to
+    it bit for bit; ns a step of the longest lane (`ms` over its samples,
+    beside K3's 222 ns a token). Then decode_image on the card against the
+    CPU decode, its wall (median of 5), and one traced decode's launches,
+    counters (modular_card_streams, modular_tree_samples) and spans
+    (frame.modular_groups, render.modular_planes). `k6_trees`: the same
+    device time, ns a step and bit-for-bit check on k6_tree_streams()'s
+    deeper trees, which walk past K6's unrolled levels."""
+    import numpy as np
+    import torch
+
+    import jxl_tpu_torch
+    from jxl_tpu_torch.modular import group_lanes
+    from jxl_tpu_torch.ops import modular_lanes as ML
+    from jxl_tpu_torch.utils import trace
+    from test_torch_modular_lanes import decode_table, frame_and_sections
+
+    lib = ML.load()
+    launch = lib.modular_lanes_launch
+
+    def device_ms(table, shapes, reps=5) -> float:
+        pairs = []
+
+        def timed(*args):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(SPIN_CYCLES)
+            a.record()
+            err = launch(*args)
+            b.record()
+            pairs.append((a, b))
+            return err
+
+        lib.modular_lanes_launch = timed
+        try:
+            for _ in range(reps):
+                decode_table(table, shapes, "cuda")
+        finally:
+            lib.modular_lanes_launch = launch
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in pairs) / reps
+
+    def longest_lane(table) -> int:
+        samples = table.chans[:, 3] * table.chans[:, 4]
+        return int(np.add.reduceat(samples, table.lanes[:, 5]).max())
+
+    frame, sections = frame_and_sections(data)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        table, shapes = group_lanes.plan(frame, sections)
+    plan_ms = (time.perf_counter() - t0) / 5 * 1e3
+    got = decode_table(table, shapes, "cuda")
+    ms = device_ms(table, shapes)
+    call_ms = time_ms(lambda: decode_table(table, shapes, "cuda"), reps=5, warmup=1)
+    t0 = time.perf_counter()
+    want = decode_table(table, shapes, "cpu")
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    same = all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+    samples = table.chans[:, 3] * table.chans[:, 4]
+    longest = longest_lane(table)
+
+    trees = {}
+    for name, tdata in k6_tree_streams():
+        tt, ts = group_lanes.plan(*frame_and_sections(tdata))
+        tgot = decode_table(tt, ts, "cuda")
+        tms = device_ms(tt, ts, reps=3)
+        steps = longest_lane(tt)
+        depth = int(tt.chans[:, 9].max())
+        trees[name] = {"ms": tms, "ns_per_step": tms * 1e6 / steps, "longest_lane_samples": steps,
+                       "subtree_depth": depth, "subtree_nodes": int(tt.chans[:, 7].max()),
+                       "bit_for_bit": all(torch.equal(a.cpu(), b) for a, b in
+                                          zip(tgot, decode_table(tt, ts, "cpu")))}
+
+    walls = []
+    for _ in range(6):
+        t0 = time.perf_counter()
+        out = jxl_tpu_torch.decode_image(data, pixel_format="u8", device="cuda").frames[0]
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    ref = jxl_tpu_torch.decode_image(data, pixel_format="u8", device="cpu").frames[0]
+    decode_same = torch.equal(out.cpu(), ref)
+    was = trace.enabled()
+    trace.enable()
+    trace.reset()
+    try:
+        before = ML.decode_lanes.launches
+        jxl_tpu_torch.decode_image(data, pixel_format="u8", device="cuda")
+        torch.cuda.synchronize()
+        launches = ML.decode_lanes.launches - before
+        counts = dict(trace.metrics.counters)
+        spans = {k: v * 1e3 for k, v in trace.host_seconds().items()
+                 if k in ("frame.modular_groups", "render.modular_planes", "frame.lf_global",
+                          "decode_image")}
+    finally:
+        trace.enable(was)
+        trace.reset()
+    rec = {"phase": "k6", "lanes": len(table.lanes), "samples": int(samples.sum()),
+           "longest_lane_samples": longest, "ms": ms, "call_ms": call_ms, "plan_ms": plan_ms,
+           "plain_ms": plain_ms, "plain_on": "host, one thread", "bit_for_bit": same,
+           "ns_per_step": ms * 1e6 / longest,
+           "decode_ms": sorted(walls)[len(walls) // 2], "decode_walls_ms": walls,
+           "decode_equals_cpu": decode_same, "launches_per_decode": launches,
+           "counters": {k: counts.get(k, 0) for k in
+                        ("modular_card_streams", "modular_tree_samples",
+                         "modular_group_streams")},
+           "traced_spans_ms": spans, "bound_by": "the longest lane's chain of dependent steps",
+           "k6_trees": trees}
+    emit(rec)
+    check(same, "K6 differs from its plain version")
+    check(all(t["bit_for_bit"] for t in trees.values()),
+          f"K6 differs from its plain version on a deeper tree: {trees}")
+    check(decode_same, "the card decode differs from the CPU decode")
+    check(launches == 1 and counts.get("modular_card_streams") == len(table.lanes),
+          f"the decode did not take K6 once over every lane: {rec}")
     return rec
 
 
@@ -3801,6 +3946,10 @@ def main() -> int:
           "bytes": {name: len(d) for name, d, *_ in tabstreams},
           "seconds": time.perf_counter() - t0})
     t0 = time.perf_counter()
+    kdata = modular_d0_stream()
+    emit({"phase": "k6", "step": "write_stream", "bytes": len(kdata),
+          "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
     ldata = lossless_stream()
     emit({"phase": "lossless", "step": "write_stream", "bytes": len(ldata),
           "seconds": time.perf_counter() - t0})
@@ -3817,6 +3966,7 @@ def main() -> int:
     modular_launches = run("decode", phase_decode, data)
     vardct_launches = run("vardct", phase_vardct, vdata, vcoeffs)
     k5 = run("k5", phase_k5, vdata)
+    k6 = run("k6", phase_k6, kdata)
     feature_launches = run("features", phase_features, fstreams)
     run("features_breakdown", phase_render_breakdown, fstreams[0][1], "vardct_up2_noise",
         "features_breakdown")
@@ -3930,6 +4080,16 @@ def main() -> int:
          "plain_ms": k5["plain_ms"], "bound_ms": k5["bound_ms"], "bound_by": k5["bound_by"],
          "library_ms": None,
          "library_note": "no single torch call computes the dequant and the inverse DCTs"},
+        {"name": "modular_lanes", "route": "cuda",
+         "source": "jxl_tpu_torch/csrc/modular_lanes.cu",
+         "replaces": "none: jxl_tpu decodes Modular group streams on the host",
+         "launches": k6["launches_per_decode"],
+         "launches_note": "a decode_image of the 4K modular_d0 stream; none on the other "
+                          "phases' Modular streams (prefix-coded, or JXL_TPU_DEV_LOSSLESS=1)",
+         "max_abs_err": 0 if k6["bit_for_bit"] else None, "ms": k6["ms"],
+         "call_ms": k6["call_ms"], "plain_ms": k6["plain_ms"], "ns_per_step": k6["ns_per_step"],
+         "bound_ms": None, "bound_by": k6["bound_by"], "library_ms": None,
+         "library_note": null_reason},
     ]})
     print(smi_line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

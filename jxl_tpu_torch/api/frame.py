@@ -326,22 +326,33 @@ class Frame:
         host decoder. A Modular frame's channel-static streams go to the
         lossless lanes on `device` when device_lossless.enabled says so:
         they are flushed back into the channels before the transforms
-        (ref jxl_tpu/api/frame.py:523-544)."""
+        (ref jxl_tpu/api/frame.py:523-544). Otherwise, on the card, a
+        Modular frame whose group streams K6 takes
+        (modular/group_lanes.py) decodes them there, into planes that stay
+        on the card for the render."""
         from ..modular import device_lossless
 
         header = self.header
+        device = torch.device(device)
         if header.encoding == Encoding.VARDCT:
-            self._decode_vardct_sections(br, torch.device(device))
+            self._decode_vardct_sections(br, device)
         else:
             lanes = (device_lossless.BatchContext(device)
                      if device_lossless.enabled(device) else None)
+            card = (device if device.type == "cuda" and lanes is None and not self.render_host
+                    else None)
             with device_lossless.activate(lanes):
-                self._decode_modular_sections(br)
+                self._decode_modular_sections(br, card)
             if lanes is not None:
                 lanes.flush()
         self.lf_global.modular_global.run_transforms()
 
-    def _decode_modular_sections(self, br: BitReader) -> None:
+    def _decode_modular_sections(self, br: BitReader, card=None) -> None:
+        """The sections of a Modular frame; its group streams by K6 on
+        `card` (a CUDA device, or None for the host) when the stream takes
+        that route."""
+        from ..modular import group_lanes
+
         header = self.header
         if header.num_toc_entries == 1:
             sec = self.split_sections(br)[0]
@@ -373,7 +384,8 @@ class Frame:
                 for g in range(header.num_groups)
             ]
             with trace.span("frame.modular_groups"):
-                self._decode_hf_groups_parallel(jobs)
+                if card is None or not group_lanes.decode_on_card(self, sections, card):
+                    self._decode_hf_groups_parallel(jobs)
 
     def _decode_vardct_sections(self, br: BitReader, device) -> None:
         """ref frame/decode.rs section order; the AC routing of

@@ -454,5 +454,7 @@ def decode_first_frame(data: bytes, device="cuda") -> DecodedFrame:
     frame.decode_all_sections(br, device)
     idx = list(range(frame.modular_color_channels))
     idx += [3 + i for i in range(len(fh.image_metadata.extra_channel_info))]
-    return DecodedFrame(frame, [torch.from_numpy(np.ascontiguousarray(frame.modular_channel(c)))
-                                .to(device) for c in idx])
+    chans = [frame.modular_channel(c) for c in idx]  # a K6 plane is already a tensor
+    return DecodedFrame(frame, [c.to(device) if isinstance(c, torch.Tensor)
+                                else torch.from_numpy(np.ascontiguousarray(c)).to(device)
+                                for c in chans])

@@ -84,6 +84,12 @@ class FullModularImage:
         self.grid_kind: list[str] = []  # 'none' | 'lf' | 'hf' per buffer
         self.num_input_channels = 0
         self.transforms_applied = False
+        # buffer -> (h, w) int32 tensor of the buffers whose group streams
+        # K6 decoded on the card (modular/group_lanes.py, which drops their
+        # host planes from storage), until output_channel(take=True) hands
+        # it over; then the buffer is in taken_planes
+        self.device_planes: dict = {}
+        self.taken_planes: set = set()
         # early partial render (ref modular/mod.rs:489-492): progressive
         # flushes may decode section 0 partially only for squeeze-coded
         # images without multi-channel/delta palettes, and only render once
@@ -341,9 +347,20 @@ class FullModularImage:
             inverse_apply_steps(self.transform_steps, self.storage)
             self.transforms_applied = True
 
-    def output_channel(self, output_idx: int) -> np.ndarray:
-        """Final (post-transform) plane for output channel `output_idx`."""
+    def output_channel(self, output_idx: int, take: bool = False):
+        """Final (post-transform) plane for output channel `output_idx`:
+        a numpy array, or the card's tensor of a plane K6 decoded there.
+        take=True hands such a tensor over (the image keeps no reference),
+        so that the render frees it once it has converted it; a later read
+        of that channel raises."""
         for buf, info in enumerate(self.buffer_infos):
             if info.output_channel_idx == output_idx:
+                if buf in self.taken_planes:
+                    raise RuntimeError(f"output channel {output_idx} was handed over")
+                if buf in self.device_planes:
+                    if not take:
+                        return self.device_planes[buf]
+                    self.taken_planes.add(buf)
+                    return self.device_planes.pop(buf)
                 return self.storage[buf].data
         raise KeyError(f"no output channel {output_idx}")

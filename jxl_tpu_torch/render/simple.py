@@ -87,14 +87,22 @@ def _modular_to_f32(plane, bit_depth):
     return plane.to(torch.float32) * st.f32(1.0 / ((1 << bits) - 1))
 
 
+def _channel_on(plane, device) -> torch.Tensor:
+    """A decoded int32 channel on `device`: a plane K6 left on the card as
+    it is, a host plane uploaded."""
+    return plane if isinstance(plane, torch.Tensor) else st.to_device(plane, device)
+
+
 def frame_planes(frame, device) -> list:
     """The frame's three colour planes, float32 on `device`, in XYB / YCbCr
     / RGB as coded (ref render/simple.py:116-131): each at its channel's
-    size, the frame's unless it is chroma-subsampled. Their upload and
-    conversion are the span render.modular_planes."""
+    size, the frame's unless it is chroma-subsampled. Their upload (none
+    for planes K6 decoded on the card, which the image hands over so that
+    they are freed once converted) and conversion are the span
+    render.modular_planes."""
     mg = frame.lf_global.modular_global
     with trace.span("render.modular_planes"):
-        return modular_color_planes(frame, [st.to_device(mg.output_channel(c), device)
+        return modular_color_planes(frame, [_channel_on(mg.output_channel(c, take=True), device)
                                             for c in range(frame.color_channels)])
 
 
@@ -161,7 +169,7 @@ def _extra_channel_planes(frame, device) -> list:
     meta = frame.file_header.image_metadata
     mg = frame.lf_global.modular_global
     return [
-        _modular_to_f32(st.to_device(mg.output_channel(3 + i), device), info.bit_depth)
+        _modular_to_f32(_channel_on(mg.output_channel(3 + i, take=True), device), info.bit_depth)
         for i, info in enumerate(meta.extra_channel_info)
     ]
 

@@ -32,12 +32,13 @@ The spans of a decode, by owner module (README's table names each one):
 - api/frame.py: `frame.lf_global`, `frame.lf_groups` (all LF groups of a
   frame), `frame.hf_global` (HfGlobal and the LF smoothing),
   `frame.modular_groups` (a Modular frame's group sections: their
-  entropy decode, prediction and inverse transforms);
+  entropy decode, prediction and inverse transforms, on the host pool
+  or, on the card, by K6 up to the read of its lanes' status);
 - vardct/device_group.py: `frame.lane_plan` (the lanes' host tables),
   `frame.k3_launch` (packing, upload and the K3 launch);
 - render/simple.py: `render.host_route` (a frame rendered on the host),
-  `render.modular_planes` (a Modular frame's integer planes uploaded
-  and converted to float),
+  `render.modular_planes` (a Modular frame's integer planes uploaded,
+  unless K6 decoded them on the card, and converted to float),
   `render.ac_wait` (the host blocked on the lane flags, so on the card),
   `render.stages` (K1, colour and output queued);
 - vardct/device_frame.py: `render.blocks` (the block tables on the host),
@@ -50,8 +51,10 @@ The spans of a decode, by owner module (README's table names each one):
 whose lane tables were built, the chroma upsampling passes, K5's launches
 and blocks: `vardct_blocks_launches`, `vardct_blocks_blocks`; the Modular
 sub-bitstreams the native decoder decoded, `modular_group_streams`, and
-the samples its general tree loop decoded, `modular_tree_samples`), only
-while tracing is on.
+the samples its general tree loop decoded, `modular_tree_samples`; the
+group streams K6 decoded on the card, `modular_card_streams`, counted by
+modular/group_lanes.py: 135 a 4K frame when the route engages, and then
+none of them in the first two), only while tracing is on.
 `device_trace(dir)` is a torch.profiler session around a block that
 writes a Chrome trace into `dir` (it takes the JAX profiler's place).
 """
